@@ -12,12 +12,29 @@ Phases, each raising on failure:
    against its plain PyTorch version (relerr < 2e-2 in bf16, < 1e-5 in
    fp32), and timed beside the plain version, the PyTorch library call for
    the same function, and the card's bound for the work;
-4. path — full-width ResNet-34 (224 px, batch 8, random weights from seed 0)
+4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
+   ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
+   heads of 64, causal), ``decode_attention`` over a 1024-slot cache half
+   full, and ``matmul_fused`` at every projection of a layer, for the
+   prefill's 4096 rows and a decode step's 8; each held against its plain
+   version and timed beside it, the PyTorch call for the same function
+   (``scaled_dot_product_attention``, ``torch.matmul``) and the bound;
+5. path — full-width ResNet-34 (224 px, batch 8, random weights from seed 0)
    through ``repro_torch.flow.compile`` in the opt, base and folded flows:
    the plan dispatches conv2d and matmul to ``cuda``, one forward launches
    36 convs and 1 matmul, the logits are (8, 1000), finite, and agree with
    the same model on the ``reference`` backend; then ``measure("prefill")``.
-   Then LeNet-5 and MobileNetV1 at full config, with the same checks.
+   Then LeNet-5 and MobileNetV1 at full config, with the same checks;
+6. LM path — full-width llama3.2-1b (16 layers, random weights from seed
+   0), ``ShapeConfig("serve", "decode", 1024, 8)``, a 512-token prompt per
+   row from ``RandomState(0)``: in bf16 the plan dispatches attention,
+   decode attention and both matmuls to ``cuda``; ``generate`` runs 32
+   steps; one prefill and each decode step launch the kernels the plan
+   says (16 flash / 96 matmul, 16 decode / 96 matmul); the prefill's and
+   every teacher-forced decode step's logits agree with the ``reference``
+   backend.  In fp32 the greedy tokens of 32 steps are identical to the
+   reference backend's.  Then ``measure("prefill")`` at 8 x 512 tokens,
+   ``measure("decode")``, and a profile of each.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
@@ -50,6 +67,16 @@ PATH_TOL = {"bf16": 5e-2, "fp32": 1e-4}                # model vs reference
 SEED = 0
 B = 8
 
+# llama3.2-1b at full width (configs/llama32_1b.py): the prefill batch of
+# 8 rows x 512 tokens, the 1024-slot decode cache, and the projections of
+# one layer as (name, K, N, GLU pair); each runs once per layer
+LM_ARCH = "llama3.2-1b"
+LM_S, LM_C, LM_H, LM_KV, LM_D, LM_LAYERS = 512, 1024, 32, 8, 64, 16
+LM_STEPS = 32
+LM_MATMULS = [("q", 2048, 2048, False), ("k", 2048, 512, False),
+              ("v", 2048, 512, False), ("o", 2048, 2048, False),
+              ("glu", 2048, 8192, True), ("down", 8192, 2048, False)]
+
 # Every distinct ResNet-34 conv at 224 px: (name, H_in, CI, CO, k, stride,
 # uses per forward, act in the opt flow).  All carry the BN fold in the opt
 # flow; the base flow runs them bare (BN and ReLU are separate ops there).
@@ -71,6 +98,28 @@ FC = (512, 1000)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def counters():
+    """The launch counts of the four kernel wrappers."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import matmul_fused as km
+    return {"conv2d_fused": kc.conv2d_fused, "matmul_fused": km.matmul_fused,
+            "flash_attention": ka.flash_attention,
+            "decode_attention": kd.decode_attention}
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -242,6 +291,130 @@ def phase_kernels():
     return cases
 
 
+def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20):
+    """Kernel vs plain version (relerr, max |diff|), then the three times
+    and the bound of one call."""
+    y = kern()
+    torch.cuda.synchronize()
+    p = plain()
+    torch.cuda.synchronize()
+    err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
+    if not (y.shape == p.shape and torch.isfinite(y.float()).all()
+            and err < TOL[dt]):
+        raise AssertionError(f"relerr {err} (tol {TOL[dt]}), shape "
+                             f"{tuple(y.shape)}")
+    bms, by = bound_ms(flops, nbytes, dt)
+    warm = 1 if iters < 20 else 3
+    return {"dtype": str(dt).split(".")[-1], "relerr": err,
+            "max_abs_err": aerr, "tol": TOL[dt],
+            "library_relerr": relerr(library(), p), "flops": flops,
+            "bytes": nbytes, "bound_ms": bms, "bound_by": by,
+            "ms": cuda_ms(kern, iters, warm),
+            "plain_ms": cuda_ms(plain, iters, warm),
+            "library_ms": cuda_ms(library, iters, warm)}
+
+
+def _flash_case(dt, gen):
+    from repro_torch.kernels import attention as ka
+    dev = torch.device("cuda")
+    S, H, KV, D = LM_S, LM_H, LM_KV, LM_D
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+    # the library call takes (B, H, S, D) with the KV heads repeated
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    flops = 4.0 * D * B * H * S * (S + 1) / 2        # causal pairs only
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    c = _timed_case(
+        lambda: ka.flash_attention(q, k, v, causal=True),
+        lambda: ka.flash_attention_plain(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               is_causal=True).transpose(1, 2),
+        dt, flops, nbytes)
+    c.update(shape=f"prefill_B{B}_S{S}_H{H}_KV{KV}_D{D}_causal",
+             uses_per_prefill=LM_LAYERS)
+    return c
+
+
+def _decode_case(dt, gen):
+    from repro_torch.kernels import decode_attention as kd
+    dev = torch.device("cuda")
+    C, H, KV, D = LM_C, LM_H, LM_KV, LM_D
+    fill = C // 2
+    ar = torch.arange(C, dtype=torch.int32, device=dev)
+    pos = torch.where(ar < fill, ar, torch.full_like(ar, -1))
+    pos = pos.expand(B, C).contiguous()
+    qpos = torch.full((B, 1), fill, dtype=torch.int32, device=dev)
+    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dt)
+    kc = torch.randn(B, C, KV, D, generator=gen, device=dev).to(dt)
+    vc = torch.randn(B, C, KV, D, generator=gen, device=dev).to(dt)
+    qt = q.transpose(1, 2)
+    kt = kc.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vt = vc.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    mask = ((pos >= 0) & (pos <= qpos))[:, None, None, :]
+    valid = fill
+    flops = 4.0 * D * B * H * valid
+    # the filled slots' K and V, every slot's position, q, qpos and out
+    nbytes = (2 * B * valid * KV * D + 2 * q.numel()) * q.element_size() \
+        + (pos.numel() + qpos.numel()) * 4
+    c = _timed_case(
+        lambda: kd.decode_attention(q, kc, vc, pos, qpos),
+        lambda: kd.decode_attention_plain(q, kc, vc, pos, qpos),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               attn_mask=mask).transpose(1, 2),
+        dt, flops, nbytes, iters=100)
+    c.update(shape=f"decode_B{B}_C{C}_filled{fill}_H{H}_KV{KV}_D{D}",
+             uses_per_step=LM_LAYERS)
+    return c
+
+
+def _lm_matmul_case(name, M, K, N, glu, dt, gen):
+    from repro_torch.kernels import matmul_fused as km
+    dev = torch.device("cuda")
+    x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
+    w2 = (torch.randn(K, N, generator=gen, device=dev)
+          * K ** -0.5).to(dt) if glu else None
+    act = "silu" if glu else None
+
+    def library():                              # cuBLAS, the yardstick only
+        if not glu:
+            return torch.matmul(x, w)
+        return (F.silu(torch.matmul(x, w).float())
+                * torch.matmul(x, w2).float()).to(dt)
+
+    n_w = 2 if glu else 1
+    flops = 2.0 * M * K * N * n_w
+    nbytes = (M * K + n_w * K * N + M * N) * x.element_size()
+    c = _timed_case(
+        lambda: km.matmul_fused(x, w, w2=w2, act=act, out_dtype=dt),
+        lambda: km.matmul_fused_plain(x, w, w2=w2, act=act, out_dtype=dt),
+        library, dt, flops, nbytes, iters=5 if M > 64 else 50)
+    c.update(shape=f"{name}_{M}x{K}x{N}" + ("_glu" if glu else ""),
+             rows=M, uses_per_forward=LM_LAYERS)
+    return c
+
+
+def phase_lm_kernels():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = {"flash_attention": [], "decode_attention": [],
+             "matmul_fused": []}
+    for dt in (torch.bfloat16, torch.float32):
+        for kname, c in (("flash_attention", _flash_case(dt, gen)),
+                         ("decode_attention", _decode_case(dt, gen))):
+            cases[kname].append(c)
+            log(json.dumps({"kernel": kname, **c}))
+        for M in (B * LM_S, B):                     # prefill rows, one step
+            for name, K, N, glu in LM_MATMULS:
+                c = _lm_matmul_case(name, M, K, N, glu, dt, gen)
+                cases["matmul_fused"].append(c)
+                log(json.dumps({"kernel": "matmul_fused", **c}))
+    return cases
+
+
 def _profile(fn, iters: int = 5):
     """Device busy share of ``iters`` forwards under torch.profiler: the
     summed device time of the device-side kernel events over the window's
@@ -293,8 +466,6 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import conv2d as kc
-    from repro_torch.kernels import matmul_fused as km
     serve = ShapeConfig("serve", "prefill", 64, B)
     cm = tflow.compile(get_config(arch), serve, flow)
     ks = cm.plan.kernels
@@ -306,16 +477,14 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     x = torch.from_numpy(rng.randn(B, cfg.image_size, cfg.image_size,
                                    cfg.image_channels).astype(np.float32))
     batch = {"images": x.cuda()}
-    torch.cuda.synchronize()
-    kc.conv2d_fused.launches = 0
-    km.matmul_fused.launches = 0
+    reset_counts()
     y, _, _ = cm.prefill(params, batch)
-    torch.cuda.synchronize()
-    launches = {"conv2d_fused": kc.conv2d_fused.launches,
-                "matmul_fused": km.matmul_fused.launches}
-    if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm}:
+    launches = read_counts()
+    if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm,
+                    "flash_attention": 0, "decode_attention": 0}:
         raise AssertionError(f"{arch}: launches {launches}, want "
                              f"{want_conv} conv / {want_mm} matmul")
+    launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
     ref = tflow.compile(get_config(arch), serve, flow, backend="reference")
     if any(b != "ref" for b in ref.plan.kernels.values()):
         raise AssertionError(f"reference plan {ref.plan.kernels}")
@@ -364,6 +533,166 @@ def phase_path(smi):
     return out
 
 
+def _plan_launches(plan, mode):
+    """Kernel launches one ``mode`` call of the model makes, derived from
+    the plan: its live attention and matmul ops, times each unit's reps."""
+    from repro_torch.core.lowering import live_ops
+    want = {"flash_attention": 0, "decode_attention": 0, "matmul_fused": 0}
+    for unit in plan.units:
+        for j in range(unit.period):
+            blk = plan.graph.blocks[unit.indices[j]]
+            for op in live_ops(blk, mode):
+                if op.op == "attention":
+                    k = "flash_attention" if mode == "prefill" \
+                        else "decode_attention"
+                    want[k] += unit.reps
+                elif op.op in ("matmul", "glu_matmul"):
+                    want["matmul_fused"] += unit.reps
+    return want
+
+
+def _counted(got, want, what):
+    got = {k: v for k, v in got.items() if k != "conv2d_fused" or v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def _lm_check_logits(what, y, yr, tol):
+    V = yr.shape[-1]
+    if tuple(y.shape) != (B, 1, V) or not torch.isfinite(y.float()).all():
+        raise AssertionError(f"{what}: logits {tuple(y.shape)} not finite "
+                             f"({B}, 1, {V})")
+    err = relerr(y, yr)
+    if err >= tol:
+        raise AssertionError(f"{what}: logits relerr {err} vs the reference "
+                             f"backend (tol {tol})")
+    return err
+
+
+def phase_lm_path(smi):
+    """Full-width llama3.2-1b through the port's entry points."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    rec = {"arch": LM_ARCH, "nvidia_smi": smi}
+    serve = ShapeConfig("serve", "decode", LM_C, B)
+    cm = tflow.compile(LM_ARCH, serve, FlowConfig(mode="folded"))
+    ks = cm.plan.kernels
+    if any(ks[o] != "cuda" for o in ("attention", "decode_attention",
+                                     "matmul", "glu_matmul")):
+        raise AssertionError(f"{LM_ARCH}: plan.kernels {ks}")
+    ref = tflow.compile(LM_ARCH, serve, FlowConfig(mode="folded"),
+                        backend="reference")
+    want_p = _plan_launches(cm.plan, "prefill")
+    want_d = _plan_launches(cm.plan, "decode")
+    n_mm = LM_LAYERS * len(LM_MATMULS)
+    if want_p != {"flash_attention": LM_LAYERS, "decode_attention": 0,
+                  "matmul_fused": n_mm} or \
+            want_d != {"flash_attention": 0, "decode_attention": LM_LAYERS,
+                       "matmul_fused": n_mm}:
+        raise AssertionError(f"plan launches {want_p} / {want_d}")
+    rec["units"] = cm.describe().splitlines()[2].strip()
+    rec["kernels_line"] = cm.describe().splitlines()[-1].strip()
+    t0 = time.perf_counter()
+    params = cm.init_params(SEED)
+    torch.cuda.synchronize()
+    rec["init_params_s"] = time.perf_counter() - t0
+    V = cm.cfg.vocab_size
+    prompt = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, V, (B, LM_S)).astype(np.int64)).cuda()
+    batch = {"tokens": prompt}
+
+    # the main path: greedy generate, 32 tokens per row
+    reset_counts()
+    toks, _ = cm.generate(params, batch, steps=LM_STEPS)
+    rec["launches"] = _counted(read_counts(), {
+        k: want_p[k] + (LM_STEPS - 1) * want_d[k] for k in want_p},
+        "generate")
+    if tuple(toks.shape) != (B, LM_STEPS) or not ((toks >= 0)
+                                                  & (toks < V)).all():
+        raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
+
+    # teacher-forced on those tokens, beside the reference backend
+    reset_counts()
+    y, st, _ = cm.prefill(params, batch)
+    _counted(read_counts(), want_p, "one prefill")
+    yr, st_r, _ = ref.prefill(params, batch)
+    errs = [_lm_check_logits("prefill", y, yr, PATH_TOL["bf16"])]
+    agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
+    same = torch.equal(y[:, -1].argmax(-1).to(torch.int32), toks[:, 0])
+    for t in range(LM_STEPS - 1):
+        tok = {"tokens": toks[:, t:t + 1].long()}
+        reset_counts()
+        y, st, _ = cm.decode(params, tok, st, LM_S + t)
+        _counted(read_counts(), want_d, f"decode step {t}")
+        yr, st_r, _ = ref.decode(params, tok, st_r, LM_S + t)
+        errs.append(_lm_check_logits(f"decode step {t}", y, yr,
+                                     PATH_TOL["bf16"]))
+        agree.append((yr[:, -1].argmax(-1) == toks[:, t + 1])
+                     .float().mean().item())
+        same = same and torch.equal(y[:, -1].argmax(-1).to(torch.int32),
+                                    toks[:, t + 1])
+    rec["bf16"] = {"teacher_forced_repeats_generate": same,
+                   "prefill_relerr": errs[0],
+                   "decode_relerr_max": max(errs[1:]),
+                   "decode_relerr": errs[1:],
+                   "greedy_agreement_share": sum(agree) / len(agree),
+                   "tokens_row0": toks[0].tolist()}
+    log(f"llama bf16: prefill relerr {errs[0]:.3e}, decode relerr max "
+        f"{max(errs[1:]):.3e}, greedy tokens agreeing with the reference "
+        f"backend: {sum(agree) / len(agree):.3f}")
+
+    # measurements: prefill at 8 x 512 tokens, decode steps
+    pre = ShapeConfig("serve", "prefill", LM_S, B)
+    cm_p = tflow.compile(LM_ARCH, pre, FlowConfig(mode="folded"))
+    ref_p = tflow.compile(LM_ARCH, pre, FlowConfig(mode="folded"),
+                          backend="reference")
+    mp = cm_p.measure("prefill", iters=5, seed=SEED, params=params)
+    mpr = ref_p.measure("prefill", iters=5, seed=SEED, params=params)
+    md = cm.measure("decode", iters=20, seed=SEED, params=params)
+    mdr = ref.measure("decode", iters=20, seed=SEED, params=params)
+    dstate = cm.init_state(B)
+    dtok = {"tokens": prompt[:, :1]}
+    rec["measure"] = {
+        "device": mp["device"],
+        "prefill_ms": mp["measured_step_s"] * 1e3,
+        "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+        "prefill_tokens_per_s": mp["tokens_per_s"],
+        "prefill_peak_bytes": mp["peak_bytes"],
+        "reference_prefill_ms": mpr["measured_step_s"] * 1e3,
+        "decode_ms": md["measured_step_s"] * 1e3,
+        "decode_mean_ms": md["mean_step_s"] * 1e3,
+        "decode_tokens_per_s": md["tokens_per_s"],
+        "reference_decode_ms": mdr["measured_step_s"] * 1e3,
+        "prefill_profile": _profile(lambda: cm_p.prefill(params, batch), 2),
+        "decode_profile": _profile(
+            lambda: cm.decode(params, dtok, dstate, 100), 10)}
+    log(json.dumps({"lm_measure": rec["measure"]}))
+    del params, st, st_r, dstate
+
+    # fp32: greedy tokens identical to the reference backend's
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    cm32 = tflow.compile(LM_ARCH, serve, f32)
+    ref32 = tflow.compile(LM_ARCH, serve, f32, backend="reference")
+    if cm32.plan.kernels["attention"] != "cuda":
+        raise AssertionError(f"fp32 plan.kernels {cm32.plan.kernels}")
+    p32 = cm32.init_params(SEED)
+    reset_counts()
+    t32, _ = cm32.generate(p32, batch, steps=LM_STEPS)
+    rec["launches_fp32"] = _counted(read_counts(), rec["launches"],
+                                    "fp32 generate")
+    t32r, _ = ref32.generate(p32, batch, steps=LM_STEPS)
+    if not torch.equal(t32, t32r):
+        diff = (t32 != t32r).float().mean().item()
+        raise AssertionError(f"fp32 greedy tokens differ from the reference "
+                             f"backend's ({diff:.3f} of them)")
+    rec["fp32"] = {"greedy_identical_steps": LM_STEPS,
+                   "tokens_row0": t32[0].tolist()}
+    log(json.dumps({"lm_path": {k: v for k, v in rec.items()
+                                if k != "measure"}}))
+    return rec
+
+
 def kernel_entries(cases, path):
     """One entry per kernel and dtype: times summed over the kernel's
     launches in one ResNet-34 forward (each shape times its uses)."""
@@ -400,6 +729,49 @@ def kernel_entries(cases, path):
     return out
 
 
+def lm_kernel_entries(cases, lm):
+    """One entry per LM kernel and dtype: times summed over the launches of
+    the LM path's run, one ``generate`` of 32 tokens (a prefill of 8 x 512
+    tokens, then 31 decode steps), each case's time times its uses there."""
+    src = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/attention.py:93"),
+           "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:61"),
+           "matmul_fused": ("src/repro_torch/csrc/matmul_fused.cu",
+                            "src/repro/kernels/matmul_fused.py:83")}
+    launches = {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]}
+    steps = LM_STEPS - 1
+
+    def uses(kname, r):
+        if kname == "flash_attention":
+            return LM_LAYERS
+        if kname == "decode_attention":
+            return LM_LAYERS * steps
+        return LM_LAYERS * (1 if r["rows"] > B else steps)
+    out = []
+    for kname, rows in cases.items():
+        for dt in ("bfloat16", "float32"):
+            rs = [r for r in rows if r["dtype"] == dt]
+
+            def tot(key):
+                return sum(r[key] * uses(kname, r) for r in rs)
+            by_ops = sum(r["bound_ms"] * uses(kname, r) for r in rs
+                         if r["bound_by"] == "operations")
+            out.append({
+                "name": f"{kname}@{LM_ARCH}/{dt}", "route": "cuda",
+                "source": src[kname][0], "replaces": src[kname][1],
+                "launches": launches[dt][kname],
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+                "bound_ms": tot("bound_ms"),
+                "bound_by": ("operations" if by_ops >= tot("bound_ms") / 2
+                             else "bytes"),
+                "library_ms": tot("library_ms"), "ok": True,
+                "per": f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
+                       f"tokens, then {steps} decode steps"})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -411,12 +783,15 @@ def main() -> int:
     name, smi = phase_device()
     build = phase_build()
     cases = phase_kernels()
+    lm_cases = phase_lm_kernels()
     path = phase_path(smi)
-    entries = kernel_entries(cases, path)
+    lm = phase_lm_path(smi)
+    entries = kernel_entries(cases, path) + lm_kernel_entries(lm_cases, lm)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
-                   "kernels": cases, "path": path, "entries": entries,
+                   "kernels": cases, "lm_kernels": lm_cases, "path": path,
+                   "lm_path": lm, "entries": entries,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-The port's registry holds the paper's three CNNs; the LM configs join it with
-the LM slice (ROADMAP Queue 1, item 5).
+The port's registry holds the paper's three CNNs and the first LM,
+llama3.2-1b; the other LM configs join it with their families (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -13,12 +14,14 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES: Dict[str, str] = {
+    "llama3.2-1b": "llama32_1b",
     "lenet5": "lenet5",
     "mobilenetv1": "mobilenetv1",
     "resnet34": "resnet34",
 }
 
-CNNS: List[str] = list(_MODULES)                # the paper's own networks
+ARCHS: List[str] = list(_MODULES)[:1]           # the LMs ported so far
+CNNS: List[str] = list(_MODULES)[1:]            # the paper's own networks
 
 
 def _mod(name: str):

@@ -8,22 +8,27 @@ package is that front door for the PyTorch port::
     cm = flow.compile("resnet34", ShapeConfig("serve", "prefill", 64, 8))
     params = cm.init_params(seed=0)
     logits, _, _ = cm.prefill(params, {"images": x})   # x: (8, 224, 224, 3)
-    print(cm.describe())
+
+    lm = flow.compile("llama3.2-1b", ShapeConfig("serve", "decode", 1024, 8))
+    params = lm.init_params(seed=0)
+    tokens, state = lm.generate(params, {"tokens": prompt}, steps=32)
+    print(lm.describe())
 
 ``compile()`` runs the pass pipeline for a device (the card unless the
 caller asks for the CPU) and returns a :class:`CompiledModel` that owns the
-:class:`ExecutionPlan`, ``apply`` / ``prefill``, ``init_params``,
-``describe()`` and ``measure()``.  Kernel-backend selection happens behind it
-through the :class:`~repro_torch.kernels.registry.KernelRegistry`
-(``backend="auto"`` resolves per op: the hand-written CUDA kernel on a
-Hopper card, the reference path elsewhere).  Train, decode and generate
-arrive with later slices.
+:class:`ExecutionPlan`, ``apply`` / ``prefill`` / ``decode`` /
+``generate``, ``init_params`` / ``init_state``, ``describe()`` and
+``measure()``.  Kernel-backend selection happens behind it through the
+:class:`~repro_torch.kernels.registry.KernelRegistry` (``backend="auto"``
+resolves per op: the hand-written CUDA kernel on a Hopper card, the
+reference path elsewhere).  Training arrives with a later slice, and so do
+``generate_fori`` and ``decode_segment`` (ROADMAP Queue 1, item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +41,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs import TRACER
 
 __all__ = ["compile", "CompiledModel"]
+
+MEASURED_STAGES = ("prefill", "decode")
 
 
 class CompiledModel:
@@ -74,72 +81,152 @@ class CompiledModel:
     def param_shapes(self) -> Dict[str, Any]:
         return lowering.param_shapes(self.plan)
 
+    def init_state(self, batch_size: int) -> Dict[str, Any]:
+        """Empty serving state (KV caches of ``plan.cache_len`` slots, every
+        position -1) for ``batch_size`` rows, on this model's device."""
+        return lowering.init_state(self.plan, batch_size, self.device)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def prefill(self, params, batch) -> Any:
-        """prefill(params, batch) -> (logits, state, aux)."""
+    def _timed_first(self, name: str, fn: Callable) -> Any:
+        """Run ``fn``; record the wall-clock of the stage's first call."""
         st = self.stats["stages"]
-        if "prefill" not in st:
-            sp = TRACER.timed("stage.prefill", cat="stage")
-            out = self.apply(params, batch, mode="prefill")
-            self._sync()
-            sp.end()
-            st["prefill"] = {"first_call_s": round(sp.elapsed_s, 4)}
-            return out
-        return self.apply(params, batch, mode="prefill")
+        if name in st:
+            return fn()
+        sp = TRACER.timed(f"stage.{name}", cat="stage")
+        out = fn()
+        self._sync()
+        sp.end()
+        st[name] = {"first_call_s": round(sp.elapsed_s, 4)}
+        return out
+
+    def prefill(self, params, batch) -> Any:
+        """prefill(params, batch) -> (logits, state, aux).  For an LM the
+        logits are those of the last position, (B, 1, vocab)."""
+        return self._timed_first(
+            "prefill", lambda: self.apply(params, batch, mode="prefill"))
+
+    def decode(self, params, batch, state, cache_index) -> Any:
+        """decode(params, {"tokens": (B, 1)}, state, cache_index) ->
+        (logits, state, aux).  Consumes ``state``: the new K/V are written
+        into its tensors in place and the same state comes back (the JAX
+        stage donates its state argument)."""
+        return self._timed_first(
+            "decode", lambda: self.apply(params, batch, state=state,
+                                         cache_index=cache_index,
+                                         mode="decode"))
+
+    # -- generation ----------------------------------------------------------
+    @staticmethod
+    def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
+                temperature: float) -> torch.Tensor:
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
+            torch.int32)
+
+    def generate(self, params, batch: Dict[str, Any], steps: int, *,
+                 temperature: float = 0.0, seed: int = 0
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Prefill the prompt batch, then decode ``steps`` tokens (a host
+        loop).  Greedy by ``argmax`` at ``temperature`` 0 (the first of
+        tied maxima, as ``jnp.argmax``); otherwise sampled with a
+        ``torch.Generator`` on this device seeded from ``seed``.  Returns
+        the (B, steps) int32 tokens and the final state."""
+        S = batch["tokens"].shape[1]
+        gen = None
+        if temperature != 0.0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+        logits, state, _ = self.prefill(params, batch)
+        tok = self._sample(logits[:, -1], gen, temperature)
+        out = [tok]
+        for t in range(steps - 1):
+            lg, state, _ = self.decode(params, {"tokens": tok[:, None]},
+                                       state, S + t)
+            tok = self._sample(lg[:, -1], gen, temperature)
+            out.append(tok)
+        return torch.stack(out, dim=1), state
 
     # -- measured time -------------------------------------------------------
     def _measure_inputs(self, seed: int = 0) -> Dict[str, torch.Tensor]:
-        """Random images of the cell's shape, from numpy's RandomState."""
+        """Random inputs of the cell's shape from numpy's RandomState:
+        images for a CNN; for an LM, tokens ``randint(0, vocab)`` of
+        (B, seq_len), or (B, 1) on a decode-kind shape."""
         rng = np.random.RandomState(seed)
-        c = self.cfg
-        x = rng.randn(self.shape.global_batch, c.image_size, c.image_size,
-                      c.image_channels).astype(np.float32)
-        return {"images": torch.from_numpy(x).to(self.device)}
+        c, B = self.cfg, self.shape.global_batch
+        if c.family == "cnn":
+            x = rng.randn(B, c.image_size, c.image_size,
+                          c.image_channels).astype(np.float32)
+            return {"images": torch.from_numpy(x).to(self.device)}
+        S = self.shape.seq_len if self.shape.kind != "decode" else 1
+        t = rng.randint(0, c.vocab_size, (B, S)).astype(np.int64)
+        return {"tokens": torch.from_numpy(t).to(self.device)}
 
     def measure(self, stage: Optional[str] = None, iters: int = 10, *,
-                seed: int = 0) -> Dict[str, Any]:
+                seed: int = 0, params: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, Any]:
         """Time one stage of this compiled cell: one warm-up call, then
-        ``iters`` calls.  On the card each call is timed with CUDA events;
-        on a CPU model with the wall clock, and the record says ``cpu``."""
+        ``iters`` calls.  ``prefill`` runs the cell's batch; ``decode``
+        starts from ``init_state(B)`` with ``cache_index`` counting up from
+        0, one token per row and step.  ``params`` defaults to
+        ``init_params(seed)``.  On the card each call is timed with CUDA
+        events; on a CPU model with the wall clock, and the record says
+        ``cpu``."""
         stage = stage if stage is not None else self.shape.kind
-        if stage != "prefill":
+        if stage not in MEASURED_STAGES:
             raise NotImplementedError(
-                f"stage {stage!r} is not ported yet; the CNN slice measures "
-                "'prefill'")
-        params = self.init_params(seed)
+                f"stage {stage!r} is not ported yet; the port measures "
+                f"{MEASURED_STAGES}")
+        lm = self.cfg.family != "cnn"
+        if stage == "decode" and not lm:
+            raise ValueError("a CNN has no decode stage")
+        params = params if params is not None else self.init_params(seed)
         batch = self._measure_inputs(seed)
-        self.prefill(params, batch)                    # warm-up (not timed)
+        B = self.shape.global_batch
+        if stage == "prefill":
+            def step(i):
+                return self.prefill(params, batch)
+            per_call = B * (batch["tokens"].shape[1] if lm else 1)
+        else:
+            state = self.init_state(B)
+            tok = batch["tokens"][:, :1]
+
+            def step(i):
+                return self.decode(params, {"tokens": tok}, state, i)
+            per_call = B
+        step(0)                                        # warm-up (not timed)
         self._sync()
         on_card = self.device.type == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats(self.device)
         times = []
-        for _ in range(max(iters, 1)):
+        for i in range(max(iters, 1)):
             sp = TRACER.timed("measure.step", cat="measure", stage=stage)
             if on_card:
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
-                self.prefill(params, batch)
+                step(i + 1)
                 t1.record()
                 t1.synchronize()
                 times.append(t0.elapsed_time(t1) / 1e3)
             else:
                 t = time.perf_counter()
-                self.prefill(params, batch)
+                step(i + 1)
                 times.append(time.perf_counter() - t)
             sp.end()
-        B = self.shape.global_batch
+        rate = per_call / min(times)
         rec = {"stage": stage, "iters": len(times),
                "device": (torch.cuda.get_device_name(self.device)
                           if on_card else "cpu"),
                "timer": "cuda_events" if on_card else "wall_clock",
                "measured_step_s": min(times),
                "mean_step_s": sum(times) / len(times),
-               "images_per_s": B / min(times),
+               ("tokens_per_s" if lm else "images_per_s"): rate,
                "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
                               if on_card else None)}
         self.stats.setdefault("measure", {})[stage] = rec

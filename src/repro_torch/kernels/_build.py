@@ -37,11 +37,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {None: 0, "identity": 0, "gelu": 1, "silu": 2, "relu": 3,
              "relu2": 4, "sigmoid": 5, "tanh": 6}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 

@@ -178,6 +178,16 @@ def _matmul_reject(x=None, w=None, **kw) -> Optional[str]:
     return None
 
 
+def _attention_reject(window=None, cross=False, **kw) -> Optional[str]:
+    # window == 0 is a degenerate cell some configs use to disable the
+    # flash path; cross-attention caches K/V outside the kernel
+    if window == 0:
+        return "window=0 disables the flash path"
+    if cross:
+        return "cross-attention caches K/V outside the kernel"
+    return None
+
+
 def _conv2d_reject(groups=1, **kw) -> Optional[str]:
     if groups != 1:
         return f"grouped conv (groups={groups}) has no CUDA path"
@@ -185,12 +195,17 @@ def _conv2d_reject(groups=1, **kw) -> Optional[str]:
 
 
 def _register_builtin():
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_fused
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.matmul_fused import matmul_fused
 
     REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject)
     REGISTRY.register("glu_matmul", "cuda", matmul_fused,
                       rejects=_matmul_reject)
+    REGISTRY.register("attention", "cuda", flash_attention,
+                      rejects=_attention_reject)
+    REGISTRY.register("decode_attention", "cuda", decode_attention)
     REGISTRY.register("conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject)
 
 

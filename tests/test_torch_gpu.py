@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on the card, against their plain PyTorch
-versions, and one model through the port's entry point.
+versions, and two models (LeNet-5, smoke llama3.2-1b) through the port's
+entry point.
 
 Every test here is marked ``gpu`` and skips without a CUDA card of compute
 capability (9, 0).  The file imports neither JAX nor the JAX package (the
@@ -15,7 +16,9 @@ the other side.
 import pytest
 import torch
 
+from repro_torch.kernels import attention as ka
 from repro_torch.kernels import conv2d as kc
+from repro_torch.kernels import decode_attention as kd
 from repro_torch.kernels import matmul_fused as km
 
 pytestmark = pytest.mark.gpu
@@ -30,6 +33,26 @@ CONVS = {
     "proj1x1s2": (2, 8, 8, 64, 128, 1, 2, "SAME", True, None),
     "c3x3s1": (3, 7, 7, 72, 40, 3, 1, "SAME", False, None),
     "k5s2valid": (1, 17, 17, 4, 16, 5, 2, "VALID", False, "relu"),
+}
+
+# flash_attention: (B, Sq, Skv, H, KV, D, causal, window, q_offset), the
+# cases of the JAX package's kernel tests, plus the LM prefill's head width
+FLASH = {
+    "causal": (2, 64, 64, 4, 4, 32, True, None, 0),
+    "window": (1, 48, 48, 4, 2, 16, True, 16, 0),
+    "q_offset": (2, 32, 96, 6, 2, 32, True, None, 64),
+    "bidir_ragged": (1, 100, 100, 2, 1, 64, False, None, 0),
+    "gqa_window": (2, 128, 128, 8, 8, 64, True, 32, 0),
+    "llama_heads": (1, 200, 200, 32, 8, 64, True, None, 0),
+    "d128": (1, 70, 70, 4, 2, 128, True, None, 0),
+}
+# decode_attention: (B, C, H, KV, D, window), half the cache filled
+DECODE = {
+    "gqa": (2, 64, 4, 2, 32, None),
+    "mqa_window": (1, 96, 8, 1, 64, 32),
+    "mha": (3, 40, 4, 4, 16, None),
+    "llama": (8, 1024, 32, 8, 64, None),
+    "d128": (2, 300, 8, 2, 128, None),
 }
 
 
@@ -97,6 +120,64 @@ def test_matmul_kernel_each_act(card, act):
     assert _rel(y, p) < TOL["bf16"]
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_attention_kernel(card, name, dt):
+    B, Sq, Skv, H, KV, D, causal, win, off = FLASH[name]
+    q = _randn(card, B, Sq, H, D, dt=DTYPES[dt])
+    k = _randn(card, B, Skv, KV, D, dt=DTYPES[dt])
+    v = _randn(card, B, Skv, KV, D, dt=DTYPES[dt])
+    n0 = ka.flash_attention.launches
+    y = ka.flash_attention(q, k, v, causal=causal, window=win, q_offset=off)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.launches == n0 + 1
+    p = ka.flash_attention_plain(q, k, v, causal=causal, window=win,
+                                 q_offset=off)
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert _rel(y, p) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_flash_attention_kernel_positions_softcap(card, dt):
+    """Left-padded rows (positions -1 on the padding) and a softcap: the
+    valid query rows agree; pad rows are garbage the caller discards."""
+    B, S, H, KV, D = 3, 80, 4, 2, 32
+    pad = torch.tensor([0, 5, 70], device="cuda")
+    ar = torch.arange(S, device="cuda")
+    pos = torch.where(ar[None] >= pad[:, None], ar[None] - pad[:, None],
+                      torch.full_like(ar[None], -1)).to(torch.int32)
+    q = _randn(card, B, S, H, D, dt=DTYPES[dt])
+    k = _randn(card, B, S, KV, D, dt=DTYPES[dt])
+    v = _randn(card, B, S, KV, D, dt=DTYPES[dt])
+    y = ka.flash_attention(q, k, v, positions=pos, softcap=5.0)
+    p = ka.flash_attention_plain(q, k, v, positions=pos, softcap=5.0)
+    keep = pos >= 0
+    assert _rel(y[keep], p[keep]) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(DECODE))
+def test_decode_attention_kernel(card, name, dt):
+    B, C, H, KV, D, win = DECODE[name]
+    fill = C // 2
+    ar = torch.arange(C, device="cuda", dtype=torch.int32)
+    pos = torch.where(ar < fill, ar, torch.full_like(ar, -1))
+    pos = pos.expand(B, C).contiguous()
+    q = _randn(card, B, 1, H, D, dt=DTYPES[dt])
+    kcache = _randn(card, B, C, KV, D, dt=DTYPES[dt])
+    vcache = _randn(card, B, C, KV, D, dt=DTYPES[dt])
+    qpos = torch.full((B, 1), fill, dtype=torch.int32, device="cuda")
+    n0 = kd.decode_attention.launches
+    y = kd.decode_attention(q, kcache, vcache, pos, qpos, window=win,
+                            softcap=30.0 if name == "mha" else None)
+    torch.cuda.synchronize()
+    assert kd.decode_attention.launches == n0 + 1
+    p = kd.decode_attention_plain(q, kcache, vcache, pos, qpos, window=win,
+                                  softcap=30.0 if name == "mha" else None)
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert _rel(y, p) < TOL[dt]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     x = _randn(card, 1, 8, 8, 4)
     with pytest.raises(TypeError):
@@ -107,6 +188,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         kc.conv2d_fused(x, _randn(card, 3, 3, 1, 4))
     with pytest.raises(ValueError):
         km.matmul_fused(_randn(card, 4, 6), _randn(card, 5, 3))
+    q, k = _randn(card, 1, 8, 4, 24), _randn(card, 1, 8, 2, 24)
+    with pytest.raises(ValueError):                      # head_dim 24
+        ka.flash_attention(q, k, k)
+    with pytest.raises(TypeError):
+        ka.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):                      # KV does not divide H
+        ka.flash_attention(_randn(card, 1, 8, 4, 32), _randn(card, 1, 8, 3, 32),
+                           _randn(card, 1, 8, 3, 32))
+    kv = _randn(card, 1, 16, 2, 32)
+    pos = torch.zeros(1, 16, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):                      # cache on the host
+        kd.decode_attention(_randn(card, 1, 1, 4, 32), kv.cpu(), kv.cpu(),
+                            pos, pos[:, :1])
 
 
 def test_lenet5_through_the_entry_point(card):
@@ -129,3 +223,34 @@ def test_lenet5_through_the_entry_point(card):
     assert _rel(y, yr) < 5e-2
     rec = cm.measure("prefill", iters=2)
     assert rec["timer"] == "cuda_events" and rec["device"] != "cpu"
+
+
+def test_llama_smoke_through_the_entry_point(card):
+    """The LM path on the card at smoke size: prefill, four decode steps and
+    greedy generate, each kernel launched where the plan says, the logits
+    held against the reference backend (bf16 < 5e-2)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import ShapeConfig
+    shape = ShapeConfig("serve", "decode", 32, 2)
+    cm = flow.compile("llama3.2-1b", shape, smoke=True)
+    ref = flow.compile("llama3.2-1b", shape, smoke=True, backend="reference")
+    assert {cm.plan.kernels[o] for o in ("attention", "decode_attention",
+                                         "matmul", "glu_matmul")} == {"cuda"}
+    params = cm.init_params(0)
+    tok = torch.randint(0, 256, (2, 12), generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    f0, d0 = ka.flash_attention.launches, kd.decode_attention.launches
+    y, st, _ = cm.prefill(params, {"tokens": tok})
+    yr, st_r, _ = ref.prefill(params, {"tokens": tok})
+    assert ka.flash_attention.launches - f0 == 3
+    assert y.shape == (2, 1, 256) and _rel(y, yr) < 5e-2
+    for t in range(4):
+        nxt = tok[:, t:t + 1]
+        y, st, _ = cm.decode(params, {"tokens": nxt}, st, 12 + t)
+        yr, st_r, _ = ref.decode(params, {"tokens": nxt}, st_r, 12 + t)
+        assert _rel(y, yr) < 5e-2
+    assert kd.decode_attention.launches - d0 == 12
+    toks, _ = cm.generate(params, {"tokens": tok}, steps=4)
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    rec = cm.measure("decode", iters=2, params=params)
+    assert rec["timer"] == "cuda_events" and rec["tokens_per_s"] > 0

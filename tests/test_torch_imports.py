@@ -41,6 +41,14 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_lm_slice_modules_are_checked():
+    """The LM slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("configs/llama32_1b.py", "models/layers.py", "models/lm.py",
+                "kernels/attention.py", "kernels/decode_attention.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 def test_compile_without_device_needs_cuda():
     from repro_torch import flow
     from repro_torch.configs.base import ShapeConfig

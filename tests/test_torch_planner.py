@@ -1,6 +1,7 @@
 """The port's planner against the JAX package's: the same pass pipeline must
-print the same plan for the paper's CNNs, apart from the kernel-backend
-line (the port registers only the kernels it has ported, under ``cuda``)."""
+print the same plan for the paper's CNNs and llama3.2-1b (at full width),
+apart from the kernel-backend line (the port registers only the kernels it
+has ported, under ``cuda``)."""
 import jax  # noqa: F401  (both frameworks in one process; JAX stays on CPU)
 import pytest
 import torch  # noqa: F401
@@ -13,14 +14,15 @@ from repro_torch import flow as tflow
 from repro_torch.configs import get_config
 from repro_torch.configs.base import FlowConfig, ShapeConfig
 
-CPU_KERNELS = "  kernels: backend=auto conv2d=ref glu_matmul=ref matmul=ref"
+CPU_KERNELS = ("  kernels: backend=auto attention=ref conv2d=ref "
+               "decode_attention=ref glu_matmul=ref matmul=ref")
 
 FLOWS = {
     "opt": (lambda F: F(mode="auto")),
     "base": (lambda F: F().base()),
     "folded": (lambda F: F(mode="folded")),
 }
-CASES = [(a, f) for a in ("lenet5", "mobilenetv1", "resnet34")
+CASES = [(a, f) for a in ("lenet5", "mobilenetv1", "resnet34", "llama3.2-1b")
          for f in FLOWS]
 
 
@@ -52,7 +54,7 @@ def test_plan_stats_match_jax(arch, variant):
     t = tcm.plan.describe(stats=True)
     j = jcm.plan.describe(stats=True)
     assert _without_kernels(t) == _without_kernels(j)
-    assert "    kernels: backend=auto cuda_ops=[] ref_ops=14" in t
+    assert "    kernels: backend=auto cuda_ops=[] ref_ops=23" in t
 
 
 def test_cuda_platform_plan_differs_only_in_kernels():
@@ -74,7 +76,8 @@ def test_explicit_cuda_backend_resolves_on_any_platform():
     cm = tflow.compile("lenet5", ShapeConfig("bench", "prefill", 64, 8),
                        backend="cuda", device="cpu")
     assert cm.describe().splitlines()[-1] == (
-        "  kernels: backend=cuda conv2d=cuda glu_matmul=cuda matmul=cuda")
+        "  kernels: backend=cuda attention=cuda conv2d=cuda "
+        "decode_attention=cuda glu_matmul=cuda matmul=cuda")
 
 
 def test_param_count_not_ported():
