@@ -34,9 +34,29 @@ Phases, each raising on failure:
    every teacher-forced decode step's logits agree with the ``reference``
    backend.  In fp32 the greedy tokens of 32 steps are identical to the
    reference backend's.  Then ``measure("prefill")`` at 8 x 512 tokens,
-   ``measure("decode")``, and a profile of each.
+   ``measure("decode")``, and a profile of each;
+7. serving kernels — ``paged_decode_attention`` at the serving shape (8
+   rows of ~520 live tokens in a 513-block pool of 16-token blocks, one
+   query a row and five) and ``copy_block`` on the folded 16-layer pool, in
+   bf16 and fp32, each held against its plain version and timed beside it,
+   the library yardstick (gather + ``scaled_dot_product_attention``;
+   ``Tensor.copy_``) and the bound;
+8. serving — full-width llama3.2-1b through ``repro_torch.serving.Engine.run``
+   (``EngineConfig(max_batch=8, max_seq_len=1024, block_size=16)``):
+   workloads A (16 prompts of 64-512 tokens), B (a shared 392-token prefix
+   and a 200-token prompt served in two waves, prefix cache on: hits and a
+   copy-on-write fork), C (A with chunked prefill of 16 and ``ngram:4``
+   speculation) and D (A with decode segments of 8), 32 new tokens a
+   request.  In bf16 each run's launches are those the plan and the run's
+   ticks say (16 paged attention and 96 matmul launches a tick, 2
+   ``copy_block`` launches a fork), A's logits agree with the reference
+   backend's and a decode segment runs without a device-to-host read; in
+   fp32 every workload's greedy tokens equal the reference backend's, C's
+   and D's equal A's and B's equal its cold run.  Per workload: tokens/s,
+   TTFT and latency percentiles, ms per tick, host syncs per token, pool
+   bytes, and the device-busy share of one profiled run.
 
-TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
+The kernel phases run before the path phases.  TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
 fp32.  The last line is ``{"ok": true, "device": {...}}``; the line with the
 ``"kernels"`` list and the ``nvidia-smi`` line come just before it.  Exits
@@ -101,14 +121,16 @@ def log(msg: str) -> None:
 
 
 def counters():
-    """The launch counts of the four kernel wrappers."""
+    """The launch counts of the six kernel wrappers."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import matmul_fused as km
     return {"conv2d_fused": kc.conv2d_fused, "matmul_fused": km.matmul_fused,
             "flash_attention": ka.flash_attention,
-            "decode_attention": kd.decode_attention}
+            "decode_attention": kd.decode_attention,
+            "paged_decode_attention": kd.paged_decode_attention,
+            "copy_block": kd.copy_block}
 
 
 def reset_counts() -> None:
@@ -481,7 +503,8 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     y, _, _ = cm.prefill(params, batch)
     launches = read_counts()
     if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm,
-                    "flash_attention": 0, "decode_attention": 0}:
+                    "flash_attention": 0, "decode_attention": 0,
+                    "paged_decode_attention": 0, "copy_block": 0}:
         raise AssertionError(f"{arch}: launches {launches}, want "
                              f"{want_conv} conv / {want_mm} matmul")
     launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
@@ -552,7 +575,9 @@ def _plan_launches(plan, mode):
 
 
 def _counted(got, want, what):
-    got = {k: v for k, v in got.items() if k != "conv2d_fused" or v}
+    """The counts of the kernels in ``want`` (every other kernel must not
+    have launched)."""
+    got = {k: v for k, v in got.items() if k in want or v}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
     return got
@@ -693,6 +718,335 @@ def phase_lm_path(smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# serving: the engine over the paged KV pool
+# ---------------------------------------------------------------------------
+
+# the serving configuration: full-width llama3.2-1b, 8 slots of up to 1024
+# tokens in blocks of 16 (a pool of 1 + 8 x 64 = 513 blocks)
+SERVE_SLOTS, SERVE_SEQ, SERVE_BS, SERVE_NEW = 8, 1024, 16, 32
+SERVE_LIVE = [505 + 4 * b for b in range(8)]     # kernel phase: ~520 a row
+
+
+def _paged_case(sq, dt, gen):
+    """paged_decode_attention at the serving shape: 8 rows of ~520 live
+    tokens in a 513-block pool, one query a row (a decode tick) or five (a
+    verify row of ngram:4)."""
+    from repro_torch.kernels import decode_attention as kd
+    dev = torch.device("cuda")
+    H, KV, D, bs = LM_H, LM_KV, LM_D, SERVE_BS
+    nblk = SERVE_SEQ // bs
+    NB = 1 + SERVE_SLOTS * nblk
+    q = torch.randn(B, sq, H, D, generator=gen, device=dev).to(dt)
+    kp = torch.randn(NB, bs, KV, D, generator=gen, device=dev).to(dt)
+    vp = torch.randn(NB, bs, KV, D, generator=gen, device=dev).to(dt)
+    bt = (1 + torch.randperm(B * nblk, generator=gen, device=dev)
+          .reshape(B, nblk)).to(torch.int32)
+    lens = torch.tensor(SERVE_LIVE, dtype=torch.int32, device=dev)
+    qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                        device=dev)[None]
+    kw = dict(qpos=qpos if sq > 1 else None)
+    C = nblk * bs
+    kpos = torch.arange(C, device=dev)
+    mask = (kpos[None, None, None, :] <= qpos[:, None, :, None])
+
+    def library():                  # gather + SDPA, the yardstick only
+        kc = kp[bt.long()].reshape(B, C, KV, D)
+        vc = vp[bt.long()].reshape(B, C, KV, D)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kc.repeat_interleave(H // KV, 2).transpose(1, 2),
+            vc.repeat_interleave(H // KV, 2).transpose(1, 2),
+            attn_mask=mask).transpose(1, 2)
+
+    live = [int(qpos[b].max().item()) + 1 for b in range(B)]
+    flops = 4.0 * D * H * sum(sq * n for n in live)
+    nbytes = (2 * sum(live) * KV * D + 2 * q.numel()) * q.element_size() \
+        + (B * nblk + qpos.numel()) * 4
+    c = _timed_case(lambda: kd.paged_decode_attention(q, kp, vp, bt, lens,
+                                                      **kw),
+                    lambda: kd.paged_decode_attention_plain(q, kp, vp, bt,
+                                                            lens, **kw),
+                    library, dt, flops, nbytes, iters=100)
+    c.update(shape=f"paged_B{B}_Sq{sq}_H{H}_KV{KV}_D{D}_bs{bs}_live"
+                   f"{min(live)}-{max(live)}", sq=sq)
+    return c
+
+
+def _copy_case(dt, gen):
+    """copy_block on the folded pool of the serving configuration: 16
+    layers x 513 blocks of 16 x 8 x 64."""
+    from repro_torch.kernels import decode_attention as kd
+    dev = torch.device("cuda")
+    NB = 1 + SERVE_SLOTS * SERVE_SEQ // SERVE_BS
+    pool = torch.randn(LM_LAYERS, NB, SERVE_BS, LM_KV, LM_D, generator=gen,
+                       device=dev).to(dt)
+    plain_pool = pool.clone()
+    src, dst = 3, 400
+    y = kd.copy_block(pool, src, dst)
+    torch.cuda.synchronize()
+    kd.copy_block_plain(plain_pool, src, dst)
+    if not torch.equal(y, plain_pool):
+        raise AssertionError(f"copy_block {dt}: differs from its plain "
+                             "version")
+    nbytes = 2.0 * LM_LAYERS * SERVE_BS * LM_KV * LM_D * pool.element_size()
+    bms, by = bound_ms(0.0, nbytes, dt)
+    return {"dtype": str(dt).split(".")[-1],
+            "shape": f"pool_{LM_LAYERS}x{NB}x{SERVE_BS}x{LM_KV}x{LM_D}",
+            "relerr": 0.0, "max_abs_err": 0.0, "tol": 0.0, "flops": 0.0,
+            "bytes": nbytes, "bound_ms": bms, "bound_by": by,
+            "ms": cuda_ms(lambda: kd.copy_block(pool, src, dst), 200),
+            "plain_ms": cuda_ms(lambda: kd.copy_block_plain(pool, src, dst),
+                                200),
+            "library_ms": cuda_ms(lambda: pool[:, dst].copy_(pool[:, src]),
+                                  200)}
+
+
+def phase_serving_kernels():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = {"paged_decode_attention": [], "copy_block": []}
+    for dt in (torch.bfloat16, torch.float32):
+        for sq in (1, 5):
+            c = _paged_case(sq, dt, gen)
+            cases["paged_decode_attention"].append(c)
+            log(json.dumps({"kernel": "paged_decode_attention", **c}))
+        c = _copy_case(dt, gen)
+        cases["copy_block"].append(c)
+        log(json.dumps({"kernel": "copy_block", **c}))
+    return cases
+
+
+def _serve_workloads(V):
+    """The serving workloads' requests, from RandomState(0): A, 16 prompts
+    of 64-512 tokens; B, 8 prompts sharing a 392-token prefix with their
+    own 16-token tails and one 200-token prompt (12.5 blocks) sent twice in
+    each of two waves, ordered so that the second wave hits the prefix
+    index and its two copies of the 200-token prompt share, and fork, the
+    released partial block.  32 new tokens a request."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(SEED)
+    a = [Request(f"a{i}", rng.randint(0, V, int(rng.randint(64, 513))),
+                 max_new_tokens=SERVE_NEW) for i in range(16)]
+    prefix = rng.randint(0, V, 392)
+    s = [Request(f"s{i}", np.concatenate([prefix, rng.randint(0, V, 16)]),
+                 max_new_tokens=SERVE_NEW) for i in range(8)]
+    p200 = rng.randint(0, V, 200)
+    x = [Request(f"x{i}", p200, max_new_tokens=SERVE_NEW) for i in range(4)]
+    return {"A": a, "B": s[:6] + x[:2] + s[6:] + x[2:]}
+
+
+# workload -> (requests, engine knobs)
+SERVE_KNOBS = {"A": ("A", {}), "B": ("B", dict(prefix_cache=True)),
+               "C": ("A", dict(chunked_prefill=True, chunk_size=16,
+                               speculation="ngram:4")),
+               "D": ("A", dict(fori_seg=8))}
+
+
+def _engine_run(cm, params, reqs, **kw):
+    from repro_torch.serving import Engine, EngineConfig
+    eng = Engine(cm, params, EngineConfig(
+        max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ, block_size=SERVE_BS,
+        **kw))
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, rep
+
+
+def _tokens(rep):
+    return {r.rid: r.tokens for r in rep.results}
+
+
+def _tick_ms(eng):
+    """Median host-clock ms of a decode tick (tick spans end after the
+    tick's read-back) and of a tick inside a decode segment."""
+    ev = eng.tracer.events()
+    ticks = sorted(e["dur"] / 1e3 for e in ev if e["name"] == "tick.decode")
+    seg = sorted(e["dur"] / 1e3 / e["args"]["seg"] for e in ev
+                 if e["name"] == "tick.fori")
+    med = (lambda v: v[len(v) // 2] if v else None)
+    return med(ticks), med(seg)
+
+
+def _serve_record(eng, rep):
+    m = rep.metrics
+    tick, seg = _tick_ms(eng)
+    return {k: m[k] for k in (
+        "n_requests", "generated_tokens", "wall_s", "tokens_per_s",
+        "p50_ttft_s", "p95_ttft_s", "p50_latency_s", "p95_latency_s",
+        "decode_ticks", "prefill_batches", "admissions", "evictions",
+        "refills", "fori_segments", "host_syncs", "host_syncs_per_token",
+        "pool_blocks", "pool_bytes", "peak_used_blocks", "prefix_hits",
+        "cow_forks", "catchup_tokens", "spec_ticks", "spec_tokens_drafted",
+        "spec_tokens_accepted")} | {"ms_per_tick": tick,
+                                     "ms_per_segment_tick": seg}
+
+
+def _segment_is_host_free(cm, params):
+    """A decode segment at the serving shape queues its 8 ticks without a
+    device-to-host read: run it with PyTorch's sync debug mode set to
+    raise on any synchronising call."""
+    from repro_torch.serving import Engine, EngineConfig
+    eng = Engine(cm, params, EngineConfig(max_batch=SERVE_SLOTS,
+                                          max_seq_len=SERVE_SEQ,
+                                          block_size=SERVE_BS))
+    cache = eng.new_cache()
+    seg = cm.decode_segment(8)
+    z = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    seg(params, cache.state, z, z, gen)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, _, _ = seg(params, cache.state, z, z + 8, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return tuple(toks.shape) == (SERVE_SLOTS, 8)
+
+
+def phase_serving(smi):
+    """Full-width llama3.2-1b through ``Engine.run`` over the paged pool."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    shape = ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
+    rec = {"arch": LM_ARCH, "nvidia_smi": smi, "slots": SERVE_SLOTS,
+           "max_seq_len": SERVE_SEQ, "block_size": SERVE_BS}
+    cm = tflow.compile(LM_ARCH, shape, FlowConfig(mode="folded"))
+    ref = tflow.compile(LM_ARCH, shape, FlowConfig(mode="folded"),
+                        backend="reference")
+    ks = cm.plan.kernels
+    if any(ks[o] != "cuda" for o in ("paged_decode_attention", "copy_block",
+                                     "attention", "matmul", "glu_matmul")):
+        raise AssertionError(f"serving plan.kernels {ks}")
+    want_p = _plan_launches(cm.plan, "prefill")
+    per_tick = _plan_launches(cm.plan, "decode")
+    per_tick["paged_decode_attention"] = per_tick.pop("decode_attention")
+    n_entries = 1                  # one folded unit, one attention state
+    params = cm.init_params(SEED)
+    works = _serve_workloads(cm.cfg.vocab_size)
+
+    def counted(rep, what):
+        m = rep.metrics
+        want = {"flash_attention": want_p["flash_attention"]
+                * m["prefill_batches"],
+                "matmul_fused": want_p["matmul_fused"] * m["prefill_batches"]
+                + per_tick["matmul_fused"] * m["decode_ticks"],
+                "paged_decode_attention":
+                    per_tick["paged_decode_attention"] * m["decode_ticks"],
+                "copy_block": 2 * n_entries * m["cow_forks"]}
+        return _counted(read_counts(), want, what)
+
+    # the main path, bf16: each workload with the counts set to 0 just
+    # before it and read just after
+    runs, launches = {}, {}
+    for name, (wl, kw) in SERVE_KNOBS.items():
+        reset_counts()
+        eng, rep = _engine_run(cm, params, works[wl], trace=True, **kw)
+        launches[name] = counted(rep, f"workload {name}")
+        runs[name] = rep
+        r = _serve_record(eng, rep)
+        r["launches"] = launches[name]
+        rec[f"bf16_{name}"] = r
+        log(json.dumps({"serving": name, "precision": "bf16", **r}))
+    b = runs["B"].metrics
+    if b["prefix_hits"] < 1 or b["cow_forks"] < 1:
+        raise AssertionError(f"workload B: prefix_hits {b['prefix_hits']}, "
+                             f"cow_forks {b['cow_forks']}")
+    rec["launches"] = {k: sum(launches[w][k] for w in launches)
+                       for k in launches["A"]}
+    rec["segment_host_free"] = _segment_is_host_free(cm, params)
+
+    # bf16 logits of A against the reference backend, up to each request's
+    # first differing token
+    _, cap = _engine_run(cm, params, works["A"], capture_logits=True)
+    _, cap_r = _engine_run(ref, params, works["A"], capture_logits=True)
+    errs, agree, total = [], 0, 0
+    for r in cap.results:
+        rr = cap_r.by_id[r.rid]
+        for t, (a, b_) in enumerate(zip(r.tokens, rr.tokens)):
+            la, lb = torch.from_numpy(r.logits[t]), torch.from_numpy(
+                rr.logits[t])
+            if not torch.isfinite(la).all():
+                raise AssertionError(f"{r.rid}: logits not finite at {t}")
+            errs.append(relerr(la, lb))
+            if a != b_:
+                break
+        agree += sum(a == b_ for a, b_ in zip(r.tokens, rr.tokens))
+        total += len(rr.tokens)
+    if max(errs) >= PATH_TOL["bf16"]:
+        raise AssertionError(f"serving bf16 logits relerr {max(errs)} vs the "
+                             f"reference backend (tol {PATH_TOL['bf16']})")
+    rec["bf16_logits"] = {"relerr_max": max(errs), "rows": len(errs),
+                          "greedy_agreement_share": agree / total}
+    log(f"serving bf16: logits relerr max {max(errs):.3e} over {len(errs)} "
+        f"rows; greedy tokens agreeing with the reference backend: "
+        f"{agree / total:.3f}")
+
+    # the device-busy share of one profiled run (A's first wave)
+    rec["profile"] = _profile(
+        lambda: _engine_run(cm, params, works["A"][:SERVE_SLOTS]), 1)
+    del params, cap, cap_r
+
+    # fp32: every workload's greedy tokens equal the reference backend's;
+    # C and D equal A, B equals its own cold run
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    cm32 = tflow.compile(LM_ARCH, shape, f32)
+    ref32 = tflow.compile(LM_ARCH, shape, f32, backend="reference")
+    p32 = cm32.init_params(SEED)
+    toks, launches32 = {}, {}
+    for name, (wl, kw) in SERVE_KNOBS.items():
+        reset_counts()
+        eng, rep = _engine_run(cm32, p32, works[wl], **kw)
+        launches32[name] = counted(rep, f"fp32 workload {name}")
+        _, rep_r = _engine_run(ref32, p32, works[wl], **kw)
+        toks[name] = _tokens(rep)
+        if toks[name] != _tokens(rep_r):
+            raise AssertionError(f"fp32 workload {name}: greedy tokens "
+                                 "differ from the reference backend's")
+    _, cold = _engine_run(cm32, p32, works["B"])
+    checks = {"C == A": toks["C"] == toks["A"], "D == A": toks["D"] == toks["A"],
+              "B == B cold": toks["B"] == _tokens(cold)}
+    if not all(checks.values()):
+        raise AssertionError(f"fp32 serving identities {checks}")
+    rec["fp32"] = {"identical_to_reference": list(SERVE_KNOBS),
+                   "identities": list(checks),
+                   "tokens_a0": toks["A"]["a0"]}
+    rec["launches_fp32"] = {k: sum(launches32[w][k] for w in launches32)
+                            for k in launches32["A"]}
+    log(json.dumps({"serving_path": {k: v for k, v in rec.items()
+                                     if not k.startswith("bf16_")}}))
+    return rec
+
+
+def serving_kernel_entries(cases, serve):
+    """One entry per serving kernel and dtype: the time of one call at the
+    serving shape (paged: a decode tick, Sq = 1), the launches of the
+    serving main path (workloads A-D)."""
+    src = {"paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:189"),
+        "copy_block": ("src/repro_torch/csrc/copy_block.cu",
+                       "src/repro/kernels/decode_attention.py:158")}
+    launches = {"bfloat16": serve["launches"],
+                "float32": serve["launches_fp32"]}
+    out = []
+    for kname, rows in cases.items():
+        for dt in ("bfloat16", "float32"):
+            r = next(r for r in rows if r["dtype"] == dt
+                     and r.get("sq", 1) == 1)
+            out.append({
+                "name": f"{kname}@serving/{dt}", "route": "cuda",
+                "source": src[kname][0], "replaces": src[kname][1],
+                "launches": launches[dt][kname],
+                "max_abs_err": max(x["max_abs_err"] for x in rows
+                                   if x["dtype"] == dt),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "ok": True,
+                "per": f"one call at {r['shape']}"})
+    return out
+
+
 def kernel_entries(cases, path):
     """One entry per kernel and dtype: times summed over the kernel's
     launches in one ResNet-34 forward (each shape times its uses)."""
@@ -784,14 +1138,19 @@ def main() -> int:
     build = phase_build()
     cases = phase_kernels()
     lm_cases = phase_lm_kernels()
+    serve_cases = phase_serving_kernels()
     path = phase_path(smi)
     lm = phase_lm_path(smi)
-    entries = kernel_entries(cases, path) + lm_kernel_entries(lm_cases, lm)
+    serve = phase_serving(smi)
+    entries = kernel_entries(cases, path) + \
+        lm_kernel_entries(lm_cases, lm) + \
+        serving_kernel_entries(serve_cases, serve)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
-                   "kernels": cases, "lm_kernels": lm_cases, "path": path,
-                   "lm_path": lm, "entries": entries,
+                   "kernels": cases, "lm_kernels": lm_cases,
+                   "serving_kernels": serve_cases, "path": path,
+                   "lm_path": lm, "serving": serve, "entries": entries,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

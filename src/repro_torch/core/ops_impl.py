@@ -195,9 +195,10 @@ def op_rope(ctx: Ctx, op, p, x, positions):
     rd = op.attrs["rot_dim"]
     base = op.attrs.get("base", 10000.0)
     half = rd // 2
-    inv = torch.pow(torch.tensor(base, dtype=torch.float32, device=x.device),
-                    -torch.arange(0, half, dtype=torch.float32,
-                                  device=x.device) / half)
+    # the base rides as a scalar: a tensor made from it on the card would
+    # be a host-to-device copy, which synchronises, in every decode tick
+    inv = torch.pow(float(base), -torch.arange(0, half, dtype=torch.float32,
+                                               device=x.device) / half)
     ang = positions.float()[:, :, None, None] * inv      # (B,S,1,half)
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1 = x[..., :half].float()
@@ -295,12 +296,11 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
                                    "pos": pc.to(torch.int32).contiguous()}
         return out
 
-    # -- decode over the rolling cache ----------------------------------
     st = ctx.state_in[skey]
     if "kp" in st:
-        raise NotImplementedError(
-            "the paged KV pool (serving engine) is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+        return _paged_decode(ctx, st, skey, q, k, v, positions,
+                             window=window, softcap=softcap)
+    # -- decode over the rolling cache ----------------------------------
     # the new K/V land in the cache tensors in place (JAX updates a donated
     # copy); the state dict handed in is the state handed out
     kc, vc, pc = st["k"], st["v"], st["pos"]
@@ -319,6 +319,68 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
     return _sdpa(ctx, q, kc, vc, qpos, pc, causal=True, window=window,
                  softcap=softcap)
 
+
+def _paged_sdpa(ctx: Ctx, q, kp, vp, bt, qpos, *, window, softcap):
+    """The reference path over the paged pool (the JAX package's
+    ``paged_decode_attention_ref``): gather each row's blocks through its
+    table into a contiguous cache and run :func:`_sdpa` on it, with the
+    compute-dtype rounding of the reference (a padding row, qpos < 0, is
+    masked everywhere, as in the reference)."""
+    B = q.shape[0]
+    bs, KV, Dh = kp.shape[1], kp.shape[2], kp.shape[3]
+    C = bt.shape[1] * bs
+    idx = bt.long()
+    kc = kp[idx].reshape(B, C, KV, Dh)
+    vc = vp[idx].reshape(B, C, KV, Dh)
+    kpos = torch.arange(C, dtype=torch.int32, device=q.device).expand(B, C)
+    return _sdpa(ctx, q, kc, vc, qpos, kpos, causal=True, window=window,
+                 softcap=softcap)
+
+
+def _paged_decode(ctx: Ctx, st, skey, q, k, v, positions, *, window,
+                  softcap):
+    """Decode over the paged KV pool (the serving engine's state): per-row
+    block tables ``bt`` and lengths ``len`` instead of a dense cache.
+
+    One token a row (Sq = 1): the new K/V land at logical offset ``len[b]``
+    of row b's chain and the query sits at ``len[b]``; every row's ``len``
+    grows by one (free rows park on trash block 0, so their writes land in
+    memory no live request owns).  Sq > 1 (chunked catch-up, speculative
+    verify): row b's tokens sit at ``positions[b]``; entries < 0 are
+    padding, written to block 0 and masked; ``len`` grows by the live
+    entries.  The pools, tables and lengths are written in place (the JAX
+    stage donates them) and the same state dict comes back."""
+    kp, vp, bt, ln = st["kp"], st["vp"], st["bt"], st["len"]
+    B, Sq = q.shape[0], q.shape[1]
+    bs, nblk = kp.shape[1], bt.shape[1]
+    rows = torch.arange(B, device=q.device)
+    if Sq > 1:
+        pos = positions.to(torch.int32)
+        act = pos >= 0
+        safe = torch.where(act, pos, torch.zeros_like(pos)).long()
+        blk = torch.where(act, bt[rows[:, None], (safe // bs) % nblk],
+                          torch.zeros_like(pos))
+        off = torch.where(act, safe % bs, torch.zeros_like(safe))
+        kp.index_put_((blk.long(), off), k.to(kp.dtype))
+        vp.index_put_((blk.long(), off), v.to(vp.dtype))
+        qpos, grow = pos, act.sum(1).to(ln.dtype)
+    else:
+        lnl = ln.long()
+        blk = bt[rows, (lnl // bs) % nblk].long()
+        off = lnl % bs
+        kp.index_put_((blk, off), k[:, 0].to(kp.dtype))
+        vp.index_put_((blk, off), v[:, 0].to(vp.dtype))
+        qpos, grow = ln.reshape(B, 1), 1
+    kern = plan_kernel(ctx.plan, "paged_decode_attention")
+    if kern is not None:
+        out = kern(q, kp, vp, bt, ln, qpos=qpos if Sq > 1 else None,
+                   window=window, softcap=softcap)
+    else:
+        out = _paged_sdpa(ctx, q, kp, vp, bt, qpos, window=window,
+                          softcap=softcap)
+    ln.add_(grow)              # after the attention, which reads the old len
+    ctx.state_out[skey] = st
+    return out
 
 
 def op_image_in(ctx: Ctx, op, p, h):

@@ -21,8 +21,10 @@ caller asks for the CPU) and returns a :class:`CompiledModel` that owns the
 ``measure()``.  Kernel-backend selection happens behind it through the
 :class:`~repro_torch.kernels.registry.KernelRegistry` (``backend="auto"``
 resolves per op: the hand-written CUDA kernel on a Hopper card, the
-reference path elsewhere).  Training arrives with a later slice, and so do
-``generate_fori`` and ``decode_segment`` (ROADMAP Queue 1, item 7).
+reference path elsewhere).  ``generate_fori`` and ``decode_segment`` (the
+serving engine's host-free decode segments) queue their whole loop on the
+device and read nothing back inside it.  Training arrives with a later
+slice.
 """
 from __future__ import annotations
 
@@ -122,11 +124,15 @@ class CompiledModel:
     @staticmethod
     def _sample(logits: torch.Tensor, gen: Optional[torch.Generator],
                 temperature: float) -> torch.Tensor:
+        """Greedy ``argmax`` at temperature 0, else one categorical draw a
+        row from ``gen``: ``argmax(p / e)`` with ``e ~ Exp(1)``, the draw
+        ``torch.multinomial`` makes for one sample, without its host-side
+        check of the probabilities (a device-to-host read)."""
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
-            torch.int32)
+        e = torch.empty_like(probs).exponential_(1.0, generator=gen)
+        return torch.argmax(probs / e, dim=-1).to(torch.int32)
 
     def generate(self, params, batch: Dict[str, Any], steps: int, *,
                  temperature: float = 0.0, seed: int = 0
@@ -150,6 +156,53 @@ class CompiledModel:
             tok = self._sample(lg[:, -1], gen, temperature)
             out.append(tok)
         return torch.stack(out, dim=1), state
+
+    def generate_fori(self, params, batch: Dict[str, Any],
+                      steps: int) -> torch.Tensor:
+        """Greedy generation with the whole decode loop queued on the
+        device: prefill, then ``steps - 1`` decode steps whose tokens stay
+        on the device until the caller reads the (B, steps) int32 result
+        (the JAX package's one-program ``fori_loop``)."""
+        S = batch["tokens"].shape[1]
+        logits, state, _ = self.prefill(params, batch)
+        B = logits.shape[0]
+        toks = torch.zeros((B, steps), dtype=torch.int32, device=self.device)
+        toks[:, 0] = torch.argmax(logits[:, -1], -1)
+        for t in range(steps - 1):
+            lg, state, _ = self.decode(params, {"tokens": toks[:, t:t + 1]},
+                                       state, S + t)
+            toks[:, t + 1] = torch.argmax(lg[:, -1], -1)
+        return toks
+
+    def decode_segment(self, steps: int, *,
+                       temperature: float = 0.0) -> Callable:
+        """Host-free multi-tick decode over externally managed state (the
+        serving engine's paged KV pool)::
+
+            run(params, state, tok0, pos0, gen) -> (tokens, state, gen)
+
+        ``tok0``/``pos0`` are (B,) int32 device tensors — each row's last
+        sampled token and its absolute position; ``tokens`` is (B, steps)
+        on the device.  The loop replays the engine's per-tick host loop
+        exactly — decode cell, then sample from ``gen`` — so the tokens
+        are the ones ``steps`` host ticks give, at any temperature, while
+        nothing is read back until the caller reads ``tokens``.  ``state``
+        is written in place."""
+        def run(params, state, tok0, pos0, gen):
+            B = tok0.shape[0]
+            toks = torch.zeros((B, steps), dtype=torch.int32,
+                               device=tok0.device)
+            cur, pos = tok0, pos0
+            for t in range(steps):
+                lg, state, _ = self.apply(
+                    params, {"tokens": cur[:, None],
+                             "positions": pos[:, None]}, state=state,
+                    cache_index=0, mode="decode")
+                cur = self._sample(lg[:, -1], gen, temperature)
+                toks[:, t] = cur
+                pos = pos + 1
+            return toks, state, gen
+        return run
 
     # -- measured time -------------------------------------------------------
     def _measure_inputs(self, seed: int = 0) -> Dict[str, torch.Tensor]:

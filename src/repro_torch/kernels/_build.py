@@ -44,6 +44,8 @@ SIGNATURES = {
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    "copy_block": [_P] + [_I] * 5 + [_P],
 }
 
 

@@ -27,6 +27,11 @@ On a CPU tensor the wrapper runs :func:`decode_attention_plain`; on a CUDA
 tensor it launches the kernels or raises.  ``decode_attention.launches``
 counts the calls that launch them.  It uses no
 ``scaled_dot_product_attention`` and no ``torch.matmul`` on the card.
+
+The module also holds the serving engine's two kernels over the paged KV
+pool, ``paged_decode_attention`` (``csrc/paged_decode_attention.cu``) and
+``copy_block`` (``csrc/copy_block.cu``); their notes are at their wrappers
+below.
 """
 from __future__ import annotations
 
@@ -127,3 +132,200 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention: the serving engine's lookup over the block pool
+# ---------------------------------------------------------------------------
+#
+# Replaces the Pallas kernel ``paged_decode_attention`` of
+# ``src/repro/kernels/decode_attention.py``: q (B, Sq, H, D) scores row b's
+# logical tokens, token j*bs + i living in pool block bt[b, j] at offset i;
+# the mask is purely positional (kpos <= qpos, qpos >= 0, inside the
+# window), softcap before the mask, an fp32 online softmax, and the sum
+# divided by max(l, 1e-30).  It serves the decode tick (Sq = 1, qpos =
+# lens), the chunked catch-up cell (Sq = k) and the speculative verify cell
+# (Sq = j + 1).
+#
+# What bounds it on the H100: the live K/V read.  At the serving shape
+# (B = 8, ~520 live tokens a row, KV = 8, D = 64, bf16) that is ~17 MB
+# against ~4 operations per byte: the bytes bound it (~5 us at 3.35 TB/s).
+#
+# The design: the Pallas grid walks all nblk table entries of a row in
+# order into one VMEM accumulator per (row, KV head).  Here one block of
+# 128 threads serves the R = Sq * G query rows of one (row, KV head) over
+# one split of the row's live tokens, so that (splits x B x KV) blocks fill
+# the card; query rows beyond 64 go to further blocks.  The walk stops at
+# the token max(qpos[b]) (the Pallas kernel visits every table entry and
+# never reads ``lens``; only fully masked rows, whose output the engine
+# discards, can differ).  Each block resolves its tile's 64 tokens through
+# the block table into pool offsets, stages K and V in shared memory as
+# fp32, and writes partial (m, l, acc) to an fp32 workspace; the combine
+# kernel of ``decode_attention`` merges the splits.
+
+PAGED_ROWS = 64                    # query rows per block in the kernel
+
+
+def paged_decode_attention_plain(q: torch.Tensor, kp: torch.Tensor,
+                                 vp: torch.Tensor, bt: torch.Tensor,
+                                 lens: torch.Tensor, *,
+                                 qpos: Optional[torch.Tensor] = None,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """The same function in plain PyTorch, fp32 throughout as the Pallas
+    kernel computes it: gather ``kp[bt]`` into a contiguous cache, score
+    every table entry, mask by position."""
+    B, Sq, H, D = q.shape
+    bs, KV = kp.shape[1], kp.shape[2]
+    nblk = bt.shape[1]
+    G = H // KV
+    C = nblk * bs
+    if qpos is None:
+        qpos = lens.reshape(B, 1)
+    qpos = qpos.to(torch.int32)
+    idx = bt.long()
+    kc = kp[idx].reshape(B, C, KV, D).float()
+    vc = vp[idx].reshape(B, C, KV, D).float()
+    qg = q.float().reshape(B, Sq, KV, G, D) * D ** -0.5
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, kc)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(C, dtype=torch.int32, device=q.device)
+    qp = qpos[:, None, None, :, None]
+    valid = (qp >= 0) & (kpos <= qp)
+    if window:
+        valid = valid & (kpos > qp - window)
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgcs,bskd->bckgd", p, vc)
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def paged_splits(B: int, KV: int, n_row_tiles: int, capacity: int,
+                 n_sm: int) -> int:
+    """Splits of a row's live tokens: enough that the blocks fill the card
+    (about four per SM), at most one per 64-token tile of the capacity."""
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * KV * n_row_tiles)))
+    return max(1, min(want, -(-capacity // SLOTS)))
+
+
+def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
+                           vp: torch.Tensor, bt: torch.Tensor,
+                           lens: torch.Tensor, *,
+                           qpos: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); kp, vp: (NB, bs, KV, D) pools; bt: (B, nblk) int
+    block table; lens: (B,) int decode positions; qpos: optional (B, Sq)
+    absolute query positions (default ``lens[:, None]``; entries < 0 are
+    padding rows).  Returns (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    if kp.ndim != 4 or kp.shape != vp.shape or kp.shape[3] != D \
+            or H % kp.shape[2] or bt.ndim != 2 or bt.shape[0] != B \
+            or tuple(lens.shape) != (B,):
+        raise ValueError(
+            f"paged_decode_attention: q {tuple(q.shape)}, pools "
+            f"{tuple(kp.shape)} / {tuple(vp.shape)}, bt {tuple(bt.shape)}, "
+            f"lens {tuple(lens.shape)} do not form (B,Sq,H,D) over "
+            "(NB,bs,KV,D) with a (B,nblk) table and (B,) lengths")
+    if qpos is not None and tuple(qpos.shape) != (B, Sq):
+        raise ValueError(f"paged_decode_attention: qpos {tuple(qpos.shape)}"
+                         f" != ({B}, {Sq})")
+    if qpos is None and Sq != 1:
+        raise ValueError("paged_decode_attention: Sq > 1 needs qpos")
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, kp, vp, bt, lens, qpos=qpos,
+                                            window=window, softcap=softcap)
+    qp = lens.reshape(B, 1) if qpos is None else qpos
+    ops = [kp, vp, bt, qp]
+    if q.device.type != "cuda" or any(t.device != q.device for t in ops):
+        raise ValueError("paged_decode_attention: all operands must be on "
+                         f"the same CUDA device (q on {q.device})")
+    if q.dtype not in _build.DTYPE_CODES or kp.dtype != q.dtype \
+            or vp.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention: unsupported dtypes q "
+                        f"{q.dtype}, pools {kp.dtype}/{vp.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head_dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if not (kp.is_contiguous() and vp.is_contiguous()):
+        raise ValueError("paged_decode_attention: the pools must be "
+                         "contiguous (they are written in place)")
+    if kp.numel() >= 2 ** 31:
+        raise ValueError("paged_decode_attention: a pool of 2**31 elements "
+                         "or more")
+    NB, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
+    nblk = bt.shape[1]
+    G = H // KV
+    R = Sq * G
+    n_rt = -(-R // PAGED_ROWS)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = paged_splits(B, KV, n_rt, nblk * bs, n_sm)
+    ws = torch.empty(B * KV * nsplit * R * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    qq = q.contiguous()
+    bb = bt.to(torch.int32).contiguous()
+    pp = qp.to(torch.int32).contiguous()
+    out = torch.empty_like(qq)
+    _build.call("paged_decode_attention", _build.DTYPE_CODES[q.dtype],
+                _build.ptr(qq), _build.ptr(kp), _build.ptr(vp), _build.ptr(bb),
+                _build.ptr(pp), _build.ptr(out), _build.ptr(ws), B, Sq, H, KV,
+                D, NB, bs, nblk, int(window or 0), float(softcap or 0.0),
+                nsplit, _build.stream())
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# copy_block: the copy-on-write fork of one pool block
+# ---------------------------------------------------------------------------
+#
+# Replaces the Pallas kernel ``copy_block`` of
+# ``src/repro/kernels/decode_attention.py`` (a scalar-prefetched block copy
+# with the pool aliased to the output): pool block ``dst`` := block
+# ``src``, in place, for every rep of a folded (R, NB, bs, KV, D) pool in
+# one launch.  It moves 2 x R x bs x KV x D elements, so the bytes bound it
+# (~0.3 us for a 16-rep bf16 block of 16 x 8 x 64 at 3.35 TB/s).  The
+# kernel copies 16 bytes a thread where the block's bytes allow, in a
+# grid-stride loop over (chunk, rep) blocks.
+
+
+def copy_block_plain(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """The same function in plain PyTorch (the JAX package's
+    ``copy_block_ref``): block ``dst`` of the block axis (-4) := block
+    ``src``, in place; returns the pool."""
+    pool[..., dst, :, :, :] = pool[..., src, :, :, :]
+    return pool
+
+
+def copy_block(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """pool: (NB, bs, KV, D) or folded (R, NB, bs, KV, D); src, dst: block
+    ids (host ints).  Copies block ``src`` over block ``dst`` in place and
+    returns the pool."""
+    if pool.ndim not in (4, 5):
+        raise ValueError(f"copy_block: pool {tuple(pool.shape)} is not "
+                         "(NB,bs,KV,D) or (R,NB,bs,KV,D)")
+    NB = pool.shape[-4]
+    src, dst = int(src), int(dst)
+    if not (0 <= src < NB and 0 <= dst < NB):
+        raise ValueError(f"copy_block: blocks {src} -> {dst} outside "
+                         f"[0, {NB})")
+    if pool.device.type == "cpu":
+        return copy_block_plain(pool, src, dst)
+    if pool.device.type != "cuda":
+        raise ValueError(f"copy_block: pool on {pool.device}")
+    if not pool.is_contiguous():
+        raise ValueError("copy_block: the pool must be contiguous")
+    R = pool.shape[0] if pool.ndim == 5 else 1
+    block_bytes = pool[..., 0, :, :, :].numel() // R * pool.element_size()
+    _build.call("copy_block", _build.ptr(pool), R, NB, block_bytes, src, dst,
+                _build.stream())
+    copy_block.launches += 1
+    return pool
+
+
+copy_block.launches = 0

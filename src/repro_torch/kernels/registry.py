@@ -197,7 +197,8 @@ def _conv2d_reject(groups=1, **kw) -> Optional[str]:
 def _register_builtin():
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_fused
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        copy_block, decode_attention, paged_decode_attention)
     from repro_torch.kernels.matmul_fused import matmul_fused
 
     REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject)
@@ -206,6 +207,9 @@ def _register_builtin():
     REGISTRY.register("attention", "cuda", flash_attention,
                       rejects=_attention_reject)
     REGISTRY.register("decode_attention", "cuda", decode_attention)
+    REGISTRY.register("paged_decode_attention", "cuda",
+                      paged_decode_attention)
+    REGISTRY.register("copy_block", "cuda", copy_block)
     REGISTRY.register("conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject)
 
 

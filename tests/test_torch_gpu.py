@@ -254,3 +254,134 @@ def test_llama_smoke_through_the_entry_point(card):
     assert toks.shape == (2, 4) and toks.dtype == torch.int32
     rec = cm.measure("decode", iters=2, params=params)
     assert rec["timer"] == "cuda_events" and rec["tokens_per_s"] > 0
+
+
+# paged_decode_attention: block sizes x query widths (1: a decode tick, 5:
+# a speculative verify row, 16: a chunked catch-up cell), with a window and
+# softcap on some; (B, H, KV, D) = (3, 8, 2, 64), nblk = 1024 // bs
+PAGED = [(bs, sq, win, cap) for bs in (8, 16, 32) for sq in (1, 5, 16)
+         for win, cap in ((None, None), (100, 30.0))]
+
+
+def _paged_inputs(g, bs, sq, dt):
+    B, H, KV, D = 3, 8, 2, 64
+    nblk = 1024 // bs
+    NB = 1 + B * nblk
+    q = _randn(g, B, sq, H, D, dt=dt)
+    kp, vp = _randn(g, NB, bs, KV, D, dt=dt), _randn(g, NB, bs, KV, D, dt=dt)
+    perm = torch.randperm(B * nblk, generator=g, device="cuda")
+    bt = (1 + perm.reshape(B, nblk)).to(torch.int32)
+    lens = torch.tensor([5, 300, 1000 - sq], dtype=torch.int32, device="cuda")
+    qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                        device="cuda")[None]
+    if sq > 1:
+        qpos[0, sq // 2:] = -1                          # a padded row
+    return q, kp, vp, bt, lens, qpos
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("bs,sq,win,cap", PAGED)
+def test_paged_decode_attention_matches_plain(card, dt, bs, sq, win, cap):
+    q, kp, vp, bt, lens, qpos = _paged_inputs(card, bs, sq, DTYPES[dt])
+    kw = dict(qpos=qpos if sq > 1 else None, window=win, softcap=cap)
+    n0 = kd.paged_decode_attention.launches
+    y = kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert kd.paged_decode_attention.launches == n0 + 1
+    p = kd.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    live = (qpos if sq > 1 else lens[:, None]) >= 0    # compared rows
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert torch.isfinite(y[live].float()).all()
+    assert _rel(y[live], p[live]) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("lead", [None, 16])
+def test_copy_block_matches_plain(card, dt, lead):
+    shape = (9, 16, 8, 64) if lead is None else (lead, 9, 16, 8, 64)
+    pool = _randn(card, *shape, dt=DTYPES[dt])
+    want = kd.copy_block_plain(pool.clone(), 3, 7)
+    n0 = kd.copy_block.launches
+    out = kd.copy_block(pool, 3, 7)
+    torch.cuda.synchronize()
+    assert out is pool and kd.copy_block.launches == n0 + 1
+    assert torch.equal(pool, want)
+    odd = _randn(card, 2, 5, 3, 1, 5)                   # 60-byte blocks
+    want = kd.copy_block_plain(odd.clone(), 4, 0)
+    kd.copy_block(odd, 4, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(odd, want)
+
+
+def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
+    """Every wrapper launches its kernel on CUDA tensors: with each plain
+    version replaced by one that raises, the wrappers still run."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    for mod, name in ((kc, "conv2d_fused_plain"), (km, "matmul_fused_plain"),
+                      (ka, "flash_attention_plain"),
+                      (kd, "decode_attention_plain"),
+                      (kd, "paged_decode_attention_plain"),
+                      (kd, "copy_block_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    kc.conv2d_fused(_randn(card, 1, 8, 8, 4), _randn(card, 3, 3, 4, 8))
+    km.matmul_fused(_randn(card, 4, 16), _randn(card, 16, 8))
+    q = _randn(card, 1, 16, 4, 32)
+    ka.flash_attention(q, _randn(card, 1, 16, 2, 32), _randn(card, 1, 16, 2,
+                                                             32))
+    kv = _randn(card, 1, 16, 2, 32)
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
+    kd.decode_attention(q[:, :1], kv, kv, pos, pos[:, 3:4])
+    pq, kp, vp, bt, lens, qpos = _paged_inputs(card, 16, 5, torch.float32)
+    kd.paged_decode_attention(pq, kp, vp, bt, lens, qpos=qpos)
+    kd.copy_block(kp, 1, 2)
+    torch.cuda.synchronize()
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(card):
+    q, kp, vp, bt, lens, qpos = _paged_inputs(card, 16, 1, torch.float32)
+    with pytest.raises(TypeError):
+        kd.paged_decode_attention(q.half(), kp.half(), vp.half(), bt, lens)
+    with pytest.raises(ValueError):                      # pool on the host
+        kd.paged_decode_attention(q, kp.cpu(), vp.cpu(), bt, lens)
+    with pytest.raises(ValueError):                      # non-contiguous
+        kd.paged_decode_attention(q, kp.transpose(0, 1), vp.transpose(0, 1),
+                                  bt, lens)
+    with pytest.raises(ValueError):
+        kd.copy_block(kp.transpose(0, 1), 0, 1)
+
+
+def test_serving_engine_on_the_card(card):
+    """Engine.run at smoke size on the card, fp32: a prefix-cached run with
+    a COW fork and a speculative chunked run give the reference backend's
+    cold greedy tokens, through the paged kernel and copy_block."""
+    import numpy as np
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig, Request
+    shape = ShapeConfig("serve", "decode", 64, 4)
+    fl = FlowConfig(mode="folded", precision="fp32")
+    cm = flow.compile("llama3.2-1b", shape, fl, smoke=True)
+    ref = flow.compile("llama3.2-1b", shape, fl, smoke=True,
+                       backend="reference")
+    assert cm.plan.kernels["paged_decode_attention"] == "cuda"
+    assert cm.plan.kernels["copy_block"] == "cuda"
+    params = cm.init_params(0)
+    p = np.random.RandomState(21).randint(0, 256, 12).astype(np.int32)
+    reqs = [Request(x, p, max_new_tokens=6) for x in "abcd"]
+    base = dict(max_batch=2, max_seq_len=64, block_size=8,
+                prompt_buckets=(16, 64))
+    want = Engine(ref, params, EngineConfig(**base)).run(reqs)
+    n_pa, n_cb = kd.paged_decode_attention.launches, kd.copy_block.launches
+    hit = Engine(cm, params, EngineConfig(prefix_cache=True, **base)).run(
+        reqs)
+    assert hit.metrics["cow_forks"] >= 1
+    assert kd.paged_decode_attention.launches - n_pa == \
+        3 * hit.metrics["decode_ticks"]
+    assert kd.copy_block.launches - n_cb == 2 * hit.metrics["cow_forks"]
+    spec = Engine(cm, params, EngineConfig(
+        chunked_prefill=True, chunk_size=4, speculation="ngram:3",
+        **base)).run(reqs)
+    for got in (hit, spec):
+        assert {r.rid: r.tokens for r in got.results} == \
+            {r.rid: r.tokens for r in want.results}

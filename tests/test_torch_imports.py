@@ -49,6 +49,24 @@ def test_lm_slice_modules_are_checked():
         assert f"src/repro_torch/{mod}" in names, mod
 
 
+def test_serving_slice_modules_are_checked():
+    """The serving slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("analysis/rules.py", "serving/__init__.py",
+                "serving/prefix.py", "serving/kvcache.py",
+                "serving/scheduler.py", "serving/speculation.py",
+                "serving/engine.py", "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_serve_cli_without_device_needs_cuda():
+    from repro_torch.launch import serve
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--requests", "synthetic:1"])
+
+
 def test_compile_without_device_needs_cuda():
     from repro_torch import flow
     from repro_torch.configs.base import ShapeConfig

@@ -198,8 +198,9 @@ def test_plan_matches_jax():
     assert strip == [ln for ln in jcm.describe().splitlines()
                      if not ln.lstrip().startswith("kernels:")]
     assert tcm.describe().splitlines()[-1] == (
-        "  kernels: backend=auto attention=ref conv2d=ref "
-        "decode_attention=ref glu_matmul=ref matmul=ref")
+        "  kernels: backend=auto attention=ref conv2d=ref copy_block=ref "
+        "decode_attention=ref glu_matmul=ref matmul=ref "
+        "paged_decode_attention=ref")
 
 
 @pytest.mark.parametrize("stage", ["prefill", "decode"])

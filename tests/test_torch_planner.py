@@ -15,7 +15,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import FlowConfig, ShapeConfig
 
 CPU_KERNELS = ("  kernels: backend=auto attention=ref conv2d=ref "
-               "decode_attention=ref glu_matmul=ref matmul=ref")
+               "copy_block=ref decode_attention=ref glu_matmul=ref "
+               "matmul=ref paged_decode_attention=ref")
 
 FLOWS = {
     "opt": (lambda F: F(mode="auto")),
@@ -54,7 +55,7 @@ def test_plan_stats_match_jax(arch, variant):
     t = tcm.plan.describe(stats=True)
     j = jcm.plan.describe(stats=True)
     assert _without_kernels(t) == _without_kernels(j)
-    assert "    kernels: backend=auto cuda_ops=[] ref_ops=23" in t
+    assert "    kernels: backend=auto cuda_ops=[] ref_ops=25" in t
 
 
 def test_cuda_platform_plan_differs_only_in_kernels():
@@ -76,8 +77,9 @@ def test_explicit_cuda_backend_resolves_on_any_platform():
     cm = tflow.compile("lenet5", ShapeConfig("bench", "prefill", 64, 8),
                        backend="cuda", device="cpu")
     assert cm.describe().splitlines()[-1] == (
-        "  kernels: backend=cuda attention=cuda conv2d=cuda "
-        "decode_attention=cuda glu_matmul=cuda matmul=cuda")
+        "  kernels: backend=cuda attention=cuda conv2d=cuda copy_block=cuda "
+        "decode_attention=cuda glu_matmul=cuda matmul=cuda "
+        "paged_decode_attention=cuda")
 
 
 def test_param_count_not_ported():
