@@ -54,9 +54,33 @@ Phases, each raising on failure:
    fp32 every workload's greedy tokens equal the reference backend's, C's
    and D's equal A's and B's equal its cold run.  Per workload: tokens/s,
    TTFT and latency percentiles, ms per tick, host syncs per token, pool
-   bytes, and the device-busy share of one profiled run.
+   bytes, and the device-busy share of one profiled run;
+9. recurrent kernels — at full-width recurrentgemma-2b shapes, in bf16 and
+   fp32: ``lru_scan`` at (8, 512, 2560), ``flash_attention`` with 10 heads
+   over 1 KV head of 256 and the 2048-token window at 8 x 512 tokens and at
+   one row of 2080 (the window cuts), ``decode_attention`` over the
+   1024-slot and the wrapped 2048-slot cache, ``paged_decode_attention`` at
+   workload R's shape; each held against its plain version and timed
+   beside it, the library yardstick (none for the scan) and the bound;
+10. recurrent path — full-width recurrentgemma-2b (26 layers, random
+   weights from seed 0), bf16 then fp32: ``generate`` of 32 tokens after a
+   512-token prompt a row (``ShapeConfig("serve", "decode", 1024, 8)``) with
+   the launches the plan says (8 flash + 18 lru_scan + 138 matmul a
+   prefill, 8 decode + 138 matmul and no lru_scan a step), the prefill and
+   every teacher-forced step's logits against the reference backend, the
+   fp32 greedy tokens identical to it, and in bf16 ``measure`` and
+   profiles; the window run (one row, a 2080-token prompt, 24 steps over
+   the 2048-slot rolling cache) with the same checks; ``Engine.run`` on
+   workload R (16 prompts of exactly 256 tokens, 16-48 new tokens each,
+   exact prompt buckets) with its launches per tick and per prefill batch,
+   bf16 logits against the reference backend, fp32 tokens identical to it,
+   the refusals of a padded prompt, the prefix cache, chunked prefill and
+   speculation, and the serving metrics with the pool's and the dense
+   state's bytes and the device-busy share of one profiled run.
 
-The kernel phases run before the path phases.  TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
+The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8;
+phases 9 and 10 come last.  TF32 is off for the whole run
+(``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
 fp32.  The last line is ``{"ok": true, "device": {...}}``; the line with the
 ``"kernels"`` list and the ``nvidia-smi`` line come just before it.  Exits
@@ -65,6 +89,7 @@ non-zero, printing no result, without a CUDA card.  Details go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -121,16 +146,17 @@ def log(msg: str) -> None:
 
 
 def counters():
-    """The launch counts of the six kernel wrappers."""
+    """The launch counts of the seven kernel wrappers."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import lru_scan as kl
     from repro_torch.kernels import matmul_fused as km
     return {"conv2d_fused": kc.conv2d_fused, "matmul_fused": km.matmul_fused,
             "flash_attention": ka.flash_attention,
             "decode_attention": kd.decode_attention,
             "paged_decode_attention": kd.paged_decode_attention,
-            "copy_block": kd.copy_block}
+            "copy_block": kd.copy_block, "lru_scan": kl.lru_scan}
 
 
 def reset_counts() -> None:
@@ -315,7 +341,8 @@ def phase_kernels():
 
 def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20):
     """Kernel vs plain version (relerr, max |diff|), then the three times
-    and the bound of one call."""
+    and the bound of one call.  ``library`` is None where no one PyTorch
+    call computes the same function."""
     y = kern()
     torch.cuda.synchronize()
     p = plain()
@@ -327,68 +354,86 @@ def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20):
                              f"{tuple(y.shape)}")
     bms, by = bound_ms(flops, nbytes, dt)
     warm = 1 if iters < 20 else 3
+    lib = library is not None
     return {"dtype": str(dt).split(".")[-1], "relerr": err,
             "max_abs_err": aerr, "tol": TOL[dt],
-            "library_relerr": relerr(library(), p), "flops": flops,
-            "bytes": nbytes, "bound_ms": bms, "bound_by": by,
+            "library_relerr": relerr(library(), p) if lib else None,
+            "flops": flops, "bytes": nbytes, "bound_ms": bms, "bound_by": by,
             "ms": cuda_ms(kern, iters, warm),
             "plain_ms": cuda_ms(plain, iters, warm),
-            "library_ms": cuda_ms(library, iters, warm)}
+            "library_ms": cuda_ms(library, iters, warm) if lib else None}
 
 
-def _flash_case(dt, gen):
+def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
+                iters=20):
+    """flash_attention, causal, at llama3.2-1b's prefill by default; with
+    ``window`` the keys older than it are masked (recurrentgemma-2b)."""
     from repro_torch.kernels import attention as ka
     dev = torch.device("cuda")
-    S, H, KV, D = LM_S, LM_H, LM_KV, LM_D
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
-    k = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
-    v = torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt)
+    q = torch.randn(b, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(b, S, KV, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(b, S, KV, D, generator=gen, device=dev).to(dt)
     # the library call takes (B, H, S, D) with the KV heads repeated
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    flops = 4.0 * D * B * H * S * (S + 1) / 2        # causal pairs only
+    if window is None:
+        pairs = S * (S + 1) / 2                      # causal pairs only
+        sdpa = dict(is_causal=True)
+    else:
+        ar = torch.arange(S, device=dev)
+        mask = (ar[None, :] <= ar[:, None]) & (ar[None, :] > ar[:, None]
+                                               - window)
+        pairs = float(mask.sum().item())             # live (q, k) pairs
+        sdpa = dict(attn_mask=mask)
+    flops = 4.0 * D * b * H * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     c = _timed_case(
-        lambda: ka.flash_attention(q, k, v, causal=True),
-        lambda: ka.flash_attention_plain(q, k, v, causal=True),
+        lambda: ka.flash_attention(q, k, v, causal=True, window=window),
+        lambda: ka.flash_attention_plain(q, k, v, causal=True, window=window),
         lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                               is_causal=True).transpose(1, 2),
-        dt, flops, nbytes)
-    c.update(shape=f"prefill_B{B}_S{S}_H{H}_KV{KV}_D{D}_causal",
-             uses_per_prefill=LM_LAYERS)
+                                               **sdpa).transpose(1, 2),
+        dt, flops, nbytes, iters=iters)
+    c.update(shape=f"prefill_B{b}_S{S}_H{H}_KV{KV}_D{D}_causal"
+                   + (f"_window{window}" if window else ""), rows=b)
     return c
 
 
-def _decode_case(dt, gen):
+def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
+                 D=LM_D, window=None):
+    """decode_attention over a rolling cache of C slots holding positions
+    max(0, qpos-C+1) .. qpos (slot c holds the position = c mod C): by
+    default llama3.2-1b's 1024-slot cache, half full."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
-    C, H, KV, D = LM_C, LM_H, LM_KV, LM_D
-    fill = C // 2
+    lo = max(0, qpos - C + 1)
     ar = torch.arange(C, dtype=torch.int32, device=dev)
-    pos = torch.where(ar < fill, ar, torch.full_like(ar, -1))
-    pos = pos.expand(B, C).contiguous()
-    qpos = torch.full((B, 1), fill, dtype=torch.int32, device=dev)
-    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dt)
-    kc = torch.randn(B, C, KV, D, generator=gen, device=dev).to(dt)
-    vc = torch.randn(B, C, KV, D, generator=gen, device=dev).to(dt)
+    slot_pos = lo + (ar - lo) % C
+    pos = torch.where(slot_pos <= qpos, slot_pos, torch.full_like(ar, -1))
+    pos = pos.expand(b, C).contiguous()
+    qp = torch.full((b, 1), qpos, dtype=torch.int32, device=dev)
+    q = torch.randn(b, 1, H, D, generator=gen, device=dev).to(dt)
+    kc = torch.randn(b, C, KV, D, generator=gen, device=dev).to(dt)
+    vc = torch.randn(b, C, KV, D, generator=gen, device=dev).to(dt)
+    valid = (pos >= 0) & (pos <= qp)
+    if window is not None:
+        valid &= pos > qp - window
+    live = int(valid[0].sum().item())
     qt = q.transpose(1, 2)
     kt = kc.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vt = vc.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    mask = ((pos >= 0) & (pos <= qpos))[:, None, None, :]
-    valid = fill
-    flops = 4.0 * D * B * H * valid
-    # the filled slots' K and V, every slot's position, q, qpos and out
-    nbytes = (2 * B * valid * KV * D + 2 * q.numel()) * q.element_size() \
-        + (pos.numel() + qpos.numel()) * 4
+    flops = 4.0 * D * b * H * live
+    # the live slots' K and V, every slot's position, q, qpos and out
+    nbytes = (2 * b * live * KV * D + 2 * q.numel()) * q.element_size() \
+        + (pos.numel() + qp.numel()) * 4
     c = _timed_case(
-        lambda: kd.decode_attention(q, kc, vc, pos, qpos),
-        lambda: kd.decode_attention_plain(q, kc, vc, pos, qpos),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                               attn_mask=mask).transpose(1, 2),
+        lambda: kd.decode_attention(q, kc, vc, pos, qp, window=window),
+        lambda: kd.decode_attention_plain(q, kc, vc, pos, qp, window=window),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid[:, None, None, :]).transpose(1, 2),
         dt, flops, nbytes, iters=100)
-    c.update(shape=f"decode_B{B}_C{C}_filled{fill}_H{H}_KV{KV}_D{D}",
-             uses_per_step=LM_LAYERS)
+    c.update(shape=f"decode_B{b}_C{C}_qpos{qpos}_live{live}_H{H}_KV{KV}"
+                   f"_D{D}", rows=b)
     return c
 
 
@@ -504,7 +549,8 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     launches = read_counts()
     if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm,
                     "flash_attention": 0, "decode_attention": 0,
-                    "paged_decode_attention": 0, "copy_block": 0}:
+                    "paged_decode_attention": 0, "copy_block": 0,
+                    "lru_scan": 0}:
         raise AssertionError(f"{arch}: launches {launches}, want "
                              f"{want_conv} conv / {want_mm} matmul")
     launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
@@ -558,7 +604,9 @@ def phase_path(smi):
 
 def _plan_launches(plan, mode):
     """Kernel launches one ``mode`` call of the model makes, derived from
-    the plan: its live attention and matmul ops, times each unit's reps."""
+    the plan: its live attention, matmul and RG-LRU ops, times each unit's
+    reps (an RG-LRU scans with ``lru_scan`` in prefill; its decode step is
+    plain elementwise work, so a model with one wants 0 there)."""
     from repro_torch.core.lowering import live_ops
     want = {"flash_attention": 0, "decode_attention": 0, "matmul_fused": 0}
     for unit in plan.units:
@@ -571,6 +619,9 @@ def _plan_launches(plan, mode):
                     want[k] += unit.reps
                 elif op.op in ("matmul", "glu_matmul"):
                     want["matmul_fused"] += unit.reps
+                elif op.op == "rg_lru":
+                    want["lru_scan"] = want.get("lru_scan", 0) + (
+                        unit.reps if mode == "prefill" else 0)
     return want
 
 
@@ -584,10 +635,10 @@ def _counted(got, want, what):
 
 
 def _lm_check_logits(what, y, yr, tol):
-    V = yr.shape[-1]
-    if tuple(y.shape) != (B, 1, V) or not torch.isfinite(y.float()).all():
+    b, V = yr.shape[0], yr.shape[-1]
+    if tuple(y.shape) != (b, 1, V) or not torch.isfinite(y.float()).all():
         raise AssertionError(f"{what}: logits {tuple(y.shape)} not finite "
-                             f"({B}, 1, {V})")
+                             f"({b}, 1, {V})")
     err = relerr(y, yr)
     if err >= tol:
         raise AssertionError(f"{what}: logits relerr {err} vs the reference "
@@ -728,13 +779,14 @@ SERVE_SLOTS, SERVE_SEQ, SERVE_BS, SERVE_NEW = 8, 1024, 16, 32
 SERVE_LIVE = [505 + 4 * b for b in range(8)]     # kernel phase: ~520 a row
 
 
-def _paged_case(sq, dt, gen):
-    """paged_decode_attention at the serving shape: 8 rows of ~520 live
-    tokens in a 513-block pool, one query a row (a decode tick) or five (a
-    verify row of ngram:4)."""
+def _paged_case(sq, dt, gen, H=LM_H, KV=LM_KV, D=LM_D, filled=SERVE_LIVE,
+                window=None):
+    """paged_decode_attention at the serving shape: 8 rows of ``filled``
+    tokens so far (by default ~520) in a 513-block pool of 16-token blocks,
+    one query a row (a decode tick) or five (a verify row of ngram:4)."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
-    H, KV, D, bs = LM_H, LM_KV, LM_D, SERVE_BS
+    bs = SERVE_BS
     nblk = SERVE_SEQ // bs
     NB = 1 + SERVE_SLOTS * nblk
     q = torch.randn(B, sq, H, D, generator=gen, device=dev).to(dt)
@@ -742,10 +794,10 @@ def _paged_case(sq, dt, gen):
     vp = torch.randn(NB, bs, KV, D, generator=gen, device=dev).to(dt)
     bt = (1 + torch.randperm(B * nblk, generator=gen, device=dev)
           .reshape(B, nblk)).to(torch.int32)
-    lens = torch.tensor(SERVE_LIVE, dtype=torch.int32, device=dev)
+    lens = torch.tensor(filled, dtype=torch.int32, device=dev)
     qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
                                         device=dev)[None]
-    kw = dict(qpos=qpos if sq > 1 else None)
+    kw = dict(qpos=qpos if sq > 1 else None, window=window)
     C = nblk * bs
     kpos = torch.arange(C, device=dev)
     mask = (kpos[None, None, None, :] <= qpos[:, None, :, None])
@@ -1018,82 +1070,383 @@ def phase_serving(smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# recurrent: the RG-LRU hybrid, recurrentgemma-2b
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-2b at full width (configs/recurrentgemma_2b.py): 26 layers,
+# (rec, rec, attn) x 8 + (rec, rec); 10 heads over 1 KV head of 256 with a
+# 2048-token window; RG-LRU width 2560
+RG_ARCH = "recurrentgemma-2b"
+RG_S, RG_C, RG_H, RG_KV, RG_D, RG_W = 512, 1024, 10, 1, 256, 2560
+RG_WINDOW, RG_ATTN, RG_REC = 2048, 8, 18
+RG_MATMULS = 138       # a prefill or decode step: 8 attn x 6 + 18 rec x 5
+RG_STEPS = 32
+# the window run: one row, a 2080-token prompt (the window cuts in the
+# prefill), 24 decode steps over the 2048-slot rolling cache (it wraps)
+RG_LONG, RG_LONG_STEPS = 2080, 24
+# workload R: 16 prompts of exactly 256 tokens (the bucket), 16-48 new
+# tokens each, greedy, 8 slots of up to 1024 tokens in blocks of 16
+RG_PROMPT, RG_REQS = 256, 16
+# the paged kernel's case: 8 rows of 260-295 tokens so far (a 256-token
+# prompt and its new tokens)
+RG_FILLED = [260 + 5 * b for b in range(8)]
+
+
+def _lru_case(dt, gen):
+    """lru_scan at recurrentgemma-2b's prefill: (8, 512, 2560), a in (0, 1)
+    as the RG-LRU gate gives it.  No single PyTorch call computes a linear
+    recurrence, so there is no library time."""
+    from repro_torch.kernels import lru_scan as kl
+    dev = torch.device("cuda")
+    a = torch.rand(B, RG_S, RG_W, generator=gen, device=dev).to(dt)
+    b = torch.randn(B, RG_S, RG_W, generator=gen, device=dev).to(dt)
+    flops = 2.0 * a.numel()                         # one FMA an element
+    nbytes = 3.0 * a.numel() * a.element_size()     # read a, b; write h
+    c = _timed_case(lambda: kl.lru_scan(a, b), lambda: kl.lru_scan_plain(a, b),
+                    None, dt, flops, nbytes, iters=50)
+    c.update(shape=f"scan_B{B}_S{RG_S}_W{RG_W}", rows=B)
+    return c
+
+
+def phase_rec_kernels():
+    """Phase 9: the recurrent path's kernels at its shapes, bf16 and fp32."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = {"lru_scan": [], "flash_attention": [], "decode_attention": [],
+             "paged_decode_attention": []}
+    heads = dict(H=RG_H, KV=RG_KV, D=RG_D, window=RG_WINDOW)
+    for dt in (torch.bfloat16, torch.float32):
+        for kname, c in (
+                ("lru_scan", _lru_case(dt, gen)),
+                ("flash_attention",
+                 _flash_case(dt, gen, S=RG_S, iters=10, **heads)),
+                ("flash_attention",
+                 _flash_case(dt, gen, b=1, S=RG_LONG, iters=10, **heads)),
+                ("decode_attention", _decode_case(
+                    dt, gen, C=RG_C, qpos=RG_S + RG_STEPS - 2, **heads)),
+                ("decode_attention", _decode_case(
+                    dt, gen, b=1, C=RG_WINDOW,
+                    qpos=RG_LONG + RG_LONG_STEPS - 2, **heads)),
+                ("paged_decode_attention",
+                 _paged_case(1, dt, gen, filled=RG_FILLED, **heads))):
+            cases[kname].append(c)
+            log(json.dumps({"kernel": kname, "arch": RG_ARCH, **c}))
+    return cases
+
+
+def _rg_requests(V):
+    """Workload R from RandomState(0): 16 prompts of exactly 256 tokens,
+    16-48 new tokens each, so evictions and refills come at different
+    ticks."""
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(SEED)
+    return [Request(f"r{i}", rng.randint(0, V, RG_PROMPT).astype(np.int32),
+                    max_new_tokens=int(rng.randint(16, 49)))
+            for i in range(RG_REQS)]
+
+
+def _rg_engine(cm, params, reqs, **kw):
+    from repro_torch.serving import Engine, EngineConfig
+    eng = Engine(cm, params, EngineConfig(
+        max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ, block_size=SERVE_BS,
+        prompt_buckets=(RG_PROMPT,), **kw))
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, rep
+
+
+def _serve_logits(cap, ref, prec):
+    """Every logits row that ``cap`` captured against ``ref``'s, up to the
+    first token where a request's two streams part: finite, and relerr
+    under PATH_TOL[prec]."""
+    errs, agree, total = [], 0, 0
+    for x in cap.results:
+        xr = ref.by_id[x.rid]
+        for t, (a, b_) in enumerate(zip(x.tokens, xr.tokens)):
+            la = torch.from_numpy(x.logits[t])
+            if not torch.isfinite(la).all():
+                raise AssertionError(f"{x.rid}: logits not finite")
+            errs.append(relerr(la, torch.from_numpy(xr.logits[t])))
+            if a != b_:
+                break
+        agree += sum(a == b_ for a, b_ in zip(x.tokens, xr.tokens))
+        total += len(xr.tokens)
+    if max(errs) >= PATH_TOL[prec]:
+        raise AssertionError(f"workload R {prec} logits relerr {max(errs)} "
+                             "vs the reference backend")
+    return {"relerr_max": max(errs), "rows": len(errs),
+            "greedy_agreement_share": agree / total}
+
+
+def _refused(what, fn, match):
+    """``fn`` must raise the ValueError that refuses ``what``."""
+    try:
+        fn()
+    except ValueError as e:
+        if match not in str(e):
+            raise AssertionError(f"{what}: refused with {e!r}, want "
+                                 f"{match!r}") from e
+        return str(e)
+    raise AssertionError(f"{what} was served; it must be refused")
+
+
+def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
+    """One generate through the port's entry point with the counts set to
+    0 just before and read just after; then the prefill and each
+    teacher-forced decode step held against the reference backend (logits
+    within ``PATH_TOL[prec]``), and in fp32 the greedy tokens identical to
+    the reference backend's."""
+    b, S = prompt.shape
+    batch = {"tokens": prompt}
+    reset_counts()
+    toks, _ = cm.generate(params, batch, steps=steps)
+    launches = _counted(read_counts(), {
+        k: want_p.get(k, 0) + (steps - 1) * want_d.get(k, 0)
+        for k in set(want_p) | set(want_d)}, f"{prec} generate")
+    V = cm.cfg.vocab_size
+    if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
+        raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
+    rec = {"launches": launches, "tokens_row0": toks[0].tolist()}
+    if prec == "fp32":
+        tr, _ = ref.generate(params, batch, steps=steps)
+        if not torch.equal(toks, tr):
+            diff = (toks != tr).float().mean().item()
+            raise AssertionError(f"fp32 greedy tokens differ from the "
+                                 f"reference backend's ({diff:.3f} of them)")
+        rec["greedy_identical_steps"] = steps
+    reset_counts()
+    y, st, _ = cm.prefill(params, batch)
+    _counted(read_counts(), want_p, "one prefill")
+    yr, st_r, _ = ref.prefill(params, batch)
+    errs = [_lm_check_logits("prefill", y, yr, PATH_TOL[prec])]
+    agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
+    for t in range(steps - 1):
+        tok = {"tokens": toks[:, t:t + 1].long()}
+        reset_counts()
+        y, st, _ = cm.decode(params, tok, st, S + t)
+        _counted(read_counts(), want_d, f"decode step {t}")
+        yr, st_r, _ = ref.decode(params, tok, st_r, S + t)
+        errs.append(_lm_check_logits(f"decode step {t}", y, yr,
+                                     PATH_TOL[prec]))
+        agree.append((yr[:, -1].argmax(-1) == toks[:, t + 1])
+                     .float().mean().item())
+    rec.update(prefill_relerr=errs[0], decode_relerr_max=max(errs[1:]),
+               greedy_agreement_share=sum(agree) / len(agree))
+    return rec
+
+
+def phase_rec_path(smi):
+    """Phase 10: full-width recurrentgemma-2b (random weights from seed 0)
+    through ``flow.compile`` (generate; the window run) and
+    ``Engine.run`` (workload R), bf16 then fp32."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    rec = {"arch": RG_ARCH, "nvidia_smi": smi}
+    gen_shape = ShapeConfig("serve", "decode", RG_C, B)
+    long_shape = ShapeConfig("serve", "decode", 4096, 1)
+    srv_shape = ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
+    V = None
+    runs = {}
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(RG_ARCH, gen_shape, fl)
+        ref = tflow.compile(RG_ARCH, gen_shape, fl, backend="reference")
+        ks = cm.plan.kernels
+        if any(ks[o] != "cuda" for o in ("attention", "decode_attention",
+                                         "matmul", "glu_matmul", "rg_lru")):
+            raise AssertionError(f"{RG_ARCH}: plan.kernels {ks}")
+        want_p = _plan_launches(cm.plan, "prefill")
+        want_d = _plan_launches(cm.plan, "decode")
+        if want_p != {"flash_attention": RG_ATTN, "decode_attention": 0,
+                      "matmul_fused": RG_MATMULS, "lru_scan": RG_REC} or \
+                want_d != {"flash_attention": 0, "decode_attention": RG_ATTN,
+                           "matmul_fused": RG_MATMULS, "lru_scan": 0}:
+            raise AssertionError(f"plan launches {want_p} / {want_d}")
+        rec["units"] = cm.describe().splitlines()[2].strip()
+        rec["kernels_line"] = cm.describe().splitlines()[-1].strip()
+        t0 = time.perf_counter()
+        params = cm.init_params(SEED)
+        torch.cuda.synchronize()
+        rec[f"init_params_s_{prec}"] = time.perf_counter() - t0
+        V = cm.cfg.vocab_size
+        rs = np.random.RandomState(SEED)
+        prompt = torch.from_numpy(rs.randint(0, V, (B, RG_S))).cuda()
+        long_prompt = torch.from_numpy(rs.randint(0, V, (1, RG_LONG))).cuda()
+
+        # a. generate: 32 tokens a row after a 512-token prompt
+        g = _rg_generate(cm, ref, params, prompt, RG_STEPS, want_p, want_d,
+                         prec)
+        rec[f"generate_{prec}"] = g
+        log(json.dumps({"rec_generate": prec, **g}))
+        if prec == "bf16":
+            pre = ShapeConfig("serve", "prefill", RG_S, B)
+            cm_p = tflow.compile(RG_ARCH, pre, fl)
+            ref_p = tflow.compile(RG_ARCH, pre, fl, backend="reference")
+            mp = cm_p.measure("prefill", iters=3, seed=SEED, params=params)
+            mpr = ref_p.measure("prefill", iters=3, seed=SEED, params=params)
+            md = cm.measure("decode", iters=20, seed=SEED, params=params)
+            mdr = ref.measure("decode", iters=20, seed=SEED, params=params)
+            dstate = cm.init_state(B)
+            dtok = {"tokens": prompt[:, :1]}
+            rec["measure"] = {
+                "device": mp["device"],
+                "prefill_ms": mp["measured_step_s"] * 1e3,
+                "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+                "prefill_tokens_per_s": mp["tokens_per_s"],
+                "prefill_peak_bytes": mp["peak_bytes"],
+                "reference_prefill_ms": mpr["measured_step_s"] * 1e3,
+                "decode_ms": md["measured_step_s"] * 1e3,
+                "decode_mean_ms": md["mean_step_s"] * 1e3,
+                "decode_tokens_per_s": md["tokens_per_s"],
+                "reference_decode_ms": mdr["measured_step_s"] * 1e3,
+                "prefill_profile": _profile(
+                    lambda: cm_p.prefill(params, {"tokens": prompt}), 2),
+                "decode_profile": _profile(
+                    lambda: cm.decode(params, dtok, dstate, 100), 10)}
+            log(json.dumps({"rec_measure": rec["measure"]}))
+            del dstate
+
+        # b. the window: 2080-token prompt, 24 steps over 2048 slots
+        cml = tflow.compile(RG_ARCH, long_shape, fl)
+        refl = tflow.compile(RG_ARCH, long_shape, fl, backend="reference")
+        if cml.plan.cache_len != RG_WINDOW:
+            raise AssertionError(f"window run: cache_len "
+                                 f"{cml.plan.cache_len}")
+        w = _rg_generate(cml, refl, params, long_prompt, RG_LONG_STEPS,
+                         _plan_launches(cml.plan, "prefill"),
+                         _plan_launches(cml.plan, "decode"), prec)
+        rec[f"window_{prec}"] = w
+        log(json.dumps({"rec_window": prec, **w}))
+
+        # c. serving: workload R through Engine.run
+        cms = tflow.compile(RG_ARCH, srv_shape, fl)
+        refs = tflow.compile(RG_ARCH, srv_shape, fl, backend="reference")
+        sp = _plan_launches(cms.plan, "prefill")
+        st = _plan_launches(cms.plan, "decode")
+        reqs = _rg_requests(V)
+        reset_counts()
+        eng, rep = _rg_engine(cms, params, reqs, trace=prec == "bf16")
+        m = rep.metrics
+        want = {"flash_attention": sp["flash_attention"] * m["prefill_batches"],
+                "lru_scan": sp["lru_scan"] * m["prefill_batches"],
+                "matmul_fused": sp["matmul_fused"] * m["prefill_batches"]
+                + st["matmul_fused"] * m["decode_ticks"],
+                "paged_decode_attention":
+                    st["decode_attention"] * m["decode_ticks"]}
+        s_launch = _counted(read_counts(), want, f"{prec} workload R")
+        runs[prec] = rep
+        r = _serve_record(eng, rep)
+        r.update(launches=s_launch,
+                 dense_state_bytes=eng.last_cache.dense_bytes())
+        rec[f"serve_{prec}"] = r
+        log(json.dumps({"serving": "R", "arch": RG_ARCH, "precision": prec,
+                        **r}))
+        _, rep_r = _rg_engine(refs, params, reqs, capture_logits=True)
+        _, cap = _rg_engine(cms, params, reqs, capture_logits=True)
+        logits = _serve_logits(cap, rep_r, prec)
+        if prec == "fp32":
+            if not _tokens(rep) == _tokens(cap) == _tokens(rep_r):
+                raise AssertionError("fp32 workload R: greedy tokens differ "
+                                     "from the reference backend's")
+            rec["serve_fp32"].update(identical_to_reference=True,
+                                     logits=logits)
+        else:
+            rec["serve_bf16_logits"] = logits
+            # the refusals, with the recurrent state's own messages
+            pad = [dataclasses.replace(reqs[0], rid="pad",
+                                       prompt=reqs[0].prompt[1:])]
+            rec["refusals"] = {
+                "padded_prompt": _refused(
+                    "a padded prompt", lambda: _rg_engine(cms, params, pad),
+                    "recurrent temporal-mixing"),
+                "prefix_cache": _refused(
+                    "prefix_cache", lambda: _rg_engine(
+                        cms, params, reqs[:1], prefix_cache=True),
+                    "prefix_cache requires a pure attention decoder"),
+                "chunked_prefill": _refused(
+                    "chunked prefill", lambda: _rg_engine(
+                        cms, params, reqs[:1], chunked_prefill=True),
+                    "chunked prefill"),
+                "speculation": _refused(
+                    "speculation", lambda: _rg_engine(
+                        cms, params, reqs[:1], speculation="ngram:4"),
+                    "speculative decoding needs")}
+            rec["serve_profile"] = _profile(
+                lambda: _rg_engine(cms, params, reqs[:SERVE_SLOTS]), 1)
+            log(json.dumps({"rec_serving_checks": {
+                k: rec[k] for k in ("serve_bf16_logits", "serve_profile")}}))
+        del params, cm, ref, cml, refl, cms, refs
+        torch.cuda.empty_cache()
+    for prec in ("bf16", "fp32"):
+        g, w = rec[f"generate_{prec}"], rec[f"window_{prec}"]
+        log(f"{RG_ARCH} {prec}: logits relerr vs the reference backend: "
+            f"generate prefill {g['prefill_relerr']:.3e}, decode max "
+            f"{g['decode_relerr_max']:.3e}; window prefill "
+            f"{w['prefill_relerr']:.3e}, decode max "
+            f"{w['decode_relerr_max']:.3e}")
+    log(f"{RG_ARCH}: workload R logits relerr vs the reference backend: bf16 "
+        f"{rec['serve_bf16_logits']['relerr_max']:.3e}, fp32 "
+        f"{rec['serve_fp32']['logits']['relerr_max']:.3e}")
+    log(f"{RG_ARCH}: fp32 greedy tokens identical to the reference backend "
+        "(generate, window, workload R)")
+    return rec
+
+
+def rec_kernel_entries(cases, rg):
+    """Each kernel at recurrentgemma-2b's shapes, summed over one generate
+    (a prefill of 8 x 512 tokens, then 31 decode steps: lru_scan and flash
+    at the prefill shape, decode_attention over the 1024-slot cache);
+    paged_decode_attention one call at workload R's shape.  ``launches``
+    counts the recurrent path's runs of that dtype (generate, window run,
+    workload R)."""
+    uses = {"lru_scan": RG_REC, "flash_attention": RG_ATTN,
+            "decode_attention": RG_ATTN * (RG_STEPS - 1),
+            "paged_decode_attention": 1}
+    launches = {}
+    for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
+        launches[dt] = {k: sum(rg[f"{run}_{prec}"]["launches"].get(k, 0)
+                               for run in ("generate", "window", "serve"))
+                        for k in cases}
+
+    def per(kname, used):
+        (r, u), = used
+        return (f"one call at {r['shape']}" if u == 1 else
+                f"{u} calls at {r['shape']} (one {RG_ARCH} generate)")
+    return summed_entries(
+        cases, launches, f"@{RG_ARCH}", per,
+        lambda k, r: uses[k] if r.get("rows", B) == B else 0)
+
+
 def serving_kernel_entries(cases, serve):
-    """One entry per serving kernel and dtype: the time of one call at the
-    serving shape (paged: a decode tick, Sq = 1), the launches of the
-    serving main path (workloads A-D)."""
-    src = {"paged_decode_attention": (
-        "src/repro_torch/csrc/paged_decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:189"),
-        "copy_block": ("src/repro_torch/csrc/copy_block.cu",
-                       "src/repro/kernels/decode_attention.py:158")}
-    launches = {"bfloat16": serve["launches"],
-                "float32": serve["launches_fp32"]}
-    out = []
-    for kname, rows in cases.items():
-        for dt in ("bfloat16", "float32"):
-            r = next(r for r in rows if r["dtype"] == dt
-                     and r.get("sq", 1) == 1)
-            out.append({
-                "name": f"{kname}@serving/{dt}", "route": "cuda",
-                "source": src[kname][0], "replaces": src[kname][1],
-                "launches": launches[dt][kname],
-                "max_abs_err": max(x["max_abs_err"] for x in rows
-                                   if x["dtype"] == dt),
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "ok": True,
-                "per": f"one call at {r['shape']}"})
-    return out
+    """Each serving kernel: one call at the serving shape (paged: a decode
+    tick, Sq = 1), the launches of the serving main path (workloads A-D)."""
+    return summed_entries(
+        cases, {"bfloat16": serve["launches"],
+                "float32": serve["launches_fp32"]}, "@serving",
+        lambda k, used: f"one call at {used[0][0]['shape']}",
+        lambda k, r: int(r.get("sq", 1) == 1))
 
 
 def kernel_entries(cases, path):
-    """One entry per kernel and dtype: times summed over the kernel's
-    launches in one ResNet-34 forward (each shape times its uses)."""
-    src = {"conv2d_fused": ("src/repro_torch/csrc/conv2d_fused.cu",
-                            "src/repro/kernels/conv2d.py:64"),
-           "matmul_fused": ("src/repro_torch/csrc/matmul_fused.cu",
-                            "src/repro/kernels/matmul_fused.py:83")}
+    """Each CNN kernel, summed over its launches in one ResNet-34 forward
+    (each shape times its uses)."""
     launches = {"bfloat16": {}, "float32": {}}
     for r in path:
         if r["arch"] == "resnet34":
             d = launches["bfloat16" if r["flow"] == "bf16" else "float32"]
             for k, n in r["launches"].items():
                 d[k] = d.get(k, 0) + n
-    out = []
-    for kname, rows in cases.items():
-        for dt in ("bfloat16", "float32"):
-            rs = [r for r in rows if r["dtype"] == dt]
-
-            def tot(key):
-                return sum(r[key] * r["uses"] for r in rs)
-            by_ops = sum(r["bound_ms"] * r["uses"] for r in rs
-                         if r["bound_by"] == "operations")
-            out.append({
-                "name": f"{kname}/{dt}", "route": "cuda",
-                "source": src[kname][0], "replaces": src[kname][1],
-                "launches": launches[dt].get(kname, 0),
-                "max_abs_err": max(r["max_abs_err"] for r in rs),
-                "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-                "bound_ms": tot("bound_ms"),
-                "bound_by": ("operations" if by_ops >= tot("bound_ms") / 2
-                             else "bytes"),
-                "library_ms": tot("library_ms"), "ok": True,
-                "per": "one ResNet-34 forward at batch 8, 224 px"})
-    return out
+    return summed_entries(
+        cases, launches, "",
+        lambda k, used: "one ResNet-34 forward at batch 8, 224 px",
+        lambda k, r: r["uses"])
 
 
 def lm_kernel_entries(cases, lm):
-    """One entry per LM kernel and dtype: times summed over the launches of
-    the LM path's run, one ``generate`` of 32 tokens (a prefill of 8 x 512
-    tokens, then 31 decode steps), each case's time times its uses there."""
-    src = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/attention.py:93"),
-           "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                "src/repro/kernels/decode_attention.py:61"),
-           "matmul_fused": ("src/repro_torch/csrc/matmul_fused.cu",
-                            "src/repro/kernels/matmul_fused.py:83")}
-    launches = {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]}
+    """Each LM kernel, summed over one ``generate`` of 32 tokens (a prefill
+    of 8 x 512 tokens, then 31 decode steps), each case's time times its
+    uses there."""
     steps = LM_STEPS - 1
 
     def uses(kname, r):
@@ -1102,27 +1455,61 @@ def lm_kernel_entries(cases, lm):
         if kname == "decode_attention":
             return LM_LAYERS * steps
         return LM_LAYERS * (1 if r["rows"] > B else steps)
+    return summed_entries(
+        cases, {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]},
+        f"@{LM_ARCH}",
+        lambda k, used: f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
+                        f"tokens, then {steps} decode steps", uses)
+
+
+KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
+    "conv2d_fused": ("src/repro_torch/csrc/conv2d_fused.cu",
+                     "src/repro/kernels/conv2d.py:64"),
+    "matmul_fused": ("src/repro_torch/csrc/matmul_fused.cu",
+                     "src/repro/kernels/matmul_fused.py:83"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention.py:93"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:61"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:189"),
+    "copy_block": ("src/repro_torch/csrc/copy_block.cu",
+                   "src/repro/kernels/decode_attention.py:158"),
+    "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
+                 "src/repro/kernels/lru_scan.py:33"),
+}
+
+
+def summed_entries(cases, launches, tag, per, uses):
+    """One ``kernels``-line entry per kernel and dtype.  Each case's times
+    and bound count ``uses(kernel, case)`` times (0 leaves a case out) and
+    are summed; ``per(kernel, [(case, uses), ...])`` names what the sum
+    covers; ``launches`` is {dtype: {kernel: count}} from that dtype's
+    main-path run."""
     out = []
     for kname, rows in cases.items():
         for dt in ("bfloat16", "float32"):
             rs = [r for r in rows if r["dtype"] == dt]
+            used = [(r, uses(kname, r)) for r in rs if uses(kname, r)]
 
             def tot(key):
-                return sum(r[key] * uses(kname, r) for r in rs)
-            by_ops = sum(r["bound_ms"] * uses(kname, r) for r in rs
+                return sum(r[key] * u for r, u in used)
+            by_ops = sum(r["bound_ms"] * u for r, u in used
                          if r["bound_by"] == "operations")
+            lib = all(r["library_ms"] is not None for r, _ in used)
             out.append({
-                "name": f"{kname}@{LM_ARCH}/{dt}", "route": "cuda",
-                "source": src[kname][0], "replaces": src[kname][1],
-                "launches": launches[dt][kname],
+                "name": f"{kname}{tag}/{dt}", "route": "cuda",
+                "source": KERNEL_SOURCES[kname][0],
+                "replaces": KERNEL_SOURCES[kname][1],
+                "launches": launches[dt].get(kname, 0),
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": tot("ms"), "plain_ms": tot("plain_ms"),
                 "bound_ms": tot("bound_ms"),
                 "bound_by": ("operations" if by_ops >= tot("bound_ms") / 2
                              else "bytes"),
-                "library_ms": tot("library_ms"), "ok": True,
-                "per": f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
-                       f"tokens, then {steps} decode steps"})
+                "library_ms": tot("library_ms") if lib else None, "ok": True,
+                "per": per(kname, used)})
     return out
 
 
@@ -1142,15 +1529,20 @@ def main() -> int:
     path = phase_path(smi)
     lm = phase_lm_path(smi)
     serve = phase_serving(smi)
+    rec_cases = phase_rec_kernels()
+    rg = phase_rec_path(smi)
     entries = kernel_entries(cases, path) + \
         lm_kernel_entries(lm_cases, lm) + \
-        serving_kernel_entries(serve_cases, serve)
+        serving_kernel_entries(serve_cases, serve) + \
+        rec_kernel_entries(rec_cases, rg)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
                    "kernels": cases, "lm_kernels": lm_cases,
                    "serving_kernels": serve_cases, "path": path,
-                   "lm_path": lm, "serving": serve, "entries": entries,
+                   "lm_path": lm, "serving": serve,
+                   "rec_kernels": rec_cases, "rec_path": rg,
+                   "entries": entries,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-The port's registry holds the paper's three CNNs and the first LM,
-llama3.2-1b; the other LM configs join it with their families (ROADMAP
-Queue 1).
+The port's registry holds the paper's three CNNs and the LMs ported so
+far: the hybrid recurrentgemma-2b and the dense llama3.2-1b; the other LM
+configs join it with their families (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -14,14 +14,15 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES: Dict[str, str] = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "llama3.2-1b": "llama32_1b",
     "lenet5": "lenet5",
     "mobilenetv1": "mobilenetv1",
     "resnet34": "resnet34",
 }
 
-ARCHS: List[str] = list(_MODULES)[:1]           # the LMs ported so far
-CNNS: List[str] = list(_MODULES)[1:]            # the paper's own networks
+ARCHS: List[str] = list(_MODULES)[:2]           # the LMs ported so far
+CNNS: List[str] = list(_MODULES)[2:]            # the paper's own networks
 
 
 def _mod(name: str):

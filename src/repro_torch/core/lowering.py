@@ -2,7 +2,7 @@
 
 * ``init_params``  — parameter dict (folded groups pre-stacked)
 * ``param_shapes`` — the same tree as meta tensors (no allocation)
-* ``init_state``   — serving state (the attention KV caches), stacked
+* ``init_state``   — serving state (KV caches, recurrent states), stacked
 * ``_make_apply``  — apply(params, batch, state, cache_index, mode)
 
 Folded units (the paper's parameterized kernels; a ``lax.scan`` in the JAX
@@ -57,6 +57,12 @@ def _init_one(seed: int, name: str, spec: ParamSpec,
         return torch.zeros(shape, dtype=dtype)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype)
+    if spec.init == "lru_lambda":
+        # the RG-LRU decay: a = sigmoid(lambda)^c starts in [0.9, 0.999]^(1/8)
+        u = torch.rand(shape, generator=_generator(seed, name),
+                       dtype=torch.float32) * (0.999 - 0.9) + 0.9
+        r = u ** (1.0 / 8.0)
+        return torch.log(r / (1 - r)).to(dtype)
     if spec.init == "embed":
         scale = spec.init_scale or shape[-1] ** -0.5
     elif spec.init == "normal":
@@ -66,7 +72,7 @@ def _init_one(seed: int, name: str, spec: ParamSpec,
     else:
         raise NotImplementedError(
             f"init {spec.init!r} of {name} is not ported yet (the port uses "
-            "normal, embed, zeros and ones)")
+            "normal, embed, lru_lambda, zeros and ones)")
     x = torch.randn(shape, generator=_generator(seed, name),
                     dtype=torch.float32)
     return (x * scale).to(dtype)
@@ -143,13 +149,20 @@ def param_shapes(plan: ExecutionPlan) -> Dict[str, Any]:
 def _op_state_shapes(op: MicroOp, cfg, B: int, C: int, dtype):
     """{suffix: (shape, dtype)} for one stateful op: the rolling KV cache of
     a self-attention op (``pos`` holds each slot's absolute position, -1
-    for empty).  The recurrent families' state arrives with them."""
+    for empty); the last ``kw - 1`` inputs of a causal conv; the hidden
+    state of an RG-LRU.  The other families' state arrives with them."""
     if op.op == "attention" and not op.attrs.get("cross"):
         att = cfg.attention
         KV, Dh = att.n_kv_heads, att.head_dim
         return {"k": ((B, C, KV, Dh), dtype),
                 "v": ((B, C, KV, Dh), dtype),
                 "pos": ((B, C), torch.int32)}
+    if op.op == "conv1d_causal":
+        kw, w = op.params[0].shape
+        return {"": ((B, kw - 1, w), dtype)}
+    if op.op == "rg_lru":
+        w = op.params[0].shape[0]
+        return {"": ((B, w), dtype)}
     raise NotImplementedError(
         f"serving state of {op.op!r} (cross={op.attrs.get('cross', False)}) "
         "is not ported yet (ROADMAP Queue 1, item 12)")
@@ -170,8 +183,9 @@ def _mk_state(shapes: Dict[str, tuple], lead: Tuple[int, ...],
 def init_state(plan: ExecutionPlan, batch_size: int,
                device: torch.device) -> Dict[str, Any]:
     """Serving state, stacked to match the folded units: the JAX package's
-    layout, ``{unit_key: {state_key: {"k", "v", "pos"}}}``, with a leading
-    ``(reps,)`` axis for folded units."""
+    layout, ``{unit_key: {state_key: {"k", "v", "pos"}}}`` for attention
+    and ``{unit_key: {state_key: tensor}}`` for the recurrent ops, with a
+    leading ``(reps,)`` axis for folded units."""
     graph, cfg = plan.graph, plan.cfg
     dtype = plan.prec.compute_dtype
     C = plan.cache_len
@@ -183,7 +197,13 @@ def init_state(plan: ExecutionPlan, batch_size: int,
         for b in blocks:
             for op in b.stateful_ops():
                 shapes = _op_state_shapes(op, cfg, batch_size, C, dtype)
-                ust[op.attrs["state_key"]] = _mk_state(shapes, lead, device)
+                made = _mk_state(shapes, lead, device)
+                key = op.attrs["state_key"]
+                if op.op == "attention":      # attention state: a dict
+                    ust[key] = made
+                else:
+                    for suf, v in made.items():
+                        ust[key + suf] = v
         if ust:
             state[unit_key(graph, unit)] = ust
     return state

@@ -9,8 +9,8 @@ conv entry points dispatch through the :mod:`repro_torch.kernels.registry`
 using the per-op backend table the ``kernels`` pass recorded on the plan
 (``plan.kernels``).
 
-This is the CNN and dense-LM subset of the JAX package's
-``core/ops_impl.py``; the recurrent, MoE and multimodal ops arrive with their
+This is the CNN, dense-LM and RG-LRU subset of the JAX package's
+``core/ops_impl.py``; the RWKV6, MoE and multimodal ops arrive with their
 families.  Every dtype cast sits where the JAX op puts it, so bf16 rounds at
 the same places in both, and a product JAX asks in fp32
 (``preferred_element_type``) upcasts its operands here (exact for bf16).
@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.conv2d import same_pads
+from repro_torch.kernels.lru_scan import lru_scan_plain
 from repro_torch.kernels.registry import plan_kernel
 
 
@@ -383,6 +384,76 @@ def _paged_decode(ctx: Ctx, st, skey, q, k, v, positions, *, window,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Temporal conv + RG-LRU (Griffin)
+# ---------------------------------------------------------------------------
+#
+# The state of both ops is kept in the op input's dtype (the compute dtype),
+# as in the JAX package; the decode step writes it into the state tensor it
+# was handed, in place, and hands that tensor back.
+
+def op_conv1d_causal(ctx: Ctx, op, p, x):
+    W = next(v for k, v in p.items() if k.endswith("_w")).float()
+    b = next(v for k, v in p.items() if k.endswith("_b")).float()
+    kw = op.attrs["width"]
+    skey = op.attrs["state_key"]
+    xf = x.float()
+    if ctx.mode == "decode":
+        st = ctx.state_in[skey]          # (B, kw-1, w) previous inputs
+        seq = torch.cat([st.float(), xf], dim=1)   # a new tensor: no alias
+        y = torch.einsum("bkw,kw->bw", seq, W)[:, None, :] + b
+        st.copy_(seq[:, 1:])
+        ctx.state_out[skey] = st
+        return y.to(ctx.compute_dtype)
+    S = x.shape[1]
+    pad = F.pad(xf, (0, 0, kw - 1, 0))
+    y = sum(pad[:, i:i + S, :] * W[i] for i in range(kw)) + b
+    if ctx.mode == "prefill":
+        tail = xf[:, max(0, S - (kw - 1)):, :]
+        if S < kw - 1:
+            tail = F.pad(tail, (0, 0, kw - 1 - S, 0))
+        ctx.state_out[skey] = tail.to(x.dtype)
+    return y.to(ctx.compute_dtype)
+
+
+def _block_diag_linear(x, W, b):
+    # x: (B, S, w); W: (nb, w/nb, w/nb)
+    B, S, w = x.shape
+    nb = W.shape[0]
+    xr = x.reshape(B, S, nb, w // nb)
+    y = torch.einsum("bsnk,nkj->bsnj", xr.float(), W.float())
+    return y.reshape(B, S, w) + b.float()
+
+
+def op_rg_lru(ctx: Ctx, op, p, x):
+    c = op.attrs.get("c", 8.0)
+    skey = op.attrs["state_key"]
+    lam = p["lru_lambda"].float()
+    xf = x.float()
+    r = torch.sigmoid(_block_diag_linear(x, p["lru_wa"], p["lru_ba"]))
+    i = torch.sigmoid(_block_diag_linear(x, p["lru_wx"], p["lru_bx"]))
+    # softplus as jax.nn.softplus computes it, logaddexp(x, 0): F.softplus
+    # turns linear above its threshold
+    sp = torch.logaddexp(-lam, torch.zeros_like(lam))
+    log_a = -c * r * sp                      # log of the recurrence gate
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * xf)
+    if ctx.mode == "decode":
+        st = ctx.state_in[skey]              # (B, w)
+        h = a[:, 0] * st.float() + gated[:, 0]
+        st.copy_(h)
+        ctx.state_out[skey] = st
+        return h[:, None, :].to(ctx.compute_dtype)
+    # the linear recurrence over the sequence: the hand-written scan kernel
+    # where the plan resolves rg_lru to cuda, its plain version elsewhere
+    kern = plan_kernel(ctx.plan, "rg_lru")
+    h = (kern or lru_scan_plain)(a, gated).float()
+    if ctx.mode == "prefill":
+        ctx.state_out[skey] = h[:, -1].to(x.dtype)
+    return h.to(ctx.compute_dtype)
+
+
 def op_image_in(ctx: Ctx, op, p, h):
     return h.to(ctx.compute_dtype)
 
@@ -499,4 +570,5 @@ OPS: Dict[str, Callable] = {
     "depthwise_conv2d": op_depthwise_conv2d, "batchnorm": op_batchnorm,
     "maxpool2d": op_maxpool2d, "avgpool2d": op_avgpool2d,
     "global_avgpool": op_global_avgpool, "flatten": op_flatten,
+    "conv1d_causal": op_conv1d_causal, "rg_lru": op_rg_lru,
 }

@@ -26,7 +26,8 @@ constexpr float NEG = -1e30f;
 template <int D>
 size_t smem_bytes(int G) {
   // qs [G][D], Ks [SLOTS][D+1], Vs [SLOTS][D], Ss [G][SLOTS], acc [G][D],
-  // m, l, alpha [G], slot positions [SLOTS]
+  // m, l, alpha [G], slot positions [SLOTS]; 154,744 bytes at D = 256,
+  // G = 10 (recurrentgemma-2b)
   return (size_t)(G * D + SLOTS * (D + 1) + SLOTS * D + G * SLOTS + G * D +
                   3 * G) * sizeof(float) + SLOTS * sizeof(int);
 }
@@ -199,6 +200,8 @@ int dispatch(int D, const void* q, const void* kc, const void* vc,
       return launch<T, 64>(q, kc, vc, pos, qpos, out, ws, B, C, H, KV, window, softcap, nsplit, chunk, s);
     case 128:
       return launch<T, 128>(q, kc, vc, pos, qpos, out, ws, B, C, H, KV, window, softcap, nsplit, chunk, s);
+    case 256:
+      return launch<T, 256>(q, kc, vc, pos, qpos, out, ws, B, C, H, KV, window, softcap, nsplit, chunk, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -23,7 +23,8 @@ constexpr float NEG = -1e30f;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // Qs [D][FBQ+PAD], Ks [D][FBK+PAD], Vs [FBK][D], Ps [FBK][FBQ+PAD], kpos
+  // Qs [D][FBQ+PAD], Ks [D][FBK+PAD], Vs [FBK][D], Ps [FBK][FBQ+PAD], kpos;
+  // 222,464 bytes at D = 256, under the 232,448 a block may opt in to
   return (size_t)(D * (FBQ + PAD) + D * (FBK + PAD) + FBK * D +
                   FBK * (FBQ + PAD)) * sizeof(float) + FBK * sizeof(int);
 }
@@ -210,6 +211,8 @@ int dispatch(int D, const void* q, const void* k, const void* v,
       return launch<T, 64>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, s);
     case 128:
       return launch<T, 128>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, s);
+    case 256:
+      return launch<T, 256>(q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

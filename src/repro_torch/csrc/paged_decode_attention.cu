@@ -13,7 +13,7 @@
 // R = Sq * H / KV query rows of its KV head (row r is query token r / G,
 // head kvh * G + r % G) over its split of the tokens 0 .. max(qpos[b]), and
 // writes partial (m, l, acc) to the fp32 workspace ws; the second combines
-// the splits of each row.
+// the splits of each row.  ROWS is 64, 32 at D = 256.
 #include <cmath>
 
 #include "common.cuh"
@@ -23,7 +23,11 @@ namespace {
 using namespace rt;
 
 constexpr int SLOTS = 64;          // tokens per tile
-constexpr int ROWS = 64;           // query rows per block at most
+// query rows per block at most: at D = 256, 64 rows of q and acc beside
+// the K/V tile would outgrow shared memory (kernels/decode_attention.py
+// paged_rows)
+template <int D>
+__host__ __device__ constexpr int rows_per_block() { return D > 128 ? 32 : 64; }
 constexpr int PTHREADS = 128;
 constexpr int PWARPS = PTHREADS / 32;
 constexpr int CTHREADS = 128;      // threads of the combining kernel
@@ -52,6 +56,7 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int kvh = blockIdx.y / n_rt, rt = blockIdx.y % n_rt;
   const int b = blockIdx.z;
   const int G = H / KV, R = Sq * G;
+  constexpr int ROWS = rows_per_block<D>();
   const int RT = min(R, ROWS);
   const int r0 = rt * ROWS;
   const int nr = min(ROWS, R - r0);
@@ -213,6 +218,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* qpos, void* out, float* ws, int B, int Sq, int H,
            int KV, int NB, int bs, int nblk, int window, float softcap,
            int nsplit, cudaStream_t stream) {
+  constexpr int ROWS = rows_per_block<D>();
   const int R = Sq * (H / KV);
   const int n_rt = (R + ROWS - 1) / ROWS;
   auto kern = paged_partial_kernel<T, D>;
@@ -247,6 +253,8 @@ int dispatch(int D, const void* q, const void* kp, const void* vp,
       return launch<T, 64>(q, kp, vp, bt, qpos, out, ws, B, Sq, H, KV, NB, bs, nblk, window, softcap, nsplit, s);
     case 128:
       return launch<T, 128>(q, kp, vp, bt, qpos, out, ws, B, Sq, H, KV, NB, bs, nblk, window, softcap, nsplit, s);
+    case 256:
+      return launch<T, 256>(q, kp, vp, bt, qpos, out, ws, B, Sq, H, KV, NB, bs, nblk, window, softcap, nsplit, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

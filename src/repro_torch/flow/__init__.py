@@ -85,7 +85,8 @@ class CompiledModel:
 
     def init_state(self, batch_size: int) -> Dict[str, Any]:
         """Empty serving state (KV caches of ``plan.cache_len`` slots, every
-        position -1) for ``batch_size`` rows, on this model's device."""
+        position -1; a hybrid's conv and RG-LRU states zero) for
+        ``batch_size`` rows, on this model's device."""
         return lowering.init_state(self.plan, batch_size, self.device)
 
     def _sync(self) -> None:
@@ -112,9 +113,9 @@ class CompiledModel:
 
     def decode(self, params, batch, state, cache_index) -> Any:
         """decode(params, {"tokens": (B, 1)}, state, cache_index) ->
-        (logits, state, aux).  Consumes ``state``: the new K/V are written
-        into its tensors in place and the same state comes back (the JAX
-        stage donates its state argument)."""
+        (logits, state, aux).  Consumes ``state``: the new K/V (and
+        recurrent states) are written into its tensors in place and the
+        same state comes back (the JAX stage donates its state argument)."""
         return self._timed_first(
             "decode", lambda: self.apply(params, batch, state=state,
                                          cache_index=cache_index,

@@ -46,6 +46,7 @@ SIGNATURES = {
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "copy_block": [_P] + [_I] * 5 + [_P],
+    "lru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -24,7 +24,10 @@ of a row with warp shuffles, P goes through shared memory into the P @ V
 product, and m, l and the output rows stay in registers.  Tiles dead in
 index space (above the causal diagonal, or wholly outside the window) are
 skipped, as the Pallas kernel skips them, which is exact under its
-positions contract (per-row shifted aranges).  The plan's TPU tile
+positions contract (per-row shifted aranges).  At head_dim 256
+(recurrentgemma-2b) the same layout takes 222,464 bytes of dynamic shared
+memory, just under the card's 227 KB a block, and 64 fp32 accumulators a
+thread: one block an SM.  The plan's TPU tile
 (``plan.tiles["attention"]``) is ignored: the kernel takes its own.
 
 On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
@@ -41,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)      # the head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernel is built for
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -42,7 +42,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)      # the head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
 SLOTS = 64                         # cache slots per tile in the kernel
 BLOCKS_PER_SM = 4
 
@@ -155,7 +155,7 @@ decode_attention.launches = 0
 # order into one VMEM accumulator per (row, KV head).  Here one block of
 # 128 threads serves the R = Sq * G query rows of one (row, KV head) over
 # one split of the row's live tokens, so that (splits x B x KV) blocks fill
-# the card; query rows beyond 64 go to further blocks.  The walk stops at
+# the card; query rows beyond 64 (32 at head_dim 256) go to further blocks.  The walk stops at
 # the token max(qpos[b]) (the Pallas kernel visits every table entry and
 # never reads ``lens``; only fully masked rows, whose output the engine
 # discards, can differ).  Each block resolves its tile's 64 tokens through
@@ -163,7 +163,11 @@ decode_attention.launches = 0
 # fp32, and writes partial (m, l, acc) to an fp32 workspace; the combine
 # kernel of ``decode_attention`` merges the splits.
 
-PAGED_ROWS = 64                    # query rows per block in the kernel
+def paged_rows(D: int) -> int:
+    """Query rows per block in the paged kernel (``rows_per_block`` of
+    ``csrc/paged_decode_attention.cu``): 64, or 32 at head_dim 256, where
+    64 rows of q and acc would not fit in shared memory beside the tile."""
+    return 32 if D > 128 else 64
 
 
 def paged_decode_attention_plain(q: torch.Tensor, kp: torch.Tensor,
@@ -259,7 +263,7 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
     nblk = bt.shape[1]
     G = H // KV
     R = Sq * G
-    n_rt = -(-R // PAGED_ROWS)
+    n_rt = -(-R // paged_rows(D))
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     nsplit = paged_splits(B, KV, n_rt, nblk * bs, n_sm)
     ws = torch.empty(B * KV * nsplit * R * (D + 2), dtype=torch.float32,

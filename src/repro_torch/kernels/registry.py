@@ -199,6 +199,7 @@ def _register_builtin():
     from repro_torch.kernels.conv2d import conv2d_fused
     from repro_torch.kernels.decode_attention import (
         copy_block, decode_attention, paged_decode_attention)
+    from repro_torch.kernels.lru_scan import lru_scan
     from repro_torch.kernels.matmul_fused import matmul_fused
 
     REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject)
@@ -211,6 +212,7 @@ def _register_builtin():
                       paged_decode_attention)
     REGISTRY.register("copy_block", "cuda", copy_block)
     REGISTRY.register("conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject)
+    REGISTRY.register("rg_lru", "cuda", lru_scan)
 
 
 _register_builtin()

@@ -15,6 +15,15 @@ where ``requests.jsonl`` holds one request per line, e.g.
 ``{"id": "a", "prompt": [1, 2, 3], "max_new_tokens": 8}`` or
 ``{"prompt_len": 12, "seed": 7}`` for a synthetic prompt.  Use
 ``--requests synthetic:N`` to replay N generated requests without a file.
+A model with recurrent state (``--arch recurrentgemma-2b``) serves only
+prompts that fill their bucket exactly, so for it every synthetic prompt
+is ``--prompt-len`` tokens long and the prompt buckets are the requests'
+prompt lengths::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --smoke --device cpu --requests synthetic:4 --max-batch 2 \
+      --max-seq-len 48 --block-size 8 --prompt-len 16 --steps 4
+
 The model runs on the CUDA card unless ``--device cpu`` is given; the
 weights are random, from seed 0.  ``--autotune``, ``--serving-autotune``
 and ``--tune-db`` wait for the DSE (ROADMAP Queue 1, item 9).
@@ -33,6 +42,7 @@ from repro_torch import flow as tflow
 from repro_torch.configs.base import FlowConfig, ShapeConfig
 from repro_torch.serving import (Engine, EngineConfig, load_requests_jsonl,
                                  synthetic_requests)
+from repro_torch.serving.kvcache import needs_exact_prompts
 
 _NOT_PORTED = ("{} is not ported yet: the DSE, the serving autotune and the "
                "tune database wait for ROADMAP Queue 1, item 9")
@@ -41,6 +51,19 @@ _NOT_PORTED = ("{} is not ported yet: the DSE, the serving autotune and the "
 def _run_replay(args) -> None:
     spec = None if args.speculation in (None, "off", "none", "") \
         else args.speculation
+    shape = ShapeConfig("serve", "decode", args.max_seq_len, args.max_batch)
+    cm = tflow.compile(args.arch, shape, FlowConfig(mode="folded"),
+                       backend=args.backend, smoke=args.smoke,
+                       device=args.device)
+    exact = needs_exact_prompts(cm.plan)
+    if args.requests.startswith("synthetic:"):
+        n = int(args.requests.split(":", 1)[1])
+        reqs = synthetic_requests(n, cm.cfg.vocab_size,
+                                  prompt_len=args.prompt_len,
+                                  max_new_tokens=args.steps,
+                                  vary_lens=not exact)
+    else:
+        reqs = load_requests_jsonl(args.requests, cm.cfg.vocab_size)
     ecfg = EngineConfig(temperature=args.temperature,
                         max_batch=args.max_batch,
                         max_seq_len=args.max_seq_len,
@@ -49,21 +72,13 @@ def _run_replay(args) -> None:
                         chunk_size=args.chunk_size,
                         chunked_prefill=args.chunked_prefill,
                         fori_seg=args.fori_seg,
+                        prompt_buckets=tuple(sorted({len(r.prompt)
+                                                     for r in reqs}))
+                        if exact else None,
                         speculation=spec,
                         trace=args.trace is not None)
-    shape = ShapeConfig("serve", "decode", args.max_seq_len, args.max_batch)
-    cm = tflow.compile(args.arch, shape, FlowConfig(mode="folded"),
-                       backend=args.backend, smoke=args.smoke,
-                       device=args.device)
     params = cm.init_params(0)
     eng = Engine(cm, params, ecfg)
-    if args.requests.startswith("synthetic:"):
-        n = int(args.requests.split(":", 1)[1])
-        reqs = synthetic_requests(n, cm.cfg.vocab_size,
-                                  prompt_len=args.prompt_len,
-                                  max_new_tokens=args.steps)
-    else:
-        reqs = load_requests_jsonl(args.requests, cm.cfg.vocab_size)
     report = eng.run(reqs)
     print(eng.describe())
     if args.trace:

@@ -1,5 +1,5 @@
 """Graph construction by model family.  The port builds the paper's CNNs and
-the decoder-only dense LMs; the other families arrive with their slices
+the decoder-only dense and RG-LRU hybrid LMs; the other families arrive with their slices
 (ROADMAP Queue 1, item 12)."""
 from __future__ import annotations
 

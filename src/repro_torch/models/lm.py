@@ -1,7 +1,8 @@
 """Graph builders for the LM-family architectures.
 
-The port builds the decoder-only dense family (llama3.2-1b): embedding,
-attention + GLU-FFN layers, and the head.  Recurrent and MoE layers and the
+The port builds the decoder-only dense family (llama3.2-1b) and the
+RG-LRU hybrid (recurrentgemma-2b): embedding, attention or RG-LRU temporal
+mixing + GLU-FFN layers, and the head.  RWKV6 and MoE layers and the
 multimodal patch stub arrive with their families; the encoder-decoder
 builder (whisper) with ROADMAP Queue 1 item 12.  Each raises
 NotImplementedError naming what is missing.
@@ -10,7 +11,8 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import Block, Graph, ParamSpec as P
-from repro_torch.models.layers import emit_attention, emit_glu_ffn, emit_mlp_ffn
+from repro_torch.models.layers import (emit_attention, emit_glu_ffn,
+                                       emit_mlp_ffn, emit_rglru_block)
 
 
 def _embed_block(cfg: ModelConfig, scale: bool) -> Block:
@@ -44,6 +46,8 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
     # temporal mixing
     if kind in ("attn", "local_attn"):
         emit_attention(b, cfg, cfg.attention, li)
+    elif kind == "rec" and cfg.recurrence.kind == "rg_lru":
+        emit_rglru_block(b, cfg, cfg.recurrence, li)
     elif kind == "rec":
         raise NotImplementedError(
             f"{cfg.name}: recurrent layers ({cfg.recurrence.kind}) are not "
@@ -69,7 +73,7 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
 
 
 def build_decoder_graph(cfg: ModelConfig) -> Graph:
-    """Decoder-only LM (the dense family)."""
+    """Decoder-only LM (the dense and hybrid families)."""
     if cfg.n_patch_tokens:
         raise NotImplementedError(
             f"{cfg.name}: multimodal patch tokens are not ported yet "

@@ -55,7 +55,8 @@ import torch
 from repro_torch.flow import CompiledModel
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_tokens,
-                                         merge_state, slice_state)
+                                         merge_state, needs_exact_prompts,
+                                         slice_state)
 from repro_torch.serving.scheduler import (Request, RequestResult,
                                            Scheduler, bucket_for)
 from repro_torch.serving.speculation import sample_targets
@@ -347,12 +348,29 @@ class Engine:
                           chunk_prefill=e.chunked_prefill)
         for r in requests:
             sched.submit(r)
-        # every per-request state entry is paged self-attention (the cache
-        # refuses recurrent and cross-attention state, not ported yet), so
-        # left-padded prefill, chunked catch-up and speculative rollback
-        # are exact: attention masks by position on both backends
+        # Left-padded (bucketed) prefill is only exact when every
+        # cross-position op masks by the positions array: recurrent/conv
+        # temporal-mixing ops never see positions at all and would consume
+        # the pad tokens as real context.  Enforce exact prompt buckets
+        # there rather than silently corrupt.  (Both attention backends
+        # mask positionally — the flash kernel included — so attention-only
+        # models pad safely on any backend.)
+        pad_unsafe = needs_exact_prompts(self.plan)
+        if (e.chunk_size > 1 or e.chunked_prefill) and \
+                any(not en.paged for en in cache._entries):
+            raise ValueError(
+                f"{self.plan.cfg.name}: chunked prefill (chunk_size > 1 or "
+                "chunked_prefill) needs every per-request state entry to be "
+                "paged self-attention; recurrent or cross-attention state "
+                "can only advance one token per tick")
         spec = e.speculation
         spec_on = spec is not None
+        if spec_on and any(not en.paged for en in cache._entries):
+            raise ValueError(
+                f"{self.plan.cfg.name}: speculative decoding needs every "
+                "per-request state entry to be paged self-attention; "
+                "rollback truncates block chains, which rolling or "
+                "cross-attention state cannot express")
         drafter = self._get_drafter(spec) if spec_on else None
         vocab = self.plan.cfg.vocab_size
         tokens_drafted = tokens_accepted = spec_ticks = 0
@@ -436,6 +454,14 @@ class Engine:
                 positions = np.full((Bp, Sp), -1, np.int32)
                 for i, a in enumerate(adm):
                     pad = Sp - a.request.prompt_len
+                    if pad and pad_unsafe:
+                        raise ValueError(
+                            f"request {a.request.rid!r}: prompt length "
+                            f"{a.request.prompt_len} needs left-padding to "
+                            f"bucket {Sp}, but the model has recurrent "
+                            "temporal-mixing state that consumes pad tokens "
+                            "unmasked; use exact prompt_buckets matching "
+                            "the prompt lengths")
                     tokens[i, pad:] = a.request.prompt
                     positions[i] = np.arange(Sp, dtype=np.int32) - pad
                 logits, pstate, _ = self.compiled.prefill(

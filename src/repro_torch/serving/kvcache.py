@@ -18,9 +18,12 @@ Layout notes:
   per-slot decode position (slots,).  ``repro_torch.core.ops_impl``'s
   attention op recognizes this layout;
 * folded units carry the usual leading ``reps`` (layers) dimension on every
-  leaf; block tables are replicated per layer (ints, negligible).  The
-  port's paged state holds self-attention only: the recurrent and
-  cross-attention families arrive later (ROADMAP Queue 1, item 12).
+  leaf; block tables are replicated per layer (ints, negligible);
+* non-attention per-request state (the RG-LRU hybrid's conv and recurrence
+  states) stays dense, one row per slot, copied in at admission and
+  written in place by the decode tick; such state cannot be seeded from a
+  token-prefix match, so it refuses the prefix cache.  Cross-attention
+  state arrives with its family (ROADMAP Queue 1, item 12).
 
 Prefix caching (``prefix_cache=True``) layers block *sharing* on top:
 blocks are refcounted, fully-filled prompt blocks are registered in a
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lowering import unit_key
+from repro_torch.core.lowering import _mk_state, _op_state_shapes, unit_key
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serving.prefix import BlockHash, PrefixIndex, block_hashes
@@ -590,6 +593,14 @@ def _state_entries(plan: ExecutionPlan) -> List[_Entry]:
     return out
 
 
+def needs_exact_prompts(plan: ExecutionPlan) -> bool:
+    """True when the plan holds per-request state that a left-padded prompt
+    would corrupt: recurrent and conv state never see the positions array,
+    so they would take the pad tokens as real context."""
+    return any(not e.paged and e.op.op != "attention"
+               for e in _state_entries(plan))
+
+
 def blocks_for_tokens(tokens: int, block_size: int) -> int:
     return max(1, math.ceil(tokens / block_size))
 
@@ -635,11 +646,12 @@ class PagedKVCache:
             raise ValueError(
                 f"{plan.cfg.name} has no self-attention KV state; the paged "
                 "cache applies to attention decoder models")
-        if any(not e.paged for e in self._entries):
-            raise NotImplementedError(
-                f"{plan.cfg.name} carries recurrent or cross-attention "
-                "state; its serving state is not ported yet (ROADMAP "
-                "Queue 1, item 12)")
+        if prefix_cache and any(not e.paged for e in self._entries):
+            raise ValueError(
+                f"{plan.cfg.name} carries non-attention per-request state "
+                "(recurrences or cross-attention K/V) that a token-prefix "
+                "match cannot seed; prefix_cache requires a pure attention "
+                "decoder")
         self.ledger = BlockLedger(self.num_blocks, n_slots, block_size,
                                   blocks_per_slot, prefix_cache=prefix_cache,
                                   min_match_ratio=min_match_ratio)
@@ -667,23 +679,40 @@ class PagedKVCache:
         axes: Dict[str, Any] = {}
         for e in self._entries:
             lead = (e.reps,) if e.nlead else ()
-            state.setdefault(e.ukey, {})[e.skey] = {
-                "kp": torch.zeros(lead + (NB, bs, KV, Dh), dtype=dt,
-                                  device=dev),
-                "vp": torch.zeros(lead + (NB, bs, KV, Dh), dtype=dt,
-                                  device=dev),
-                "bt": torch.zeros(lead + (self.n_slots, nblk),
-                                  dtype=torch.int32, device=dev),
-                "len": torch.zeros(lead + (self.n_slots,), dtype=torch.int32,
-                                   device=dev),
-            }
-            axes.setdefault(e.ukey, {})[e.skey] = {
-                "kp": -1, "vp": -1, "bt": e.nlead, "len": e.nlead}
+            ust = state.setdefault(e.ukey, {})
+            uax = axes.setdefault(e.ukey, {})
+            if e.paged:
+                ust[e.skey] = {
+                    "kp": torch.zeros(lead + (NB, bs, KV, Dh), dtype=dt,
+                                      device=dev),
+                    "vp": torch.zeros(lead + (NB, bs, KV, Dh), dtype=dt,
+                                      device=dev),
+                    "bt": torch.zeros(lead + (self.n_slots, nblk),
+                                      dtype=torch.int32, device=dev),
+                    "len": torch.zeros(lead + (self.n_slots,),
+                                       dtype=torch.int32, device=dev),
+                }
+                uax[e.skey] = {"kp": -1, "vp": -1, "bt": e.nlead,
+                               "len": e.nlead}
+            else:
+                # dense per-slot state (the lowering's init_state layout)
+                shapes = _op_state_shapes(e.op, self.cfg, self.n_slots,
+                                          self.plan.cache_len, dt)
+                for suf, v in _mk_state(shapes, lead, dev).items():
+                    ust[e.skey + suf] = v
+                    uax[e.skey + suf] = e.nlead
         return state, axes
 
     def _paged(self):
         """(entry, its state dict) for every paged attention entry."""
-        return [(e, self.state[e.ukey][e.skey]) for e in self._entries]
+        return [(e, self.state[e.ukey][e.skey]) for e in self._entries
+                if e.paged]
+
+    def _dense(self):
+        """(entry, leaf key, its tensor) for every dense state leaf."""
+        return [(e, e.skey + suf, self.state[e.ukey][e.skey + suf])
+                for e in self._entries if not e.paged
+                for suf in _op_state_shapes(e.op, self.cfg, 1, 1, None)]
 
     # -- accounting ----------------------------------------------------------
     def live_tokens(self) -> int:
@@ -694,6 +723,10 @@ class PagedKVCache:
         """Device bytes held by the K/V pools (all layers)."""
         return sum(st[k].numel() * st[k].element_size()
                    for _, st in self._paged() for k in ("kp", "vp"))
+
+    def dense_bytes(self) -> int:
+        """Device bytes held by the dense per-slot state (all layers)."""
+        return sum(t.numel() * t.element_size() for _, _, t in self._dense())
 
     # -- prefix matching (scheduler admission hooks) -------------------------
     def match_and_lock(self, prompt: np.ndarray) -> Optional[PrefixMatch]:
@@ -745,8 +778,9 @@ class PagedKVCache:
               prompt: Optional[np.ndarray] = None) -> List[int]:
         """Move request ``row`` of a (rolling-layout) prefill state into
         ``slot``: allocate its block chain, copy the prompt K/V into pool
-        blocks, point the slot's block-table row at the chain and set its
-        decode position.  ``pad`` is the request's left-padding inside the
+        blocks, point the slot's block-table row at the chain, set its
+        decode position, and copy the dense (recurrent) state into the
+        slot's row.  ``pad`` is the request's left-padding inside the
         bucketed prefill batch; ``reserve_tokens`` (>= prompt_len) is the
         chain capacity to allocate up front (prompt + generation budget),
         the admission-control quantity.  ``prompt`` (token ids) feeds the
@@ -781,6 +815,12 @@ class PagedKVCache:
                     pool[:, bidx] = seg.to(pool.dtype)
                 else:
                     pool[bidx] = seg.to(pool.dtype)
+        for e, key, leaf in self._dense():
+            src = prefill_state[e.ukey][key]
+            if e.nlead:
+                leaf[:, slot].copy_(src[:, row])
+            else:
+                leaf[slot].copy_(src[row])
         self._set_tables(slot, self._table_row(slot), prompt_len)
         # the whole prompt's K/V is resident: index its full blocks now
         self.ledger.register_prompt(slot)

@@ -1,12 +1,12 @@
 """The hand-written CUDA kernels on the card, against their plain PyTorch
-versions, and two models (LeNet-5, smoke llama3.2-1b) through the port's
-entry point.
+versions, and three models (LeNet-5, smoke llama3.2-1b, smoke
+recurrentgemma-2b) through the port's entry point.
 
 Every test here is marked ``gpu`` and skips without a CUDA card of compute
 capability (9, 0).  The file imports neither JAX nor the JAX package (the
 card's machine has no JAX), so it runs there on its own:
 
-    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest -q -x -m gpu --noconftest tests/test_torch_gpu.py
 
 TF32 is off in every test, so the fp32 plain versions are full fp32.
 Tolerances (relerr, max |diff| over max |plain|): fp32 < 1e-5, the same sums
@@ -20,6 +20,7 @@ from repro_torch.kernels import attention as ka
 from repro_torch.kernels import conv2d as kc
 from repro_torch.kernels import decode_attention as kd
 from repro_torch.kernels import matmul_fused as km
+from repro_torch.kernels import lru_scan as kl
 
 pytestmark = pytest.mark.gpu
 
@@ -45,6 +46,9 @@ FLASH = {
     "gqa_window": (2, 128, 128, 8, 8, 64, True, 32, 0),
     "llama_heads": (1, 200, 200, 32, 8, 64, True, None, 0),
     "d128": (1, 70, 70, 4, 2, 128, True, None, 0),
+    # recurrentgemma-2b's heads: 10 over 1 KV head of 256, windowed
+    "d256_mqa": (2, 130, 130, 10, 1, 256, True, 2048, 0),
+    "d256_window_cuts": (1, 300, 300, 10, 1, 256, True, 100, 0),
 }
 # decode_attention: (B, C, H, KV, D, window), half the cache filled
 DECODE = {
@@ -53,7 +57,13 @@ DECODE = {
     "mha": (3, 40, 4, 4, 16, None),
     "llama": (8, 1024, 32, 8, 64, None),
     "d128": (2, 300, 8, 2, 128, None),
+    "d256_mqa": (8, 1024, 10, 1, 256, None),
+    "d256_window_cuts": (2, 2048, 10, 1, 256, 300),
 }
+# lru_scan: (B, S, W), the JAX package's kernel-test cases and the
+# recurrentgemma-2b prefill
+LRU = {"b2s16w64": (2, 16, 64), "b1s33w130": (1, 33, 130),
+       "b3s8w256": (3, 8, 256), "rg_prefill": (8, 512, 2560)}
 
 
 @pytest.fixture
@@ -385,3 +395,132 @@ def test_serving_engine_on_the_card(card):
     for got in (hit, spec):
         assert {r.rid: r.tokens for r in got.results} == \
             {r.rid: r.tokens for r in want.results}
+
+
+def _lru_inputs(g, B, S, W, dt):
+    """a in (0, 1) as the RG-LRU's gate gives it, b of unit scale."""
+    a = torch.rand(B, S, W, generator=g, device="cuda").to(dt)
+    b = _randn(g, B, S, W, dt=dt)
+    return a, b
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(LRU))
+def test_lru_scan_kernel(card, name, dt):
+    a, b = _lru_inputs(card, *LRU[name], DTYPES[dt])
+    n0 = kl.lru_scan.launches
+    h = kl.lru_scan(a, b)
+    torch.cuda.synchronize()
+    assert kl.lru_scan.launches == n0 + 1
+    p = kl.lru_scan_plain(a, b)
+    assert h.shape == p.shape and h.dtype == DTYPES[dt]
+    assert torch.isfinite(h.float()).all()
+    assert _rel(h, p) < TOL[dt]
+
+
+def test_lru_scan_on_cuda_never_reaches_its_plain_version(card, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    monkeypatch.setattr(kl, "lru_scan_plain", boom)
+    kl.lru_scan(*_lru_inputs(card, 2, 40, 300, torch.float32))
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):
+        a, b = _lru_inputs(card, 1, 4, 8, torch.float32)
+        kl.lru_scan(a.half(), b.half())
+    with pytest.raises(ValueError):                      # b on the host
+        kl.lru_scan(a, b.cpu())
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("sq", [1, 5])
+def test_paged_decode_attention_head_dim_256(card, dt, sq):
+    """recurrentgemma-2b's heads (10 over 1 KV head of 256) over the pool,
+    a decode tick and a five-query row (50 query rows: two row tiles of
+    32), windowed."""
+    B, H, KV, D, bs = 3, 10, 1, 256, 16
+    nblk = 1024 // bs
+    q = _randn(card, B, sq, H, D, dt=DTYPES[dt])
+    kp = _randn(card, 1 + B * nblk, bs, KV, D, dt=DTYPES[dt])
+    vp = _randn(card, 1 + B * nblk, bs, KV, D, dt=DTYPES[dt])
+    perm = torch.randperm(B * nblk, generator=card, device="cuda")
+    bt = (1 + perm.reshape(B, nblk)).to(torch.int32)
+    lens = torch.tensor([5, 300, 1000 - sq], dtype=torch.int32, device="cuda")
+    qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                        device="cuda")[None]
+    kw = dict(qpos=qpos if sq > 1 else None, window=200)
+    n0 = kd.paged_decode_attention.launches
+    y = kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert kd.paged_decode_attention.launches == n0 + 1
+    p = kd.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    assert y.shape == p.shape and torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL[dt]
+
+
+def test_recurrentgemma_smoke_through_the_entry_point(card):
+    """The hybrid path on the card at smoke size (6 layers: 4 RG-LRU, 2
+    attention): one prefill launches 4 lru_scan and 2 flash, a decode step
+    2 decode_attention and no lru_scan; the logits are held against the
+    reference backend (bf16 < 5e-2) and fp32 greedy tokens equal it across
+    the 16-token window."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    shape = ShapeConfig("serve", "decode", 32, 2)
+    cm = flow.compile("recurrentgemma-2b", shape, smoke=True)
+    ref = flow.compile("recurrentgemma-2b", shape, smoke=True,
+                       backend="reference")
+    assert cm.plan.kernels["rg_lru"] == "cuda"
+    params = cm.init_params(0)
+    tok = torch.randint(0, 256, (2, 8), generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    n_l, n_f = kl.lru_scan.launches, ka.flash_attention.launches
+    y, st, _ = cm.prefill(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert (kl.lru_scan.launches - n_l, ka.flash_attention.launches - n_f) \
+        == (4, 2)
+    yr, st_r, _ = ref.prefill(params, {"tokens": tok})
+    assert y.shape == (2, 1, 256) and _rel(y, yr) < 5e-2
+    n_l, n_d = kl.lru_scan.launches, kd.decode_attention.launches
+    for t in range(4):
+        nxt = tok[:, t:t + 1]
+        y, st, _ = cm.decode(params, {"tokens": nxt}, st, 8 + t)
+        yr, st_r, _ = ref.decode(params, {"tokens": nxt}, st_r, 8 + t)
+        assert _rel(y, yr) < 5e-2
+    torch.cuda.synchronize()
+    assert kl.lru_scan.launches == n_l
+    assert kd.decode_attention.launches - n_d == 8
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    cm32 = flow.compile("recurrentgemma-2b", shape, f32, smoke=True)
+    ref32 = flow.compile("recurrentgemma-2b", shape, f32, smoke=True,
+                         backend="reference")
+    p32 = cm32.init_params(0)
+    t32, _ = cm32.generate(p32, {"tokens": tok}, steps=24)
+    assert torch.equal(t32, ref32.generate(p32, {"tokens": tok}, steps=24)[0])
+    assert torch.equal(t32, cm32.generate_fori(p32, {"tokens": tok}, 24))
+
+
+def test_recurrentgemma_serving_on_the_card(card):
+    """Engine.run serves the smoke hybrid on the card with exact prompt
+    buckets, fp32: the reference backend's greedy tokens, the recurrent
+    state through lru_scan at each prefill batch."""
+    import numpy as np
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig, Request
+    shape = ShapeConfig("serve", "decode", 64, 4)
+    fl = FlowConfig(mode="folded", precision="fp32")
+    cm = flow.compile("recurrentgemma-2b", shape, fl, smoke=True)
+    ref = flow.compile("recurrentgemma-2b", shape, fl, smoke=True,
+                       backend="reference")
+    params = cm.init_params(0)
+    rng = np.random.RandomState(3)
+    reqs = [Request(f"r{i}", rng.randint(0, 256, 16).astype(np.int32),
+                    max_new_tokens=int(rng.randint(3, 12))) for i in range(6)]
+    kw = dict(max_batch=4, max_seq_len=64, block_size=8, prompt_buckets=(16,))
+    want = Engine(ref, params, EngineConfig(**kw)).run(reqs)
+    n_l = kl.lru_scan.launches
+    got = Engine(cm, params, EngineConfig(**kw)).run(reqs)
+    torch.cuda.synchronize()
+    assert kl.lru_scan.launches - n_l == 4 * got.metrics["prefill_batches"]
+    assert {r.rid: r.tokens for r in got.results} == \
+        {r.rid: r.tokens for r in want.results}

@@ -59,6 +59,14 @@ def test_serving_slice_modules_are_checked():
         assert f"src/repro_torch/{mod}" in names, mod
 
 
+def test_recurrent_slice_modules_are_checked():
+    """The recurrent slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("configs/recurrentgemma_2b.py", "kernels/lru_scan.py",
+                "core/ops_impl.py", "core/lowering.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 def test_serve_cli_without_device_needs_cuda():
     from repro_torch.launch import serve
     if torch.cuda.is_available():

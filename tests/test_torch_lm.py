@@ -200,7 +200,7 @@ def test_plan_matches_jax():
     assert tcm.describe().splitlines()[-1] == (
         "  kernels: backend=auto attention=ref conv2d=ref copy_block=ref "
         "decode_attention=ref glu_matmul=ref matmul=ref "
-        "paged_decode_attention=ref")
+        "paged_decode_attention=ref rg_lru=ref")
 
 
 @pytest.mark.parametrize("stage", ["prefill", "decode"])

@@ -16,7 +16,7 @@ from repro_torch.configs.base import FlowConfig, ShapeConfig
 
 CPU_KERNELS = ("  kernels: backend=auto attention=ref conv2d=ref "
                "copy_block=ref decode_attention=ref glu_matmul=ref "
-               "matmul=ref paged_decode_attention=ref")
+               "matmul=ref paged_decode_attention=ref rg_lru=ref")
 
 FLOWS = {
     "opt": (lambda F: F(mode="auto")),
@@ -55,7 +55,7 @@ def test_plan_stats_match_jax(arch, variant):
     t = tcm.plan.describe(stats=True)
     j = jcm.plan.describe(stats=True)
     assert _without_kernels(t) == _without_kernels(j)
-    assert "    kernels: backend=auto cuda_ops=[] ref_ops=25" in t
+    assert "    kernels: backend=auto cuda_ops=[] ref_ops=27" in t
 
 
 def test_cuda_platform_plan_differs_only_in_kernels():
@@ -79,7 +79,7 @@ def test_explicit_cuda_backend_resolves_on_any_platform():
     assert cm.describe().splitlines()[-1] == (
         "  kernels: backend=cuda attention=cuda conv2d=cuda copy_block=cuda "
         "decode_attention=cuda glu_matmul=cuda matmul=cuda "
-        "paged_decode_attention=cuda")
+        "paged_decode_attention=cuda rg_lru=cuda")
 
 
 def test_param_count_not_ported():
