@@ -15,10 +15,21 @@ Phases, each raising on failure:
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
    heads of 64, causal), ``decode_attention`` over a 1024-slot cache half
-   full, and ``matmul_fused`` at every projection of a layer, for the
-   prefill's 4096 rows and a decode step's 8; each held against its plain
-   version and timed beside it, the PyTorch call for the same function
-   (``scaled_dot_product_attention``, ``torch.matmul``) and the bound;
+   full, and ``matmul_fused`` at every projection of a llama layer and
+   every distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
+   256, the 2560 -> 7680 GLU pair, 7680 -> 2560), for the prefill's 4096
+   rows and a decode step's 8 (in bf16 also llama's q at 128, 64 and 40
+   rows and its GLU pair at 40 and 32, each timed on both tensor-core
+   schedules: the crossover); each
+   case records the schedule that ran, is held against its plain version
+   and timed beside it, the old SIMT kernel at the same shape, the PyTorch
+   call for the same function (``scaled_dot_product_attention``,
+   ``torch.matmul``) and the bound.  The matmuls are timed as CUDA-graph
+   replays (device time without the host's launch cost) and, at 64 rows or
+   fewer, rotate over enough weight copies to read them cold from HBM, as
+   a decode step does.  Then the base variant (``vmem_accum=False``, tile
+   (256, 512, 256)) at the ResNet-34 FC shape and at 4096 x 2048 x 2048,
+   against its plain version and its bound;
 5. path — full-width ResNet-34 (224 px, batch 8, random weights from seed 0)
    through ``repro_torch.flow.compile`` in the opt, base and folded flows:
    the plan dispatches conv2d and matmul to ``cuda``, one forward launches
@@ -34,7 +45,7 @@ Phases, each raising on failure:
    every teacher-forced decode step's logits agree with the ``reference``
    backend.  In fp32 the greedy tokens of 32 steps are identical to the
    reference backend's.  Then ``measure("prefill")`` at 8 x 512 tokens,
-   ``measure("decode")``, and a profile of each;
+   ``measure("decode")`` and a profile of each;
 7. serving kernels — ``paged_decode_attention`` at the serving shape (8
    rows of ~520 live tokens in a 513-block pool of 16-token blocks, one
    query a row and five) and ``copy_block`` on the folded 16-layer pool, in
@@ -78,13 +89,17 @@ Phases, each raising on failure:
    speculation, and the serving metrics with the pool's and the dense
    state's bytes and the device-busy share of one profiled run.
 
-The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8;
-phases 9 and 10 come last.  TF32 is off for the whole run
-(``torch.backends.cudnn.allow_tf32`` and
+The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
+9 and 10 come last. Every path phase also reads matmul_fused's launches by
+schedule: in bf16 the LM prefills on ``wgmma`` and the decode steps on
+``small_m`` in the counts the plan gives, no serving projection on
+``simt``; in fp32 all on ``simt``; the CNN heads as their shapes say; the
+base variant never (no op-layer caller passes ``vmem_accum=False``). TF32
+is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
-fp32.  The last line is ``{"ok": true, "device": {...}}``; the line with the
-``"kernels"`` list and the ``nvidia-smi`` line come just before it.  Exits
-non-zero, printing no result, without a CUDA card.  Details go to
+fp32. The last line is ``{"ok": true, "device": {...}}``; the line with the
+``"kernels"`` list and the ``nvidia-smi`` line come just before it. Exits
+non-zero, printing no result, without a CUDA card. Details go to
 ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -92,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -160,14 +176,50 @@ def counters():
 
 
 def reset_counts() -> None:
+    """Every launch count to 0: the seven wrappers', matmul_fused's split by
+    schedule and its base variant's."""
+    from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
+    km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
+    km.matmul_fused.base_launches = 0
 
 
 def read_counts():
+    """The launch counts; ``matmul_fused_base`` is the base variant's."""
+    from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in counters().items()}
+    got = {k: fn.launches for k, fn in counters().items()}
+    got["matmul_fused_base"] = km.matmul_fused.base_launches
+    return got
+
+
+def read_schedules():
+    """matmul_fused's launches since the last reset, by schedule."""
+    from repro_torch.kernels import matmul_fused as km
+    torch.cuda.synchronize()
+    return dict(km.matmul_fused.schedule_launches)
+
+
+def _scheduled(want, what):
+    """matmul_fused's launches by schedule must be ``want`` (a schedule
+    left out must be 0)."""
+    got = read_schedules()
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: matmul_fused schedules {got}, want "
+                             f"{full}")
+    return {k: v for k, v in got.items() if v}
+
+
+def _tensor_core_only(total, what):
+    """Every one of ``total`` bf16 projections ran on wgmma or small_m."""
+    got = read_schedules()
+    if got["simt"] or got["wgmma"] + got["small_m"] != total:
+        raise AssertionError(f"{what}: matmul_fused schedules {got}, want "
+                             f"{total} on wgmma + small_m and none on simt")
+    return {k: v for k, v in got.items() if v}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -183,6 +235,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device ms of ``fn``: ``iters`` calls captured in one CUDA graph,
+    replayed twice between CUDA events.  The replay takes the host's launch
+    cost out, which at 8 rows is several times the kernel's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    graph.replay()
+    t1.record()
+    t1.synchronize()
+    ms = t0.elapsed_time(t1) / (2 * iters)
+    del graph
+    return ms
 
 
 def relerr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -225,10 +304,22 @@ def phase_build():
     info = _build.LIBRARY.info
     log(f"build: {time.perf_counter() - t0:.2f}s (nvcc {info.seconds:.2f}s,"
         f" built={info.built}) -> {info.path}")
+    kernel = "?"
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = _short_kernel(m.group(1))
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas: {kernel}: {line.split(':', 1)[-1].strip()}")
     return {"seconds": time.perf_counter() - t0, "built": info.built}
+
+
+def _short_kernel(mangled: str) -> str:
+    """A kernel's name and template arguments out of its mangled symbol
+    (``matmul_wgmma_kernelILi128ELi1ELi3ELi2E13__nv_bfloat16``)."""
+    name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}\d+",
+                  "", mangled)
+    return re.sub(r"^_Z\d+", "", name).split("EEv")[0].split("Ev")[0][:80]
 
 
 def _conv_case(spec, dt, gen):
@@ -290,13 +381,30 @@ def _conv_case(spec, dt, gen):
             "library_ms": cuda_ms(library)}
 
 
+def _simt_wrapper(x, w, **kw):
+    """One call as the wrapper made it before the tensor-core schedules:
+    check and allocate (``_prepare``), then the SIMT kernel.  Its event time
+    beside the wrapper's own is the host cost the schedule choice, the
+    split and the second launch add."""
+    from repro_torch.kernels import matmul_fused as km
+    c = km._prepare(x, w, **kw)
+    km._launch_simt(c)
+    return c.out
+
+
 def _fc_case(dt, gen):
+    """The ResNet-34 FC head: event-timed (the host's launch rate, as a
+    forward sees it) and graph-timed (device time), in bf16 beside the SIMT
+    kernel through the old wrapper's steps (``_simt_wrapper``)."""
     from repro_torch.kernels import matmul_fused as km
     dev = torch.device("cuda")
     K, N = FC
     x = torch.randn(B, K, generator=gen, device=dev).to(dt)
     w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
     b = torch.randn(N, generator=gen, device=dev).to(dt)
+
+    def simt():
+        return _simt_wrapper(x, w, bias=b, out_dtype=dt)
 
     def kern():
         return km.matmul_fused(x, w, bias=b, out_dtype=dt)
@@ -307,20 +415,31 @@ def _fc_case(dt, gen):
     def library():                              # cuBLAS, the yardstick only
         return (torch.matmul(x, w).float() + b.float()).to(dt)
 
+    c0 = read_schedules()
     y = kern()
     torch.cuda.synchronize()
+    sched = [k for k, v in read_schedules().items() if v != c0[k]]
     p = plain()
     err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
-    if not (y.shape == (B, N) and err < TOL[dt]):
-        raise AssertionError(f"matmul_fused FC {dt}: relerr {err}")
+    if not (y.shape == (B, N) and err < TOL[dt] and len(sched) == 1):
+        raise AssertionError(f"matmul_fused FC {dt}: relerr {err}, "
+                             f"schedules {sched}")
     flops = 2.0 * B * K * N
     nbytes = (x.numel() + w.numel() + b.numel() + B * N) * x.element_size()
     bms, by = bound_ms(flops, nbytes, dt)
+    old = sched[0] != "simt"
+    if old and relerr(simt(), p) >= TOL[dt]:
+        raise AssertionError(f"matmul_fused FC {dt}: the SIMT kernel differs "
+                             "from the plain version")
     return {"shape": f"fc_{B}x{K}x{N}", "dtype": str(dt).split(".")[-1],
-            "uses": 1, "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
+            "uses": 1, "schedule": sched[0], "relerr": err,
+            "max_abs_err": aerr, "tol": TOL[dt],
             "library_relerr": relerr(library(), p), "flops": flops,
             "bytes": nbytes, "bound_ms": bms, "bound_by": by,
-            "ms": cuda_ms(kern, 100), "plain_ms": cuda_ms(plain, 100),
+            "ms": cuda_ms(kern, 100), "graph_ms": graph_ms(kern, 100),
+            "simt_ms": cuda_ms(simt, 100) if old else None,
+            "simt_graph_ms": graph_ms(simt, 100) if old else None,
+            "plain_ms": cuda_ms(plain, 100),
             "library_ms": cuda_ms(library, 100)}
 
 
@@ -437,49 +556,238 @@ def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
     return c
 
 
-def _lm_matmul_case(name, M, K, N, glu, dt, gen):
+# L2 is 50 MB: at M <= 64 (decode, serving ticks) a call rotates over
+# enough copies of its weights to read them cold, as a decode step finds
+# them after the other layers' weights
+COLD_BYTES = 100e6
+
+
+def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
+    """matmul_fused at one projection shape: the kernel the wrapper's
+    schedule picks, held against the plain version; its device time beside
+    the SIMT kernel's at the same shape (the old schedule, bf16 only, also
+    held against the plain version), the plain version's, ``torch.matmul``'s
+    and the bound.  With ``crossover`` the other tensor-core schedule too,
+    forced (small_m only up to 64 rows).  Timed with CUDA graphs
+    (``graph_ms``), cold weights at M <= 64; the wrapper and the old
+    wrapper's steps (``_simt_wrapper``) also with events (``event_ms``,
+    ``simt_event_ms``), which at few rows read the host's cost a call."""
     from repro_torch.kernels import matmul_fused as km
     dev = torch.device("cuda")
+    n_w = 2 if glu else 1
+    wbytes = n_w * K * N * torch.tensor([], dtype=dt).element_size()
+    copies = max(1, -(-int(COLD_BYTES) // wbytes)) if M <= 64 else 1
     x = torch.randn(M, K, generator=gen, device=dev).to(dt)
-    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
-    w2 = (torch.randn(K, N, generator=gen, device=dev)
-          * K ** -0.5).to(dt) if glu else None
+    ws = [[(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
+           for _ in range(n_w)] for _ in range(copies)]
     act = "silu" if glu else None
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % copies
+        w = ws[turn[0]]
+        return w[0], (w[1] if glu else None)
+
+    def kern():
+        w, w2 = nxt()
+        return km.matmul_fused(x, w, w2=w2, act=act, out_dtype=dt)
+
+    def plain():
+        w, w2 = nxt()
+        return km.matmul_fused_plain(x, w, w2=w2, act=act, out_dtype=dt)
 
     def library():                              # cuBLAS, the yardstick only
+        w, w2 = nxt()
         if not glu:
             return torch.matmul(x, w)
         return (F.silu(torch.matmul(x, w).float())
                 * torch.matmul(x, w2).float()).to(dt)
 
-    n_w = 2 if glu else 1
+    simt_calls = [km._prepare(x, w[0], w2=w[1] if glu else None, act=act,
+                              out_dtype=dt) for w in ws]
+
+    def simt():                                 # the old kernel, same shape
+        turn[0] = (turn[0] + 1) % copies
+        km._launch_simt(simt_calls[turn[0]])
+
+    def simt_wrapper():
+        w, w2 = nxt()
+        return _simt_wrapper(x, w, w2=w2, act=act, out_dtype=dt)
+
+    turn[0] = copies - 1
+    c0 = read_schedules()
+    y = kern()
+    torch.cuda.synchronize()
+    sched = [k for k, v in read_schedules().items() if v != c0[k]]
+    turn[0] = copies - 1
+    p = plain()
+    torch.cuda.synchronize()
+    err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
+    if not (y.shape == p.shape and torch.isfinite(y.float()).all()
+            and err < TOL[dt] and len(sched) == 1):
+        raise AssertionError(f"matmul_fused {name} {M} rows {dt}: relerr "
+                             f"{err} (tol {TOL[dt]}), schedules {sched}")
+    old = sched[0] != "simt"
+    if old:
+        turn[0] = copies - 1
+        simt()
+        torch.cuda.synchronize()
+        if relerr(simt_calls[0].out, p) >= TOL[dt]:
+            raise AssertionError(f"matmul_fused {name} {M} rows: the SIMT "
+                                 "kernel differs from the plain version")
+    alt = {}                   # the other tensor-core schedule, forced
+    others = [o for o in ("wgmma", "small_m") if o != sched[0]
+              and (o == "wgmma" or M <= 64)] if crossover else []
+    for o in others:
+        launch = km._LAUNCH[o]
+
+        def forced(launch=launch):
+            turn[0] = (turn[0] + 1) % copies
+            launch(simt_calls[turn[0]])
+        turn[0] = copies - 1
+        forced()
+        torch.cuda.synchronize()
+        if relerr(simt_calls[0].out, p) >= TOL[dt]:
+            raise AssertionError(f"matmul_fused {name} {M} rows: forced {o} "
+                                 "differs from the plain version")
+        alt[o] = forced
+    turn[0] = copies - 1
+    lib_err = relerr(library(), p)
     flops = 2.0 * M * K * N * n_w
     nbytes = (M * K + n_w * K * N + M * N) * x.element_size()
-    c = _timed_case(
-        lambda: km.matmul_fused(x, w, w2=w2, act=act, out_dtype=dt),
-        lambda: km.matmul_fused_plain(x, w, w2=w2, act=act, out_dtype=dt),
-        library, dt, flops, nbytes, iters=5 if M > 64 else 50)
-    c.update(shape=f"{name}_{M}x{K}x{N}" + ("_glu" if glu else ""),
-             rows=M, uses_per_forward=LM_LAYERS)
-    return c
+    bms, by = bound_ms(flops, nbytes, dt)
+    iters = copies * -(-20 // copies) if M <= 64 else 5
+    ms = graph_ms(kern, iters)
+    simt_ms = graph_ms(simt, iters) if old else ms
+    return {"shape": f"{name}_{M}x{K}x{N}" + ("_glu" if glu else ""),
+            "dtype": str(dt).split(".")[-1], "rows": M, "schedule": sched[0],
+            "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
+            "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
+            "bound_ms": bms, "bound_by": by, "ms": ms, "simt_ms": simt_ms,
+            "event_ms": cuda_ms(kern, iters, 1),
+            "simt_event_ms": cuda_ms(simt_wrapper, iters, 1) if old else None,
+            "plain_ms": graph_ms(plain, iters),
+            "library_ms": graph_ms(library, iters),
+            "other_schedule_ms": {o: graph_ms(f, iters)
+                                  for o, f in alt.items()},
+            "weight_copies": copies, "timer": "cuda_graph",
+            "uses_per_forward": uses}
+
+
+# recurrentgemma-2b's distinct projections (d_model 2560, one KV head of
+# 256, d_ff 7680, RG-LRU width 2560) as (name, K, N, GLU pair, uses per
+# forward): q, o and the recurrent blocks' two in-branches and out
+# projection are 2560 -> 2560 (8 x 2 + 18 x 3), k and v 2560 -> 256 (8 x 2),
+# every layer's GLU pair and down projection (26 each): 138 in all
+RG_MATMUL_SHAPES = [("d2560", 2560, 2560, False, 70),
+                    ("kv", 2560, 256, False, 16),
+                    ("glu", 2560, 7680, True, 26),
+                    ("down", 7680, 2560, False, 26)]
+
+
+# rows between a decode step's 8 and a prefill's 4096 where the two
+# tensor-core schedules are both timed (bf16, llama): the plain form's
+# crossover at 64 rows, the GLU pair's at 32, a verify batch's 40 and a
+# chunked catch-up's 128
+CROSSOVER = {128: ("q",), 64: ("q",), 40: ("q", "glu"), 32: ("glu",)}
 
 
 def phase_lm_kernels():
+    """Phase 4: the LM kernels at llama3.2-1b's shapes, and matmul_fused at
+    both LM models' projections: 4096 prefill rows and 8 decode rows, and
+    in bf16 the llama rows of ``CROSSOVER`` between them."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = {"flash_attention": [], "decode_attention": [],
              "matmul_fused": []}
+    rg_cases = []
     for dt in (torch.bfloat16, torch.float32):
         for kname, c in (("flash_attention", _flash_case(dt, gen)),
                          ("decode_attention", _decode_case(dt, gen))):
             cases[kname].append(c)
             log(json.dumps({"kernel": kname, **c}))
-        for M in (B * LM_S, B):                     # prefill rows, one step
+        rows = (B * LM_S, 128, 64, 40, 32, B) if dt == torch.bfloat16 \
+            else (B * LM_S, B)
+        for M in rows:
             for name, K, N, glu in LM_MATMULS:
-                c = _lm_matmul_case(name, M, K, N, glu, dt, gen)
+                if M in CROSSOVER and name not in CROSSOVER[M]:
+                    continue
+                c = _lm_matmul_case(name, M, K, N, glu, dt, gen, LM_LAYERS,
+                                    crossover=M in CROSSOVER)
                 cases["matmul_fused"].append(c)
                 log(json.dumps({"kernel": "matmul_fused", **c}))
-    return cases
+        for M in (B * RG_S, B):
+            for name, K, N, glu, uses in RG_MATMUL_SHAPES:
+                c = _lm_matmul_case(name, M, K, N, glu, dt, gen, uses)
+                rg_cases.append(c)
+                log(json.dumps({"kernel": "matmul_fused", "arch": RG_ARCH,
+                                **c}))
+    return cases, rg_cases
+
+
+BASE_TILE = (256, 512, 256)     # repro/kernels/ops.py's default tile
+
+
+def _base_case(M, K, N, has_bias, dt, gen):
+    """The base variant (``vmem_accum=False``, tile (256, 512, 256)) against
+    its plain version.  Its library call is ``torch.matmul`` (+ bias) where
+    that computes the same function: in fp32, where rounding a slab's fp32
+    sum to fp32 changes nothing, and in bf16 at one slab, round(x @ w) +
+    bias; none where several bf16 slabs are rounded, which no one PyTorch
+    call does."""
+    from repro_torch.kernels import matmul_fused as km
+    dev = torch.device("cuda")
+    x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
+    b = torch.randn(N, generator=gen, device=dev).to(dt) if has_bias else None
+    kw = dict(bias=b, tile=BASE_TILE, vmem_accum=False, out_dtype=dt)
+    b0 = km.matmul_fused.base_launches
+    y = km.matmul_fused(x, w, **kw)
+    torch.cuda.synchronize()
+    if km.matmul_fused.base_launches != b0 + 1:
+        raise AssertionError("the base variant did not count its launch")
+    p = km.matmul_fused_plain(x, w, **kw)
+    err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
+    if not (y.shape == p.shape and err < TOL[dt]):
+        raise AssertionError(f"matmul_fused base {M}x{K}x{N} {dt}: relerr "
+                             f"{err} (tol {TOL[dt]})")
+    flops = 2.0 * M * K * N
+    nbytes = (M * K + K * N + M * N + (N if has_bias else 0)) \
+        * x.element_size()
+    bms, by = bound_ms(flops, nbytes, dt)
+    iters = 20 if M <= 64 else 3
+    slabs = -(-K // km._slab_depth(K, BASE_TILE))
+
+    def library():                              # cuBLAS, the yardstick only
+        y = torch.matmul(x, w)
+        return y if b is None else (y.float() + b.float()).to(dt)
+    lib = dt == torch.float32 or slabs == 1
+    return {"shape": f"base_{M}x{K}x{N}" + ("_bias" if has_bias else ""),
+            "dtype": str(dt).split(".")[-1], "rows": M, "tile": BASE_TILE,
+            "slabs": slabs, "relerr": err, "max_abs_err": aerr,
+            "tol": TOL[dt],
+            "library_relerr": relerr(library(), p) if lib else None,
+            "flops": flops, "bytes": nbytes, "bound_ms": bms,
+            "bound_by": by, "timer": "cuda_graph",
+            "ms": graph_ms(lambda: km.matmul_fused(x, w, **kw), iters),
+            "plain_ms": graph_ms(lambda: km.matmul_fused_plain(x, w, **kw),
+                                 iters),
+            "library_ms": graph_ms(library, iters) if lib else None}
+
+
+def phase_base_kernels():
+    """The base variant at the ResNet-34 FC shape and a 4096-row llama
+    projection, bf16 and fp32."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for M, K, N, has_bias in ((B, FC[0], FC[1], True),
+                                  (B * LM_S, 2048, 2048, False)):
+            c = _base_case(M, K, N, has_bias, dt, gen)
+            cases.append(c)
+            log(json.dumps({"kernel": "matmul_fused_base", **c}))
+    return {"matmul_fused_base": cases}
 
 
 def _profile(fn, iters: int = 5):
@@ -526,10 +834,10 @@ def _check_logits(name, y, yr, vocab, prec):
     return err
 
 
-def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
+def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
     """One forward through the port's entry point with the counters read
-    just around it, held against the reference backend on the same
-    weights and images."""
+    just around it (matmul_fused's split by schedule ``want_sched``), held
+    against the reference backend on the same weights and images."""
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -550,10 +858,11 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm,
                     "flash_attention": 0, "decode_attention": 0,
                     "paged_decode_attention": 0, "copy_block": 0,
-                    "lru_scan": 0}:
+                    "lru_scan": 0, "matmul_fused_base": 0}:
         raise AssertionError(f"{arch}: launches {launches}, want "
                              f"{want_conv} conv / {want_mm} matmul")
     launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
+    schedules = _scheduled(want_sched, arch)
     ref = tflow.compile(get_config(arch), serve, flow, backend="reference")
     if any(b != "ref" for b in ref.plan.kernels.values()):
         raise AssertionError(f"reference plan {ref.plan.kernels}")
@@ -561,7 +870,8 @@ def _forward(arch, flow, want_conv, want_mm, smi, measure=True):
     err = _check_logits(arch, y, yr, cfg.vocab_size, flow.precision)
     rec = {"arch": arch, "flow": flow.precision, "mode": cm.plan.stream.mode,
            "units": cm.describe().splitlines()[2].strip(),
-           "launches": launches, "logits_relerr_vs_reference": err,
+           "launches": launches, "matmul_schedules": schedules,
+           "logits_relerr_vs_reference": err,
            "logits_max_abs": y.float().abs().max().item()}
     if measure:
         m = cm.measure("prefill", iters=10, seed=SEED)
@@ -581,19 +891,23 @@ def phase_path(smi):
     from repro_torch.configs.base import FlowConfig
     from repro_torch.kernels.registry import DISPATCH_REJECTIONS
     out = []
-    flows = [("opt", FlowConfig(mode="auto")), ("base", FlowConfig().base()),
-             ("folded", FlowConfig(mode="folded"))]
-    for label, fl in flows:
-        rec = _forward("resnet34", fl, 36, 1, smi)
+    # the FC heads: bf16 operands at batch 8 on small_m, fp32 on simt
+    flows = [("opt", FlowConfig(mode="auto"), {"small_m": 1}),
+             ("base", FlowConfig().base(), {"simt": 1}),
+             ("folded", FlowConfig(mode="folded"), {"small_m": 1})]
+    for label, fl, sched in flows:
+        rec = _forward("resnet34", fl, 36, 1, sched, smi)
         rec["flow_name"] = label
         out.append(rec)
     if "4 folded: 3x1, 3x1, 5x1, 2x1" not in out[2]["units"]:
         raise AssertionError(f"folded flow units: {out[2]['units']}")
-    out.append(_forward("lenet5", FlowConfig(mode="auto"), 2, 3, smi,
-                        measure=False))
+    # LeNet-5: 400 -> 120 on small_m; 120 -> 84 and 84 -> 10 (N or K not a
+    # multiple of 8) on simt
+    out.append(_forward("lenet5", FlowConfig(mode="auto"), 2, 3,
+                        {"small_m": 1, "simt": 2}, smi, measure=False))
     DISPATCH_REJECTIONS.clear()
-    out.append(_forward("mobilenetv1", FlowConfig(mode="auto"), 14, 1, smi,
-                        measure=False))
+    out.append(_forward("mobilenetv1", FlowConfig(mode="auto"), 14, 1,
+                        {"small_m": 1}, smi, measure=False))
     dw = sum(n for (op, _), n in DISPATCH_REJECTIONS.items()
              if op == "conv2d")
     if dw != 13:
@@ -684,6 +998,10 @@ def phase_lm_path(smi):
     rec["launches"] = _counted(read_counts(), {
         k: want_p[k] + (LM_STEPS - 1) * want_d[k] for k in want_p},
         "generate")
+    # 4096 prefill rows on wgmma, 8 decode rows on small_m
+    rec["matmul_schedules"] = _scheduled(
+        {"wgmma": want_p["matmul_fused"],
+         "small_m": (LM_STEPS - 1) * want_d["matmul_fused"]}, "generate")
     if tuple(toks.shape) != (B, LM_STEPS) or not ((toks >= 0)
                                                   & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
@@ -692,6 +1010,7 @@ def phase_lm_path(smi):
     reset_counts()
     y, st, _ = cm.prefill(params, batch)
     _counted(read_counts(), want_p, "one prefill")
+    _scheduled({"wgmma": want_p["matmul_fused"]}, "one prefill")
     yr, st_r, _ = ref.prefill(params, batch)
     errs = [_lm_check_logits("prefill", y, yr, PATH_TOL["bf16"])]
     agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
@@ -701,6 +1020,7 @@ def phase_lm_path(smi):
         reset_counts()
         y, st, _ = cm.decode(params, tok, st, LM_S + t)
         _counted(read_counts(), want_d, f"decode step {t}")
+        _scheduled({"small_m": want_d["matmul_fused"]}, f"decode step {t}")
         yr, st_r, _ = ref.decode(params, tok, st_r, LM_S + t)
         errs.append(_lm_check_logits(f"decode step {t}", y, yr,
                                      PATH_TOL["bf16"]))
@@ -757,6 +1077,8 @@ def phase_lm_path(smi):
     t32, _ = cm32.generate(p32, batch, steps=LM_STEPS)
     rec["launches_fp32"] = _counted(read_counts(), rec["launches"],
                                     "fp32 generate")
+    rec["matmul_schedules_fp32"] = _scheduled(
+        {"simt": rec["launches"]["matmul_fused"]}, "fp32 generate")
     t32r, _ = ref32.generate(p32, batch, steps=LM_STEPS)
     if not torch.equal(t32, t32r):
         diff = (t32 != t32r).float().mean().item()
@@ -990,14 +1312,17 @@ def phase_serving(smi):
 
     # the main path, bf16: each workload with the counts set to 0 just
     # before it and read just after
-    runs, launches = {}, {}
+    runs, launches, scheds = {}, {}, {}
     for name, (wl, kw) in SERVE_KNOBS.items():
         reset_counts()
         eng, rep = _engine_run(cm, params, works[wl], trace=True, **kw)
         launches[name] = counted(rep, f"workload {name}")
+        scheds[name] = _tensor_core_only(launches[name]["matmul_fused"],
+                                         f"workload {name}")
         runs[name] = rep
         r = _serve_record(eng, rep)
         r["launches"] = launches[name]
+        r["matmul_schedules"] = scheds[name]
         rec[f"bf16_{name}"] = r
         log(json.dumps({"serving": name, "precision": "bf16", **r}))
     b = runs["B"].metrics
@@ -1050,6 +1375,8 @@ def phase_serving(smi):
         reset_counts()
         eng, rep = _engine_run(cm32, p32, works[wl], **kw)
         launches32[name] = counted(rep, f"fp32 workload {name}")
+        _scheduled({"simt": launches32[name]["matmul_fused"]},
+                   f"fp32 workload {name}")
         _, rep_r = _engine_run(ref32, p32, works[wl], **kw)
         toks[name] = _tokens(rep)
         if toks[name] != _tokens(rep_r):
@@ -1204,10 +1531,17 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
     launches = _counted(read_counts(), {
         k: want_p.get(k, 0) + (steps - 1) * want_d.get(k, 0)
         for k in set(want_p) | set(want_d)}, f"{prec} generate")
+    # bf16: the prefill's rows (b x S >= 512) on wgmma, decode rows (b <= 8)
+    # on small_m; fp32 all on simt
+    sched = _scheduled(
+        {"wgmma": want_p["matmul_fused"],
+         "small_m": (steps - 1) * want_d["matmul_fused"]} if prec == "bf16"
+        else {"simt": launches["matmul_fused"]}, f"{prec} generate")
     V = cm.cfg.vocab_size
     if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
-    rec = {"launches": launches, "tokens_row0": toks[0].tolist()}
+    rec = {"launches": launches, "matmul_schedules": sched,
+           "tokens_row0": toks[0].tolist()}
     if prec == "fp32":
         tr, _ = ref.generate(params, batch, steps=steps)
         if not torch.equal(toks, tr):
@@ -1335,9 +1669,15 @@ def phase_rec_path(smi):
                 "paged_decode_attention":
                     st["decode_attention"] * m["decode_ticks"]}
         s_launch = _counted(read_counts(), want, f"{prec} workload R")
+        # bf16: prefill batches (>= 256 rows) on wgmma, ticks on small_m
+        s_sched = _scheduled(
+            {"wgmma": sp["matmul_fused"] * m["prefill_batches"],
+             "small_m": st["matmul_fused"] * m["decode_ticks"]}
+            if prec == "bf16" else {"simt": want["matmul_fused"]},
+            f"{prec} workload R")
         runs[prec] = rep
         r = _serve_record(eng, rep)
-        r.update(launches=s_launch,
+        r.update(launches=s_launch, matmul_schedules=s_sched,
                  dense_state_bytes=eng.last_cache.dense_bytes())
         rec[f"serve_{prec}"] = r
         log(json.dumps({"serving": "R", "arch": RG_ARCH, "precision": prec,
@@ -1393,29 +1733,58 @@ def phase_rec_path(smi):
     return rec
 
 
+def _by_schedule(cases):
+    """``cases`` with matmul_fused's split into one list per schedule,
+    ``matmul_fused[wgmma]`` and so on: each schedule is its own kernel."""
+    out = {k: v for k, v in cases.items() if k != "matmul_fused"}
+    for r in cases.get("matmul_fused", []):
+        out.setdefault(f"matmul_fused[{r['schedule']}]", []).append(r)
+    return out
+
+
+def _sched_launches(counts, schedules):
+    """A path's launch counts with matmul_fused's split by schedule."""
+    out = {k: v for k, v in counts.items() if k != "matmul_fused"}
+    for sched, n in schedules.items():
+        out[f"matmul_fused[{sched}]"] = n
+    return out
+
+
 def rec_kernel_entries(cases, rg):
     """Each kernel at recurrentgemma-2b's shapes, summed over one generate
-    (a prefill of 8 x 512 tokens, then 31 decode steps: lru_scan and flash
-    at the prefill shape, decode_attention over the 1024-slot cache);
+    (a prefill of 8 x 512 tokens, then 31 decode steps: lru_scan, flash and
+    matmul_fused's 4096-row cases at the prefill, decode_attention over the
+    1024-slot cache and the 8-row matmuls at each step);
     paged_decode_attention one call at workload R's shape.  ``launches``
     counts the recurrent path's runs of that dtype (generate, window run,
     workload R)."""
     uses = {"lru_scan": RG_REC, "flash_attention": RG_ATTN,
             "decode_attention": RG_ATTN * (RG_STEPS - 1),
             "paged_decode_attention": 1}
+    cases = _by_schedule(cases)
     launches = {}
     for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
-        launches[dt] = {k: sum(rg[f"{run}_{prec}"]["launches"].get(k, 0)
-                               for run in ("generate", "window", "serve"))
-                        for k in cases}
+        runs = [rg[f"{run}_{prec}"] for run in ("generate", "window",
+                                                 "serve")]
+        counts = [_sched_launches(r["launches"], r["matmul_schedules"])
+                  for r in runs]
+        launches[dt] = {k: sum(c.get(k, 0) for c in counts) for k in cases}
+
+    def use(k, r):
+        if k.startswith("matmul_fused"):
+            return r["uses_per_forward"] * (1 if r["rows"] == B * RG_S
+                                            else RG_STEPS - 1)
+        return uses[k] if r.get("rows", B) == B else 0
 
     def per(kname, used):
+        if kname.startswith("matmul_fused"):
+            return (f"one {RG_ARCH} generate: {len(used)} projection shapes "
+                    f"x their uses, prefill of {B}x{RG_S} tokens then "
+                    f"{RG_STEPS - 1} decode steps")
         (r, u), = used
         return (f"one call at {r['shape']}" if u == 1 else
                 f"{u} calls at {r['shape']} (one {RG_ARCH} generate)")
-    return summed_entries(
-        cases, launches, f"@{RG_ARCH}", per,
-        lambda k, r: uses[k] if r.get("rows", B) == B else 0)
+    return summed_entries(cases, launches, f"@{RG_ARCH}", per, use)
 
 
 def serving_kernel_entries(cases, serve):
@@ -1435,10 +1804,11 @@ def kernel_entries(cases, path):
     for r in path:
         if r["arch"] == "resnet34":
             d = launches["bfloat16" if r["flow"] == "bf16" else "float32"]
-            for k, n in r["launches"].items():
+            for k, n in _sched_launches(r["launches"],
+                                        r["matmul_schedules"]).items():
                 d[k] = d.get(k, 0) + n
     return summed_entries(
-        cases, launches, "",
+        _by_schedule(cases), launches, "",
         lambda k, used: "one ResNet-34 forward at batch 8, 224 px",
         lambda k, r: r["uses"])
 
@@ -1446,7 +1816,7 @@ def kernel_entries(cases, path):
 def lm_kernel_entries(cases, lm):
     """Each LM kernel, summed over one ``generate`` of 32 tokens (a prefill
     of 8 x 512 tokens, then 31 decode steps), each case's time times its
-    uses there."""
+    uses there (the 128- and 40-row matmul cases are on no such path)."""
     steps = LM_STEPS - 1
 
     def uses(kname, r):
@@ -1454,19 +1824,42 @@ def lm_kernel_entries(cases, lm):
             return LM_LAYERS
         if kname == "decode_attention":
             return LM_LAYERS * steps
-        return LM_LAYERS * (1 if r["rows"] > B else steps)
+        return LM_LAYERS * {B * LM_S: 1, B: steps}.get(r["rows"], 0)
     return summed_entries(
-        cases, {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]},
+        _by_schedule(cases),
+        {"bfloat16": _sched_launches(lm["launches"], lm["matmul_schedules"]),
+         "float32": _sched_launches(lm["launches_fp32"],
+                                    lm["matmul_schedules_fp32"])},
         f"@{LM_ARCH}",
         lambda k, used: f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
                         f"tokens, then {steps} decode steps", uses)
 
 
+def base_kernel_entries(cases, lm):
+    """The base variant, one entry per shape and dtype: one call.  Its
+    launches on the main path (the LM generate runs) are 0: no op-layer
+    caller passes ``vmem_accum=False``."""
+    out = []
+    for rows, tag in ((B, "@resnet34_fc"), (B * LM_S, "@4096x2048x2048")):
+        out += summed_entries(
+            cases,
+            {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]},
+            tag, lambda k, used: f"one call at {used[0][0]['shape']}",
+            lambda k, r, rows=rows: int(r["rows"] == rows))
+    return out
+
+
 KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
     "conv2d_fused": ("src/repro_torch/csrc/conv2d_fused.cu",
                      "src/repro/kernels/conv2d.py:64"),
-    "matmul_fused": ("src/repro_torch/csrc/matmul_fused.cu",
-                     "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused[wgmma]": ("src/repro_torch/csrc/matmul_wgmma.cu",
+                            "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused[small_m]": ("src/repro_torch/csrc/matmul_small_m.cu",
+                              "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused[simt]": ("src/repro_torch/csrc/matmul_fused.cu",
+                           "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused_base": ("src/repro_torch/csrc/matmul_fused.cu",
+                          "src/repro/kernels/matmul_fused.py:147"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:93"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1486,12 +1879,15 @@ def summed_entries(cases, launches, tag, per, uses):
     and bound count ``uses(kernel, case)`` times (0 leaves a case out) and
     are summed; ``per(kernel, [(case, uses), ...])`` names what the sum
     covers; ``launches`` is {dtype: {kernel: count}} from that dtype's
-    main-path run."""
+    main-path run.  A kernel with no case of a dtype, or none used, has no
+    entry for it."""
     out = []
     for kname, rows in cases.items():
         for dt in ("bfloat16", "float32"):
             rs = [r for r in rows if r["dtype"] == dt]
             used = [(r, uses(kname, r)) for r in rs if uses(kname, r)]
+            if not used:
+                continue
 
             def tot(key):
                 return sum(r[key] * u for r, u in used)
@@ -1524,7 +1920,8 @@ def main() -> int:
     name, smi = phase_device()
     build = phase_build()
     cases = phase_kernels()
-    lm_cases = phase_lm_kernels()
+    lm_cases, rg_mm_cases = phase_lm_kernels()
+    base_cases = phase_base_kernels()
     serve_cases = phase_serving_kernels()
     path = phase_path(smi)
     lm = phase_lm_path(smi)
@@ -1533,12 +1930,15 @@ def main() -> int:
     rg = phase_rec_path(smi)
     entries = kernel_entries(cases, path) + \
         lm_kernel_entries(lm_cases, lm) + \
+        base_kernel_entries(base_cases, lm) + \
         serving_kernel_entries(serve_cases, serve) + \
-        rec_kernel_entries(rec_cases, rg)
+        rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
                    "kernels": cases, "lm_kernels": lm_cases,
+                   "rec_matmul_kernels": rg_mm_cases,
+                   "base_kernels": base_cases,
                    "serving_kernels": serve_cases, "path": path,
                    "lm_path": lm, "serving": serve,
                    "rec_kernels": rec_cases, "rec_path": rg,

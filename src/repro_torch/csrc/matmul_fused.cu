@@ -3,10 +3,22 @@
 // src/repro/kernels/matmul_fused.py; see src/repro_torch/kernels/matmul_fused.py
 // for the design note and the plain PyTorch version it is held against.
 //
-// fp32 accumulation in registers (a second accumulator when w2 is given, the
-// GLU form); the epilogue runs in the JAX kernel's order — GLU
-// act_glu(acc) * acc2, then bias, then act — and the output is written once,
-// in the output dtype.
+// Two entries.  matmul_fused is the `simt` schedule: fp32 accumulation in
+// registers (a second accumulator when w2 is given, the GLU form); the
+// epilogue runs in the JAX kernel's order — GLU act_glu(acc) * acc2, then
+// bias, then act — and the output is written once, in the output dtype.
+// It takes fp32 operands (full fp32, no TF32) and shapes the tensor-core
+// schedules (matmul_wgmma.cu, matmul_small_m.cu) do not.
+//
+// matmul_base is the Pallas kernel's vmem_accum=False branch (the paper's
+// base kernel, matmul_fused.py:70-80, pallas_call at :147): the sum goes
+// through the output dtype one bk-deep K slab at a time — each slab's fp32
+// product is rounded to the output dtype and added to the running sum in
+// that dtype (two round-to-nearest-even steps a slab) — and the epilogue
+// (+ bias, act) works on the widened sum.  No GLU form.  It is bound by the
+// bytes at the FC head's 8 rows and by the SIMT core's operations at 4096
+// rows; nothing on the op layer calls it (the JAX op layer never passes
+// vmem_accum), so it stays on the same simple SIMT core.
 #include "common.cuh"
 
 namespace {
@@ -95,6 +107,99 @@ int launch(const void* x, const void* w, const void* w2, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// Round to the output dtype and widen back (the identity for fp32).
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The base variant: per bk-deep K slab an fp32 partial from the SIMT core,
+// rounded to TOut and added into the TOut running sum (held widened in
+// registers, every value representable in TOut).
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(THREADS)
+matmul_base_kernel(const TIn* __restrict__ x, const TIn* __restrict__ w,
+                   const float* __restrict__ bias, TOut* __restrict__ out,
+                   int M, int K, int N, int bk, int act) {
+  __shared__ __align__(16) float As[BK][BM + 4];
+  __shared__ __align__(16) float Bs[1][BK][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int ar = tid >> 2, ak = (tid & 3) * 4;
+  const int am = m0 + ar;
+  const int bkr = tid >> 4, bc = (tid & 15) * 4;
+
+  float sum[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) sum[i][j] = 0.0f;
+
+  for (int s0 = 0; s0 < K; s0 += bk) {
+    const int s1 = min(K, s0 + bk);
+    float part[1][TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[0][i][j] = 0.0f;
+    for (int k0 = s0; k0 < s1; k0 += BK) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + ak + i;
+        As[ak + i][ar] =
+            (am < M && k < s1) ? to_f32(x[(size_t)am * K + k]) : 0.0f;
+      }
+      {
+        const int k = k0 + bkr;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + bc + j;
+          Bs[0][bkr][bc + j] =
+              (k < s1 && c < N) ? to_f32(w[(size_t)k * N + c]) : 0.0f;
+        }
+      }
+      __syncthreads();
+      mma_step<1>(As, Bs, part, ty, tx);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        sum[i][j] = round_to<TOut>(sum[i][j] + round_to<TOut>(part[0][i][j]));
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx * TN + j;
+      if (c >= N) continue;
+      float v = sum[i][j];
+      if (bias != nullptr) v += bias[c];
+      out[(size_t)m * N + c] = from_f32<TOut>(apply_act(v, act));
+    }
+  }
+}
+
+template <typename TIn, typename TOut>
+int launch_base(const void* x, const void* w, const float* bias, void* out,
+                int M, int K, int N, int bk, int act, cudaStream_t stream) {
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  matmul_base_kernel<TIn, TOut><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TIn*>(x), static_cast<const TIn*>(w), bias,
+      static_cast<TOut*>(out), M, K, N, bk, act);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface (bound with ctypes in kernels/_build.py).  in_dtype is the
@@ -114,5 +219,24 @@ extern "C" int matmul_fused(int in_dtype, int out_dtype, const void* x,
     return launch<bf16, float>(x, w, w2, bias, out, M, K, N, act, glu_act, s);
   if (in_dtype == rt::kBF16 && out_dtype == rt::kBF16)
     return launch<bf16, bf16>(x, w, w2, bias, out, M, K, N, act, glu_act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The base variant (C interface as above, without w2 and the GLU act): bk
+// is the slab depth, the plan tile's K extent cut to rup(K, 128).
+extern "C" int matmul_base(int in_dtype, int out_dtype, const void* x,
+                           const void* w, const float* bias, void* out, int M,
+                           int K, int N, int bk, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (bk < 1) return (int)cudaErrorInvalidValue;
+  if (in_dtype == rt::kF32 && out_dtype == rt::kF32)
+    return launch_base<float, float>(x, w, bias, out, M, K, N, bk, act, s);
+  if (in_dtype == rt::kF32 && out_dtype == rt::kBF16)
+    return launch_base<float, bf16>(x, w, bias, out, M, K, N, bk, act, s);
+  if (in_dtype == rt::kBF16 && out_dtype == rt::kF32)
+    return launch_base<bf16, float>(x, w, bias, out, M, K, N, bk, act, s);
+  if (in_dtype == rt::kBF16 && out_dtype == rt::kBF16)
+    return launch_base<bf16, bf16>(x, w, bias, out, M, K, N, bk, act, s);
   return (int)cudaErrorInvalidValue;
 }

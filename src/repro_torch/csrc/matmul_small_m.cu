@@ -1,0 +1,300 @@
+// matmul_small_m: the small-M schedule of matmul_fused (bf16 operands),
+// y = epilogue(x @ w [, x @ w2]) for M at or below the wrapper's crossover:
+// decode steps and serving ticks (8 rows), speculative verify (40), the CNN
+// heads at batch 8.  Replaces the Pallas kernel matmul_fused of
+// src/repro/kernels/matmul_fused.py (its CW branch) there.  The schedule
+// choice, the plain version and the design note are in
+// src/repro_torch/kernels/matmul_fused.py.
+//
+// What bounds it: the weight bytes.  At 8 rows a projection does 16 flops
+// per weight element of 2 bytes: K * N * 2 bytes (8.4 MB, 2.5 us at 3.35
+// TB/s for a 2048 x 2048 projection) against a few hundred ns of tensor-core
+// work.  The card has to stream w at its full rate, which takes many
+// loads in flight on every SM.
+//
+// The design: split K.  The grid is (N / 128 strips) x (K splits), sized by
+// the wrapper to 4 blocks an SM or more; a block of 4 warps streams its
+// (K split x 128 columns) slab of w (and w2) through a 4-deep ring of
+// 32-row stages with 16-byte cp.async loads, x's rows of the same K range
+// beside it (zero rows up to the next 16).  mma.sync m16n8k16 multiplies:
+// x's rows are the A operand (loaded from shared memory as 32-bit pairs),
+// w's stage the B operand (ldmatrix.trans from a padded, conflict-free
+// layout); fp32 accumulators in registers, 32 columns a warp.  Each block
+// writes its fp32 partial sums to a workspace [split][M][N]; a second
+// kernel sums the splits in a fixed order (no float atomics: the result
+// repeats bit for bit) and applies the epilogue: GLU act(acc) * acc2, then
+// bias, then act, one write in the output dtype.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace rt;
+
+constexpr int SBN = 128;           // columns a block (32 a warp)
+constexpr int SBK = 32;            // K a stage
+constexpr int SSTAGES = 4;
+constexpr int STHREADS = 128;
+constexpr int WLD = SBN + 8;       // padded shared row of a w stage
+constexpr int XLD = SBK + 8;       // padded shared row of an x stage
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices, transposed: B fragments of two n8 tiles.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The partial products of one (K split, 128-column strip): MT 16-row tiles
+// of x (M <= 16 MT), NW weights (2 with the GLU pair).
+template <int MT, int NW>
+__global__ void __launch_bounds__(STHREADS)
+small_m_partial(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                const bf16* __restrict__ w2, float* __restrict__ ws, int M,
+                int K, int N, int kc) {
+  constexpr int ROWS = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem);           // [S][NW][SBK][WLD]
+  bf16* Xs = Ws + SSTAGES * NW * SBK * WLD;           // [S][ROWS][XLD]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = blockIdx.x * SBN;
+  const int kbeg = blockIdx.y * kc, kend = min(K, kbeg + kc);
+  const int nst = (kend - kbeg + SBK - 1) / SBK;
+
+  // K and N are multiples of 8: a 16-byte chunk is all in range or all out
+  auto load_stage = [&](int st, int slot) {
+    const int k0 = kbeg + st * SBK;
+    for (int i = tid; i < SBK * (SBN / 8); i += STHREADS) {
+      const int r = i / (SBN / 8), c = (i % (SBN / 8)) * 8;
+      const int k = k0 + r, n = n0 + c;
+      const bool ok = k < kend && n < N;
+      const size_t off = ok ? (size_t)k * N + n : 0;
+#pragma unroll
+      for (int q = 0; q < NW; ++q)
+        cp_async16(Ws + ((slot * NW + q) * SBK + r) * WLD + c,
+                   (q == 0 ? w : w2) + off, ok ? 16 : 0);
+    }
+    for (int i = tid; i < ROWS * (SBK / 8); i += STHREADS) {
+      const int r = i / (SBK / 8), c = (i % (SBK / 8)) * 8;
+      const int k = k0 + c;
+      const bool ok = r < M && k < kend;
+      cp_async16(Xs + (slot * ROWS + r) * XLD + c,
+                 x + (ok ? (size_t)r * K + k : 0), ok ? 16 : 0);
+    }
+  };
+
+  float acc[NW][MT][4][4];
+#pragma unroll
+  for (int q = 0; q < NW; ++q)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][mt][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < SSTAGES - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    cp_async_commit();
+  }
+  const int g = lane / 4, tig = lane % 4;
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<SSTAGES - 2>();    // stage st has landed
+    __syncthreads();                 // ... for every thread; slot st-1 free
+    const int nx = st + SSTAGES - 1;
+    if (nx < nst) load_stage(nx, nx % SSTAGES);
+    cp_async_commit();
+
+    const int slot = st % SSTAGES;
+    const bf16* xs = Xs + slot * ROWS * XLD;
+#pragma unroll
+    for (int kk = 0; kk < SBK; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const bf16* p = xs + (mt * 16 + g) * XLD + kk + 2 * tig;
+        a[mt][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * XLD);
+        a[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        a[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * XLD + 8);
+      }
+#pragma unroll
+      for (int q = 0; q < NW; ++q) {
+        const bf16* wsl = Ws + (slot * NW + q) * SBK * WLD;
+#pragma unroll
+        for (int jp = 0; jp < 4; jp += 2) {
+          // matrix lane/8: k rows kk + 8 (its bit 0), n tile jp + its bit 1
+          const int mi = lane / 8;
+          const bf16* p = wsl + (kk + (mi & 1) * 8 + lane % 8) * WLD +
+                          warp * 32 + (jp + (mi >> 1)) * 8;
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, p);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_16816(acc[q][mt][jp], a[mt], b[0], b[1]);
+            mma_16816(acc[q][mt][jp + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // partials: fragment e of n8 tile j in row tile mt holds row
+  // 16 mt + lane/4 (+8 for e >= 2), column 8 j + 2 (lane % 4) + e % 2
+  const size_t MN = (size_t)M * N;
+  float* part = ws + (size_t)blockIdx.y * MN;
+#pragma unroll
+  for (int q = 0; q < NW; ++q)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + warp * 32 + j * 8 + 2 * tig;
+        if (c >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g + 8 * h;
+          if (r >= M) continue;
+          *reinterpret_cast<float2*>(part + q * gridDim.y * MN +
+                                     (size_t)r * N + c) =
+              make_float2(acc[q][mt][j][2 * h], acc[q][mt][j][2 * h + 1]);
+        }
+      }
+}
+
+// Sum the splits in order 0 .. nsplit-1, then the epilogue.
+template <typename TOut, bool GLU>
+__global__ void __launch_bounds__(256)
+small_m_reduce(const float* __restrict__ ws, const float* __restrict__ bias,
+               TOut* __restrict__ out, int M, int N, int nsplit, int act,
+               int glu_act) {
+  const size_t MN = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float v = 0.0f;
+  for (int s = 0; s < nsplit; ++s) v += ws[s * MN + i];
+  if (GLU) {
+    float v2 = 0.0f;
+    const float* ws2 = ws + nsplit * MN;
+    for (int s = 0; s < nsplit; ++s) v2 += ws2[s * MN + i];
+    v = apply_act(v, glu_act) * v2;
+  }
+  if (bias != nullptr) v += bias[i % N];
+  out[i] = from_f32<TOut>(apply_act(v, act));
+}
+
+template <int MT, int NW>
+int launch_partial(const void* x, const void* w, const void* w2, float* ws,
+                   int M, int K, int N, int kc, int nsplit,
+                   cudaStream_t stream) {
+  constexpr int smem =
+      SSTAGES * (NW * SBK * WLD + 16 * MT * XLD) * (int)sizeof(bf16);
+  auto kern = small_m_partial<MT, NW>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((unsigned)((N + SBN - 1) / SBN), (unsigned)nsplit);
+  kern<<<grid, STHREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(w2), ws, M, K, N, kc);
+  return (int)cudaGetLastError();
+}
+
+template <int NW>
+int partial_by_rows(const void* x, const void* w, const void* w2, float* ws,
+                    int M, int K, int N, int kc, int nsplit, cudaStream_t s) {
+  switch ((M + 15) / 16) {
+    case 1: return launch_partial<1, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+    case 2: return launch_partial<2, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+    case 3: return launch_partial<3, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+    case 4: return launch_partial<4, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TOut>
+int launch_reduce(const float* ws, const float* bias, void* out, int M, int N,
+                  int nsplit, bool glu, int act, int glu_act,
+                  cudaStream_t stream) {
+  const size_t MN = (size_t)M * N;
+  const unsigned blocks = (unsigned)((MN + 255) / 256);
+  TOut* o = static_cast<TOut*>(out);
+  if (glu)
+    small_m_reduce<TOut, true><<<blocks, 256, 0, stream>>>(
+        ws, bias, o, M, N, nsplit, act, glu_act);
+  else
+    small_m_reduce<TOut, false><<<blocks, 256, 0, stream>>>(
+        ws, bias, o, M, N, nsplit, act, glu_act);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2
+// (K, N) are bf16, row-major, 16-byte aligned, K and N multiples of 8,
+// 1 <= M <= 64 (the wrapper checks them).  ws is an fp32 workspace of
+// (w2 ? 2 : 1) * nsplit * M * N floats; split s covers K rows
+// [s kc, min(K, (s + 1) kc)), kc a multiple of 32.  out_dtype 0 fp32,
+// 1 bf16.  w2 and bias may be null.  Returns cudaGetLastError() after the
+// two launches.
+extern "C" int matmul_small_m(int out_dtype, const void* x, const void* w,
+                              const void* w2, const float* bias, float* ws,
+                              void* out, int M, int K, int N, int kc,
+                              int nsplit, int act, int glu_act,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool glu = w2 != nullptr;
+  if (kc % SBK != 0 || nsplit < 1) return (int)cudaErrorInvalidValue;
+  int err = glu ? partial_by_rows<2>(x, w, w2, ws, M, K, N, kc, nsplit, s)
+                : partial_by_rows<1>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+  if (err != 0) return err;
+  if (out_dtype == rt::kF32)
+    return launch_reduce<float>(ws, bias, out, M, N, nsplit, glu, act,
+                                glu_act, s);
+  if (out_dtype == rt::kBF16)
+    return launch_reduce<__nv_bfloat16>(ws, bias, out, M, N, nsplit, glu,
+                                        act, glu_act, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,420 @@
+// matmul_wgmma: the large-M schedule of matmul_fused (bf16 operands),
+// y = epilogue(x @ w [, x @ w2]) on Hopper's tensor cores.  Replaces the
+// Pallas kernel matmul_fused of src/repro/kernels/matmul_fused.py (its CW
+// branch) where M is above the wrapper's crossover: the LM prefills (8 x 512
+// rows), serving prefill batches and chunked catch-up.  The schedule choice,
+// the plain version and the design note are in
+// src/repro_torch/kernels/matmul_fused.py.
+//
+// What bounds it: the operations.  A 4096-row projection does
+// 2 * 4096 * K * N flops against (4096 + N) * K * 2 bytes, some 1,000-3,000
+// flops a byte, far above the H100's ridge of ~295 (989 TFLOP/s bf16 over
+// 3.35 TB/s).  Only wgmma reaches the tensor cores' full rate.
+//
+// The design: one block computes a 128 x 128 output tile (128 x 64 per
+// accumulator in the GLU form, two accumulators), two blocks an SM. Its K
+// loop walks 64-deep stages through a ring of 3 shared-memory slots. One
+// producer thread (warp 8) issues TMA loads of the x tile (128 x 64,
+// K-major) and the w tile (64 x 128 as two 64 x 64 boxes; w2's box beside
+// w's in the GLU form) into a free slot, with a "full" mbarrier counting the
+// bytes in; two consumer warpgroups (warps 0-7, 64 rows each) wait on it,
+// issue four wgmma.mma_async m64nNk16 over the slot (B is MN-major: the
+// transpose bit), and release the slot on its "empty" mbarrier only once
+// those wgmmas have retired (wgmma.wait_group 0). The 128-byte swizzle of
+// the TMA boxes is the one the wgmma descriptors name. The fp32 accumulators
+// stay in registers; the epilogue (GLU act * acc2, + bias, act) runs there
+// and writes the output once, masked at the ragged edge; TMA zero-fills the
+// loads past M, N and K. The GLU form takes N = 64 tiles so that its two
+// accumulators fit the same 64 registers a thread as the plain form's one,
+// with no setmaxnreg; grid (M / 128, N / BN), not persistent.
+#include <cuda.h>   // CUtensorMap and its enums (no libcuda link: the encoder
+                    // comes through cudaGetDriverEntryPoint)
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using rt::apply_act;
+
+constexpr int BM = 128;            // rows a block: two consumer warpgroups
+constexpr int BK = 64;             // K a stage: one 128-byte swizzle row
+constexpr int THREADS = 288;       // 2 consumer warpgroups + 1 producer warp
+constexpr int A_BYTES = BM * BK * 2;                 // 16 KB
+constexpr int BOX_BYTES = BK * 64 * 2;               // one 64 x 64 w box, 8 KB
+
+// The tile's N extent per accumulator, the ring's depth and the blocks an
+// SM of each form: one accumulator of BN / 2 fp32 registers a thread in the
+// plain form, two in the GLU form.  Chosen on the H100 at the LM prefill
+// shapes: two blocks an SM of 3 stages (2 x 97 KB of shared memory, at
+// most 112 registers a thread) ran faster than one block of 4-6 stages, the
+// second block's loads and epilogue filling the first one's waits, and
+// faster than 128 x 256 tiles (128 accumulator registers a thread).
+constexpr int PLAIN_BN = 128, PLAIN_STAGES = 3, PLAIN_MINB = 2;
+constexpr int GLU_BN = 64, GLU_STAGES = 3, GLU_MINB = 2;
+
+template <int BN, int NACC>
+__host__ __device__ constexpr int stage_bytes() {
+  return A_BYTES + NACC * (BN / 64) * BOX_BYTES;
+}
+template <int BN, int NACC, int STAGES>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<BN, NACC>() + 1024 + 2 * STAGES * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box at (c0 inner, c1 outer) of the tensor map into shared memory,
+// its bytes counted on the barrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: the next 64-element swizzle atom along N), stride
+// byte offset (the next group of 8 rows), all in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 128 fp32, 64 registers a thread) += A (64 x 16, K-major)
+// * B (16 x 128, MN-major), both in shared memory behind descriptors:
+// bf16 in, the transpose bit set for B (w is (K, N) row-major).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  const int scale_d = 1;   // D += A * B
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64 fp32, 32 registers a thread) += A (64 x 16, K-major)
+// * B (16 x 64, MN-major), both in shared memory behind descriptors:
+// bf16 in, the transpose bit set for B (w is (K, N) row-major).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  const int scale_d = 1;   // D += A * B
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The products of one stage for one accumulator: four k16 steps.  A's
+// descriptor advances 32 bytes a step inside the swizzle row; B's 2048 bytes
+// (16 rows of 128 bytes); B's 64-column boxes lie BOX_BYTES apart.
+template <int BN>
+__device__ __forceinline__ void stage_mma(float (&acc)[BN / 2], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    const uint64_t da = make_desc(a + j * 32, 16, 1024);
+    const uint64_t db = make_desc(b + j * 2048, BOX_BYTES, 1024);
+    if constexpr (BN == 128)
+      wgmma_n128(acc, da, db);
+    else
+      wgmma_n64(acc, da, db);
+  }
+}
+
+// One 128 x BN output tile: NACC = 1 (w) or 2 (the GLU pair w, w2), each
+// weight's stage tile BN / 64 boxes of 64 x 64.
+template <int BN, int NACC, int STAGES, int MINB, typename TOut>
+__global__ void __launch_bounds__(THREADS, MINB)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap tw2,
+                    const float* __restrict__ bias, TOut* __restrict__ out,
+                    int M, int K, int N, int act, int glu_act) {
+  constexpr bool GLU = NACC == 2;
+  constexpr int NBOX = BN / 64;
+  constexpr int STAGE = stage_bytes<BN, NACC>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled boxes need 1024-byte aligned slots
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);        // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {                  // the producer warp: one thread loads
+    if (tid == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(empty(s), ((kt / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), STAGE);
+        const uint32_t a = base + s * STAGE, b = a + A_BYTES;
+        tma_load_2d(a, &tx, kt * BK, m0, full(s));
+#pragma unroll
+        for (int q = 0; q < NACC; ++q)
+#pragma unroll
+          for (int i = 0; i < NBOX; ++i)
+            tma_load_2d(b + (q * NBOX + i) * BOX_BYTES, q == 0 ? &tw : &tw2,
+                        n0 + 64 * i, kt * BK, full(s));
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows m0 + 64 wg .. + 63
+  const int wg = tid / 128;
+  float acc[NACC][BN / 2];
+#pragma unroll
+  for (int q = 0; q < NACC; ++q)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[q][i] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full(s), (kt / STAGES) & 1);
+    const uint32_t a = base + s * STAGE + wg * (A_BYTES / 2);
+    const uint32_t b = base + s * STAGE + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < NACC; ++q)
+      stage_mma<BN>(acc[q], a, b + q * NBOX * BOX_BYTES);
+    wgmma_commit();
+    // release the slot once its products retired: one slot held, the rest
+    // free for loads; the SM's other block keeps the tensor cores busy
+    // meanwhile (faster on the H100 than keeping one group in flight)
+    wgmma_wait<0>();
+    if ((tid & 31) == 0) mbar_arrive(empty(s));
+  }
+
+  // epilogue: fragment i of a thread holds row 16 warp + lane/4 (+8 for
+  // i % 4 >= 2), column 8 (i / 4) + 2 (lane % 4) + i % 2
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + j * 8 + (lane % 4) * 2;
+    if (c >= N) continue;            // N % 8 == 0: c + 1 < N as well
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + h * 8;
+      if (r >= M) continue;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = acc[0][4 * j + 2 * h + e];
+        if (GLU) x = apply_act(x, glu_act) * acc[NACC - 1][4 * j + 2 * h + e];
+        if (bias != nullptr) x += bias[c + e];
+        v[e] = apply_act(x, act);
+      }
+      TOut* o = out + (size_t)r * N + c;
+      if constexpr (sizeof(TOut) == 4) {
+        *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver once.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 row-major (rows, cols) tensor, boxes of box_rows x 64 columns
+// (128 bytes: the 128-byte swizzle's row), zero fill past the edges.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
+            int box_rows) {
+  EncodeFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int NACC, int STAGES, int MINB, typename TOut>
+int launch(const CUtensorMap& tx, const CUtensorMap& tw,
+           const CUtensorMap& tw2, const float* bias, void* out, int M,
+           int K, int N, int act, int glu_act, cudaStream_t stream) {
+  auto kern = matmul_wgmma_kernel<BN, NACC, STAGES, MINB, TOut>;
+  constexpr int smem = smem_bytes<BN, NACC, STAGES>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  kern<<<grid, THREADS, smem, stream>>>(tx, tw, tw2, bias,
+                                        static_cast<TOut*>(out), M, K, N,
+                                        act, glu_act);
+  return (int)cudaGetLastError();
+}
+
+template <typename TOut>
+int launch_form(bool glu, const CUtensorMap& tx, const CUtensorMap& tw,
+                const CUtensorMap& tw2, const float* bias, void* out, int M,
+                int K, int N, int act, int glu_act, cudaStream_t s) {
+  if (glu)
+    return launch<GLU_BN, 2, GLU_STAGES, GLU_MINB, TOut>(
+        tx, tw, tw2, bias, out, M, K, N, act, glu_act, s);
+  return launch<PLAIN_BN, 1, PLAIN_STAGES, PLAIN_MINB, TOut>(
+      tx, tw, tw2, bias, out, M, K, N, act, glu_act, s);
+}
+
+}  // namespace
+
+// C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2
+// (K, N) are bf16, row-major, 16-byte aligned, K and N multiples of 8 (the
+// TMA rules; the wrapper checks them).  out_dtype 0 fp32, 1 bf16.  w2 and
+// bias may be null.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue when a tensor map cannot be encoded.
+extern "C" int matmul_wgmma(int out_dtype, const void* x, const void* w,
+                            const void* w2, const float* bias, void* out,
+                            int M, int K, int N, int act, int glu_act,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool glu = w2 != nullptr;
+  CUtensorMap tx, tw, tw2;
+  if (!encode(&tx, x, M, K, BM) || !encode(&tw, w, K, N, BK) ||
+      !encode(&tw2, glu ? w2 : w, K, N, BK))
+    return (int)cudaErrorInvalidValue;
+  if (out_dtype == rt::kF32)
+    return launch_form<float>(glu, tx, tw, tw2, bias, out, M, K, N, act,
+                              glu_act, s);
+  if (out_dtype == rt::kBF16)
+    return launch_form<bf16>(glu, tx, tw, tw2, bias, out, M, K, N, act,
+                             glu_act, s);
+  return (int)cudaErrorInvalidValue;
+}

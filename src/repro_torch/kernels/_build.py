@@ -42,6 +42,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "matmul_base": [_I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "matmul_wgmma": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "matmul_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 9 + [_F, _I, _P],

@@ -1,75 +1,172 @@
-"""matmul_fused — the fused tiled matmul, as a hand-written CUDA kernel for
-Hopper (``csrc/matmul_fused.cu``).
+"""matmul_fused — the fused tiled matmul, as hand-written CUDA kernels for
+Hopper: three schedules of the same function and the base variant.
 
 Replaces the Pallas kernel ``matmul_fused`` of
 ``src/repro/kernels/matmul_fused.py``: ``y = epilogue(x @ w [, x @ w2])``
 over (M, K) x (K, N), the leading dims of x flattened into M and restored
 on the way out; fp32 accumulation, a second accumulator when ``w2`` is given
-(the GLU form the LM slice uses); the epilogue in the JAX kernel's order —
+(the GLU form the LM slices use); the epilogue in the JAX kernel's order —
 GLU ``act(x@w) * (x@w2)`` (silu by default), then bias, then act — and one
-write in ``out_dtype``.  Registered for ``matmul`` and ``glu_matmul``.  The
-Pallas kernel's ``vmem_accum=False`` base variant (reached only by the
-paper-table benchmark) is not ported yet (ROADMAP Queue 2).
+write in ``out_dtype``.  Registered for ``matmul`` and ``glu_matmul``.
 
-What bounds it on the H100: on the CNN path it is the FC head, (8, 512) x
-(512, 1000) for ResNet-34 at batch 8 — 8 rows, so about 8 operations per
-weight byte, far below the ridge: the weight bytes bound it (about 1 MB in
-bf16, a fraction of a microsecond at 3.35 TB/s), and in practice the launch.
+The wrapper picks a schedule with :func:`_schedule`, a pure function of the
+shape, the operand dtype and the pointers' alignment (a dispatch between
+hand-written kernels, not a fallback: a build or launch failure raises):
 
-The simple design: the same SIMT GEMM core as conv2d — 64 x 64 output tiles
-per 256-thread block, 16-deep K steps staged in shared memory as fp32, 4 x 4
-register patches of fp32 FMAs — with no im2col gather.  At M = 8 most of each
-tile's rows are empty, which costs nothing the weight read does not already
-pay.  A later PR for the LM slice, where M is large, moves to bf16
-``wgmma`` with TMA loads; at small M the fix is a split-K or GEMV schedule
-that spreads the weight read over all 132 SMs.
+- ``wgmma`` (``csrc/matmul_wgmma.cu``): bf16 operands, M above
+  :data:`SMALL_M_MAX` (64 rows, 32 for the GLU pair), K and N multiples
+  of 8, 16-byte aligned operands (the TMA rules) — the LM prefills, serving
+  prefill batches and chunked catch-up.  Bound by the operations (a
+  4096-row projection does some 1,000-3,000 flops a byte against the
+  H100's ridge of ~295): TMA loads of 128 x 64 x tiles and 64 x 128 w
+  tiles into a 3-stage ring, one producer warp, two consumer warpgroups on
+  ``wgmma`` m64n128k16 (m64n64k16 twice in the GLU form), fp32
+  accumulators and the epilogue in registers, two blocks an SM.
+- ``small_m`` (``csrc/matmul_small_m.cu``): the same operands with M at or
+  below :data:`SMALL_M_MAX` — decode steps and serving ticks (8 rows),
+  speculative verify of the plain projections (40), the CNN heads at batch
+  8.  Bound by the weight
+  bytes (K * N * 2: 2.5 us for a 2048 x 2048 projection at 3.35 TB/s):
+  split K over 4 blocks an SM or more (:func:`_split_k`), 16-byte
+  ``cp.async`` streams of w, ``mma.sync`` m16n8k16; fp32 partials to a
+  workspace that a second kernel sums in a fixed order (no float atomics:
+  the output repeats bit for bit) before the epilogue.
+- ``simt`` (``csrc/matmul_fused.cu`` ``matmul_fused``): everything else —
+  fp32 operands, which stay full fp32 (no TF32: the fp32 checks and the fp32
+  greedy identity need it), and unaligned shapes (LeNet-5's 120 -> 84 and
+  84 -> 10 heads).  64 x 64 output tiles of a 256-thread block, 16-deep K
+  steps staged in shared memory as fp32, fp32 FMAs.
 
-On a CPU tensor the wrapper runs :func:`matmul_fused_plain`; on a CUDA
-tensor it launches the kernel or raises.  ``matmul_fused.launches`` counts
-the launches.  It uses no ``torch.matmul`` and no cuBLAS on the card.
+``vmem_accum=False`` is the Pallas kernel's base branch (the paper's base
+kernel, ``matmul_fused.py:70-80``): the sum goes through the output dtype
+one ``bk``-deep K slab at a time, ``bk = min(tile[1], rup(K, 128))`` as in
+JAX, and has no GLU form.  Its kernel is ``matmul_base`` in
+``csrc/matmul_fused.cu`` (the SIMT core, two round-to-nearest-even steps a
+slab); nothing on the op layer passes it, in either package.
+
+On a CPU tensor the wrapper runs the plain versions; on a CUDA tensor it
+launches a kernel or raises.  ``matmul_fused.launches`` counts the CW
+launches, ``matmul_fused.schedule_launches`` splits them by schedule, and
+``matmul_fused.base_launches`` counts the base variant's.  No
+``torch.matmul`` and no cuBLAS on the card.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+
+SCHEDULES = ("wgmma", "small_m", "simt")
+# the largest M on the small_m schedule, plain and GLU form; above it wgmma.
+# Set from the crossover measured on the H100 (chip_smoke.py times both
+# schedules at llama's q and GLU shapes between 32 and 128 rows; PERF.md):
+# at 40-64 rows small_m takes under half of wgmma's time on a 2048 x 2048
+# projection, whose wgmma grid has only N / 128 = 16 blocks, while the GLU
+# pair's wide N fills the card and wgmma wins above 32 rows.
+SMALL_M_MAX = {False: 64, True: 32}
+DEFAULT_TILE = (256, 512, 256)        # repro/kernels/ops.py's default
+SMALL_M_BK = 32                       # K a stage of the small_m kernel
+SMALL_M_BN = 128                      # columns a block of the small_m kernel
+
+
+def _rup(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def _slab_depth(K: int, tile) -> int:
+    """The base variant's K slab: the tile's K extent cut to rup(K, 128)
+    (JAX's ``bk``), the tile (256, 512, 256) when none is given."""
+    return min((tile or DEFAULT_TILE)[1], _rup(K, 128))
+
+
+def _schedule(M: int, K: int, N: int, in_dtype: torch.dtype, glu: bool,
+              aligned: bool) -> str:
+    """The kernel that runs a CW product: ``wgmma`` or ``small_m`` for bf16
+    operands that meet the TMA rules (K and N multiples of 8, every operand
+    16-byte aligned), split at :data:`SMALL_M_MAX` rows of the form (the GLU
+    pair's crossover is lower); ``simt`` for the rest."""
+    if in_dtype != torch.bfloat16 or not aligned or K % 8 or N % 8:
+        return "simt"
+    return "small_m" if M <= SMALL_M_MAX[glu] else "wgmma"
+
+
+@functools.lru_cache(maxsize=None)
+def _split_k(M: int, K: int, N: int, sms: int = 132):
+    """(nsplit, kc) of the small_m schedule: K rows per split kc, a multiple
+    of the 32-deep stage, enough splits for 4 blocks an SM over the
+    128-column strips, but not so many that the fp32 partials (written and
+    read back: 8 * nsplit * M * N bytes) outweigh the weight read
+    (2 * K * N bytes).  Memoised: a decode step asks for the same few
+    shapes a hundred times."""
+    strips = -(-N // SMALL_M_BN)
+    want = -(-4 * sms // strips)
+    cap = max(1, K // (4 * M))
+    nsplit = max(1, min(want, cap, -(-K // SMALL_M_BK)))
+    kc = _rup(-(-K // nsplit), SMALL_M_BK)
+    return -(-K // kc), kc
 
 
 def matmul_fused_plain(x: torch.Tensor, w: torch.Tensor, *,
                        bias: Optional[torch.Tensor] = None,
                        w2: Optional[torch.Tensor] = None,
                        act: Optional[str] = None,
-                       out_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       vmem_accum: bool = True, tile=None) -> torch.Tensor:
     """The same function in plain PyTorch: fp32 products of the operands,
-    then the epilogue in the kernel's order."""
+    then the epilogue in the kernel's order.  With ``vmem_accum=False`` the
+    base branch: per ``bk``-deep K slab (zero-padded at the tail) the fp32
+    product is cast to the output dtype and added into the output-dtype
+    sum; the epilogue works on that sum widened to fp32."""
     from repro_torch.core.ops_impl import _act
-    xf = x.float()
-    y = xf @ w.float()
-    if w2 is not None:                    # GLU pair: act(x@w) * (x@w2)
-        y = _act(y, act or "silu") * (xf @ w2.float())
-        act = None
+    odt = out_dtype or x.dtype
+    if not vmem_accum:
+        if w2 is not None:
+            raise ValueError("base (non-CW) kernel does not support the GLU "
+                             "epilogue")
+        K = x.shape[-1]
+        bk = _slab_depth(K, tile)
+        xf, wf = x.float(), w.float()
+        acc = torch.zeros((*x.shape[:-1], w.shape[1]), dtype=odt,
+                          device=x.device)
+        for k0 in range(0, K, bk):
+            part = xf[..., k0:k0 + bk] @ wf[k0:k0 + bk]
+            acc = (acc.float() + part.to(odt).float()).to(odt)
+        y = acc.float()
+    else:
+        xf = x.float()
+        y = xf @ w.float()
+        if w2 is not None:                # GLU pair: act(x@w) * (x@w2)
+            y = _act(y, act or "silu") * (xf @ w2.float())
+            act = None
     if bias is not None:
         y = y + bias.float()
     if act:
         y = _act(y, act)
-    return y.to(out_dtype or x.dtype)
+    return y.to(odt)
 
 
-def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
-                 bias: Optional[torch.Tensor] = None,
-                 w2: Optional[torch.Tensor] = None,
-                 act: Optional[str] = None, tile=None,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y = epilogue(x @ w [, x @ w2]); x (..., K), w and w2 (K, N), bias
-    (N,).  Returns (..., N) in ``out_dtype`` (default ``x.dtype``).
-    ``tile`` is the plan's TPU tile, ignored: the kernel takes its own."""
-    if x.device.type == "cpu":
-        return matmul_fused_plain(x, w, bias=bias, w2=w2, act=act,
-                                  out_dtype=out_dtype)
+class _Call(NamedTuple):
+    """The checked, contiguous operands of one CUDA call."""
+    x: torch.Tensor                   # (M, K)
+    w: torch.Tensor
+    w2: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]      # fp32
+    out: torch.Tensor                 # (M, N), out dtype
+    M: int
+    K: int
+    N: int
+    act: int                          # code of the post-epilogue act
+    glu_act: int                      # code of the GLU act (0 without w2)
+
+
+def _prepare(x, w, *, bias=None, w2=None, act=None,
+             out_dtype=None) -> _Call:
+    """Check the CUDA operands and make them contiguous in the promoted
+    dtype; allocate the output."""
     ops = [t for t in (w, w2, bias) if t is not None]
     if x.device.type != "cuda" or any(t.device != x.device for t in ops):
         raise ValueError("matmul_fused: all operands must be on the same "
@@ -92,23 +189,100 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
     N = w.shape[1]
     if bias is not None and bias.shape != (N,):
         raise ValueError(f"matmul_fused: bias {tuple(bias.shape)} != ({N},)")
-    lead = x.shape[:-1]
-    M = math.prod(lead)
+    M = math.prod(x.shape[:-1])
     if min(M, K, N) <= 0 or max(M * K, K * N, M * N) >= 2 ** 31:
         raise ValueError(f"matmul_fused: unsupported size M={M} K={K} N={N}")
-    xc = x.reshape(M, K).to(dt).contiguous()
-    wc = w.to(dt).contiguous()
-    w2c = w2.to(dt).contiguous() if w2 is not None else None
-    bc = bias.to(torch.float32).contiguous() if bias is not None else None
-    glu_act = _build.ACT_CODES[act or "silu"] if w2 is not None else 0
-    post_act = 0 if w2 is not None else _build.ACT_CODES[act]
-    out = torch.empty((M, N), dtype=odt, device=x.device)
-    _build.call("matmul_fused", _build.DTYPE_CODES[dt],
-                _build.DTYPE_CODES[odt], _build.ptr(xc), _build.ptr(wc),
-                _build.ptr(w2c), _build.ptr(bc), _build.ptr(out), M, K, N,
-                post_act, glu_act, _build.stream())
+    return _Call(
+        x.reshape(M, K).to(dt).contiguous(), w.to(dt).contiguous(),
+        w2.to(dt).contiguous() if w2 is not None else None,
+        bias.to(torch.float32).contiguous() if bias is not None else None,
+        torch.empty((M, N), dtype=odt, device=x.device), M, K, N,
+        0 if w2 is not None else _build.ACT_CODES[act],
+        _build.ACT_CODES[act or "silu"] if w2 is not None else 0)
+
+
+def _aligned(c: _Call) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in (c.x, c.w, c.w2, c.out)
+               if t is not None)
+
+
+def _codes(c: _Call):
+    return _build.DTYPE_CODES[c.x.dtype], _build.DTYPE_CODES[c.out.dtype]
+
+
+def _launch_simt(c: _Call) -> None:
+    ind, outd = _codes(c)
+    _build.call("matmul_fused", ind, outd, _build.ptr(c.x), _build.ptr(c.w),
+                _build.ptr(c.w2), _build.ptr(c.bias), _build.ptr(c.out),
+                c.M, c.K, c.N, c.act, c.glu_act, _build.stream())
+
+
+def _launch_wgmma(c: _Call) -> None:
+    _build.call("matmul_wgmma", _codes(c)[1], _build.ptr(c.x),
+                _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
+                _build.ptr(c.out), c.M, c.K, c.N, c.act, c.glu_act,
+                _build.stream())
+
+
+_SMS: dict = {}                       # device index -> SM count
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _launch_small_m(c: _Call) -> None:
+    nsplit, kc = _split_k(c.M, c.K, c.N, _sm_count(c.x.device))
+    nw = 2 if c.w2 is not None else 1
+    ws = torch.empty(nw * nsplit * c.M * c.N, dtype=torch.float32,
+                     device=c.x.device)
+    _build.call("matmul_small_m", _codes(c)[1], _build.ptr(c.x),
+                _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
+                _build.ptr(ws), _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit,
+                c.act, c.glu_act, _build.stream())
+
+
+_LAUNCH = {"wgmma": _launch_wgmma, "small_m": _launch_small_m,
+           "simt": _launch_simt}
+
+
+def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
+                 bias: Optional[torch.Tensor] = None,
+                 w2: Optional[torch.Tensor] = None,
+                 act: Optional[str] = None, tile=None,
+                 out_dtype: Optional[torch.dtype] = None,
+                 vmem_accum: bool = True) -> torch.Tensor:
+    """y = epilogue(x @ w [, x @ w2]); x (..., K), w and w2 (K, N), bias
+    (N,).  Returns (..., N) in ``out_dtype`` (default ``x.dtype``).
+    ``tile`` is the plan's TPU tile: the CW schedules take their own; with
+    ``vmem_accum=False`` its K extent sets the slabs of the base variant."""
+    if not vmem_accum and w2 is not None:
+        raise ValueError("base (non-CW) kernel does not support the GLU "
+                         "epilogue")
+    if x.device.type == "cpu":
+        return matmul_fused_plain(x, w, bias=bias, w2=w2, act=act,
+                                  out_dtype=out_dtype, vmem_accum=vmem_accum,
+                                  tile=tile)
+    c = _prepare(x, w, bias=bias, w2=w2, act=act, out_dtype=out_dtype)
+    lead = x.shape[:-1]
+    if not vmem_accum:
+        _build.call("matmul_base", *_codes(c), _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(c.out),
+                    c.M, c.K, c.N, _slab_depth(c.K, tile), c.act,
+                    _build.stream())
+        matmul_fused.base_launches += 1
+        return c.out.reshape(*lead, c.N)
+    sched = _schedule(c.M, c.K, c.N, c.x.dtype, w2 is not None, _aligned(c))
+    _LAUNCH[sched](c)
     matmul_fused.launches += 1
-    return out.reshape(*lead, N)
+    matmul_fused.schedule_launches[sched] += 1
+    return c.out.reshape(*lead, c.N)
 
 
 matmul_fused.launches = 0
+matmul_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
+matmul_fused.base_launches = 0

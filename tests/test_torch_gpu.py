@@ -130,6 +130,130 @@ def test_matmul_kernel_each_act(card, act):
     assert _rel(y, p) < TOL["bf16"]
 
 
+def _mm_inputs(g, M, K, N, glu, dt=torch.bfloat16):
+    """x (M, K), w and w2 (K, N) scaled so that the products are O(1), and
+    an fp32 bias."""
+    x = _randn(g, M, K, dt=dt)
+    w = (torch.randn(K, N, generator=g, device="cuda") * K ** -0.5).to(dt)
+    w2 = ((torch.randn(K, N, generator=g, device="cuda") * K ** -0.5).to(dt)
+          if glu else None)
+    return x, w, w2, _randn(g, N)
+
+
+def _schedule_ran(sched, fn):
+    """Run fn; assert that it made one CW launch, on ``sched``."""
+    n0 = km.matmul_fused.launches
+    s0 = dict(km.matmul_fused.schedule_launches)
+    y = fn()
+    torch.cuda.synchronize()
+    assert km.matmul_fused.launches == n0 + 1
+    assert {k: v - s0[k] for k, v in km.matmul_fused.schedule_launches.items()
+            } == {k: int(k == sched) for k in km.SCHEDULES}
+    return y
+
+
+# the wgmma schedule: (M, K, N, glu, act, out dtype): a ragged M (4095), N
+# not a multiple of 128 (200, and 72 in the GLU form's 64-wide tiles), K of
+# 16 stages with a 40-deep tail (1000), and the llama q shape
+WGMMA = {
+    "ragged": (4095, 1000, 200, False, "gelu", torch.bfloat16),
+    "glu_ragged": (4095, 1000, 72, True, "silu", torch.bfloat16),
+    "out_fp32": (300, 576, 136, False, None, torch.float32),
+    "glu_out_fp32": (129, 512, 264, True, "gelu", torch.float32),
+    "llama_q": (4096, 2048, 2048, False, None, torch.bfloat16),
+    "llama_glu": (512, 2048, 8192, True, "silu", torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA))
+def test_matmul_wgmma_schedule(card, name):
+    M, K, N, glu, act, odt = WGMMA[name]
+    x, w, w2, b = _mm_inputs(card, M, K, N, glu)
+    y = _schedule_ran("wgmma", lambda: km.matmul_fused(
+        x, w, bias=b, w2=w2, act=act, out_dtype=odt))
+    p = km.matmul_fused_plain(x, w, bias=b, w2=w2, act=act, out_dtype=odt)
+    assert y.shape == (M, N) and y.dtype == odt
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("M,glu", [(1, False), (8, False), (40, False),
+                                   (64, False), (1, True), (8, True),
+                                   (32, True)])
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "relu2",
+                                 "sigmoid", "tanh"])
+def test_matmul_small_m_schedule(card, M, glu, act):
+    """Decode rows (1, 8), a verify batch (40) and each form's crossover (64
+    plain, 32 GLU), every act; two runs give the same bits (the splits are
+    summed in a fixed order, no float atomics)."""
+    x, w, w2, b = _mm_inputs(card, M, 2048, 520, glu)
+    def run():
+        return km.matmul_fused(x, w, bias=None if glu else b, w2=w2, act=act)
+    y = _schedule_ran("small_m", run)
+    p = km.matmul_fused_plain(x, w, bias=None if glu else b, w2=w2, act=act)
+    assert y.shape == (M, 520) and y.dtype == torch.bfloat16
+    assert _rel(y, p) < TOL["bf16"]
+    assert torch.equal(run(), y)
+
+
+def test_matmul_small_m_long_k_and_fp32_out(card):
+    """The hybrid's down projection at 8 rows (K 7680: many splits), fp32
+    out; a 24-deep K (one partial stage)."""
+    for M, K, N in ((8, 7680, 2560), (3, 24, 16)):
+        x, w, _, b = _mm_inputs(card, M, K, N, False)
+        y = _schedule_ran("small_m", lambda: km.matmul_fused(
+            x, w, bias=b, out_dtype=torch.float32))
+        p = km.matmul_fused_plain(x, w, bias=b, out_dtype=torch.float32)
+        assert y.dtype == torch.float32 and _rel(y, p) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_matmul_simt_schedule(card, dt):
+    """K = 130 (not a multiple of 8) in bf16 at any M, and fp32 at aligned
+    LM-like shapes: both stay on the SIMT kernel, fp32 in full fp32."""
+    shapes = ([(37, 130, 70), (8, 130, 64), (300, 130, 64)] if dt == "bf16"
+              else [(37, 130, 70), (8, 512, 256), (1000, 512, 256)])
+    for M, K, N in shapes:
+        x, w, w2, b = _mm_inputs(card, M, K, N, True, DTYPES[dt])
+        y = _schedule_ran("simt", lambda: km.matmul_fused(
+            x, w, bias=b, w2=w2, act="gelu"))
+        p = km.matmul_fused_plain(x, w, bias=b, w2=w2, act="gelu")
+        assert y.dtype == DTYPES[dt] and _rel(y, p) < TOL[dt]
+
+
+def test_matmul_schedules_take_unaligned_views(card):
+    """A weight view 16-byte aligned runs on a tensor-core schedule; one that
+    is not runs on simt, with the same result as the plain version."""
+    x, w, _, _ = _mm_inputs(card, 8, 64, 1024, False)
+    flat = w.reshape(-1)
+    aligned = flat[8:8 + 64 * 1016].view(64, 1016)
+    skewed = flat[4:4 + 64 * 1016].view(64, 1016)
+    for view, sched in ((aligned, "small_m"), (skewed, "simt")):
+        y = _schedule_ran(sched, lambda: km.matmul_fused(x, view))
+        assert _rel(y, km.matmul_fused_plain(x, view)) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("M,K,N,tile,act", [
+    (8, 512, 1000, (256, 512, 256), None),       # the ResNet FC, one slab
+    (100, 1000, 72, (32, 64, 32), "relu"),       # 16 slabs, a 40-deep tail
+    (3, 200, 40, (8, 40, 8), "gelu"),            # 40-deep slabs
+])
+def test_matmul_base_variant_kernel(card, dt, M, K, N, tile, act):
+    x, w, _, b = _mm_inputs(card, M, K, N, False, DTYPES[dt])
+    n0, b0 = km.matmul_fused.launches, km.matmul_fused.base_launches
+    y = km.matmul_fused(x, w, bias=b, act=act, tile=tile, vmem_accum=False)
+    torch.cuda.synchronize()
+    assert km.matmul_fused.base_launches == b0 + 1
+    assert km.matmul_fused.launches == n0
+    p = km.matmul_fused_plain(x, w, bias=b, act=act, tile=tile,
+                              vmem_accum=False)
+    assert y.shape == (M, N) and y.dtype == DTYPES[dt]
+    assert _rel(y, p) < TOL[dt]
+    with pytest.raises(ValueError):
+        km.matmul_fused(x, w, w2=w, vmem_accum=False)
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(FLASH))
 def test_flash_attention_kernel(card, name, dt):
