@@ -14,7 +14,11 @@ Phases, each raising on failure:
    the same function, and the card's bound for the work;
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
-   heads of 64, causal), ``decode_attention`` over a 1024-slot cache half
+   heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
+   kernel case only), each recording its schedule (``wgmma`` in bf16,
+   ``simt`` in fp32), timed as CUDA-graph replays and by events, in bf16
+   beside the SIMT kernel at the same shape (held to the plain version
+   too); ``decode_attention`` over a 1024-slot cache half
    full, and ``matmul_fused`` at every projection of a llama layer and
    every distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
    256, the 2560 -> 7680 GLU pair, 7680 -> 2560), for the prefill's 4096
@@ -94,7 +98,10 @@ The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 schedule: in bf16 the LM prefills on ``wgmma`` and the decode steps on
 ``small_m`` in the counts the plan gives, no serving projection on
 ``simt``; in fp32 all on ``simt``; the CNN heads as their shapes say; the
-base variant never (no op-layer caller passes ``vmem_accum=False``). TF32
+base variant never (no op-layer caller passes ``vmem_accum=False``).
+Every path phase reads flash_attention's launches by schedule too: in bf16
+all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
+window run and workload R), in fp32 all on ``simt``. TF32
 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
 fp32. The last line is ``{"ok": true, "device": {...}}``; the line with the
@@ -134,6 +141,9 @@ B = 8
 LM_ARCH = "llama3.2-1b"
 LM_S, LM_C, LM_H, LM_KV, LM_D, LM_LAYERS = 512, 1024, 32, 8, 64, 16
 LM_STEPS = 32
+# qwen1.5-4b's attention (src/repro/configs/qwen15_4b.py): 20 heads
+# over 20 KV heads of 128, at the llama prefill's 8 x 512 tokens
+QWEN_ARCH, QWEN_H, QWEN_D = "qwen1.5-4b", 20, 128
 LM_MATMULS = [("q", 2048, 2048, False), ("k", 2048, 512, False),
               ("v", 2048, 512, False), ("o", 2048, 2048, False),
               ("glu", 2048, 8192, True), ("down", 8192, 2048, False)]
@@ -176,14 +186,16 @@ def counters():
 
 
 def reset_counts() -> None:
-    """Every launch count to 0: the seven wrappers', matmul_fused's split by
-    schedule and its base variant's."""
+    """Every launch count to 0: the seven wrappers', matmul_fused's and
+    flash_attention's splits by schedule and the base variant's."""
+    from repro_torch.kernels import attention as ka
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
     km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
     km.matmul_fused.base_launches = 0
+    ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
 
 
 def read_counts():
@@ -195,22 +207,33 @@ def read_counts():
     return got
 
 
-def read_schedules():
-    """matmul_fused's launches since the last reset, by schedule."""
+def read_schedules(kernel="matmul_fused"):
+    """matmul_fused's (or flash_attention's) launches since the last reset,
+    by schedule."""
+    from repro_torch.kernels import attention as ka
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
+    if kernel == "flash_attention":
+        return dict(ka.flash_attention.schedules)
     return dict(km.matmul_fused.schedule_launches)
 
 
-def _scheduled(want, what):
-    """matmul_fused's launches by schedule must be ``want`` (a schedule
-    left out must be 0)."""
-    got = read_schedules()
+def _scheduled(want, what, kernel="matmul_fused"):
+    """The kernel's launches by schedule must be ``want`` (a schedule left
+    out must be 0)."""
+    got = read_schedules(kernel)
     full = {k: want.get(k, 0) for k in got}
     if got != full:
-        raise AssertionError(f"{what}: matmul_fused schedules {got}, want "
+        raise AssertionError(f"{what}: {kernel} schedules {got}, want "
                              f"{full}")
     return {k: v for k, v in got.items() if v}
+
+
+def _flash_scheduled(n, prec, what):
+    """All ``n`` flash_attention launches on wgmma in bf16 (every head
+    width of the LM paths is 64 or 256), on simt in fp32."""
+    return _scheduled({"wgmma" if prec == "bf16" else "simt": n}, what,
+                      "flash_attention")
 
 
 def _tensor_core_only(total, what):
@@ -458,10 +481,12 @@ def phase_kernels():
     return cases
 
 
-def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20):
+def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
+                timer=None):
     """Kernel vs plain version (relerr, max |diff|), then the three times
     and the bound of one call.  ``library`` is None where no one PyTorch
-    call computes the same function."""
+    call computes the same function.  The times are CUDA events over
+    back-to-back calls, or ``timer(fn)``."""
     y = kern()
     torch.cuda.synchronize()
     p = plain()
@@ -474,19 +499,42 @@ def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20):
     bms, by = bound_ms(flops, nbytes, dt)
     warm = 1 if iters < 20 else 3
     lib = library is not None
+    timer = timer or (lambda fn: cuda_ms(fn, iters, warm))
     return {"dtype": str(dt).split(".")[-1], "relerr": err,
             "max_abs_err": aerr, "tol": TOL[dt],
             "library_relerr": relerr(library(), p) if lib else None,
             "flops": flops, "bytes": nbytes, "bound_ms": bms, "bound_by": by,
-            "ms": cuda_ms(kern, iters, warm),
-            "plain_ms": cuda_ms(plain, iters, warm),
-            "library_ms": cuda_ms(library, iters, warm) if lib else None}
+            "ms": timer(kern), "plain_ms": timer(plain),
+            "library_ms": timer(library) if lib else None}
+
+
+def _flash_simt(q, k, v, window):
+    """The SIMT kernel on the same operands, launched directly (no wrapper
+    counts it): the schedule bf16 at D >= 64 ran on before the wgmma
+    kernel."""
+    from repro_torch.kernels import _build
+    b, S, H, D = q.shape
+    KV = k.shape[2]
+    pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(b, S)
+    pos = pos.contiguous()
+    out = torch.empty_like(q)
+
+    def run():
+        _build.call("flash_attention", _build.DTYPE_CODES[q.dtype],
+                    *[t.data_ptr() for t in (q, k, v, pos, pos, out)],
+                    b, S, S, H, KV, D, 1, int(window or 0), 0.0, 0,
+                    _build.stream())
+        return out
+    return run
 
 
 def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
                 iters=20):
     """flash_attention, causal, at llama3.2-1b's prefill by default; with
-    ``window`` the keys older than it are masked (recurrentgemma-2b)."""
+    ``window`` the keys older than it are masked (recurrentgemma-2b).  The
+    schedule the wrapper took, its CUDA-graph device time (and by events)
+    beside the plain version's, SDPA's and the bound; in bf16 the SIMT
+    kernel's at the same shape, held to the plain version too."""
     from repro_torch.kernels import attention as ka
     dev = torch.device("cuda")
     q = torch.randn(b, S, H, D, generator=gen, device=dev).to(dt)
@@ -507,14 +555,37 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
         sdpa = dict(attn_mask=mask)
     flops = 4.0 * D * b * H * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+
+    def kern():
+        return ka.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain():
+        return ka.flash_attention_plain(q, k, v, causal=True, window=window)
+    s0 = read_schedules("flash_attention")
+    kern()
+    sched = [n for n, c in read_schedules("flash_attention").items()
+             if c != s0[n]]
+    want = "wgmma" if dt == torch.bfloat16 else "simt"   # D is 64-256 here
+    if sched != [want]:
+        raise AssertionError(f"flash_attention {dt} D={D}: schedules "
+                             f"{sched}, want {want}")
     c = _timed_case(
-        lambda: ka.flash_attention(q, k, v, causal=True, window=window),
-        lambda: ka.flash_attention_plain(q, k, v, causal=True, window=window),
+        kern, plain,
         lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                **sdpa).transpose(1, 2),
-        dt, flops, nbytes, iters=iters)
+        dt, flops, nbytes, iters=iters,
+        timer=lambda fn: graph_ms(fn, iters))
     c.update(shape=f"prefill_B{b}_S{S}_H{H}_KV{KV}_D{D}_causal"
-                   + (f"_window{window}" if window else ""), rows=b)
+                   + (f"_window{window}" if window else ""), rows=b,
+             schedule=sched[0], event_ms=cuda_ms(kern, iters, 1),
+             timer="cuda_graph", simt_ms=None)
+    if sched[0] != "simt":
+        simt = _flash_simt(q, k, v, window)
+        err = relerr(simt(), plain())
+        if err >= TOL[dt]:
+            raise AssertionError(f"flash_attention {c['shape']}: the SIMT "
+                                 f"kernel's relerr {err}")
+        c.update(simt_ms=graph_ms(simt, iters), simt_relerr=err)
     return c
 
 
@@ -722,6 +793,14 @@ def phase_lm_kernels():
                 rg_cases.append(c)
                 log(json.dumps({"kernel": "matmul_fused", "arch": RG_ARCH,
                                 **c}))
+    # head width 128 at qwen1.5-4b's prefill: a kernel case only (no path
+    # of this script runs qwen), tagged so that no llama sum counts it;
+    # drawn last, so that every other case's inputs stay as they were
+    for dt in (torch.bfloat16, torch.float32):
+        c = _flash_case(dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)
+        c["arch"] = QWEN_ARCH
+        cases["flash_attention"].append(c)
+        log(json.dumps({"kernel": "flash_attention", **c}))
     return cases, rg_cases
 
 
@@ -1002,6 +1081,8 @@ def phase_lm_path(smi):
     rec["matmul_schedules"] = _scheduled(
         {"wgmma": want_p["matmul_fused"],
          "small_m": (LM_STEPS - 1) * want_d["matmul_fused"]}, "generate")
+    rec["flash_schedules"] = _flash_scheduled(want_p["flash_attention"],
+                                              "bf16", "generate")
     if tuple(toks.shape) != (B, LM_STEPS) or not ((toks >= 0)
                                                   & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
@@ -1011,6 +1092,7 @@ def phase_lm_path(smi):
     y, st, _ = cm.prefill(params, batch)
     _counted(read_counts(), want_p, "one prefill")
     _scheduled({"wgmma": want_p["matmul_fused"]}, "one prefill")
+    _flash_scheduled(want_p["flash_attention"], "bf16", "one prefill")
     yr, st_r, _ = ref.prefill(params, batch)
     errs = [_lm_check_logits("prefill", y, yr, PATH_TOL["bf16"])]
     agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
@@ -1079,6 +1161,8 @@ def phase_lm_path(smi):
                                     "fp32 generate")
     rec["matmul_schedules_fp32"] = _scheduled(
         {"simt": rec["launches"]["matmul_fused"]}, "fp32 generate")
+    rec["flash_schedules_fp32"] = _flash_scheduled(
+        rec["launches"]["flash_attention"], "fp32", "fp32 generate")
     t32r, _ = ref32.generate(p32, batch, steps=LM_STEPS)
     if not torch.equal(t32, t32r):
         diff = (t32 != t32r).float().mean().item()
@@ -1312,17 +1396,20 @@ def phase_serving(smi):
 
     # the main path, bf16: each workload with the counts set to 0 just
     # before it and read just after
-    runs, launches, scheds = {}, {}, {}
+    runs, launches, scheds, fscheds = {}, {}, {}, {}
     for name, (wl, kw) in SERVE_KNOBS.items():
         reset_counts()
         eng, rep = _engine_run(cm, params, works[wl], trace=True, **kw)
         launches[name] = counted(rep, f"workload {name}")
         scheds[name] = _tensor_core_only(launches[name]["matmul_fused"],
                                          f"workload {name}")
+        fscheds[name] = _flash_scheduled(launches[name]["flash_attention"],
+                                         "bf16", f"workload {name}")
         runs[name] = rep
         r = _serve_record(eng, rep)
         r["launches"] = launches[name]
         r["matmul_schedules"] = scheds[name]
+        r["flash_schedules"] = fscheds[name]
         rec[f"bf16_{name}"] = r
         log(json.dumps({"serving": name, "precision": "bf16", **r}))
     b = runs["B"].metrics
@@ -1331,6 +1418,7 @@ def phase_serving(smi):
                              f"cow_forks {b['cow_forks']}")
     rec["launches"] = {k: sum(launches[w][k] for w in launches)
                        for k in launches["A"]}
+    rec["flash_schedules"] = {"wgmma": rec["launches"]["flash_attention"]}
     rec["segment_host_free"] = _segment_is_host_free(cm, params)
 
     # bf16 logits of A against the reference backend, up to each request's
@@ -1377,6 +1465,8 @@ def phase_serving(smi):
         launches32[name] = counted(rep, f"fp32 workload {name}")
         _scheduled({"simt": launches32[name]["matmul_fused"]},
                    f"fp32 workload {name}")
+        _flash_scheduled(launches32[name]["flash_attention"], "fp32",
+                         f"fp32 workload {name}")
         _, rep_r = _engine_run(ref32, p32, works[wl], **kw)
         toks[name] = _tokens(rep)
         if toks[name] != _tokens(rep_r):
@@ -1537,11 +1627,13 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
         {"wgmma": want_p["matmul_fused"],
          "small_m": (steps - 1) * want_d["matmul_fused"]} if prec == "bf16"
         else {"simt": launches["matmul_fused"]}, f"{prec} generate")
+    fsched = _flash_scheduled(launches["flash_attention"], prec,
+                              f"{prec} generate")
     V = cm.cfg.vocab_size
     if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
     rec = {"launches": launches, "matmul_schedules": sched,
-           "tokens_row0": toks[0].tolist()}
+           "flash_schedules": fsched, "tokens_row0": toks[0].tolist()}
     if prec == "fp32":
         tr, _ = ref.generate(params, batch, steps=steps)
         if not torch.equal(toks, tr):
@@ -1552,6 +1644,7 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
     reset_counts()
     y, st, _ = cm.prefill(params, batch)
     _counted(read_counts(), want_p, "one prefill")
+    _flash_scheduled(want_p["flash_attention"], prec, "one prefill")
     yr, st_r, _ = ref.prefill(params, batch)
     errs = [_lm_check_logits("prefill", y, yr, PATH_TOL[prec])]
     agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
@@ -1675,9 +1768,12 @@ def phase_rec_path(smi):
              "small_m": st["matmul_fused"] * m["decode_ticks"]}
             if prec == "bf16" else {"simt": want["matmul_fused"]},
             f"{prec} workload R")
+        f_sched = _flash_scheduled(want["flash_attention"], prec,
+                                   f"{prec} workload R")
         runs[prec] = rep
         r = _serve_record(eng, rep)
         r.update(launches=s_launch, matmul_schedules=s_sched,
+                 flash_schedules=f_sched,
                  dense_state_bytes=eng.last_cache.dense_bytes())
         rec[f"serve_{prec}"] = r
         log(json.dumps({"serving": "R", "arch": RG_ARCH, "precision": prec,
@@ -1733,20 +1829,28 @@ def phase_rec_path(smi):
     return rec
 
 
+SPLIT = ("matmul_fused", "flash_attention")    # kernels with schedules
+
+
 def _by_schedule(cases):
-    """``cases`` with matmul_fused's split into one list per schedule,
-    ``matmul_fused[wgmma]`` and so on: each schedule is its own kernel."""
-    out = {k: v for k, v in cases.items() if k != "matmul_fused"}
-    for r in cases.get("matmul_fused", []):
-        out.setdefault(f"matmul_fused[{r['schedule']}]", []).append(r)
+    """``cases`` with matmul_fused's and flash_attention's split into one
+    list per schedule, ``matmul_fused[wgmma]`` and so on: each schedule is
+    its own kernel."""
+    out = {k: v for k, v in cases.items() if k not in SPLIT}
+    for kname in SPLIT:
+        for r in cases.get(kname, []):
+            out.setdefault(f"{kname}[{r['schedule']}]", []).append(r)
     return out
 
 
-def _sched_launches(counts, schedules):
-    """A path's launch counts with matmul_fused's split by schedule."""
-    out = {k: v for k, v in counts.items() if k != "matmul_fused"}
-    for sched, n in schedules.items():
-        out[f"matmul_fused[{sched}]"] = n
+def _sched_launches(counts, schedules, flash=None):
+    """A path's launch counts with matmul_fused's split by schedule
+    (``schedules``) and flash_attention's (``flash``)."""
+    out = dict(counts)
+    for kname, by in (("matmul_fused", schedules), ("flash_attention", flash)):
+        if by is not None:
+            del out[kname]
+            out.update({f"{kname}[{s}]": n for s, n in by.items()})
     return out
 
 
@@ -1766,15 +1870,15 @@ def rec_kernel_entries(cases, rg):
     for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
         runs = [rg[f"{run}_{prec}"] for run in ("generate", "window",
                                                  "serve")]
-        counts = [_sched_launches(r["launches"], r["matmul_schedules"])
-                  for r in runs]
+        counts = [_sched_launches(r["launches"], r["matmul_schedules"],
+                                  r["flash_schedules"]) for r in runs]
         launches[dt] = {k: sum(c.get(k, 0) for c in counts) for k in cases}
 
     def use(k, r):
         if k.startswith("matmul_fused"):
             return r["uses_per_forward"] * (1 if r["rows"] == B * RG_S
                                             else RG_STEPS - 1)
-        return uses[k] if r.get("rows", B) == B else 0
+        return uses[k.split("[")[0]] if r.get("rows", B) == B else 0
 
     def per(kname, used):
         if kname.startswith("matmul_fused"):
@@ -1818,18 +1922,22 @@ def lm_kernel_entries(cases, lm):
     of 8 x 512 tokens, then 31 decode steps), each case's time times its
     uses there (the 128- and 40-row matmul cases are on no such path)."""
     steps = LM_STEPS - 1
+    cases = {k: [r for r in v if r.get("arch") != QWEN_ARCH]
+             for k, v in cases.items()}      # qwen_kernel_entries' case
 
     def uses(kname, r):
-        if kname == "flash_attention":
+        if kname.startswith("flash_attention"):
             return LM_LAYERS
         if kname == "decode_attention":
             return LM_LAYERS * steps
         return LM_LAYERS * {B * LM_S: 1, B: steps}.get(r["rows"], 0)
     return summed_entries(
         _by_schedule(cases),
-        {"bfloat16": _sched_launches(lm["launches"], lm["matmul_schedules"]),
+        {"bfloat16": _sched_launches(lm["launches"], lm["matmul_schedules"],
+                                     lm["flash_schedules"]),
          "float32": _sched_launches(lm["launches_fp32"],
-                                    lm["matmul_schedules_fp32"])},
+                                    lm["matmul_schedules_fp32"],
+                                    lm["flash_schedules_fp32"])},
         f"@{LM_ARCH}",
         lambda k, used: f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
                         f"tokens, then {steps} decode steps", uses)
@@ -1849,6 +1957,18 @@ def base_kernel_entries(cases, lm):
     return out
 
 
+def qwen_kernel_entries(cases):
+    """flash_attention at qwen1.5-4b's prefill shape (head width 128), one
+    call per dtype.  No path of this script runs qwen1.5-4b, so its
+    launches on the main path are 0."""
+    return summed_entries(
+        _by_schedule({"flash_attention": cases["flash_attention"]}),
+        {"bfloat16": {}, "float32": {}}, f"@{QWEN_ARCH}",
+        lambda k, used: f"one call at {used[0][0]['shape']} (a kernel case: "
+                        f"no path runs {QWEN_ARCH})",
+        lambda k, r: int(r.get("arch") == QWEN_ARCH))
+
+
 KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
     "conv2d_fused": ("src/repro_torch/csrc/conv2d_fused.cu",
                      "src/repro/kernels/conv2d.py:64"),
@@ -1860,8 +1980,11 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
                            "src/repro/kernels/matmul_fused.py:83"),
     "matmul_fused_base": ("src/repro_torch/csrc/matmul_fused.cu",
                           "src/repro/kernels/matmul_fused.py:147"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/attention.py:93"),
+    "flash_attention[wgmma]": (
+        "src/repro_torch/csrc/flash_attention_wgmma.cu",
+        "src/repro/kernels/attention.py:93"),
+    "flash_attention[simt]": ("src/repro_torch/csrc/flash_attention.cu",
+                              "src/repro/kernels/attention.py:93"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:61"),
     "paged_decode_attention": (
@@ -1929,7 +2052,7 @@ def main() -> int:
     rec_cases = phase_rec_kernels()
     rg = phase_rec_path(smi)
     entries = kernel_entries(cases, path) + \
-        lm_kernel_entries(lm_cases, lm) + \
+        lm_kernel_entries(lm_cases, lm) + qwen_kernel_entries(lm_cases) + \
         base_kernel_entries(base_cases, lm) + \
         serving_kernel_entries(serve_cases, serve) + \
         rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg)

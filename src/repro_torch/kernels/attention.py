@@ -1,5 +1,5 @@
-"""flash_attention — causal, windowed and softcapped GQA attention as a
-hand-written CUDA kernel for Hopper (``csrc/flash_attention.cu``).
+"""flash_attention — causal, windowed and softcapped GQA attention as
+hand-written CUDA kernels for Hopper: two schedules of the same function.
 
 Replaces the Pallas kernel ``flash_attention`` of
 ``src/repro/kernels/attention.py``: online softmax in fp32 over K/V tiles, so
@@ -11,29 +11,39 @@ the mask, and the sum divided by ``max(l, 1e-30)`` at the end.
 What bounds it on the H100: at the LM prefill shape (B=8, S=512, H=32,
 D=64, causal) the work is ~8.6 GFLOP against ~42 MB of q, k, v and output
 in bf16, about 200 operations per byte: below the bf16 ridge (~295), so the
-bytes bound it (~13 us).  This first kernel computes on the SIMT units in
-fp32 (67 TFLOP/s at most, ~130 us for the same work), so that rate, not the
-bound, sets its pace; ``wgmma`` on bf16 tiles is later work.
+bytes bound it (~13 us).
 
-The design: one block of 256 threads per (64 query rows, head, batch row),
-the Pallas grid's sequential K axis becoming a loop inside the block.  Each
-K/V tile of 64 keys is staged in shared memory as fp32; the 64 x 64 score
-tile is a 16 x 16 thread grid of 4 x 4 register patches (the GEMM core of
-the other kernels), the row max and sum are reduced across the 16 threads
-of a row with warp shuffles, P goes through shared memory into the P @ V
-product, and m, l and the output rows stay in registers.  Tiles dead in
-index space (above the causal diagonal, or wholly outside the window) are
-skipped, as the Pallas kernel skips them, which is exact under its
-positions contract (per-row shifted aranges).  At head_dim 256
-(recurrentgemma-2b) the same layout takes 222,464 bytes of dynamic shared
-memory, just under the card's 227 KB a block, and 64 fp32 accumulators a
-thread: one block an SM.  The plan's TPU tile
-(``plan.tiles["attention"]``) is ignored: the kernel takes its own.
+The wrapper picks a schedule with :func:`_schedule`, a pure function of the
+dtype and the head width (a dispatch between hand-written kernels, not a
+fallback: a build or launch failure raises):
+
+- ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 at head widths 64,
+  128 and 256 — every LM prefill and serving prefill batch in bf16.  One
+  block per (128 query rows, head, batch row): a producer warp brings the Q
+  tile and a ring of 64-key K/V tiles in by TMA; two consumer warpgroups run
+  Q·Kᵀ and P·V on ``wgmma`` with fp32 accumulators and keep the online
+  softmax in registers.  P is rounded to bf16 before P·V (the Pallas kernel
+  keeps it in fp32): about 2⁻⁹ relative on each probability, far inside
+  the bf16 tolerance of 2e-2.
+- ``simt`` (``csrc/flash_attention.cu``): fp32, and bf16 at head widths 16
+  and 32.  fp32 stays off the tensor cores: they would need TF32, which
+  breaks the fp32 parity of 1e-5 that keeps the fp32 greedy tokens
+  identical to the ``reference`` backend's.  One block of 256 threads per
+  (64 query rows, head, batch row); each K/V tile staged in shared memory as
+  fp32, the score tile a 16 x 16 thread grid of 4 x 4 register patches, the
+  row max and sum reduced with warp shuffles, P through shared memory into
+  P·V, fp32 FMAs.  At head_dim 256 it takes 222,464 bytes of shared memory.
+
+Both skip tiles dead in index space (above the causal diagonal, or wholly
+outside the window), as the Pallas kernel does, which is exact under its
+positions contract (per-row shifted aranges).  The plan's TPU tile
+(``plan.tiles["attention"]``) is ignored: the kernels take their own.
 
 On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
-tensor it launches the kernel or raises.  ``flash_attention.launches``
-counts the launches.  It uses no ``scaled_dot_product_attention`` and no
-``torch.matmul`` on the card.
+tensor it launches a kernel or raises.  ``flash_attention.launches`` counts
+the launches and ``flash_attention.schedules`` splits them by schedule.  It
+uses no ``scaled_dot_product_attention`` and no ``torch.matmul`` on the
+card.
 """
 from __future__ import annotations
 
@@ -44,7 +54,23 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
+WGMMA_HEAD_DIMS = (64, 128, 256)    # those of the wgmma schedule (bf16)
+SCHEDULES = ("wgmma", "simt")
+
+
+def _schedule(dtype: torch.dtype, D: int) -> str:
+    """The kernel that runs a call: ``wgmma`` for bf16 at the head widths of
+    :data:`WGMMA_HEAD_DIMS`, ``simt`` for the rest (fp32 stays full fp32)."""
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's rule): a view
+    that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,22 +162,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("flash_attention: operands of 2**31 elements or more")
-    if positions is None:
+    sched = _schedule(q.dtype, D)
+    if positions is not None:
+        qp = kp = positions.to(torch.int32).contiguous()
+    elif sched == "wgmma":
+        qp = kp = None                  # the kernel takes the indices
+    else:
         qp = (torch.arange(Sq, dtype=torch.int32, device=q.device)
               + q_offset).expand(B, Sq).contiguous()
         kp = torch.arange(Skv, dtype=torch.int32,
                           device=q.device).expand(B, Skv).contiguous()
-    else:
-        qp = kp = positions.to(torch.int32).contiguous()
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qc, kc, vc = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(qc)
-    _build.call("flash_attention", _build.DTYPE_CODES[q.dtype],
-                _build.ptr(qc), _build.ptr(kc), _build.ptr(vc),
-                _build.ptr(qp), _build.ptr(kp), _build.ptr(out),
-                B, Sq, Skv, H, KV, D, int(causal), int(window or 0),
-                float(softcap or 0.0), int(q_offset), _build.stream())
+    ptrs = [_build.ptr(t) for t in (qc, kc, vc, qp, kp, out)]
+    rest = [B, Sq, Skv, H, KV, D, int(causal), int(window or 0),
+            float(softcap or 0.0), int(q_offset), _build.stream()]
+    if sched == "wgmma":
+        _build.call("flash_attention_wgmma", *ptrs, *rest)
+    else:
+        _build.call("flash_attention", _build.DTYPE_CODES[q.dtype], *ptrs,
+                    *rest)
     flash_attention.launches += 1
+    flash_attention.schedules[sched] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.schedules = dict.fromkeys(SCHEDULES, 0)

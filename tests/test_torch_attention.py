@@ -140,6 +140,29 @@ def test_flash_wrapper_checks_its_arguments():
                              torch.zeros(1, 8, 3, 16))
 
 
+@pytest.mark.parametrize("D", tatt.HEAD_DIMS)
+@pytest.mark.parametrize("dt", sorted(TOL))
+def test_flash_schedule(dt, D):
+    """bf16 at head widths 64, 128 and 256 on the wgmma kernel; fp32 (full
+    fp32, no TF32) and bf16 at 16 and 32 on the SIMT kernel."""
+    want = "wgmma" if dt == "bf16" and D >= 64 else "simt"
+    assert tatt._schedule(TDT[dt], D) == want
+
+
+def test_flash_wrapper_carries_schedules():
+    """The wrapper counts launches by schedule beside its total; on CPU
+    tensors it runs the plain version and neither count moves."""
+    assert set(tatt.flash_attention.schedules) == set(tatt.SCHEDULES)
+    before = (tatt.flash_attention.launches,
+              dict(tatt.flash_attention.schedules))
+    q, k = torch.randn(1, 8, 4, 64).bfloat16(), torch.randn(1, 8, 2, 64)
+    k = k.bfloat16()
+    assert torch.equal(tatt.flash_attention(q, k, k),
+                       tatt.flash_attention_plain(q, k, k))
+    assert (tatt.flash_attention.launches,
+            tatt.flash_attention.schedules) == before
+
+
 def _cache(rng, B, C, H, KV, D, dt):
     fill = C // 2
     pos = np.where(np.arange(C)[None] < fill, np.arange(C)[None], -1)

@@ -49,6 +49,19 @@ FLASH = {
     # recurrentgemma-2b's heads: 10 over 1 KV head of 256, windowed
     "d256_mqa": (2, 130, 130, 10, 1, 256, True, 2048, 0),
     "d256_window_cuts": (1, 300, 300, 10, 1, 256, True, 100, 0),
+    # the wgmma schedule (bf16, D >= 64): Sq not a multiple of its 128-row
+    # blocks and Skv not a multiple of its 64-key tiles with B >= 2 (the 2-D
+    # view's next-row keys must be masked), q_offset with Skv > Sq,
+    # bidirectional, windows that cut inside a block, GQA 4 and MQA 10
+    "w64_ragged_gqa4": (2, 200, 200, 16, 4, 64, True, None, 0),
+    "w64_bidir_skv_gt_sq": (3, 150, 190, 4, 4, 64, False, None, 0),
+    "w64_window_cuts": (2, 300, 300, 8, 2, 64, True, 90, 0),
+    "w128_q_offset": (2, 100, 230, 8, 2, 128, True, None, 130),
+    "w128_gqa4_window": (2, 257, 257, 8, 2, 128, True, 70, 0),
+    "w128_mha_qwen": (2, 192, 192, 20, 20, 128, True, None, 0),
+    "w256_mqa10_ragged": (3, 141, 141, 10, 1, 256, True, 2048, 0),
+    "w256_bidir": (2, 130, 70, 2, 1, 256, False, None, 0),
+    "w256_q_offset_window": (2, 70, 200, 10, 1, 256, True, 64, 130),
 }
 # decode_attention: (B, C, H, KV, D, window), half the cache filled
 DECODE = {
@@ -262,12 +275,18 @@ def test_flash_attention_kernel(card, name, dt):
     k = _randn(card, B, Skv, KV, D, dt=DTYPES[dt])
     v = _randn(card, B, Skv, KV, D, dt=DTYPES[dt])
     n0 = ka.flash_attention.launches
+    s0 = dict(ka.flash_attention.schedules)
     y = ka.flash_attention(q, k, v, causal=causal, window=win, q_offset=off)
     torch.cuda.synchronize()
     assert ka.flash_attention.launches == n0 + 1
+    # bf16 at D >= 64 on the tensor cores, the rest on the SIMT kernel
+    sched = "wgmma" if dt == "bf16" and D >= 64 else "simt"
+    assert {k_: n - s0[k_] for k_, n in ka.flash_attention.schedules.items()
+            } == {k_: int(k_ == sched) for k_ in ka.SCHEDULES}
     p = ka.flash_attention_plain(q, k, v, causal=causal, window=win,
                                  q_offset=off)
     assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert torch.isfinite(y.float()).all()
     assert _rel(y, p) < TOL[dt]
 
 
@@ -287,6 +306,51 @@ def test_flash_attention_kernel_positions_softcap(card, dt):
     p = ka.flash_attention_plain(q, k, v, positions=pos, softcap=5.0)
     keep = pos >= 0
     assert _rel(y[keep], p[keep]) < TOL[dt]
+
+
+@pytest.mark.parametrize("D,H,KV,window", [(64, 32, 8, None),
+                                           (128, 8, 2, 48),
+                                           (256, 10, 1, 2048)])
+def test_flash_attention_wgmma_positions_softcap(card, D, H, KV, window):
+    """The serving engine's left-padded prefill buckets on the wgmma
+    schedule: per-row positions (-1 on the padding, one row with more pad
+    than a 128-row block), a softcap; the valid query rows agree."""
+    B, S = 3, 200
+    pad = torch.tensor([0, 7, 150], device="cuda")
+    ar = torch.arange(S, device="cuda")
+    pos = torch.where(ar[None] >= pad[:, None], ar[None] - pad[:, None],
+                      torch.full_like(ar[None], -1)).to(torch.int32)
+    q = _randn(card, B, S, H, D, dt=torch.bfloat16)
+    k = _randn(card, B, S, KV, D, dt=torch.bfloat16)
+    v = _randn(card, B, S, KV, D, dt=torch.bfloat16)
+    w0 = ka.flash_attention.schedules["wgmma"]
+    y = ka.flash_attention(q, k, v, positions=pos, softcap=5.0,
+                           window=window)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.schedules["wgmma"] == w0 + 1
+    p = ka.flash_attention_plain(q, k, v, positions=pos, softcap=5.0,
+                                 window=window)
+    keep = pos >= 0
+    assert torch.isfinite(y[keep].float()).all()
+    assert _rel(y[keep], p[keep]) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_wgmma_repeats_its_bits(card, D):
+    """Two calls on the same inputs give the same bits (no atomics), also
+    from an unaligned view of q (copied to a 16-byte aligned one)."""
+    B, S, H, KV = 2, 300, 8, 2
+    q = _randn(card, B, S, H, D, dt=torch.bfloat16)
+    k = _randn(card, B, S, KV, D, dt=torch.bfloat16)
+    v = _randn(card, B, S, KV, D, dt=torch.bfloat16)
+    y1 = ka.flash_attention(q, k, v, window=100)
+    y2 = ka.flash_attention(q, k, v, window=100)
+    assert torch.equal(y1, y2)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    skew = flat[1:].view(q.shape)
+    skew.copy_(q)
+    assert skew.data_ptr() % 16 != 0
+    assert torch.equal(ka.flash_attention(skew, k, v, window=100), y1)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
