@@ -8,10 +8,16 @@ Phases, each raising on failure:
 2. build  — the hand-written kernels from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (wall time printed as set-up);
 3. kernels — every distinct ResNet-34 conv at batch 8 and 224 px, and the
-   FC head, in bf16 (the opt flow) and fp32 (the base flow): each kernel
-   against its plain PyTorch version (relerr < 2e-2 in bf16, < 1e-5 in
-   fp32), and timed beside the plain version, the PyTorch library call for
-   the same function, and the card's bound for the work;
+   FC head, in bf16 (the opt flow) and fp32 (the base flow), plus four fp32
+   convs with the BN fold and ReLU (one a shape class, in no forward): each
+   records the schedule it took (conv2d_fused: ``wgmma`` in bf16, ``ffma``
+   in fp32, ``simt`` for the stem), is held against its plain PyTorch
+   version (relerr < 2e-2 in bf16, < 1e-5 in fp32) beside the old SIMT
+   kernel at the same shape (held to it too), and is timed beside them, the
+   PyTorch library call for the same function (for the convs one cuDNN
+   conv on a pre-padded input, and the chain of pad, conv and the BN/ReLU
+   ops) and the card's bound for the work; the convs as CUDA-graph replays
+   and by events;
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
    heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
@@ -95,10 +101,13 @@ Phases, each raising on failure:
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9 and 10 come last. Every path phase also reads matmul_fused's launches by
-schedule: in bf16 the LM prefills on ``wgmma`` and the decode steps on
-``small_m`` in the counts the plan gives, no serving projection on
-``simt``; in fp32 all on ``simt``; the CNN heads as their shapes say; the
-base variant never (no op-layer caller passes ``vmem_accum=False``).
+schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
+steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
+serving projection on ``simt`` in either precision; the CNN heads as their
+shapes say; the base variant never (no op-layer caller passes
+``vmem_accum=False``); and conv2d_fused's: ResNet-34 35 on ``wgmma`` (opt
+and folded) or ``ffma`` (base) and the stem on ``simt``, MobileNetV1 12 on
+``wgmma`` and 2 on ``simt``, LeNet-5 2 on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
 window run and workload R), in fp32 all on ``simt``. TF32
@@ -186,14 +195,17 @@ def counters():
 
 
 def reset_counts() -> None:
-    """Every launch count to 0: the seven wrappers', matmul_fused's and
-    flash_attention's splits by schedule and the base variant's."""
+    """Every launch count to 0: the seven wrappers', matmul_fused's,
+    conv2d_fused's and flash_attention's splits by schedule and the base
+    variant's."""
     from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
     km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
+    kc.conv2d_fused.schedule_launches = dict.fromkeys(kc.SCHEDULES, 0)
     km.matmul_fused.base_launches = 0
     ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
 
@@ -208,13 +220,16 @@ def read_counts():
 
 
 def read_schedules(kernel="matmul_fused"):
-    """matmul_fused's (or flash_attention's) launches since the last reset,
-    by schedule."""
+    """matmul_fused's (or flash_attention's, or conv2d_fused's) launches
+    since the last reset, by schedule."""
     from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     if kernel == "flash_attention":
         return dict(ka.flash_attention.schedules)
+    if kernel == "conv2d_fused":
+        return dict(kc.conv2d_fused.schedule_launches)
     return dict(km.matmul_fused.schedule_launches)
 
 
@@ -236,12 +251,27 @@ def _flash_scheduled(n, prec, what):
                       "flash_attention")
 
 
-def _tensor_core_only(total, what):
-    """Every one of ``total`` bf16 projections ran on wgmma or small_m."""
+# matmul_fused's schedules of the LM projections (every one aligned), by
+# precision: the large-M one, the small-M one
+LM_SCHEDULES = {"bf16": ("wgmma", "small_m"), "fp32": ("ffma", "ffma_small_m")}
+
+
+def _lm_scheduled(prefill, decode, prec, what):
+    """``prefill`` projections on the precision's large-M schedule,
+    ``decode`` on its small-M one, none on simt or the other precision's."""
+    big, small = LM_SCHEDULES[prec]
+    return _scheduled({big: prefill, small: decode}, what)
+
+
+def _aligned_only(total, prec, what):
+    """Every one of ``total`` projections ran on the precision's two
+    schedules (tensor-core in bf16, FFMA in fp32), none on simt."""
     got = read_schedules()
-    if got["simt"] or got["wgmma"] + got["small_m"] != total:
+    ok = sum(got[k] for k in LM_SCHEDULES[prec])
+    if ok != total or ok != sum(got.values()):
         raise AssertionError(f"{what}: matmul_fused schedules {got}, want "
-                             f"{total} on wgmma + small_m and none on simt")
+                             f"{total} on {' + '.join(LM_SCHEDULES[prec])}"
+                             " and none on simt")
     return {k: v for k, v in got.items() if v}
 
 
@@ -345,17 +375,54 @@ def _short_kernel(mangled: str) -> str:
     return re.sub(r"^_Z\d+", "", name).split("EEv")[0].split("Ev")[0][:80]
 
 
-def _conv_case(spec, dt, gen):
+def _conv_simt(x, w, stride, bn, act):
+    """The SIMT kernel on the same operands, launched directly (no wrapper
+    counts it): the schedule every conv ran on before the wgmma and ffma
+    kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import conv2d as kc
+    N, H, W, CI = x.shape
+    k, CO = w.shape[0], w.shape[3]
+    (pt, _), (pl, _), ho, wo = kc.conv_geometry(H, W, k, k, stride, "SAME")
+    out = torch.empty((N, ho, wo, CO), dtype=x.dtype, device=x.device)
+    bnp = [_build.ptr(t) for t in bn] if bn is not None else [None] * 4
+
+    def run():
+        _build.call("conv2d_fused", _build.DTYPE_CODES[x.dtype],
+                    x.data_ptr(), w.data_ptr(), *bnp, out.data_ptr(), N, H,
+                    W, CI, CO, k, k, stride, pt, pl, ho, wo,
+                    _build.ACT_CODES[act], _build.stream())
+        return out
+    return run
+
+
+# one fp32 case per shape class with the BN fold and ReLU (the base flow
+# runs its convs bare, so these count in no forward): the epilogue of the
+# ffma kernel at ResNet shapes, unsplit (56 x 56) and split
+FP32_EPILOGUE = ("stem7x7s2", "3x3s1_64@56", "3x3s2_128to256",
+                 "1x1s2_256to512")
+
+
+def _conv_case(spec, dt, gen, epilogue=False):
+    """conv2d_fused at one ResNet-34 shape: the schedule the wrapper took,
+    held against the plain version; its CUDA-graph device time (and by
+    events) beside the SIMT kernel's at the same shape (held to the plain
+    version too), the plain version's, the library's and the bound.  The
+    library is cuDNN's conv on an input padded outside the timed region
+    (``library_conv_ms``) and the whole yardstick chain of pad, conv and
+    the fp32 BN/ReLU ops (``library_ms``).  The bf16 (opt flow) cases carry
+    the BN fold and act, the fp32 (base flow) ones run bare, as the flows
+    run them, but with ``epilogue`` (a case in no forward: uses 0)."""
     from repro_torch.kernels import conv2d as kc
     name, H, CI, CO, k, s, uses, act = spec
     dev = torch.device("cuda")
     x = torch.randn(B, H, H, CI, generator=gen, device=dev).to(dt)
     w = (torch.randn(k, k, CI, CO, generator=gen, device=dev)
          * (k * k * CI) ** -0.5).to(dt)
-    opt = dt == torch.bfloat16
+    fused = dt == torch.bfloat16 or epilogue
     bn = tuple(torch.rand(CO, generator=gen, device=dev) + 0.5
-               for _ in range(4)) if opt else None
-    act = act if opt else None
+               for _ in range(4)) if fused else None
+    act = act if fused else None
 
     def kern():
         return kc.conv2d_fused(x, w, stride=s, padding="SAME", bn=bn,
@@ -368,6 +435,7 @@ def _conv_case(spec, dt, gen):
     (pt, pb), (pl, pr), ho, wo = kc.conv_geometry(H, H, k, k, s, "SAME")
     xn = x.permute(0, 3, 1, 2)                  # NCHW view, channels_last
     wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xpad = F.pad(xn, (pl, pr, pt, pb))
 
     def library():                              # cuDNN, the yardstick only
         y = F.conv2d(F.pad(xn, (pl, pr, pt, pb)), wn, stride=s)
@@ -380,28 +448,46 @@ def _conv_case(spec, dt, gen):
             y = F.relu(y)
         return y.to(dt)
 
+    def library_conv():                         # one cuDNN call
+        return F.conv2d(xpad, wn, stride=s)
+
+    c0 = read_schedules("conv2d_fused")
     y = kern()
     torch.cuda.synchronize()
+    sched = [k_ for k_, v in read_schedules("conv2d_fused").items()
+             if v != c0[k_]]
     p = plain()
     torch.cuda.synchronize()
     err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
     lib_err = relerr(library().permute(0, 2, 3, 1), p)
     if not (y.shape == p.shape and torch.isfinite(y.float()).all()
-            and err < TOL[dt]):
+            and err < TOL[dt] and len(sched) == 1):
         raise AssertionError(f"conv2d_fused {name} {dt}: relerr {err} "
-                             f"(tol {TOL[dt]}), shape {tuple(y.shape)}")
+                             f"(tol {TOL[dt]}), shape {tuple(y.shape)}, "
+                             f"schedules {sched}")
+    simt = _conv_simt(x, w, s, bn, act) if sched[0] != "simt" else kern
+    simt_err = relerr(simt(), p)
+    if simt_err >= TOL[dt]:
+        raise AssertionError(f"conv2d_fused {name} {dt}: the SIMT kernel's "
+                             f"relerr {simt_err}")
     flops = 2.0 * B * ho * wo * k * k * CI * CO
     esz = x.element_size()
     nbytes = (x.numel() + w.numel() + B * ho * wo * CO) * esz \
         + (4 * CO * 4 if bn else 0)
     bms, by = bound_ms(flops, nbytes, dt)
-    return {"shape": name, "dtype": str(dt).split(".")[-1], "uses": uses,
+    return {"shape": name + ("+bn_relu" if epilogue else ""),
+            "dtype": str(dt).split(".")[-1], "uses": 0 if epilogue else uses,
+            "schedule": sched[0],
             "x": [B, H, H, CI], "w": [k, k, CI, CO], "stride": s,
             "bn": bn is not None, "act": act, "relerr": err,
-            "max_abs_err": aerr, "tol": TOL[dt], "library_relerr": lib_err,
-            "flops": flops, "bytes": nbytes, "bound_ms": bms,
-            "bound_by": by, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-            "library_ms": cuda_ms(library)}
+            "max_abs_err": aerr, "tol": TOL[dt], "simt_relerr": simt_err,
+            "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
+            "bound_ms": bms, "bound_by": by, "timer": "cuda_graph",
+            "ms": graph_ms(kern), "event_ms": cuda_ms(kern),
+            "simt_ms": graph_ms(simt), "simt_event_ms": cuda_ms(simt),
+            "plain_ms": graph_ms(plain), "library_ms": graph_ms(library),
+            "library_event_ms": cuda_ms(library),
+            "library_conv_ms": graph_ms(library_conv)}
 
 
 def _simt_wrapper(x, w, **kw):
@@ -478,6 +564,12 @@ def phase_kernels():
         c = _fc_case(dt, gen)
         cases["matmul_fused"].append(c)
         log(json.dumps({"kernel": "matmul_fused", **c}))
+    # drawn last, so that every other case's inputs stay as they were
+    for spec in RESNET_CONVS:
+        if spec[0] in FP32_EPILOGUE:
+            c = _conv_case(spec, torch.float32, gen, epilogue=True)
+            cases["conv2d_fused"].append(c)
+            log(json.dumps({"kernel": "conv2d_fused", **c}))
     return cases
 
 
@@ -915,8 +1007,9 @@ def _check_logits(name, y, yr, vocab, prec):
 
 def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
     """One forward through the port's entry point with the counters read
-    just around it (matmul_fused's split by schedule ``want_sched``), held
-    against the reference backend on the same weights and images."""
+    just around it (conv2d_fused's split by schedule ``want_conv``,
+    matmul_fused's ``want_sched``), held against the reference backend on
+    the same weights and images."""
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -934,14 +1027,16 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
     reset_counts()
     y, _, _ = cm.prefill(params, batch)
     launches = read_counts()
-    if launches != {"conv2d_fused": want_conv, "matmul_fused": want_mm,
+    n_conv = sum(want_conv.values())
+    if launches != {"conv2d_fused": n_conv, "matmul_fused": want_mm,
                     "flash_attention": 0, "decode_attention": 0,
                     "paged_decode_attention": 0, "copy_block": 0,
                     "lru_scan": 0, "matmul_fused_base": 0}:
         raise AssertionError(f"{arch}: launches {launches}, want "
-                             f"{want_conv} conv / {want_mm} matmul")
+                             f"{n_conv} conv / {want_mm} matmul")
     launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
     schedules = _scheduled(want_sched, arch)
+    conv_schedules = _scheduled(want_conv, arch, "conv2d_fused")
     ref = tflow.compile(get_config(arch), serve, flow, backend="reference")
     if any(b != "ref" for b in ref.plan.kernels.values()):
         raise AssertionError(f"reference plan {ref.plan.kernels}")
@@ -950,6 +1045,7 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
     rec = {"arch": arch, "flow": flow.precision, "mode": cm.plan.stream.mode,
            "units": cm.describe().splitlines()[2].strip(),
            "launches": launches, "matmul_schedules": schedules,
+           "conv_schedules": conv_schedules,
            "logits_relerr_vs_reference": err,
            "logits_max_abs": y.float().abs().max().item()}
     if measure:
@@ -970,23 +1066,30 @@ def phase_path(smi):
     from repro_torch.configs.base import FlowConfig
     from repro_torch.kernels.registry import DISPATCH_REJECTIONS
     out = []
-    # the FC heads: bf16 operands at batch 8 on small_m, fp32 on simt
-    flows = [("opt", FlowConfig(mode="auto"), {"small_m": 1}),
-             ("base", FlowConfig().base(), {"simt": 1}),
-             ("folded", FlowConfig(mode="folded"), {"small_m": 1})]
-    for label, fl, sched in flows:
-        rec = _forward("resnet34", fl, 36, 1, sched, smi)
+    # ResNet-34's convs: the 7x7 stem (CI 3) on simt, the other 35 on
+    # wgmma in bf16 and on ffma in fp32; the FC heads at batch 8 on small_m
+    # in bf16, on ffma_small_m in fp32
+    bf16_conv, fp32_conv = {"wgmma": 35, "simt": 1}, {"ffma": 35, "simt": 1}
+    flows = [("opt", FlowConfig(mode="auto"), bf16_conv, {"small_m": 1}),
+             ("base", FlowConfig().base(), fp32_conv, {"ffma_small_m": 1}),
+             ("folded", FlowConfig(mode="folded"), bf16_conv,
+              {"small_m": 1})]
+    for label, fl, conv, sched in flows:
+        rec = _forward("resnet34", fl, conv, 1, sched, smi)
         rec["flow_name"] = label
         out.append(rec)
     if "4 folded: 3x1, 3x1, 5x1, 2x1" not in out[2]["units"]:
         raise AssertionError(f"folded flow units: {out[2]['units']}")
-    # LeNet-5: 400 -> 120 on small_m; 120 -> 84 and 84 -> 10 (N or K not a
-    # multiple of 8) on simt
-    out.append(_forward("lenet5", FlowConfig(mode="auto"), 2, 3,
+    # LeNet-5: both convs (CI 1 and 6) on simt; 400 -> 120 on small_m; 120
+    # -> 84 and 84 -> 10 (N or K not a multiple of 8) on simt
+    out.append(_forward("lenet5", FlowConfig(mode="auto"), {"simt": 2}, 3,
                         {"small_m": 1, "simt": 2}, smi, measure=False))
+    # MobileNetV1: the 12 pointwise convs from 64 channels up on wgmma, the
+    # first conv (CI 3) and the 32-channel pointwise conv on simt
     DISPATCH_REJECTIONS.clear()
-    out.append(_forward("mobilenetv1", FlowConfig(mode="auto"), 14, 1,
-                        {"small_m": 1}, smi, measure=False))
+    out.append(_forward("mobilenetv1", FlowConfig(mode="auto"),
+                        {"wgmma": 12, "simt": 2}, 1, {"small_m": 1}, smi,
+                        measure=False))
     dw = sum(n for (op, _), n in DISPATCH_REJECTIONS.items()
              if op == "conv2d")
     if dw != 13:
@@ -1078,9 +1181,9 @@ def phase_lm_path(smi):
         k: want_p[k] + (LM_STEPS - 1) * want_d[k] for k in want_p},
         "generate")
     # 4096 prefill rows on wgmma, 8 decode rows on small_m
-    rec["matmul_schedules"] = _scheduled(
-        {"wgmma": want_p["matmul_fused"],
-         "small_m": (LM_STEPS - 1) * want_d["matmul_fused"]}, "generate")
+    rec["matmul_schedules"] = _lm_scheduled(
+        want_p["matmul_fused"], (LM_STEPS - 1) * want_d["matmul_fused"],
+        "bf16", "generate")
     rec["flash_schedules"] = _flash_scheduled(want_p["flash_attention"],
                                               "bf16", "generate")
     if tuple(toks.shape) != (B, LM_STEPS) or not ((toks >= 0)
@@ -1159,8 +1262,10 @@ def phase_lm_path(smi):
     t32, _ = cm32.generate(p32, batch, steps=LM_STEPS)
     rec["launches_fp32"] = _counted(read_counts(), rec["launches"],
                                     "fp32 generate")
-    rec["matmul_schedules_fp32"] = _scheduled(
-        {"simt": rec["launches"]["matmul_fused"]}, "fp32 generate")
+    # 4096 prefill rows on ffma, 8 decode rows on ffma_small_m
+    rec["matmul_schedules_fp32"] = _lm_scheduled(
+        want_p["matmul_fused"], (LM_STEPS - 1) * want_d["matmul_fused"],
+        "fp32", "fp32 generate")
     rec["flash_schedules_fp32"] = _flash_scheduled(
         rec["launches"]["flash_attention"], "fp32", "fp32 generate")
     t32r, _ = ref32.generate(p32, batch, steps=LM_STEPS)
@@ -1401,8 +1506,8 @@ def phase_serving(smi):
         reset_counts()
         eng, rep = _engine_run(cm, params, works[wl], trace=True, **kw)
         launches[name] = counted(rep, f"workload {name}")
-        scheds[name] = _tensor_core_only(launches[name]["matmul_fused"],
-                                         f"workload {name}")
+        scheds[name] = _aligned_only(launches[name]["matmul_fused"], "bf16",
+                                     f"workload {name}")
         fscheds[name] = _flash_scheduled(launches[name]["flash_attention"],
                                          "bf16", f"workload {name}")
         runs[name] = rep
@@ -1463,8 +1568,8 @@ def phase_serving(smi):
         reset_counts()
         eng, rep = _engine_run(cm32, p32, works[wl], **kw)
         launches32[name] = counted(rep, f"fp32 workload {name}")
-        _scheduled({"simt": launches32[name]["matmul_fused"]},
-                   f"fp32 workload {name}")
+        _aligned_only(launches32[name]["matmul_fused"], "fp32",
+                      f"fp32 workload {name}")
         _flash_scheduled(launches32[name]["flash_attention"], "fp32",
                          f"fp32 workload {name}")
         _, rep_r = _engine_run(ref32, p32, works[wl], **kw)
@@ -1621,12 +1726,11 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
     launches = _counted(read_counts(), {
         k: want_p.get(k, 0) + (steps - 1) * want_d.get(k, 0)
         for k in set(want_p) | set(want_d)}, f"{prec} generate")
-    # bf16: the prefill's rows (b x S >= 512) on wgmma, decode rows (b <= 8)
-    # on small_m; fp32 all on simt
-    sched = _scheduled(
-        {"wgmma": want_p["matmul_fused"],
-         "small_m": (steps - 1) * want_d["matmul_fused"]} if prec == "bf16"
-        else {"simt": launches["matmul_fused"]}, f"{prec} generate")
+    # the prefill's rows (b x S >= 512) on wgmma (ffma in fp32), decode rows
+    # (b <= 8) on small_m (ffma_small_m)
+    sched = _lm_scheduled(want_p["matmul_fused"],
+                          (steps - 1) * want_d["matmul_fused"], prec,
+                          f"{prec} generate")
     fsched = _flash_scheduled(launches["flash_attention"], prec,
                               f"{prec} generate")
     V = cm.cfg.vocab_size
@@ -1762,11 +1866,11 @@ def phase_rec_path(smi):
                 "paged_decode_attention":
                     st["decode_attention"] * m["decode_ticks"]}
         s_launch = _counted(read_counts(), want, f"{prec} workload R")
-        # bf16: prefill batches (>= 256 rows) on wgmma, ticks on small_m
-        s_sched = _scheduled(
-            {"wgmma": sp["matmul_fused"] * m["prefill_batches"],
-             "small_m": st["matmul_fused"] * m["decode_ticks"]}
-            if prec == "bf16" else {"simt": want["matmul_fused"]},
+        # prefill batches (>= 256 rows) on wgmma (ffma in fp32), ticks on
+        # small_m (ffma_small_m)
+        s_sched = _lm_scheduled(
+            sp["matmul_fused"] * m["prefill_batches"],
+            st["matmul_fused"] * m["decode_ticks"], prec,
             f"{prec} workload R")
         f_sched = _flash_scheduled(want["flash_attention"], prec,
                                    f"{prec} workload R")
@@ -1829,13 +1933,14 @@ def phase_rec_path(smi):
     return rec
 
 
-SPLIT = ("matmul_fused", "flash_attention")    # kernels with schedules
+# kernels with schedules
+SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused")
 
 
 def _by_schedule(cases):
-    """``cases`` with matmul_fused's and flash_attention's split into one
-    list per schedule, ``matmul_fused[wgmma]`` and so on: each schedule is
-    its own kernel."""
+    """``cases`` with matmul_fused's, flash_attention's and conv2d_fused's
+    split into one list per schedule, ``matmul_fused[wgmma]`` and so on:
+    each schedule is its own kernel."""
     out = {k: v for k, v in cases.items() if k not in SPLIT}
     for kname in SPLIT:
         for r in cases.get(kname, []):
@@ -1843,11 +1948,13 @@ def _by_schedule(cases):
     return out
 
 
-def _sched_launches(counts, schedules, flash=None):
+def _sched_launches(counts, schedules, flash=None, conv=None):
     """A path's launch counts with matmul_fused's split by schedule
-    (``schedules``) and flash_attention's (``flash``)."""
+    (``schedules``), flash_attention's (``flash``) and conv2d_fused's
+    (``conv``)."""
     out = dict(counts)
-    for kname, by in (("matmul_fused", schedules), ("flash_attention", flash)):
+    for kname, by in (("matmul_fused", schedules), ("flash_attention", flash),
+                      ("conv2d_fused", conv)):
         if by is not None:
             del out[kname]
             out.update({f"{kname}[{s}]": n for s, n in by.items()})
@@ -1908,8 +2015,9 @@ def kernel_entries(cases, path):
     for r in path:
         if r["arch"] == "resnet34":
             d = launches["bfloat16" if r["flow"] == "bf16" else "float32"]
-            for k, n in _sched_launches(r["launches"],
-                                        r["matmul_schedules"]).items():
+            for k, n in _sched_launches(
+                    r["launches"], r["matmul_schedules"],
+                    conv=r["conv_schedules"]).items():
                 d[k] = d.get(k, 0) + n
     return summed_entries(
         _by_schedule(cases), launches, "",
@@ -1970,12 +2078,20 @@ def qwen_kernel_entries(cases):
 
 
 KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
-    "conv2d_fused": ("src/repro_torch/csrc/conv2d_fused.cu",
-                     "src/repro/kernels/conv2d.py:64"),
+    "conv2d_fused[wgmma]": ("src/repro_torch/csrc/conv2d_wgmma.cu",
+                            "src/repro/kernels/conv2d.py:64"),
+    "conv2d_fused[ffma]": ("src/repro_torch/csrc/conv2d_fused.cu",
+                           "src/repro/kernels/conv2d.py:64"),
+    "conv2d_fused[simt]": ("src/repro_torch/csrc/conv2d_fused.cu",
+                           "src/repro/kernels/conv2d.py:64"),
     "matmul_fused[wgmma]": ("src/repro_torch/csrc/matmul_wgmma.cu",
                             "src/repro/kernels/matmul_fused.py:83"),
     "matmul_fused[small_m]": ("src/repro_torch/csrc/matmul_small_m.cu",
                               "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused[ffma]": ("src/repro_torch/csrc/matmul_fused.cu",
+                           "src/repro/kernels/matmul_fused.py:83"),
+    "matmul_fused[ffma_small_m]": ("src/repro_torch/csrc/matmul_small_m.cu",
+                                   "src/repro/kernels/matmul_fused.py:83"),
     "matmul_fused[simt]": ("src/repro_torch/csrc/matmul_fused.cu",
                            "src/repro/kernels/matmul_fused.py:83"),
     "matmul_fused_base": ("src/repro_torch/csrc/matmul_fused.cu",

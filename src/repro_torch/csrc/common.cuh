@@ -1,6 +1,7 @@
 // Shared pieces of the hand-written kernels: the activation enum (the same
-// codes as kernels/_build.py ACT_CODES), type conversions, and the tile
-// shape of the simple SIMT GEMM core both kernels use.
+// codes as kernels/_build.py ACT_CODES), type conversions, the tile shape of
+// the simple SIMT GEMM core, 16-byte cp.async, and the fused epilogue with
+// the fixed-order split-K reduction of the matmul and conv schedules.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +90,132 @@ __device__ __forceinline__ void mma_step(float (&As)[BK][BM + 4],
         for (int j = 0; j < TN; ++j) acc[q][i][j] = fmaf(av[i], bv[j], acc[q][i][j]);
     }
   }
+}
+
+// Component i of a float4 (i a constant once the loop is unrolled).
+__device__ __forceinline__ float float4_at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The fused epilogue on one fp32 sum v of output column c (v2: the GLU
+// pair's second sum), in the JAX kernels' order: GLU act_glu(v) * v2, the
+// inference batch-norm fold (v - mean) * (rsqrt(var + 1e-5) * scale), the
+// bias, then act.  matmul_fused passes a bias and no batch norm; conv2d_fused
+// the batch norm (its bias is the fold's shift) or nothing.
+struct Epilogue {
+  const float* bias;   // (N,) or null
+  const float* scale;  // the four batch-norm vectors (N,), or all null
+  const float* mean;
+  const float* var;
+  int act;
+  int glu_act;
+
+  __device__ __forceinline__ float fold(int c) const {
+    return (1.0f / sqrtf(var[c] + 1e-5f)) * scale[c];
+  }
+  // the epilogue given column c's fold factor f, mean mu and bias b
+  template <bool GLU>
+  __device__ __forceinline__ float finish(float v, float v2, float f,
+                                          float mu, float b) const {
+    if (GLU) v = apply_act(v, glu_act) * v2;
+    if (scale != nullptr) v = (v - mu) * f;
+    if (bias != nullptr) v += b;
+    return apply_act(v, act);
+  }
+  template <bool GLU>
+  __device__ __forceinline__ float apply(float v, float v2, int c) const {
+    return finish<GLU>(v, v2, scale != nullptr ? fold(c) : 0.0f,
+                       scale != nullptr ? mean[c] : 0.0f,
+                       bias != nullptr ? bias[c] : 0.0f);
+  }
+};
+
+// A tile's per-column epilogue vectors in shared memory, staged once a
+// block: the fold factor (its division and root once a column, not once an
+// element), the mean and the bias of columns n0 .. n0 + BN - 1.  The same
+// arithmetic as Epilogue::apply, so a split and an unsplit run agree.
+template <int BN>
+struct EpilogueCols {
+  float f[BN], mean[BN], bias[BN];
+
+  __device__ __forceinline__ void stage(const Epilogue& e, int n0, int N) {
+    for (int c = threadIdx.x; c < BN; c += blockDim.x) {
+      const int col = min(n0 + c, N - 1);
+      f[c] = e.scale != nullptr ? e.fold(col) : 0.0f;
+      mean[c] = e.scale != nullptr ? e.mean[col] : 0.0f;
+      bias[c] = e.bias != nullptr ? e.bias[col] : 0.0f;
+    }
+  }
+  // the epilogue of tile column cl (0 .. BN - 1)
+  template <bool GLU>
+  __device__ __forceinline__ float apply(const Epilogue& e, float v, float v2,
+                                         int cl) const {
+    return e.finish<GLU>(v, v2, f[cl], mean[cl], bias[cl]);
+  }
+};
+
+// Sum the split-K partials ws[q][s][M][N] over s = 0 .. nsplit-1 in that
+// order (no float atomics: the result repeats bit for bit), then the
+// epilogue; one output element a thread.  q = 1 holds the GLU pair's second
+// product.
+template <typename TOut, bool GLU>
+__global__ void __launch_bounds__(256)
+splitk_reduce(const float* __restrict__ ws, Epilogue epi,
+              TOut* __restrict__ out, int M, int N, int nsplit) {
+  const size_t MN = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float v = 0.0f, v2 = 0.0f;
+  for (int s = 0; s < nsplit; ++s) v += ws[s * MN + i];
+  if (GLU) {
+    const float* ws2 = ws + nsplit * MN;
+    for (int s = 0; s < nsplit; ++s) v2 += ws2[s * MN + i];
+  }
+  out[i] = from_f32<TOut>(epi.apply<GLU>(v, v2, (int)(i % N)));
+}
+
+template <typename TOut>
+int launch_splitk_reduce(const float* ws, const Epilogue& epi, void* out,
+                         int M, int N, int nsplit, bool glu,
+                         cudaStream_t stream) {
+  const unsigned blocks = (unsigned)(((size_t)M * N + 255) / 256);
+  TOut* o = static_cast<TOut*>(out);
+  if (glu)
+    splitk_reduce<TOut, true><<<blocks, 256, 0, stream>>>(ws, epi, o, M, N,
+                                                          nsplit);
+  else
+    splitk_reduce<TOut, false><<<blocks, 256, 0, stream>>>(ws, epi, o, M, N,
+                                                           nsplit);
+  return (int)cudaGetLastError();
+}
+
+// The reduction for an out_dtype code of the C interface (0 fp32, 1 bf16).
+inline int splitk_reduce_to(int out_dtype, const float* ws,
+                            const Epilogue& epi, void* out, int M, int N,
+                            int nsplit, bool glu, cudaStream_t stream) {
+  if (out_dtype == kF32)
+    return launch_splitk_reduce<float>(ws, epi, out, M, N, nsplit, glu,
+                                       stream);
+  if (out_dtype == kBF16)
+    return launch_splitk_reduce<__nv_bfloat16>(ws, epi, out, M, N, nsplit,
+                                               glu, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace rt

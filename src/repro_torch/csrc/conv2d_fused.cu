@@ -12,7 +12,20 @@
 // row/column on the high side, so only pad_t/pad_l are needed), so the input
 // is never padded in memory.  Accumulation is fp32; the output is written
 // once, in the input dtype.
+//
+// Two entries.  conv2d_fused is the `simt` schedule: 64 x 64 tiles staged
+// element by element as fp32, for any CI and CO (the 7x7 stem's 3 channels,
+// LeNet-5's 1 and 6, the bf16 convs conv2d_wgmma.cu does not take).
+// conv2d_ffma is the `ffma` schedule: fp32 with CI and CO multiples of 4
+// (every ResNet-34 conv but the stem in the base flow).  The mainloop is
+// ffma_tile.cuh's (full fp32 FMAs, 128 x 128 tiles, 128 x 64 when CO is 64,
+// a 4-slot cp.async ring); its A loader is the im2col gather below, one
+// float4 of 4 channels of one tap a chunk (CI % 4 == 0: a chunk never
+// straddles two taps), zeros where the tap falls in the padding.  A grid
+// under half a wave splits K (the wrapper's _conv_split) and sums the fp32
+// partials in a fixed order before the batch-norm fold and act.
 #include "common.cuh"
+#include "ffma_tile.cuh"
 
 namespace {
 
@@ -118,7 +131,68 @@ int launch(const void* x, const void* w, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// The A loader of the ffma schedule: the im2col gather of x (N, H, W, CI)
+// fp32 NHWC, row m = output pixel (n, oh, ow), K index k = (dh, dw, ci).
+struct Im2col {
+  struct Args {
+    const float* x;
+    int M, H, W, CI, KW, stride, pad_t, pad_l, Ho, Wo;
+  };
+  const float* x;
+  int H, W, CI, KW;
+  int img[2];                        // the rows' image offsets, -1 past M
+  int ih0[2], iw0[2];                // their top-left input pixel
+
+  __device__ Im2col(const Args& a, int m0, int tid)
+      : x(a.x), H(a.H), W(a.W), CI(a.CI), KW(a.KW) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int m = m0 + (tid >> 2) + 64 * p;
+      const int hw = a.Ho * a.Wo;
+      const int n = m / hw, r = m - n * hw;
+      const int oh = r / a.Wo, ow = r - oh * a.Wo;
+      img[p] = m < a.M ? n * a.H * a.W * a.CI : -1;
+      ih0[p] = oh * a.stride - a.pad_t;
+      iw0[p] = ow * a.stride - a.pad_l;
+    }
+  }
+  __device__ const float* src(int p, int k) const {
+    const int tap = k / CI, ci = k - tap * CI;
+    const int dh = tap / KW, dw = tap - dh * KW;
+    const int ih = ih0[p] + dh, iw = iw0[p] + dw;
+    if (img[p] < 0 || ih < 0 || ih >= H || iw < 0 || iw >= W) return nullptr;
+    return x + img[p] + (ih * W + iw) * CI + ci;
+  }
+};
+
 }  // namespace
+
+// C interface of the ffma schedule (bound with ctypes in
+// kernels/_build.py): x, w and out fp32, 16-byte aligned, CI and CO
+// multiples of 4 (the wrapper checks them); the batch-norm pointers as
+// below.  K = KH KW CI is split in nsplit slabs of kc (a multiple of 16);
+// with nsplit > 1, ws is an fp32 workspace of nsplit * M * CO floats.
+// Returns the first CUDA error of the launches.
+extern "C" int conv2d_ffma(const void* x, const void* w, const float* scale,
+                           const float* bias, const float* mean,
+                           const float* var, float* ws, void* out, int N,
+                           int H, int W, int CI, int CO, int KH, int KW,
+                           int stride, int pad_t, int pad_l, int Ho, int Wo,
+                           int act, int kc, int nsplit, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kc % fp32tile::BK != 0) return (int)cudaErrorInvalidValue;
+  const int M = N * Ho * Wo, K = KH * KW * CI;
+  const Im2col::Args a{static_cast<const float*>(x), M, H, W, CI, KW,
+                       stride, pad_t, pad_l, Ho, Wo};
+  const rt::Epilogue epi{bias, scale, mean, var, act, 0};
+  const float* wp = static_cast<const float*>(w);
+  if (CO == 64)
+    return fp32tile::launch<64, 1, float, Im2col>(a, wp, nullptr, epi, ws,
+                                                  out, M, CO, K, kc, nsplit,
+                                                  s);
+  return fp32tile::launch<128, 1, float, Im2col>(a, wp, nullptr, epi, ws, out,
+                                                 M, CO, K, kc, nsplit, s);
+}
 
 // C interface (bound with ctypes in kernels/_build.py).  dtype: 0 fp32,
 // 1 bf16, for x, w and out alike.  The four BN pointers are all null when

@@ -3,12 +3,20 @@
 // src/repro/kernels/matmul_fused.py; see src/repro_torch/kernels/matmul_fused.py
 // for the design note and the plain PyTorch version it is held against.
 //
-// Two entries.  matmul_fused is the `simt` schedule: fp32 accumulation in
+// Three entries.  matmul_fused is the `simt` schedule: fp32 accumulation in
 // registers (a second accumulator when w2 is given, the GLU form); the
 // epilogue runs in the JAX kernel's order — GLU act_glu(acc) * acc2, then
 // bias, then act — and the output is written once, in the output dtype.
-// It takes fp32 operands (full fp32, no TF32) and shapes the tensor-core
-// schedules (matmul_wgmma.cu, matmul_small_m.cu) do not.
+// It takes the shapes no other schedule takes: K or N not a multiple of 4
+// (8 in bf16), unaligned views.
+//
+// matmul_ffma is the `ffma` schedule: fp32 operands with K and N multiples
+// of 4, 16-byte aligned, above the small-M cut (the fp32 prefills).  The
+// mainloop is ffma_tile.cuh's (full fp32 FMAs, no TF32; 128 x 128 tiles,
+// 128 x 64 in the GLU form, a 4-slot cp.async ring) with dense rows of x as
+// its A loader, the same epilogue in registers and one write; a grid under
+// half a wave splits K (the wrapper's _wave_split) and sums the partials in
+// a fixed order.
 //
 // matmul_base is the Pallas kernel's vmem_accum=False branch (the paper's
 // base kernel, matmul_fused.py:70-80, pallas_call at :147): the sum goes
@@ -20,6 +28,7 @@
 // rows; nothing on the op layer calls it (the JAX op layer never passes
 // vmem_accum), so it stays on the same simple SIMT core.
 #include "common.cuh"
+#include "ffma_tile.cuh"
 
 namespace {
 
@@ -200,7 +209,65 @@ int launch_base(const void* x, const void* w, const float* bias, void* out,
   return (int)cudaGetLastError();
 }
 
+// The A loader of the ffma schedule: dense rows of x (M, K), row-major.
+struct DenseRows {
+  struct Args {
+    const float* x;
+    int M, K;
+  };
+  const float* row[2];               // the thread's two rows, null past M
+
+  __device__ DenseRows(const Args& a, int m0, int tid) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int m = m0 + (tid >> 2) + 64 * p;
+      row[p] = m < a.M ? a.x + (size_t)m * a.K : nullptr;
+    }
+  }
+  __device__ const float* src(int p, int k) const {
+    return row[p] != nullptr ? row[p] + k : nullptr;
+  }
+};
+
+template <typename TOut>
+int launch_ffma(const float* x, const float* w, const float* w2,
+                const rt::Epilogue& epi, float* ws, void* out, int M, int K,
+                int N, int kc, int nsplit, cudaStream_t s) {
+  const DenseRows::Args a{x, M, K};
+  if (w2 != nullptr)
+    return fp32tile::launch<64, 2, TOut, DenseRows>(a, w, w2, epi, ws, out,
+                                                    M, N, K, kc, nsplit, s);
+  return fp32tile::launch<128, 1, TOut, DenseRows>(a, w, nullptr, epi, ws,
+                                                   out, M, N, K, kc, nsplit,
+                                                   s);
+}
+
 }  // namespace
+
+// C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2
+// (K, N) fp32, row-major, 16-byte aligned, K and N multiples of 4 (the
+// wrapper checks them).  out_dtype 0 fp32, 1 bf16.  K is split in nsplit
+// slabs of kc rows (kc a multiple of 16); with nsplit > 1, ws is an fp32
+// workspace of (w2 ? 2 : 1) * nsplit * M * N floats.  w2 and bias may be
+// null.  Returns the first CUDA error of the launches.
+extern "C" int matmul_ffma(int out_dtype, const void* x, const void* w,
+                           const void* w2, const float* bias, float* ws,
+                           void* out, int M, int K, int N, int kc, int nsplit,
+                           int act, int glu_act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kc % fp32tile::BK != 0) return (int)cudaErrorInvalidValue;
+  const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  const float* w2p = static_cast<const float*>(w2);
+  if (out_dtype == rt::kF32)
+    return launch_ffma<float>(xp, wp, w2p, epi, ws, out, M, K, N, kc, nsplit,
+                              s);
+  if (out_dtype == rt::kBF16)
+    return launch_ffma<__nv_bfloat16>(xp, wp, w2p, epi, ws, out, M, K, N, kc,
+                                      nsplit, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // C interface (bound with ctypes in kernels/_build.py).  in_dtype is the
 // dtype of x, w and w2; out_dtype that of out (0 fp32, 1 bf16).  w2 and

@@ -1,4 +1,5 @@
-// matmul_small_m: the small-M schedule of matmul_fused (bf16 operands),
+// matmul_small_m: the small-M schedules of matmul_fused, `small_m` (bf16
+// operands, below) and `ffma_small_m` (fp32 operands, at the end),
 // y = epilogue(x @ w [, x @ w2]) for M at or below the wrapper's crossover:
 // decode steps and serving ticks (8 rows), speculative verify (40), the CNN
 // heads at batch 8.  Replaces the Pallas kernel matmul_fused of
@@ -24,6 +25,20 @@
 // kernel sums the splits in a fixed order (no float atomics: the result
 // repeats bit for bit) and applies the epilogue: GLU act(acc) * acc2, then
 // bias, then act, one write in the output dtype.
+//
+// ffma_small_m is the same split-K structure for fp32 operands (K and N
+// multiples of 4, 16-byte aligned), full fp32 FMAs (mma.sync takes no fp32
+// inputs, and TF32 would break the fp32 checks): bound by the weight bytes
+// as well (K * N * 4: 16.8 MB, 5.0 us at 3.35 TB/s for 2048 x 2048).  A
+// block of 8 warps streams a (K split x 128 columns) slab of w through a
+// 3-deep ring of 32-row stages with 16-byte cp.async loads, x's rows of the
+// same K range beside it; lane l owns columns 4 l .. 4 l + 3, and the warps
+// divide the rows into 8-row groups and each stage's 32 K rows among
+// themselves (8 rows: 8 K groups of 4; 64 rows: 8 row groups), so every w
+// element is read from shared memory once a row group, as a float4, and x
+// as broadcast float4s along K.  The K groups' sums meet in shared memory
+// in a fixed order, then the block's partial goes to the workspace and
+// rt::splitk_reduce sums the splits in a fixed order with the epilogue.
 #include <cstdint>
 
 #include "common.cuh"
@@ -42,22 +57,6 @@ constexpr int XLD = SBK + 8;       // padded shared row of an x stage
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8 x 8 bf16 matrices, transposed: B fragments of two n8 tiles.
@@ -202,27 +201,6 @@ small_m_partial(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
 }
 
-// Sum the splits in order 0 .. nsplit-1, then the epilogue.
-template <typename TOut, bool GLU>
-__global__ void __launch_bounds__(256)
-small_m_reduce(const float* __restrict__ ws, const float* __restrict__ bias,
-               TOut* __restrict__ out, int M, int N, int nsplit, int act,
-               int glu_act) {
-  const size_t MN = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float v = 0.0f;
-  for (int s = 0; s < nsplit; ++s) v += ws[s * MN + i];
-  if (GLU) {
-    float v2 = 0.0f;
-    const float* ws2 = ws + nsplit * MN;
-    for (int s = 0; s < nsplit; ++s) v2 += ws2[s * MN + i];
-    v = apply_act(v, glu_act) * v2;
-  }
-  if (bias != nullptr) v += bias[i % N];
-  out[i] = from_f32<TOut>(apply_act(v, act));
-}
-
 template <int MT, int NW>
 int launch_partial(const void* x, const void* w, const void* w2, float* ws,
                    int M, int K, int N, int kc, int nsplit,
@@ -254,23 +232,197 @@ int partial_by_rows(const void* x, const void* w, const void* w2, float* ws,
   }
 }
 
-template <typename TOut>
-int launch_reduce(const float* ws, const float* bias, void* out, int M, int N,
-                  int nsplit, bool glu, int act, int glu_act,
-                  cudaStream_t stream) {
+// ---- ffma_small_m: fp32 operands ----
+constexpr int FBN = 128;           // columns a block (4 a lane)
+constexpr int FBK = 32;            // K a stage (the wrapper's SMALL_M_BK)
+constexpr int FSTAGES = 3;
+constexpr int FTHREADS = 256;
+constexpr int FXLD = FBK + 4;      // padded shared row of an x stage
+
+template <int MT, int NW>
+struct FSmall {
+  static constexpr int ROWS = 8 * MT;          // M <= ROWS
+  static constexpr int WK = 8 / MT;            // warps along K
+  static constexpr int KG = FBK / WK;          // K rows a warp a stage
+  static constexpr int W_FLOATS = NW * FBK * FBN;
+  static constexpr int STAGE = W_FLOATS + ROWS * FXLD;
+  static constexpr int RED = WK * NW * ROWS * FBN;   // the K groups' sums
+  static constexpr int SMEM_BYTES =
+      4 * (FSTAGES * STAGE > RED ? FSTAGES * STAGE : RED);
+};
+
+// The fp32 partial products of one (K split, 128-column strip): MT 8-row
+// groups of x (M <= 8 MT), NW weights (2 with the GLU pair).
+template <int MT, int NW>
+__global__ void __launch_bounds__(FTHREADS)
+ffma_small_m_partial(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ w2, float* __restrict__ ws,
+                     int M, int K, int N, int kc) {
+  using F = FSmall<MT, NW>;
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp % MT, wk = warp / MT;    // row group, K group
+  const int n0 = blockIdx.x * FBN;
+  const int kbeg = blockIdx.y * kc, kend = min(K, kbeg + kc);
+  const int nst = (kend - kbeg + FBK - 1) / FBK;
+
+  // K and N are multiples of 4: a 16-byte chunk is all in range or all out
+  auto load_stage = [&](int st, int slot) {
+    const int k0 = kbeg + st * FBK;
+    float* Ws = fsm + slot * F::STAGE;
+    float* Xs = Ws + F::W_FLOATS;
+#pragma unroll
+    for (int it = 0; it < FBK * (FBN / 4) / FTHREADS; ++it) {
+      const int i = tid + it * FTHREADS;
+      const int r = i / (FBN / 4), c = (i % (FBN / 4)) * 4;
+      const int k = k0 + r, n = n0 + c;
+      const bool ok = k < kend && n < N;
+      const size_t off = ok ? (size_t)k * N + n : 0;
+#pragma unroll
+      for (int q = 0; q < NW; ++q)
+        cp_async16(Ws + (q * FBK + r) * FBN + c, (q == 0 ? w : w2) + off,
+                   ok ? 16 : 0);
+    }
+    for (int i = tid; i < F::ROWS * (FBK / 4); i += FTHREADS) {
+      const int r = i / (FBK / 4), c = (i % (FBK / 4)) * 4;
+      const int k = k0 + c;
+      const bool ok = r < M && k < kend;
+      cp_async16(Xs + r * FXLD + c, x + (ok ? (size_t)r * K + k : 0),
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[NW][8][4];
+#pragma unroll
+  for (int q = 0; q < NW; ++q)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < FSTAGES - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<FSTAGES - 2>();    // stage st has landed
+    __syncthreads();                 // ... for every thread; slot st-1 free
+    const int nx = st + FSTAGES - 1;
+    if (nx < nst) load_stage(nx, nx % FSTAGES);
+    cp_async_commit();
+
+    const float* Ws = fsm + (st % FSTAGES) * F::STAGE;
+    const float* Xs = Ws + F::W_FLOATS + wr * 8 * FXLD;
+#pragma unroll
+    for (int kq = 0; kq < F::KG; kq += 4) {
+      const int k = wk * F::KG + kq;
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(Xs + i * FXLD + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int q = 0; q < NW; ++q) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              Ws + (q * FBK + k + kk) * FBN + 4 * lane);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = float4_at(a[i], kk);
+            acc[q][i][0] = fmaf(av, b.x, acc[q][i][0]);
+            acc[q][i][1] = fmaf(av, b.y, acc[q][i][1]);
+            acc[q][i][2] = fmaf(av, b.z, acc[q][i][2]);
+            acc[q][i][3] = fmaf(av, b.w, acc[q][i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                   // the ring is free: reuse it
+
+  // the K groups' sums, red[wk][q][row][col], added in order wk = 0, 1, ..
+  float* red = fsm;
+#pragma unroll
+  for (int q = 0; q < NW; ++q)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(
+          red + ((wk * NW + q) * F::ROWS + wr * 8 + i) * FBN + 4 * lane) =
+          make_float4(acc[q][i][0], acc[q][i][1], acc[q][i][2], acc[q][i][3]);
+  __syncthreads();
   const size_t MN = (size_t)M * N;
-  const unsigned blocks = (unsigned)((MN + 255) / 256);
-  TOut* o = static_cast<TOut*>(out);
-  if (glu)
-    small_m_reduce<TOut, true><<<blocks, 256, 0, stream>>>(
-        ws, bias, o, M, N, nsplit, act, glu_act);
-  else
-    small_m_reduce<TOut, false><<<blocks, 256, 0, stream>>>(
-        ws, bias, o, M, N, nsplit, act, glu_act);
+  for (int e = tid; e < NW * F::ROWS * (FBN / 4); e += FTHREADS) {
+    const int q = e / (F::ROWS * (FBN / 4));
+    const int r = (e / (FBN / 4)) % F::ROWS, c = (e % (FBN / 4)) * 4;
+    if (r >= M || n0 + c >= N) continue;
+    float4 v = *reinterpret_cast<const float4*>(red + (q * F::ROWS + r) * FBN
+                                                + c);
+#pragma unroll
+    for (int g = 1; g < F::WK; ++g) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          red + ((g * NW + q) * F::ROWS + r) * FBN + c);
+      v.x += t.x;
+      v.y += t.y;
+      v.z += t.z;
+      v.w += t.w;
+    }
+    *reinterpret_cast<float4*>(ws + (q * gridDim.y + blockIdx.y) * MN +
+                               (size_t)r * N + n0 + c) = v;
+  }
+}
+
+template <int MT, int NW>
+int launch_ffma_partial(const void* x, const void* w, const void* w2,
+                        float* ws, int M, int K, int N, int kc, int nsplit,
+                        cudaStream_t stream) {
+  constexpr int smem = FSmall<MT, NW>::SMEM_BYTES;
+  auto kern = ffma_small_m_partial<MT, NW>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((N + FBN - 1) / FBN), (unsigned)nsplit);
+  kern<<<grid, FTHREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(w2), ws, M, K, N, kc);
   return (int)cudaGetLastError();
 }
 
+template <int NW>
+int ffma_partial_by_rows(const void* x, const void* w, const void* w2,
+                         float* ws, int M, int K, int N, int kc, int nsplit,
+                         cudaStream_t s) {
+  if (M <= 8)
+    return launch_ffma_partial<1, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+  if (M <= 16)
+    return launch_ffma_partial<2, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+  if (M <= 32)
+    return launch_ffma_partial<4, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+  if (M <= 64)
+    return launch_ffma_partial<8, NW>(x, w, w2, ws, M, K, N, kc, nsplit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// C interface of ffma_small_m (bound with ctypes in kernels/_build.py): as
+// matmul_small_m below, with x, w and w2 fp32, K and N multiples of 4.
+extern "C" int matmul_ffma_small_m(int out_dtype, const void* x,
+                                   const void* w, const void* w2,
+                                   const float* bias, float* ws, void* out,
+                                   int M, int K, int N, int kc, int nsplit,
+                                   int act, int glu_act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool glu = w2 != nullptr;
+  if (kc % FBK != 0 || nsplit < 1) return (int)cudaErrorInvalidValue;
+  int err = glu ? ffma_partial_by_rows<2>(x, w, w2, ws, M, K, N, kc, nsplit, s)
+                : ffma_partial_by_rows<1>(x, w, w2, ws, M, K, N, kc, nsplit,
+                                          s);
+  if (err != 0) return err;
+  const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
+  return rt::splitk_reduce_to(out_dtype, ws, epi, out, M, N, nsplit, glu, s);
+}
 
 // C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2
 // (K, N) are bf16, row-major, 16-byte aligned, K and N multiples of 8,
@@ -290,11 +442,6 @@ extern "C" int matmul_small_m(int out_dtype, const void* x, const void* w,
   int err = glu ? partial_by_rows<2>(x, w, w2, ws, M, K, N, kc, nsplit, s)
                 : partial_by_rows<1>(x, w, w2, ws, M, K, N, kc, nsplit, s);
   if (err != 0) return err;
-  if (out_dtype == rt::kF32)
-    return launch_reduce<float>(ws, bias, out, M, N, nsplit, glu, act,
-                                glu_act, s);
-  if (out_dtype == rt::kBF16)
-    return launch_reduce<__nv_bfloat16>(ws, bias, out, M, N, nsplit, glu,
-                                        act, glu_act, s);
-  return (int)cudaErrorInvalidValue;
+  const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
+  return rt::splitk_reduce_to(out_dtype, ws, epi, out, M, N, nsplit, glu, s);
 }

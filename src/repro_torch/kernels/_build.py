@@ -41,10 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
+    "conv2d_wgmma": [_P] * 8 + [_I] * 15 + [_P],
+    "conv2d_ffma": [_P] * 8 + [_I] * 15 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "matmul_base": [_I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "matmul_wgmma": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "matmul_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "matmul_ffma": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "matmul_ffma_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_wgmma": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],

@@ -1,5 +1,6 @@
 """conv2d_fused — direct 2-D convolution with the fused BN/activation
-epilogue, as a hand-written CUDA kernel for Hopper (``csrc/conv2d_fused.cu``).
+epilogue, as hand-written CUDA kernels for Hopper: three schedules of the
+same function.
 
 Replaces the Pallas kernel ``conv2d_fused`` of ``src/repro/kernels/conv2d.py``
 (the paper's workhorse op): x (N, H, W, CI) NHWC times w (kh, kw, CI, CO)
@@ -8,29 +9,47 @@ batch-norm fold ``(y - mean) * rsqrt(var + 1e-5) * scale + bias`` and the
 activation before the single write, in ``x.dtype``.  groups = 1 only: the
 registry sends a grouped (depthwise) conv to the reference op.
 
-What bounds it on the H100: at ResNet-34's shapes a conv does 100-300
-operations per byte it must move, near or above the card's ridge (about 295
-in bf16), so tensor-core FLOPs bound most layers and bytes bound the few with
-little depth (the 7x7 stem has K = 147).  ``chip_smoke.py`` states the bound
-of each shape.
+Every schedule is an implicit GEMM with M = N*Ho*Wo output pixels, K =
+kh*kw*CI ordered (dh, dw, ci) and N = CO, B being w viewed as (K, CO); the
+padding is a predicate in the gather with XLA's low/high split, so the input
+is never padded in memory.  What bounds it on the H100: at ResNet-34's
+shapes a conv does 100-300 operations per byte it must move, near or above
+the card's bf16 ridge (about 295) and far above fp32's (about 20), so the
+FLOPs bound most layers.  ``chip_smoke.py`` states the bound of each shape.
+The wrapper picks the schedule with :func:`_schedule`, a pure function of
+the channels, the dtype and the pointers' alignment (a dispatch between
+hand-written kernels, not a fallback: a build or launch failure raises):
 
-The simple design: an implicit GEMM with M = N*Ho*Wo, K = kh*kw*CI, N = CO.
-Each block of 256 threads owns a 64 x 64 output tile; per 16-deep K step it
-gathers the input tile (the padding is a predicate in the gather, with
-XLA's low/high split, so the input is never padded in memory) and the weight
-tile into shared memory as fp32, and each thread accumulates a 4 x 4 patch
-with fp32 FMAs on the CUDA cores.  That caps it at the 67 TFLOP/s of fp32
-outside the tensor cores.  A later PR feeds bf16 tiles through a TMA ring to
-``wgmma`` (the tensor cores' only route to their full rate) and pipelines
-the loads; see ROADMAP.
+- ``wgmma`` (``csrc/conv2d_wgmma.cu``): bf16 with CI a multiple of 64 and
+  CO of 8 — every ResNet-34 conv but the 7x7 stem, MobileNetV1's pointwise
+  convs from 64 channels up.  A 64-deep K stage is one tap x 64 channels,
+  128 contiguous bytes of x a pixel, gathered with ``cp.async`` into the
+  128-byte swizzle the ``wgmma`` descriptors read; two warpgroups on
+  m64n128k16 (m64n64k16 when CO is 64), a 3-slot ring, two blocks an SM.
+- ``ffma`` (``csrc/conv2d_fused.cu`` ``conv2d_ffma`` on
+  ``csrc/ffma_tile.cuh``): fp32 with CI and CO multiples of 4 — the base
+  flow's ResNet-34 convs but the stem.  Full fp32 FMAs (no TF32), 128 x
+  128 tiles of 8 x 8 a thread (128 x 64 when CO is 64), the im2col gather
+  one float4 of channels a chunk through a 4-slot ``cp.async`` ring.
+- ``simt`` (``csrc/conv2d_fused.cu`` ``conv2d_fused``): the rest — the 7x7
+  stem (CI 3), LeNet-5 (CI 1 and 6), MobileNetV1's first conv and its
+  32-channel pointwise conv in bf16, unaligned views.  64 x 64 output tiles
+  of a 256-thread block, 16-deep K steps staged as fp32, fp32 FMAs.
+
+Both new schedules split K when their grid is under half a wave
+(:func:`_conv_split`: ResNet-34's 28 x 28, 14 x 14 and 7 x 7 layers at batch
+8 have 49, 26 and 16 blocks); each block writes fp32 partials that a second
+kernel sums in a fixed order (no float atomics: the bits repeat) before the
+fold and act.
 
 The plan's TPU tile ``(block_h, block_c)`` (``plan.tiles["conv2d"]``) is
-accepted and ignored: the kernel takes its own block sizes until the tiling
-pass gains a Hopper target (ROADMAP Queue 1, item 6).
+accepted and ignored: the kernels take their own block sizes until the
+tiling pass gains a Hopper target (ROADMAP Queue 1, item 6).
 
 On a CPU tensor the wrapper runs :func:`conv2d_fused_plain`; on a CUDA
-tensor it launches the kernel or raises.  ``conv2d_fused.launches`` counts
-the launches.
+tensor it launches a kernel or raises.  ``conv2d_fused.launches`` counts
+the launches and ``conv2d_fused.schedule_launches`` splits them by
+schedule.  No ``F.conv2d``, no cuDNN and no TF32 on the card.
 """
 from __future__ import annotations
 
@@ -40,6 +59,31 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul_fused import _sm_count, _wave_split
+
+SCHEDULES = ("wgmma", "ffma", "simt")
+CONV_BM = 128                         # rows (output pixels) a block
+
+
+def _schedule(CI: int, CO: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel that runs a conv: ``wgmma`` for bf16 with CI a multiple
+    of 64 (a 64-deep K stage is one tap) and CO of 8, ``ffma`` for fp32
+    with CI and CO multiples of 4 (16-byte ``cp.async`` chunks), when x, w
+    and out are 16-byte aligned; ``simt`` for the rest."""
+    if aligned and dtype == torch.bfloat16 and CI % 64 == 0 and CO % 8 == 0:
+        return "wgmma"
+    if aligned and dtype == torch.float32 and CI % 4 == 0 and CO % 4 == 0:
+        return "ffma"
+    return "simt"
+
+
+def _conv_split(M: int, K: int, CO: int, sms: int = 132):
+    """(nsplit, kc) of the ``wgmma`` and ``ffma`` schedules: their grid of
+    128-pixel x BN-channel blocks (BN 64 when CO is 64, else 128) split
+    along K in whole 64-deep stages by :func:`_wave_split` when it is under
+    half a wave."""
+    bn = 64 if CO == 64 else 128
+    return _wave_split(-(-M // CONV_BM) * -(-CO // bn), K, sms)
 
 
 def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
@@ -126,12 +170,26 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         if any(t.shape != (CO,) for t in bnc):
             raise ValueError("conv2d_fused: batch-norm vectors must be (CO,)")
     out = torch.empty((N, ho, wo, CO), dtype=dt, device=x.device)
-    _build.call("conv2d_fused", _build.DTYPE_CODES[dt], _build.ptr(xc),
-                _build.ptr(wc), *[_build.ptr(t) for t in bnc],
-                _build.ptr(out), N, H, W, CI, CO, kh, kw, stride, pt, pl,
-                ho, wo, _build.ACT_CODES[act], _build.stream())
+    geom = (N, H, W, CI, CO, kh, kw, stride, pt, pl, ho, wo,
+            _build.ACT_CODES[act])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (xc, wc, out))
+    sched = _schedule(CI, CO, dt, aligned)
+    if sched == "simt":
+        _build.call("conv2d_fused", _build.DTYPE_CODES[dt], _build.ptr(xc),
+                    _build.ptr(wc), *[_build.ptr(t) for t in bnc],
+                    _build.ptr(out), *geom, _build.stream())
+    else:
+        M = N * ho * wo
+        nsplit, kc = _conv_split(M, kh * kw * CI, CO, _sm_count(x.device))
+        ws = (torch.empty(nsplit * M * CO, dtype=torch.float32,
+                          device=x.device) if nsplit > 1 else None)
+        _build.call(f"conv2d_{sched}", _build.ptr(xc), _build.ptr(wc),
+                    *[_build.ptr(t) for t in bnc], _build.ptr(ws),
+                    _build.ptr(out), *geom, kc, nsplit, _build.stream())
     conv2d_fused.launches += 1
+    conv2d_fused.schedule_launches[sched] += 1
     return out if dt == x.dtype else out.to(x.dtype)
 
 
 conv2d_fused.launches = 0
+conv2d_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)

@@ -1,5 +1,5 @@
 """matmul_fused — the fused tiled matmul, as hand-written CUDA kernels for
-Hopper: three schedules of the same function and the base variant.
+Hopper: five schedules of the same function and the base variant.
 
 Replaces the Pallas kernel ``matmul_fused`` of
 ``src/repro/kernels/matmul_fused.py``: ``y = epilogue(x @ w [, x @ w2])``
@@ -31,11 +31,24 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   ``cp.async`` streams of w, ``mma.sync`` m16n8k16; fp32 partials to a
   workspace that a second kernel sums in a fixed order (no float atomics:
   the output repeats bit for bit) before the epilogue.
+- ``ffma`` (``csrc/matmul_fused.cu`` ``matmul_ffma`` on
+  ``csrc/ffma_tile.cuh``): fp32 operands, M above :data:`SMALL_M_MAX`, K
+  and N multiples of 4, 16-byte aligned — the fp32 (base flow) prefills.
+  Full fp32 FMAs (no TF32: the fp32 checks and the fp32 greedy identity
+  need it), bound by the operations at 67 TFLOP/s: 128 x 128 output tiles
+  (128 x 64 in the GLU form) of 8 x 8 a thread, 16-deep K stages through
+  a 4-slot ``cp.async`` ring; a grid under half a wave splits K
+  (:func:`_wave_split`), the partials summed in a fixed order.
+- ``ffma_small_m`` (``csrc/matmul_small_m.cu`` ``matmul_ffma_small_m``):
+  the same fp32 operands at or below :data:`SMALL_M_MAX` rows — the fp32
+  decode steps and serving ticks.  Bound by the weight bytes (K * N * 4):
+  ``small_m``'s split (:func:`_split_k`) and fixed-order reduction, w
+  streamed by ``cp.async``, fp32 FMAs with x's rows as broadcasts.
 - ``simt`` (``csrc/matmul_fused.cu`` ``matmul_fused``): everything else —
-  fp32 operands, which stay full fp32 (no TF32: the fp32 checks and the fp32
-  greedy identity need it), and unaligned shapes (LeNet-5's 120 -> 84 and
-  84 -> 10 heads).  64 x 64 output tiles of a 256-thread block, 16-deep K
-  steps staged in shared memory as fp32, fp32 FMAs.
+  K or N not a multiple of 8 in bf16 or of 4 in fp32 (LeNet-5's 120 -> 84
+  and 84 -> 10 heads), unaligned views.  64 x 64 output tiles of a
+  256-thread block, 16-deep K steps staged in shared memory as fp32, fp32
+  FMAs.
 
 ``vmem_accum=False`` is the Pallas kernel's base branch (the paper's base
 kernel, ``matmul_fused.py:70-80``): the sum goes through the output dtype
@@ -48,7 +61,7 @@ On a CPU tensor the wrapper runs the plain versions; on a CUDA tensor it
 launches a kernel or raises.  ``matmul_fused.launches`` counts the CW
 launches, ``matmul_fused.schedule_launches`` splits them by schedule, and
 ``matmul_fused.base_launches`` counts the base variant's.  No
-``torch.matmul`` and no cuBLAS on the card.
+``torch.matmul``, no cuBLAS and no TF32 on the card.
 """
 from __future__ import annotations
 
@@ -60,8 +73,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-SCHEDULES = ("wgmma", "small_m", "simt")
-# the largest M on the small_m schedule, plain and GLU form; above it wgmma.
+SCHEDULES = ("wgmma", "small_m", "ffma", "ffma_small_m", "simt")
+# the largest M on the small-M schedules, plain and GLU form; above it
+# wgmma (ffma in fp32).
 # Set from the crossover measured on the H100 (chip_smoke.py times both
 # schedules at llama's q and GLU shapes between 32 and 128 rows; PERF.md):
 # at 40-64 rows small_m takes under half of wgmma's time on a 2048 x 2048
@@ -71,6 +85,8 @@ SMALL_M_MAX = {False: 64, True: 32}
 DEFAULT_TILE = (256, 512, 256)        # repro/kernels/ops.py's default
 SMALL_M_BK = 32                       # K a stage of the small_m kernel
 SMALL_M_BN = 128                      # columns a block of the small_m kernel
+FFMA_BM = 128                         # rows a block of the ffma kernel
+WAVE_STAGE = 64                       # K unit of a split of _wave_split
 
 
 def _rup(n: int, m: int) -> int:
@@ -87,11 +103,16 @@ def _schedule(M: int, K: int, N: int, in_dtype: torch.dtype, glu: bool,
               aligned: bool) -> str:
     """The kernel that runs a CW product: ``wgmma`` or ``small_m`` for bf16
     operands that meet the TMA rules (K and N multiples of 8, every operand
-    16-byte aligned), split at :data:`SMALL_M_MAX` rows of the form (the GLU
-    pair's crossover is lower); ``simt`` for the rest."""
-    if in_dtype != torch.bfloat16 or not aligned or K % 8 or N % 8:
-        return "simt"
-    return "small_m" if M <= SMALL_M_MAX[glu] else "wgmma"
+    16-byte aligned), ``ffma`` or ``ffma_small_m`` for fp32 operands with K
+    and N multiples of 4, 16-byte aligned (the 16-byte ``cp.async`` rows),
+    split at :data:`SMALL_M_MAX` rows of the form (the GLU pair's crossover
+    is lower); ``simt`` for the rest."""
+    small = M <= SMALL_M_MAX[glu]
+    if in_dtype == torch.bfloat16 and aligned and not (K % 8 or N % 8):
+        return "small_m" if small else "wgmma"
+    if in_dtype == torch.float32 and aligned and not (K % 4 or N % 4):
+        return "ffma_small_m" if small else "ffma"
+    return "simt"
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,6 +129,21 @@ def _split_k(M: int, K: int, N: int, sms: int = 132):
     nsplit = max(1, min(want, cap, -(-K // SMALL_M_BK)))
     kc = _rup(-(-K // nsplit), SMALL_M_BK)
     return -(-K // kc), kc
+
+
+def _wave_split(blocks: int, K: int, sms: int = 132):
+    """(nsplit, kc) of a tile grid of ``blocks`` blocks over a K-deep sum,
+    kc rows a split in whole :data:`WAVE_STAGE`-deep stages.  A grid of
+    half a wave or more is not split (a split buys at most the idle rest of
+    the wave and costs a reduction pass); a smaller one takes the most
+    splits that keep it within one wave of one block an SM (as many as K
+    has stages, at most): a second wave of the 1-block-an-SM ffma kernel
+    doubles its time."""
+    stages = -(-K // WAVE_STAGE)
+    if 2 * blocks >= sms:
+        return 1, stages * WAVE_STAGE
+    per = -(-stages // max(1, min(stages, sms // blocks)))
+    return -(-stages // per), per * WAVE_STAGE
 
 
 def matmul_fused_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -246,7 +282,32 @@ def _launch_small_m(c: _Call) -> None:
                 c.act, c.glu_act, _build.stream())
 
 
+def _launch_ffma(c: _Call) -> None:
+    bn = 64 if c.w2 is not None else 128
+    blocks = -(-c.M // FFMA_BM) * -(-c.N // bn)
+    nsplit, kc = _wave_split(blocks, c.K, _sm_count(c.x.device))
+    nw = 2 if c.w2 is not None else 1
+    ws = (torch.empty(nw * nsplit * c.M * c.N, dtype=torch.float32,
+                      device=c.x.device) if nsplit > 1 else None)
+    _build.call("matmul_ffma", _codes(c)[1], _build.ptr(c.x),
+                _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
+                _build.ptr(ws), _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit,
+                c.act, c.glu_act, _build.stream())
+
+
+def _launch_ffma_small_m(c: _Call) -> None:
+    nsplit, kc = _split_k(c.M, c.K, c.N, _sm_count(c.x.device))
+    nw = 2 if c.w2 is not None else 1
+    ws = torch.empty(nw * nsplit * c.M * c.N, dtype=torch.float32,
+                     device=c.x.device)
+    _build.call("matmul_ffma_small_m", _codes(c)[1], _build.ptr(c.x),
+                _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
+                _build.ptr(ws), _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit,
+                c.act, c.glu_act, _build.stream())
+
+
 _LAUNCH = {"wgmma": _launch_wgmma, "small_m": _launch_small_m,
+           "ffma": _launch_ffma, "ffma_small_m": _launch_ffma_small_m,
            "simt": _launch_simt}
 
 

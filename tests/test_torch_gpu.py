@@ -117,6 +117,99 @@ def test_conv2d_kernel(card, name, dt):
     assert _rel(y, p) < TOL[dt]
 
 
+# conv2d_fused's tensor-core and FFMA schedules: (N, H, W, CI, CO, k,
+# stride, padding, bn, act).  A ragged M (3 x 9 x 11 pixels) at CO 64 (the
+# 64-wide tile), stride 2 at CO 128, a 1x1 projection, VALID with CO 192
+# (one half-masked 128-wide tile) and no BN, CO 8, ResNet-34's 56 x 56 layer
+# (196 blocks: no split) and its 7 x 7 one (16 blocks: K split in 9); every
+# case but the 56 x 56 one has a grid under half a wave, so K is split
+TC_CONVS = {
+    "ragged_co64": (3, 9, 11, 64, 64, 3, 1, "SAME", True, "relu"),
+    "s2_co128": (2, 28, 28, 128, 128, 3, 2, "SAME", True, "relu"),
+    "proj1x1s2": (2, 14, 14, 64, 128, 1, 2, "SAME", True, None),
+    "valid_nobn_co192": (1, 12, 10, 128, 192, 3, 1, "VALID", False, None),
+    "co8": (2, 8, 8, 64, 8, 1, 1, "SAME", False, "gelu"),
+    "resnet_64@56": (8, 56, 56, 64, 64, 3, 1, "SAME", True, "relu"),
+    "resnet_512@7": (8, 7, 7, 512, 512, 3, 1, "SAME", True, "relu"),
+}
+# the ffma schedule's own: CI 4 with a 5x5 VALID window, CI 12 (a 16-deep
+# stage spans taps) with CO 20
+FFMA_CONVS = {
+    "ci4_k5s2_valid": (1, 17, 17, 4, 16, 5, 2, "VALID", False, "relu"),
+    "ci12_co20_s2": (2, 15, 13, 12, 20, 3, 2, "SAME", True, None),
+}
+
+
+def _conv_ran(sched, fn):
+    """Run fn; assert that it made one conv launch, on ``sched``."""
+    s0 = dict(kc.conv2d_fused.schedule_launches)
+    y = fn()
+    torch.cuda.synchronize()
+    assert {k: v - s0[k] for k, v in kc.conv2d_fused.schedule_launches.items()
+            } == {k: int(k == sched) for k in kc.SCHEDULES}
+    return y
+
+
+def _conv_inputs(g, N, H, W, CI, CO, k, bn, dt):
+    x = _randn(g, N, H, W, CI, dt=dt)
+    w = (torch.randn(k, k, CI, CO, generator=g, device="cuda")
+         * (k * k * CI) ** -0.5).to(dt)
+    bnp = tuple(torch.rand(CO, generator=g, device="cuda") + 0.5
+                for _ in range(4)) if bn else None
+    return x, w, bnp
+
+
+@pytest.mark.parametrize("dt,name", [("bf16", n) for n in sorted(TC_CONVS)]
+                         + [("fp32", n) for n in sorted(TC_CONVS)
+                            + sorted(FFMA_CONVS)])
+def test_conv2d_tensor_core_and_ffma_schedules(card, dt, name):
+    """bf16 on wgmma, fp32 on ffma, each within its tolerance of the plain
+    version, the same bits twice (the K splits summed in a fixed order)."""
+    N, H, W, CI, CO, k, s, pad, bn, act = {**TC_CONVS, **FFMA_CONVS}[name]
+    x, w, bnp = _conv_inputs(card, N, H, W, CI, CO, k, bn, DTYPES[dt])
+
+    def run():
+        return kc.conv2d_fused(x, w, stride=s, padding=pad, bn=bnp, act=act)
+    y = _conv_ran("wgmma" if dt == "bf16" else "ffma", run)
+    p = kc.conv2d_fused_plain(x, w, stride=s, padding=pad, bn=bnp, act=act)
+    assert y.dtype == DTYPES[dt] and y.shape == p.shape
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL[dt]
+    assert torch.equal(run(), y)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", ["gelu", "silu", "relu", "relu2", "sigmoid",
+                                 "tanh"])
+def test_conv2d_schedules_each_act(card, dt, act):
+    """Every act after the BN fold, unsplit (8 x 40 x 40 pixels: 100
+    blocks) and split (9 x 9 pixels: one block, K in 9 slabs)."""
+    for N, H in ((8, 40), (1, 9)):
+        x, w, bnp = _conv_inputs(card, N, H, H, 64, 64, 3, True, DTYPES[dt])
+        y = _conv_ran("wgmma" if dt == "bf16" else "ffma",
+                      lambda: kc.conv2d_fused(x, w, bn=bnp, act=act))
+        p = kc.conv2d_fused_plain(x, w, bn=bnp, act=act)
+        assert _rel(y, p) < TOL[dt]
+
+
+def test_conv2d_simt_keeps_the_rest(card):
+    """The stem's CI 3 in both dtypes, CI 32 in bf16 and an unaligned fp32
+    view run on simt, each within its tolerance of the plain version."""
+    cases = [(3, 64, torch.bfloat16), (3, 64, torch.float32),
+             (32, 64, torch.bfloat16)]
+    for CI, CO, dt in cases:
+        x, w, bnp = _conv_inputs(card, 2, 16, 16, CI, CO, 3, True, dt)
+        y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w, bn=bnp,
+                                                      act="relu"))
+        assert _rel(y, kc.conv2d_fused_plain(x, w, bn=bnp, act="relu")) \
+            < TOL["fp32" if dt == torch.float32 else "bf16"]
+    flat = _randn(card, 4 + 2 * 8 * 8 * 16)
+    x = flat[1:1 + 2 * 8 * 8 * 16].view(2, 8, 8, 16)       # 4-byte offset
+    w = _randn(card, 3, 3, 16, 16)
+    y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w))
+    assert _rel(y, kc.conv2d_fused_plain(x, w)) < TOL["fp32"]
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("glu", [False, True])
 def test_matmul_kernel(card, dt, glu):
@@ -222,10 +315,11 @@ def test_matmul_small_m_long_k_and_fp32_out(card):
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_matmul_simt_schedule(card, dt):
-    """K = 130 (not a multiple of 8) in bf16 at any M, and fp32 at aligned
-    LM-like shapes: both stay on the SIMT kernel, fp32 in full fp32."""
+    """K = 130 (not a multiple of 8) in bf16 at any M, and fp32 with K or N
+    not a multiple of 4 at decode and prefill rows: both stay on the SIMT
+    kernel, fp32 in full fp32."""
     shapes = ([(37, 130, 70), (8, 130, 64), (300, 130, 64)] if dt == "bf16"
-              else [(37, 130, 70), (8, 512, 256), (1000, 512, 256)])
+              else [(37, 130, 70), (8, 514, 256), (1000, 512, 254)])
     for M, K, N in shapes:
         x, w, w2, b = _mm_inputs(card, M, K, N, True, DTYPES[dt])
         y = _schedule_ran("simt", lambda: km.matmul_fused(
@@ -244,6 +338,72 @@ def test_matmul_schedules_take_unaligned_views(card):
     for view, sched in ((aligned, "small_m"), (skewed, "simt")):
         y = _schedule_ran(sched, lambda: km.matmul_fused(x, view))
         assert _rel(y, km.matmul_fused_plain(x, view)) < TOL["bf16"]
+
+
+# the ffma schedule (fp32 operands): (M, K, N, glu, act, out dtype): a
+# ragged M (4095), N not a multiple of the 128- or 64-wide tiles (200, 72),
+# K of 62 stages with an 8-deep tail (1000), bf16 out, a one-stage K with a
+# tail (20), the hybrid's k/v at 4096 rows (a grid under half a wave: K
+# split in 3) and the llama q shape
+FFMA = {
+    "ragged": (4095, 1000, 200, False, "gelu", torch.float32),
+    "glu_ragged": (4095, 1000, 72, True, "silu", torch.float32),
+    "out_bf16": (300, 576, 136, False, None, torch.bfloat16),
+    "glu_out_bf16": (129, 512, 264, True, "gelu", torch.bfloat16),
+    "k_tail": (65, 20, 16, False, "relu", torch.float32),
+    "split_k": (4096, 2560, 256, False, None, torch.float32),
+    "llama_q": (4096, 2048, 2048, False, None, torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FFMA))
+def test_matmul_ffma_schedule(card, name):
+    """Each case on ffma, within fp32's tolerance of the plain version (full
+    fp32: TF32 would miss it by far), the same bits twice."""
+    M, K, N, glu, act, odt = FFMA[name]
+    x, w, w2, b = _mm_inputs(card, M, K, N, glu, torch.float32)
+
+    def run():
+        return km.matmul_fused(x, w, bias=b, w2=w2, act=act, out_dtype=odt)
+    y = _schedule_ran("ffma", run)
+    p = km.matmul_fused_plain(x, w, bias=b, w2=w2, act=act, out_dtype=odt)
+    assert y.shape == (M, N) and y.dtype == odt
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL["fp32" if odt == torch.float32 else "bf16"]
+    assert torch.equal(run(), y)
+
+
+@pytest.mark.parametrize("M,glu", [(1, False), (8, False), (40, False),
+                                   (64, False), (1, True), (8, True),
+                                   (32, True)])
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "relu2",
+                                 "sigmoid", "tanh"])
+def test_matmul_ffma_small_m_schedule(card, M, glu, act):
+    """fp32 decode rows (1, 8), a verify batch (40) and each form's
+    crossover (64 plain, 32 GLU), every act; two runs give the same bits
+    (the splits are summed in a fixed order)."""
+    x, w, w2, b = _mm_inputs(card, M, 2048, 520, glu, torch.float32)
+
+    def run():
+        return km.matmul_fused(x, w, bias=None if glu else b, w2=w2, act=act)
+    y = _schedule_ran("ffma_small_m", run)
+    p = km.matmul_fused_plain(x, w, bias=None if glu else b, w2=w2, act=act)
+    assert y.shape == (M, 520) and y.dtype == torch.float32
+    assert _rel(y, p) < TOL["fp32"]
+    assert torch.equal(run(), y)
+
+
+def test_matmul_ffma_small_m_long_k_and_bf16_out(card):
+    """The hybrid's down projection at 8 rows (K 7680: many splits), a
+    24-deep K (one partial stage) with a ragged N, bf16 out."""
+    for M, K, N, odt in ((8, 7680, 2560, torch.float32),
+                         (3, 24, 20, torch.bfloat16)):
+        x, w, _, b = _mm_inputs(card, M, K, N, False, torch.float32)
+        y = _schedule_ran("ffma_small_m", lambda: km.matmul_fused(
+            x, w, bias=b, out_dtype=odt))
+        p = km.matmul_fused_plain(x, w, bias=b, out_dtype=odt)
+        assert y.dtype == odt
+        assert _rel(y, p) < TOL["fp32" if odt == torch.float32 else "bf16"]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -522,8 +682,21 @@ def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
                       (kd, "paged_decode_attention_plain"),
                       (kd, "copy_block_plain")):
         monkeypatch.setattr(mod, name, boom)
+    c0 = dict(kc.conv2d_fused.schedule_launches)
+    m0 = dict(km.matmul_fused.schedule_launches)
     kc.conv2d_fused(_randn(card, 1, 8, 8, 4), _randn(card, 3, 3, 4, 8))
+    kc.conv2d_fused(_randn(card, 1, 8, 8, 64, dt=torch.bfloat16),
+                    _randn(card, 3, 3, 64, 8, dt=torch.bfloat16))
+    kc.conv2d_fused(_randn(card, 1, 8, 8, 3), _randn(card, 3, 3, 3, 8))
     km.matmul_fused(_randn(card, 4, 16), _randn(card, 16, 8))
+    km.matmul_fused(_randn(card, 100, 16), _randn(card, 16, 8))
+    km.matmul_fused(_randn(card, 4, 10), _randn(card, 10, 8))
+    torch.cuda.synchronize()
+    assert {k: v - c0[k] for k, v in kc.conv2d_fused.schedule_launches.items()
+            } == {"wgmma": 1, "ffma": 1, "simt": 1}
+    assert {k: v - m0[k] for k, v in km.matmul_fused.schedule_launches.items()
+            } == {"wgmma": 0, "small_m": 0, "ffma": 1, "ffma_small_m": 1,
+                  "simt": 1}
     q = _randn(card, 1, 16, 4, 32)
     ka.flash_attention(q, _randn(card, 1, 16, 2, 32), _randn(card, 1, 16, 2,
                                                              32))

@@ -135,7 +135,7 @@ LLAMA = [(2048, 2048, False), (2048, 512, False), (2048, 8192, True),
          (8192, 2048, False)]
 HYBRID = [(2560, 2560, False), (2560, 256, False), (2560, 7680, True),
           (7680, 2560, False)]
-BF = torch.bfloat16
+BF, F32 = torch.bfloat16, torch.float32
 SCHEDULE_CASES = (
     [((M, K, N, BF, g, True), "wgmma") for M in (4096, 2048, 128)
      for K, N, g in LLAMA + HYBRID]
@@ -154,8 +154,22 @@ SCHEDULE_CASES = (
        ((4096, 2048, 2048, BF, False, False), "simt"),    # unaligned view
        ((4096, 2044, 2048, BF, False, True), "simt"),     # K % 8
        ((8, 2048, 2044, BF, True, True), "simt")]         # N % 8
-    + [((M, K, N, torch.float32, g, True), "simt") for M in (4096, 40, 8)
-       for K, N, g in LLAMA + HYBRID + [(512, 1000, False)]])
+    # fp32 (the base flow): the same split on the FFMA schedules
+    + [((M, K, N, F32, g, True),
+        "ffma_small_m" if M <= (32 if g else 64) else "ffma")
+       for M in (4096, 40, 8) for K, N, g in LLAMA + HYBRID
+       + [(512, 1000, False)]]
+    + [((65, 2048, 2048, F32, False, True), "ffma"),
+       ((64, 2048, 2048, F32, False, True), "ffma_small_m"),
+       ((33, 2048, 8192, F32, True, True), "ffma"),
+       ((8, 400, 120, F32, False, True), "ffma_small_m"),    # LeNet-5 f5
+       ((8, 120, 84, F32, False, True), "ffma_small_m"),     # LeNet-5 f6
+       ((8, 84, 10, F32, False, True), "simt"),              # LeNet-5 out
+       ((4096, 2048, 2048, F32, False, False), "simt"),      # unaligned
+       ((8, 2048, 512, F32, False, False), "simt"),          # unaligned
+       ((4096, 2046, 2048, F32, False, True), "simt"),       # K % 4
+       ((8, 2048, 2046, F32, True, True), "simt"),           # N % 4
+       ((8, 2050, 512, F32, False, True), "simt")])          # K % 4
 
 
 @pytest.mark.parametrize("args,want", SCHEDULE_CASES,
@@ -167,10 +181,16 @@ def test_schedule_at_every_main_path_shape(args, want):
     assert tmm._schedule(*args) == want
 
 
+# the small_m and ffma_small_m shapes: llama's and the hybrid's decode
+# projections, a verify batch, each form's crossover, a one-stage K, the
+# ResNet-34 FC and the fp32 decode shapes with K or N a multiple of 4 only
 @pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (8, 2048, 512),
                                    (8, 8192, 2048), (8, 2560, 7680),
                                    (40, 2048, 2048), (64, 7680, 2560),
-                                   (1, 24, 8), (8, 512, 1000)])
+                                   (1, 24, 8), (8, 512, 1000),
+                                   (8, 2560, 256), (8, 7680, 2560),
+                                   (32, 2048, 8192), (8, 120, 84),
+                                   (3, 20, 20), (1, 2052, 2048)])
 def test_split_k_covers_k_in_32_deep_stages(M, K, N):
     nsplit, kc = tmm._split_k(M, K, N)
     assert kc % tmm.SMALL_M_BK == 0 and nsplit >= 1
