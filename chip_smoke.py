@@ -22,11 +22,12 @@ Phases, each raising on failure:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
    heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
    kernel case only), each recording its schedule (``wgmma`` in bf16,
-   ``simt`` in fp32), timed as CUDA-graph replays and by events, in bf16
-   beside the SIMT kernel at the same shape (held to the plain version
-   too); ``decode_attention`` over a 1024-slot cache half
-   full, and ``matmul_fused`` at every projection of a llama layer and
-   every distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
+   ``ffma`` in fp32), timed as CUDA-graph replays and by events beside
+   the SIMT kernel at the same shape (held to the plain version too) and
+   SDPA (with the name of the kernel it ran); ``decode_attention`` over a
+   1024-slot cache half full (also timed as CUDA-graph replays), and
+   ``matmul_fused`` at every projection of a llama layer and every
+   distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
    256, the 2560 -> 7680 GLU pair, 7680 -> 2560), for the prefill's 4096
    rows and a decode step's 8 (in bf16 also llama's q at 128, 64 and 40
    rows and its GLU pair at 40 and 32, each timed on both tensor-core
@@ -54,14 +55,17 @@ Phases, each raising on failure:
    says (16 flash / 96 matmul, 16 decode / 96 matmul); the prefill's and
    every teacher-forced decode step's logits agree with the ``reference``
    backend.  In fp32 the greedy tokens of 32 steps are identical to the
-   reference backend's.  Then ``measure("prefill")`` at 8 x 512 tokens,
+   reference backend's, and the fp32 prefill is timed with flash on its
+   ``ffma`` schedule, forced onto the SIMT kernel, and on ``ffma`` again.
+   Then ``measure("prefill")`` at 8 x 512 tokens,
    ``measure("decode")`` and a profile of each;
 7. serving kernels — ``paged_decode_attention`` at the serving shape (8
    rows of ~520 live tokens in a 513-block pool of 16-token blocks, one
-   query a row and five) and ``copy_block`` on the folded 16-layer pool, in
-   bf16 and fp32, each held against its plain version and timed beside it,
-   the library yardstick (gather + ``scaled_dot_product_attention``;
-   ``Tensor.copy_``) and the bound;
+   query a row and five) and ``copy_block`` on the folded 16-layer K and V
+   pools (one launch a fork), in bf16 and fp32, each held against its plain
+   version and timed beside it, the library yardstick (gather +
+   ``scaled_dot_product_attention``; ``torch._foreach_copy_``) and the
+   bound, as CUDA-graph replays and by events;
 8. serving — full-width llama3.2-1b through ``repro_torch.serving.Engine.run``
    (``EngineConfig(max_batch=8, max_seq_len=1024, block_size=16)``):
    workloads A (16 prompts of 64-512 tokens), B (a shared 392-token prefix
@@ -69,8 +73,8 @@ Phases, each raising on failure:
    copy-on-write fork), C (A with chunked prefill of 16 and ``ngram:4``
    speculation) and D (A with decode segments of 8), 32 new tokens a
    request.  In bf16 each run's launches are those the plan and the run's
-   ticks say (16 paged attention and 96 matmul launches a tick, 2
-   ``copy_block`` launches a fork), A's logits agree with the reference
+   ticks say (16 paged attention and 96 matmul launches a tick, one
+   ``copy_block`` launch a fork for the K and V pools), A's logits agree with the reference
    backend's and a decode segment runs without a device-to-host read; in
    fp32 every workload's greedy tokens equal the reference backend's, C's
    and D's equal A's and B's equal its cold run.  Per workload: tokens/s,
@@ -89,9 +93,10 @@ Phases, each raising on failure:
    the launches the plan says (8 flash + 18 lru_scan + 138 matmul a
    prefill, 8 decode + 138 matmul and no lru_scan a step), the prefill and
    every teacher-forced step's logits against the reference backend, the
-   fp32 greedy tokens identical to it, and in bf16 ``measure`` and
-   profiles; the window run (one row, a 2080-token prompt, 24 steps over
-   the 2048-slot rolling cache) with the same checks; ``Engine.run`` on
+   fp32 greedy tokens identical to it, in bf16 ``measure`` and
+   profiles, in fp32 the prefill timed on ``ffma``, SIMT, ``ffma``; the
+   window run (one row, a 2080-token prompt, 24 steps over the 2048-slot
+   rolling cache) with the same checks; ``Engine.run`` on
    workload R (16 prompts of exactly 256 tokens, 16-48 new tokens each,
    exact prompt buckets) with its launches per tick and per prefill batch,
    bf16 logits against the reference backend, fp32 tokens identical to it,
@@ -110,7 +115,7 @@ and folded) or ``ffma`` (base) and the stem on ``simt``, MobileNetV1 12 on
 ``wgmma`` and 2 on ``simt``, LeNet-5 2 on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
-window run and workload R), in fp32 all on ``simt``. TF32
+window run and workload R), in fp32 all on ``ffma``, none on ``simt``. TF32
 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
 fp32. The last line is ``{"ok": true, "device": {...}}``; the line with the
@@ -244,11 +249,13 @@ def _scheduled(want, what, kernel="matmul_fused"):
     return {k: v for k, v in got.items() if v}
 
 
+FLASH_SCHEDULES = {"bf16": "wgmma", "fp32": "ffma"}   # at head widths 64-256
+
+
 def _flash_scheduled(n, prec, what):
-    """All ``n`` flash_attention launches on wgmma in bf16 (every head
-    width of the LM paths is 64 or 256), on simt in fp32."""
-    return _scheduled({"wgmma" if prec == "bf16" else "simt": n}, what,
-                      "flash_attention")
+    """All ``n`` flash_attention launches on wgmma in bf16 and on ffma in
+    fp32 (every head width of the LM paths is 64 or 256), none on simt."""
+    return _scheduled({FLASH_SCHEDULES[prec]: n}, what, "flash_attention")
 
 
 # matmul_fused's schedules of the LM projections (every one aligned), by
@@ -602,8 +609,8 @@ def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
 
 def _flash_simt(q, k, v, window):
     """The SIMT kernel on the same operands, launched directly (no wrapper
-    counts it): the schedule bf16 at D >= 64 ran on before the wgmma
-    kernel."""
+    counts it): the schedule bf16 and fp32 at D >= 64 ran on before the
+    wgmma and ffma kernels."""
     from repro_torch.kernels import _build
     b, S, H, D = q.shape
     KV = k.shape[2]
@@ -625,8 +632,9 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
     """flash_attention, causal, at llama3.2-1b's prefill by default; with
     ``window`` the keys older than it are masked (recurrentgemma-2b).  The
     schedule the wrapper took, its CUDA-graph device time (and by events)
-    beside the plain version's, SDPA's and the bound; in bf16 the SIMT
-    kernel's at the same shape, held to the plain version too."""
+    beside the plain version's, SDPA's (and the name of the kernel SDPA
+    ran) and the bound; the SIMT kernel's at the same shape, held to the
+    plain version too."""
     from repro_torch.kernels import attention as ka
     dev = torch.device("cuda")
     q = torch.randn(b, S, H, D, generator=gen, device=dev).to(dt)
@@ -657,28 +665,54 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
     kern()
     sched = [n for n, c in read_schedules("flash_attention").items()
              if c != s0[n]]
-    want = "wgmma" if dt == torch.bfloat16 else "simt"   # D is 64-256 here
+    want = FLASH_SCHEDULES["bf16" if dt == torch.bfloat16 else "fp32"]
     if sched != [want]:
         raise AssertionError(f"flash_attention {dt} D={D}: schedules "
                              f"{sched}, want {want}")
-    c = _timed_case(
-        kern, plain,
-        lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                               **sdpa).transpose(1, 2),
-        dt, flops, nbytes, iters=iters,
-        timer=lambda fn: graph_ms(fn, iters))
+    def library():                              # SDPA, the yardstick only
+        return F.scaled_dot_product_attention(qt, kt, vt,
+                                              **sdpa).transpose(1, 2)
+    c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=iters,
+                    timer=lambda fn: graph_ms(fn, iters))
     c.update(shape=f"prefill_B{b}_S{S}_H{H}_KV{KV}_D{D}_causal"
                    + (f"_window{window}" if window else ""), rows=b,
              schedule=sched[0], event_ms=cuda_ms(kern, iters, 1),
-             timer="cuda_graph", simt_ms=None)
-    if sched[0] != "simt":
-        simt = _flash_simt(q, k, v, window)
-        err = relerr(simt(), plain())
-        if err >= TOL[dt]:
-            raise AssertionError(f"flash_attention {c['shape']}: the SIMT "
-                                 f"kernel's relerr {err}")
-        c.update(simt_ms=graph_ms(simt, iters), simt_relerr=err)
+             timer="cuda_graph", library_kernels=_kernel_names(library))
+    simt = _flash_simt(q, k, v, window)
+    p, y = plain(), simt()
+    err = relerr(y, p)
+    if err >= TOL[dt]:
+        raise AssertionError(f"flash_attention {c['shape']}: the SIMT "
+                             f"kernel's relerr {err}")
+    c.update(simt_ms=graph_ms(simt, iters), simt_relerr=err,
+             simt_max_abs_err=(y.float() - p.float()).abs().max().item())
     return c
+
+
+def _simt_twin(c):
+    """A flash case as the SIMT kernel's own entry (``flash_attention[simt]``
+    in the kernels line): its times and error from the case, its launches
+    on the main path 0 (no path runs it at D >= 64)."""
+    return {**c, "schedule": "simt", "ms": c["simt_ms"], "event_ms": None,
+            "relerr": c["simt_relerr"], "max_abs_err": c["simt_max_abs_err"]}
+
+
+def _kernel_names(fn):
+    """The CUDA kernels one call of ``fn`` runs, by device time (the
+    profiler's names, cut to 80 characters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return [k[:80] for us, k in rows if us > 0]
 
 
 def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
@@ -708,15 +742,30 @@ def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
     # the live slots' K and V, every slot's position, q, qpos and out
     nbytes = (2 * b * live * KV * D + 2 * q.numel()) * q.element_size() \
         + (pos.numel() + qp.numel()) * 4
+
+    def kern():
+        return kd.decode_attention(q, kc, vc, pos, qp, window=window)
+
+    def library():                              # SDPA, the yardstick only
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid[:, None, None, :]).transpose(1, 2)
     c = _timed_case(
-        lambda: kd.decode_attention(q, kc, vc, pos, qp, window=window),
-        lambda: kd.decode_attention_plain(q, kc, vc, pos, qp, window=window),
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=valid[:, None, None, :]).transpose(1, 2),
-        dt, flops, nbytes, iters=100)
+        kern, lambda: kd.decode_attention_plain(q, kc, vc, pos, qp,
+                                                window=window),
+        library, dt, flops, nbytes, iters=100)
     c.update(shape=f"decode_B{b}_C{C}_qpos{qpos}_live{live}_H{H}_KV{KV}"
-                   f"_D{D}", rows=b)
+                   f"_D{D}", rows=b, **_graph_times(c, kern, library))
     return c
+
+
+def _graph_times(c, kern, library, iters=100):
+    """``ms`` and ``library_ms`` of a ``_timed_case`` record as CUDA-graph
+    device times, its events times beside them as ``event_ms`` and
+    ``library_event_ms`` (at these sizes they carry the host's cost a
+    call)."""
+    return {"event_ms": c["ms"], "library_event_ms": c["library_ms"],
+            "ms": graph_ms(kern, iters),
+            "library_ms": graph_ms(library, iters), "timer": "cuda_graph"}
 
 
 # L2 is 50 MB: at M <= 64 (decode, serving ticks) a call rotates over
@@ -893,6 +942,8 @@ def phase_lm_kernels():
         c["arch"] = QWEN_ARCH
         cases["flash_attention"].append(c)
         log(json.dumps({"kernel": "flash_attention", **c}))
+    cases["flash_attention"] += [_simt_twin(c)
+                                 for c in cases["flash_attention"]]
     return cases, rg_cases
 
 
@@ -1142,6 +1193,26 @@ def _lm_check_logits(what, y, yr, tol):
     return err
 
 
+def _flash_ab(cm_p, params, iters):
+    """The fp32 prefill (``measure``, CUDA events) with flash_attention on
+    its ffma schedule, then forced onto the SIMT kernel, then on ffma again
+    (A, B, A in one process): what the new schedule moves end to end."""
+    from repro_torch.kernels import attention as ka
+    chosen = ka._schedule
+
+    def prefill_ms(force_simt):
+        if force_simt:
+            ka._schedule = lambda dtype, D: "simt"
+        try:
+            return cm_p.measure("prefill", iters=iters, seed=SEED,
+                                params=params)["measured_step_s"] * 1e3
+        finally:
+            ka._schedule = chosen
+    a = prefill_ms(False)
+    b = prefill_ms(True)
+    return {"ffma_ms": [a, prefill_ms(False)], "simt_ms": b}
+
+
 def phase_lm_path(smi):
     """Full-width llama3.2-1b through the port's entry points."""
     from repro_torch import flow as tflow
@@ -1275,6 +1346,9 @@ def phase_lm_path(smi):
                              f"backend's ({diff:.3f} of them)")
     rec["fp32"] = {"greedy_identical_steps": LM_STEPS,
                    "tokens_row0": t32[0].tolist()}
+    rec["fp32_prefill"] = _flash_ab(tflow.compile(LM_ARCH, pre, f32), p32,
+                                    5)
+    log(json.dumps({"lm_fp32_prefill": rec["fp32_prefill"]}))
     log(json.dumps({"lm_path": {k: v for k, v in rec.items()
                                 if k != "measure"}}))
     return rec
@@ -1325,43 +1399,65 @@ def _paged_case(sq, dt, gen, H=LM_H, KV=LM_KV, D=LM_D, filled=SERVE_LIVE,
     flops = 4.0 * D * H * sum(sq * n for n in live)
     nbytes = (2 * sum(live) * KV * D + 2 * q.numel()) * q.element_size() \
         + (B * nblk + qpos.numel()) * 4
-    c = _timed_case(lambda: kd.paged_decode_attention(q, kp, vp, bt, lens,
-                                                      **kw),
+
+    def kern():
+        return kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    c = _timed_case(kern,
                     lambda: kd.paged_decode_attention_plain(q, kp, vp, bt,
                                                             lens, **kw),
                     library, dt, flops, nbytes, iters=100)
     c.update(shape=f"paged_B{B}_Sq{sq}_H{H}_KV{KV}_D{D}_bs{bs}_live"
-                   f"{min(live)}-{max(live)}", sq=sq)
+                   f"{min(live)}-{max(live)}", sq=sq,
+             **_graph_times(c, kern, library))
     return c
 
 
 def _copy_case(dt, gen):
-    """copy_block on the folded pool of the serving configuration: 16
-    layers x 513 blocks of 16 x 8 x 64."""
+    """copy_block on the folded K and V pools of the serving configuration
+    (16 layers x 513 blocks of 16 x 8 x 64 each), one fork: the kernel's
+    CUDA-graph device time (and by events, the host's cost a call) beside
+    the plain version's and ``torch._foreach_copy_`` on the two blocks (one
+    PyTorch call for the same copies)."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
     NB = 1 + SERVE_SLOTS * SERVE_SEQ // SERVE_BS
-    pool = torch.randn(LM_LAYERS, NB, SERVE_BS, LM_KV, LM_D, generator=gen,
-                       device=dev).to(dt)
-    plain_pool = pool.clone()
+    pair = tuple(torch.randn(LM_LAYERS, NB, SERVE_BS, LM_KV, LM_D,
+                             generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+    plain_pair = tuple(p.clone() for p in pair)
     src, dst = 3, 400
-    y = kd.copy_block(pool, src, dst)
+    kd.copy_block(pair, src, dst)
     torch.cuda.synchronize()
-    kd.copy_block_plain(plain_pool, src, dst)
-    if not torch.equal(y, plain_pool):
+    for p in plain_pair:
+        kd.copy_block_plain(p, src, dst)
+    if not all(torch.equal(a, b) for a, b in zip(pair, plain_pair)):
         raise AssertionError(f"copy_block {dt}: differs from its plain "
                              "version")
-    nbytes = 2.0 * LM_LAYERS * SERVE_BS * LM_KV * LM_D * pool.element_size()
+    # each pool's block read once and written once
+    nbytes = 2.0 * 2 * LM_LAYERS * SERVE_BS * LM_KV * LM_D * \
+        pair[0].element_size()
     bms, by = bound_ms(0.0, nbytes, dt)
+    dsts, srcs = [p[:, dst] for p in pair], [p[:, src] for p in pair]
+
+    def kern():
+        kd.copy_block(pair, src, dst)
+
+    def plain():
+        for p in pair:
+            kd.copy_block_plain(p, src, dst)
+
+    def library():                      # one PyTorch call, the yardstick
+        torch._foreach_copy_(dsts, srcs)
     return {"dtype": str(dt).split(".")[-1],
-            "shape": f"pool_{LM_LAYERS}x{NB}x{SERVE_BS}x{LM_KV}x{LM_D}",
+            "shape": f"pools_2x{LM_LAYERS}x{NB}x{SERVE_BS}x{LM_KV}x{LM_D}",
             "relerr": 0.0, "max_abs_err": 0.0, "tol": 0.0, "flops": 0.0,
             "bytes": nbytes, "bound_ms": bms, "bound_by": by,
-            "ms": cuda_ms(lambda: kd.copy_block(pool, src, dst), 200),
-            "plain_ms": cuda_ms(lambda: kd.copy_block_plain(pool, src, dst),
-                                200),
-            "library_ms": cuda_ms(lambda: pool[:, dst].copy_(pool[:, src]),
-                                  200)}
+            "timer": "cuda_graph", "ms": graph_ms(kern, 200),
+            "plain_ms": graph_ms(plain, 200),
+            "library_ms": graph_ms(library, 200),
+            "event_ms": cuda_ms(kern, 200),
+            "plain_event_ms": cuda_ms(plain, 200),
+            "library_event_ms": cuda_ms(library, 200)}
 
 
 def phase_serving_kernels():
@@ -1496,7 +1592,7 @@ def phase_serving(smi):
                 + per_tick["matmul_fused"] * m["decode_ticks"],
                 "paged_decode_attention":
                     per_tick["paged_decode_attention"] * m["decode_ticks"],
-                "copy_block": 2 * n_entries * m["cow_forks"]}
+                "copy_block": n_entries * m["cow_forks"]}
         return _counted(read_counts(), want, what)
 
     # the main path, bf16: each workload with the counts set to 0 just
@@ -1654,6 +1750,8 @@ def phase_rec_kernels():
                  _paged_case(1, dt, gen, filled=RG_FILLED, **heads))):
             cases[kname].append(c)
             log(json.dumps({"kernel": kname, "arch": RG_ARCH, **c}))
+    cases["flash_attention"] += [_simt_twin(c)
+                                 for c in cases["flash_attention"]]
     return cases
 
 
@@ -1837,6 +1935,11 @@ def phase_rec_path(smi):
                     lambda: cm.decode(params, dtok, dstate, 100), 10)}
             log(json.dumps({"rec_measure": rec["measure"]}))
             del dstate
+        else:
+            rec["fp32_prefill"] = _flash_ab(tflow.compile(
+                RG_ARCH, ShapeConfig("serve", "prefill", RG_S, B), fl),
+                params, 3)
+            log(json.dumps({"rec_fp32_prefill": rec["fp32_prefill"]}))
 
         # b. the window: 2080-token prompt, 24 steps over 2048 slots
         cml = tflow.compile(RG_ARCH, long_shape, fl)
@@ -2099,6 +2202,8 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
     "flash_attention[wgmma]": (
         "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/attention.py:93"),
+    "flash_attention[ffma]": ("src/repro_torch/csrc/flash_attention_ffma.cu",
+                              "src/repro/kernels/attention.py:93"),
     "flash_attention[simt]": ("src/repro_torch/csrc/flash_attention.cu",
                               "src/repro/kernels/attention.py:93"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",

@@ -1,5 +1,5 @@
 """flash_attention — causal, windowed and softcapped GQA attention as
-hand-written CUDA kernels for Hopper: two schedules of the same function.
+hand-written CUDA kernels for Hopper: three schedules of the same function.
 
 Replaces the Pallas kernel ``flash_attention`` of
 ``src/repro/kernels/attention.py``: online softmax in fp32 over K/V tiles, so
@@ -11,7 +11,8 @@ the mask, and the sum divided by ``max(l, 1e-30)`` at the end.
 What bounds it on the H100: at the LM prefill shape (B=8, S=512, H=32,
 D=64, causal) the work is ~8.6 GFLOP against ~42 MB of q, k, v and output
 in bf16, about 200 operations per byte: below the bf16 ridge (~295), so the
-bytes bound it (~13 us).
+bytes bound it (~13 us).  In fp32 (~84 MB, ~100 operations a byte) the
+operations bound it: 67 TFLOP/s outside the tensor cores, ~0.13 ms.
 
 The wrapper picks a schedule with :func:`_schedule`, a pure function of the
 dtype and the head width (a dispatch between hand-written kernels, not a
@@ -25,14 +26,24 @@ fallback: a build or launch failure raises):
   softmax in registers.  P is rounded to bf16 before P·V (the Pallas kernel
   keeps it in fp32): about 2⁻⁹ relative on each probability, far inside
   the bf16 tolerance of 2e-2.
-- ``simt`` (``csrc/flash_attention.cu``): fp32, and bf16 at head widths 16
-  and 32.  fp32 stays off the tensor cores: they would need TF32, which
-  breaks the fp32 parity of 1e-5 that keeps the fp32 greedy tokens
-  identical to the ``reference`` backend's.  One block of 256 threads per
-  (64 query rows, head, batch row); each K/V tile staged in shared memory as
-  fp32, the score tile a 16 x 16 thread grid of 4 x 4 register patches, the
-  row max and sum reduced with warp shuffles, P through shared memory into
-  P·V, fp32 FMAs.  At head_dim 256 it takes 222,464 bytes of shared memory.
+- ``ffma`` (``csrc/flash_attention_ffma.cu``): fp32 at head widths 64,
+  128 and 256 — every fp32 LM prefill and serving prefill batch.  fp32
+  stays off the tensor cores: they would need TF32, which breaks the fp32
+  parity of 1e-5 that keeps the fp32 greedy tokens identical to the
+  ``reference`` backend's.  Both products are register-tiled FFMA GEMMs:
+  one block of 256 threads per (64 query rows, head, batch row) at D 64
+  (two blocks an SM) and 256, per 128 rows at D 128 (:data:`FFMA_TILES`);
+  Q once and 64-key
+  K and V tiles through a ring of 16-byte ``cp.async`` slots, the next
+  tiles in flight while this one's products run; Q·Kᵀ read as float4s
+  along D, P through a padded shared tile into P·V; the mask only on the
+  tiles that straddle the diagonal, the window's edge or padding; the
+  query tiles with the most keys launched first.
+- ``simt`` (``csrc/flash_attention.cu``): fp32 and bf16 at head widths 16
+  and 32.  One block of 256 threads per (64 query rows, head, batch row);
+  each K/V tile staged in shared memory as fp32, the score tile a 16 x 16
+  thread grid of 4 x 4 register patches, the row max and sum reduced with
+  warp shuffles, P through shared memory into P·V, fp32 FMAs.
 
 Both skip tiles dead in index space (above the causal diagonal, or wholly
 outside the window), as the Pallas kernel does, which is exact under its
@@ -55,20 +66,44 @@ from repro_torch.kernels import _build
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
-WGMMA_HEAD_DIMS = (64, 128, 256)    # those of the wgmma schedule (bf16)
-SCHEDULES = ("wgmma", "simt")
+TILED_HEAD_DIMS = (64, 128, 256)    # those of the wgmma and ffma schedules
+SCHEDULES = ("wgmma", "ffma", "simt")
+# the ffma schedule's tiles by head width, as csrc/flash_attention_ffma.cu
+# takes them: (query rows a block, keys a K/V tile, ring slots, blocks an SM)
+FFMA_TILES = {64: (64, 64, 4, 2), 128: (128, 64, 3, 1), 256: (64, 64, 2, 1)}
 
 
 def _schedule(dtype: torch.dtype, D: int) -> str:
-    """The kernel that runs a call: ``wgmma`` for bf16 at the head widths of
-    :data:`WGMMA_HEAD_DIMS`, ``simt`` for the rest (fp32 stays full fp32)."""
-    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS \
-        else "simt"
+    """The kernel that runs a call: at the head widths of
+    :data:`TILED_HEAD_DIMS` ``wgmma`` for bf16 and ``ffma`` for fp32 (full
+    fp32), ``simt`` for the rest."""
+    if D not in TILED_HEAD_DIMS:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "ffma"
+
+
+def _ffma_smem_bytes(D: int) -> int:
+    """The ffma kernel's dynamic shared bytes at head width D: the Q tile,
+    the ring's slots (a K or V tile and the K tile's key positions) and the
+    P tile, rows padded by 4 floats."""
+    bq, bk, slots, _ = FFMA_TILES[D]
+    ld = D + 4
+    return 4 * (bq * ld + slots * (bk * ld + bk) + bq * (bk + 4))
+
+
+def _ffma_blocks(B: int, Sq: int, H: int, D: int):
+    """The ffma kernel's blocks in launch order, (query tile, head, batch
+    row) for block i = 0, 1, ...: the query tile varies slowest and runs
+    from the last (under causal the tiles with the most keys go first), the
+    heads of a KV head side by side."""
+    nq, per = -(-Sq // FFMA_TILES[D][0]), H * B
+    return [(nq - 1 - i // per, (i % per) % H, (i % per) // H)
+            for i in range(nq * per)]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (TMA's rule): a view
-    that starts elsewhere is copied."""
+    """``t`` contiguous at a 16-byte aligned address (the rule of TMA and
+    of 16-byte ``cp.async``): a view that starts elsewhere is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -165,7 +200,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sched = _schedule(q.dtype, D)
     if positions is not None:
         qp = kp = positions.to(torch.int32).contiguous()
-    elif sched == "wgmma":
+    elif sched != "simt":
         qp = kp = None                  # the kernel takes the indices
     else:
         qp = (torch.arange(Sq, dtype=torch.int32, device=q.device)
@@ -177,11 +212,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptrs = [_build.ptr(t) for t in (qc, kc, vc, qp, kp, out)]
     rest = [B, Sq, Skv, H, KV, D, int(causal), int(window or 0),
             float(softcap or 0.0), int(q_offset), _build.stream()]
-    if sched == "wgmma":
-        _build.call("flash_attention_wgmma", *ptrs, *rest)
-    else:
+    if sched == "simt":
         _build.call("flash_attention", _build.DTYPE_CODES[q.dtype], *ptrs,
                     *rest)
+    else:
+        _build.call(f"flash_attention_{sched}", *ptrs, *rest)
     flash_attention.launches += 1
     flash_attention.schedules[sched] += 1
     return out

@@ -291,11 +291,12 @@ paged_decode_attention.launches = 0
 # Replaces the Pallas kernel ``copy_block`` of
 # ``src/repro/kernels/decode_attention.py`` (a scalar-prefetched block copy
 # with the pool aliased to the output): pool block ``dst`` := block
-# ``src``, in place, for every rep of a folded (R, NB, bs, KV, D) pool in
-# one launch.  It moves 2 x R x bs x KV x D elements, so the bytes bound it
-# (~0.3 us for a 16-rep bf16 block of 16 x 8 x 64 at 3.35 TB/s).  The
-# kernel copies 16 bytes a thread where the block's bytes allow, in a
-# grid-stride loop over (chunk, rep) blocks.
+# ``src``, in place, for every rep of a folded (R, NB, bs, KV, D) pool, and
+# for a paged entry's K and V pools together, in one launch.  A llama3.2-1b
+# fork moves 2 x 2 x 16 x 16 x 8 x 64 bf16 elements (1 MB read and written),
+# ~0.3 us at 3.35 TB/s, so the launch and the host's path to it are what a
+# fork costs: one launch a pair, 16 bytes a thread over a (chunk, rep,
+# pool) grid of at least one block an SM.
 
 
 def copy_block_plain(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
@@ -306,28 +307,40 @@ def copy_block_plain(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     return pool
 
 
-def copy_block(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-    """pool: (NB, bs, KV, D) or folded (R, NB, bs, KV, D); src, dst: block
-    ids (host ints).  Copies block ``src`` over block ``dst`` in place and
-    returns the pool."""
-    if pool.ndim not in (4, 5):
-        raise ValueError(f"copy_block: pool {tuple(pool.shape)} is not "
+def copy_block(pool, src: int, dst: int):
+    """pool: (NB, bs, KV, D) or folded (R, NB, bs, KV, D), or a tuple of one
+    or two such pools of one shape, dtype and device (a paged entry's K and
+    V pools); src, dst: block ids (host ints).  Copies block ``src`` over
+    block ``dst`` in place in each pool, one launch for all of them, and
+    returns ``pool``."""
+    pools = pool if isinstance(pool, tuple) else (pool,)
+    if not 1 <= len(pools) <= 2 or any(
+            p.shape != pools[0].shape or p.dtype != pools[0].dtype
+            or p.device != pools[0].device for p in pools):
+        raise ValueError("copy_block: one pool or a pair of one shape, "
+                         "dtype and device")
+    p0 = pools[0]
+    if p0.ndim not in (4, 5):
+        raise ValueError(f"copy_block: pool {tuple(p0.shape)} is not "
                          "(NB,bs,KV,D) or (R,NB,bs,KV,D)")
-    NB = pool.shape[-4]
+    NB = p0.shape[-4]
     src, dst = int(src), int(dst)
     if not (0 <= src < NB and 0 <= dst < NB):
         raise ValueError(f"copy_block: blocks {src} -> {dst} outside "
                          f"[0, {NB})")
-    if pool.device.type == "cpu":
-        return copy_block_plain(pool, src, dst)
-    if pool.device.type != "cuda":
-        raise ValueError(f"copy_block: pool on {pool.device}")
-    if not pool.is_contiguous():
+    if p0.device.type == "cpu":
+        for p in pools:
+            copy_block_plain(p, src, dst)
+        return pool
+    if p0.device.type != "cuda":
+        raise ValueError(f"copy_block: pool on {p0.device}")
+    if not all(p.is_contiguous() for p in pools):
         raise ValueError("copy_block: the pool must be contiguous")
-    R = pool.shape[0] if pool.ndim == 5 else 1
-    block_bytes = pool[..., 0, :, :, :].numel() // R * pool.element_size()
-    _build.call("copy_block", _build.ptr(pool), R, NB, block_bytes, src, dst,
-                _build.stream())
+    R = p0.shape[0] if p0.ndim == 5 else 1
+    _, bs, KV, D = p0.shape[-4:]
+    _build.call("copy_block", p0.data_ptr(),
+                pools[1].data_ptr() if len(pools) == 2 else None, R, NB,
+                bs * KV * D * p0.element_size(), src, dst, _build.stream())
     copy_block.launches += 1
     return pool
 

@@ -880,10 +880,13 @@ class PagedKVCache:
     def _device_fork(self, slot: int, chain_idx: int, old: int,
                      new: int) -> None:
         from repro_torch.kernels.registry import plan_kernel
-        copy = plan_kernel(self.plan, "copy_block") or _copy_block_ref
+        copy = plan_kernel(self.plan, "copy_block")
         for e, st in self._paged():
-            copy(st["kp"], old, new)
-            copy(st["vp"], old, new)
+            if copy is not None:        # the K and V pools in one launch
+                copy((st["kp"], st["vp"]), old, new)
+            else:
+                _copy_block_ref(st["kp"], old, new)
+                _copy_block_ref(st["vp"], old, new)
             if e.nlead:
                 st["bt"][:, slot, chain_idx] = new
             else:

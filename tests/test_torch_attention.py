@@ -143,9 +143,10 @@ def test_flash_wrapper_checks_its_arguments():
 @pytest.mark.parametrize("D", tatt.HEAD_DIMS)
 @pytest.mark.parametrize("dt", sorted(TOL))
 def test_flash_schedule(dt, D):
-    """bf16 at head widths 64, 128 and 256 on the wgmma kernel; fp32 (full
-    fp32, no TF32) and bf16 at 16 and 32 on the SIMT kernel."""
-    want = "wgmma" if dt == "bf16" and D >= 64 else "simt"
+    """At head widths 64, 128 and 256 bf16 on the wgmma kernel and fp32
+    (full fp32, no TF32) on the ffma kernel; both at 16 and 32 on the SIMT
+    kernel."""
+    want = "simt" if D < 64 else "wgmma" if dt == "bf16" else "ffma"
     assert tatt._schedule(TDT[dt], D) == want
 
 

@@ -62,6 +62,13 @@ FLASH = {
     "w256_mqa10_ragged": (3, 141, 141, 10, 1, 256, True, 2048, 0),
     "w256_bidir": (2, 130, 70, 2, 1, 256, False, None, 0),
     "w256_q_offset_window": (2, 70, 200, 10, 1, 256, True, 64, 130),
+    # the ffma schedule (fp32, D >= 64; the cases above run on it in fp32
+    # too): its 128-row (64 at D 256) blocks and 64-key tiles cut by Sq,
+    # Skv, q_offset and windows; MHA 20 and MQA 10 with a bidirectional
+    # window
+    "f64_q_offset_window": (2, 77, 301, 8, 2, 64, True, 50, 224),
+    "f256_mha20_ragged": (2, 100, 100, 20, 20, 256, True, None, 0),
+    "f128_mqa10_bidir_window": (2, 130, 150, 10, 1, 128, False, 40, 0),
 }
 # decode_attention: (B, C, H, KV, D, window), half the cache filled
 DECODE = {
@@ -439,8 +446,9 @@ def test_flash_attention_kernel(card, name, dt):
     y = ka.flash_attention(q, k, v, causal=causal, window=win, q_offset=off)
     torch.cuda.synchronize()
     assert ka.flash_attention.launches == n0 + 1
-    # bf16 at D >= 64 on the tensor cores, the rest on the SIMT kernel
-    sched = "wgmma" if dt == "bf16" and D >= 64 else "simt"
+    # at D >= 64 bf16 on the tensor cores and fp32 on the ffma kernel; at
+    # 16 and 32 both on the SIMT kernel
+    sched = "simt" if D < 64 else "wgmma" if dt == "bf16" else "ffma"
     assert {k_: n - s0[k_] for k_, n in ka.flash_attention.schedules.items()
             } == {k_: int(k_ == sched) for k_ in ka.SCHEDULES}
     p = ka.flash_attention_plain(q, k, v, causal=causal, window=win,
@@ -511,6 +519,66 @@ def test_flash_attention_wgmma_repeats_its_bits(card, D):
     skew.copy_(q)
     assert skew.data_ptr() % 16 != 0
     assert torch.equal(ka.flash_attention(skew, k, v, window=100), y1)
+
+
+@pytest.mark.parametrize("D,H,KV,window", [(64, 32, 8, None),
+                                           (128, 20, 20, 48),
+                                           (256, 10, 1, 2048)])
+def test_flash_attention_ffma_positions_softcap(card, D, H, KV, window):
+    """The serving engine's left-padded prefill buckets on the ffma
+    schedule: per-row positions (-1 on the padding, one row with more pad
+    than a 128-row block), a softcap; the valid query rows agree at fp32's
+    tolerance."""
+    B, S = 3, 200
+    pad = torch.tensor([0, 7, 150], device="cuda")
+    ar = torch.arange(S, device="cuda")
+    pos = torch.where(ar[None] >= pad[:, None], ar[None] - pad[:, None],
+                      torch.full_like(ar[None], -1)).to(torch.int32)
+    q = _randn(card, B, S, H, D)
+    k = _randn(card, B, S, KV, D)
+    v = _randn(card, B, S, KV, D)
+    f0 = ka.flash_attention.schedules["ffma"]
+    y = ka.flash_attention(q, k, v, positions=pos, softcap=5.0,
+                           window=window)
+    torch.cuda.synchronize()
+    assert ka.flash_attention.schedules["ffma"] == f0 + 1
+    p = ka.flash_attention_plain(q, k, v, positions=pos, softcap=5.0,
+                                 window=window)
+    keep = pos >= 0
+    assert torch.isfinite(y[keep]).all()
+    assert _rel(y[keep], p[keep]) < TOL["fp32"]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_ffma_repeats_its_bits(card, D):
+    """Two calls on the same inputs give the same bits (no atomics), also
+    from an unaligned view of q (copied to a 16-byte aligned one)."""
+    B, S, H, KV = 2, 300, 8, 2
+    q = _randn(card, B, S, H, D)
+    k = _randn(card, B, S, KV, D)
+    v = _randn(card, B, S, KV, D)
+    y1 = ka.flash_attention(q, k, v, window=100)
+    y2 = ka.flash_attention(q, k, v, window=100)
+    assert torch.equal(y1, y2)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    skew = flat[1:].view(q.shape)
+    skew.copy_(q)
+    assert skew.data_ptr() % 16 != 0
+    assert torch.equal(ka.flash_attention(skew, k, v, window=100), y1)
+
+
+def test_flash_attention_ffma_tiles(card):
+    """The kernel's tiles and shared bytes per head width are those the
+    wrapper's table states (``FFMA_TILES``, ``_ffma_smem_bytes``)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    for D in ka.TILED_HEAD_DIMS:
+        got = (ctypes.c_int * 5)()
+        _build.call("flash_attention_ffma_tiles", D, ctypes.addressof(got))
+        assert tuple(got) == (*ka.FFMA_TILES[D], ka._ffma_smem_bytes(D))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        _build.call("flash_attention_ffma_tiles", 32,
+                    ctypes.addressof((ctypes.c_int * 5)()))
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -671,6 +739,23 @@ def test_copy_block_matches_plain(card, dt, lead):
     assert torch.equal(odd, want)
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("lead", [None, 16])
+def test_copy_block_pair_in_one_launch(card, dt, lead):
+    """A paged entry's (K, V) pools, flat and folded, in one launch: each
+    equal to its plain copy; 60-byte blocks (the byte path) too."""
+    shape = (9, 16, 8, 64) if lead is None else (lead, 9, 16, 8, 64)
+    for shp in (shape, (2, 5, 3, 1, 5)):
+        pair = (_randn(card, *shp, dt=DTYPES[dt]),
+                _randn(card, *shp, dt=DTYPES[dt]))
+        want = [kd.copy_block_plain(p.clone(), 4, 0) for p in pair]
+        n0 = kd.copy_block.launches
+        assert kd.copy_block(pair, 4, 0) is pair
+        torch.cuda.synchronize()
+        assert kd.copy_block.launches == n0 + 1
+        assert all(torch.equal(p, w) for p, w in zip(pair, want))
+
+
 def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
     """Every wrapper launches its kernel on CUDA tensors: with each plain
     version replaced by one that raises, the wrappers still run."""
@@ -697,15 +782,22 @@ def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
     assert {k: v - m0[k] for k, v in km.matmul_fused.schedule_launches.items()
             } == {"wgmma": 0, "small_m": 0, "ffma": 1, "ffma_small_m": 1,
                   "simt": 1}
+    f0 = dict(ka.flash_attention.schedules)
     q = _randn(card, 1, 16, 4, 32)
     ka.flash_attention(q, _randn(card, 1, 16, 2, 32), _randn(card, 1, 16, 2,
                                                              32))
+    ka.flash_attention(_randn(card, 1, 16, 4, 64), _randn(card, 1, 16, 2, 64),
+                       _randn(card, 1, 16, 2, 64))
+    torch.cuda.synchronize()
+    assert {k: v - f0[k] for k, v in ka.flash_attention.schedules.items()
+            } == {"wgmma": 0, "ffma": 1, "simt": 1}
     kv = _randn(card, 1, 16, 2, 32)
     pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
     kd.decode_attention(q[:, :1], kv, kv, pos, pos[:, 3:4])
     pq, kp, vp, bt, lens, qpos = _paged_inputs(card, 16, 5, torch.float32)
     kd.paged_decode_attention(pq, kp, vp, bt, lens, qpos=qpos)
     kd.copy_block(kp, 1, 2)
+    kd.copy_block((kp, vp), 1, 2)
     torch.cuda.synchronize()
 
 
@@ -749,7 +841,8 @@ def test_serving_engine_on_the_card(card):
     assert hit.metrics["cow_forks"] >= 1
     assert kd.paged_decode_attention.launches - n_pa == \
         3 * hit.metrics["decode_ticks"]
-    assert kd.copy_block.launches - n_cb == 2 * hit.metrics["cow_forks"]
+    # one launch a fork: the one paged entry's K and V pools together
+    assert kd.copy_block.launches - n_cb == hit.metrics["cow_forks"]
     spec = Engine(cm, params, EngineConfig(
         chunked_prefill=True, chunk_size=4, speculation="ngram:3",
         **base)).run(reqs)
