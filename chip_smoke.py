@@ -25,7 +25,10 @@ Phases, each raising on failure:
    ``ffma`` in fp32), timed as CUDA-graph replays and by events beside
    the SIMT kernel at the same shape (held to the plain version too) and
    SDPA (with the name of the kernel it ran); ``decode_attention`` over a
-   1024-slot cache half full (also timed as CUDA-graph replays), and
+   1024-slot cache half full, at llama's heads and at qwen1.5-4b's (a
+   kernel case), on its ``mma`` (bf16) or ``ffma`` (fp32) schedule, timed
+   as CUDA-graph replays beside the SIMT kernel (forced, held to the plain
+   version too) and SDPA, and
    ``matmul_fused`` at every projection of a llama layer and every
    distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
    256, the 2560 -> 7680 GLU pair, 7680 -> 2560), for the prefill's 4096
@@ -61,7 +64,9 @@ Phases, each raising on failure:
    ``measure("decode")`` and a profile of each;
 7. serving kernels — ``paged_decode_attention`` at the serving shape (8
    rows of ~520 live tokens in a 513-block pool of 16-token blocks, one
-   query a row and five) and ``copy_block`` on the folded 16-layer K and V
+   query a row and five; and at qwen1.5-4b's heads, a kernel case), on its
+   ``mma`` or ``ffma`` schedule beside the SIMT kernel (forced, by graph),
+   and ``copy_block`` on the folded 16-layer K and V
    pools (one launch a fork), in bf16 and fp32, each held against its plain
    version and timed beside it, the library yardstick (gather +
    ``scaled_dot_product_attention``; ``torch._foreach_copy_``) and the
@@ -81,12 +86,14 @@ Phases, each raising on failure:
    TTFT and latency percentiles, ms per tick, host syncs per token, pool
    bytes, and the device-busy share of one profiled run;
 9. recurrent kernels — at full-width recurrentgemma-2b shapes, in bf16 and
-   fp32: ``lru_scan`` at (8, 512, 2560), ``flash_attention`` with 10 heads
+   fp32: ``lru_scan`` at (8, 512, 2560) (by CUDA graph and by events),
+   ``flash_attention`` with 10 heads
    over 1 KV head of 256 and the 2048-token window at 8 x 512 tokens and at
    one row of 2080 (the window cuts), ``decode_attention`` over the
    1024-slot and the wrapped 2048-slot cache, ``paged_decode_attention`` at
-   workload R's shape; each held against its plain version and timed
-   beside it, the library yardstick (none for the scan) and the bound;
+   workload R's shape (both beside their SIMT kernels); each held against
+   its plain version and timed beside it, the library yardstick (none for
+   the scan) and the bound;
 10. recurrent path — full-width recurrentgemma-2b (26 layers, random
    weights from seed 0), bf16 then fp32: ``generate`` of 32 tokens after a
    512-token prompt a row (``ShapeConfig("serve", "decode", 1024, 8)``) with
@@ -115,6 +122,9 @@ and folded) or ``ffma`` (base) and the stem on ``simt``, MobileNetV1 12 on
 ``wgmma`` and 2 on ``simt``, LeNet-5 2 on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
+window run and workload R), in fp32 all on ``ffma``, none on ``simt``; and
+decode_attention's and paged_decode_attention's: in bf16 all on ``mma``
+(llama's generate and each decode step, serving A-D, the hybrid's generate,
 window run and workload R), in fp32 all on ``ffma``, none on ``simt``. TF32
 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
@@ -201,10 +211,11 @@ def counters():
 
 def reset_counts() -> None:
     """Every launch count to 0: the seven wrappers', matmul_fused's,
-    conv2d_fused's and flash_attention's splits by schedule and the base
-    variant's."""
+    conv2d_fused's, flash_attention's, decode_attention's and
+    paged_decode_attention's splits by schedule and the base variant's."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     for fn in counters().values():
@@ -213,6 +224,8 @@ def reset_counts() -> None:
     kc.conv2d_fused.schedule_launches = dict.fromkeys(kc.SCHEDULES, 0)
     km.matmul_fused.base_launches = 0
     ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
+    kd.decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
+    kd.paged_decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
 
 
 def read_counts():
@@ -225,14 +238,18 @@ def read_counts():
 
 
 def read_schedules(kernel="matmul_fused"):
-    """matmul_fused's (or flash_attention's, or conv2d_fused's) launches
-    since the last reset, by schedule."""
+    """matmul_fused's (or flash_attention's, conv2d_fused's,
+    decode_attention's or paged_decode_attention's) launches since the last
+    reset, by schedule."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     if kernel == "flash_attention":
         return dict(ka.flash_attention.schedules)
+    if kernel in ("decode_attention", "paged_decode_attention"):
+        return dict(getattr(kd, kernel).schedules)
     if kernel == "conv2d_fused":
         return dict(kc.conv2d_fused.schedule_launches)
     return dict(km.matmul_fused.schedule_launches)
@@ -256,6 +273,17 @@ def _flash_scheduled(n, prec, what):
     """All ``n`` flash_attention launches on wgmma in bf16 and on ffma in
     fp32 (every head width of the LM paths is 64 or 256), none on simt."""
     return _scheduled({FLASH_SCHEDULES[prec]: n}, what, "flash_attention")
+
+
+# decode_attention's and paged_decode_attention's schedule at head widths
+# 64-256 (every LM path's), by precision
+DECODE_SCHEDULES = {"bf16": "mma", "fp32": "ffma"}
+
+
+def _decode_scheduled(n, prec, what, kernel="decode_attention"):
+    """All ``n`` launches of decode_attention (or paged_decode_attention)
+    on mma in bf16 and on ffma in fp32, none on simt."""
+    return _scheduled({DECODE_SCHEDULES[prec]: n}, what, kernel)
 
 
 # matmul_fused's schedules of the LM projections (every one aligned), by
@@ -690,9 +718,10 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
 
 
 def _simt_twin(c):
-    """A flash case as the SIMT kernel's own entry (``flash_attention[simt]``
-    in the kernels line): its times and error from the case, its launches
-    on the main path 0 (no path runs it at D >= 64)."""
+    """A flash, decode or paged case as the SIMT kernel's own entry
+    (``flash_attention[simt]`` and so on in the kernels line): its times
+    and error from the case, its launches on the main path 0 (no path runs
+    it at D >= 64)."""
     return {**c, "schedule": "simt", "ms": c["simt_ms"], "event_ms": None,
             "relerr": c["simt_relerr"], "max_abs_err": c["simt_max_abs_err"]}
 
@@ -715,11 +744,59 @@ def _kernel_names(fn):
     return [k[:80] for us, k in rows if us > 0]
 
 
+def _decode_simt(q, kc, vc, pos, qp, window):
+    """The SIMT kernels (a split launch and a combine launch) on the same
+    operands, launched directly (no wrapper counts them): the schedule bf16
+    and fp32 at D >= 64 ran on before the mma and ffma kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kd
+    b, _, H, D = q.shape
+    C, KV = kc.shape[1], kc.shape[2]
+    nsplit, chunk = kd._simt_splits(b, C, KV, kd._n_sm(q.device))
+    ws = torch.empty(b * KV * nsplit * (H // KV) * (D + 2),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+
+    def run():
+        _build.call("decode_attention", _build.DTYPE_CODES[q.dtype],
+                    *[t.data_ptr() for t in (q, kc, vc, pos, qp, out, ws)],
+                    b, C, H, KV, D, int(window or 0), 0.0, nsplit, chunk,
+                    _build.stream())
+        return out
+    return run
+
+
+def _new_schedule(kernel, fn, prec):
+    """Run ``fn`` once; the schedule it launched, which must be the
+    precision's (mma in bf16, ffma in fp32)."""
+    s0 = read_schedules(kernel)
+    fn()
+    sched = [n for n, c in read_schedules(kernel).items() if c != s0[n]]
+    if sched != [DECODE_SCHEDULES[prec]]:
+        raise AssertionError(f"{kernel} {prec}: schedules {sched}, want "
+                             f"{DECODE_SCHEDULES[prec]}")
+    return sched[0]
+
+
+def _with_simt(c, simt, plain, dt, iters=100):
+    """A case record with the SIMT kernel's graph time and error beside,
+    held to the plain version too."""
+    p, y = plain(), simt()
+    err = relerr(y, p)
+    if err >= TOL[dt]:
+        raise AssertionError(f"{c['shape']}: the SIMT kernel's relerr {err}")
+    c.update(simt_ms=graph_ms(simt, iters), simt_relerr=err,
+             simt_max_abs_err=(y.float() - p.float()).abs().max().item())
+    return c
+
+
 def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
                  D=LM_D, window=None):
     """decode_attention over a rolling cache of C slots holding positions
     max(0, qpos-C+1) .. qpos (slot c holds the position = c mod C): by
-    default llama3.2-1b's 1024-slot cache, half full."""
+    default llama3.2-1b's 1024-slot cache, half full.  The new schedule
+    (mma or ffma) by CUDA graph and by events, beside the SIMT kernel
+    (forced, by graph), SDPA and the plain version."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
     lo = max(0, qpos - C + 1)
@@ -746,16 +823,19 @@ def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
     def kern():
         return kd.decode_attention(q, kc, vc, pos, qp, window=window)
 
+    def plain():
+        return kd.decode_attention_plain(q, kc, vc, pos, qp, window=window)
+
     def library():                              # SDPA, the yardstick only
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=valid[:, None, None, :]).transpose(1, 2)
-    c = _timed_case(
-        kern, lambda: kd.decode_attention_plain(q, kc, vc, pos, qp,
-                                                window=window),
-        library, dt, flops, nbytes, iters=100)
+    prec = "bf16" if dt == torch.bfloat16 else "fp32"
+    sched = _new_schedule("decode_attention", kern, prec)
+    c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=100)
     c.update(shape=f"decode_B{b}_C{C}_qpos{qpos}_live{live}_H{H}_KV{KV}"
-                   f"_D{D}", rows=b, **_graph_times(c, kern, library))
-    return c
+                   f"_D{D}", rows=b, schedule=sched,
+             **_graph_times(c, kern, library))
+    return _with_simt(c, _decode_simt(q, kc, vc, pos, qp, window), plain, dt)
 
 
 def _graph_times(c, kern, library, iters=100):
@@ -938,12 +1018,15 @@ def phase_lm_kernels():
     # of this script runs qwen), tagged so that no llama sum counts it;
     # drawn last, so that every other case's inputs stay as they were
     for dt in (torch.bfloat16, torch.float32):
-        c = _flash_case(dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)
-        c["arch"] = QWEN_ARCH
-        cases["flash_attention"].append(c)
-        log(json.dumps({"kernel": "flash_attention", **c}))
-    cases["flash_attention"] += [_simt_twin(c)
-                                 for c in cases["flash_attention"]]
+        for kname, c in (("flash_attention", _flash_case(
+                dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)),
+                         ("decode_attention", _decode_case(
+                             dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D))):
+            c["arch"] = QWEN_ARCH
+            cases[kname].append(c)
+            log(json.dumps({"kernel": kname, **c}))
+    for kname in ("flash_attention", "decode_attention"):
+        cases[kname] += [_simt_twin(c) for c in cases[kname]]
     return cases, rg_cases
 
 
@@ -1257,6 +1340,8 @@ def phase_lm_path(smi):
         "bf16", "generate")
     rec["flash_schedules"] = _flash_scheduled(want_p["flash_attention"],
                                               "bf16", "generate")
+    rec["decode_schedules"] = _decode_scheduled(
+        (LM_STEPS - 1) * want_d["decode_attention"], "bf16", "generate")
     if tuple(toks.shape) != (B, LM_STEPS) or not ((toks >= 0)
                                                   & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
@@ -1277,6 +1362,8 @@ def phase_lm_path(smi):
         y, st, _ = cm.decode(params, tok, st, LM_S + t)
         _counted(read_counts(), want_d, f"decode step {t}")
         _scheduled({"small_m": want_d["matmul_fused"]}, f"decode step {t}")
+        _decode_scheduled(want_d["decode_attention"], "bf16",
+                          f"decode step {t}")
         yr, st_r, _ = ref.decode(params, tok, st_r, LM_S + t)
         errs.append(_lm_check_logits(f"decode step {t}", y, yr,
                                      PATH_TOL["bf16"]))
@@ -1339,6 +1426,8 @@ def phase_lm_path(smi):
         "fp32", "fp32 generate")
     rec["flash_schedules_fp32"] = _flash_scheduled(
         rec["launches"]["flash_attention"], "fp32", "fp32 generate")
+    rec["decode_schedules_fp32"] = _decode_scheduled(
+        rec["launches"]["decode_attention"], "fp32", "fp32 generate")
     t32r, _ = ref32.generate(p32, batch, steps=LM_STEPS)
     if not torch.equal(t32, t32r):
         diff = (t32 != t32r).float().mean().item()
@@ -1364,11 +1453,37 @@ SERVE_SLOTS, SERVE_SEQ, SERVE_BS, SERVE_NEW = 8, 1024, 16, 32
 SERVE_LIVE = [505 + 4 * b for b in range(8)]     # kernel phase: ~520 a row
 
 
+def _paged_simt(q, kp, vp, bt, qpos, window):
+    """The SIMT kernels of paged_decode_attention on the same operands,
+    launched directly (no wrapper counts them)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kd
+    b, sq, H, D = q.shape
+    NB, bs, KV = kp.shape[0], kp.shape[1], kp.shape[2]
+    nblk, R = bt.shape[1], sq * (H // KV)
+    n_rt = -(-R // kd.paged_rows(D))
+    nsplit = kd._simt_paged_splits(b, KV, n_rt, nblk * bs, kd._n_sm(q.device))
+    ws = torch.empty(b * KV * nsplit * R * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    qp = qpos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+
+    def run():
+        _build.call("paged_decode_attention", _build.DTYPE_CODES[q.dtype],
+                    *[t.data_ptr() for t in (q, kp, vp, bt, qp, out, ws)],
+                    b, sq, H, KV, D, NB, bs, nblk, int(window or 0), 0.0,
+                    nsplit, _build.stream())
+        return out
+    return run
+
+
 def _paged_case(sq, dt, gen, H=LM_H, KV=LM_KV, D=LM_D, filled=SERVE_LIVE,
                 window=None):
     """paged_decode_attention at the serving shape: 8 rows of ``filled``
     tokens so far (by default ~520) in a 513-block pool of 16-token blocks,
-    one query a row (a decode tick) or five (a verify row of ngram:4)."""
+    one query a row (a decode tick) or five (a verify row of ngram:4).  The
+    new schedule by CUDA graph and by events, beside the SIMT kernel
+    (forced, by graph), gather + SDPA and the plain version."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
     bs = SERVE_BS
@@ -1402,14 +1517,16 @@ def _paged_case(sq, dt, gen, H=LM_H, KV=LM_KV, D=LM_D, filled=SERVE_LIVE,
 
     def kern():
         return kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
-    c = _timed_case(kern,
-                    lambda: kd.paged_decode_attention_plain(q, kp, vp, bt,
-                                                            lens, **kw),
-                    library, dt, flops, nbytes, iters=100)
+
+    def plain():
+        return kd.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    prec = "bf16" if dt == torch.bfloat16 else "fp32"
+    sched = _new_schedule("paged_decode_attention", kern, prec)
+    c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=100)
     c.update(shape=f"paged_B{B}_Sq{sq}_H{H}_KV{KV}_D{D}_bs{bs}_live"
-                   f"{min(live)}-{max(live)}", sq=sq,
+                   f"{min(live)}-{max(live)}", sq=sq, schedule=sched,
              **_graph_times(c, kern, library))
-    return c
+    return _with_simt(c, _paged_simt(q, kp, vp, bt, qpos, window), plain, dt)
 
 
 def _copy_case(dt, gen):
@@ -1472,6 +1589,15 @@ def phase_serving_kernels():
         c = _copy_case(dt, gen)
         cases["copy_block"].append(c)
         log(json.dumps({"kernel": "copy_block", **c}))
+    # head width 128 at qwen1.5-4b's heads (20 over 20): a kernel case only,
+    # drawn last so that the other cases' inputs stay as they were
+    for dt in (torch.bfloat16, torch.float32):
+        c = _paged_case(1, dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)
+        c["arch"] = QWEN_ARCH
+        cases["paged_decode_attention"].append(c)
+        log(json.dumps({"kernel": "paged_decode_attention", **c}))
+    cases["paged_decode_attention"] += [
+        _simt_twin(c) for c in cases["paged_decode_attention"]]
     return cases
 
 
@@ -1606,11 +1732,15 @@ def phase_serving(smi):
                                      f"workload {name}")
         fscheds[name] = _flash_scheduled(launches[name]["flash_attention"],
                                          "bf16", f"workload {name}")
+        psched = _decode_scheduled(
+            launches[name]["paged_decode_attention"], "bf16",
+            f"workload {name}", "paged_decode_attention")
         runs[name] = rep
         r = _serve_record(eng, rep)
         r["launches"] = launches[name]
         r["matmul_schedules"] = scheds[name]
         r["flash_schedules"] = fscheds[name]
+        r["paged_schedules"] = psched
         rec[f"bf16_{name}"] = r
         log(json.dumps({"serving": name, "precision": "bf16", **r}))
     b = runs["B"].metrics
@@ -1620,6 +1750,8 @@ def phase_serving(smi):
     rec["launches"] = {k: sum(launches[w][k] for w in launches)
                        for k in launches["A"]}
     rec["flash_schedules"] = {"wgmma": rec["launches"]["flash_attention"]}
+    rec["paged_schedules"] = {
+        "mma": rec["launches"]["paged_decode_attention"]}
     rec["segment_host_free"] = _segment_is_host_free(cm, params)
 
     # bf16 logits of A against the reference backend, up to each request's
@@ -1668,6 +1800,8 @@ def phase_serving(smi):
                       f"fp32 workload {name}")
         _flash_scheduled(launches32[name]["flash_attention"], "fp32",
                          f"fp32 workload {name}")
+        _decode_scheduled(launches32[name]["paged_decode_attention"], "fp32",
+                          f"fp32 workload {name}", "paged_decode_attention")
         _, rep_r = _engine_run(ref32, p32, works[wl], **kw)
         toks[name] = _tokens(rep)
         if toks[name] != _tokens(rep_r):
@@ -1683,6 +1817,8 @@ def phase_serving(smi):
                    "tokens_a0": toks["A"]["a0"]}
     rec["launches_fp32"] = {k: sum(launches32[w][k] for w in launches32)
                             for k in launches32["A"]}
+    rec["paged_schedules_fp32"] = {
+        "ffma": rec["launches_fp32"]["paged_decode_attention"]}
     log(json.dumps({"serving_path": {k: v for k, v in rec.items()
                                      if not k.startswith("bf16_")}}))
     return rec
@@ -1713,7 +1849,8 @@ RG_FILLED = [260 + 5 * b for b in range(8)]
 
 def _lru_case(dt, gen):
     """lru_scan at recurrentgemma-2b's prefill: (8, 512, 2560), a in (0, 1)
-    as the RG-LRU gate gives it.  No single PyTorch call computes a linear
+    as the RG-LRU gate gives it, by CUDA graph and by events (the plain
+    version by events).  No single PyTorch call computes a linear
     recurrence, so there is no library time."""
     from repro_torch.kernels import lru_scan as kl
     dev = torch.device("cuda")
@@ -1721,9 +1858,13 @@ def _lru_case(dt, gen):
     b = torch.randn(B, RG_S, RG_W, generator=gen, device=dev).to(dt)
     flops = 2.0 * a.numel()                         # one FMA an element
     nbytes = 3.0 * a.numel() * a.element_size()     # read a, b; write h
-    c = _timed_case(lambda: kl.lru_scan(a, b), lambda: kl.lru_scan_plain(a, b),
-                    None, dt, flops, nbytes, iters=50)
-    c.update(shape=f"scan_B{B}_S{RG_S}_W{RG_W}", rows=B)
+    def kern():
+        return kl.lru_scan(a, b)
+    c = _timed_case(kern, lambda: kl.lru_scan_plain(a, b), None, dt, flops,
+                    nbytes, iters=50)
+    # the kernel by CUDA graph too (its events time beside it)
+    c.update(shape=f"scan_B{B}_S{RG_S}_W{RG_W}", rows=B, event_ms=c["ms"],
+             ms=graph_ms(kern, 50), timer="cuda_graph")
     return c
 
 
@@ -1750,8 +1891,9 @@ def phase_rec_kernels():
                  _paged_case(1, dt, gen, filled=RG_FILLED, **heads))):
             cases[kname].append(c)
             log(json.dumps({"kernel": kname, "arch": RG_ARCH, **c}))
-    cases["flash_attention"] += [_simt_twin(c)
-                                 for c in cases["flash_attention"]]
+    for kname in ("flash_attention", "decode_attention",
+                  "paged_decode_attention"):
+        cases[kname] += [_simt_twin(c) for c in cases[kname]]
     return cases
 
 
@@ -1831,11 +1973,14 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
                           f"{prec} generate")
     fsched = _flash_scheduled(launches["flash_attention"], prec,
                               f"{prec} generate")
+    dsched = _decode_scheduled(launches["decode_attention"], prec,
+                               f"{prec} generate")
     V = cm.cfg.vocab_size
     if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
     rec = {"launches": launches, "matmul_schedules": sched,
-           "flash_schedules": fsched, "tokens_row0": toks[0].tolist()}
+           "flash_schedules": fsched, "decode_schedules": dsched,
+           "tokens_row0": toks[0].tolist()}
     if prec == "fp32":
         tr, _ = ref.generate(params, batch, steps=steps)
         if not torch.equal(toks, tr):
@@ -1855,6 +2000,8 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
         reset_counts()
         y, st, _ = cm.decode(params, tok, st, S + t)
         _counted(read_counts(), want_d, f"decode step {t}")
+        _decode_scheduled(want_d["decode_attention"], prec,
+                          f"decode step {t}")
         yr, st_r, _ = ref.decode(params, tok, st_r, S + t)
         errs.append(_lm_check_logits(f"decode step {t}", y, yr,
                                      PATH_TOL[prec]))
@@ -1977,10 +2124,13 @@ def phase_rec_path(smi):
             f"{prec} workload R")
         f_sched = _flash_scheduled(want["flash_attention"], prec,
                                    f"{prec} workload R")
+        p_sched = _decode_scheduled(want["paged_decode_attention"], prec,
+                                    f"{prec} workload R",
+                                    "paged_decode_attention")
         runs[prec] = rep
         r = _serve_record(eng, rep)
         r.update(launches=s_launch, matmul_schedules=s_sched,
-                 flash_schedules=f_sched,
+                 flash_schedules=f_sched, paged_schedules=p_sched,
                  dense_state_bytes=eng.last_cache.dense_bytes())
         rec[f"serve_{prec}"] = r
         log(json.dumps({"serving": "R", "arch": RG_ARCH, "precision": prec,
@@ -2037,13 +2187,14 @@ def phase_rec_path(smi):
 
 
 # kernels with schedules
-SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused")
+SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused", "decode_attention",
+         "paged_decode_attention")
 
 
 def _by_schedule(cases):
-    """``cases`` with matmul_fused's, flash_attention's and conv2d_fused's
-    split into one list per schedule, ``matmul_fused[wgmma]`` and so on:
-    each schedule is its own kernel."""
+    """``cases`` with the kernels of ``SPLIT`` split into one list per
+    schedule, ``matmul_fused[wgmma]`` and so on: each schedule is its own
+    kernel."""
     out = {k: v for k, v in cases.items() if k not in SPLIT}
     for kname in SPLIT:
         for r in cases.get(kname, []):
@@ -2051,13 +2202,16 @@ def _by_schedule(cases):
     return out
 
 
-def _sched_launches(counts, schedules, flash=None, conv=None):
+def _sched_launches(counts, schedules, flash=None, conv=None, decode=None,
+                    paged=None):
     """A path's launch counts with matmul_fused's split by schedule
-    (``schedules``), flash_attention's (``flash``) and conv2d_fused's
-    (``conv``)."""
+    (``schedules``), flash_attention's (``flash``), conv2d_fused's
+    (``conv``), decode_attention's (``decode``) and
+    paged_decode_attention's (``paged``)."""
     out = dict(counts)
     for kname, by in (("matmul_fused", schedules), ("flash_attention", flash),
-                      ("conv2d_fused", conv)):
+                      ("conv2d_fused", conv), ("decode_attention", decode),
+                      ("paged_decode_attention", paged)):
         if by is not None:
             del out[kname]
             out.update({f"{kname}[{s}]": n for s, n in by.items()})
@@ -2081,7 +2235,10 @@ def rec_kernel_entries(cases, rg):
         runs = [rg[f"{run}_{prec}"] for run in ("generate", "window",
                                                  "serve")]
         counts = [_sched_launches(r["launches"], r["matmul_schedules"],
-                                  r["flash_schedules"]) for r in runs]
+                                  r["flash_schedules"],
+                                  decode=r.get("decode_schedules"),
+                                  paged=r.get("paged_schedules"))
+                  for r in runs]
         launches[dt] = {k: sum(c.get(k, 0) for c in counts) for k in cases}
 
     def use(k, r):
@@ -2103,11 +2260,17 @@ def rec_kernel_entries(cases, rg):
 
 def serving_kernel_entries(cases, serve):
     """Each serving kernel: one call at the serving shape (paged: a decode
-    tick, Sq = 1), the launches of the serving main path (workloads A-D)."""
+    tick, Sq = 1, split by schedule), the launches of the serving main path
+    (workloads A-D)."""
+    cases = {k: [r for r in v if r.get("arch") != QWEN_ARCH]
+             for k, v in cases.items()}      # qwen_kernel_entries' case
     return summed_entries(
-        cases, {"bfloat16": serve["launches"],
-                "float32": serve["launches_fp32"]}, "@serving",
-        lambda k, used: f"one call at {used[0][0]['shape']}",
+        _by_schedule(cases),
+        {"bfloat16": _sched_launches(serve["launches"], None,
+                                     paged=serve["paged_schedules"]),
+         "float32": _sched_launches(serve["launches_fp32"], None,
+                                    paged=serve["paged_schedules_fp32"])},
+        "@serving", lambda k, used: f"one call at {used[0][0]['shape']}",
         lambda k, r: int(r.get("sq", 1) == 1))
 
 
@@ -2139,16 +2302,18 @@ def lm_kernel_entries(cases, lm):
     def uses(kname, r):
         if kname.startswith("flash_attention"):
             return LM_LAYERS
-        if kname == "decode_attention":
+        if kname.startswith("decode_attention"):
             return LM_LAYERS * steps
         return LM_LAYERS * {B * LM_S: 1, B: steps}.get(r["rows"], 0)
     return summed_entries(
         _by_schedule(cases),
         {"bfloat16": _sched_launches(lm["launches"], lm["matmul_schedules"],
-                                     lm["flash_schedules"]),
+                                     lm["flash_schedules"],
+                                     decode=lm["decode_schedules"]),
          "float32": _sched_launches(lm["launches_fp32"],
                                     lm["matmul_schedules_fp32"],
-                                    lm["flash_schedules_fp32"])},
+                                    lm["flash_schedules_fp32"],
+                                    decode=lm["decode_schedules_fp32"])},
         f"@{LM_ARCH}",
         lambda k, used: f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
                         f"tokens, then {steps} decode steps", uses)
@@ -2169,11 +2334,14 @@ def base_kernel_entries(cases, lm):
 
 
 def qwen_kernel_entries(cases):
-    """flash_attention at qwen1.5-4b's prefill shape (head width 128), one
-    call per dtype.  No path of this script runs qwen1.5-4b, so its
-    launches on the main path are 0."""
+    """flash_attention at qwen1.5-4b's prefill shape, decode_attention over
+    its 1024-slot cache and paged_decode_attention over the serving pool
+    (head width 128, 20 heads over 20), one call per dtype.  No path of
+    this script runs qwen1.5-4b, so their launches on the main path are
+    0."""
     return summed_entries(
-        _by_schedule({"flash_attention": cases["flash_attention"]}),
+        _by_schedule({k: cases[k] for k in (
+            "flash_attention", "decode_attention", "paged_decode_attention")}),
         {"bfloat16": {}, "float32": {}}, f"@{QWEN_ARCH}",
         lambda k, used: f"one call at {used[0][0]['shape']} (a kernel case: "
                         f"no path runs {QWEN_ARCH})",
@@ -2206,9 +2374,19 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
                               "src/repro/kernels/attention.py:93"),
     "flash_attention[simt]": ("src/repro_torch/csrc/flash_attention.cu",
                               "src/repro/kernels/attention.py:93"),
-    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                         "src/repro/kernels/decode_attention.py:61"),
-    "paged_decode_attention": (
+    "decode_attention[mma]": ("src/repro_torch/csrc/decode_core.cuh",
+                              "src/repro/kernels/decode_attention.py:61"),
+    "decode_attention[ffma]": ("src/repro_torch/csrc/decode_core.cuh",
+                               "src/repro/kernels/decode_attention.py:61"),
+    "decode_attention[simt]": ("src/repro_torch/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:61"),
+    "paged_decode_attention[mma]": (
+        "src/repro_torch/csrc/decode_core.cuh",
+        "src/repro/kernels/decode_attention.py:189"),
+    "paged_decode_attention[ffma]": (
+        "src/repro_torch/csrc/decode_core.cuh",
+        "src/repro/kernels/decode_attention.py:189"),
+    "paged_decode_attention[simt]": (
         "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/decode_attention.py:189"),
     "copy_block": ("src/repro_torch/csrc/copy_block.cu",
@@ -2273,7 +2451,9 @@ def main() -> int:
     rec_cases = phase_rec_kernels()
     rg = phase_rec_path(smi)
     entries = kernel_entries(cases, path) + \
-        lm_kernel_entries(lm_cases, lm) + qwen_kernel_entries(lm_cases) + \
+        lm_kernel_entries(lm_cases, lm) + \
+        qwen_kernel_entries({**lm_cases, "paged_decode_attention":
+                             serve_cases["paged_decode_attention"]}) + \
         base_kernel_entries(base_cases, lm) + \
         serving_kernel_entries(serve_cases, serve) + \
         rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg)

@@ -230,3 +230,86 @@ extern "C" int decode_attention(int dtype, const void* q, const void* kc,
     return dispatch<__nv_bfloat16>(D, q, kc, vc, pos, qpos, out, ws, B, C, H, KV, window, softcap, nsplit, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// ---------------------------------------------------------------------------
+// The "mma" (bf16) and "ffma" (fp32) schedules at head widths 64, 128 and
+// 256: the split-KV core of decode_core.cuh with the rolling cache's slot
+// map, one launch a call.
+// ---------------------------------------------------------------------------
+#include "decode_core.cuh"
+
+namespace {
+
+int decode_core_call(int dtype, const void* q, const void* kc, const void* vc,
+                     const int* pos, const int* qpos, void* out, float* ws,
+                     int* tickets, int B, int C, int H, int KV, int D,
+                     int window, float softcap, int nsplit, int chunk,
+                     void* stream) {
+  if (B <= 0 || C <= 0 || KV <= 0 || H % KV != 0 || nsplit <= 0 ||
+      nsplit > dcore::MAX_SPLITS || chunk <= 0 || chunk % dcore::TILE != 0 ||
+      chunk > dcore::MAX_CHUNK || (long long)nsplit * chunk < C ||
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  dcore::Params p{};
+  p.q = q, p.k = kc, p.v = vc, p.pos = pos, p.bt = nullptr, p.qpos = qpos;
+  p.out = out, p.ws = ws, p.tickets = tickets;
+  p.B = B, p.Sq = 1, p.H = H, p.KV = KV, p.C = C;
+  p.NB = 0, p.bs = 1, p.nblk = 0;
+  p.window = window, p.softcap = softcap;
+  p.scale = (float)(1.0 / std::sqrt((double)D));
+  p.nsplit = nsplit, p.chunk = chunk, p.cfac = 0.0f;
+  p.n_rt = (H / KV + dcore::RB - 1) / dcore::RB;
+  p.extra = chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kF32)
+    return dcore::dispatch<float, dcore::RollingMap>(D, p, s);
+  return dcore::dispatch<__nv_bfloat16, dcore::RollingMap>(D, p, s);
+}
+
+}  // namespace
+
+// C interface (bound with ctypes in kernels/_build.py): decode_attention's
+// mma schedule (bf16) and ffma schedule (fp32).  Operands as for
+// decode_attention above; the nsplit splits of chunk slots (a multiple of
+// 16, at most 2048) cover the C slots; ws holds B * KV * n_rt * nsplit *
+// (RT * D + 2 * RTP) floats (n_rt = ceil(G / 16), RT = min(G, 16), RTP =
+// RT rounded up to even) and tickets B * KV * n_rt zeros, left zero; both
+// may be null with one split.  Returns the launch's CUDA error, or 0.
+extern "C" int decode_attention_mma(const void* q, const void* kc,
+                                    const void* vc, const int* pos,
+                                    const int* qpos, void* out, float* ws,
+                                    int* tickets, int B, int C, int H, int KV,
+                                    int D, int window, float softcap,
+                                    int nsplit, int chunk, void* stream) {
+  return decode_core_call(rt::kBF16, q, kc, vc, pos, qpos, out, ws, tickets,
+                          B, C, H, KV, D, window, softcap, nsplit, chunk,
+                          stream);
+}
+
+extern "C" int decode_attention_ffma(const void* q, const void* kc,
+                                     const void* vc, const int* pos,
+                                     const int* qpos, void* out, float* ws,
+                                     int* tickets, int B, int C, int H, int KV,
+                                     int D, int window, float softcap,
+                                     int nsplit, int chunk, void* stream) {
+  return decode_core_call(rt::kF32, q, kc, vc, pos, qpos, out, ws, tickets,
+                          B, C, H, KV, D, window, softcap, nsplit, chunk,
+                          stream);
+}
+
+// The shared bytes a block of the mma (dtype 1) or ffma (dtype 0) schedule
+// takes at head width D with extra ints of slot-map data (kernels/
+// decode_attention.py _core_smem states the same), or -1.
+extern "C" int decode_core_smem(int dtype, int D, int extra) {
+  if (extra < 0) return -1;
+  if (dtype == rt::kBF16) {
+    if (D == 64) return (int)dcore::Layout<__nv_bfloat16, 64>::bytes(extra);
+    if (D == 128) return (int)dcore::Layout<__nv_bfloat16, 128>::bytes(extra);
+    if (D == 256) return (int)dcore::Layout<__nv_bfloat16, 256>::bytes(extra);
+  } else if (dtype == rt::kF32) {
+    if (D == 64) return (int)dcore::Layout<float, 64>::bytes(extra);
+    if (D == 128) return (int)dcore::Layout<float, 128>::bytes(extra);
+    if (D == 256) return (int)dcore::Layout<float, 256>::bytes(extra);
+  }
+  return -1;
+}

@@ -14,6 +14,7 @@
 // head kvh * G + r % G) over its split of the tokens 0 .. max(qpos[b]), and
 // writes partial (m, l, acc) to the fp32 workspace ws; the second combines
 // the splits of each row.  ROWS is 64, 32 at D = 256.
+#include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
@@ -283,4 +284,84 @@ extern "C" int paged_decode_attention(int dtype, const void* q,
   if (dtype == rt::kBF16)
     return dispatch<__nv_bfloat16>(D, q, kp, vp, bt, qpos, out, ws, B, Sq, H, KV, NB, bs, nblk, window, softcap, nsplit, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The "mma" (bf16) and "ffma" (fp32) schedules at head widths 64, 128 and
+// 256: the split-KV core of decode_core.cuh with the pool's slot map, one
+// launch a call.
+// ---------------------------------------------------------------------------
+#include "decode_core.cuh"
+
+namespace {
+
+int paged_core_call(int dtype, const void* q, const void* kp, const void* vp,
+                    const int* bt, const int* qpos, void* out, float* ws,
+                    int* tickets, int B, int Sq, int H, int KV, int D, int NB,
+                    int bs, int nblk, int window, float softcap, int nsplit,
+                    int min_chunk, float cfac, int tmax, void* stream) {
+  if (B <= 0 || Sq <= 0 || KV <= 0 || H % KV != 0 || NB <= 0 || bs <= 0 ||
+      nblk <= 0 || nsplit <= 0 || nsplit > dcore::MAX_SPLITS ||
+      min_chunk <= 0 || min_chunk % dcore::TILE != 0 ||
+      min_chunk > dcore::MAX_CHUNK || tmax <= 0 || !(cfac >= 0.0f) ||
+      (long long)nblk * bs > 0x7fffffffLL ||
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // a split covers at most as many tokens as it would with every token
+  // live: tmax must hold the table entries that cover it (or the row)
+  const long long cap = (long long)nblk * bs;
+  long long per = (cap + nsplit - 1) / nsplit;
+  per = std::max(per, (long long)std::ceil(std::sqrt((double)cap * cfac)));
+  per = (per + dcore::TILE - 1) / dcore::TILE * dcore::TILE;
+  if (per < min_chunk) per = min_chunk;
+  if (per > dcore::MAX_CHUNK ||
+      (tmax < (per + bs - 1) / bs + 1 && tmax < nblk))
+    return (int)cudaErrorInvalidValue;
+  dcore::Params p{};
+  p.q = q, p.k = kp, p.v = vp, p.pos = nullptr, p.bt = bt, p.qpos = qpos;
+  p.out = out, p.ws = ws, p.tickets = tickets;
+  p.B = B, p.Sq = Sq, p.H = H, p.KV = KV, p.C = (int)cap;
+  p.NB = NB, p.bs = bs, p.nblk = nblk;
+  p.window = window, p.softcap = softcap;
+  p.scale = (float)(1.0 / std::sqrt((double)D));
+  p.nsplit = nsplit, p.chunk = min_chunk, p.cfac = cfac;
+  p.n_rt = (Sq * (H / KV) + dcore::RB - 1) / dcore::RB;
+  p.extra = tmax + Sq;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kF32)
+    return dcore::dispatch<float, dcore::PagedMap>(D, p, s);
+  return dcore::dispatch<__nv_bfloat16, dcore::PagedMap>(D, p, s);
+}
+
+}  // namespace
+
+// C interface (bound with ctypes in kernels/_build.py):
+// paged_decode_attention's mma schedule (bf16) and ffma schedule (fp32).
+// Operands as for paged_decode_attention above; each row's live tokens
+// (those up to max(qpos[b]), none older than the youngest row's window)
+// are cut into at most nsplit splits of at least min_chunk tokens (a
+// multiple of 16) and at least sqrt(live tokens * cfac); tmax table
+// entries cover a split (tmax >= nblk: the row's whole table); ws holds
+// B * KV * n_rt * nsplit * (RT * D + 2 * RTP) floats (R = Sq * H / KV,
+// n_rt = ceil(R / 16), RT = min(R, 16), RTP = RT rounded up to even) and
+// tickets B * KV * n_rt zeros, left zero; both may be null with one split.
+// Returns the launch's CUDA error, or 0.
+extern "C" int paged_decode_attention_mma(
+    const void* q, const void* kp, const void* vp, const int* bt,
+    const int* qpos, void* out, float* ws, int* tickets, int B, int Sq, int H,
+    int KV, int D, int NB, int bs, int nblk, int window, float softcap,
+    int nsplit, int min_chunk, float cfac, int tmax, void* stream) {
+  return paged_core_call(rt::kBF16, q, kp, vp, bt, qpos, out, ws, tickets, B,
+                         Sq, H, KV, D, NB, bs, nblk, window, softcap, nsplit,
+                         min_chunk, cfac, tmax, stream);
+}
+
+extern "C" int paged_decode_attention_ffma(
+    const void* q, const void* kp, const void* vp, const int* bt,
+    const int* qpos, void* out, float* ws, int* tickets, int B, int Sq, int H,
+    int KV, int D, int NB, int bs, int nblk, int window, float softcap,
+    int nsplit, int min_chunk, float cfac, int tmax, void* stream) {
+  return paged_core_call(rt::kF32, q, kp, vp, bt, qpos, out, ws, tickets, B,
+                         Sq, H, KV, D, NB, bs, nblk, window, softcap, nsplit,
+                         min_chunk, cfac, tmax, stream);
 }

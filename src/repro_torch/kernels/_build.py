@@ -54,7 +54,14 @@ SIGNATURES = {
     "flash_attention_ffma": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_ffma_tiles": [_I, _P],
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "decode_attention_mma": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    "decode_attention_ffma": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "paged_decode_attention": [_I] + [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    "paged_decode_attention_mma": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _F,
+                                                        _I, _P],
+    "paged_decode_attention_ffma": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _F,
+                                                         _I, _P],
+    "decode_core_smem": [_I, _I, _I],
     "copy_block": [_P, _P] + [_I] * 5 + [_P],
     "lru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -1,5 +1,6 @@
-"""decode_attention — one query token per row over the rolling KV cache, as a
-hand-written split-KV CUDA kernel for Hopper (``csrc/decode_attention.cu``).
+"""decode_attention — one query token per row over the rolling KV cache, as
+hand-written split-KV CUDA kernels for Hopper: three schedules of the same
+function.
 
 Replaces the Pallas kernel ``decode_attention`` of
 ``src/repro/kernels/decode_attention.py``: the G query heads of each KV head
@@ -10,41 +11,215 @@ online softmax in fp32 and the sum divided by ``max(l, 1e-30)``.
 What bounds it on the H100: the cache read.  At the LM decode shape (B=8,
 C=1024, KV=8, D=64) K and V are ~17 MB in bf16 against at most ~67 MFLOP
 of work, four operations per byte: the bytes bound it (~5 us at
-3.35 TB/s).
+3.35 TB/s).  At such sizes a call is a few microseconds, so the grid's fill,
+the loads in flight and the launches a call matter as much as the bytes.
 
-The design (flash-decoding): the Pallas kernel walks the cache in order
-with one VMEM accumulator per (b, kv head); with C = 1024 that is one
-sequential pass per pair, 64 pairs, and 64 blocks would leave most of the
-132 SMs idle.  Here the cache is cut into splits, so that (splits x B x KV)
-blocks fill the card (about four per SM).  Each block of 128 threads serves
-the G query heads of its KV head together over its split, 64 cache slots at
-a time staged in shared memory as fp32, and writes its partial (m, l, acc)
-to an fp32 workspace; a second kernel combines the splits of each head.
-The split is the card's choice, made here from the SM count; the plan's
-TPU tile (``plan.tiles["decode_attention"]``) is ignored.
+The wrapper picks a schedule with :func:`_schedule`, a pure function of the
+dtype and the head width (a dispatch between hand-written kernels, not a
+fallback: a build or launch failure raises):
+
+- ``mma`` (``csrc/decode_core.cuh`` in ``csrc/decode_attention.cu``): bf16
+  at head widths 64, 128 and 256.  One block per (split, KV head x 16 query
+  rows, batch row); its warps take the split's 16-slot tiles in turn, each
+  streaming K and V in their own dtype through its own ring of three
+  16-byte ``cp.async`` stages, and multiply Q·Kᵀ and P·V with ``mma.sync``
+  m16n8k16 (fp32 sums; P as bf16 hi + lo, ~16 bits as the Pallas kernel's
+  fp32 p); the scale multiplies the fp32 scores.  A tile none of whose
+  slots is valid loads nothing.  The block merges its warps' online
+  softmax states in warp order; the last block of a (row, KV head) to
+  finish, by an atomic ticket, combines the splits in split order: one
+  launch a call, bits that repeat.
+- ``ffma`` (the same core): fp32 at head widths 64, 128 and 256, both
+  products as full fp32 FMAs on the same ring (no TF32, so the fp32 parity
+  of 1e-5 and the fp32 greedy tokens hold).
+- ``simt`` (``csrc/decode_attention.cu``'s first kernels): fp32 and bf16 at
+  head widths 16 and 32.  One block of 128 threads per (64-slot split
+  tile, KV head, batch row), K/V staged in shared memory as fp32, scalar
+  FMAs, and a second kernel that combines the splits.
+
+The split (:func:`splits`) is the card's choice, made from the SM count
+and the shapes; the plan's TPU tile (``plan.tiles["decode_attention"]``)
+is ignored.  One difference from the plain version: a row none of whose
+slots is valid gets zeros from ``mma`` and ``ffma`` (its tiles are never
+read), where the plain version and the Pallas kernel give the mean of V.
+The main path never has such a row: the query's own slot is valid.
 
 On a CPU tensor the wrapper runs :func:`decode_attention_plain`; on a CUDA
-tensor it launches the kernels or raises.  ``decode_attention.launches``
-counts the calls that launch them.  It uses no
-``scaled_dot_product_attention`` and no ``torch.matmul`` on the card.
+tensor it launches a kernel or raises.  ``decode_attention.launches``
+counts the calls that launch a kernel and ``decode_attention.schedules``
+splits them by schedule.  It uses no ``scaled_dot_product_attention`` and
+no ``torch.matmul`` on the card.
 
 The module also holds the serving engine's two kernels over the paged KV
-pool, ``paged_decode_attention`` (``csrc/paged_decode_attention.cu``) and
-``copy_block`` (``csrc/copy_block.cu``); their notes are at their wrappers
-below.
+pool, ``paged_decode_attention`` (``csrc/paged_decode_attention.cu``, the
+same core) and ``copy_block`` (``csrc/copy_block.cu``); their notes are at
+their wrappers below.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.attention import _aligned
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
-SLOTS = 64                         # cache slots per tile in the kernel
-BLOCKS_PER_SM = 4
+TILED_HEAD_DIMS = (64, 128, 256)    # those of the mma and ffma schedules
+SCHEDULES = ("mma", "ffma", "simt")
+# the mma and ffma schedules (csrc/decode_core.cuh): query rows a block,
+# the split granularity in slots, the most splits and slots a split
+ROWS = 16
+TILE = 16
+MAX_SPLITS = 128
+MAX_CHUNK = 2048
+# their tiles (Cfg): (warps a block, slots a warp tile, ring stages) by
+# dtype and head width
+CORE_TILES = {(torch.bfloat16, 64): (4, 16, 3),
+              (torch.bfloat16, 128): (4, 16, 3),
+              (torch.bfloat16, 256): (4, 16, 3),
+              (torch.float32, 64): (4, 16, 3),
+              (torch.float32, 128): (2, 16, 3),
+              (torch.float32, 256): (4, 8, 3)}
+SM_SHARED = 233472     # shared bytes an H100 SM holds; 1024 more a block
+TABLE_WHOLE = 1024     # a paged row's table of up to this many entries is
+                       # loaded whole
+BLOCKS_PER_SM = 4      # the simt kernels' aim
+SLOTS = 64             # cache slots per tile in the simt kernels
+
+
+def _schedule(dtype: torch.dtype, D: int) -> str:
+    """The kernel that runs a call: at the head widths of
+    :data:`TILED_HEAD_DIMS` ``mma`` for bf16 and ``ffma`` for fp32, ``simt``
+    for the rest."""
+    if D not in TILED_HEAD_DIMS:
+        return "simt"
+    return "mma" if dtype == torch.bfloat16 else "ffma"
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _core_smem(dtype: torch.dtype, D: int, extra: int) -> int:
+    """Shared bytes of one block of the mma or ffma schedule with ``extra``
+    ints of slot-map data (``Layout::bytes`` of ``csrc/decode_core.cuh``):
+    the warps' rings of K and V tiles with rows padded by 16 bytes, the Q
+    tile, the fp32 schedule's P scratch and the warps' load offsets."""
+    W, NS, ST = CORE_TILES[(dtype, D)]
+    elem = dtype.itemsize
+    ld = D + 16 // elem
+    ring = W * ST * 2 * NS * ld * elem
+    pscr = W * ROWS * NS * 4 if dtype == torch.float32 else 0
+    return ring + ROWS * ld * elem + pscr + W * NS * 4 + 4 * extra
+
+
+def _fit(dtype: torch.dtype, D: int, extra: int) -> int:
+    """Blocks of the mma or ffma schedule an SM holds at once: shared
+    memory binds before registers and threads at every width."""
+    W = CORE_TILES[(dtype, D)][0]
+    return max(1, min(SM_SHARED // (_core_smem(dtype, D, extra) + 1024),
+                      2048 // (32 * W)))
+
+
+def min_chunk(rows: int, D: int, elem: int) -> int:
+    """The fewest slots (a multiple of :data:`TILE`) a split of the mma and
+    ffma schedules may hold: its fp32 partial, rows x (D + 2) x 4 bytes,
+    stays within a quarter of the K and V bytes it reads (2 x D x ``elem``
+    a slot)."""
+    need = -(-8 * rows * (D + 2) // (D * elem))
+    return _round_up(max(need, TILE), TILE)
+
+
+def _cfac(rows: int, D: int, elem: int) -> float:
+    """A split of n slots in all holds at least sqrt(n x this) of them:
+    then the last block's combine, nsplit x rows x (D + 2) x 4 bytes, reads
+    no more than one split's K and V."""
+    return rows * (D + 2) * 2 / (D * elem)
+
+
+def combine_chunk(n: int, rows: int, D: int, elem: int) -> int:
+    """The fewest slots (a multiple of :data:`TILE`) a split of ``n`` slots
+    may hold under :func:`_cfac`'s rule."""
+    return _round_up(max(1, math.ceil(math.sqrt(n * _cfac(rows, D, elem)))),
+                     TILE)
+
+
+@functools.lru_cache(maxsize=256)
+def splits(B: int, C: int, KV: int, G: int, D: int, dtype: torch.dtype,
+           n_sm: int):
+    """(number of splits, slots per split) of the rolling cache for the mma
+    and ffma schedules, a pure function of the shapes (the host never reads
+    the cache's positions).  The rules: a split is a whole number of
+    16-slot tiles, at most :data:`MAX_CHUNK` slots, and there are at most
+    :data:`MAX_SPLITS`; a split holds at least :func:`min_chunk` slots (the
+    workspace stays under a quarter of the K/V bytes each block reads) and
+    at least :func:`combine_chunk` (the last block's combine reads no more
+    than a block's K and V); within those, as many splits as fill one wave
+    of the card (:func:`_fit` blocks an SM), no more."""
+    elem = dtype.itemsize
+    n_rt, rows = -(-G // ROWS), min(G, ROWS)
+    least = max(min_chunk(rows, D, elem), combine_chunk(C, rows, D, elem),
+                _round_up(-(-C // MAX_SPLITS), TILE))
+    if least > MAX_CHUNK:
+        raise ValueError(f"decode_attention: a cache of {C} slots needs "
+                         f"more than {MAX_SPLITS} splits of {MAX_CHUNK}")
+    fit = _fit(dtype, D, 0)
+    while True:
+        want = max(1, fit * n_sm // (B * KV * n_rt))
+        chunk = max(least, min(_round_up(-(-C // want), TILE), MAX_CHUNK))
+        if fit == 1 or _fit(dtype, D, chunk) >= fit:
+            return -(-C // chunk), chunk
+        fit -= 1
+
+
+def _simt_splits(B: int, C: int, KV: int, n_sm: int):
+    """(number of splits, slots per split) of the simt kernels: enough
+    splits that the blocks fill the card, each a whole number of 64-slot
+    tiles."""
+    tiles = -(-C // SLOTS)
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * KV)))
+    per = -(-tiles // min(want, tiles))
+    chunk = per * SLOTS
+    return -(-C // chunk), chunk
+
+
+# per device: the tickets of the one-launch combine (``_tickets``)
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The per-device int32 tickets of the one-launch combine: zeros that
+    each call leaves zero (the last block of a group resets its own), so
+    one buffer serves every call on the device's stream and no memset
+    launch is needed (calls on one stream run one after another; two
+    streams must not run these kernels at once).  Grown to at least ``n``,
+    never during a CUDA-graph capture, whose warm-up call allocates it."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _workspace(device: torch.device, groups: int, nsplit: int, rows: int,
+               D: int):
+    """(workspace, tickets) of one call of the mma or ffma schedule: per
+    (group, split) the acc rows (rows x D fp32), then its (m, l) pairs for
+    an even number of rows; none with one split."""
+    if nsplit == 1:
+        return None, None
+    ws = torch.empty(groups * nsplit * (rows * D + 2 * (rows + rows % 2)),
+                     dtype=torch.float32, device=device)
+    return ws, _tickets(device, groups)
+
+
+@functools.lru_cache(maxsize=16)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, kc: torch.Tensor,
@@ -68,16 +243,6 @@ def decode_attention_plain(q: torch.Tensor, kc: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, vc.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
-
-
-def splits(B: int, C: int, KV: int, n_sm: int):
-    """(number of splits, slots per split) for a cache of C slots: enough
-    splits that the blocks fill the card, each a whole number of tiles."""
-    tiles = -(-C // SLOTS)
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * KV)))
-    per = -(-tiles // min(want, tiles))
-    chunk = per * SLOTS
-    return -(-C // chunk), chunk
 
 
 def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -113,25 +278,39 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError(f"decode_attention: head_dim {D} not in {HEAD_DIMS}")
     if kc.numel() >= 2 ** 31:
         raise ValueError("decode_attention: a cache of 2**31 elements or more")
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, chunk = splits(B, C, KV, n_sm)
     G = H // KV
-    ws = torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
-                     device=q.device)
-    qq, kk, vv = q.contiguous(), kc.contiguous(), vc.contiguous()
+    sched = _schedule(q.dtype, D)
     pp = pos.to(torch.int32).contiguous()
     qp = qpos.to(torch.int32).contiguous()
-    out = torch.empty_like(qq)
-    _build.call("decode_attention", _build.DTYPE_CODES[q.dtype],
-                _build.ptr(qq), _build.ptr(kk), _build.ptr(vv), _build.ptr(pp),
-                _build.ptr(qp), _build.ptr(out), _build.ptr(ws), B, C, H, KV,
-                D, int(window or 0), float(softcap or 0.0), nsplit, chunk,
-                _build.stream())
+    if sched == "simt":
+        nsplit, chunk = _simt_splits(B, C, KV, _n_sm(q.device))
+        ws = torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
+                         device=q.device)
+        qq, kk, vv = q.contiguous(), kc.contiguous(), vc.contiguous()
+        out = torch.empty_like(qq)
+        _build.call("decode_attention", _build.DTYPE_CODES[q.dtype],
+                    _build.ptr(qq), _build.ptr(kk), _build.ptr(vv),
+                    _build.ptr(pp), _build.ptr(qp), _build.ptr(out),
+                    _build.ptr(ws), B, C, H, KV, D, int(window or 0),
+                    float(softcap or 0.0), nsplit, chunk, _build.stream())
+    else:
+        nsplit, chunk = splits(B, C, KV, G, D, q.dtype, _n_sm(q.device))
+        ws, tk = _workspace(q.device, B * KV * -(-G // ROWS), nsplit,
+                            min(G, ROWS), D)
+        qq, kk, vv = (_aligned(t) for t in (q, kc, vc))
+        out = torch.empty_like(qq)
+        _build.call(f"decode_attention_{sched}", _build.ptr(qq),
+                    _build.ptr(kk), _build.ptr(vv), _build.ptr(pp),
+                    _build.ptr(qp), _build.ptr(out), _build.ptr(ws),
+                    _build.ptr(tk), B, C, H, KV, D, int(window or 0),
+                    float(softcap or 0.0), nsplit, chunk, _build.stream())
     decode_attention.launches += 1
+    decode_attention.schedules[sched] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.schedules = dict.fromkeys(SCHEDULES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -151,20 +330,25 @@ decode_attention.launches = 0
 # (B = 8, ~520 live tokens a row, KV = 8, D = 64, bf16) that is ~17 MB
 # against ~4 operations per byte: the bytes bound it (~5 us at 3.35 TB/s).
 #
-# The design: the Pallas grid walks all nblk table entries of a row in
-# order into one VMEM accumulator per (row, KV head).  Here one block of
-# 128 threads serves the R = Sq * G query rows of one (row, KV head) over
-# one split of the row's live tokens, so that (splits x B x KV) blocks fill
-# the card; query rows beyond 64 (32 at head_dim 256) go to further blocks.  The walk stops at
-# the token max(qpos[b]) (the Pallas kernel visits every table entry and
-# never reads ``lens``; only fully masked rows, whose output the engine
-# discards, can differ).  Each block resolves its tile's 64 tokens through
-# the block table into pool offsets, stages K and V in shared memory as
-# fp32, and writes partial (m, l, acc) to an fp32 workspace; the combine
-# kernel of ``decode_attention`` merges the splits.
+# The schedules are decode_attention's (``_schedule``): ``mma`` (bf16) and
+# ``ffma`` (fp32) at head widths 64, 128 and 256 run the split-KV core of
+# ``csrc/decode_core.cuh`` with the pool's slot map: one block per (split,
+# KV head x 16 of the R = Sq * G query rows, batch row) over its share of
+# the row's live tokens, tokens lo .. max(qpos[b]) (with a window, none
+# older than the youngest row's window), cut inside the kernel, so the host
+# never reads ``lens``; the block loads the table entries that cover its
+# split into shared memory once, so each tile's pool offsets are known
+# before its loads go out; one launch a call.  ``simt``
+# (``csrc/paged_decode_attention.cu``'s first kernels) keeps head widths 16
+# and 32: 128 threads per (split, row tile of 64 rows (32 at D 256), batch
+# row), K/V staged as fp32, a second kernel combining the splits.  The
+# Pallas kernel visits every table entry and never reads ``lens``; only
+# fully masked rows (padding, qpos < 0), whose output the engine discards,
+# can differ: the Pallas kernel and the plain version give them the mean of
+# V, ``mma`` and ``ffma`` zeros, ``simt`` the mean of the tokens it read.
 
 def paged_rows(D: int) -> int:
-    """Query rows per block in the paged kernel (``rows_per_block`` of
+    """Query rows per block in the simt kernel (``rows_per_block`` of
     ``csrc/paged_decode_attention.cu``): 64, or 32 at head_dim 256, where
     64 rows of q and acc would not fit in shared memory beside the tile."""
     return 32 if D > 128 else 64
@@ -206,10 +390,42 @@ def paged_decode_attention_plain(q: torch.Tensor, kp: torch.Tensor,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def paged_splits(B: int, KV: int, n_row_tiles: int, capacity: int,
-                 n_sm: int) -> int:
-    """Splits of a row's live tokens: enough that the blocks fill the card
-    (about four per SM), at most one per 64-token tile of the capacity."""
+def _table_entries(nblk: int, bs: int) -> int:
+    """Table entries a block of the mma or ffma schedule loads: the whole
+    row up to :data:`TABLE_WHOLE` entries (at once with the query
+    positions), else the slice that covers one split."""
+    return nblk if nblk <= TABLE_WHOLE else min(nblk, MAX_CHUNK // bs + 2)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_splits(B: int, KV: int, R: int, nblk: int, bs: int, D: int,
+                 dtype: torch.dtype, n_sm: int) -> int:
+    """The most splits of a row's live tokens for the mma and ffma
+    schedules, a pure function of the shapes: the kernel cuts the live
+    range it finds into at most this many splits, each at least
+    :func:`min_chunk` tokens and at least sqrt(live x :func:`_cfac`).  The
+    rules are :func:`splits`', with the capacity nblk x bs in place of the
+    cache: at most :data:`MAX_SPLITS`, none over :data:`MAX_CHUNK` tokens
+    even when every token is live, and as many as fill one wave of the
+    card, no more."""
+    elem = dtype.itemsize
+    n_rt, rows, cap = -(-R // ROWS), min(R, ROWS), nblk * bs
+    least = max(min_chunk(rows, D, elem), combine_chunk(cap, rows, D, elem))
+    fit = _fit(dtype, D, _table_entries(nblk, bs) + R)   # Sq <= R
+    want = max(1, fit * n_sm // (B * KV * n_rt))
+    n = max(1, min(want, -(-cap // least), MAX_SPLITS))
+    n = max(n, -(-cap // MAX_CHUNK))
+    if n > MAX_SPLITS:
+        raise ValueError(f"paged_decode_attention: a capacity of {cap} "
+                         f"tokens needs more than {MAX_SPLITS} splits")
+    return n
+
+
+def _simt_paged_splits(B: int, KV: int, n_row_tiles: int, capacity: int,
+                       n_sm: int) -> int:
+    """Splits of a row's live tokens in the simt kernels: enough that the
+    blocks fill the card (about four per SM), at most one per 64-token tile
+    of the capacity."""
     want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * KV * n_row_tiles)))
     return max(1, min(want, -(-capacity // SLOTS)))
 
@@ -263,25 +479,47 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
     nblk = bt.shape[1]
     G = H // KV
     R = Sq * G
-    n_rt = -(-R // paged_rows(D))
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = paged_splits(B, KV, n_rt, nblk * bs, n_sm)
-    ws = torch.empty(B * KV * nsplit * R * (D + 2), dtype=torch.float32,
-                     device=q.device)
-    qq = q.contiguous()
+    sched = _schedule(q.dtype, D)
     bb = bt.to(torch.int32).contiguous()
     pp = qp.to(torch.int32).contiguous()
-    out = torch.empty_like(qq)
-    _build.call("paged_decode_attention", _build.DTYPE_CODES[q.dtype],
-                _build.ptr(qq), _build.ptr(kp), _build.ptr(vp), _build.ptr(bb),
-                _build.ptr(pp), _build.ptr(out), _build.ptr(ws), B, Sq, H, KV,
-                D, NB, bs, nblk, int(window or 0), float(softcap or 0.0),
-                nsplit, _build.stream())
+    window, softcap = int(window or 0), float(softcap or 0.0)
+    if sched == "simt":
+        n_rt = -(-R // paged_rows(D))
+        nsplit = _simt_paged_splits(B, KV, n_rt, nblk * bs, _n_sm(q.device))
+        ws = torch.empty(B * KV * nsplit * R * (D + 2), dtype=torch.float32,
+                         device=q.device)
+        qq = q.contiguous()
+        out = torch.empty_like(qq)
+        _build.call("paged_decode_attention", _build.DTYPE_CODES[q.dtype],
+                    _build.ptr(qq), _build.ptr(kp), _build.ptr(vp),
+                    _build.ptr(bb), _build.ptr(pp), _build.ptr(out),
+                    _build.ptr(ws), B, Sq, H, KV, D, NB, bs, nblk, window,
+                    softcap, nsplit, _build.stream())
+    else:
+        if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+            raise ValueError("paged_decode_attention: the pools must start "
+                             "at 16-byte aligned addresses")
+        elem, rows = q.element_size(), min(R, ROWS)
+        nsplit = paged_splits(B, KV, R, nblk, bs, D, q.dtype,
+                              _n_sm(q.device))
+        ws, tk = _workspace(q.device, B * KV * -(-R // ROWS), nsplit, rows,
+                            D)
+        qq = _aligned(q)
+        out = torch.empty_like(qq)
+        _build.call(f"paged_decode_attention_{sched}", _build.ptr(qq),
+                    _build.ptr(kp), _build.ptr(vp), _build.ptr(bb),
+                    _build.ptr(pp), _build.ptr(out), _build.ptr(ws),
+                    _build.ptr(tk), B, Sq, H, KV, D, NB, bs, nblk, window,
+                    softcap, nsplit, min_chunk(rows, D, elem),
+                    _cfac(rows, D, elem), _table_entries(nblk, bs) + Sq,
+                    _build.stream())
     paged_decode_attention.launches += 1
+    paged_decode_attention.schedules[sched] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.schedules = dict.fromkeys(SCHEDULES, 0)
 
 
 # ---------------------------------------------------------------------------

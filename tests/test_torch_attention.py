@@ -203,14 +203,17 @@ def test_decode_plain_softcap_matches_ref():
 
 
 @pytest.mark.parametrize("B,C,KV,n_sm,want", [
-    (8, 1024, 8, 132, (8, 128)),      # the LM decode cell: 512 blocks
-    (1, 100, 1, 132, (2, 64)),        # never more splits than tiles
+    (8, 1024, 8, 132, (6, 176)),      # the LM decode cell: one wave, 384
+    (1, 100, 1, 132, (4, 32)),        # a split holds at least min_chunk
     (64, 64, 8, 132, (1, 64)),        # enough (b, kv) pairs already
+    (64, 4096, 8, 132, (2, 2048)),    # no split over MAX_CHUNK slots
 ])
 def test_decode_splits_cover_the_cache(B, C, KV, n_sm, want):
-    nsplit, chunk = tdec.splits(B, C, KV, n_sm)
+    """The mma schedule's split of the rolling cache at llama3.2-1b's heads
+    (G 4, D 64, bf16)."""
+    nsplit, chunk = tdec.splits(B, C, KV, 4, 64, torch.bfloat16, n_sm)
     assert (nsplit, chunk) == want
-    assert chunk % tdec.SLOTS == 0 and (nsplit - 1) * chunk < C <= \
+    assert chunk % tdec.TILE == 0 and (nsplit - 1) * chunk < C <= \
         nsplit * chunk
 
 

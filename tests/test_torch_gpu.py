@@ -604,6 +604,179 @@ def test_decode_attention_kernel(card, name, dt):
     assert _rel(y, p) < TOL[dt]
 
 
+# the mma (bf16) and ffma (fp32) schedules of csrc/decode_core.cuh: the
+# main path's heads at head widths 64, 128 and 256
+CORE_HEADS = {64: (32, 8), 128: (20, 20), 256: (10, 1)}
+CORE_SCHED = {"bf16": "mma", "fp32": "ffma"}
+
+
+def _one_kernel(fn):
+    """The CUDA kernels one call of ``fn`` launches (after a warm-up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _rolling(g, B, C, H, KV, D, dt, qpos, wrap=False, dead_ends=0):
+    q = _randn(g, B, 1, H, D, dt=dt)
+    kc, vc = _randn(g, B, C, KV, D, dt=dt), _randn(g, B, C, KV, D, dt=dt)
+    ar = torch.arange(C, device="cuda", dtype=torch.int32)
+    lo = max(0, qpos - C + 1) if wrap else 0
+    slot = lo + (ar - lo) % C
+    pos = torch.where(slot <= qpos, slot, torch.full_like(ar, -1))
+    if dead_ends:
+        pos[:dead_ends] = -1
+        pos[C - dead_ends:] = -1
+    qp = torch.full((B, 1), qpos, dtype=torch.int32, device="cuda")
+    return q, kc, vc, pos.expand(B, C).contiguous(), qp
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", ["window_softcap", "wrapped",
+                                  "empty_ends"])
+def test_decode_attention_core_schedules(card, case, D, dt):
+    """mma and ffma against the plain version: a window that cuts and a
+    softcap, a wrapped rolling cache, empty tiles at both ends; each call
+    one launch on its schedule, bits that repeat."""
+    H, KV = CORE_HEADS[D]
+    args = {"window_softcap": (2, 300, 150, False, 0),
+            "wrapped": (1, 512, 700, True, 0),
+            "empty_ends": (3, 256, 400, True, 40)}[case]
+    B, C, qpos, wrap, ends = args
+    q, kc, vc, pos, qp = _rolling(card, B, C, H, KV, D, DTYPES[dt], qpos,
+                                  wrap, ends)
+    kw = dict(window=64, softcap=30.0) if case == "window_softcap" \
+        else dict(window=None, softcap=None)
+    s0 = dict(kd.decode_attention.schedules)
+    n0 = kd.decode_attention.launches
+    y = kd.decode_attention(q, kc, vc, pos, qp, **kw)
+    y2 = kd.decode_attention(q, kc, vc, pos, qp, **kw)
+    torch.cuda.synchronize()
+    assert kd.decode_attention.launches == n0 + 2
+    assert {k: v - s0[k] for k, v in kd.decode_attention.schedules.items()
+            } == {"mma": 0, "ffma": 0, "simt": 0, CORE_SCHED[dt]: 2}
+    assert torch.equal(y, y2)
+    p = kd.decode_attention_plain(q, kc, vc, pos, qp, **kw)
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert torch.isfinite(y.float()).all() and _rel(y, p) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_decode_attention_core_one_launch_and_empty_rows(card, dt):
+    """A call of the core is one kernel, with several splits (the last
+    block combines them); a row with no valid slot gets zeros (the plain
+    version gives the mean of V there; the main path has no such row)."""
+    q, kc, vc, pos, qp = _rolling(card, 8, 1024, 10, 1, 256, DTYPES[dt],
+                                  542)
+    nsplit, _ = kd.splits(8, 1024, 1, 10, 256, DTYPES[dt],
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    assert nsplit > 1
+    names = _one_kernel(lambda: kd.decode_attention(q, kc, vc, pos, qp))
+    assert len(names) == 1 and "decode_core_kernel" in names[0]
+    pos[3] = -1
+    y = kd.decode_attention(q, kc, vc, pos, qp)
+    p = kd.decode_attention_plain(q, kc, vc, pos, qp)
+    torch.cuda.synchronize()
+    assert (y[3] == 0).all()
+    keep = torch.arange(8, device="cuda") != 3
+    assert _rel(y[keep], p[keep]) < TOL[dt]
+
+
+def _core_paged_inputs(g, bs, sq, D, dt, pad=True):
+    H, KV = CORE_HEADS[D]
+    B = 3
+    nblk = 1024 // bs
+    NB = 1 + B * nblk
+    q = _randn(g, B, sq, H, D, dt=dt)
+    kp, vp = _randn(g, NB, bs, KV, D, dt=dt), _randn(g, NB, bs, KV, D, dt=dt)
+    perm = torch.randperm(B * nblk, generator=g, device="cuda")
+    bt = (1 + perm.reshape(B, nblk)).to(torch.int32)
+    lens = torch.tensor([5, 300, 1000 - sq], dtype=torch.int32, device="cuda")
+    qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                        device="cuda")[None]
+    if sq > 1 and pad:
+        qpos[0, sq // 2:] = -1                          # padding rows
+    return q, kp, vp, bt, lens, qpos
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("bs,sq", [(8, 1), (16, 1), (8, 5), (16, 5)])
+def test_paged_decode_attention_core_schedules(card, bs, sq, D, dt):
+    """mma and ffma over the pool against the plain version: blocks of 8
+    and 16, a decode tick and a five-query row with padding rows (qpos <
+    0, zeros from the core), a window on the five-query rows and a
+    softcap at bs 8; each call one launch on its schedule, bits that
+    repeat."""
+    q, kp, vp, bt, lens, qpos = _core_paged_inputs(card, bs, sq, D,
+                                                   DTYPES[dt])
+    kw = dict(qpos=qpos if sq > 1 else None,
+              window=100 if sq > 1 else None,
+              softcap=30.0 if bs == 8 else None)
+    s0 = dict(kd.paged_decode_attention.schedules)
+    y = kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    y2 = kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert {k: v - s0[k] for k, v in
+            kd.paged_decode_attention.schedules.items()
+            } == {"mma": 0, "ffma": 0, "simt": 0, CORE_SCHED[dt]: 2}
+    assert torch.equal(y, y2)
+    p = kd.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    live = qpos >= 0
+    assert torch.isfinite(y[live].float()).all()
+    assert _rel(y[live], p[live]) < TOL[dt]
+    assert (y[~live] == 0).all()
+    names = _one_kernel(
+        lambda: kd.paged_decode_attention(q, kp, vp, bt, lens, **kw))
+    assert len(names) == 1 and "decode_core_kernel" in names[0]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("sq", [1, 5])
+def test_paged_decode_attention_core_table_slices(card, dt, sq):
+    """Rows of more than TABLE_WHOLE blocks: each block loads the slice of
+    the table that covers its split (a second round trip) in place of the
+    whole row."""
+    B, H, KV, D, bs, nblk = 2, 8, 2, 64, 4, 1100
+    assert kd._table_entries(nblk, bs) < nblk
+    q = _randn(card, B, sq, H, D, dt=DTYPES[dt])
+    kp = _randn(card, 1 + B * nblk, bs, KV, D, dt=DTYPES[dt])
+    vp = _randn(card, 1 + B * nblk, bs, KV, D, dt=DTYPES[dt])
+    perm = torch.randperm(B * nblk, generator=card, device="cuda")
+    bt = (1 + perm.reshape(B, nblk)).to(torch.int32)
+    lens = torch.tensor([3000, 4390 - sq], dtype=torch.int32, device="cuda")
+    qpos = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                        device="cuda")[None]
+    kw = dict(qpos=qpos if sq > 1 else None, window=1000)
+    s0 = kd.paged_decode_attention.schedules[CORE_SCHED[dt]]
+    y = kd.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert kd.paged_decode_attention.schedules[CORE_SCHED[dt]] == s0 + 1
+    p = kd.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    assert torch.isfinite(y.float()).all() and _rel(y, p) < TOL[dt]
+
+
+def test_decode_core_shared_bytes(card):
+    """The kernel's shared bytes per schedule and width are those the
+    wrapper's mirror states (``_core_smem``, the basis of the one-wave
+    split rule)."""
+    from repro_torch.kernels import _build
+    lib = _build.LIBRARY.get()
+    for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for D in kd.TILED_HEAD_DIMS:
+            for extra in (0, 81, 2048):
+                assert lib.decode_core_smem(code, D, extra) == \
+                    kd._core_smem(dt, D, extra)
+    assert lib.decode_core_smem(1, 32, 0) == -1
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     x = _randn(card, 1, 8, 8, 4)
     with pytest.raises(TypeError):
@@ -791,11 +964,22 @@ def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
     torch.cuda.synchronize()
     assert {k: v - f0[k] for k, v in ka.flash_attention.schedules.items()
             } == {"wgmma": 0, "ffma": 1, "simt": 1}
+    d0 = dict(kd.decode_attention.schedules)
+    p0 = dict(kd.paged_decode_attention.schedules)
     kv = _randn(card, 1, 16, 2, 32)
     pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
     kd.decode_attention(q[:, :1], kv, kv, pos, pos[:, 3:4])
+    kv64 = _randn(card, 1, 16, 2, 64, dt=torch.bfloat16)
+    kd.decode_attention(_randn(card, 1, 1, 4, 64, dt=torch.bfloat16), kv64,
+                        kv64, pos, pos[:, 3:4])
     pq, kp, vp, bt, lens, qpos = _paged_inputs(card, 16, 5, torch.float32)
     kd.paged_decode_attention(pq, kp, vp, bt, lens, qpos=qpos)
+    torch.cuda.synchronize()
+    assert {k: v - d0[k] for k, v in kd.decode_attention.schedules.items()
+            } == {"mma": 1, "ffma": 0, "simt": 1}
+    assert {k: v - p0[k] for k, v in
+            kd.paged_decode_attention.schedules.items()
+            } == {"mma": 0, "ffma": 1, "simt": 0}
     kd.copy_block(kp, 1, 2)
     kd.copy_block((kp, vp), 1, 2)
     torch.cuda.synchronize()

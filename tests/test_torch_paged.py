@@ -230,10 +230,15 @@ def test_paged_wrapper_checks_its_operands():
 
 
 @pytest.mark.parametrize("B,KV,n_rt,cap,want", [
-    (8, 8, 1, 1024, 9),       # the serving decode tick: ~4 blocks per SM
-    (8, 8, 1, 64, 1),         # never more splits than 64-token tiles
-    (1, 1, 1, 4096, 64),
+    (8, 8, 1, 1024, 6),       # the serving decode tick: one wave, 384 blocks
+    (8, 8, 1, 64, 2),         # a split holds at least min_chunk tokens
+    (1, 1, 1, 4096, 29),      # and at least sqrt(capacity x _cfac)
     (64, 8, 2, 1024, 1),      # enough (row, head, row-tile) blocks already
 ])
 def test_paged_splits(B, KV, n_rt, cap, want):
-    assert tdec.paged_splits(B, KV, n_rt, cap, 132) == want
+    """The mma schedule's most splits at llama3.2-1b's heads (G 4, D 64,
+    bf16, blocks of 16): one row tile is a decode tick (4 query rows), two
+    a five-query verify row (20)."""
+    R = 4 if n_rt == 1 else 20
+    assert tdec.paged_splits(B, KV, R, cap // 16, 16, 64, torch.bfloat16,
+                             132) == want
