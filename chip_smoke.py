@@ -9,15 +9,20 @@ Phases, each raising on failure:
    ``nvcc`` for ``sm_90a`` (wall time printed as set-up);
 3. kernels — every distinct ResNet-34 conv at batch 8 and 224 px, and the
    FC head, in bf16 (the opt flow) and fp32 (the base flow), plus four fp32
-   convs with the BN fold and ReLU (one a shape class, in no forward): each
-   records the schedule it took (conv2d_fused: ``wgmma`` in bf16, ``ffma``
-   in fp32, ``simt`` for the stem), is held against its plain PyTorch
+   convs with the BN fold and ReLU (one a shape class, in no forward), and
+   MobileNetV1's first conv (both dtypes) and its 32-channel pointwise
+   conv (bf16): each records the schedule it took (conv2d_fused: ``wgmma``
+   in bf16, ``ffma`` in fp32, ``small_ci`` for the stem and MobileNetV1's
+   first conv, ``simt`` for the pointwise conv), is held against its plain
+   PyTorch
    version (relerr < 2e-2 in bf16, < 1e-5 in fp32) beside the old SIMT
    kernel at the same shape (held to it too), and is timed beside them, the
    PyTorch library call for the same function (for the convs one cuDNN
    conv on a pre-padded input, and the chain of pad, conv and the BN/ReLU
    ops) and the card's bound for the work; the convs as CUDA-graph replays
-   and by events;
+   and by events.  The stem on ``small_ci`` must be no slower than cuDNN's
+   conv alone in both flows, MobileNetV1's first conv in bf16 no slower
+   than the SIMT kernel;
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
    heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
@@ -86,14 +91,13 @@ Phases, each raising on failure:
    TTFT and latency percentiles, ms per tick, host syncs per token, pool
    bytes, and the device-busy share of one profiled run;
 9. recurrent kernels — at full-width recurrentgemma-2b shapes, in bf16 and
-   fp32: ``lru_scan`` at (8, 512, 2560) (by CUDA graph and by events),
-   ``flash_attention`` with 10 heads
+   fp32: ``flash_attention`` with 10 heads
    over 1 KV head of 256 and the 2048-token window at 8 x 512 tokens and at
    one row of 2080 (the window cuts), ``decode_attention`` over the
    1024-slot and the wrapped 2048-slot cache, ``paged_decode_attention`` at
    workload R's shape (both beside their SIMT kernels); each held against
-   its plain version and timed beside it, the library yardstick (none for
-   the scan) and the bound;
+   its plain version and timed beside it, the library yardstick and the
+   bound;
 10. recurrent path — full-width recurrentgemma-2b (26 layers, random
    weights from seed 0), bf16 then fp32: ``generate`` of 32 tokens after a
    512-token prompt a row (``ShapeConfig("serve", "decode", 1024, 8)``) with
@@ -109,17 +113,29 @@ Phases, each raising on failure:
    bf16 logits against the reference backend, fp32 tokens identical to it,
    the refusals of a padded prompt, the prefix cache, chunked prefill and
    speculation, and the serving metrics with the pool's and the dense
-   state's bytes and the device-busy share of one profiled run.
+   state's bytes and the device-busy share of one profiled run.  Every
+   run's lru_scan launches are on ``chunked``, and their shapes recorded;
+11. lru_scan — at every (B, S, W) shape phase 10 launched it at (fp32, as
+   ``op_rg_lru`` hands it: the 8 x 512 prefill, the window run's one row of
+   2080, workload R's prefill batches of 256-token prompts) and at the 8 x
+   512 prefill in bf16 (a kernel case): the ``chunked`` schedule by CUDA
+   graph (through the wrapper, and launched directly into one buffer) and
+   by events, held against its plain version, beside the
+   sequential kernel it replaced (by graph, held to the plain version too)
+   and the bound (no PyTorch call computes a linear recurrence); at each
+   path shape the chunked kernel must be no slower than the sequential
+   one.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9 and 10 come last. Every path phase also reads matmul_fused's launches by
+9, 10 and 11 come last. Every path phase also reads matmul_fused's launches by
 schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
 shapes say; the base variant never (no op-layer caller passes
 ``vmem_accum=False``); and conv2d_fused's: ResNet-34 35 on ``wgmma`` (opt
-and folded) or ``ffma`` (base) and the stem on ``simt``, MobileNetV1 12 on
-``wgmma`` and 2 on ``simt``, LeNet-5 2 on ``simt``.
+and folded) or ``ffma`` (base) and the stem on ``small_ci``, MobileNetV1 12
+on ``wgmma``, its first conv on ``small_ci`` and its 32-channel pointwise
+conv on ``simt``, LeNet-5 2 on ``small_ci``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
 window run and workload R), in fp32 all on ``ffma``, none on ``simt``; and
@@ -189,6 +205,11 @@ RESNET_CONVS = [
     ("1x1s2_256to512", 14, 256, 512, 1, 2, 1, None),
 ]
 FC = (512, 1000)
+# MobileNetV1 at 224 px (configs/mobilenetv1.py), BN + ReLU as the opt
+# flow runs them: its first conv (3x3, stride 2, CI 3 -> 32; small_ci), in
+# both dtypes, and its 32 -> 64 pointwise conv at 112 px (simt in bf16)
+MBV1_FIRST = ("mbv1_first3x3s2", 224, 3, 32, 3, 2, 1, "relu")
+MBV1_PW32 = ("mbv1_pw1x1_32to64", 112, 32, 64, 1, 1, 1, "relu")
 
 
 def log(msg: str) -> None:
@@ -211,11 +232,13 @@ def counters():
 
 def reset_counts() -> None:
     """Every launch count to 0: the seven wrappers', matmul_fused's,
-    conv2d_fused's, flash_attention's, decode_attention's and
-    paged_decode_attention's splits by schedule and the base variant's."""
+    conv2d_fused's, flash_attention's, decode_attention's,
+    paged_decode_attention's and lru_scan's splits by schedule, lru_scan's
+    by shape and the base variant's."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import lru_scan as kl
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
     for fn in counters().values():
@@ -223,6 +246,8 @@ def reset_counts() -> None:
     km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
     kc.conv2d_fused.schedule_launches = dict.fromkeys(kc.SCHEDULES, 0)
     km.matmul_fused.base_launches = 0
+    kl.lru_scan.schedules = dict.fromkeys(kl.SCHEDULES, 0)
+    kl.lru_scan.shapes = {}
     ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
     kd.decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
     kd.paged_decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
@@ -239,13 +264,16 @@ def read_counts():
 
 def read_schedules(kernel="matmul_fused"):
     """matmul_fused's (or flash_attention's, conv2d_fused's,
-    decode_attention's or paged_decode_attention's) launches since the last
-    reset, by schedule."""
+    decode_attention's, paged_decode_attention's or lru_scan's) launches
+    since the last reset, by schedule."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import lru_scan as kl
     from repro_torch.kernels import matmul_fused as km
     torch.cuda.synchronize()
+    if kernel == "lru_scan":
+        return dict(kl.lru_scan.schedules)
     if kernel == "flash_attention":
         return dict(ka.flash_attention.schedules)
     if kernel in ("decode_attention", "paged_decode_attention"):
@@ -296,6 +324,15 @@ def _lm_scheduled(prefill, decode, prec, what):
     ``decode`` on its small-M one, none on simt or the other precision's."""
     big, small = LM_SCHEDULES[prec]
     return _scheduled({big: prefill, small: decode}, what)
+
+
+def _lru_scheduled(n, what):
+    """All ``n`` lru_scan launches on the chunked schedule, and lru_scan's
+    launches by (B, S, W, dtype) since the last reset, as
+    [[B, S, W, dtype, launches], ...]."""
+    from repro_torch.kernels import lru_scan as kl
+    _scheduled({"chunked": n}, what, "lru_scan")
+    return [[*k, v] for k, v in sorted(kl.lru_scan.shapes.items())]
 
 
 def _aligned_only(total, prec, what):
@@ -605,7 +642,31 @@ def phase_kernels():
             c = _conv_case(spec, torch.float32, gen, epilogue=True)
             cases["conv2d_fused"].append(c)
             log(json.dumps({"kernel": "conv2d_fused", **c}))
+    for spec, dt in ((MBV1_FIRST, torch.bfloat16), (MBV1_FIRST, torch.float32),
+                     (MBV1_PW32, torch.bfloat16)):
+        c = {**_conv_case(spec, dt, gen), "arch": "mobilenetv1"}
+        cases["conv2d_fused"].append(c)
+        log(json.dumps({"kernel": "conv2d_fused", **c}))
+    _stem_vs_cudnn(cases["conv2d_fused"])
     return cases
+
+
+def _stem_vs_cudnn(cases):
+    """The small_ci schedule at ResNet-34's stem, as the flows run it (bf16
+    with BN + ReLU, fp32 bare), must be no slower by graph device time than
+    cuDNN's conv alone, and MobileNetV1's first conv in bf16 no slower than
+    the SIMT kernel (each pair timed in this run)."""
+    for c in cases:
+        if c["uses"] == 0 or c["schedule"] != "small_ci":
+            continue
+        other = "simt_ms" if c.get("arch") == "mobilenetv1" else \
+            "library_conv_ms"
+        if c.get("arch") == "mobilenetv1" and c["dtype"] != "bfloat16":
+            continue
+        if c["ms"] > c[other]:
+            raise AssertionError(f"conv2d_fused[small_ci] {c['shape']} "
+                                 f"{c['dtype']}: {c['ms']:.4f} ms, slower "
+                                 f"than {other} {c[other]:.4f}")
 
 
 def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
@@ -1200,10 +1261,11 @@ def phase_path(smi):
     from repro_torch.configs.base import FlowConfig
     from repro_torch.kernels.registry import DISPATCH_REJECTIONS
     out = []
-    # ResNet-34's convs: the 7x7 stem (CI 3) on simt, the other 35 on
+    # ResNet-34's convs: the 7x7 stem (CI 3) on small_ci, the other 35 on
     # wgmma in bf16 and on ffma in fp32; the FC heads at batch 8 on small_m
     # in bf16, on ffma_small_m in fp32
-    bf16_conv, fp32_conv = {"wgmma": 35, "simt": 1}, {"ffma": 35, "simt": 1}
+    bf16_conv = {"wgmma": 35, "small_ci": 1}
+    fp32_conv = {"ffma": 35, "small_ci": 1}
     flows = [("opt", FlowConfig(mode="auto"), bf16_conv, {"small_m": 1}),
              ("base", FlowConfig().base(), fp32_conv, {"ffma_small_m": 1}),
              ("folded", FlowConfig(mode="folded"), bf16_conv,
@@ -1214,16 +1276,16 @@ def phase_path(smi):
         out.append(rec)
     if "4 folded: 3x1, 3x1, 5x1, 2x1" not in out[2]["units"]:
         raise AssertionError(f"folded flow units: {out[2]['units']}")
-    # LeNet-5: both convs (CI 1 and 6) on simt; 400 -> 120 on small_m; 120
-    # -> 84 and 84 -> 10 (N or K not a multiple of 8) on simt
-    out.append(_forward("lenet5", FlowConfig(mode="auto"), {"simt": 2}, 3,
-                        {"small_m": 1, "simt": 2}, smi, measure=False))
+    # LeNet-5: both convs (CI 1 and 6) on small_ci; 400 -> 120 on small_m;
+    # 120 -> 84 and 84 -> 10 (N or K not a multiple of 8) on simt
+    out.append(_forward("lenet5", FlowConfig(mode="auto"), {"small_ci": 2},
+                        3, {"small_m": 1, "simt": 2}, smi, measure=False))
     # MobileNetV1: the 12 pointwise convs from 64 channels up on wgmma, the
-    # first conv (CI 3) and the 32-channel pointwise conv on simt
+    # first conv (CI 3) on small_ci, the 32-channel pointwise conv on simt
     DISPATCH_REJECTIONS.clear()
     out.append(_forward("mobilenetv1", FlowConfig(mode="auto"),
-                        {"wgmma": 12, "simt": 2}, 1, {"small_m": 1}, smi,
-                        measure=False))
+                        {"wgmma": 12, "small_ci": 1, "simt": 1}, 1,
+                        {"small_m": 1}, smi, measure=False))
     dw = sum(n for (op, _), n in DISPATCH_REJECTIONS.items()
              if op == "conv2d")
     if dw != 13:
@@ -1847,37 +1909,113 @@ RG_PROMPT, RG_REQS = 256, 16
 RG_FILLED = [260 + 5 * b for b in range(8)]
 
 
-def _lru_case(dt, gen):
-    """lru_scan at recurrentgemma-2b's prefill: (8, 512, 2560), a in (0, 1)
-    as the RG-LRU gate gives it, by CUDA graph and by events (the plain
-    version by events).  No single PyTorch call computes a linear
-    recurrence, so there is no library time."""
+def _lru_case(shape, dt, gen):
+    """lru_scan at one (B, S, W) shape: a in (0, 1) as the RG-LRU gate gives
+    it, the kernel on its schedule by CUDA graph and by events, the
+    sequential kernel it replaced at the same shape (launched directly, no
+    wrapper counts it; held to the plain version too) by graph, the plain
+    version by events.  The wrapper allocates h every call, so its graph
+    replays write a fresh buffer each; ``direct_ms`` times the chunked
+    kernel launched directly into one buffer, as the sequential kernel is.
+    No single PyTorch call computes a linear recurrence, so there is no
+    library time."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import lru_scan as kl
+    Bn, S, W = shape
     dev = torch.device("cuda")
-    a = torch.rand(B, RG_S, RG_W, generator=gen, device=dev).to(dt)
-    b = torch.randn(B, RG_S, RG_W, generator=gen, device=dev).to(dt)
+    a = torch.rand(Bn, S, W, generator=gen, device=dev).to(dt)
+    b = torch.randn(Bn, S, W, generator=gen, device=dev).to(dt)
     flops = 2.0 * a.numel()                         # one FMA an element
     nbytes = 3.0 * a.numel() * a.element_size()     # read a, b; write h
+    hs = torch.empty_like(a)
+    steps = kl.scan_geometry(Bn, S, W, a.element_size(),
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count)[0]
+
     def kern():
         return kl.lru_scan(a, b)
+
+    def seq():
+        _build.call("lru_scan", _build.DTYPE_CODES[dt], a.data_ptr(),
+                    b.data_ptr(), hs.data_ptr(), Bn, S, W, _build.stream())
+        return hs
+
+    def direct():      # the chunked kernel into one buffer, as seq() is
+        _build.call("lru_scan_chunked", _build.DTYPE_CODES[dt],
+                    a.data_ptr(), b.data_ptr(), hs.data_ptr(), Bn, S, W,
+                    steps, _build.stream())
+        return hs
+    s0 = read_schedules("lru_scan")
     c = _timed_case(kern, lambda: kl.lru_scan_plain(a, b), None, dt, flops,
                     nbytes, iters=50)
-    # the kernel by CUDA graph too (its events time beside it)
-    c.update(shape=f"scan_B{B}_S{RG_S}_W{RG_W}", rows=B, event_ms=c["ms"],
-             ms=graph_ms(kern, 50), timer="cuda_graph")
+    sched = [k for k, v in read_schedules("lru_scan").items() if v != s0[k]]
+    p = kl.lru_scan_plain(a, b)
+    seq_err = relerr(seq(), p)
+    if seq_err >= TOL[dt]:
+        raise AssertionError(f"lru_scan {shape} {dt}: the sequential "
+                             f"kernel's relerr {seq_err}")
+    c.update(shape=f"scan_B{Bn}_S{S}_W{W}", rows=Bn, B=Bn, S=S, W=W,
+             schedule=sched[0], event_ms=c["ms"], ms=graph_ms(kern, 50),
+             timer="cuda_graph", seq_ms=graph_ms(seq, 50),
+             seq_relerr=seq_err,
+             seq_max_abs_err=(seq().float() - p.float()).abs().max().item(),
+             direct_ms=graph_ms(direct, 50), steps=steps)
+    if relerr(direct(), p) >= TOL[dt]:
+        raise AssertionError(f"lru_scan {shape} {dt}: the chunked kernel "
+                             "launched directly differs from the plain "
+                             "version")
     return c
+
+
+def _seq_twin(c):
+    """The sequential lru_scan kernel's record at a case's shape
+    (``lru_scan[seq]`` in the kernels line)."""
+    return {**c, "schedule": "seq", "ms": c["seq_ms"], "event_ms": None,
+            "relerr": c["seq_relerr"], "max_abs_err": c["seq_max_abs_err"]}
+
+
+def phase_lru_kernels(rg):
+    """Phase 11: lru_scan at every (B, S, W) shape the recurrent path
+    launched it at (fp32: ``op_rg_lru`` hands it fp32 ``a`` and ``b`` in
+    both model precisions), and at the 8 x 512 prefill in bf16 (a kernel
+    case no path runs).  At each path shape the chunked kernel must be no
+    slower by graph device time than the sequential one."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    seen = {}
+    for run in ("generate", "window", "serve"):
+        for prec in ("bf16", "fp32"):
+            for Bn, S, W, dt, n in rg[f"{run}_{prec}"]["lru_shapes"]:
+                key = (Bn, S, W, dt)
+                seen[key] = seen.get(key, 0) + n
+    if any(k[3] != "float32" for k in seen):
+        raise AssertionError(f"lru_scan path shapes {seen}: want fp32 only")
+    cases = []
+    for (Bn, S, W, dt), n in sorted(seen.items(), key=lambda kv: (
+            -kv[0][0] * kv[0][1], kv[0])):
+        c = {**_lru_case((Bn, S, W), torch.float32, gen), "path_launches": n}
+        if c["ms"] > c["seq_ms"]:
+            raise AssertionError(f"lru_scan {c['shape']}: chunked "
+                                 f"{c['ms']:.4f} ms, slower than the "
+                                 f"sequential kernel {c['seq_ms']:.4f}")
+        cases.append(c)
+        log(json.dumps({"kernel": "lru_scan", "arch": RG_ARCH, **c}))
+    c = {**_lru_case((B, RG_S, RG_W), torch.bfloat16, gen),
+         "path_launches": 0}
+    cases.append(c)
+    log(json.dumps({"kernel": "lru_scan", "arch": RG_ARCH, **c}))
+    return {"lru_scan": cases}
 
 
 def phase_rec_kernels():
     """Phase 9: the recurrent path's kernels at its shapes, bf16 and fp32."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    cases = {"lru_scan": [], "flash_attention": [], "decode_attention": [],
+    cases = {"flash_attention": [], "decode_attention": [],
              "paged_decode_attention": []}
     heads = dict(H=RG_H, KV=RG_KV, D=RG_D, window=RG_WINDOW)
     for dt in (torch.bfloat16, torch.float32):
         for kname, c in (
-                ("lru_scan", _lru_case(dt, gen)),
                 ("flash_attention",
                  _flash_case(dt, gen, S=RG_S, iters=10, **heads)),
                 ("flash_attention",
@@ -1975,12 +2113,13 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
                               f"{prec} generate")
     dsched = _decode_scheduled(launches["decode_attention"], prec,
                                f"{prec} generate")
+    lshapes = _lru_scheduled(launches["lru_scan"], f"{prec} generate")
     V = cm.cfg.vocab_size
     if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
     rec = {"launches": launches, "matmul_schedules": sched,
            "flash_schedules": fsched, "decode_schedules": dsched,
-           "tokens_row0": toks[0].tolist()}
+           "lru_shapes": lshapes, "tokens_row0": toks[0].tolist()}
     if prec == "fp32":
         tr, _ = ref.generate(params, batch, steps=steps)
         if not torch.equal(toks, tr):
@@ -2127,10 +2266,12 @@ def phase_rec_path(smi):
         p_sched = _decode_scheduled(want["paged_decode_attention"], prec,
                                     f"{prec} workload R",
                                     "paged_decode_attention")
+        l_shapes = _lru_scheduled(want["lru_scan"], f"{prec} workload R")
         runs[prec] = rep
         r = _serve_record(eng, rep)
         r.update(launches=s_launch, matmul_schedules=s_sched,
                  flash_schedules=f_sched, paged_schedules=p_sched,
+                 lru_shapes=l_shapes,
                  dense_state_bytes=eng.last_cache.dense_bytes())
         rec[f"serve_{prec}"] = r
         log(json.dumps({"serving": "R", "arch": RG_ARCH, "precision": prec,
@@ -2188,7 +2329,7 @@ def phase_rec_path(smi):
 
 # kernels with schedules
 SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused", "decode_attention",
-         "paged_decode_attention")
+         "paged_decode_attention", "lru_scan")
 
 
 def _by_schedule(cases):
@@ -2220,13 +2361,13 @@ def _sched_launches(counts, schedules, flash=None, conv=None, decode=None,
 
 def rec_kernel_entries(cases, rg):
     """Each kernel at recurrentgemma-2b's shapes, summed over one generate
-    (a prefill of 8 x 512 tokens, then 31 decode steps: lru_scan, flash and
+    (a prefill of 8 x 512 tokens, then 31 decode steps: flash and
     matmul_fused's 4096-row cases at the prefill, decode_attention over the
     1024-slot cache and the 8-row matmuls at each step);
     paged_decode_attention one call at workload R's shape.  ``launches``
     counts the recurrent path's runs of that dtype (generate, window run,
-    workload R)."""
-    uses = {"lru_scan": RG_REC, "flash_attention": RG_ATTN,
+    workload R).  lru_scan has its own entries (:func:`lru_kernel_entries`)."""
+    uses = {"flash_attention": RG_ATTN,
             "decode_attention": RG_ATTN * (RG_STEPS - 1),
             "paged_decode_attention": 1}
     cases = _by_schedule(cases)
@@ -2258,6 +2399,44 @@ def rec_kernel_entries(cases, rg):
     return summed_entries(cases, launches, f"@{RG_ARCH}", per, use)
 
 
+def lru_kernel_entries(cases):
+    """lru_scan, one entry a schedule, shape and dtype: one call.
+    ``launches`` is the count at that shape over the recurrent path's runs
+    in both precisions (generate, window run, workload R: every path launch
+    is fp32); the sequential kernel (``lru_scan[seq]``) and the bf16 case
+    have none."""
+    out = []
+    for r in _by_schedule(cases).get("lru_scan[chunked]", []):
+        for kname in ("lru_scan[chunked]", "lru_scan[seq]"):
+            rows = [r if kname.endswith("[chunked]") else _seq_twin(r)]
+            out += summed_entries(
+                {kname: rows},
+                {r["dtype"]: {kname: r["path_launches"]
+                              if kname.endswith("[chunked]") else 0}},
+                f"@{RG_ARCH}:{r['shape']}",
+                lambda k, used: f"one call at {used[0][0]['shape']}",
+                lambda k, c: 1)
+    return out
+
+
+def mobilenet_kernel_entries(cases, path):
+    """conv2d_fused at MobileNetV1's first conv (small_ci, bf16 and fp32)
+    and its 32-channel pointwise conv (simt, bf16), one call each; the
+    launches are the MobileNetV1 forward's (bf16) by schedule."""
+    launches = {"bfloat16": {}, "float32": {}}
+    for r in path:
+        if r["arch"] == "mobilenetv1":
+            launches["bfloat16"].update(
+                {f"conv2d_fused[{k}]": v
+                 for k, v in r["conv_schedules"].items()})
+    return summed_entries(
+        _by_schedule({"conv2d_fused": [r for r in cases["conv2d_fused"]
+                                       if r.get("arch") == "mobilenetv1"]}),
+        launches, "@mobilenetv1",
+        lambda k, used: f"one call at {used[0][0]['shape']} (batch 8)",
+        lambda k, r: 1)
+
+
 def serving_kernel_entries(cases, serve):
     """Each serving kernel: one call at the serving shape (paged: a decode
     tick, Sq = 1, split by schedule), the launches of the serving main path
@@ -2286,7 +2465,8 @@ def kernel_entries(cases, path):
                     conv=r["conv_schedules"]).items():
                 d[k] = d.get(k, 0) + n
     return summed_entries(
-        _by_schedule(cases), launches, "",
+        _by_schedule({k: [r for r in v if r.get("arch") != "mobilenetv1"]
+                      for k, v in cases.items()}), launches, "",
         lambda k, used: "one ResNet-34 forward at batch 8, 224 px",
         lambda k, r: r["uses"])
 
@@ -2353,6 +2533,8 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
                             "src/repro/kernels/conv2d.py:64"),
     "conv2d_fused[ffma]": ("src/repro_torch/csrc/conv2d_fused.cu",
                            "src/repro/kernels/conv2d.py:64"),
+    "conv2d_fused[small_ci]": ("src/repro_torch/csrc/conv2d_small_ci.cu",
+                               "src/repro/kernels/conv2d.py:64"),
     "conv2d_fused[simt]": ("src/repro_torch/csrc/conv2d_fused.cu",
                            "src/repro/kernels/conv2d.py:64"),
     "matmul_fused[wgmma]": ("src/repro_torch/csrc/matmul_wgmma.cu",
@@ -2391,8 +2573,10 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
         "src/repro/kernels/decode_attention.py:189"),
     "copy_block": ("src/repro_torch/csrc/copy_block.cu",
                    "src/repro/kernels/decode_attention.py:158"),
-    "lru_scan": ("src/repro_torch/csrc/lru_scan.cu",
-                 "src/repro/kernels/lru_scan.py:33"),
+    "lru_scan[chunked]": ("src/repro_torch/csrc/lru_scan.cu",
+                          "src/repro/kernels/lru_scan.py:33"),
+    "lru_scan[seq]": ("src/repro_torch/csrc/lru_scan.cu",
+                      "src/repro/kernels/lru_scan.py:33"),
 }
 
 
@@ -2450,13 +2634,16 @@ def main() -> int:
     serve = phase_serving(smi)
     rec_cases = phase_rec_kernels()
     rg = phase_rec_path(smi)
+    lru_cases = phase_lru_kernels(rg)
     entries = kernel_entries(cases, path) + \
+        mobilenet_kernel_entries(cases, path) + \
         lm_kernel_entries(lm_cases, lm) + \
         qwen_kernel_entries({**lm_cases, "paged_decode_attention":
                              serve_cases["paged_decode_attention"]}) + \
         base_kernel_entries(base_cases, lm) + \
         serving_kernel_entries(serve_cases, serve) + \
-        rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg)
+        rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg) + \
+        lru_kernel_entries(lru_cases)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -2466,6 +2653,7 @@ def main() -> int:
                    "serving_kernels": serve_cases, "path": path,
                    "lm_path": lm, "serving": serve,
                    "rec_kernels": rec_cases, "rec_path": rg,
+                   "lru_kernels": lru_cases,
                    "entries": entries,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

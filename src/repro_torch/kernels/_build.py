@@ -41,6 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
+    "conv2d_small_ci": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "conv2d_wgmma": [_P] * 8 + [_I] * 15 + [_P],
     "conv2d_ffma": [_P] * 8 + [_I] * 15 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
@@ -64,6 +65,7 @@ SIGNATURES = {
     "decode_core_smem": [_I, _I, _I],
     "copy_block": [_P, _P] + [_I] * 5 + [_P],
     "lru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "lru_scan_chunked": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

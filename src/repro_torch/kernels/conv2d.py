@@ -1,5 +1,5 @@
 """conv2d_fused — direct 2-D convolution with the fused BN/activation
-epilogue, as hand-written CUDA kernels for Hopper: three schedules of the
+epilogue, as hand-written CUDA kernels for Hopper: four schedules of the
 same function.
 
 Replaces the Pallas kernel ``conv2d_fused`` of ``src/repro/kernels/conv2d.py``
@@ -15,9 +15,10 @@ padding is a predicate in the gather with XLA's low/high split, so the input
 is never padded in memory.  What bounds it on the H100: at ResNet-34's
 shapes a conv does 100-300 operations per byte it must move, near or above
 the card's bf16 ridge (about 295) and far above fp32's (about 20), so the
-FLOPs bound most layers.  ``chip_smoke.py`` states the bound of each shape.
-The wrapper picks the schedule with :func:`_schedule`, a pure function of
-the channels, the dtype and the pointers' alignment (a dispatch between
+FLOPs bound most layers; the bf16 stem (CI 3) is bound by its output
+bytes.  ``chip_smoke.py`` states the bound of each shape.  The wrapper
+picks the schedule with :func:`_schedule`, a pure function of the
+channels, the dtype, the taps and the pointers' alignment (a dispatch between
 hand-written kernels, not a fallback: a build or launch failure raises):
 
 - ``wgmma`` (``csrc/conv2d_wgmma.cu``): bf16 with CI a multiple of 64 and
@@ -31,10 +32,21 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   flow's ResNet-34 convs but the stem.  Full fp32 FMAs (no TF32), 128 x
   128 tiles of 8 x 8 a thread (128 x 64 when CO is 64), the im2col gather
   one float4 of channels a chunk through a 4-slot ``cp.async`` ring.
-- ``simt`` (``csrc/conv2d_fused.cu`` ``conv2d_fused``): the rest — the 7x7
-  stem (CI 3), LeNet-5 (CI 1 and 6), MobileNetV1's first conv and its
-  32-channel pointwise conv in bf16, unaligned views.  64 x 64 output tiles
-  of a 256-thread block, 16-deep K steps staged as fp32, fp32 FMAs.
+- ``small_ci`` (``csrc/conv2d_small_ci.cu``): convs with few input
+  channels (CI < 8, K = kh kw CI <= 256, the tile's halo within
+  :data:`SMALL_CI_HALO_MAX` elements; fp32 with CI a multiple of 4 stays on
+  ``ffma``) — ResNet-34's 7x7 stride-2 stem, MobileNetV1's first conv,
+  LeNet-5's two convs, in both dtypes, at any alignment.  A block walks 8 x
+  16-pixel output tiles by 64 channels (a persistent grid); a tile's input
+  halo (:func:`small_ci_halo`) comes into shared memory once and the
+  product gathers from it through the K map (:func:`small_ci_kmap`), so the
+  inner loop has no division and reads no pixel from memory twice.  bf16
+  runs ``mma.sync`` m16n8k16 (8 warps, one output row of 16 pixels each),
+  fp32 full FP32 FMAs (8 x 8 outputs a thread).
+- ``simt`` (``csrc/conv2d_fused.cu`` ``conv2d_fused``): the rest —
+  MobileNetV1's 32-channel pointwise conv in bf16, unaligned views of 8 or
+  more channels.  64 x 64 output tiles of a 256-thread block, 16-deep K
+  steps staged as fp32, fp32 FMAs.
 
 Both new schedules split K when their grid is under half a wave
 (:func:`_conv_split`: ResNet-34's 28 x 28, 14 x 14 and 7 x 7 layers at batch
@@ -61,19 +73,53 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul_fused import _sm_count, _wave_split
 
-SCHEDULES = ("wgmma", "ffma", "simt")
+SCHEDULES = ("wgmma", "ffma", "small_ci", "simt")
 CONV_BM = 128                         # rows (output pixels) a block
+SMALL_CI_TILE = (8, 16)               # small_ci's output tile (rows, cols)
+SMALL_CI_HALO_MAX = 3072              # its halo's elements at most
+SMALL_CI_K_MAX = 256                  # its taps kh kw CI at most
 
 
-def _schedule(CI: int, CO: int, dtype: torch.dtype, aligned: bool) -> str:
+def small_ci_halo(kh: int, kw: int, CI: int, stride: int) -> Tuple[int, int,
+                                                                   int]:
+    """(rows, row elements, elements) of a ``small_ci`` tile's input halo:
+    the input pixels an 8 x 16-pixel output tile reads, ((8 - 1) s + kh)
+    rows of ((16 - 1) s + kw) pixels of CI channels (21 x 111 = 2331 at the
+    7x7 stride-2 stem)."""
+    th, tw = SMALL_CI_TILE
+    rows, cols = (th - 1) * stride + kh, (tw - 1) * stride + kw
+    return rows, cols * CI, rows * cols * CI
+
+
+def small_ci_kmap(kh: int, kw: int, CI: int, stride: int) -> list:
+    """The K map of ``small_ci``: for tap k = (dh, dw, ci) (HWIO order, as
+    w viewed as (K, CO)), its offset from an output pixel's corner in the
+    halo, ``dh * row + dw * CI + ci``.  Output pixel (r, c) of the tile
+    reads tap k at ``r * stride * row + c * stride * CI + kmap[k]``."""
+    row = small_ci_halo(kh, kw, CI, stride)[1]
+    return [dh * row + dw * CI + ci for dh in range(kh) for dw in range(kw)
+            for ci in range(CI)]
+
+
+def _schedule(CI: int, CO: int, dtype: torch.dtype, aligned: bool,
+              kernel: Optional[Tuple[int, int, int]] = None) -> str:
     """The kernel that runs a conv: ``wgmma`` for bf16 with CI a multiple
     of 64 (a 64-deep K stage is one tap) and CO of 8, ``ffma`` for fp32
     with CI and CO multiples of 4 (16-byte ``cp.async`` chunks), when x, w
-    and out are 16-byte aligned; ``simt`` for the rest."""
+    and out are 16-byte aligned; then ``small_ci`` for CI < 8 in either
+    dtype when ``kernel`` = (kh, kw, stride) is given, K = kh kw CI is at
+    most 256 and the tile's halo fits (any alignment); ``simt`` for the
+    rest."""
     if aligned and dtype == torch.bfloat16 and CI % 64 == 0 and CO % 8 == 0:
         return "wgmma"
     if aligned and dtype == torch.float32 and CI % 4 == 0 and CO % 4 == 0:
         return "ffma"
+    if kernel is not None and dtype in (torch.bfloat16, torch.float32) \
+            and CI < 8:
+        kh, kw, stride = kernel
+        if kh * kw * CI <= SMALL_CI_K_MAX and \
+                small_ci_halo(kh, kw, CI, stride)[2] <= SMALL_CI_HALO_MAX:
+            return "small_ci"
     return "simt"
 
 
@@ -173,11 +219,12 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     geom = (N, H, W, CI, CO, kh, kw, stride, pt, pl, ho, wo,
             _build.ACT_CODES[act])
     aligned = all(t.data_ptr() % 16 == 0 for t in (xc, wc, out))
-    sched = _schedule(CI, CO, dt, aligned)
-    if sched == "simt":
-        _build.call("conv2d_fused", _build.DTYPE_CODES[dt], _build.ptr(xc),
-                    _build.ptr(wc), *[_build.ptr(t) for t in bnc],
-                    _build.ptr(out), *geom, _build.stream())
+    sched = _schedule(CI, CO, dt, aligned, (kh, kw, stride))
+    if sched in ("simt", "small_ci"):
+        _build.call("conv2d_fused" if sched == "simt" else "conv2d_small_ci",
+                    _build.DTYPE_CODES[dt], _build.ptr(xc), _build.ptr(wc),
+                    *[_build.ptr(t) for t in bnc], _build.ptr(out), *geom,
+                    _build.stream())
     else:
         M = N * ho * wo
         nsplit, kc = _conv_split(M, kh * kw * CI, CO, _sm_count(x.device))

@@ -2,9 +2,9 @@
 
 ``_schedule`` and ``_conv_split`` are pure functions of the shapes: these
 tests pin the choice at every conv of the three CNNs the port runs
-(ResNet-34, MobileNetV1, LeNet-5, read from their graphs) in both dtypes,
-at the channel counts around the rules' edges, and the split at every
-distinct ResNet-34 conv at batch 8 and 224 px.  The schedules' kernels run
+(ResNet-34, MobileNetV1, LeNet-5, read from their graphs with their taps)
+in both dtypes, at the channel counts and taps around the rules' edges,
+and the split at every distinct ResNet-34 conv at batch 8 and 224 px.  The schedules' kernels run
 only on the card (``tests/test_torch_gpu.py``).
 """
 import pytest
@@ -20,25 +20,28 @@ SMS = 132
 
 
 def _convs(arch):
-    """(CI, CO) of every conv2d op in the model's graph (depthwise convs are
-    another op, which the registry sends to the reference op)."""
+    """(CI, CO, (kh, kw, stride)) of every conv2d op in the model's graph
+    (depthwise convs are another op, which the registry sends to the
+    reference op)."""
     out = []
     for blk in build_cnn_graph(get_config(arch)).blocks:
         for op in blk.ops:
             if op.op == "conv2d":
-                _, _, ci, co = op.params[0].shape
-                out.append((ci, co))
+                kh, kw, ci, co = op.params[0].shape
+                out.append((ci, co, (kh, kw, op.attrs.get("stride", 1))))
     return out
 
 
-# arch -> dtype -> launches by schedule of one forward: the 7x7 stem (CI 3)
-# stays on simt; LeNet-5's CI 1 and 6 too; MobileNetV1's first conv (CI 3)
-# and its 32-channel pointwise conv in bf16 (CI not a multiple of 64)
+# arch -> dtype -> launches by schedule of one forward, the wrapper giving
+# each conv's taps: the 7x7 stride-2 stem (CI 3), MobileNetV1's first conv
+# (CI 3) and LeNet-5's CI 1 and 6 on small_ci; MobileNetV1's 32-channel
+# pointwise conv in bf16 (CI not a multiple of 64, nor under 8) on simt
 WANT = {
-    "resnet34": {BF: {"wgmma": 35, "simt": 1}, F32: {"ffma": 35, "simt": 1}},
-    "mobilenetv1": {BF: {"wgmma": 12, "simt": 2},
-                    F32: {"ffma": 13, "simt": 1}},
-    "lenet5": {BF: {"simt": 2}, F32: {"simt": 2}},
+    "resnet34": {BF: {"wgmma": 35, "small_ci": 1},
+                 F32: {"ffma": 35, "small_ci": 1}},
+    "mobilenetv1": {BF: {"wgmma": 12, "small_ci": 1, "simt": 1},
+                    F32: {"ffma": 13, "small_ci": 1}},
+    "lenet5": {BF: {"small_ci": 2}, F32: {"small_ci": 2}},
 }
 
 
@@ -46,8 +49,8 @@ WANT = {
 @pytest.mark.parametrize("arch", sorted(WANT))
 def test_schedule_at_every_conv_of_the_cnns(arch, dt):
     got = {}
-    for ci, co in _convs(arch):
-        s = kc._schedule(ci, co, dt, True)
+    for ci, co, taps in _convs(arch):
+        s = kc._schedule(ci, co, dt, True, kernel=taps)
         got[s] = got.get(s, 0) + 1
     assert got == WANT[arch][dt]
 
@@ -73,6 +76,44 @@ EDGES = [
                               for a, _ in EDGES])
 def test_schedule_edges(args, want):
     assert kc._schedule(*args) == want
+
+
+# (CI, CO, dtype, aligned, (kh, kw, stride)) -> schedule around small_ci's
+# edges: CI 7 in, CI 8 out; fp32 with CI a multiple of 4 stays on ffma
+# (aligned), takes small_ci unaligned; K = 256 in (CI 1 at 16 x 16, CI 4 at
+# 8 x 8), 260 and 320 out; a halo of 3036 elements in, 3080 out (CI 1, 16 x
+# 9 and 16 x 10 taps at stride 4: 44 x 69 and 44 x 70 pixels); float16 out;
+# any alignment in
+TAP_EDGES = [
+    ((3, 64, BF, True, (7, 7, 2)), "small_ci"),
+    ((3, 64, F32, True, (7, 7, 2)), "small_ci"),
+    ((3, 32, BF, True, (3, 3, 2)), "small_ci"),
+    ((3, 64, BF, False, (7, 7, 2)), "small_ci"),
+    ((7, 16, BF, True, (3, 3, 1)), "small_ci"),
+    ((8, 16, BF, True, (3, 3, 1)), "simt"),
+    ((4, 16, F32, True, (5, 5, 2)), "ffma"),
+    ((4, 16, F32, False, (5, 5, 2)), "small_ci"),
+    ((6, 16, F32, True, (5, 5, 1)), "small_ci"),
+    ((1, 6, BF, True, (16, 16, 1)), "small_ci"),
+    ((1, 6, BF, True, (2, 130, 1)), "simt"),
+    ((4, 8, BF, True, (8, 8, 1)), "small_ci"),
+    ((5, 8, BF, True, (8, 8, 1)), "simt"),
+    ((1, 4, BF, True, (16, 9, 4)), "small_ci"),
+    ((1, 4, BF, True, (16, 10, 4)), "simt"),
+    ((3, 64, torch.float16, True, (7, 7, 2)), "simt"),
+    ((64, 64, BF, True, (3, 3, 1)), "wgmma"),
+    ((32, 64, BF, True, (1, 1, 1)), "simt"),
+]
+
+
+@pytest.mark.parametrize("args,want", TAP_EDGES,
+                         ids=[f"ci{a[0]}-co{a[1]}-{str(a[2])[6:]}"
+                              f"-k{a[4][0]}x{a[4][1]}s{a[4][2]}"
+                              f"{'' if a[3] else '-unaligned'}"
+                              for a, _ in TAP_EDGES])
+def test_schedule_edges_with_taps(args, want):
+    *head, taps = args
+    assert kc._schedule(*head, kernel=taps) == want
 
 
 # every distinct ResNet-34 conv at batch 8, 224 px: (name, M = 8 Ho Wo,

@@ -200,10 +200,11 @@ def test_conv2d_schedules_each_act(card, dt, act):
 
 
 def test_conv2d_simt_keeps_the_rest(card):
-    """The stem's CI 3 in both dtypes, CI 32 in bf16 and an unaligned fp32
-    view run on simt, each within its tolerance of the plain version."""
-    cases = [(3, 64, torch.bfloat16), (3, 64, torch.float32),
-             (32, 64, torch.bfloat16)]
+    """CI 32 and CI 12 in bf16, CI 10 in fp32 (CI neither under 8 nor a
+    multiple of the tensor-core or FFMA step) and an unaligned fp32 view of
+    CI 16 run on simt, each within its tolerance of the plain version."""
+    cases = [(32, 64, torch.bfloat16), (12, 64, torch.bfloat16),
+             (10, 64, torch.float32)]
     for CI, CO, dt in cases:
         x, w, bnp = _conv_inputs(card, 2, 16, 16, CI, CO, 3, True, dt)
         y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w, bn=bnp,
@@ -215,6 +216,72 @@ def test_conv2d_simt_keeps_the_rest(card):
     w = _randn(card, 3, 3, 16, 16)
     y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w))
     assert _rel(y, kc.conv2d_fused_plain(x, w)) < TOL["fp32"]
+
+
+# conv2d_fused's small_ci schedule: (N, H, W, CI, CO, k, stride, padding,
+# bn, act).  ResNet-34's stem at full size (fused as the opt flow runs it,
+# bare as the base flow does) and on a small image, odd sizes (SAME's odd
+# high row and column), VALID; MobileNetV1's first conv; LeNet-5's two
+# convs (CO 6 and 16: no 16-byte output rows); CI 5 with CO 100 (two
+# channel tiles, the second ragged); a ragged last tile row and column
+SMALL_CI = {
+    "stem_full": (8, 224, 224, 3, 64, 7, 2, "SAME", True, "relu"),
+    "stem_full_bare": (8, 224, 224, 3, 64, 7, 2, "SAME", False, None),
+    "stem_small": (2, 32, 32, 3, 64, 7, 2, "SAME", True, "relu"),
+    "stem_odd": (2, 33, 31, 3, 64, 7, 2, "SAME", True, "relu"),
+    "stem_valid": (2, 30, 29, 3, 64, 7, 2, "VALID", False, None),
+    "mbv1_first": (2, 224, 224, 3, 32, 3, 2, "SAME", True, "relu"),
+    "mbv1_odd_s1": (1, 19, 23, 3, 32, 3, 1, "SAME", True, "relu"),
+    "lenet_c1": (8, 32, 32, 1, 6, 5, 1, "VALID", True, "relu"),
+    "lenet_c3": (8, 14, 14, 6, 16, 5, 1, "VALID", True, "relu"),
+    "ci5_co100": (2, 20, 20, 5, 100, 3, 1, "SAME", True, None),
+}
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(SMALL_CI))
+def test_conv2d_small_ci_schedule(card, dt, name):
+    """Each small_ci case on its schedule, within its tolerance of the
+    plain version, finite, and the same bits twice."""
+    N, H, W, CI, CO, k, s, pad, bn, act = SMALL_CI[name]
+    x, w, bnp = _conv_inputs(card, N, H, W, CI, CO, k, bn, DTYPES[dt])
+
+    def run():
+        return kc.conv2d_fused(x, w, stride=s, padding=pad, bn=bnp, act=act)
+    y = _conv_ran("small_ci", run)
+    p = kc.conv2d_fused_plain(x, w, stride=s, padding=pad, bn=bnp, act=act)
+    assert y.dtype == DTYPES[dt] and y.shape == p.shape
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL[dt]
+    assert torch.equal(run(), y)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "relu2",
+                                 "sigmoid", "tanh"])
+def test_conv2d_small_ci_each_act(card, dt, act):
+    """The stem's geometry with the BN fold and each act, and without BN."""
+    for bn in (True, False):
+        x, w, bnp = _conv_inputs(card, 2, 40, 40, 3, 64, 7, bn, DTYPES[dt])
+        y = _conv_ran("small_ci", lambda: kc.conv2d_fused(
+            x, w, stride=2, bn=bnp, act=act))
+        p = kc.conv2d_fused_plain(x, w, stride=2, bn=bnp, act=act)
+        assert _rel(y, p) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_conv2d_small_ci_unaligned_views(card, dt):
+    """x at a one-element offset (2 bytes in bf16, 4 in fp32: no halo row
+    starts aligned), and w likewise: small_ci still takes them and
+    matches."""
+    d = DTYPES[dt]
+    n = 2 * 24 * 24 * 3
+    x = _randn(card, n + 1, dt=d)[1:].view(2, 24, 24, 3)
+    w = _randn(card, 7 * 7 * 3 * 64 + 1, dt=d)[1:].view(7, 7, 3, 64) * 0.1
+    wv = _randn(card, 7 * 7 * 3 * 64 + 1, dt=d)[1:].view(7, 7, 3, 64)
+    for ww in (w, wv):
+        y = _conv_ran("small_ci", lambda: kc.conv2d_fused(x, ww, stride=2))
+        assert _rel(y, kc.conv2d_fused_plain(x, ww, stride=2)) < TOL[dt]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -946,12 +1013,14 @@ def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
     kc.conv2d_fused(_randn(card, 1, 8, 8, 64, dt=torch.bfloat16),
                     _randn(card, 3, 3, 64, 8, dt=torch.bfloat16))
     kc.conv2d_fused(_randn(card, 1, 8, 8, 3), _randn(card, 3, 3, 3, 8))
+    kc.conv2d_fused(_randn(card, 1, 8, 8, 32, dt=torch.bfloat16),
+                    _randn(card, 3, 3, 32, 8, dt=torch.bfloat16))
     km.matmul_fused(_randn(card, 4, 16), _randn(card, 16, 8))
     km.matmul_fused(_randn(card, 100, 16), _randn(card, 16, 8))
     km.matmul_fused(_randn(card, 4, 10), _randn(card, 10, 8))
     torch.cuda.synchronize()
     assert {k: v - c0[k] for k, v in kc.conv2d_fused.schedule_launches.items()
-            } == {"wgmma": 1, "ffma": 1, "simt": 1}
+            } == {"wgmma": 1, "ffma": 1, "small_ci": 1, "simt": 1}
     assert {k: v - m0[k] for k, v in km.matmul_fused.schedule_launches.items()
             } == {"wgmma": 0, "small_m": 0, "ffma": 1, "ffma_small_m": 1,
                   "simt": 1}
@@ -1067,6 +1136,54 @@ def test_lru_scan_on_cuda_never_reaches_its_plain_version(card, monkeypatch):
         kl.lru_scan(a.half(), b.half())
     with pytest.raises(ValueError):                      # b on the host
         kl.lru_scan(a, b.cpu())
+
+
+# lru_scan's chunked schedule: the CPU model's edge shapes
+# (tests/test_torch_lru_chunked.py) and the hybrid's path shapes
+LRU_CHUNKED = {"s1": (2, 1, 32), "s5_under_a_chunk": (2, 5, 64),
+               "s37_ragged": (3, 37, 48), "b1_s100": (1, 100, 40),
+               "w40_partial_strip": (2, 70, 40), "window_cut": (1, 2080, 64),
+               "rg_prefill": (8, 512, 2560), "rg_window": (1, 2080, 2560),
+               "rg_serve_b8": (8, 256, 2560), "rg_serve_b1": (1, 256, 2560)}
+
+
+def _lru_ran(sched, fn):
+    """Run fn; assert that it made one lru_scan launch, on ``sched``."""
+    s0 = dict(kl.lru_scan.schedules)
+    y = fn()
+    torch.cuda.synchronize()
+    assert {k: v - s0[k] for k, v in kl.lru_scan.schedules.items()} == \
+        {k: int(k == sched) for k in kl.SCHEDULES}
+    return y
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(LRU_CHUNKED))
+def test_lru_scan_chunked_schedule(card, name, dt):
+    B, S, W = LRU_CHUNKED[name]
+    if DTYPES[dt] == torch.bfloat16 and W % 8:
+        W += 8 - W % 8                     # bf16 rows of whole 16 bytes
+    a, b = _lru_inputs(card, B, S, W, DTYPES[dt])
+    h = _lru_ran("chunked", lambda: kl.lru_scan(a, b))
+    p = kl.lru_scan_plain(a, b)
+    assert h.shape == p.shape and h.dtype == DTYPES[dt]
+    assert torch.isfinite(h.float()).all()
+    assert _rel(h, p) < TOL[dt]
+    assert torch.equal(kl.lru_scan(a, b), h)           # no float atomics
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_lru_scan_seq_keeps_the_rest(card, dt):
+    """Rows of 130 fp32 (520 bytes) or 100 bf16 (200 bytes) and an
+    unaligned view run on the sequential kernel and match."""
+    d = DTYPES[dt]
+    a, b = _lru_inputs(card, 2, 33, 130 if dt == "fp32" else 100, d)
+    h = _lru_ran("seq", lambda: kl.lru_scan(a, b))
+    assert _rel(h, kl.lru_scan_plain(a, b)) < TOL[dt]
+    a, b = _lru_inputs(card, 1, 40 * 64 + 1, 1, d)
+    av, bv = a.view(-1)[1:].view(1, 40, 64), b.view(-1)[1:].view(1, 40, 64)
+    h = _lru_ran("seq", lambda: kl.lru_scan(av, bv))
+    assert _rel(h, kl.lru_scan_plain(av, bv)) < TOL[dt]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
