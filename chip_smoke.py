@@ -9,20 +9,24 @@ Phases, each raising on failure:
    ``nvcc`` for ``sm_90a`` (wall time printed as set-up);
 3. kernels — every distinct ResNet-34 conv at batch 8 and 224 px, and the
    FC head, in bf16 (the opt flow) and fp32 (the base flow), plus four fp32
-   convs with the BN fold and ReLU (one a shape class, in no forward), and
+   convs with the BN fold and ReLU (one a shape class, in no forward),
    MobileNetV1's first conv (both dtypes) and its 32-channel pointwise
-   conv (bf16): each records the schedule it took (conv2d_fused: ``wgmma``
-   in bf16, ``ffma`` in fp32, ``small_ci`` for the stem and MobileNetV1's
-   first conv, ``simt`` for the pointwise conv), is held against its plain
-   PyTorch
-   version (relerr < 2e-2 in bf16, < 1e-5 in fp32) beside the old SIMT
-   kernel at the same shape (held to it too), and is timed beside them, the
-   PyTorch library call for the same function (for the convs one cuDNN
-   conv on a pre-padded input, and the chain of pad, conv and the BN/ReLU
-   ops) and the card's bound for the work; the convs as CUDA-graph replays
-   and by events.  The stem on ``small_ci`` must be no slower than cuDNN's
+   conv (bf16), and LeNet-5's two convs and its two FC layers that run on
+   ``simt`` (120 -> 84, 84 -> 10; bf16, as its forward runs them): each
+   records the schedule it took (conv2d_fused: ``wgmma`` in bf16, ``ffma``
+   in fp32, ``small_ci`` for the stem, MobileNetV1's first conv and
+   LeNet-5's convs, ``mid_ci`` for the pointwise conv), is held against its
+   plain PyTorch version (relerr < 2e-2 in bf16, < 1e-5 in fp32) beside
+   the old SIMT kernel at the same shape (held to it too), and is timed
+   beside them, the PyTorch library call for the same function (for the
+   convs one cuDNN conv on a pre-padded input, and the chain of pad, conv
+   and the BN/ReLU ops; for the FC layers ``torch.matmul`` + bias (+ ReLU))
+   and the card's bound for the work; the convs as CUDA-graph replays and
+   by events.  The stem on ``small_ci`` must be no slower than cuDNN's
    conv alone in both flows, MobileNetV1's first conv in bf16 no slower
-   than the SIMT kernel;
+   than the SIMT kernel, its pointwise conv on ``mid_ci`` no slower than
+   the SIMT kernel and within twice its bound (0.0116 ms); that conv is
+   also timed at batch 4, 8, 16 and 32 beside cuDNN's;
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
    heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
@@ -48,7 +52,11 @@ Phases, each raising on failure:
    fewer, rotate over enough weight copies to read them cold from HBM, as
    a decode step does.  Then the base variant (``vmem_accum=False``, tile
    (256, 512, 256)) at the ResNet-34 FC shape and at 4096 x 2048 x 2048,
-   against its plain version and its bound;
+   in bf16 and fp32: the schedule it took (the CW cores: ``small_m`` /
+   ``ffma_small_m`` at 8 rows, ``wgmma`` / ``ffma`` at 4096), against its
+   plain version, the same bits twice, timed beside the old SIMT base
+   kernel (which it must beat), the CW form at the same shape,
+   ``torch.matmul`` where that is the same function, and its bound;
 5. path — full-width ResNet-34 (224 px, batch 8, random weights from seed 0)
    through ``repro_torch.flow.compile`` in the opt, base and folded flows:
    the plan dispatches conv2d and matmul to ``cuda``, one forward launches
@@ -135,7 +143,7 @@ shapes say; the base variant never (no op-layer caller passes
 ``vmem_accum=False``); and conv2d_fused's: ResNet-34 35 on ``wgmma`` (opt
 and folded) or ``ffma`` (base) and the stem on ``small_ci``, MobileNetV1 12
 on ``wgmma``, its first conv on ``small_ci`` and its 32-channel pointwise
-conv on ``simt``, LeNet-5 2 on ``small_ci``.
+conv on ``mid_ci``, LeNet-5 2 on ``small_ci``; no conv on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
 window run and workload R), in fp32 all on ``ffma``, none on ``simt``; and
@@ -207,9 +215,17 @@ RESNET_CONVS = [
 FC = (512, 1000)
 # MobileNetV1 at 224 px (configs/mobilenetv1.py), BN + ReLU as the opt
 # flow runs them: its first conv (3x3, stride 2, CI 3 -> 32; small_ci), in
-# both dtypes, and its 32 -> 64 pointwise conv at 112 px (simt in bf16)
+# both dtypes, and its 32 -> 64 pointwise conv at 112 px (mid_ci in bf16)
 MBV1_FIRST = ("mbv1_first3x3s2", 224, 3, 32, 3, 2, 1, "relu")
 MBV1_PW32 = ("mbv1_pw1x1_32to64", 112, 32, 64, 1, 1, 1, "relu")
+PW_BATCHES = (4, 8, 16, 32)     # the pointwise conv's batch sweep
+# LeNet-5 at 32 px (configs/lenet5.py) as the opt flow runs it in bf16: its
+# two 5x5 VALID convs with the ReLU fused, no BN (small_ci), and the FC
+# layers that run on simt (N or K off the 8-grid): (name, K, N, act)
+LENET_CONVS = [("lenet_c1_5x5", 32, 1, 6, 5, 1, 1, "relu"),
+               ("lenet_c3_5x5", 14, 6, 16, 5, 1, 1, "relu")]
+LENET_FCS = [("lenet_f6_120to84", 120, 84, "relu"),
+             ("lenet_out_84to10", 84, 10, None)]
 
 
 def log(msg: str) -> None:
@@ -246,6 +262,7 @@ def reset_counts() -> None:
     km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
     kc.conv2d_fused.schedule_launches = dict.fromkeys(kc.SCHEDULES, 0)
     km.matmul_fused.base_launches = 0
+    km.matmul_fused.base_schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
     kl.lru_scan.schedules = dict.fromkeys(kl.SCHEDULES, 0)
     kl.lru_scan.shapes = {}
     ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
@@ -447,7 +464,7 @@ def _short_kernel(mangled: str) -> str:
     return re.sub(r"^_Z\d+", "", name).split("EEv")[0].split("Ev")[0][:80]
 
 
-def _conv_simt(x, w, stride, bn, act):
+def _conv_simt(x, w, stride, bn, act, padding="SAME"):
     """The SIMT kernel on the same operands, launched directly (no wrapper
     counts it): the schedule every conv ran on before the wgmma and ffma
     kernels."""
@@ -455,7 +472,7 @@ def _conv_simt(x, w, stride, bn, act):
     from repro_torch.kernels import conv2d as kc
     N, H, W, CI = x.shape
     k, CO = w.shape[0], w.shape[3]
-    (pt, _), (pl, _), ho, wo = kc.conv_geometry(H, W, k, k, stride, "SAME")
+    (pt, _), (pl, _), ho, wo = kc.conv_geometry(H, W, k, k, stride, padding)
     out = torch.empty((N, ho, wo, CO), dtype=x.dtype, device=x.device)
     bnp = [_build.ptr(t) for t in bn] if bn is not None else [None] * 4
 
@@ -475,7 +492,7 @@ FP32_EPILOGUE = ("stem7x7s2", "3x3s1_64@56", "3x3s2_128to256",
                  "1x1s2_256to512")
 
 
-def _conv_case(spec, dt, gen, epilogue=False):
+def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
     """conv2d_fused at one ResNet-34 shape: the schedule the wrapper took,
     held against the plain version; its CUDA-graph device time (and by
     events) beside the SIMT kernel's at the same shape (held to the plain
@@ -484,7 +501,8 @@ def _conv_case(spec, dt, gen, epilogue=False):
     (``library_conv_ms``) and the whole yardstick chain of pad, conv and
     the fp32 BN/ReLU ops (``library_ms``).  The bf16 (opt flow) cases carry
     the BN fold and act, the fp32 (base flow) ones run bare, as the flows
-    run them, but with ``epilogue`` (a case in no forward: uses 0)."""
+    run them, but with ``epilogue`` (a case in no forward: uses 0).
+    ``bn_on=False`` drops the BN fold (LeNet-5 has none)."""
     from repro_torch.kernels import conv2d as kc
     name, H, CI, CO, k, s, uses, act = spec
     dev = torch.device("cuda")
@@ -493,18 +511,18 @@ def _conv_case(spec, dt, gen, epilogue=False):
          * (k * k * CI) ** -0.5).to(dt)
     fused = dt == torch.bfloat16 or epilogue
     bn = tuple(torch.rand(CO, generator=gen, device=dev) + 0.5
-               for _ in range(4)) if fused else None
+               for _ in range(4)) if fused and bn_on else None
     act = act if fused else None
 
     def kern():
-        return kc.conv2d_fused(x, w, stride=s, padding="SAME", bn=bn,
+        return kc.conv2d_fused(x, w, stride=s, padding=padding, bn=bn,
                                act=act)
 
     def plain():
-        return kc.conv2d_fused_plain(x, w, stride=s, padding="SAME", bn=bn,
+        return kc.conv2d_fused_plain(x, w, stride=s, padding=padding, bn=bn,
                                      act=act)
 
-    (pt, pb), (pl, pr), ho, wo = kc.conv_geometry(H, H, k, k, s, "SAME")
+    (pt, pb), (pl, pr), ho, wo = kc.conv_geometry(H, H, k, k, s, padding)
     xn = x.permute(0, 3, 1, 2)                  # NCHW view, channels_last
     wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     xpad = F.pad(xn, (pl, pr, pt, pb))
@@ -537,8 +555,11 @@ def _conv_case(spec, dt, gen, epilogue=False):
         raise AssertionError(f"conv2d_fused {name} {dt}: relerr {err} "
                              f"(tol {TOL[dt]}), shape {tuple(y.shape)}, "
                              f"schedules {sched}")
-    simt = _conv_simt(x, w, s, bn, act) if sched[0] != "simt" else kern
-    simt_err = relerr(simt(), p)
+    simt = (_conv_simt(x, w, s, bn, act, padding) if sched[0] != "simt"
+            else kern)
+    ys = simt()
+    simt_err = relerr(ys, p)
+    simt_aerr = (ys.float() - p.float()).abs().max().item()
     if simt_err >= TOL[dt]:
         raise AssertionError(f"conv2d_fused {name} {dt}: the SIMT kernel's "
                              f"relerr {simt_err}")
@@ -551,8 +572,9 @@ def _conv_case(spec, dt, gen, epilogue=False):
             "dtype": str(dt).split(".")[-1], "uses": 0 if epilogue else uses,
             "schedule": sched[0],
             "x": [B, H, H, CI], "w": [k, k, CI, CO], "stride": s,
-            "bn": bn is not None, "act": act, "relerr": err,
-            "max_abs_err": aerr, "tol": TOL[dt], "simt_relerr": simt_err,
+            "padding": padding, "bn": bn is not None, "act": act,
+            "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
+            "simt_relerr": simt_err, "simt_max_abs_err": simt_aerr,
             "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
             "bound_ms": bms, "bound_by": by, "timer": "cuda_graph",
             "ms": graph_ms(kern), "event_ms": cuda_ms(kern),
@@ -624,6 +646,69 @@ def _fc_case(dt, gen):
             "library_ms": cuda_ms(library, 100)}
 
 
+def _lenet_fc_case(spec, gen, dt=torch.bfloat16):
+    """One LeNet-5 FC layer at batch 8 as its forward runs it (bias, and
+    the ReLU fused where the graph has one): the schedule it took, held
+    against its plain version, timed by CUDA graph (and by events) beside
+    ``torch.matmul`` + bias (+ ReLU) and its bound."""
+    from repro_torch.kernels import matmul_fused as km
+    name, K, N, act = spec
+    dev = torch.device("cuda")
+    x = torch.randn(B, K, generator=gen, device=dev).to(dt)
+    w = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
+    b = torch.randn(N, generator=gen, device=dev).to(dt)
+
+    def kern():
+        return km.matmul_fused(x, w, bias=b, act=act, out_dtype=dt)
+
+    def plain():
+        return km.matmul_fused_plain(x, w, bias=b, act=act, out_dtype=dt)
+
+    def library():                              # cuBLAS, the yardstick only
+        y = torch.matmul(x, w).float() + b.float()
+        return (F.relu(y) if act else y).to(dt)
+
+    c0 = read_schedules()
+    kern()
+    sched = [k for k, v in read_schedules().items() if v != c0[k]]
+    if len(sched) != 1:
+        raise AssertionError(f"matmul_fused {name}: schedules {sched}")
+    flops = 2.0 * B * K * N
+    nbytes = (B * K + K * N + N + B * N) * x.element_size()
+    rec = _timed_case(kern, plain, library, dt, flops, nbytes,
+                      timer=lambda fn: graph_ms(fn, 100))
+    return {"shape": name, "arch": "lenet5", "uses": 1, "rows": B,
+            "schedule": sched[0], "timer": "cuda_graph", **rec,
+            "event_ms": cuda_ms(kern, 100)}
+
+
+def _pw_batches():
+    """MobileNetV1's pointwise conv (BN + ReLU, bf16) on its schedule at
+    batch 4-32 beside cuDNN's conv alone, graph ms: how the time grows
+    with the batch, and where it starts."""
+    from repro_torch.kernels import conv2d as kc
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    _, H, CI, CO, _, _, _, _ = MBV1_PW32
+    dev = torch.device("cuda")
+    w = (torch.randn(1, 1, CI, CO, generator=gen, device=dev)
+         * CI ** -0.5).bfloat16()
+    bn = tuple(torch.rand(CO, generator=gen, device=dev) + 0.5
+               for _ in range(4))
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    out = []
+    for nb in PW_BATCHES:
+        x = torch.randn(nb, H, H, CI, generator=gen, device=dev).bfloat16()
+        xn = x.permute(0, 3, 1, 2)
+        nbytes = (x.numel() + w.numel() + nb * H * H * CO) * 2 + 4 * CO * 4
+        out.append({"batch": nb, "bytes": nbytes,
+                    "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "ms": graph_ms(lambda: kc.conv2d_fused(
+                        x, w, bn=bn, act="relu")),
+                    "library_conv_ms": graph_ms(lambda: F.conv2d(xn, wn))})
+    return out
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -645,28 +730,49 @@ def phase_kernels():
     for spec, dt in ((MBV1_FIRST, torch.bfloat16), (MBV1_FIRST, torch.float32),
                      (MBV1_PW32, torch.bfloat16)):
         c = {**_conv_case(spec, dt, gen), "arch": "mobilenetv1"}
+        if spec is MBV1_PW32:
+            c["batch_sweep"] = _pw_batches()
         cases["conv2d_fused"].append(c)
         log(json.dumps({"kernel": "conv2d_fused", **c}))
-    _stem_vs_cudnn(cases["conv2d_fused"])
+    for spec in LENET_CONVS:
+        c = {**_conv_case(spec, torch.bfloat16, gen, padding="VALID",
+                          bn_on=False), "arch": "lenet5"}
+        cases["conv2d_fused"].append(c)
+        log(json.dumps({"kernel": "conv2d_fused", **c}))
+    for spec in LENET_FCS:
+        c = _lenet_fc_case(spec, gen)
+        cases["matmul_fused"].append(c)
+        log(json.dumps({"kernel": "matmul_fused", **c}))
+    _conv_checks(cases["conv2d_fused"])
     return cases
 
 
-def _stem_vs_cudnn(cases):
-    """The small_ci schedule at ResNet-34's stem, as the flows run it (bf16
-    with BN + ReLU, fp32 bare), must be no slower by graph device time than
-    cuDNN's conv alone, and MobileNetV1's first conv in bf16 no slower than
-    the SIMT kernel (each pair timed in this run)."""
+def _conv_checks(cases):
+    """By graph device time, each pair timed in this run: the small_ci
+    schedule at ResNet-34's stem, as the flows run it (bf16 with BN + ReLU,
+    fp32 bare), no slower than cuDNN's conv alone; MobileNetV1's first conv
+    (small_ci) and its pointwise conv (mid_ci) in bf16 no slower than the
+    SIMT kernel; the pointwise conv within twice its bound (at least half
+    the card's byte rate: 0.0116 ms)."""
     for c in cases:
-        if c["uses"] == 0 or c["schedule"] != "small_ci":
+        arch, sched = c.get("arch"), c["schedule"]
+        if c["uses"] == 0:
             continue
-        other = "simt_ms" if c.get("arch") == "mobilenetv1" else \
-            "library_conv_ms"
-        if c.get("arch") == "mobilenetv1" and c["dtype"] != "bfloat16":
+        if arch is None and sched == "small_ci":
+            other = "library_conv_ms"
+        elif arch == "mobilenetv1" and c["dtype"] == "bfloat16" and \
+                sched in ("small_ci", "mid_ci"):
+            other = "simt_ms"
+        else:
             continue
         if c["ms"] > c[other]:
-            raise AssertionError(f"conv2d_fused[small_ci] {c['shape']} "
+            raise AssertionError(f"conv2d_fused[{sched}] {c['shape']} "
                                  f"{c['dtype']}: {c['ms']:.4f} ms, slower "
                                  f"than {other} {c[other]:.4f}")
+        if sched == "mid_ci" and c["ms"] > 2 * c["bound_ms"]:
+            raise AssertionError(f"conv2d_fused[mid_ci] {c['shape']}: "
+                                 f"{c['ms']:.4f} ms, over twice its bound "
+                                 f"{c['bound_ms']:.4f}")
 
 
 def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
@@ -1096,11 +1202,15 @@ BASE_TILE = (256, 512, 256)     # repro/kernels/ops.py's default tile
 
 def _base_case(M, K, N, has_bias, dt, gen):
     """The base variant (``vmem_accum=False``, tile (256, 512, 256)) against
-    its plain version.  Its library call is ``torch.matmul`` (+ bias) where
-    that computes the same function: in fp32, where rounding a slab's fp32
-    sum to fp32 changes nothing, and in bf16 at one slab, round(x @ w) +
-    bias; none where several bf16 slabs are rounded, which no one PyTorch
-    call does."""
+    its plain version, on the schedule it took, with the same bits twice;
+    timed by CUDA graph beside the old SIMT base kernel (launched directly,
+    held to the plain version too; the base variant must beat it), the CW
+    form at the same shape and its library call, ``torch.matmul`` (+ bias)
+    where that computes the same function: in fp32, where rounding a slab's
+    fp32 sum to fp32 changes nothing, and in bf16 at one slab, round(x @ w)
+    + bias; none where several bf16 slabs are rounded, which no one
+    PyTorch call does."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import matmul_fused as km
     dev = torch.device("cuda")
     x = torch.randn(M, K, generator=gen, device=dev).to(dt)
@@ -1108,15 +1218,41 @@ def _base_case(M, K, N, has_bias, dt, gen):
     b = torch.randn(N, generator=gen, device=dev).to(dt) if has_bias else None
     kw = dict(bias=b, tile=BASE_TILE, vmem_accum=False, out_dtype=dt)
     b0 = km.matmul_fused.base_launches
+    s0 = dict(km.matmul_fused.base_schedule_launches)
     y = km.matmul_fused(x, w, **kw)
     torch.cuda.synchronize()
-    if km.matmul_fused.base_launches != b0 + 1:
-        raise AssertionError("the base variant did not count its launch")
+    sched = [k for k, v in km.matmul_fused.base_schedule_launches.items()
+             if v != s0[k]]
+    if km.matmul_fused.base_launches != b0 + 1 or len(sched) != 1:
+        raise AssertionError("the base variant did not count its launch: "
+                             f"schedules {sched}")
     p = km.matmul_fused_plain(x, w, **kw)
     err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
     if not (y.shape == p.shape and err < TOL[dt]):
         raise AssertionError(f"matmul_fused base {M}x{K}x{N} {dt}: relerr "
                              f"{err} (tol {TOL[dt]})")
+    if not torch.equal(km.matmul_fused(x, w, **kw), y):
+        raise AssertionError(f"matmul_fused base {M}x{K}x{N} {dt}: the "
+                             "bits differ on a repeat")
+    c = km._prepare(x, w, bias=b, out_dtype=dt)
+
+    def simt():                                 # the SIMT base kernel
+        _build.call("matmul_base", *km._codes(c), _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(c.out),
+                    c.M, c.K, c.N, km._slab_depth(K, BASE_TILE), 0,
+                    _build.stream())
+        return c.out
+    ys = simt()
+    simt_err = relerr(ys, p)
+    if simt_err >= TOL[dt]:
+        raise AssertionError(f"matmul_fused base {M}x{K}x{N} {dt}: the SIMT "
+                             f"base kernel's relerr {simt_err}")
+
+    def cw():
+        return km.matmul_fused(x, w, bias=b, out_dtype=dt)
+    c0 = read_schedules()
+    cw()
+    cw_sched = [k for k, v in read_schedules().items() if v != c0[k]]
     flops = 2.0 * M * K * N
     nbytes = (M * K + K * N + M * N + (N if has_bias else 0)) \
         * x.element_size()
@@ -1128,14 +1264,22 @@ def _base_case(M, K, N, has_bias, dt, gen):
         y = torch.matmul(x, w)
         return y if b is None else (y.float() + b.float()).to(dt)
     lib = dt == torch.float32 or slabs == 1
+    ms = graph_ms(lambda: km.matmul_fused(x, w, **kw), iters)
+    simt_ms = graph_ms(simt, iters)
+    if ms >= simt_ms:
+        raise AssertionError(f"matmul_fused base {M}x{K}x{N} {dt} on "
+                             f"{sched[0]}: {ms:.4f} ms, not faster than the "
+                             f"SIMT base kernel's {simt_ms:.4f}")
     return {"shape": f"base_{M}x{K}x{N}" + ("_bias" if has_bias else ""),
             "dtype": str(dt).split(".")[-1], "rows": M, "tile": BASE_TILE,
-            "slabs": slabs, "relerr": err, "max_abs_err": aerr,
-            "tol": TOL[dt],
+            "slabs": slabs, "schedule": sched[0], "relerr": err,
+            "max_abs_err": aerr, "tol": TOL[dt], "simt_relerr": simt_err,
+            "simt_max_abs_err": (ys.float() - p.float()).abs().max().item(),
             "library_relerr": relerr(library(), p) if lib else None,
             "flops": flops, "bytes": nbytes, "bound_ms": bms,
-            "bound_by": by, "timer": "cuda_graph",
-            "ms": graph_ms(lambda: km.matmul_fused(x, w, **kw), iters),
+            "bound_by": by, "timer": "cuda_graph", "ms": ms,
+            "simt_ms": simt_ms, "cw_schedule": cw_sched[0],
+            "cw_ms": graph_ms(cw, iters),
             "plain_ms": graph_ms(lambda: km.matmul_fused_plain(x, w, **kw),
                                  iters),
             "library_ms": graph_ms(library, iters) if lib else None}
@@ -1281,10 +1425,10 @@ def phase_path(smi):
     out.append(_forward("lenet5", FlowConfig(mode="auto"), {"small_ci": 2},
                         3, {"small_m": 1, "simt": 2}, smi, measure=False))
     # MobileNetV1: the 12 pointwise convs from 64 channels up on wgmma, the
-    # first conv (CI 3) on small_ci, the 32-channel pointwise conv on simt
+    # first conv (CI 3) on small_ci, the 32-channel pointwise conv on mid_ci
     DISPATCH_REJECTIONS.clear()
     out.append(_forward("mobilenetv1", FlowConfig(mode="auto"),
-                        {"wgmma": 12, "small_ci": 1, "simt": 1}, 1,
+                        {"wgmma": 12, "small_ci": 1, "mid_ci": 1}, 1,
                         {"small_m": 1}, smi, measure=False))
     dw = sum(n for (op, _), n in DISPATCH_REJECTIONS.items()
              if op == "conv2d")
@@ -2421,19 +2565,40 @@ def lru_kernel_entries(cases):
 
 def mobilenet_kernel_entries(cases, path):
     """conv2d_fused at MobileNetV1's first conv (small_ci, bf16 and fp32)
-    and its 32-channel pointwise conv (simt, bf16), one call each; the
-    launches are the MobileNetV1 forward's (bf16) by schedule."""
+    and its 32-channel pointwise conv (mid_ci, bf16), one call each, and
+    the SIMT kernel at the pointwise conv (the schedule it ran on before
+    mid_ci; no path launches it); the launches are the MobileNetV1
+    forward's (bf16) by schedule."""
     launches = {"bfloat16": {}, "float32": {}}
     for r in path:
         if r["arch"] == "mobilenetv1":
             launches["bfloat16"].update(
                 {f"conv2d_fused[{k}]": v
                  for k, v in r["conv_schedules"].items()})
+    rows = [r for r in cases["conv2d_fused"] if r.get("arch") == "mobilenetv1"]
+    rows += [_simt_twin(r) for r in rows if r["schedule"] == "mid_ci"]
     return summed_entries(
-        _by_schedule({"conv2d_fused": [r for r in cases["conv2d_fused"]
-                                       if r.get("arch") == "mobilenetv1"]}),
-        launches, "@mobilenetv1",
+        _by_schedule({"conv2d_fused": rows}), launches, "@mobilenetv1",
         lambda k, used: f"one call at {used[0][0]['shape']} (batch 8)",
+        lambda k, r: 1)
+
+
+def lenet_kernel_entries(cases, path):
+    """conv2d_fused at LeNet-5's two convs (small_ci) and matmul_fused at
+    its two FC layers on simt (120 -> 84, 84 -> 10), bf16, summed over one
+    LeNet-5 forward at batch 8; the launches are that forward's by
+    schedule."""
+    launches = {"bfloat16": {}, "float32": {}}
+    for r in path:
+        if r["arch"] == "lenet5":
+            launches["bfloat16"].update(_sched_launches(
+                r["launches"], r["matmul_schedules"],
+                conv=r["conv_schedules"]))
+    return summed_entries(
+        _by_schedule({k: [r for r in v if r.get("arch") == "lenet5"]
+                      for k, v in cases.items()}), launches, "@lenet5",
+        lambda k, used: "one LeNet-5 forward at batch 8 ("
+                        + ", ".join(r["shape"] for r, _ in used) + ")",
         lambda k, r: 1)
 
 
@@ -2465,7 +2630,7 @@ def kernel_entries(cases, path):
                     conv=r["conv_schedules"]).items():
                 d[k] = d.get(k, 0) + n
     return summed_entries(
-        _by_schedule({k: [r for r in v if r.get("arch") != "mobilenetv1"]
+        _by_schedule({k: [r for r in v if r.get("arch") is None]
                       for k, v in cases.items()}), launches, "",
         lambda k, used: "one ResNet-34 forward at batch 8, 224 px",
         lambda k, r: r["uses"])
@@ -2500,13 +2665,18 @@ def lm_kernel_entries(cases, lm):
 
 
 def base_kernel_entries(cases, lm):
-    """The base variant, one entry per shape and dtype: one call.  Its
-    launches on the main path (the LM generate runs) are 0: no op-layer
-    caller passes ``vmem_accum=False``."""
+    """The base variant, one entry per schedule, shape and dtype: one call;
+    the SIMT base kernel at each shape beside it
+    (``matmul_fused_base[simt]``).  Its launches on the main path (the LM
+    generate runs) are 0: no op-layer caller passes ``vmem_accum=False``."""
+    split = {}
+    for r in cases["matmul_fused_base"]:
+        split.setdefault(f"matmul_fused_base[{r['schedule']}]", []).append(r)
+        split.setdefault("matmul_fused_base[simt]", []).append(_simt_twin(r))
     out = []
     for rows, tag in ((B, "@resnet34_fc"), (B * LM_S, "@4096x2048x2048")):
         out += summed_entries(
-            cases,
+            split,
             {"bfloat16": lm["launches"], "float32": lm["launches_fp32"]},
             tag, lambda k, used: f"one call at {used[0][0]['shape']}",
             lambda k, r, rows=rows: int(r["rows"] == rows))
@@ -2535,6 +2705,8 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
                            "src/repro/kernels/conv2d.py:64"),
     "conv2d_fused[small_ci]": ("src/repro_torch/csrc/conv2d_small_ci.cu",
                                "src/repro/kernels/conv2d.py:64"),
+    "conv2d_fused[mid_ci]": ("src/repro_torch/csrc/conv2d_mid_ci.cu",
+                             "src/repro/kernels/conv2d.py:64"),
     "conv2d_fused[simt]": ("src/repro_torch/csrc/conv2d_fused.cu",
                            "src/repro/kernels/conv2d.py:64"),
     "matmul_fused[wgmma]": ("src/repro_torch/csrc/matmul_wgmma.cu",
@@ -2547,8 +2719,17 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
                                    "src/repro/kernels/matmul_fused.py:83"),
     "matmul_fused[simt]": ("src/repro_torch/csrc/matmul_fused.cu",
                            "src/repro/kernels/matmul_fused.py:83"),
-    "matmul_fused_base": ("src/repro_torch/csrc/matmul_fused.cu",
-                          "src/repro/kernels/matmul_fused.py:147"),
+    "matmul_fused_base[wgmma]": ("src/repro_torch/csrc/matmul_wgmma.cu",
+                                 "src/repro/kernels/matmul_fused.py:147"),
+    "matmul_fused_base[small_m]": ("src/repro_torch/csrc/matmul_small_m.cu",
+                                   "src/repro/kernels/matmul_fused.py:147"),
+    "matmul_fused_base[ffma]": ("src/repro_torch/csrc/matmul_fused.cu",
+                                "src/repro/kernels/matmul_fused.py:147"),
+    "matmul_fused_base[ffma_small_m]": (
+        "src/repro_torch/csrc/matmul_small_m.cu",
+        "src/repro/kernels/matmul_fused.py:147"),
+    "matmul_fused_base[simt]": ("src/repro_torch/csrc/matmul_fused.cu",
+                                "src/repro/kernels/matmul_fused.py:147"),
     "flash_attention[wgmma]": (
         "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/attention.py:93"),
@@ -2623,20 +2804,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    name, smi = phase_device()
-    build = phase_build()
-    cases = phase_kernels()
-    lm_cases, rg_mm_cases = phase_lm_kernels()
-    base_cases = phase_base_kernels()
-    serve_cases = phase_serving_kernels()
-    path = phase_path(smi)
-    lm = phase_lm_path(smi)
-    serve = phase_serving(smi)
-    rec_cases = phase_rec_kernels()
-    rg = phase_rec_path(smi)
-    lru_cases = phase_lru_kernels(rg)
+    walls = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        walls[phase.__name__] = time.perf_counter() - t
+        log(f"{phase.__name__}: {walls[phase.__name__]:.1f}s")
+        return out
+    name, smi = timed(phase_device)
+    build = timed(phase_build)
+    cases = timed(phase_kernels)
+    lm_cases, rg_mm_cases = timed(phase_lm_kernels)
+    base_cases = timed(phase_base_kernels)
+    serve_cases = timed(phase_serving_kernels)
+    path = timed(phase_path, smi)
+    lm = timed(phase_lm_path, smi)
+    serve = timed(phase_serving, smi)
+    rec_cases = timed(phase_rec_kernels)
+    rg = timed(phase_rec_path, smi)
+    lru_cases = timed(phase_lru_kernels, rg)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
+        lenet_kernel_entries(cases, path) + \
         lm_kernel_entries(lm_cases, lm) + \
         qwen_kernel_entries({**lm_cases, "paged_decode_attention":
                              serve_cases["paged_decode_attention"]}) + \
@@ -2654,7 +2844,7 @@ def main() -> int:
                    "lm_path": lm, "serving": serve,
                    "rec_kernels": rec_cases, "rec_path": rg,
                    "lru_kernels": lru_cases,
-                   "entries": entries,
+                   "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

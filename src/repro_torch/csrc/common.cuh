@@ -1,7 +1,8 @@
 // Shared pieces of the hand-written kernels: the activation enum (the same
 // codes as kernels/_build.py ACT_CODES), type conversions, the tile shape of
 // the simple SIMT GEMM core, 16-byte cp.async, and the fused epilogue with
-// the fixed-order split-K reduction of the matmul and conv schedules.
+// the fixed-order split-K reductions of the matmul and conv schedules (the
+// CW form's and the base variant's, which rounds between K slabs).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +55,13 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+// Round to T and widen back (the identity for fp32): a value of the base
+// variant's running sum, which lives in the output dtype.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
 }
 
 // Block tile of the SIMT GEMM core: BM x BN outputs, BK deep per step,
@@ -205,6 +213,43 @@ int launch_splitk_reduce(const float* ws, const Epilogue& epi, void* out,
   return (int)cudaGetLastError();
 }
 
+// The base variant's reduction (matmul_fused vmem_accum=False): the split-K
+// partials ws[s][M][N] walked in K order, the per_slab splits of one slab
+// summed in fp32, each slab's sum rounded to TOut and added into the TOut
+// running sum, rounded again (sum = round(sum + round(slab))), then bias
+// and act on the widened sum and one write.  A split never straddles two
+// slabs (the wrapper's _base_split); the last slab may have fewer splits.
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+splitk_reduce_slabs(const float* __restrict__ ws, Epilogue epi,
+                    TOut* __restrict__ out, int M, int N, int nsplit,
+                    int per_slab) {
+  const size_t MN = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float sum = 0.0f, part = 0.0f;
+  for (int s = 0, left = per_slab; s < nsplit; ++s) {
+    part += ws[s * MN + i];
+    if (--left == 0 || s == nsplit - 1) {
+      sum = round_to<TOut>(sum + round_to<TOut>(part));
+      part = 0.0f;
+      left = per_slab;
+    }
+  }
+  out[i] = from_f32<TOut>(epi.apply<false>(sum, 0.0f, (int)(i % N)));
+}
+
+template <typename TOut>
+int launch_splitk_reduce_slabs(const float* ws, const Epilogue& epi,
+                               void* out, int M, int N, int nsplit,
+                               int per_slab, cudaStream_t stream) {
+  if (per_slab < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(((size_t)M * N + 255) / 256);
+  splitk_reduce_slabs<TOut><<<blocks, 256, 0, stream>>>(
+      ws, epi, static_cast<TOut*>(out), M, N, nsplit, per_slab);
+  return (int)cudaGetLastError();
+}
+
 // The reduction for an out_dtype code of the C interface (0 fp32, 1 bf16).
 inline int splitk_reduce_to(int out_dtype, const float* ws,
                             const Epilogue& epi, void* out, int M, int N,
@@ -215,6 +260,21 @@ inline int splitk_reduce_to(int out_dtype, const float* ws,
   if (out_dtype == kBF16)
     return launch_splitk_reduce<__nv_bfloat16>(ws, epi, out, M, N, nsplit,
                                                glu, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The base variant's reduction for an out_dtype code (0 fp32, 1 bf16).
+inline int splitk_reduce_slabs_to(int out_dtype, const float* ws,
+                                  const Epilogue& epi, void* out, int M,
+                                  int N, int nsplit, int per_slab,
+                                  cudaStream_t stream) {
+  if (out_dtype == kF32)
+    return launch_splitk_reduce_slabs<float>(ws, epi, out, M, N, nsplit,
+                                             per_slab, stream);
+  if (out_dtype == kBF16)
+    return launch_splitk_reduce_slabs<__nv_bfloat16>(ws, epi, out, M, N,
+                                                     nsplit, per_slab,
+                                                     stream);
   return (int)cudaErrorInvalidValue;
 }
 

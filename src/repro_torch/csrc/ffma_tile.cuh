@@ -23,7 +23,10 @@
 // at K index k, or nothing (zeros: a row past M, a tap in the padding).
 // With a K split (grid z) each block writes its fp32 partials to a
 // workspace that rt::splitk_reduce sums in a fixed order; without, the
-// epilogue runs in registers and writes the output once.
+// epilogue runs in registers and writes the output once.  The base variant
+// of matmul_fused (per_slab > 0) always writes partials, its splits cut at
+// K slab boundaries, and rt::splitk_reduce_slabs sums them slab by slab,
+// rounding to the output dtype between slabs.
 #pragma once
 
 #include "common.cuh"
@@ -155,14 +158,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
 }
 
 // One output tile of the (M, N) product: the loader's rows times w (and
-// w2), K split kc a block along grid z.  One split: the epilogue and one
-// write in TOut.  Several: fp32 partials to ws[q][split][M][N].
+// w2), K split kc a block along grid z.  direct: the epilogue and one
+// write in TOut.  Otherwise fp32 partials to ws[q][split][M][N].
 template <int BN, int NACC, typename TOut, class Loader>
 __global__ void __launch_bounds__(THREADS)
 ffma_gemm(typename Loader::Args la, const float* __restrict__ w,
           const float* __restrict__ w2, rt::Epilogue epi,
           float* __restrict__ ws, TOut* __restrict__ out, int M, int N, int K,
-          int kc) {
+          int kc, bool direct) {
   constexpr bool GLU = NACC == 2;
   constexpr int TN = BN / 16;
   extern __shared__ __align__(16) float smem[];
@@ -170,7 +173,7 @@ ffma_gemm(typename Loader::Args la, const float* __restrict__ w,
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int kbeg = blockIdx.z * kc, kend = min(K, kbeg + kc);
   const Loader ld(la, m0, threadIdx.x);
-  if (gridDim.z == 1) cols.stage(epi, n0, N);
+  if (direct) cols.stage(epi, n0, N);
   float acc[NACC][8][TN];
 #pragma unroll
   for (int q = 0; q < NACC; ++q)
@@ -190,7 +193,7 @@ ffma_gemm(typename Loader::Args la, const float* __restrict__ w,
     for (int g = 0; g < BN / 64; ++g) {
       const int c = n0 + tile_col(4 * g);
       if (c >= N) continue;            // N % 4 == 0: c + 3 < N as well
-      if (gridDim.z == 1) {
+      if (direct) {
         float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -212,25 +215,32 @@ ffma_gemm(typename Loader::Args la, const float* __restrict__ w,
 }
 
 // Launch the tile kernel on grid (M / 128, N / BN, nsplit), then, with a K
-// split, the fixed-order reduction with the epilogue.  Returns the first
+// split, the fixed-order reduction with the epilogue; with per_slab > 0
+// (the base variant: per_slab splits a K slab) the partials always go
+// through the workspace and the slab-rounding reduction.  Returns the first
 // CUDA error.
 template <int BN, int NACC, typename TOut, class Loader>
 int launch(const typename Loader::Args& la, const float* w, const float* w2,
            const rt::Epilogue& epi, float* ws, void* out, int M, int N, int K,
-           int kc, int nsplit, cudaStream_t stream) {
+           int kc, int nsplit, cudaStream_t stream, int per_slab = 0) {
   auto kern = ffma_gemm<BN, NACC, TOut, Loader>;
   constexpr int smem = Tile<BN, NACC>::SMEM_BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  if (nsplit < 1 || (nsplit > 1 && ws == nullptr))
+  const bool direct = nsplit == 1 && per_slab == 0;
+  if (nsplit < 1 || (!direct && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
             (unsigned)nsplit);
   kern<<<grid, THREADS, smem, stream>>>(la, w, w2, epi, ws,
-                                        static_cast<TOut*>(out), M, N, K, kc);
+                                        static_cast<TOut*>(out), M, N, K, kc,
+                                        direct);
   e = cudaGetLastError();
-  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  if (e != cudaSuccess || direct) return (int)e;
+  if (per_slab > 0)
+    return rt::launch_splitk_reduce_slabs<TOut>(ws, epi, out, M, N, nsplit,
+                                                per_slab, stream);
   return rt::launch_splitk_reduce<TOut>(ws, epi, out, M, N, nsplit, NACC == 2,
                                         stream);
 }

@@ -19,14 +19,16 @@
 // a fixed order.
 //
 // matmul_base is the Pallas kernel's vmem_accum=False branch (the paper's
-// base kernel, matmul_fused.py:70-80, pallas_call at :147): the sum goes
-// through the output dtype one bk-deep K slab at a time — each slab's fp32
-// product is rounded to the output dtype and added to the running sum in
-// that dtype (two round-to-nearest-even steps a slab) — and the epilogue
-// (+ bias, act) works on the widened sum.  No GLU form.  It is bound by the
-// bytes at the FC head's 8 rows and by the SIMT core's operations at 4096
-// rows; nothing on the op layer calls it (the JAX op layer never passes
-// vmem_accum), so it stays on the same simple SIMT core.
+// base kernel, matmul_fused.py:70-80, pallas_call at :147) on the SIMT
+// core: the sum goes through the output dtype one bk-deep K slab at a time
+// — each slab's fp32 product is rounded to the output dtype and added to
+// the running sum in that dtype (two round-to-nearest-even steps a slab) —
+// and the epilogue (+ bias, act) works on the widened sum.  No GLU form.
+// It is the base variant's `simt` route: K or N off the 4 / 8 grid,
+// unaligned views, slabs off the cores' K stages.  The other routes run the
+// CW cores (matmul_base_ffma below, matmul_base_small_m in
+// matmul_small_m.cu, matmul_base_wgmma in matmul_wgmma.cu); nothing on the
+// op layer calls any of them (the JAX op layer never passes vmem_accum).
 #include "common.cuh"
 #include "ffma_tile.cuh"
 
@@ -114,16 +116,6 @@ int launch(const void* x, const void* w, const void* w2, const float* bias,
     matmul_fused_kernel<TIn, TOut, false><<<grid, THREADS, 0, stream>>>(
         xp, wp, nullptr, bias, op, M, K, N, act, glu_act);
   return (int)cudaGetLastError();
-}
-
-// Round to the output dtype and widen back (the identity for fp32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The base variant: per bk-deep K slab an fp32 partial from the SIMT core,
@@ -266,6 +258,32 @@ extern "C" int matmul_ffma(int out_dtype, const void* x, const void* w,
   if (out_dtype == rt::kBF16)
     return launch_ffma<__nv_bfloat16>(xp, wp, w2p, epi, ws, out, M, K, N, kc,
                                       nsplit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The base variant on the ffma core (C interface as matmul_ffma, without w2
+// and the GLU act): the K splits are cut at slab boundaries (the wrapper's
+// _base_split), per_slab of them a slab.  per_slab > 0: the partials
+// always go to ws and rt::splitk_reduce_slabs rounds between slabs (a bf16
+// output); per_slab 0 with nsplit 1: the CW core as it is, for an fp32
+// output, where rounding a slab's sum to fp32 changes nothing.
+extern "C" int matmul_base_ffma(int out_dtype, const void* x, const void* w,
+                                const float* bias, float* ws, void* out,
+                                int M, int K, int N, int kc, int nsplit,
+                                int per_slab, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kc % fp32tile::BK != 0 || per_slab < 0 ||
+      (per_slab == 0 && nsplit != 1))
+    return (int)cudaErrorInvalidValue;
+  const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, 0};
+  const DenseRows::Args a{static_cast<const float*>(x), M, K};
+  const float* wp = static_cast<const float*>(w);
+  if (out_dtype == rt::kF32)
+    return fp32tile::launch<128, 1, float, DenseRows>(
+        a, wp, nullptr, epi, ws, out, M, N, K, kc, nsplit, s, per_slab);
+  if (out_dtype == rt::kBF16)
+    return fp32tile::launch<128, 1, __nv_bfloat16, DenseRows>(
+        a, wp, nullptr, epi, ws, out, M, N, K, kc, nsplit, s, per_slab);
   return (int)cudaErrorInvalidValue;
 }
 

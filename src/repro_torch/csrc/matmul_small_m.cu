@@ -39,6 +39,11 @@
 // as broadcast float4s along K.  The K groups' sums meet in shared memory
 // in a fixed order, then the block's partial goes to the workspace and
 // rt::splitk_reduce sums the splits in a fixed order with the epilogue.
+//
+// matmul_base_small_m runs the base variant of matmul_fused
+// (vmem_accum=False) on either partial kernel: the wrapper cuts the K split
+// at the slab boundaries, and rt::splitk_reduce_slabs rounds each slab's
+// sum to the output dtype before adding it into the running sum.
 #include <cstdint>
 
 #include "common.cuh"
@@ -422,6 +427,31 @@ extern "C" int matmul_ffma_small_m(int out_dtype, const void* x,
   if (err != 0) return err;
   const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
   return rt::splitk_reduce_to(out_dtype, ws, epi, out, M, N, nsplit, glu, s);
+}
+
+// The base variant of matmul_fused (vmem_accum=False) on the small_m
+// (in_dtype bf16) or ffma_small_m (fp32) partials, without w2: the wrapper
+// cuts the K splits at slab boundaries (_base_split), per_slab splits a
+// slab, and rt::splitk_reduce_slabs sums each slab's splits in K order in
+// fp32, rounds the slab to the output dtype and adds it into the running
+// sum in that dtype, then bias and act.  The bits repeat.
+extern "C" int matmul_base_small_m(int in_dtype, int out_dtype,
+                                   const void* x, const void* w,
+                                   const float* bias, float* ws, void* out,
+                                   int M, int K, int N, int kc, int nsplit,
+                                   int per_slab, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kc % SBK != 0 || nsplit < 1 || per_slab < 1)
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  if (in_dtype == rt::kBF16)
+    err = partial_by_rows<1>(x, w, nullptr, ws, M, K, N, kc, nsplit, s);
+  else if (in_dtype == rt::kF32)
+    err = ffma_partial_by_rows<1>(x, w, nullptr, ws, M, K, N, kc, nsplit, s);
+  if (err != 0) return err;
+  const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, 0};
+  return rt::splitk_reduce_slabs_to(out_dtype, ws, epi, out, M, N, nsplit,
+                                    per_slab, s);
 }
 
 // C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2

@@ -27,6 +27,22 @@
 // loads past M, N and K. The GLU form takes N = 64 tiles so that its two
 // accumulators fit the same 64 registers a thread as the plain form's one,
 // with no setmaxnreg; grid (M / 128, N / BN), not persistent.
+//
+// matmul_base_wgmma is the base variant of matmul_fused (vmem_accum=False,
+// the Pallas kernel's base branch) on the same mainloop, for a bf16 output:
+// the slab of bk = 64 * slab K rows is a whole number of stages, so at a
+// slab's last stage, once its wgmma group has retired (the mainloop waits
+// for it every stage), the consumers fold the fp32 accumulator into a
+// second register set, sum = round(sum + round(acc)), and zero the
+// accumulator; the epilogue (+ bias, act) reads the widened sum.  The sum
+// is held as 32 packed bf16x2 registers a thread (every value of it is a
+// bf16), not 64 fp32 ones.  Two blocks an SM still fit, but only at the 96
+// registers a thread that ptxas allows two 288-thread blocks, so the fold
+// spills 112 bytes a thread (chip_smoke.py's build phase prints the ptxas
+// report).  On the H100 this ran faster than one block an SM of 4 or 5
+// stages (no spill) and than folding through the output in memory.  An
+// fp32 output runs the CW kernel as it is: rounding a slab's sum to fp32
+// changes nothing.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -62,15 +78,20 @@ __host__ __device__ constexpr int smem_bytes() {
 }
 
 // One 128 x BN output tile: NACC = 1 (w) or 2 (the GLU pair w, w2), each
-// weight's stage tile BN / 64 boxes of 64 x 64.
-template <int BN, int NACC, int STAGES, int MINB, typename TOut>
+// weight's stage tile BN / 64 boxes of 64 x 64.  SLAB (the base variant,
+// bf16 out, NACC 1): the sum of each slab of `slab` stages is rounded to
+// bf16 and added into the bf16 running sum.
+template <int BN, int NACC, int STAGES, int MINB, typename TOut,
+          bool SLAB = false>
 __global__ void __launch_bounds__(THREADS, MINB)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                     const __grid_constant__ CUtensorMap tw,
                     const __grid_constant__ CUtensorMap tw2,
                     const float* __restrict__ bias, TOut* __restrict__ out,
-                    int M, int K, int N, int act, int glu_act) {
+                    int M, int K, int N, int act, int glu_act, int slab) {
   constexpr bool GLU = NACC == 2;
+  static_assert(!SLAB || (NACC == 1 && sizeof(TOut) == 2),
+                "the slab fold is the base variant's: one weight, bf16 out");
   constexpr int NBOX = BN / 64;
   constexpr int STAGE = stage_bytes<BN, NACC>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -121,6 +142,13 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[q][i] = 0.0f;
 
+  // the base variant's running sum, bf16 pairs (columns 2i, 2i + 1 of acc)
+  __nv_bfloat162 sum[SLAB ? BN / 4 : 1];
+#pragma unroll
+  for (int i = 0; i < (SLAB ? BN / 4 : 1); ++i)
+    sum[i] = __floats2bfloat162_rn(0.0f, 0.0f);
+  int left = slab;                   // stages to the end of the slab
+
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % STAGES;
     mbar_wait(full(s), (kt / STAGES) & 1);
@@ -136,6 +164,23 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     // meanwhile (faster on the H100 than keeping one group in flight)
     wgmma_wait<0>();
     if ((tid & 31) == 0) mbar_arrive(empty(s));
+    if constexpr (SLAB) {
+      if (--left == 0 || kt == nk - 1) {   // the slab's last stage
+        // read acc only after the wait that retired its wgmma
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) fence_operand(acc[0][i]);
+#pragma unroll
+        for (int i = 0; i < BN / 4; ++i) {
+          const float2 v = __bfloat1622float2(sum[i]);
+          sum[i] = __floats2bfloat162_rn(
+              v.x + rt::round_to<bf16>(acc[0][2 * i]),
+              v.y + rt::round_to<bf16>(acc[0][2 * i + 1]));
+          acc[0][2 * i] = 0.0f;
+          acc[0][2 * i + 1] = 0.0f;
+        }
+        left = slab;
+      }
+    }
   }
 
   // epilogue: fragment i of a thread holds row 16 warp + lane/4 (+8 for
@@ -154,6 +199,10 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float x = acc[0][4 * j + 2 * h + e];
+        if constexpr (SLAB) {
+          const float2 sv = __bfloat1622float2(sum[2 * j + h]);
+          x = e == 0 ? sv.x : sv.y;
+        }
         if (GLU) x = apply_act(x, glu_act) * acc[NACC - 1][4 * j + 2 * h + e];
         if (bias != nullptr) x += bias[c + e];
         v[e] = apply_act(x, act);
@@ -169,11 +218,13 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-template <int BN, int NACC, int STAGES, int MINB, typename TOut>
+template <int BN, int NACC, int STAGES, int MINB, typename TOut,
+          bool SLAB = false>
 int launch(const CUtensorMap& tx, const CUtensorMap& tw,
            const CUtensorMap& tw2, const float* bias, void* out, int M,
-           int K, int N, int act, int glu_act, cudaStream_t stream) {
-  auto kern = matmul_wgmma_kernel<BN, NACC, STAGES, MINB, TOut>;
+           int K, int N, int act, int glu_act, cudaStream_t stream,
+           int slab = 0) {
+  auto kern = matmul_wgmma_kernel<BN, NACC, STAGES, MINB, TOut, SLAB>;
   constexpr int smem = smem_bytes<BN, NACC, STAGES>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -181,7 +232,7 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw,
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
   kern<<<grid, THREADS, smem, stream>>>(tx, tw, tw2, bias,
                                         static_cast<TOut*>(out), M, K, N,
-                                        act, glu_act);
+                                        act, glu_act, slab);
   return (int)cudaGetLastError();
 }
 
@@ -219,5 +270,26 @@ extern "C" int matmul_wgmma(int out_dtype, const void* x, const void* w,
   if (out_dtype == rt::kBF16)
     return launch_form<bf16>(glu, tx, tw, tw2, bias, out, M, K, N, act,
                              glu_act, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The base variant (C interface as matmul_wgmma, without w2): x (M, K) and
+// w (K, N) bf16, the same TMA rules; slab = bk / 64 stages a K slab (the
+// wrapper's _slab_depth, a multiple of 64).  out_dtype 1 (bf16) folds the
+// slabs in registers; 0 (fp32) runs the CW kernel, whose fp32 sum is the
+// base variant's up to the order of its additions.
+extern "C" int matmul_base_wgmma(int out_dtype, const void* x, const void* w,
+                                 const float* bias, void* out, int M, int K,
+                                 int N, int slab, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tx, tw;
+  if (slab < 1 || !encode(&tx, x, M, K, BM) || !encode(&tw, w, K, N, BK))
+    return (int)cudaErrorInvalidValue;
+  if (out_dtype == rt::kF32)
+    return launch<PLAIN_BN, 1, PLAIN_STAGES, PLAIN_MINB, float>(
+        tx, tw, tw, bias, out, M, K, N, act, 0, s);
+  if (out_dtype == rt::kBF16)
+    return launch<PLAIN_BN, 1, PLAIN_STAGES, PLAIN_MINB, bf16, true>(
+        tx, tw, tw, bias, out, M, K, N, act, 0, s, slab);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,10 +42,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "conv2d_small_ci": [_I] + [_P] * 7 + [_I] * 13 + [_P],
+    "conv2d_mid_ci": [_P] * 7 + [_I] * 13 + [_P],
     "conv2d_wgmma": [_P] * 8 + [_I] * 15 + [_P],
     "conv2d_ffma": [_P] * 8 + [_I] * 15 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "matmul_base": [_I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "matmul_base_wgmma": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "matmul_base_small_m": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],
+    "matmul_base_ffma": [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "matmul_wgmma": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "matmul_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "matmul_ffma": [_I] + [_P] * 6 + [_I] * 7 + [_P],

@@ -1,5 +1,5 @@
 """conv2d_fused — direct 2-D convolution with the fused BN/activation
-epilogue, as hand-written CUDA kernels for Hopper: four schedules of the
+epilogue, as hand-written CUDA kernels for Hopper: five schedules of the
 same function.
 
 Replaces the Pallas kernel ``conv2d_fused`` of ``src/repro/kernels/conv2d.py``
@@ -32,6 +32,17 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   flow's ResNet-34 convs but the stem.  Full fp32 FMAs (no TF32), 128 x
   128 tiles of 8 x 8 a thread (128 x 64 when CO is 64), the im2col gather
   one float4 of channels a chunk through a 4-slot ``cp.async`` ring.
+- ``mid_ci`` (``csrc/conv2d_mid_ci.cu``): bf16 with 8 <= CI < 64, CI and
+  CO multiples of 8, K = kh kw CI at most :data:`MID_CI_K_MAX` (576, so
+  that a block's 64-channel w strip stays resident in shared memory: at
+  most 81 KB), 16-byte aligned — MobileNetV1's 32-channel pointwise conv.
+  Bound by its bytes (about 21 flops a byte at the path's shape).  A
+  persistent grid (:func:`mid_ci_grid`) of blocks that each keep one
+  64-channel strip and walk 128-pixel tiles (:func:`mid_ci_walk`); a
+  32-deep K stage is four 16-byte chunks a pixel, 8 channels of one tap
+  each (:func:`mid_ci_chunks`), gathered by ``cp.async`` into a 3-slot ring
+  that runs across tiles; ``mma.sync`` m16n8k16; the output through shared
+  memory as whole 128-byte rows.
 - ``small_ci`` (``csrc/conv2d_small_ci.cu``): convs with few input
   channels (CI < 8, K = kh kw CI <= 256, the tile's halo within
   :data:`SMALL_CI_HALO_MAX` elements; fp32 with CI a multiple of 4 stays on
@@ -44,11 +55,11 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   runs ``mma.sync`` m16n8k16 (8 warps, one output row of 16 pixels each),
   fp32 full FP32 FMAs (8 x 8 outputs a thread).
 - ``simt`` (``csrc/conv2d_fused.cu`` ``conv2d_fused``): the rest —
-  MobileNetV1's 32-channel pointwise conv in bf16, unaligned views of 8 or
-  more channels.  64 x 64 output tiles of a 256-thread block, 16-deep K
-  steps staged as fp32, fp32 FMAs.
+  unaligned views of 8 or more channels, bf16 with CI of 8 or more not a
+  multiple of 8 (or 64 up); no conv of the three CNNs.  64 x 64 output
+  tiles of a 256-thread block, 16-deep K steps staged as fp32, fp32 FMAs.
 
-Both new schedules split K when their grid is under half a wave
+``wgmma`` and ``ffma`` split K when their grid is under half a wave
 (:func:`_conv_split`: ResNet-34's 28 x 28, 14 x 14 and 7 x 7 layers at batch
 8 have 49, 26 and 16 blocks); each block writes fp32 partials that a second
 kernel sums in a fixed order (no float atomics: the bits repeat) before the
@@ -73,8 +84,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul_fused import _sm_count, _wave_split
 
-SCHEDULES = ("wgmma", "ffma", "small_ci", "simt")
+SCHEDULES = ("wgmma", "ffma", "mid_ci", "small_ci", "simt")
 CONV_BM = 128                         # rows (output pixels) a block
+MID_CI_BN = 64                        # mid_ci's channel strip
+MID_CI_KS = 32                        # its K stage: four 8-channel chunks
+MID_CI_K_MAX = 576                    # its taps kh kw CI at most
 SMALL_CI_TILE = (8, 16)               # small_ci's output tile (rows, cols)
 SMALL_CI_HALO_MAX = 3072              # its halo's elements at most
 SMALL_CI_K_MAX = 256                  # its taps kh kw CI at most
@@ -101,19 +115,66 @@ def small_ci_kmap(kh: int, kw: int, CI: int, stride: int) -> list:
             for ci in range(CI)]
 
 
+def mid_ci_chunks(kh: int, kw: int, CI: int, W: int) -> list:
+    """The chunk map of ``mid_ci``: for each 8-channel chunk j of K (ordered
+    (dh, dw, ci), padded to the 32-deep stage), ``(dh, dw, off)`` with
+    ``off = (dh * W + dw) * CI + ci`` the chunk's element offset from its
+    pixel's corner tap in x (W the input width); None for a padding chunk.
+    CI % 8 == 0, so a chunk never straddles two taps."""
+    K = kh * kw * CI
+    out = []
+    for j in range(-(-K // MID_CI_KS) * MID_CI_KS // 8):
+        k = 8 * j
+        if k >= K:
+            out.append(None)
+            continue
+        tap, ci = divmod(k, CI)
+        dh, dw = divmod(tap, kw)
+        out.append((dh, dw, (dh * W + dw) * CI + ci))
+    return out
+
+
+def mid_ci_grid(M: int, CO: int, blocks: int) -> int:
+    """``mid_ci``'s persistent grid: ``blocks`` (three an SM, or as many as
+    fit if fewer, times the SMs: 396 on the H100), at most one a tile,
+    rounded down to a multiple of the 64-channel strips (at least one block
+    a strip) so that a block keeps one strip."""
+    strips, mtiles = -(-CO // MID_CI_BN), -(-M // CONV_BM)
+    grid = min(blocks, mtiles * strips)
+    return max(strips, grid // strips * strips)
+
+
+def mid_ci_walk(M: int, CO: int, grid: int) -> list:
+    """The tiles of each block of ``mid_ci``'s grid, in the order it runs
+    them: block b keeps strip ``b % strips`` (channels ``64 strip ..``) and
+    walks M tiles ``b // strips``, ``+ grid // strips``, ... (pixels ``128
+    mt ..``); one list of (strip, mt) a block."""
+    strips, mtiles = -(-CO // MID_CI_BN), -(-M // CONV_BM)
+    groups = grid // strips
+    return [[(b % strips, mt) for mt in range(b // strips, mtiles, groups)]
+            for b in range(grid)]
+
+
 def _schedule(CI: int, CO: int, dtype: torch.dtype, aligned: bool,
               kernel: Optional[Tuple[int, int, int]] = None) -> str:
     """The kernel that runs a conv: ``wgmma`` for bf16 with CI a multiple
     of 64 (a 64-deep K stage is one tap) and CO of 8, ``ffma`` for fp32
     with CI and CO multiples of 4 (16-byte ``cp.async`` chunks), when x, w
-    and out are 16-byte aligned; then ``small_ci`` for CI < 8 in either
-    dtype when ``kernel`` = (kh, kw, stride) is given, K = kh kw CI is at
-    most 256 and the tile's halo fits (any alignment); ``simt`` for the
-    rest."""
+    and out are 16-byte aligned; ``mid_ci`` for aligned bf16 with 8 <= CI <
+    64, CI and CO multiples of 8 and K = kh kw CI at most
+    :data:`MID_CI_K_MAX` (``kernel`` = (kh, kw, stride); a 1x1 conv when it
+    is not given); then ``small_ci`` for CI < 8 in either dtype when
+    ``kernel`` is given, K is at most 256 and the tile's halo fits (any
+    alignment); ``simt`` for the rest."""
     if aligned and dtype == torch.bfloat16 and CI % 64 == 0 and CO % 8 == 0:
         return "wgmma"
     if aligned and dtype == torch.float32 and CI % 4 == 0 and CO % 4 == 0:
         return "ffma"
+    if aligned and dtype == torch.bfloat16 and 8 <= CI < 64 and \
+            CI % 8 == 0 and CO % 8 == 0:
+        kh, kw, _ = kernel or (1, 1, 1)
+        if kh * kw * CI <= MID_CI_K_MAX:
+            return "mid_ci"
     if kernel is not None and dtype in (torch.bfloat16, torch.float32) \
             and CI < 8:
         kh, kw, stride = kernel
@@ -223,6 +284,10 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if sched in ("simt", "small_ci"):
         _build.call("conv2d_fused" if sched == "simt" else "conv2d_small_ci",
                     _build.DTYPE_CODES[dt], _build.ptr(xc), _build.ptr(wc),
+                    *[_build.ptr(t) for t in bnc], _build.ptr(out), *geom,
+                    _build.stream())
+    elif sched == "mid_ci":
+        _build.call("conv2d_mid_ci", _build.ptr(xc), _build.ptr(wc),
                     *[_build.ptr(t) for t in bnc], _build.ptr(out), *geom,
                     _build.stream())
     else:

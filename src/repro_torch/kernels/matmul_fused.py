@@ -53,14 +53,29 @@ hand-written kernels, not a fallback: a build or launch failure raises):
 ``vmem_accum=False`` is the Pallas kernel's base branch (the paper's base
 kernel, ``matmul_fused.py:70-80``): the sum goes through the output dtype
 one ``bk``-deep K slab at a time, ``bk = min(tile[1], rup(K, 128))`` as in
-JAX, and has no GLU form.  Its kernel is ``matmul_base`` in
-``csrc/matmul_fused.cu`` (the SIMT core, two round-to-nearest-even steps a
-slab); nothing on the op layer passes it, in either package.
+JAX — ``sum = round(sum + round(slab))`` — and has no GLU form; nothing on
+the op layer passes it, in either package.  It runs on the CW schedules'
+cores, chosen by :func:`_base_schedule` (the CW rule at the plain form's
+crossover, and a slab that is a whole number of the core's K stages):
+
+- ``wgmma`` (``matmul_base_wgmma``): bf16 above 64 rows.  The CW mainloop;
+  in bf16 out, at a slab's last 64-deep stage the consumers fold the fp32
+  accumulator into a bf16 running sum in registers.
+- ``small_m``, ``ffma_small_m`` (``matmul_base_small_m``) and ``ffma``
+  (``matmul_base_ffma``): the CW K split cut at slab boundaries
+  (:func:`_base_split`); ``rt::splitk_reduce_slabs`` walks the fp32
+  partials in K order, sums a slab's in fp32 and rounds between slabs,
+  then bias and act.  In fp32 out, where rounding to fp32 changes nothing,
+  an unsplit ``ffma`` grid stays unsplit (the CW kernel as it is).
+- ``simt`` (``matmul_base`` in ``csrc/matmul_fused.cu``): the SIMT core,
+  two round-to-nearest-even steps a slab, for the rest (K or N off the 8 /
+  4 grid, unaligned views, slabs off the cores' stages).
 
 On a CPU tensor the wrapper runs the plain versions; on a CUDA tensor it
 launches a kernel or raises.  ``matmul_fused.launches`` counts the CW
-launches, ``matmul_fused.schedule_launches`` splits them by schedule, and
-``matmul_fused.base_launches`` counts the base variant's.  No
+launches, ``matmul_fused.schedule_launches`` splits them by schedule,
+``matmul_fused.base_launches`` counts the base variant's and
+``matmul_fused.base_schedule_launches`` splits those.  No
 ``torch.matmul``, no cuBLAS and no TF32 on the card.
 """
 from __future__ import annotations
@@ -129,6 +144,61 @@ def _split_k(M: int, K: int, N: int, sms: int = 132):
     nsplit = max(1, min(want, cap, -(-K // SMALL_M_BK)))
     kc = _rup(-(-K // nsplit), SMALL_M_BK)
     return -(-K // kc), kc
+
+
+# the K stage of each core (a base-variant slab is a whole number of them)
+BASE_STAGE = {"wgmma": 64, "small_m": SMALL_M_BK, "ffma": WAVE_STAGE,
+              "ffma_small_m": SMALL_M_BK}
+
+
+def _base_schedule(M: int, K: int, N: int, in_dtype: torch.dtype,
+                   aligned: bool, bk: int) -> str:
+    """The kernel that runs the base variant: the plain CW form's schedule
+    (:func:`_schedule`) when the slab depth ``bk`` is a whole number of its
+    core's K stages (:data:`BASE_STAGE`), else ``simt``."""
+    sched = _schedule(M, K, N, in_dtype, False, aligned)
+    if sched == "simt" or bk % BASE_STAGE[sched]:
+        return "simt"
+    return sched
+
+
+def _base_split(cw, K: int, bk: int, stage: int, exact: bool):
+    """(nsplit, kc) of the base variant on a split-K core: the core's CW
+    split ``cw`` = (nsplit, kc) cut so that every split lies inside one
+    ``bk``-deep slab — kc divides bk and is a multiple of ``stage`` — and
+    is no coarser than ``cw``'s (bk // kc splits a slab; the K tail's slab
+    may have fewer).  ``exact`` (a bf16 output, rounded between slabs): the
+    slabs must meet in the reduction, so even one split goes through it.
+    Without (fp32 out: rounding to fp32 changes nothing) an unsplit ``cw``
+    stays as it is."""
+    nsplit, kc = cw
+    if nsplit == 1 and not exact:
+        return cw
+    d = -(-bk // min(kc, bk))
+    while bk % d or (bk // d) % stage:
+        d += 1
+    return -(-K // (bk // d)), bk // d
+
+
+def _base_plan(M: int, K: int, N: int, in_dtype: torch.dtype,
+               out_dtype: torch.dtype, aligned: bool, bk: int,
+               sms: int = 132):
+    """(schedule, nsplit, kc) of one base-variant call: the K rows [s kc,
+    (s + 1) kc) of split s are summed in fp32, the splits of a slab in K
+    order, and each slab's sum is rounded to ``out_dtype`` and added into
+    the running sum in that dtype.  ``wgmma`` and ``simt`` fold each slab
+    in registers (one split a slab); the split-K cores cut their CW split
+    at the slabs (:func:`_base_split`); an unsplit fp32 ``ffma`` grid in
+    fp32 out is one split over all of K."""
+    sched = _base_schedule(M, K, N, in_dtype, aligned, bk)
+    if sched in ("wgmma", "simt"):
+        return sched, -(-K // bk), bk
+    if sched == "ffma":
+        cw = _wave_split(-(-M // FFMA_BM) * -(-N // 128), K, sms)
+    else:
+        cw = _split_k(M, K, N, sms)
+    return (sched, *_base_split(cw, K, bk, BASE_STAGE[sched],
+                                out_dtype != torch.float32))
 
 
 def _wave_split(blocks: int, K: int, sms: int = 132):
@@ -311,6 +381,41 @@ _LAUNCH = {"wgmma": _launch_wgmma, "small_m": _launch_small_m,
            "simt": _launch_simt}
 
 
+def _launch_base(c: _Call, bk: int) -> str:
+    """The base variant, slabs of ``bk``, on the core :func:`_base_plan`
+    picks; returns the schedule."""
+    ind, outd = _codes(c)
+    sched, nsplit, kc = _base_plan(c.M, c.K, c.N, c.x.dtype, c.out.dtype,
+                                   _aligned(c), bk, _sm_count(c.x.device))
+    if sched == "simt":
+        _build.call("matmul_base", ind, outd, _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(c.out),
+                    c.M, c.K, c.N, bk, c.act, _build.stream())
+        return sched
+    if sched == "wgmma":
+        _build.call("matmul_base_wgmma", outd, _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(c.out),
+                    c.M, c.K, c.N, bk // BASE_STAGE["wgmma"], c.act,
+                    _build.stream())
+        return sched
+    per_slab = max(1, bk // kc)
+    direct = sched == "ffma" and nsplit == 1 and c.out.dtype == torch.float32
+    ws = None if direct else torch.empty(nsplit * c.M * c.N,
+                                         dtype=torch.float32,
+                                         device=c.x.device)
+    if sched == "ffma":
+        _build.call("matmul_base_ffma", outd, _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(ws),
+                    _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit,
+                    0 if direct else per_slab, c.act, _build.stream())
+    else:
+        _build.call("matmul_base_small_m", ind, outd, _build.ptr(c.x),
+                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(ws),
+                    _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit, per_slab,
+                    c.act, _build.stream())
+    return sched
+
+
 def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
                  bias: Optional[torch.Tensor] = None,
                  w2: Optional[torch.Tensor] = None,
@@ -331,11 +436,9 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
     c = _prepare(x, w, bias=bias, w2=w2, act=act, out_dtype=out_dtype)
     lead = x.shape[:-1]
     if not vmem_accum:
-        _build.call("matmul_base", *_codes(c), _build.ptr(c.x),
-                    _build.ptr(c.w), _build.ptr(c.bias), _build.ptr(c.out),
-                    c.M, c.K, c.N, _slab_depth(c.K, tile), c.act,
-                    _build.stream())
+        sched = _launch_base(c, _slab_depth(c.K, tile))
         matmul_fused.base_launches += 1
+        matmul_fused.base_schedule_launches[sched] += 1
         return c.out.reshape(*lead, c.N)
     sched = _schedule(c.M, c.K, c.N, c.x.dtype, w2 is not None, _aligned(c))
     _LAUNCH[sched](c)
@@ -347,3 +450,4 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
 matmul_fused.launches = 0
 matmul_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
 matmul_fused.base_launches = 0
+matmul_fused.base_schedule_launches = dict.fromkeys(SCHEDULES, 0)

@@ -35,11 +35,12 @@ def _convs(arch):
 # arch -> dtype -> launches by schedule of one forward, the wrapper giving
 # each conv's taps: the 7x7 stride-2 stem (CI 3), MobileNetV1's first conv
 # (CI 3) and LeNet-5's CI 1 and 6 on small_ci; MobileNetV1's 32-channel
-# pointwise conv in bf16 (CI not a multiple of 64, nor under 8) on simt
+# pointwise conv in bf16 (CI not a multiple of 64, nor under 8) on mid_ci;
+# no conv on simt
 WANT = {
     "resnet34": {BF: {"wgmma": 35, "small_ci": 1},
                  F32: {"ffma": 35, "small_ci": 1}},
-    "mobilenetv1": {BF: {"wgmma": 12, "small_ci": 1, "simt": 1},
+    "mobilenetv1": {BF: {"wgmma": 12, "small_ci": 1, "mid_ci": 1},
                     F32: {"ffma": 13, "small_ci": 1}},
     "lenet5": {BF: {"small_ci": 2}, F32: {"small_ci": 2}},
 }
@@ -55,11 +56,17 @@ def test_schedule_at_every_conv_of_the_cnns(arch, dt):
     assert got == WANT[arch][dt]
 
 
-# (CI, CO, dtype, aligned) -> schedule, around each rule's edges
+# (CI, CO, dtype, aligned) -> schedule, around each rule's edges (no taps:
+# mid_ci reads a 1x1 conv)
 EDGES = [
     ((64, 64, BF, True), "wgmma"), ((128, 8, BF, True), "wgmma"),
     ((64, 1000, BF, True), "wgmma"), ((512, 512, BF, True), "wgmma"),
-    ((63, 64, BF, True), "simt"), ((32, 64, BF, True), "simt"),
+    ((63, 64, BF, True), "simt"), ((32, 64, BF, True), "mid_ci"),
+    ((8, 64, BF, True), "mid_ci"), ((16, 8, BF, True), "mid_ci"),
+    ((24, 64, BF, True), "mid_ci"), ((48, 96, BF, True), "mid_ci"),
+    ((56, 1024, BF, True), "mid_ci"), ((12, 64, BF, True), "simt"),
+    ((16, 12, BF, True), "simt"), ((32, 64, BF, False), "simt"),
+    ((8, 16, BF, False), "simt"), ((48, 64, torch.float16, True), "simt"),
     ((96, 64, BF, True), "simt"), ((64, 12, BF, True), "simt"),
     ((64, 64, BF, False), "simt"), ((3, 64, BF, True), "simt"),
     ((64, 64, F32, True), "ffma"), ((32, 64, F32, True), "ffma"),
@@ -79,7 +86,8 @@ def test_schedule_edges(args, want):
 
 
 # (CI, CO, dtype, aligned, (kh, kw, stride)) -> schedule around small_ci's
-# edges: CI 7 in, CI 8 out; fp32 with CI a multiple of 4 stays on ffma
+# edges: CI 7 in, CI 8 out (to mid_ci in bf16); fp32 with CI a multiple of
+# 4 stays on ffma
 # (aligned), takes small_ci unaligned; K = 256 in (CI 1 at 16 x 16, CI 4 at
 # 8 x 8), 260 and 320 out; a halo of 3036 elements in, 3080 out (CI 1, 16 x
 # 9 and 16 x 10 taps at stride 4: 44 x 69 and 44 x 70 pixels); float16 out;
@@ -90,7 +98,7 @@ TAP_EDGES = [
     ((3, 32, BF, True, (3, 3, 2)), "small_ci"),
     ((3, 64, BF, False, (7, 7, 2)), "small_ci"),
     ((7, 16, BF, True, (3, 3, 1)), "small_ci"),
-    ((8, 16, BF, True, (3, 3, 1)), "simt"),
+    ((8, 16, BF, True, (3, 3, 1)), "mid_ci"),
     ((4, 16, F32, True, (5, 5, 2)), "ffma"),
     ((4, 16, F32, False, (5, 5, 2)), "small_ci"),
     ((6, 16, F32, True, (5, 5, 1)), "small_ci"),
@@ -102,7 +110,18 @@ TAP_EDGES = [
     ((1, 4, BF, True, (16, 10, 4)), "simt"),
     ((3, 64, torch.float16, True, (7, 7, 2)), "simt"),
     ((64, 64, BF, True, (3, 3, 1)), "wgmma"),
-    ((32, 64, BF, True, (1, 1, 1)), "simt"),
+    ((32, 64, BF, True, (1, 1, 1)), "mid_ci"),
+    # mid_ci's K bound (576): 3x3 at CI 16, 48 and 56 in; 8 x 9 taps of 8
+    # channels (576) in, 7 x 11 (616) and the 7x7 stem at CI 16 (784) out;
+    # unaligned out
+    ((16, 64, BF, True, (3, 3, 2)), "mid_ci"),
+    ((48, 64, BF, True, (3, 3, 1)), "mid_ci"),
+    ((56, 64, BF, True, (3, 3, 1)), "mid_ci"),
+    ((8, 64, BF, True, (8, 9, 1)), "mid_ci"),
+    ((8, 64, BF, True, (7, 11, 1)), "simt"),
+    ((16, 64, BF, True, (7, 7, 2)), "simt"),
+    ((32, 64, BF, False, (1, 1, 1)), "simt"),
+    ((63, 64, BF, True, (1, 1, 1)), "simt"),
 ]
 
 

@@ -200,22 +200,72 @@ def test_conv2d_schedules_each_act(card, dt, act):
 
 
 def test_conv2d_simt_keeps_the_rest(card):
-    """CI 32 and CI 12 in bf16, CI 10 in fp32 (CI neither under 8 nor a
-    multiple of the tensor-core or FFMA step) and an unaligned fp32 view of
-    CI 16 run on simt, each within its tolerance of the plain version."""
-    cases = [(32, 64, torch.bfloat16), (12, 64, torch.bfloat16),
-             (10, 64, torch.float32)]
+    """CI 12 in bf16, CI 10 in fp32 (CI neither under 8 nor a multiple of
+    the mid_ci, tensor-core or FFMA step) and unaligned views (bf16 of CI
+    32, which mid_ci takes aligned; fp32 of CI 16) run on simt, each within
+    its tolerance of the plain version."""
+    cases = [(12, 64, torch.bfloat16), (10, 64, torch.float32)]
     for CI, CO, dt in cases:
         x, w, bnp = _conv_inputs(card, 2, 16, 16, CI, CO, 3, True, dt)
         y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w, bn=bnp,
                                                       act="relu"))
         assert _rel(y, kc.conv2d_fused_plain(x, w, bn=bnp, act="relu")) \
             < TOL["fp32" if dt == torch.float32 else "bf16"]
-    flat = _randn(card, 4 + 2 * 8 * 8 * 16)
-    x = flat[1:1 + 2 * 8 * 8 * 16].view(2, 8, 8, 16)       # 4-byte offset
-    w = _randn(card, 3, 3, 16, 16)
-    y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w))
-    assert _rel(y, kc.conv2d_fused_plain(x, w)) < TOL["fp32"]
+    for dt, CI, tol in ((torch.bfloat16, 32, "bf16"),
+                        (torch.float32, 16, "fp32")):
+        n = 2 * 8 * 8 * CI
+        x = _randn(card, n + 1, dt=dt)[1:].view(2, 8, 8, CI)   # one element
+        w = _randn(card, 3, 3, CI, 16, dt=dt) * CI ** -0.5
+        y = _conv_ran("simt", lambda: kc.conv2d_fused(x, w))
+        assert _rel(y, kc.conv2d_fused_plain(x, w)) < TOL[tol]
+
+
+# conv2d_fused's mid_ci schedule (bf16, 8 <= CI < 64): the CPU model's cases
+# (tests/test_torch_conv_mid_ci.py: CI 8-48, 1x1 and 3x3, strides 1 and 2,
+# SAME and VALID, CO 72 for a ragged second strip at CI 16 and 48) at batch
+# 2 on 11 x 9 images, and at the path's MobileNetV1 32 -> 64 1x1 conv (784
+# tiles: about two a block)
+MID_CI = [(ci, k, s, p) for ci in (8, 16, 32, 48) for k in (1, 3)
+          for s in (1, 2) for p in ("SAME", "VALID")]
+
+
+@pytest.mark.parametrize("ci,k,stride,padding", MID_CI,
+                         ids=[f"ci{c}-k{k}-s{s}-{p}" for c, k, s, p in MID_CI])
+def test_conv2d_mid_ci_schedule(card, ci, k, stride, padding):
+    """Each case on mid_ci, within bf16 tolerance of the plain version,
+    finite, and the same bits twice."""
+    co = 72 if ci in (16, 48) else 64
+    x, w, bnp = _conv_inputs(card, 2, 11, 9, ci, co, k, True, torch.bfloat16)
+
+    def run():
+        return kc.conv2d_fused(x, w, stride=stride, padding=padding, bn=bnp,
+                               act="relu")
+    y = _conv_ran("mid_ci", run)
+    p = kc.conv2d_fused_plain(x, w, stride=stride, padding=padding, bn=bnp,
+                              act="relu")
+    assert y.dtype == torch.bfloat16 and y.shape == p.shape
+    assert torch.isfinite(y.float()).all()
+    assert _rel(y, p) < TOL["bf16"]
+    assert torch.equal(run(), y)
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "silu", "relu", "relu2",
+                                 "sigmoid", "tanh"])
+def test_conv2d_mid_ci_path_shape_each_act(card, act):
+    """MobileNetV1's 32 -> 64 pointwise conv at 112 px, batch 8, with the
+    BN fold and each act (the path's ReLU and none on their own
+    instantiations), and bare; a 3x3 CI 24 conv with CO 136 (three strips)
+    and the runtime-K loop."""
+    for shape, k, bn in (((8, 112, 112, 32, 64), 1, True),
+                         ((8, 112, 112, 32, 64), 1, False),
+                         ((4, 30, 30, 24, 136), 3, True)):
+        N, H, W, CI, CO = shape
+        x, w, bnp = _conv_inputs(card, N, H, W, CI, CO, k, bn,
+                                 torch.bfloat16)
+        y = _conv_ran("mid_ci", lambda: kc.conv2d_fused(x, w, bn=bnp,
+                                                        act=act))
+        assert _rel(y, kc.conv2d_fused_plain(x, w, bn=bnp, act=act)) \
+            < TOL["bf16"]
 
 
 # conv2d_fused's small_ci schedule: (N, H, W, CI, CO, k, stride, padding,
@@ -480,25 +530,70 @@ def test_matmul_ffma_small_m_long_k_and_bf16_out(card):
         assert _rel(y, p) < TOL["fp32" if odt == torch.float32 else "bf16"]
 
 
+# the base variant's routes: (M, K, N, tile, act, {dtype: schedule})
+BASE = [
+    (8, 512, 1000, (256, 512, 256), None,        # the ResNet FC, one slab
+     {"bf16": "small_m", "fp32": "ffma_small_m"}),
+    (100, 1000, 72, (32, 64, 32), "relu",        # 16 slabs, a 40-deep tail
+     {"bf16": "wgmma", "fp32": "ffma"}),
+    (3, 200, 40, (8, 40, 8), "gelu",             # 40-deep slabs: simt
+     {"bf16": "simt", "fp32": "simt"}),
+    (24, 1024, 136, (8, 128, 32), "silu",        # 8 slabs, split finer
+     {"bf16": "small_m", "fp32": "ffma_small_m"}),
+    (300, 1536, 264, (256, 512, 256), None,      # 3 slabs, ragged tiles
+     {"bf16": "wgmma", "fp32": "ffma"}),
+    (1152, 2048, 1024, (256, 512, 256), "relu",  # 4 slabs; 72 ffma blocks:
+     {"bf16": "wgmma", "fp32": "ffma"}),         # unsplit in fp32 out
+    (8, 120, 84, (256, 512, 256), "relu",        # N off bf16's 8-grid,
+     {"bf16": "simt", "fp32": "ffma_small_m"}),  # on fp32's 4-grid
+]
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("M,K,N,tile,act", [
-    (8, 512, 1000, (256, 512, 256), None),       # the ResNet FC, one slab
-    (100, 1000, 72, (32, 64, 32), "relu"),       # 16 slabs, a 40-deep tail
-    (3, 200, 40, (8, 40, 8), "gelu"),            # 40-deep slabs
-])
-def test_matmul_base_variant_kernel(card, dt, M, K, N, tile, act):
+@pytest.mark.parametrize("odt", ["same", "bf16"])
+@pytest.mark.parametrize("M,K,N,tile,act,want", BASE,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}" for c in BASE])
+def test_matmul_base_variant_kernel(card, dt, odt, M, K, N, tile, act, want):
+    """Each route of the base variant (the CW cores and the SIMT base
+    kernel) within its tolerance of the plain version, counted under its
+    schedule and not as a CW launch, with the same bits twice; in the
+    input dtype and in bf16 out."""
     x, w, _, b = _mm_inputs(card, M, K, N, False, DTYPES[dt])
+    o = DTYPES[dt] if odt == "same" else torch.bfloat16
     n0, b0 = km.matmul_fused.launches, km.matmul_fused.base_launches
-    y = km.matmul_fused(x, w, bias=b, act=act, tile=tile, vmem_accum=False)
+    s0 = dict(km.matmul_fused.base_schedule_launches)
+
+    def run():
+        return km.matmul_fused(x, w, bias=b, act=act, tile=tile,
+                               vmem_accum=False, out_dtype=o)
+    y = run()
     torch.cuda.synchronize()
     assert km.matmul_fused.base_launches == b0 + 1
     assert km.matmul_fused.launches == n0
+    assert {k: v - s0[k] for k, v in
+            km.matmul_fused.base_schedule_launches.items()} == \
+        {k: int(k == want[dt]) for k in km.SCHEDULES}
     p = km.matmul_fused_plain(x, w, bias=b, act=act, tile=tile,
-                              vmem_accum=False)
-    assert y.shape == (M, N) and y.dtype == DTYPES[dt]
-    assert _rel(y, p) < TOL[dt]
+                              vmem_accum=False, out_dtype=o)
+    assert y.shape == (M, N) and y.dtype == o
+    assert _rel(y, p) < TOL["fp32" if o == torch.float32 else "bf16"]
+    assert torch.equal(run(), y)
     with pytest.raises(ValueError):
         km.matmul_fused(x, w, w2=w, vmem_accum=False)
+
+
+def test_matmul_base_variant_unaligned_views_on_simt(card):
+    """An unaligned bf16 x (2-byte offset) takes the SIMT base kernel and
+    matches."""
+    flat = _randn(card, 8 * 512 + 1, dt=torch.bfloat16)
+    x = flat[1:].view(8, 512)
+    w = _randn(card, 512, 256, dt=torch.bfloat16) * 512 ** -0.5
+    s0 = km.matmul_fused.base_schedule_launches["simt"]
+    y = km.matmul_fused(x, w, tile=(8, 128, 8), vmem_accum=False)
+    torch.cuda.synchronize()
+    assert km.matmul_fused.base_schedule_launches["simt"] == s0 + 1
+    assert _rel(y, km.matmul_fused_plain(x, w, tile=(8, 128, 8),
+                                         vmem_accum=False)) < TOL["bf16"]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -1015,14 +1110,26 @@ def test_cuda_tensors_never_reach_a_plain_version(card, monkeypatch):
     kc.conv2d_fused(_randn(card, 1, 8, 8, 3), _randn(card, 3, 3, 3, 8))
     kc.conv2d_fused(_randn(card, 1, 8, 8, 32, dt=torch.bfloat16),
                     _randn(card, 3, 3, 32, 8, dt=torch.bfloat16))
+    kc.conv2d_fused(_randn(card, 1, 8, 8, 12, dt=torch.bfloat16),
+                    _randn(card, 3, 3, 12, 8, dt=torch.bfloat16))
+    b0 = dict(km.matmul_fused.base_schedule_launches)
     km.matmul_fused(_randn(card, 4, 16), _randn(card, 16, 8))
     km.matmul_fused(_randn(card, 100, 16), _randn(card, 16, 8))
     km.matmul_fused(_randn(card, 4, 10), _randn(card, 10, 8))
+    km.matmul_fused(_randn(card, 4, 64, dt=torch.bfloat16),
+                    _randn(card, 64, 8, dt=torch.bfloat16), vmem_accum=False)
+    km.matmul_fused(_randn(card, 4, 10), _randn(card, 10, 8),
+                    vmem_accum=False)
     torch.cuda.synchronize()
     assert {k: v - c0[k] for k, v in kc.conv2d_fused.schedule_launches.items()
-            } == {"wgmma": 1, "ffma": 1, "small_ci": 1, "simt": 1}
+            } == {"wgmma": 1, "ffma": 1, "mid_ci": 1, "small_ci": 1,
+                  "simt": 1}
     assert {k: v - m0[k] for k, v in km.matmul_fused.schedule_launches.items()
             } == {"wgmma": 0, "small_m": 0, "ffma": 1, "ffma_small_m": 1,
+                  "simt": 1}
+    assert {k: v - b0[k] for k, v in
+            km.matmul_fused.base_schedule_launches.items()
+            } == {"wgmma": 0, "small_m": 1, "ffma": 0, "ffma_small_m": 0,
                   "simt": 1}
     f0 = dict(ka.flash_attention.schedules)
     q = _randn(card, 1, 16, 4, 32)

@@ -204,7 +204,8 @@ def test_cpu_wrappers_count_nothing():
     moves: the CW total, the per-schedule split, the base variant's."""
     before = (tmm.matmul_fused.launches,
               dict(tmm.matmul_fused.schedule_launches),
-              tmm.matmul_fused.base_launches)
+              tmm.matmul_fused.base_launches,
+              dict(tmm.matmul_fused.base_schedule_launches))
     x, w, b = torch.randn(5, 64), torch.randn(64, 16), torch.randn(16)
     xb, wb = x.bfloat16(), w.bfloat16()
     assert torch.equal(tmm.matmul_fused(xb, wb, w2=wb),
@@ -217,5 +218,7 @@ def test_cpu_wrappers_count_nothing():
                                tile=(8, 32, 8)))
     assert (tmm.matmul_fused.launches,
             tmm.matmul_fused.schedule_launches,
-            tmm.matmul_fused.base_launches) == before
+            tmm.matmul_fused.base_launches,
+            tmm.matmul_fused.base_schedule_launches) == before
     assert set(tmm.matmul_fused.schedule_launches) == set(tmm.SCHEDULES)
+    assert set(tmm.matmul_fused.base_schedule_launches) == set(tmm.SCHEDULES)
