@@ -29,15 +29,13 @@ Phases, each raising on failure:
    also timed at batch 4, 8, 16 and 32 beside cuDNN's;
 4. LM kernels — at full-width llama3.2-1b shapes, in bf16 and fp32:
    ``flash_attention`` at the prefill (B=8, 512 tokens, 32 heads over 8 KV
-   heads of 64, causal) and at qwen1.5-4b's heads (20 over 20 of 128, a
-   kernel case only), each recording its schedule (``wgmma`` in bf16,
+   heads of 64, causal), recording its schedule (``wgmma`` in bf16,
    ``ffma`` in fp32), timed as CUDA-graph replays and by events beside
    the SIMT kernel at the same shape (held to the plain version too) and
    SDPA (with the name of the kernel it ran); ``decode_attention`` over a
-   1024-slot cache half full, at llama's heads and at qwen1.5-4b's (a
-   kernel case), on its ``mma`` (bf16) or ``ffma`` (fp32) schedule, timed
-   as CUDA-graph replays beside the SIMT kernel (forced, held to the plain
-   version too) and SDPA, and
+   1024-slot cache half full, on its ``mma`` (bf16) or ``ffma`` (fp32)
+   schedule, timed as CUDA-graph replays beside the SIMT kernel (forced,
+   held to the plain version too) and SDPA, and
    ``matmul_fused`` at every projection of a llama layer and every
    distinct projection of recurrentgemma-2b (2560 -> 2560, 2560 ->
    256, the 2560 -> 7680 GLU pair, 7680 -> 2560), for the prefill's 4096
@@ -77,8 +75,8 @@ Phases, each raising on failure:
    ``measure("decode")`` and a profile of each;
 7. serving kernels — ``paged_decode_attention`` at the serving shape (8
    rows of ~520 live tokens in a 513-block pool of 16-token blocks, one
-   query a row and five; and at qwen1.5-4b's heads, a kernel case), on its
-   ``mma`` or ``ffma`` schedule beside the SIMT kernel (forced, by graph),
+   query a row and five), on its ``mma`` or ``ffma`` schedule beside the
+   SIMT kernel (forced, by graph),
    and ``copy_block`` on the folded 16-layer K and V
    pools (one launch a fork), in bf16 and fp32, each held against its plain
    version and timed beside it, the library yardstick (gather +
@@ -132,11 +130,33 @@ Phases, each raising on failure:
    sequential kernel it replaced (by graph, held to the plain version too)
    and the bound (no PyTorch call computes a linear recurrence); at each
    path shape the chunked kernel must be no slower than the sequential
-   one.
+   one;
+12. dense kernels — at the heads and projections of qwen1.5-4b (20 heads
+   over 20 KV heads of 128), phi4-mini-3.8b (24 over 8 of 128: a group of
+   3) and stablelm-1.6b (32 over 32 of 64), bf16 and fp32:
+   ``flash_attention`` at the 8 x 512 prefill, ``decode_attention`` over
+   the 1024-slot cache half full and ``paged_decode_attention`` at a
+   serving tick, each beside its SIMT kernel, SDPA (gather + SDPA) and the
+   plain version; ``matmul_fused`` at each of the model's projection
+   shapes (from its plan) at 4096 and 8 rows;
+13. dense path — the three at full width and depth (random weights from
+   seed 0, drawn once in bf16; the fp32 runs take them widened), one after
+   the other: ``generate`` of 32 tokens after a 512-token prompt a row
+   (``ShapeConfig("serve", "decode", 1024, 8)``) with the launches the
+   plan says (L flash + 6 L matmul a prefill, L decode + 6 L matmul a
+   step, L layers), the prefill's and every teacher-forced step's logits
+   against the reference backend (bf16 within 5e-2, fp32 within 1e-4),
+   the fp32 greedy tokens identical to it; in bf16 ``measure`` of the 8 x
+   512 prefill and a decode step with profiles, and the head's unembed
+   timed alone; then ``Engine.run`` on workload A (llama's serving
+   configuration) with its launches by schedule (each prefill batch's
+   projections by its rows) and the pool's bytes, fp32 tokens identical
+   to the reference backend's ``Engine.run``.  Each model's weights,
+   states and pools are freed before the next.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9, 10 and 11 come last. Every path phase also reads matmul_fused's launches by
-schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
+9, 10 and 11 come next, then 12 and 13. Every path phase also reads
+matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
 shapes say; the base variant never (no op-layer caller passes
@@ -146,10 +166,12 @@ on ``wgmma``, its first conv on ``small_ci`` and its 32-channel pointwise
 conv on ``mid_ci``, LeNet-5 2 on ``small_ci``; no conv on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
-window run and workload R), in fp32 all on ``ffma``, none on ``simt``; and
-decode_attention's and paged_decode_attention's: in bf16 all on ``mma``
-(llama's generate and each decode step, serving A-D, the hybrid's generate,
-window run and workload R), in fp32 all on ``ffma``, none on ``simt``. TF32
+window run and workload R, the dense family's generates and workload A),
+in fp32 all on ``ffma``, none on ``simt``; and decode_attention's and
+paged_decode_attention's: in bf16 all on ``mma`` (llama's generate and
+each decode step, serving A-D, the hybrid's generate, window run and
+workload R, the dense family's generates, decode steps and workload A),
+in fp32 all on ``ffma``, none on ``simt``. TF32
 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
 fp32. The last line is ``{"ok": true, "device": {...}}``; the line with the
@@ -189,9 +211,6 @@ B = 8
 LM_ARCH = "llama3.2-1b"
 LM_S, LM_C, LM_H, LM_KV, LM_D, LM_LAYERS = 512, 1024, 32, 8, 64, 16
 LM_STEPS = 32
-# qwen1.5-4b's attention (src/repro/configs/qwen15_4b.py): 20 heads
-# over 20 KV heads of 128, at the llama prefill's 8 x 512 tokens
-QWEN_ARCH, QWEN_H, QWEN_D = "qwen1.5-4b", 20, 128
 LM_MATMULS = [("q", 2048, 2048, False), ("k", 2048, 512, False),
               ("v", 2048, 512, False), ("o", 2048, 2048, False),
               ("glu", 2048, 8192, True), ("down", 8192, 2048, False)]
@@ -1181,17 +1200,6 @@ def phase_lm_kernels():
                 rg_cases.append(c)
                 log(json.dumps({"kernel": "matmul_fused", "arch": RG_ARCH,
                                 **c}))
-    # head width 128 at qwen1.5-4b's prefill: a kernel case only (no path
-    # of this script runs qwen), tagged so that no llama sum counts it;
-    # drawn last, so that every other case's inputs stay as they were
-    for dt in (torch.bfloat16, torch.float32):
-        for kname, c in (("flash_attention", _flash_case(
-                dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)),
-                         ("decode_attention", _decode_case(
-                             dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D))):
-            c["arch"] = QWEN_ARCH
-            cases[kname].append(c)
-            log(json.dumps({"kernel": kname, **c}))
     for kname in ("flash_attention", "decode_attention"):
         cases[kname] += [_simt_twin(c) for c in cases[kname]]
     return cases, rg_cases
@@ -1795,13 +1803,6 @@ def phase_serving_kernels():
         c = _copy_case(dt, gen)
         cases["copy_block"].append(c)
         log(json.dumps({"kernel": "copy_block", **c}))
-    # head width 128 at qwen1.5-4b's heads (20 over 20): a kernel case only,
-    # drawn last so that the other cases' inputs stay as they were
-    for dt in (torch.bfloat16, torch.float32):
-        c = _paged_case(1, dt, gen, H=QWEN_H, KV=QWEN_H, D=QWEN_D)
-        c["arch"] = QWEN_ARCH
-        cases["paged_decode_attention"].append(c)
-        log(json.dumps({"kernel": "paged_decode_attention", **c}))
     cases["paged_decode_attention"] += [
         _simt_twin(c) for c in cases["paged_decode_attention"]]
     return cases
@@ -1895,6 +1896,18 @@ def _segment_is_host_free(cm, params):
     return tuple(toks.shape) == (SERVE_SLOTS, 8)
 
 
+def _serve_want(rep, want_p, per_tick, n_forks=0):
+    """The kernel launches of a serving run, from its prefill batches and
+    decode ticks."""
+    m = rep.metrics
+    return {"flash_attention": want_p["flash_attention"] * m["prefill_batches"],
+            "matmul_fused": want_p["matmul_fused"] * m["prefill_batches"]
+            + per_tick["matmul_fused"] * m["decode_ticks"],
+            "paged_decode_attention":
+                per_tick["decode_attention"] * m["decode_ticks"],
+            "copy_block": n_forks}
+
+
 def phase_serving(smi):
     """Full-width llama3.2-1b through ``Engine.run`` over the paged pool."""
     from repro_torch import flow as tflow
@@ -1911,21 +1924,14 @@ def phase_serving(smi):
         raise AssertionError(f"serving plan.kernels {ks}")
     want_p = _plan_launches(cm.plan, "prefill")
     per_tick = _plan_launches(cm.plan, "decode")
-    per_tick["paged_decode_attention"] = per_tick.pop("decode_attention")
     n_entries = 1                  # one folded unit, one attention state
     params = cm.init_params(SEED)
     works = _serve_workloads(cm.cfg.vocab_size)
 
     def counted(rep, what):
-        m = rep.metrics
-        want = {"flash_attention": want_p["flash_attention"]
-                * m["prefill_batches"],
-                "matmul_fused": want_p["matmul_fused"] * m["prefill_batches"]
-                + per_tick["matmul_fused"] * m["decode_ticks"],
-                "paged_decode_attention":
-                    per_tick["paged_decode_attention"] * m["decode_ticks"],
-                "copy_block": n_entries * m["cow_forks"]}
-        return _counted(read_counts(), want, what)
+        return _counted(read_counts(), _serve_want(
+            rep, want_p, per_tick, n_entries * rep.metrics["cow_forks"]),
+            what)
 
     # the main path, bf16: each workload with the counts set to 0 just
     # before it and read just after
@@ -2235,7 +2241,7 @@ def _refused(what, fn, match):
     raise AssertionError(f"{what} was served; it must be refused")
 
 
-def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
+def _lm_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
     """One generate through the port's entry point with the counts set to
     0 just before and read just after; then the prefill and each
     teacher-forced decode step held against the reference backend (logits
@@ -2257,7 +2263,8 @@ def _rg_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
                               f"{prec} generate")
     dsched = _decode_scheduled(launches["decode_attention"], prec,
                                f"{prec} generate")
-    lshapes = _lru_scheduled(launches["lru_scan"], f"{prec} generate")
+    lshapes = _lru_scheduled(launches.get("lru_scan", 0),
+                             f"{prec} generate")
     V = cm.cfg.vocab_size
     if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
         raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
@@ -2334,7 +2341,7 @@ def phase_rec_path(smi):
         long_prompt = torch.from_numpy(rs.randint(0, V, (1, RG_LONG))).cuda()
 
         # a. generate: 32 tokens a row after a 512-token prompt
-        g = _rg_generate(cm, ref, params, prompt, RG_STEPS, want_p, want_d,
+        g = _lm_generate(cm, ref, params, prompt, RG_STEPS, want_p, want_d,
                          prec)
         rec[f"generate_{prec}"] = g
         log(json.dumps({"rec_generate": prec, **g}))
@@ -2377,7 +2384,7 @@ def phase_rec_path(smi):
         if cml.plan.cache_len != RG_WINDOW:
             raise AssertionError(f"window run: cache_len "
                                  f"{cml.plan.cache_len}")
-        w = _rg_generate(cml, refl, params, long_prompt, RG_LONG_STEPS,
+        w = _lm_generate(cml, refl, params, long_prompt, RG_LONG_STEPS,
                          _plan_launches(cml.plan, "prefill"),
                          _plan_launches(cml.plan, "decode"), prec)
         rec[f"window_{prec}"] = w
@@ -2469,6 +2476,282 @@ def phase_rec_path(smi):
     log(f"{RG_ARCH}: fp32 greedy tokens identical to the reference backend "
         "(generate, window, workload R)")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense family: qwen1.5-4b, phi4-mini-3.8b, stablelm-1.6b
+# ---------------------------------------------------------------------------
+
+# at full width and depth (configs/qwen15_4b.py, phi4_mini_38b.py,
+# stablelm_16b.py): qwen 40 layers, 20 heads over 20 KV heads of 128, QKV
+# bias, rope base 1e6; phi4 32 layers, 24 over 8 of 128, rope on 96 of 128,
+# tied embeddings; stablelm 24 layers, 32 over 32 of 64, LayerNorm, rope on
+# 16 of 64, QKV bias.  Each generates (a 512-token prompt a row, 32 greedy
+# tokens, at llama's ShapeConfig("serve", "decode", 1024, 8)) and serves
+# workload A (llama's serving configuration: 8 slots of 1024 tokens in
+# blocks of 16, a pool of 513 blocks), bf16 then fp32.
+DENSE_ARCHS = ("qwen1.5-4b", "phi4-mini-3.8b", "stablelm-1.6b")
+
+
+def _heads(arch):
+    """(layers, heads, KV heads, head width) of a full config."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    a = cfg.attention
+    return cfg.n_layers, a.n_heads, a.n_kv_heads, a.head_dim
+
+
+def _plan_matmuls(plan):
+    """The distinct matmul_fused shapes of one prefill (or decode step) of
+    the plan, as [(name, K, N, GLU pair, launches)]: the projections as the
+    fusion pass left them (a QKV bias stays its own op: the pass fuses a
+    bias only into the matmul just before it, as the JAX package's does)."""
+    from repro_torch.core.lowering import live_ops
+    uses = {}
+    for unit in plan.units:
+        for j in range(unit.period):
+            blk = plan.graph.blocks[unit.indices[j]]
+            for op in live_ops(blk, "prefill"):
+                if op.op in ("matmul", "glu_matmul"):
+                    if op.attrs.get("bias"):
+                        raise AssertionError(f"{op.op} with a fused bias")
+                    K, N = op.params[0].shape
+                    key = (K, N, op.op == "glu_matmul")
+                    uses[key] = uses.get(key, 0) + unit.reps
+    return [(f"{K}to{N}" + ("_glu" if glu else ""), K, N, glu, n)
+            for (K, N, glu), n in uses.items()]
+
+
+def phase_dense_kernels():
+    """Phase 12: the kernels of qwen1.5-4b, phi4-mini-3.8b and
+    stablelm-1.6b at their heads and projections, bf16 and fp32:
+    flash_attention at the 8 x 512 prefill, decode_attention over the
+    1024-slot cache half full, paged_decode_attention at a workload-A tick
+    (Sq 1), each beside the SIMT kernel, SDPA (gather + SDPA) and the
+    plain version; matmul_fused at every projection of a layer at the
+    prefill's 4096 rows and a decode step's 8.  Each case carries its
+    model's name."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = {"flash_attention": [], "decode_attention": [],
+             "paged_decode_attention": [], "matmul_fused": []}
+    for arch in DENSE_ARCHS:
+        _, H, KV, D = _heads(arch)
+        plan = tflow.compile(arch, ShapeConfig("serve", "decode", LM_C, B),
+                             FlowConfig(mode="folded")).plan
+        for dt in (torch.bfloat16, torch.float32):
+            heads = dict(H=H, KV=KV, D=D)
+            for kname, c in (
+                    ("flash_attention", _flash_case(dt, gen, **heads)),
+                    ("decode_attention", _decode_case(dt, gen, **heads)),
+                    ("paged_decode_attention",
+                     _paged_case(1, dt, gen, **heads))):
+                cases[kname].append({**c, "arch": arch})
+                log(json.dumps({"kernel": kname, "arch": arch, **c}))
+            for M in (B * LM_S, B):
+                for name, K, N, glu, uses in _plan_matmuls(plan):
+                    c = _lm_matmul_case(name, M, K, N, glu, dt, gen, uses)
+                    cases["matmul_fused"].append({**c, "arch": arch})
+                    log(json.dumps({"kernel": "matmul_fused", "arch": arch,
+                                    **c}))
+    for kname in ("flash_attention", "decode_attention",
+                  "paged_decode_attention"):
+        cases[kname] += [_simt_twin(c) for c in cases[kname]]
+    return cases
+
+
+def _widened(params):
+    """The parameter tree in fp32: the fp32 runs take the bf16 draw
+    widened, not a second draw."""
+    return {k: {n: t.float() for n, t in d.items()}
+            for k, d in params.items()}
+
+
+def _unembed(cm, params):
+    """CUDA-event ms of the head's ``op_unembed`` at a decode step's 8 rows
+    (the whole table widened to fp32, then an fp32 GEMM), on the model's
+    own table."""
+    from types import SimpleNamespace
+    from repro_torch.core.ops_impl import op_unembed
+    cfg = cm.cfg
+    dt = cm.plan.prec.compute_dtype
+    table = params["embed"]["table"] if cfg.tie_embeddings \
+        else params["head"]["lm_head"]
+    x = torch.randn(B, 1, cfg.d_model, device=table.device).to(dt)
+    ctx = SimpleNamespace(compute_dtype=dt)
+    op = SimpleNamespace(attrs={"true_vocab": cfg.vocab_size})
+
+    def fn():
+        return op_unembed(ctx, op, {"lm_head": table}, x)
+    return cuda_ms(fn, 10, 2)
+
+
+def _serve_split(eng, rep, shapes, prec):
+    """matmul_fused's launches of a traced serving run by schedule: each
+    prefill batch's projections (its rows: batch bucket x prompt bucket)
+    on the precision's large-M schedule above ``SMALL_M_MAX`` rows of the
+    form, small-M at or below; every decode tick's on small-M."""
+    from repro_torch.kernels.matmul_fused import SMALL_M_MAX
+    big, small = LM_SCHEDULES[prec]
+    want = {big: 0, small: sum(n for *_, n in shapes)
+            * rep.metrics["decode_ticks"]}
+    batches = [e["args"] for e in eng.tracer.events()
+               if e["name"] == "prefill"]
+    if len(batches) != rep.metrics["prefill_batches"]:
+        raise AssertionError(f"{len(batches)} prefill spans, "
+                             f"{rep.metrics['prefill_batches']} batches")
+    for a in batches:
+        rows = a["batch"] * a["bucket"]
+        for _, _, _, glu, n in shapes:
+            want[small if rows <= SMALL_M_MAX[glu] else big] += n
+    return want
+
+
+def _dense_model(arch, smi):
+    """One model of the rest of the dense family through ``generate`` and
+    ``Engine.run`` on workload A, bf16 then fp32, each held to the
+    ``reference`` backend; its weights, states and pools freed after."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    layers, H, KV, D = _heads(arch)
+    shape = ShapeConfig("serve", "decode", LM_C, B)
+    rec = {"arch": arch, "nvidia_smi": smi, "layers": layers,
+           "heads": [H, KV, D]}
+    params = prompt = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(arch, shape, fl)
+        ref = tflow.compile(arch, shape, fl, backend="reference")
+        ks = cm.plan.kernels
+        if any(ks[o] != "cuda" for o in (
+                "attention", "decode_attention", "paged_decode_attention",
+                "matmul", "glu_matmul")):
+            raise AssertionError(f"{arch}: plan.kernels {ks}")
+        want_p = _plan_launches(cm.plan, "prefill")
+        want_d = _plan_launches(cm.plan, "decode")
+        shapes = _plan_matmuls(cm.plan)
+        if want_p != {"flash_attention": layers, "decode_attention": 0,
+                      "matmul_fused": 6 * layers} or \
+                want_d != {"flash_attention": 0, "decode_attention": layers,
+                           "matmul_fused": 6 * layers} or \
+                sum(n for *_, n in shapes) != 6 * layers:
+            raise AssertionError(f"{arch}: plan launches {want_p} / "
+                                 f"{want_d}, shapes {shapes}")
+        if prec == "bf16":
+            rec["units"] = cm.describe().splitlines()[2].strip()
+            rec["kernels_line"] = cm.describe().splitlines()[-1].strip()
+            t0 = time.perf_counter()
+            params = cm.init_params(SEED)
+            torch.cuda.synchronize()
+            rec["init_params_s"] = time.perf_counter() - t0
+            rec["params"] = sum(t.numel() for d in params.values()
+                                for t in d.values())
+            prompt = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cm.cfg.vocab_size, (B, LM_S)).astype(np.int64)).cuda()
+        else:
+            params = _widened(params)
+            torch.cuda.empty_cache()
+
+        # a. generate: 32 greedy tokens a row after the 512-token prompt
+        g = _lm_generate(cm, ref, params, prompt, LM_STEPS, want_p, want_d,
+                         prec)
+        rec[f"generate_{prec}"] = g
+        log(json.dumps({"dense_generate": arch, "precision": prec, **g}))
+        if prec == "bf16":
+            cm_p = tflow.compile(arch, ShapeConfig("serve", "prefill", LM_S,
+                                                   B), fl)
+            mp = cm_p.measure("prefill", iters=5, seed=SEED, params=params)
+            md = cm.measure("decode", iters=20, seed=SEED, params=params)
+            dstate = cm.init_state(B)
+            dtok = {"tokens": prompt[:, :1]}
+            dprof = _profile(lambda: cm.decode(params, dtok, dstate, 100),
+                             10)
+            un = _unembed(cm, params)
+            step_busy = dprof["device_busy_ms"] / dprof["iters"]
+            rec["measure"] = {
+                "device": mp["device"],
+                "prefill_ms": mp["measured_step_s"] * 1e3,
+                "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+                "prefill_tokens_per_s": mp["tokens_per_s"],
+                "prefill_peak_bytes": mp["peak_bytes"],
+                "decode_ms": md["measured_step_s"] * 1e3,
+                "decode_mean_ms": md["mean_step_s"] * 1e3,
+                "decode_tokens_per_s": md["tokens_per_s"],
+                "prefill_profile": _profile(
+                    lambda: cm_p.prefill(params, {"tokens": prompt}), 2),
+                "decode_profile": dprof, "unembed_ms": un,
+                "unembed_share_of_decode_ms":
+                    un / (md["measured_step_s"] * 1e3),
+                "unembed_share_of_device_ms": un / step_busy
+                if step_busy else None}
+            log(json.dumps({"dense_measure": arch, **rec["measure"]}))
+            del cm_p, dstate
+
+        # b. serving: workload A through Engine.run
+        reqs = _serve_workloads(cm.cfg.vocab_size)["A"]
+        reset_counts()
+        eng, rep = _engine_run(cm, params, reqs, trace=True)
+        launches = _counted(read_counts(), _serve_want(rep, want_p, want_d),
+                            f"{arch} {prec} workload A")
+        r = _serve_record(eng, rep)
+        r.update(
+            launches=launches,
+            matmul_schedules=_scheduled(_serve_split(eng, rep, shapes, prec),
+                                        f"{arch} {prec} workload A"),
+            flash_schedules=_flash_scheduled(
+                launches["flash_attention"], prec,
+                f"{arch} {prec} workload A"),
+            paged_schedules=_decode_scheduled(
+                launches["paged_decode_attention"], prec,
+                f"{arch} {prec} workload A", "paged_decode_attention"))
+        elem = 2 if prec == "bf16" else 4
+        pool = 2 * layers * r["pool_blocks"] * SERVE_BS * KV * D * elem
+        if r["pool_blocks"] != 1 + SERVE_SLOTS * SERVE_SEQ // SERVE_BS \
+                or r["pool_bytes"] != pool:
+            raise AssertionError(f"{arch} {prec}: pool {r['pool_blocks']} "
+                                 f"blocks, {r['pool_bytes']} bytes, want "
+                                 f"{pool}")
+        toks = _tokens(rep)
+        del eng, rep
+        if prec == "fp32":
+            # the kernel engine's pool is freed before the reference's
+            torch.cuda.empty_cache()
+            _, rep_r = _engine_run(ref, params, reqs)
+            if toks != _tokens(rep_r):
+                raise AssertionError(f"{arch} fp32 workload A: greedy tokens "
+                                     "differ from the reference backend's")
+            r["identical_to_reference"] = True
+            del rep_r
+        rec[f"serve_{prec}"] = r
+        log(json.dumps({"serving": "A", "arch": arch, "precision": prec,
+                        **r}))
+        del cm, ref
+        torch.cuda.empty_cache()
+    del params, prompt
+    torch.cuda.empty_cache()
+    g16, g32 = rec["generate_bf16"], rec["generate_fp32"]
+    log(f"{arch}: bf16 logits relerr vs the reference backend: prefill "
+        f"{g16['prefill_relerr']:.3e}, decode max "
+        f"{g16['decode_relerr_max']:.3e}, greedy agreement "
+        f"{g16['greedy_agreement_share']:.3f}; fp32 greedy tokens identical "
+        f"to it (generate, workload A); fp32 logits relerr max "
+        f"{max(g32['prefill_relerr'], g32['decode_relerr_max']):.3e}")
+    return rec
+
+
+def phase_dense_path(smi):
+    """Phase 13: qwen1.5-4b, phi4-mini-3.8b and stablelm-1.6b at full width
+    and depth (random weights from seed 0) through ``flow.compile`` →
+    ``generate`` and ``Engine.run``, one model after the other."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = _dense_model(arch, smi)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {out[arch]['seconds']:.1f}s")
+    return out
 
 
 # kernels with schedules
@@ -2606,8 +2889,6 @@ def serving_kernel_entries(cases, serve):
     """Each serving kernel: one call at the serving shape (paged: a decode
     tick, Sq = 1, split by schedule), the launches of the serving main path
     (workloads A-D)."""
-    cases = {k: [r for r in v if r.get("arch") != QWEN_ARCH]
-             for k, v in cases.items()}      # qwen_kernel_entries' case
     return summed_entries(
         _by_schedule(cases),
         {"bfloat16": _sched_launches(serve["launches"], None,
@@ -2641,8 +2922,6 @@ def lm_kernel_entries(cases, lm):
     of 8 x 512 tokens, then 31 decode steps), each case's time times its
     uses there (the 128- and 40-row matmul cases are on no such path)."""
     steps = LM_STEPS - 1
-    cases = {k: [r for r in v if r.get("arch") != QWEN_ARCH]
-             for k, v in cases.items()}      # qwen_kernel_entries' case
 
     def uses(kname, r):
         if kname.startswith("flash_attention"):
@@ -2683,19 +2962,50 @@ def base_kernel_entries(cases, lm):
     return out
 
 
-def qwen_kernel_entries(cases):
-    """flash_attention at qwen1.5-4b's prefill shape, decode_attention over
-    its 1024-slot cache and paged_decode_attention over the serving pool
-    (head width 128, 20 heads over 20), one call per dtype.  No path of
-    this script runs qwen1.5-4b, so their launches on the main path are
-    0."""
-    return summed_entries(
-        _by_schedule({k: cases[k] for k in (
-            "flash_attention", "decode_attention", "paged_decode_attention")}),
-        {"bfloat16": {}, "float32": {}}, f"@{QWEN_ARCH}",
-        lambda k, used: f"one call at {used[0][0]['shape']} (a kernel case: "
-                        f"no path runs {QWEN_ARCH})",
-        lambda k, r: int(r.get("arch") == QWEN_ARCH))
+def dense_kernel_entries(cases, dense):
+    """Each kernel at each of qwen1.5-4b's, phi4-mini-3.8b's and
+    stablelm-1.6b's shapes, summed over one generate (flash and the
+    4096-row matmuls at the prefill, decode_attention and the 8-row
+    matmuls at each of 31 decode steps); paged_decode_attention one call
+    at a workload-A tick.  ``launches`` counts the model's runs of that
+    dtype (generate and workload A)."""
+    steps = LM_STEPS - 1
+    out = []
+    for arch in DENSE_ARCHS:
+        rec = dense[arch]
+        layers = rec["layers"]
+        launches = {}
+        for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
+            g, s_ = rec[f"generate_{prec}"], rec[f"serve_{prec}"]
+            counts = [_sched_launches(g["launches"], g["matmul_schedules"],
+                                      g["flash_schedules"],
+                                      decode=g["decode_schedules"]),
+                      _sched_launches(s_["launches"], s_["matmul_schedules"],
+                                      s_["flash_schedules"],
+                                      paged=s_["paged_schedules"])]
+            launches[dt] = {}
+            for c in counts:
+                for k, n in c.items():
+                    launches[dt][k] = launches[dt].get(k, 0) + n
+
+        def use(k, r):
+            if k.startswith("matmul_fused"):
+                return r["uses_per_forward"] * (1 if r["rows"] == B * LM_S
+                                                else steps)
+            return {"flash_attention": layers,
+                    "decode_attention": layers * steps,
+                    "paged_decode_attention": 1}[k.split("[")[0]]
+
+        def per(kname, used):
+            if kname.startswith("paged"):
+                return f"one call at {used[0][0]['shape']}"
+            return (f"one {arch} generate: prefill of {B}x{LM_S} tokens, "
+                    f"then {steps} decode steps")
+        out += summed_entries(
+            _by_schedule({k: [r for r in v if r.get("arch") == arch]
+                          for k, v in cases.items()}),
+            launches, f"@{arch}", per, use)
+    return out
 
 
 KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
@@ -2824,16 +3134,17 @@ def main() -> int:
     rec_cases = timed(phase_rec_kernels)
     rg = timed(phase_rec_path, smi)
     lru_cases = timed(phase_lru_kernels, rg)
+    dense_cases = timed(phase_dense_kernels)
+    dense = timed(phase_dense_path, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
         lm_kernel_entries(lm_cases, lm) + \
-        qwen_kernel_entries({**lm_cases, "paged_decode_attention":
-                             serve_cases["paged_decode_attention"]}) + \
         base_kernel_entries(base_cases, lm) + \
         serving_kernel_entries(serve_cases, serve) + \
         rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg) + \
-        lru_kernel_entries(lru_cases)
+        lru_kernel_entries(lru_cases) + \
+        dense_kernel_entries(dense_cases, dense)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -2844,6 +3155,7 @@ def main() -> int:
                    "lm_path": lm, "serving": serve,
                    "rec_kernels": rec_cases, "rec_path": rg,
                    "lru_kernels": lru_cases,
+                   "dense_kernels": dense_cases, "dense_path": dense,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -9,7 +9,8 @@ This is the port's copy of the serving rules of the JAX package's
 ``analysis/rules.py`` (the port imports nothing of that package); the
 serving-profile, mesh and flow-knob rules, and the checkers and diagnostics
 that wrap these messages, arrive with the DSE and the static verifier
-(ROADMAP Queue 1, items 8-9).
+(ROADMAP Queue 1, "Static verifier" and "Estimator, a Hopper tiling
+target, DSE, tunedb and autotune").
 """
 from __future__ import annotations
 

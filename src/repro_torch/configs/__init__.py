@@ -1,8 +1,11 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
 The port's registry holds the paper's three CNNs and the LMs ported so
-far: the hybrid recurrentgemma-2b and the dense llama3.2-1b; the other LM
-configs join it with their families (ROADMAP Queue 1).
+far: the dense family (qwen1.5-4b, phi4-mini-3.8b, stablelm-1.6b,
+llama3.2-1b) and the RG-LRU hybrid recurrentgemma-2b.  ``ARCHS`` lists the
+LMs and ``CNNS`` the CNNs, each by its config's ``family``.  The MoE,
+RWKV6, multimodal and encoder-decoder configs join with their families
+(ROADMAP Queue 1, "Other model families").
 """
 from __future__ import annotations
 
@@ -15,14 +18,14 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen1.5-4b": "qwen15_4b",
+    "phi4-mini-3.8b": "phi4_mini_38b",
+    "stablelm-1.6b": "stablelm_16b",
     "llama3.2-1b": "llama32_1b",
     "lenet5": "lenet5",
     "mobilenetv1": "mobilenetv1",
     "resnet34": "resnet34",
 }
-
-ARCHS: List[str] = list(_MODULES)[:2]           # the LMs ported so far
-CNNS: List[str] = list(_MODULES)[2:]            # the paper's own networks
 
 
 def _mod(name: str):
@@ -37,3 +40,8 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _mod(name).SMOKE
+
+
+# the LMs ported so far, and the paper's own networks
+ARCHS: List[str] = [a for a in _MODULES if get_config(a).family != "cnn"]
+CNNS: List[str] = [a for a in _MODULES if get_config(a).family == "cnn"]

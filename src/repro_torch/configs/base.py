@@ -110,16 +110,19 @@ class ModelConfig:
         """Analytic parameter count (used for MODEL_FLOPS = 6·N·D).
 
         Not available yet: it needs the cost estimator (``core/estimator``),
-        which ROADMAP Queue 1 item 9 ports.  Raises NotImplementedError."""
+        which ROADMAP Queue 1, "Estimator, a Hopper tiling target, DSE,
+        tunedb and autotune", ports.  Raises NotImplementedError."""
         raise NotImplementedError(
             "param_count needs core.estimator, not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            "(ROADMAP Queue 1, \"Estimator, a Hopper tiling target, DSE, "
+            "tunedb and autotune\")")
 
     def active_param_count(self) -> int:
         """Not available yet, as :meth:`param_count`."""
         raise NotImplementedError(
             "active_param_count needs core.estimator, not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            "(ROADMAP Queue 1, \"Estimator, a Hopper tiling target, DSE, "
+            "tunedb and autotune\")")
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ head's chunked loss arrive with a later slice.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -75,7 +77,7 @@ def _init_one(seed: int, name: str, spec: ParamSpec,
             "normal, embed, lru_lambda, zeros and ones)")
     x = torch.randn(shape, generator=_generator(seed, name),
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def _fold_key(graph: Graph, unit: Unit) -> str:
@@ -93,28 +95,39 @@ def init_params(plan: ExecutionPlan, seed: int,
     """Random parameters from ``seed``: each drawn on the CPU from its own
     generator, then moved to ``device``, so a seed gives the same weights
     on the CPU and on the card.  They are not the JAX package's numbers
-    (``repro_torch.bridge`` carries those across)."""
+    (``repro_torch.bridge`` carries those across).  The draws (one a
+    parameter, one a repetition's slice of a folded one) run on a pool of
+    host threads: each has its own generator, so the values do not depend
+    on the threads, and a model of billions of parameters is drawn in a
+    fraction of the time one thread takes."""
     graph, dtype = plan.graph, plan.prec.param_dtype
+    pending: Dict[str, Tuple[Dict[str, List[Future]], bool]] = {}
     params: Dict[str, Any] = {}
-    for unit in plan.units:
-        if not unit.folded:
-            b = graph.blocks[unit.indices[0]]
-            bp = {spec.name: _init_one(seed, b.name + spec.name, spec,
-                                       dtype).to(device)
-                  for spec in b.param_specs()}
-            if bp:
-                params[b.name] = bp
-        else:
-            period, reps = unit.period, unit.reps
-            gp: Dict[str, Any] = {}
-            for j in range(period):
-                proto = graph.blocks[unit.indices[j]]
-                for spec in proto.param_specs():
-                    slices = [_init_one(
-                        seed, graph.blocks[unit.indices[r * period + j]].name
-                        + spec.name, spec, dtype) for r in range(reps)]
-                    gp[f"{j}:{spec.name}"] = torch.stack(slices).to(device)
-            params[_fold_key(graph, unit)] = gp
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        def draw(name: str, spec: ParamSpec) -> Future:
+            return pool.submit(_init_one, seed, name, spec, dtype)
+        for unit in plan.units:
+            if not unit.folded:
+                b = graph.blocks[unit.indices[0]]
+                bp = {spec.name: [draw(b.name + spec.name, spec)]
+                      for spec in b.param_specs()}
+                if bp:
+                    pending[b.name] = (bp, False)
+            else:
+                period, reps = unit.period, unit.reps
+                pending[_fold_key(graph, unit)] = ({
+                    f"{j}:{spec.name}": [draw(
+                        graph.blocks[unit.indices[r * period + j]].name
+                        + spec.name, spec) for r in range(reps)]
+                    for j in range(period)
+                    for spec in graph.blocks[unit.indices[j]].param_specs()},
+                    True)
+        for key in list(pending):
+            group, stacked = pending.pop(key)
+            params[key] = {
+                name: (torch.stack([f.result() for f in futs]) if stacked
+                       else futs[0].result()).to(device)
+                for name, futs in group.items()}
     return params
 
 
@@ -165,7 +178,7 @@ def _op_state_shapes(op: MicroOp, cfg, B: int, C: int, dtype):
         return {"": ((B, w), dtype)}
     raise NotImplementedError(
         f"serving state of {op.op!r} (cross={op.attrs.get('cross', False)}) "
-        "is not ported yet (ROADMAP Queue 1, item 12)")
+        "is not ported yet (ROADMAP Queue 1, \"Other model families\")")
 
 
 def _mk_state(shapes: Dict[str, tuple], lead: Tuple[int, ...],

@@ -271,7 +271,7 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
     if attrs.get("cross", False):
         raise NotImplementedError(
             "cross-attention (encoder-decoder) is not ported yet "
-            "(ROADMAP Queue 1, item 12)")
+            "(ROADMAP Queue 1, \"Other model families\")")
 
     if ctx.mode == "prefill":
         kern = plan_kernel(ctx.plan, "attention", window=window, cross=False)

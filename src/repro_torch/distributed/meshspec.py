@@ -15,7 +15,7 @@ hashable (axis name, size) tuple, so it can live on ``FlowConfig``
 * any mesh object with ``axis_names`` and a name -> size ``shape``.
 
 Binding a spec to devices is multi-device work that the port has not taken
-on yet (ROADMAP Queue 1, item 11).
+on yet (ROADMAP Queue 1, "Multi-device").
 """
 from __future__ import annotations
 

@@ -54,8 +54,8 @@ class KernelImpl:
     ``rejects`` is the call-site capability predicate: it receives the
     keyword facts the op layer passes to :func:`plan_kernel` and returns
     ``None`` (accepted) or a reason string.  (The static ``KernelContract``
-    of the JAX registry joins with the plan verifier, ROADMAP Queue 1
-    item 8.)"""
+    of the JAX registry joins with the plan verifier, ROADMAP Queue 1,
+    "Static verifier".)"""
     op: str
     backend: str
     fn: Callable

@@ -26,7 +26,8 @@ prompt lengths::
 
 The model runs on the CUDA card unless ``--device cpu`` is given; the
 weights are random, from seed 0.  ``--autotune``, ``--serving-autotune``
-and ``--tune-db`` wait for the DSE (ROADMAP Queue 1, item 9).
+and ``--tune-db`` wait for the DSE (ROADMAP Queue 1, "Estimator, a Hopper
+tiling target, DSE, tunedb and autotune").
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from repro_torch.serving import (Engine, EngineConfig, load_requests_jsonl,
 from repro_torch.serving.kvcache import needs_exact_prompts
 
 _NOT_PORTED = ("{} is not ported yet: the DSE, the serving autotune and the "
-               "tune database wait for ROADMAP Queue 1, item 9")
+               "tune database wait for ROADMAP Queue 1, \"Estimator, a Hopper "
+               "tiling target, DSE, tunedb and autotune\"")
 
 
 def _run_replay(args) -> None:

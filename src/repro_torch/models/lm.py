@@ -1,11 +1,12 @@
 """Graph builders for the LM-family architectures.
 
-The port builds the decoder-only dense family (llama3.2-1b) and the
-RG-LRU hybrid (recurrentgemma-2b): embedding, attention or RG-LRU temporal
-mixing + GLU-FFN layers, and the head.  RWKV6 and MoE layers and the
-multimodal patch stub arrive with their families; the encoder-decoder
-builder (whisper) with ROADMAP Queue 1 item 12.  Each raises
-NotImplementedError naming what is missing.
+The port builds the decoder-only dense family (llama3.2-1b, qwen1.5-4b,
+phi4-mini-3.8b, stablelm-1.6b) and the RG-LRU hybrid (recurrentgemma-2b):
+embedding, attention or RG-LRU temporal mixing + GLU-FFN layers, and the
+head.  RWKV6 and MoE layers, the multimodal patch stub and the
+encoder-decoder builder (whisper) arrive with their families (ROADMAP
+Queue 1, "Other model families").  Each raises NotImplementedError naming
+what is missing.
 """
 from __future__ import annotations
 
@@ -51,14 +52,14 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
     elif kind == "rec":
         raise NotImplementedError(
             f"{cfg.name}: recurrent layers ({cfg.recurrence.kind}) are not "
-            "ported yet (ROADMAP Queue 1, item 12)")
+            "ported yet (ROADMAP Queue 1, \"Other model families\")")
     else:
         raise ValueError(kind)
     # channel mixing
     if cfg.ffn_kind == "moe":
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1, "
-            "item 12)")
+            "\"Other model families\")")
     if cfg.ffn_kind == "swiglu":
         emit_glu_ffn(b, cfg, "silu")
     elif cfg.ffn_kind == "geglu":
@@ -68,7 +69,7 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
     else:
         raise NotImplementedError(
             f"{cfg.name}: ffn kind {cfg.ffn_kind!r} is not ported yet "
-            "(ROADMAP Queue 1, item 12)")
+            "(ROADMAP Queue 1, \"Other model families\")")
     return b
 
 
@@ -77,7 +78,7 @@ def build_decoder_graph(cfg: ModelConfig) -> Graph:
     if cfg.n_patch_tokens:
         raise NotImplementedError(
             f"{cfg.name}: multimodal patch tokens are not ported yet "
-            "(ROADMAP Queue 1, item 12)")
+            "(ROADMAP Queue 1, \"Other model families\")")
     blocks = [_embed_block(cfg, scale=cfg.family == "hybrid")]
     for li, kind in enumerate(cfg.layer_kinds):
         blocks.append(_decoder_layer(cfg, li, kind))
@@ -91,4 +92,4 @@ def build_encdec_graph(cfg: ModelConfig) -> Graph:
     """Encoder-decoder (whisper): not ported yet."""
     raise NotImplementedError(
         f"{cfg.name}: the encoder-decoder graph (whisper) is not ported yet "
-        "(ROADMAP Queue 1, item 12)")
+        "(ROADMAP Queue 1, \"Other model families\")")

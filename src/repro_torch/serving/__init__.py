@@ -12,7 +12,8 @@
 * :mod:`repro_torch.serving.speculation` — speculative decoding: drafters,
   the verify cell's target sampling, draft->verify->rollback config.
 
-The engine-level autotune waits for the DSE (ROADMAP Queue 1, item 9).
+The engine-level autotune waits for the DSE (ROADMAP Queue 1, "Estimator,
+a Hopper tiling target, DSE, tunedb and autotune").
 """
 from repro_torch.serving.engine import Engine, EngineConfig, RunReport
 from repro_torch.serving.kvcache import (BlockLedger, BlockPool,

@@ -23,7 +23,8 @@ Layout notes:
   states) stays dense, one row per slot, copied in at admission and
   written in place by the decode tick; such state cannot be seeded from a
   token-prefix match, so it refuses the prefix cache.  Cross-attention
-  state arrives with its family (ROADMAP Queue 1, item 12).
+  state arrives with its family (ROADMAP Queue 1, "Other model
+  families").
 
 Prefix caching (``prefix_cache=True``) layers block *sharing* on top:
 blocks are refcounted, fully-filled prompt blocks are registered in a

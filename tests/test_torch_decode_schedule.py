@@ -43,6 +43,7 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # (name, D, G, Sq): the main path's heads, and the smoke widths
 SHAPES = [("llama", 64, 4, 1), ("llama_verify", 64, 4, 5),
           ("recurrentgemma", 256, 10, 1), ("qwen_kernel_case", 128, 1, 1),
+          ("phi4", 128, 3, 1), ("stablelm", 64, 1, 1),
           ("smoke16", 16, 2, 1), ("smoke32", 32, 4, 5)]
 
 
@@ -86,11 +87,15 @@ def _rules(C, chunk, nsplit, pairs, rows, D, dt, fit):
     assert nsplit == 1 or nsplit * pairs <= fit * N_SM
 
 
-# (name, B, C, KV, G, D): the rolling caches chip_smoke.py runs
+# (name, B, C, KV, G, D): the rolling caches chip_smoke.py runs (the
+# qwen1.5-4b generate's is qwen_kernel_case; phi4-mini-3.8b's a group of 3,
+# stablelm-1.6b's a group of 1 at head width 64 over 32 KV heads)
 ROLLING = [("llama_generate", 8, 1024, 8, 4, 64),
            ("rg_generate", 8, 1024, 1, 10, 256),
            ("rg_window", 1, 2048, 1, 10, 256),
-           ("qwen_kernel_case", 8, 1024, 20, 1, 128)]
+           ("qwen_kernel_case", 8, 1024, 20, 1, 128),
+           ("phi4_generate", 8, 1024, 8, 3, 128),
+           ("stablelm_generate", 8, 1024, 32, 1, 64)]
 
 
 @pytest.mark.parametrize("dt", [BF16, FP32], ids=["bf16", "fp32"])
@@ -121,11 +126,13 @@ def _live_splits(live, nsplit, mc, cfac):
 
 # (name, B, Sq, KV, G, D, nblk, bs, live tokens a row): the pools
 # chip_smoke.py runs (serving A-D's tick and verify rows, workload R, the
-# qwen kernel case)
+# ticks of qwen1.5-4b's, phi4-mini-3.8b's and stablelm-1.6b's workload A)
 PAGED = [("serving_tick", 8, 1, 8, 4, 64, 64, 16, 534),
          ("serving_verify", 8, 5, 8, 4, 64, 64, 16, 538),
          ("rg_workload_r", 8, 1, 1, 10, 256, 64, 16, 296),
-         ("qwen_kernel_case", 8, 1, 20, 1, 128, 64, 16, 534)]
+         ("qwen_kernel_case", 8, 1, 20, 1, 128, 64, 16, 534),
+         ("phi4_tick", 8, 1, 8, 3, 128, 64, 16, 543),
+         ("stablelm_tick", 8, 1, 32, 1, 64, 64, 16, 543)]
 
 
 @pytest.mark.parametrize("dt", [BF16, FP32], ids=["bf16", "fp32"])
@@ -260,6 +267,7 @@ ROLL_CASES = {
     "half_gqa": (2, 96, 8, 2, 64, 48, 47, None, None),
     "wrapped_window_softcap": (1, 64, 4, 1, 32, 64, 100, 40, 30.0),
     "empty_ends": (2, 80, 4, 2, 16, 80, 79, None, None),
+    "group3": (2, 64, 6, 2, 64, 64, 63, None, None),
 }
 
 
@@ -342,6 +350,7 @@ def paged_model(q, kp, vp, bt, qpos, *, window, softcap, nsplit, mc, cfac,
 PAGED_CASES = {
     "tick_bs16": (2, 1, 8, 2, 64, 16, 6, [37, 90], None, None, False),
     "verify_bs8_window": (2, 5, 4, 1, 32, 8, 8, [20, 50], 24, 30.0, True),
+    "tick_group3": (2, 1, 6, 2, 64, 16, 6, [37, 90], None, None, False),
 }
 
 

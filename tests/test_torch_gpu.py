@@ -939,6 +939,86 @@ def test_decode_core_shared_bytes(card):
                     kd._core_smem(dt, D, extra)
     assert lib.decode_core_smem(1, 32, 0) == -1
 
+# the rest of the dense family's heads (H, KV, D): phi4-mini-3.8b's group of
+# 3 query heads a KV head at width 128, stablelm-1.6b's group of 1 at 64
+# over 32 KV heads
+DENSE_HEADS = {"phi4": (24, 8, 128), "stablelm": (32, 32, 64)}
+FLASH_SCHED = {"bf16": "wgmma", "fp32": "ffma"}
+
+
+def _dense_call(g, kernel, H, KV, D, dt):
+    """(wrapper, kernel call, plain call) of one attention kernel at a
+    model's heads: flash at 2 x 200 causal tokens, decode over a
+    1024-slot cache holding 543 positions (8 rows), paged at a decode tick
+    (8 rows of 505-533 tokens in blocks of 16)."""
+    if kernel == "flash":
+        q = _randn(g, 2, 200, H, D, dt=dt)
+        k, v = _randn(g, 2, 200, KV, D, dt=dt), _randn(g, 2, 200, KV, D, dt=dt)
+        return (ka.flash_attention,
+                lambda: ka.flash_attention(q, k, v, causal=True),
+                lambda: ka.flash_attention_plain(q, k, v, causal=True))
+    if kernel == "decode":
+        args = _rolling(g, 8, 1024, H, KV, D, dt, 542)
+        return (kd.decode_attention, lambda: kd.decode_attention(*args),
+                lambda: kd.decode_attention_plain(*args))
+    bs, nblk = 16, 64
+    NB = 1 + 8 * nblk
+    q = _randn(g, 8, 1, H, D, dt=dt)
+    kp, vp = _randn(g, NB, bs, KV, D, dt=dt), _randn(g, NB, bs, KV, D, dt=dt)
+    perm = torch.randperm(8 * nblk, generator=g, device="cuda")
+    bt = (1 + perm.reshape(8, nblk)).to(torch.int32)
+    lens = torch.arange(505, 537, 4, dtype=torch.int32, device="cuda")
+    return (kd.paged_decode_attention,
+            lambda: kd.paged_decode_attention(q, kp, vp, bt, lens),
+            lambda: kd.paged_decode_attention_plain(q, kp, vp, bt, lens))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("model", sorted(DENSE_HEADS))
+@pytest.mark.parametrize("kernel", ["flash", "decode", "paged"])
+def test_dense_family_heads_on_their_schedules(card, kernel, model, dt):
+    """flash, decode and paged attention at phi4-mini-3.8b's and
+    stablelm-1.6b's heads against their plain versions, each call one
+    launch counted under its schedule (flash: wgmma / ffma; decode and
+    paged: mma / ffma), bits that repeat."""
+    H, KV, D = DENSE_HEADS[model]
+    fn, kern, plain = _dense_call(card, kernel, H, KV, D, DTYPES[dt])
+    sched = FLASH_SCHED[dt] if kernel == "flash" else CORE_SCHED[dt]
+    n0, s0 = fn.launches, dict(fn.schedules)
+    y, y2 = kern(), kern()
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    assert {k: v - s0[k] for k, v in fn.schedules.items()} == \
+        {k: 2 * (k == sched) for k in s0}
+    assert torch.equal(y, y2)
+    p = plain()
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert torch.isfinite(y.float()).all() and _rel(y, p) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_decode_core_one_split_beside_many(card, dt):
+    """stablelm-1.6b's decode cache takes one split a group (no workspace,
+    no ticket), phi4-mini-3.8b's several (the last block combines them by
+    ticket): calls of the two in turn each give the plain version's
+    result and the bits of their first call, so neither leaves the other
+    a ticket."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls = {}
+    for model, (H, KV, D) in DENSE_HEADS.items():
+        _, kern, plain = _dense_call(card, "decode", H, KV, D, DTYPES[dt])
+        calls[model] = (kern, plain(), kd.splits(8, 1024, KV, H // KV, D,
+                                                 DTYPES[dt], sms)[0])
+    assert calls["stablelm"][2] == 1 and calls["phi4"][2] > 1
+    first = {}
+    for _ in range(3):
+        for model, (kern, p, _) in calls.items():
+            y = kern()
+            torch.cuda.synchronize()
+            assert _rel(y, p) < TOL[dt], model
+            assert torch.equal(first.setdefault(model, y), y), model
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     x = _randn(card, 1, 8, 8, 4)
     with pytest.raises(TypeError):

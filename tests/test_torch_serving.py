@@ -283,6 +283,7 @@ def test_serve_cli_replay_on_cpu(capsys):
                 "--prefix-cache", "--speculation", "ngram:2"])
     out = capsys.readouterr().out
     assert "serving[3 req]" in out and "speculation [ngram:2]" in out
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, \"Estimator, a Hopper tiling target"):
         serve.main(["--smoke", "--device", "cpu", "--requests",
                     "synthetic:1", "--serving-autotune"])
