@@ -152,10 +152,37 @@ Phases, each raising on failure:
    configuration) with its launches by schedule (each prefill batch's
    projections by its rows) and the pool's bytes, fp32 tokens identical
    to the reference backend's ``Engine.run``.  Each model's weights,
-   states and pools are freed before the next.
+   states and pools are freed before the next;
+14. train — full-width llama3.2-1b (16 layers, 1.24 B parameters, fp32
+   masters, bf16 compute, block remat), ``ShapeConfig("train", "train",
+   512, 8)``: 20 ``AdamW(lr=3e-4, warmup_steps=3, total_steps=20)`` steps
+   on one fixed ``SyntheticLM`` batch (step 0, 8 x 512): every loss
+   finite, the last at least 1.0 nat below the first; the forward
+   products on the hand kernels (the backward is the reference ops'
+   autograd, recomputed), each layer's projections and flash call twice
+   a step (the remat's recompute) on ``wgmma``, no other kernel, no
+   dispatch rejection; the trained tree cast to bf16 into
+   ``ShapeConfig("serve", "decode", 1024, 8)``: a 32-step generate on the
+   batch's 512 tokens with the launches by schedule of phase 6 and every
+   logit held to the reference backend (< 5e-2), and in an fp32 serve
+   plan greedy tokens identical to it; ``measure("train")`` (min of 5)
+   and a profile of two steps.  Then a 2-layer llama3.2-1b at full width,
+   fp32, one train step on the card (its forward on the kernels) and on
+   the host CPU from the same tree: loss relerr < 1e-5, every gradient
+   < 1e-4, and one AdamW update of the card's gradients on the card and
+   on the CPU < 1e-4.  Then ResNet-34 at 224 px, batch 8: 10 steps of
+   ``AdamW(lr=1e-3, warmup_steps=2, total_steps=10)`` on one fixed
+   ``SyntheticImages`` batch with BatchNorm on the batch's statistics
+   (the loss falls by at least 0.5; the convs on ``wgmma`` and the stem on
+   ``small_ci``, the FC on ``small_m``), the checkpoint of its
+   parameters and AdamW state under ``build/`` restored bit-exactly (then
+   deleted) and one step after the restore within 1e-4 of the
+   uninterrupted one, then the trained tree served in bf16 and fp32
+   (``ShapeConfig("serve", "prefill", 64, 8)``, BN folded into the convs)
+   with phase 5's launches by schedule and limits, and ``measure("train")``.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9, 10 and 11 come next, then 12 and 13. Every path phase also reads
+9, 10 and 11 come next, then 12, 13 and 14. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -1352,11 +1379,12 @@ def _check_logits(name, y, yr, vocab, prec):
     return err
 
 
-def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
+def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True,
+             params=None):
     """One forward through the port's entry point with the counters read
     just around it (conv2d_fused's split by schedule ``want_conv``,
     matmul_fused's ``want_sched``), held against the reference backend on
-    the same weights and images."""
+    the same weights (``params``, or drawn from the seed) and images."""
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -1365,7 +1393,7 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True):
     ks = cm.plan.kernels
     if ks["conv2d"] != "cuda" or ks["matmul"] != "cuda":
         raise AssertionError(f"{arch}: plan.kernels {ks}")
-    params = cm.init_params(SEED)
+    params = cm.init_params(SEED) if params is None else params
     rng = np.random.RandomState(SEED)
     cfg = cm.cfg
     x = torch.from_numpy(rng.randn(B, cfg.image_size, cfg.image_size,
@@ -2755,6 +2783,361 @@ def phase_dense_path(smi):
 
 
 # kernels with schedules
+# ---------------------------------------------------------------------------
+# training: full-width llama3.2-1b and ResNet-34 on the card, then their
+# trained weights served through the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_S, TRAIN_STEPS, TRAIN_CNN_STEPS = 512, 20, 10
+
+
+def _train_run(cm, opt, params, batch, steps, what, kernels):
+    """``steps`` train steps of ``opt`` on one fixed batch from
+    ``opt.init``, the launch counts zeroed just before and read just after:
+    the forward products run on the hand kernels (bf16 on the tensor-core
+    schedules), so every kernel in ``kernels`` must have launched, every
+    other none, and none on simt; no dispatch rejection.  Returns (losses,
+    host ms a step, the optimizer state, the launches and their schedules,
+    the device's peak bytes over the run)."""
+    from repro_torch.kernels.registry import DISPATCH_REJECTIONS
+    step = cm.train_step(opt)
+    state = opt.init(params)
+    DISPATCH_REJECTIONS.clear()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))          # reads back: the step ends
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v for k, v in read_counts().items() if v}
+    if set(got) != set(kernels):
+        raise AssertionError(f"{what}: launches {got}, want each of "
+                             f"{sorted(kernels)} and no other")
+    sched = {k: {s: n for s, n in read_schedules(k).items() if n}
+             for k in kernels}
+    if any("simt" in v for v in sched.values()):
+        raise AssertionError(f"{what}: a launch on simt: {sched}")
+    if DISPATCH_REJECTIONS:
+        raise AssertionError(f"{what}: dispatch rejections "
+                             f"{DISPATCH_REJECTIONS}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return losses, ms, state, {"launches": got, "schedules": sched}, peak
+
+
+def _device_batch(batch):
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32
+                                else v).cuda() for k, v in batch.items()}
+
+
+def _tree_relerr(a, b):
+    """Max over leaves of ``relerr`` (nested dicts of tensors)."""
+    from repro_torch.optim.adamw import tree_leaves
+    return max(relerr(x.cpu(), y.cpu()) for x, y in
+               zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _serve_trained_lm(params, prompt, smi):
+    """The trained llama weights through the kernels: cast to bf16 into
+    ``ShapeConfig("serve", "decode", 1024, 8)``, a 32-step generate with
+    the launches by schedule the plan says, the prefill's and every
+    teacher-forced step's logits against the reference backend (< 5e-2);
+    then the fp32 tree in an fp32 serve plan, greedy tokens identical to
+    the reference backend's."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.optim.adamw import tree_map
+    serve = ShapeConfig("serve", "decode", LM_C, B)
+    out = {}
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(LM_ARCH, serve, fl)
+        ref = tflow.compile(LM_ARCH, serve, fl, backend="reference")
+        p = tree_map(lambda t: t.to(torch.bfloat16), params) \
+            if prec == "bf16" else params
+        want_p = _plan_launches(cm.plan, "prefill")
+        want_d = _plan_launches(cm.plan, "decode")
+        reset_counts()
+        toks, _ = cm.generate(p, {"tokens": prompt}, steps=LM_STEPS)
+        rec = {"launches": _counted(read_counts(), {
+            k: want_p[k] + (LM_STEPS - 1) * want_d[k] for k in want_p},
+            f"trained {prec} generate")}
+        rec["matmul_schedules"] = _lm_scheduled(
+            want_p["matmul_fused"], (LM_STEPS - 1) * want_d["matmul_fused"],
+            prec, f"trained {prec} generate")
+        rec["flash_schedules"] = _flash_scheduled(
+            want_p["flash_attention"], prec, f"trained {prec} generate")
+        rec["decode_schedules"] = _decode_scheduled(
+            (LM_STEPS - 1) * want_d["decode_attention"], prec,
+            f"trained {prec} generate")
+        V = cm.cfg.vocab_size
+        # the synthetic stream's rule: the next token is (31 t + 7) mod V
+        # three times in four; the share of generated tokens that follow it
+        nxt = torch.cat([prompt[:, -1:].to(torch.int32), toks[:, :-1]], 1)
+        rec["follows_rule_share"] = ((nxt * 31 + 7) % V == toks) \
+            .float().mean().item()
+        if prec == "bf16":
+            y, st, _ = cm.prefill(p, {"tokens": prompt})
+            yr, st_r, _ = ref.prefill(p, {"tokens": prompt})
+            errs = [_lm_check_logits("trained prefill", y, yr,
+                                     PATH_TOL["bf16"])]
+            for t in range(LM_STEPS - 1):
+                tok = {"tokens": toks[:, t:t + 1].long()}
+                y, st, _ = cm.decode(p, tok, st, TRAIN_S + t)
+                yr, st_r, _ = ref.decode(p, tok, st_r, TRAIN_S + t)
+                errs.append(_lm_check_logits(f"trained decode step {t}", y,
+                                             yr, PATH_TOL["bf16"]))
+            rec.update({"prefill_relerr": errs[0],
+                        "decode_relerr_max": max(errs[1:])})
+            del st, st_r
+        else:
+            tr, _ = ref.generate(p, {"tokens": prompt}, steps=LM_STEPS)
+            if not torch.equal(toks, tr):
+                raise AssertionError("trained fp32 greedy tokens differ from "
+                                     "the reference backend's")
+            rec["greedy_identical_steps"] = LM_STEPS
+        rec["tokens_row0"] = toks[0].tolist()
+        out[prec] = rec
+        del p
+    return out
+
+
+def _card_vs_cpu(smi):
+    """One ``make_train_step`` (AdamW without the clip, its default
+    ``eps``) on a 2-layer llama3.2-1b at full width (d_model, heads, d_ff
+    and vocab; depth cut only to keep the CPU side short), fp32, on the
+    card (the forward on the hand kernels' fp32 schedules) and on the host's
+    CPU (the reference ops) from the same initial tree and a 2 x 256
+    SyntheticLM batch.  The first call's rate is 0 (the schedule starts
+    there), so its first moment is (1 - b1) g exactly as the step computed
+    g: holding that moment holds the gradients.  Then one AdamW update of
+    the card's own gradients from the card's state, on the card and on the
+    CPU: at the default ``eps`` an update is about ``lr * sign(g)``, and a
+    gradient at the two devices' fp32 noise would flip sign between them,
+    so the update is held on the same gradients.  Limits: loss relerr <
+    1e-5, every gradient and updated parameter < 1e-4."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamW, AdamWState, tree_leaves, \
+        tree_map
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    shape = ShapeConfig("train", "train", 256, 2)
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    opt = AdamW(lr=1e-3, grad_clip=0.0, warmup_steps=1, total_steps=10)
+    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                 global_batch=2, seed=1)).get(0)
+    runs = {}
+    p0 = None
+    for dev in ("cuda", "cpu"):
+        cm = tflow.compile(cfg, shape, f32, device=dev)
+        if p0 is None:
+            p0 = cm.init_params(SEED)
+        params = tree_map(lambda t: t.to(cm.device, copy=True), p0)
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(cm.device)
+                 for k, v in raw.items()}
+        step = cm.train_step(opt)
+        state = opt.init(params)
+        if dev == "cuda":
+            reset_counts()
+        t0 = time.perf_counter()
+        params, state, m0 = step(params, state, batch)
+        runs[dev] = {"loss": float(m0["loss"]), "s": time.perf_counter() - t0,
+                     "grads": tree_map(lambda t: t / (1 - opt.b1), state.mu)}
+        if dev == "cuda":
+            runs[dev]["launches"] = {k: v for k, v in read_counts().items()
+                                     if v}
+            runs[dev]["schedules"] = read_schedules()
+            runs[dev]["state"] = (params, state)
+        del params, state
+    g, c = runs["cuda"], runs["cpu"]
+    if set(g["launches"]) != {"matmul_fused", "flash_attention"}:
+        raise AssertionError(f"card against CPU: launches {g['launches']}")
+    grads = g["grads"]
+    params, state = g["state"]
+    cpu = lambda t: t.cpu().clone()                         # noqa: E731
+    pc, sc = tree_map(cpu, params), AdamWState(
+        cpu(state.step), tree_map(cpu, state.mu), tree_map(cpu, state.nu))
+    gc = tree_map(cpu, grads)
+    params, _, _ = opt.update(grads, state, params)
+    pc, _, _ = opt.update(gc, sc, pc)
+    rec = {"n_layers": 2, "tokens": 512, "eps": opt.eps,
+           "loss_card": g["loss"], "loss_cpu": c["loss"],
+           "loss_relerr": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+           "grad_relerr_max": _tree_relerr(grads, c["grads"]),
+           "param_relerr_max": _tree_relerr(params, pc),
+           "launches": g["launches"],
+           "matmul_schedules": {k: v for k, v in g["schedules"].items() if v},
+           "card_s": g["s"], "cpu_s": c["s"]}
+    rec["update_max_abs"] = max(
+        (x - y.cpu()).abs().max().item() for x, y in
+        zip(tree_leaves(pc), tree_leaves(p0)))
+    if rec["loss_relerr"] >= 1e-5 or rec["grad_relerr_max"] >= 1e-4 or \
+            rec["param_relerr_max"] >= 1e-4 or rec["update_max_abs"] == 0:
+        raise AssertionError(f"card against CPU: {rec}")
+    return rec
+
+
+def _train_resnet(smi):
+    """ResNet-34 at 224 px, batch 8: 10 AdamW steps on one fixed batch
+    (BatchNorm on the batch's statistics), the checkpoint round trip on
+    the card, one step after restore against the uninterrupted step, then
+    the trained tree served through conv2d_fused and matmul_fused in bf16
+    and fp32 against the reference backend."""
+    import shutil
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages
+    from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    cm = tflow.compile("resnet34", ShapeConfig("train", "train", 64, B),
+                       FlowConfig(mode="folded"))
+    params = cm.init_params(SEED)
+    c = cm.cfg                         # 224 px, 3 channels, 1000 classes
+    batch = _device_batch(SyntheticImages(
+        DataConfig(vocab_size=c.vocab_size, seq_len=0, global_batch=B),
+        c.image_size, c.image_channels, c.vocab_size).get(0))
+    opt = AdamW(lr=1e-3, warmup_steps=2, total_steps=TRAIN_CNN_STEPS)
+    losses, ms, state, kern, peak = _train_run(
+        cm, opt, params, batch, TRAIN_CNN_STEPS, "resnet34 train",
+        ("conv2d_fused", "matmul_fused"))
+    if losses[-1] > losses[0] - 0.5:
+        raise AssertionError(f"resnet34: losses {losses} fell less than 0.5")
+    # the convs on the tensor-core schedules (the stem on small_ci), the
+    # FC on small_m
+    sched = kern["schedules"]
+    if set(sched["conv2d_fused"]) != {"wgmma", "small_ci"} or \
+            set(sched["matmul_fused"]) != {"small_m"}:
+        raise AssertionError(f"resnet34 train: launches by schedule {sched}")
+    rec = {"losses": losses, "host_ms_per_step": ms, "kernels": kern,
+           "peak_bytes_train": peak}
+    # the checkpoint round trip: bit-exact, then one step from each
+    ckdir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tree = {"params": params, "opt": state}
+    t0 = time.perf_counter()
+    ckpt.save(ckdir, TRAIN_CNN_STEPS, tree)
+    back = ckpt.restore(ckdir, TRAIN_CNN_STEPS, tree)
+    rec["ckpt_s"] = time.perf_counter() - t0
+    flat, flat_b = ckpt._flatten(tree), ckpt._flatten(back)
+    rec["ckpt_bytes"] = sum(t.numel() * t.element_size()
+                            for t in flat.values())
+    if list(flat) != list(flat_b) or not all(
+            torch.equal(flat[k], flat_b[k]) and
+            flat[k].dtype == flat_b[k].dtype for k in flat):
+        raise AssertionError("resnet34: the checkpoint did not restore "
+                             "bit-exactly")
+    shutil.rmtree(ckdir)
+    step = cm.train_step(opt)
+    pa, _, ma = step(params, state, batch)
+    pb, _, mb = step(back["params"], back["opt"], batch)
+    rec["resume_param_relerr_max"] = _tree_relerr(pa, pb)
+    rec["resume_loss"] = [float(ma["loss"]), float(mb["loss"])]
+    if rec["resume_param_relerr_max"] >= 1e-4:
+        raise AssertionError(f"resnet34: the step after restore differs "
+                             f"({rec['resume_param_relerr_max']})")
+    del back, pb, state
+    # the trained tree through the kernels, BN folded into the convs
+    rec["serve_bf16"] = _forward(
+        "resnet34", FlowConfig(mode="folded"), {"wgmma": 35, "small_ci": 1},
+        1, {"small_m": 1}, smi, measure=False,
+        params=tree_map(lambda t: t.to(torch.bfloat16), pa))
+    rec["serve_fp32"] = _forward(
+        "resnet34", FlowConfig(mode="folded", precision="fp32"),
+        {"ffma": 35, "small_ci": 1}, 1, {"ffma_small_m": 1}, smi,
+        measure=False, params=pa)
+    m = cm.measure("train", iters=5, seed=SEED, params=pa)
+    st = [opt.init(pa)]
+
+    def one():
+        _, st[0], _ = step(pa, st[0], batch)
+    rec["profile"] = _profile(one, 3)
+    rec.update({"ms_per_step": m["measured_step_s"] * 1e3,
+                "mean_ms_per_step": m["mean_step_s"] * 1e3,
+                "images_per_s": m["images_per_s"],
+                "peak_bytes": m["peak_bytes"], "device": m["device"],
+                "nvidia_smi": smi, "n_params": sum(
+                    t.numel() for t in tree_leaves(pa))})
+    log(json.dumps({"train_resnet34": {k: v for k, v in rec.items()
+                                       if not k.startswith("serve")}}))
+    return rec
+
+
+def phase_train(smi):
+    """Phase 14: training on the card (the forward products on the hand
+    kernels, the backward through the reference ops), then the trained
+    weights through the kernels."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    out = {}
+    cm = tflow.compile(LM_ARCH, ShapeConfig("train", "train", TRAIN_S, B),
+                       FlowConfig(mode="folded"))
+    ks = cm.plan.kernels
+    if any(ks[o] != "cuda" for o in ("attention", "matmul", "glu_matmul")):
+        raise AssertionError(f"{LM_ARCH} train plan.kernels {ks}")
+    t0 = time.perf_counter()
+    params = cm.init_params(SEED)                     # fp32 masters
+    torch.cuda.synchronize()
+    raw = SyntheticLM(DataConfig(vocab_size=cm.cfg.vocab_size,
+                                 seq_len=TRAIN_S, global_batch=B)).get(0)
+    batch = _device_batch(raw)
+    rec = {"arch": LM_ARCH, "shape": [B, TRAIN_S],
+           "init_params_s": time.perf_counter() - t0,
+           "remat": cm.flow.remat, "nvidia_smi": smi,
+           "kernels_line": cm.describe().splitlines()[-1].strip()}
+    opt = AdamW(lr=3e-4, warmup_steps=3, total_steps=TRAIN_STEPS)
+    losses, ms, state, kern, peak = _train_run(
+        cm, opt, params, batch, TRAIN_STEPS, f"{LM_ARCH} train",
+        ("matmul_fused", "flash_attention"))
+    if losses[-1] > losses[0] - 1.0:
+        raise AssertionError(f"{LM_ARCH}: losses {losses} fell less than "
+                             "1.0 nat")
+    # each step runs every layer's forward twice (the block remat's
+    # recompute), every projection on wgmma and every flash call on it
+    fwd = _plan_launches(cm.plan, "prefill")
+    want = {"matmul_fused": {"wgmma": 2 * TRAIN_STEPS * fwd["matmul_fused"]},
+            "flash_attention": {
+                "wgmma": 2 * TRAIN_STEPS * fwd["flash_attention"]}}
+    if kern["schedules"] != want:
+        raise AssertionError(f"{LM_ARCH} train: launches by schedule "
+                             f"{kern['schedules']}, want {want}")
+    rec.update({"losses": losses, "host_ms_per_step": ms,
+                "kernels": kern, "peak_bytes_train": peak})
+    log(f"llama train: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{TRAIN_STEPS} steps, {min(ms):.1f} ms a step (host), peak "
+        f"{peak / 1e9:.2f} GB")
+    del state
+    torch.cuda.empty_cache()
+    rec["serve"] = _serve_trained_lm(params, batch["tokens"], smi)
+    m = cm.measure("train", iters=5, seed=SEED, params=params)
+    rec["measure"] = {"ms_per_step": m["measured_step_s"] * 1e3,
+                      "mean_ms_per_step": m["mean_step_s"] * 1e3,
+                      "tokens_per_s": m["tokens_per_s"],
+                      "peak_bytes": m["peak_bytes"], "device": m["device"]}
+    step = cm.train_step(opt)
+    st = [opt.init(params)]
+
+    def one():
+        _, st[0], _ = step(params, st[0], batch)
+    rec["measure"]["profile"] = _profile(one, 2)
+    log(json.dumps({"train_llama_measure": rec["measure"]}))
+    del st, params, batch
+    torch.cuda.empty_cache()
+    out["llama"] = rec
+    out["card_vs_cpu"] = _card_vs_cpu(smi)
+    log(json.dumps({"train_card_vs_cpu": out["card_vs_cpu"]}))
+    torch.cuda.empty_cache()
+    out["resnet34"] = _train_resnet(smi)
+    torch.cuda.empty_cache()
+    return out
+
+
 SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused", "decode_attention",
          "paged_decode_attention", "lru_scan")
 
@@ -3136,6 +3519,7 @@ def main() -> int:
     lru_cases = timed(phase_lru_kernels, rg)
     dense_cases = timed(phase_dense_kernels)
     dense = timed(phase_dense_path, smi)
+    train = timed(phase_train, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -3156,6 +3540,7 @@ def main() -> int:
                    "rec_kernels": rec_cases, "rec_path": rg,
                    "lru_kernels": lru_cases,
                    "dense_kernels": dense_cases, "dense_path": dense,
+                   "train": train,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -4,6 +4,9 @@
 * ``param_shapes`` — the same tree as meta tensors (no allocation)
 * ``init_state``   — serving state (KV caches, recurrent states), stacked
 * ``_make_apply``  — apply(params, batch, state, cache_index, mode)
+* ``make_loss_fn`` — the training loss, with the LM head's cross-entropy
+  chunked over the sequence (the LM-head analogue of the paper's loop
+  fusion: the full logits never exist)
 
 Folded units (the paper's parameterized kernels; a ``lax.scan`` in the JAX
 package) lower to a Python loop over the unit's repetitions, each step
@@ -12,24 +15,28 @@ stacked parameters and state; unfolded units lower to straight-line calls
 (the pipelined mode's one-section-per-layer).  PyTorch runs eagerly, so
 there is no jit stage.
 
-The port lowers the inference path: ``prefill`` (images or tokens) and
-``decode`` (one token over the rolling KV cache).  Training and the LM
-head's chunked loss arrive with a later slice.
+Three modes: ``train`` (the full sequence, no state, the forward on the
+plan's kernels and the backward through the reference ops, with the remat
+policy of ``FlowConfig.remat`` as ``torch.utils.checkpoint``), ``prefill``
+(images or tokens) and ``decode`` (one token over the rolling KV cache).
 """
 from __future__ import annotations
 
+import math
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import Block, Graph, MicroOp, ParamSpec
 from repro_torch.core.ops_impl import OPS, Ctx
 from repro_torch.core.passes.folding import Unit
 from repro_torch.core.plan import ExecutionPlan
 
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
+AUX_KEYS = ("moe_aux",)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +278,7 @@ def _run_block(ctx: Ctx, block: Block, bparams, env: Dict[str, Any],
 # apply()
 # ---------------------------------------------------------------------------
 
-def _make_apply(plan: ExecutionPlan):
+def _make_apply(plan: ExecutionPlan, head: bool = True):
     """Returns apply(params, batch, state=None, cache_index=None,
     mode="prefill") -> (out, new_state, aux).
 
@@ -280,7 +287,9 @@ def _make_apply(plan: ExecutionPlan):
     position only and the state it built; decode (S = 1 at position
     ``cache_index``) writes the new K/V into ``state`` in place and returns
     that same state: it consumes its argument, as the JAX stage donates it.
-    There are no aux losses on the inference path (``aux`` is empty)."""
+    Train returns every position's output and no state.  ``head=False``
+    stops before the LM head block (the loss runs it, chunked).  No ported
+    op adds an aux loss (``aux`` is empty)."""
     graph, units = plan.graph, plan.units
 
     def apply(params, batch, state=None, cache_index=None, mode="prefill"):
@@ -321,8 +330,11 @@ def _make_apply(plan: ExecutionPlan):
         for unit in units:
             ukey = unit_key(graph, unit)
             b0 = graph.blocks[unit.indices[0]]
-            if b0.kind == "head" and mode == "prefill":
-                h = h[:, -1:]
+            if b0.kind == "head":
+                if not head:
+                    break
+                if mode == "prefill":
+                    h = h[:, -1:]
             env = {"h": h, "cross": None, "positions": pos_for(h)}
             if not unit.folded:
                 ctx.state_in = (state or {}).get(ukey, {})
@@ -361,11 +373,11 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
     """A folded unit: a loop over its repetitions, each running the unit's
     ``period`` prototype blocks on slice ``r`` of the stacked params and
     state.  Prefill stacks the repetitions' new state; decode updates the
-    stacked state it was given, in place, and returns it."""
+    stacked state it was given, in place, and returns it; train runs the
+    remat policy (:func:`_run_folded_train`) and returns no state."""
     protos = [plan.graph.blocks[unit.indices[j]] for j in range(unit.period)]
-    h = env["h"]
-    outs: List[Dict[str, Any]] = []
-    for r in range(unit.reps):
+
+    def rep(h, r: int):
         step_params = {k: v[r] for k, v in gparams.items()}
         c = Ctx(mode=mode, plan=plan, cache_index=ctx.cache_index,
                 aux=ctx.aux)
@@ -374,10 +386,138 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
         e = {"h": h, "positions": env["positions"], "cross": env["cross"]}
         for j, blk in enumerate(protos):
             e["h"] = _run_block(c, blk, step_params, e, mode, j=j)
-        h = e["h"]
-        outs.append(c.state_out)
+        return e["h"], c.state_out
+
+    if mode == "train":
+        return _run_folded_train(lambda h, r: rep(h, r)[0], unit.reps,
+                                 plan.flow.remat, env["h"]), {}
+    h = env["h"]
+    outs: List[Dict[str, Any]] = []
+    for r in range(unit.reps):
+        h, st = rep(h, r)
+        outs.append(st)
     if not outs[0]:
         return h, {}
     if mode == "decode":            # the ops wrote into the slices of gstate
         return h, gstate
     return h, _stack_trees(outs)
+
+
+def _checkpointed(fn):
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
+def _run_folded_train(one, reps: int, remat: str, h):
+    """A folded unit in train mode, ``one(h, r)`` a repetition, under the
+    JAX package's remat policy (its ``jax.checkpoint`` placement):
+    ``block`` checkpoints each repetition, so the backward pass keeps only
+    the repetitions' inputs and recomputes one at a time; ``nested`` (with
+    4 or more repetitions) checkpoints groups of k (the largest divisor of
+    ``reps`` at or below its square root) around the checkpointed
+    repetitions, keeping O(reps / k + k) inputs; ``none`` keeps every
+    activation."""
+    if remat == "nested" and reps >= 4:
+        k = max(math.isqrt(reps), 1)
+        while reps % k:
+            k -= 1
+        inner = _checkpointed(one)
+
+        def group(x, g0: int):
+            for r in range(g0, g0 + k):
+                x = inner(x, r)
+            return x
+        outer = _checkpointed(group)
+        for g0 in range(0, reps, k):
+            h = outer(h, g0)
+        return h
+    step = _checkpointed(one) if remat in ("block", "nested") else one
+    for r in range(reps):
+        h = step(h, r)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Loss (sequence-chunked cross-entropy: the logits never fully materialize)
+# ---------------------------------------------------------------------------
+
+def make_loss_fn(plan: ExecutionPlan):
+    """loss_fn(params, batch) -> (loss, metrics), differentiable in
+    ``params``.
+
+    A CNN: the mean NLL of the fp32 ``log_softmax`` of the logits at
+    ``batch["labels"]`` (B,); metrics ``{"loss"}``.  An LM: the trunk in
+    train mode without its head block, then the head block's ops up to the
+    unembed (the final norm), then :func:`_chunked_ce` over the sequence
+    with the tied table or ``lm_head``; ``batch["labels"]`` (B, S), entries
+    < 0 ignored; metrics ``{"loss", "acc"}`` (argmax accuracy over the
+    valid labels) and any aux losses (``AUX_KEYS``; no ported op adds
+    one)."""
+    cfg = plan.cfg
+    apply = _make_apply(plan, head=cfg.family == "cnn")
+    head_block = plan.graph.blocks[-1]
+    if head_block.kind not in ("head", "cnn_head"):
+        raise ValueError(f"the last block is {head_block.kind!r}, not a head")
+
+    def loss_fn(params, batch):
+        if cfg.family == "cnn":
+            logits, _, _ = apply(params, batch, mode="train")
+            labels = batch["labels"].long()
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            loss = -torch.mean(lp.gather(-1, labels[:, None])[:, 0])
+            return loss, {"loss": loss}
+
+        h, _, aux = apply(params, batch, mode="train")
+        ctx = Ctx(mode="train", plan=plan)
+        env = {"h": h}
+        hp = params.get("head", {})
+        ops = head_block.ops
+        for op in ops:
+            if op.op == "unembed":
+                break
+            env[op.out] = OPS[op.op](ctx, op, _param_slice(op, hp, None),
+                                     *[env[i] for i in op.ins])
+        un = ops[-1]
+        hn = env[un.ins[0]] if un.op == "unembed" else env["h"]
+        table = (params[un.attrs["tied"].split("/")[0]]["table"]
+                 if un.attrs.get("tied") else hp["lm_head"])
+        loss, acc = _chunked_ce(ctx, hn, table, batch["labels"],
+                                cfg.vocab_size,
+                                plan.tiles.get("ce_chunk", 256))
+        total = loss + sum(aux.get(k, 0.0) for k in AUX_KEYS)
+        return total, {"loss": loss, "acc": acc, **aux}
+
+    return loss_fn
+
+
+def _chunked_ce(ctx: Ctx, h, table, labels, true_vocab: int, chunk: int):
+    """Mean cross-entropy and argmax accuracy of ``h @ table.T`` against
+    ``labels`` over sequence chunks (the chunk halved until it divides S).
+    Each chunk's (B, chunk, V) fp32 logits come from the bf16-rounded (in
+    bf16 compute) operands multiplied in fp32, as ``op_unembed`` computes
+    them, padded vocab entries at -1e9; the chunk is checkpointed, so the
+    backward pass recomputes its logits instead of keeping them."""
+    B, S, _ = h.shape
+    Vp = table.shape[0]
+    dt = ctx.compute_dtype
+    while S % chunk:
+        chunk //= 2
+    chunk = max(chunk, 1)
+    pad = torch.arange(Vp, device=h.device) >= true_vocab
+    labels = labels.long()
+
+    def one(hc, lc):
+        logits = torch.matmul(hc.to(dt).float(), table.to(dt).float().T)
+        logits = logits.masked_fill(pad, -1e9)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
+        valid = (lc >= 0).float()
+        correct = (torch.argmax(logits, dim=-1) == lc).float() * valid
+        return ((lse - ll) * valid).sum(), valid.sum(), correct.sum()
+
+    parts = [checkpoint(one, h[:, i:i + chunk], labels[:, i:i + chunk],
+                        use_reentrant=False) for i in range(0, S, chunk)]
+    nll, cnt, cor = (sum(p[i] for p in parts) for i in range(3))
+    denom = torch.clamp(cnt, min=1.0)
+    return nll / denom, cor / denom

@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.conv2d import same_pads
 from repro_torch.kernels.lru_scan import lru_scan_plain
@@ -36,8 +37,11 @@ from repro_torch.kernels.registry import plan_kernel
 @dataclass
 class Ctx:
     """Execution context: the mode, the plan, and the serving state of the
-    block being run (``state_in`` read, ``state_out`` written)."""
-    mode: str                        # prefill | decode (train: later slice)
+    block being run (``state_in`` read, ``state_out`` written).  ``train``
+    runs the full sequence like ``prefill`` but writes no state, records
+    autograd through each kernel launch (:func:`_on_kernel`) and uses
+    BatchNorm's batch statistics."""
+    mode: str                        # train | prefill | decode
     plan: Any                        # ExecutionPlan
     state_in: Dict[str, Any] = field(default_factory=dict)
     state_out: Dict[str, Any] = field(default_factory=dict)
@@ -67,15 +71,46 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 # Dense / elementwise ops
 # ---------------------------------------------------------------------------
 
-def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None):
-    """Single entry point for all (possibly fused) matmuls; routes to the
-    CUDA kernel when the plan's backend table selects it."""
-    kern = plan_kernel(ctx.plan, "glu_matmul" if w2 is not None else "matmul",
-                       x=x, w=w)
-    if kern is not None:
-        return kern(x, w, bias=bias, act=act, w2=w2,
-                    tile=ctx.plan.tiles.get("matmul"),
-                    out_dtype=ctx.compute_dtype)
+class _KernelForward(torch.autograd.Function):
+    """A hand kernel's forward with its reference op's backward.
+
+    ``forward`` launches ``kern(*ts)``; ``backward`` recomputes ``ref(*ts)``
+    on the saved inputs with autograd and returns its vector-Jacobian
+    product.  So a train step's products run on the kernels while its
+    gradients are exactly the reference path's: the kernels have no
+    backward of their own, nor have the JAX package's (``pallas_call`` has
+    no transpose rule and the package defines no ``custom_vjp``, so JAX's
+    train step differentiates its reference ops)."""
+
+    @staticmethod
+    def forward(fctx, kern, ref, *ts):
+        fctx.ref = ref
+        fctx.save_for_backward(*ts)
+        return kern(*ts)
+
+    @staticmethod
+    def backward(fctx, gy):
+        need = fctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [t if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(fctx.saved_tensors, need)]
+            y = fctx.ref(*xs)
+        gs = iter(torch.autograd.grad(
+            y, [x for x, n in zip(xs, need) if n], gy, allow_unused=True))
+        return (None, None, *(next(gs) if n else None for n in need))
+
+
+def _on_kernel(ctx: Ctx, kern: Callable, ref: Callable, *ts):
+    """``kern(*ts)``, the kernel launch; in a train step that autograd
+    records, through :class:`_KernelForward`, whose backward is ``ref``'s
+    (``ref`` computes the same function on the reference path)."""
+    if ctx.mode == "train" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        return _KernelForward.apply(kern, ref, *ts)
+    return kern(*ts)
+
+
+def _matmul_ref(ctx: Ctx, x, w, bias=None, w2=None, *, act=None):
     dt = ctx.compute_dtype
     xf = x.to(dt).float()
     y = torch.matmul(xf, w.to(dt).float())
@@ -88,6 +123,28 @@ def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None):
     if act is not None:
         y = _act(y, act)
     return y.to(dt)
+
+
+def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None):
+    """Single entry point for all (possibly fused) matmuls; routes to the
+    CUDA kernel when the plan's backend table selects it.  A train plan's
+    fp32 master weights reach the kernel rounded to the compute dtype, as
+    the reference rounds them."""
+    kern = plan_kernel(ctx.plan, "glu_matmul" if w2 is not None else "matmul",
+                       x=x, w=w)
+    if kern is None:
+        return _matmul_ref(ctx, x, w, bias, w2, act=act)
+    dt, tile = ctx.compute_dtype, ctx.plan.tiles.get("matmul")
+
+    def launch(x, w, bias, w2):
+        if ctx.mode == "train":
+            w = w.to(dt)
+            w2 = None if w2 is None else w2.to(dt)
+        return kern(x, w, bias=bias, act=act, w2=w2, tile=tile, out_dtype=dt)
+    return _on_kernel(ctx, launch,
+                      lambda x, w, bias, w2: _matmul_ref(ctx, x, w, bias, w2,
+                                                         act=act),
+                      x, w, bias, w2)
 
 
 def op_matmul(ctx: Ctx, op, p, x, *extra):
@@ -227,7 +284,9 @@ def _sdpa(ctx: Ctx, q, k, v, qpos, kpos, *, causal, window, softcap,
     """Masked scaled-dot-product attention, query-chunked to bound the score
     intermediate (reference analogue of the flash kernel's tiling).  q·scale,
     K, V and the probabilities round to the compute dtype, as in the JAX
-    reference path; the products accumulate in fp32."""
+    reference path; the products accumulate in fp32.  In train mode each
+    chunk is checkpointed, as JAX remats it: the backward pass recomputes
+    the fp32 score block instead of saving it."""
     B, Sq, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -257,7 +316,12 @@ def _sdpa(ctx: Ctx, q, k, v, qpos, kpos, *, causal, window, softcap,
         return block(qf, qpos)
     while Sq % chunk:
         chunk -= 1                       # largest divisor of Sq
-    return torch.cat([block(qf[:, i:i + chunk], qpos[:, i:i + chunk])
+    if ctx.mode == "train":
+        def run(*a):
+            return checkpoint(block, *a, use_reentrant=False)
+    else:
+        run = block
+    return torch.cat([run(qf[:, i:i + chunk], qpos[:, i:i + chunk])
                       for i in range(0, Sq, chunk)], dim=1)
 
 
@@ -273,16 +337,22 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
             "cross-attention (encoder-decoder) is not ported yet "
             "(ROADMAP Queue 1, \"Other model families\")")
 
-    if ctx.mode == "prefill":
+    if ctx.mode in ("train", "prefill"):
         kern = plan_kernel(ctx.plan, "attention", window=window, cross=False)
+
+        def ref(q, k, v, pos):
+            return _sdpa(ctx, q, k, v, pos, pos, causal=causal,
+                         window=window, softcap=softcap)
         if kern is not None:
-            out = kern(q, k, v, positions=positions, causal=causal,
-                       window=window, softcap=softcap,
-                       tile=ctx.plan.tiles.get("attention"))
+            tile = ctx.plan.tiles.get("attention")
+            out = _on_kernel(
+                ctx, lambda q, k, v, pos: kern(
+                    q, k, v, positions=pos, causal=causal, window=window,
+                    softcap=softcap, tile=tile),
+                ref, q, k, v, positions)
         else:
-            out = _sdpa(ctx, q, k, v, positions, positions, causal=causal,
-                        window=window, softcap=softcap)
-        if skey is not None:
+            out = ref(q, k, v, positions)
+        if ctx.mode == "prefill" and skey is not None:
             C = ctx.plan.cache_len
             if Sq >= C:
                 kc, vc = k[:, Sq - C:], v[:, Sq - C:]
@@ -448,7 +518,8 @@ def op_rg_lru(ctx: Ctx, op, p, x):
     # the linear recurrence over the sequence: the hand-written scan kernel
     # where the plan resolves rg_lru to cuda, its plain version elsewhere
     kern = plan_kernel(ctx.plan, "rg_lru")
-    h = (kern or lru_scan_plain)(a, gated).float()
+    h = (lru_scan_plain(a, gated) if kern is None else
+         _on_kernel(ctx, kern, lru_scan_plain, a, gated)).float()
     if ctx.mode == "prefill":
         ctx.state_out[skey] = h[:, -1].to(x.dtype)
     return h.to(ctx.compute_dtype)
@@ -477,23 +548,41 @@ def _conv_ref(x, w, stride: int, padding: str, groups: int):
     return y.permute(0, 2, 3, 1)
 
 
-def _conv_backend(ctx: Ctx, x, w, *, stride, padding, groups=1,
-                  bn=None, act=None):
-    kern = plan_kernel(ctx.plan, "conv2d", groups=groups)
-    if kern is not None:
-        return kern(x, w, stride=stride, padding=padding, bn=bn, act=act,
-                    tile=ctx.plan.tiles.get("conv2d"))
+def _conv_path(ctx: Ctx, x, w, *bn, stride, padding, groups, act):
+    """The reference conv: fp32 products, then the epilogue."""
     dt = ctx.compute_dtype
     # the JAX reference upcasts bf16 operands and accumulates in fp32
     cdt = torch.float32 if dt == torch.bfloat16 else dt
     y = _conv_ref(x.to(cdt), w.to(cdt), stride, padding, groups).float()
-    if bn is not None:
+    if bn:
         scale, bias, mean, var = bn
         inv = torch.rsqrt(var.float() + 1e-5)
         y = (y - mean.float()) * (inv * scale.float()) + bias.float()
     if act:
         y = _act(y, act)
     return y.to(dt)
+
+
+def _conv_backend(ctx: Ctx, x, w, *, stride, padding, groups=1,
+                  bn=None, act=None):
+    """The conv entry point: the CUDA kernel where the plan selects it (a
+    train plan's fp32 master weights rounded to the compute dtype), the
+    reference conv elsewhere."""
+    kern = plan_kernel(ctx.plan, "conv2d", groups=groups)
+    geo = dict(stride=stride, padding=padding, groups=groups, act=act)
+    bn = tuple(bn or ())
+    if kern is None:
+        return _conv_path(ctx, x, w, *bn, **geo)
+    dt, tile = ctx.compute_dtype, ctx.plan.tiles.get("conv2d")
+
+    def launch(x, w, *bn):
+        if ctx.mode == "train":
+            w = w.to(dt)
+        return kern(x, w, stride=stride, padding=padding, bn=bn or None,
+                    act=act, tile=tile)
+    return _on_kernel(ctx, launch,
+                      lambda x, w, *bn: _conv_path(ctx, x, w, *bn, **geo),
+                      x, w, *bn)
 
 
 def _bn_params(p):
@@ -522,7 +611,14 @@ def op_depthwise_conv2d(ctx: Ctx, op, p, x):
 
 
 def op_batchnorm(ctx: Ctx, op, p, x):
+    """Inference BN on the running ``mean``/``var``; in train mode on the
+    batch's statistics over (N, H, W) in fp32, the population variance
+    (``jnp.var``), the running ones neither read nor updated (as in JAX)."""
     scale, bias, mean, var = _bn_params(p)
+    if ctx.mode == "train":
+        xf = x.float()
+        mean = torch.mean(xf, dim=(0, 1, 2))
+        var = torch.mean(torch.square(xf - mean), dim=(0, 1, 2))
     inv = torch.rsqrt(var.float() + op.attrs.get("eps", 1e-5))
     y = (x.float() - mean.float()) * (inv * scale.float()) + bias.float()
     return y.to(ctx.compute_dtype)

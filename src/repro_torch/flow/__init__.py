@@ -14,17 +14,25 @@ package is that front door for the PyTorch port::
     tokens, state = lm.generate(params, {"tokens": prompt}, steps=32)
     print(lm.describe())
 
+    tm = flow.compile("llama3.2-1b", ShapeConfig("train", "train", 512, 8))
+    params = tm.init_params(seed=0)                   # fp32 masters
+    opt = AdamW(lr=3e-4)
+    step = tm.train_step(opt)
+    params, opt_state, metrics = step(params, opt.init(params), batch)
+
 ``compile()`` runs the pass pipeline for a device (the card unless the
 caller asks for the CPU) and returns a :class:`CompiledModel` that owns the
 :class:`ExecutionPlan`, ``apply`` / ``prefill`` / ``decode`` /
-``generate``, ``init_params`` / ``init_state``, ``describe()`` and
-``measure()``.  Kernel-backend selection happens behind it through the
+``generate``, ``loss_fn`` / ``train_step``, ``init_params`` /
+``init_state``, ``describe()`` and ``measure()``.  Kernel-backend
+selection happens behind it through the
 :class:`~repro_torch.kernels.registry.KernelRegistry` (``backend="auto"``
 resolves per op: the hand-written CUDA kernel on a Hopper card, the
 reference path elsewhere).  ``generate_fori`` and ``decode_segment`` (the
 serving engine's host-free decode segments) queue their whole loop on the
-device and read nothing back inside it.  Training arrives with a later
-slice.
+device and read nothing back inside it.  ``train_step`` runs the forward
+products on the same kernels as ``prefill`` and the backward through the
+reference ops (the hand kernels have no backward of their own).
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from repro_torch.obs import TRACER
 
 __all__ = ["compile", "CompiledModel"]
 
-MEASURED_STAGES = ("prefill", "decode")
+MEASURED_STAGES = ("train", "prefill", "decode")
 
 
 class CompiledModel:
@@ -67,6 +75,8 @@ class CompiledModel:
             "stages": {},
         }
         self._apply: Optional[Callable] = None
+        self._loss_fn: Optional[Callable] = None
+        self._train_steps: Dict[Tuple[Any, int], Callable] = {}
 
     # -- lowering primitives -------------------------------------------------
     @property
@@ -76,6 +86,14 @@ class CompiledModel:
         if self._apply is None:
             self._apply = lowering._make_apply(self.plan)
         return self._apply
+
+    @property
+    def loss_fn(self) -> Callable:
+        """loss_fn(params, batch) -> (loss, metrics): the training loss
+        (``lowering.make_loss_fn``), differentiable in ``params``."""
+        if self._loss_fn is None:
+            self._loss_fn = lowering.make_loss_fn(self.plan)
+        return self._loss_fn
 
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
         return lowering.init_params(self.plan, seed, self.device)
@@ -120,6 +138,30 @@ class CompiledModel:
             "decode", lambda: self.apply(params, batch, state=state,
                                          cache_index=cache_index,
                                          mode="decode"))
+
+    def train_step(self, opt, microbatches: Optional[int] = None) -> Callable:
+        """The train step for ``opt``, made once per (``opt``,
+        microbatches): step(params, opt_state, batch) -> (params,
+        opt_state, metrics), updating ``params`` and ``opt_state`` in place
+        (the JAX step donates them).  ``microbatches`` defaults to the
+        flow's.  The first call's wall-clock is recorded in
+        ``stats["stages"]``.  The cache is keyed on the optimizer's value
+        (a frozen dataclass), not its ``id`` as in JAX: an id can be reused
+        by another optimizer once the first is gone."""
+        mb = microbatches if microbatches is not None \
+            else max(self.flow.microbatches, 1)
+        key = (opt, mb)
+        fn = self._train_steps.get(key)
+        if fn is None:
+            from repro_torch.train.trainer import make_train_step
+            raw = make_train_step(self.plan, opt, microbatches=mb)
+            name = f"train_step[mb={mb}]"
+
+            def fn(params, opt_state, batch):
+                return self._timed_first(
+                    name, lambda: raw(params, opt_state, batch))
+            self._train_steps[key] = fn
+        return fn
 
     # -- generation ----------------------------------------------------------
     @staticmethod
@@ -209,27 +251,40 @@ class CompiledModel:
     def _measure_inputs(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Random inputs of the cell's shape from numpy's RandomState:
         images for a CNN; for an LM, tokens ``randint(0, vocab)`` of
-        (B, seq_len), or (B, 1) on a decode-kind shape."""
+        (B, seq_len), or (B, 1) on a decode-kind shape; on a train-kind
+        shape also ``labels``, ``randint(0, vocab)`` of (B,) or (B, S),
+        drawn after the inputs (the JAX package's order)."""
         rng = np.random.RandomState(seed)
         c, B = self.cfg, self.shape.global_batch
+        train = self.shape.kind == "train"
         if c.family == "cnn":
             x = rng.randn(B, c.image_size, c.image_size,
                           c.image_channels).astype(np.float32)
-            return {"images": torch.from_numpy(x).to(self.device)}
-        S = self.shape.seq_len if self.shape.kind != "decode" else 1
-        t = rng.randint(0, c.vocab_size, (B, S)).astype(np.int64)
-        return {"tokens": torch.from_numpy(t).to(self.device)}
+            out = {"images": x}
+            if train:
+                out["labels"] = rng.randint(0, c.vocab_size, B)
+        else:
+            S = self.shape.seq_len if self.shape.kind != "decode" else 1
+            out = {"tokens": rng.randint(0, c.vocab_size, (B, S))}
+            if train:
+                out["labels"] = rng.randint(0, c.vocab_size, (B, S))
+        return {k: torch.from_numpy(v if v.dtype == np.float32
+                                    else v.astype(np.int64)).to(self.device)
+                for k, v in out.items()}
 
     def measure(self, stage: Optional[str] = None, iters: int = 10, *,
                 seed: int = 0, params: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Any]:
         """Time one stage of this compiled cell: one warm-up call, then
-        ``iters`` calls.  ``prefill`` runs the cell's batch; ``decode``
-        starts from ``init_state(B)`` with ``cache_index`` counting up from
-        0, one token per row and step.  ``params`` defaults to
-        ``init_params(seed)``.  On the card each call is timed with CUDA
-        events; on a CPU model with the wall clock, and the record says
-        ``cpu``."""
+        ``iters`` calls.  ``train`` runs the train step of a default
+        ``AdamW()`` on the cell's batch with labels, from ``opt.init``,
+        updating ``params`` in place step after step; ``prefill`` runs the
+        cell's batch; ``decode`` starts from ``init_state(B)`` with
+        ``cache_index`` counting up from 0, one token per row and step.
+        ``params`` defaults to ``init_params(seed)``.  On the card each call
+        is timed with CUDA events and ``peak_bytes`` is the peak of
+        allocated device memory over the timed calls; on a CPU model the
+        wall clock times them, and the record says ``cpu``."""
         stage = stage if stage is not None else self.shape.kind
         if stage not in MEASURED_STAGES:
             raise NotImplementedError(
@@ -238,10 +293,25 @@ class CompiledModel:
         lm = self.cfg.family != "cnn"
         if stage == "decode" and not lm:
             raise ValueError("a CNN has no decode stage")
+        if stage == "train" and self.shape.kind != "train":
+            raise ValueError(f"the train stage needs a train-kind shape "
+                             f"(labels), not {self.shape.kind!r}")
         params = params if params is not None else self.init_params(seed)
         batch = self._measure_inputs(seed)
         B = self.shape.global_batch
-        if stage == "prefill":
+        if stage == "train":
+            from repro_torch.optim.adamw import AdamW
+            from repro_torch.train.trainer import make_train_step
+            opt = AdamW()
+            opt_state = [opt.init(params)]
+            train = make_train_step(self.plan, opt,
+                                    max(self.flow.microbatches, 1))
+
+            def step(i):
+                _, opt_state[0], m = train(params, opt_state[0], batch)
+                return m
+            per_call = B * (batch["tokens"].shape[1] if lm else 1)
+        elif stage == "prefill":
             def step(i):
                 return self.prefill(params, batch)
             per_call = B * (batch["tokens"].shape[1] if lm else 1)

@@ -135,5 +135,7 @@ def test_measure_on_cpu_says_cpu():
     rec = cm.measure("prefill", iters=2)
     assert rec["device"] == "cpu" and rec["timer"] == "wall_clock"
     assert rec["iters"] == 2 and rec["images_per_s"] > 0
+    with pytest.raises(ValueError, match="train-kind"):
+        cm.measure("train")                  # a prefill shape has no labels
     with pytest.raises(NotImplementedError):
-        cm.measure("train")
+        cm.measure("generate")

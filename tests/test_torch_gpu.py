@@ -1466,3 +1466,142 @@ def test_recurrentgemma_serving_on_the_card(card):
     assert kl.lru_scan.launches - n_l == 4 * got.metrics["prefill_batches"]
     assert {r.rid: r.tokens for r in got.results} == \
         {r.rid: r.tokens for r in want.results}
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the forward products on the hand kernels, the
+# backward through the reference ops
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    torch.cuda.synchronize()
+    return {"conv2d_fused": kc.conv2d_fused.launches,
+            "matmul_fused": km.matmul_fused.launches,
+            "flash_attention": ka.flash_attention.launches,
+            "decode_attention": kd.decode_attention.launches,
+            "paged_decode_attention": kd.paged_decode_attention.launches,
+            "copy_block": kd.copy_block.launches,
+            "lru_scan": kl.lru_scan.launches}
+
+
+def _smoke_train_batch(V, B=2, S=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"tokens": torch.randint(0, V, (B, S), generator=g),
+            "labels": torch.randint(0, V, (B, S), generator=g)}
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One call of a smoke llama train step (fp32, no clip, the default
+    eps; the first call's rate is 0) on the card, its forward on the
+    kernels, and on the CPU from the same tree: the losses within 1e-5,
+    the first moment (the gradients) within 1e-4 (the embedding's backward
+    adds by atomics: tolerances, not bits).  Then one AdamW update of the
+    card's gradients from the card's state on both devices: the parameters
+    within 1e-4 (an update at eps 1e-8 is about lr * sign(g), so it is
+    held on the same gradients; chip_smoke.py's ``_card_vs_cpu`` says
+    more)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.optim.adamw import AdamW, AdamWState, tree_leaves, \
+        tree_map
+    shape = ShapeConfig("smoke", "train", 16, 2)
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    opt = AdamW(lr=1e-3, grad_clip=0.0, warmup_steps=1, total_steps=10)
+    runs = {}
+    p0 = None
+    for dev in ("cuda", "cpu"):
+        cm = flow.compile("llama3.2-1b", shape, f32, smoke=True, device=dev)
+        p0 = cm.init_params(0) if p0 is None else p0
+        params = tree_map(lambda t: t.to(dev, copy=True), p0)
+        batch = {k: v.to(dev) for k, v in
+                 _smoke_train_batch(cm.cfg.vocab_size).items()}
+        n0 = km.matmul_fused.launches
+        params, state, m0 = cm.train_step(opt)(params, opt.init(params),
+                                              batch)
+        runs[dev] = (float(m0["loss"]), params, state,
+                     km.matmul_fused.launches - n0)
+    (lg, pg, sg, ng), (lc, _, sc, nc) = runs["cuda"], runs["cpu"]
+    assert ng > 0 and nc == 0
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert max(_rel(a.cpu(), b) for a, b in
+               zip(tree_leaves(sg.mu), tree_leaves(sc.mu))) < 1e-4
+    grads = tree_map(lambda t: t / (1 - opt.b1), sg.mu)
+    cpu = lambda t: t.cpu().clone()                         # noqa: E731
+    pc, gc = tree_map(cpu, pg), tree_map(cpu, grads)
+    stc = AdamWState(cpu(sg.step), tree_map(cpu, sg.mu), tree_map(cpu, sg.nu))
+    pg, _, _ = opt.update(grads, sg, pg)
+    pc, _, _ = opt.update(gc, stc, pc)
+    assert max(_rel(a.cpu(), b) for a, b in
+               zip(tree_leaves(pg), tree_leaves(pc))) < 1e-4
+    assert max((a - b.cpu()).abs().max().item() for a, b in
+               zip(tree_leaves(pc), tree_leaves(p0))) > 0
+
+
+def test_train_mode_launches_the_kernels(card):
+    """A train step of smoke llama and of LeNet-5 on the card: the forward
+    products launch the kernels (llama: projections and flash; LeNet-5:
+    convs and FCs), with no dispatch rejection; in fp32 the loss is the
+    reference backend's within 1e-5 and every gradient within 1e-4 (the
+    backward recomputes the reference op)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.kernels.registry import DISPATCH_REJECTIONS
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import _grads
+    shape = ShapeConfig("smoke", "train", 16, 2)
+    for arch, want in (("llama3.2-1b", {"matmul_fused", "flash_attention"}),
+                       ("lenet5", {"matmul_fused", "conv2d_fused"})):
+        for prec in ("bf16", "fp32"):
+            fl = FlowConfig(mode="folded", precision=prec)
+            cm = flow.compile(arch, shape, fl, smoke=True)
+            assert cm.plan.kernels["matmul"] == "cuda"
+            params = cm.init_params(0)
+            batch = cm._measure_inputs(0)
+            DISPATCH_REJECTIONS.clear()
+            before = _launch_counts()
+            loss, _, grads = _grads(cm.loss_fn, params, batch)
+            after = _launch_counts()
+            assert torch.isfinite(loss)
+            assert {k for k in after if after[k] != before[k]} == want
+            assert DISPATCH_REJECTIONS == {}
+            if prec == "fp32":
+                ref = flow.compile(arch, shape, fl, smoke=True,
+                                   backend="reference")
+                want_loss, _, want_g = _grads(ref.loss_fn, params, batch)
+                assert abs(float(loss) - float(want_loss)) <= \
+                    1e-5 * abs(float(want_loss))
+                assert max(_rel(a, b) for a, b in zip(
+                    tree_leaves(grads), tree_leaves(want_g))) < 1e-4
+
+
+def test_trained_smoke_model_prefill_through_the_kernels(card):
+    """Smoke llama trained 3 steps on the card (fp32 masters, bf16
+    compute, the forward on the kernels), its tree cast to bf16 into a
+    serve plan: the prefill launches flash and matmul_fused and holds to
+    the reference backend (< 5e-2)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamW, tree_map
+    tm = flow.compile("llama3.2-1b", ShapeConfig("smoke", "train", 16, 2),
+                      smoke=True)
+    params = tm.init_params(0)
+    opt = AdamW(lr=3e-3, warmup_steps=1, total_steps=3)
+    state = opt.init(params)
+    batch = {k: v.cuda() for k, v in _smoke_train_batch(256).items()}
+    step = tm.train_step(opt)
+    losses = []
+    for _ in range(3):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
+    serve = ShapeConfig("serve", "decode", 32, 2)
+    cm = flow.compile("llama3.2-1b", serve, smoke=True)
+    ref = flow.compile("llama3.2-1b", serve, smoke=True, backend="reference")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    f0, m0 = ka.flash_attention.launches, km.matmul_fused.launches
+    y, _, _ = cm.prefill(p16, {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    assert ka.flash_attention.launches - f0 == 3
+    assert km.matmul_fused.launches - m0 == 3 * 6
+    yr, _, _ = ref.prefill(p16, {"tokens": batch["tokens"]})
+    assert _rel(y, yr) < 5e-2
