@@ -179,10 +179,42 @@ Phases, each raising on failure:
    deleted) and one step after the restore within 1e-4 of the
    uninterrupted one, then the trained tree served in bf16 and fp32
    (``ShapeConfig("serve", "prefill", 64, 8)``, BN folded into the convs)
-   with phase 5's launches by schedule and limits, and ``measure("train")``.
+   with phase 5's launches by schedule and limits, and ``measure("train")``;
+15. tune — the static verifier and the tuning stack: ``verify_plan`` on the
+   card's plan of every ported config (three CNNs at batch 8, five LMs at
+   ``ShapeConfig("serve", "decode", 1024, 8)``; no weight is made), all
+   ``ok (9 checks)`` with no diagnostic, each hand kernel's largest
+   working set (the shared bytes a block asks for) printed and every
+   call's working set held to the kernel library's own ``*_smem`` query;
+   the survivors of each measured search built and run once, untimed,
+   before the search; ResNet-34 (224
+   px, batch 8) through ``flow.compile(autotune=True, validate="measure",
+   verify=True)`` with a fresh tune database under ``build/``: each
+   measured survivor's ms beside the estimator's h100 prediction, no conv
+   on ``simt`` during the search, the winner (or, when the ``reference``
+   backend wins, the fastest survivor on the hand kernels) through
+   conv2d_fused with phase 5's launches by schedule and its logits within
+   the limit of the ``reference`` backend at its own flow, a second
+   search on the same database a hit with nothing measured, and a
+   ``validate="compile"`` search whose one survivor's footprint is a
+   measured step's peak of allocated memory; llama3.2-1b
+   at full width through ``autotune_decode`` (``ServingProfile(
+   batch_buckets=(4, 8), max_seq_len=1024, block_sizes=(16, 32))``,
+   ``validate="measure"``, three timed runs a candidate, bench and
+   replay, the speculation replay on an envelope of 128 tokens): all six
+   benches banked (and the engine replay that confirms a chunk width
+   above 1), every paged launch on ``mma``, the block and chunk
+   benches re-run and counted on ``mma``, then the pinned engine on
+   workload A in the winner's precision and the winner's flow in the
+   other (on the hand kernels: with the ``auto`` backend when the
+   ``reference`` backend won), with launches by schedule, bf16 logits
+   within the limit and fp32 tokens identical to the ``reference``
+   backend's, and the engine's defaults on A beside it; no dispatch
+   rejection; ``launch.tune show`` lists every record under the card's
+   ``cuda:<name>`` key.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9, 10 and 11 come next, then 12, 13 and 14. Every path phase also reads
+9, 10 and 11 come next, then 12, 13, 14 and 15. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -2234,7 +2266,7 @@ def _rg_engine(cm, params, reqs, **kw):
     return eng, rep
 
 
-def _serve_logits(cap, ref, prec):
+def _serve_logits(cap, ref, prec, what="workload R"):
     """Every logits row that ``cap`` captured against ``ref``'s, up to the
     first token where a request's two streams part: finite, and relerr
     under PATH_TOL[prec]."""
@@ -2251,7 +2283,7 @@ def _serve_logits(cap, ref, prec):
         agree += sum(a == b_ for a, b_ in zip(x.tokens, xr.tokens))
         total += len(xr.tokens)
     if max(errs) >= PATH_TOL[prec]:
-        raise AssertionError(f"workload R {prec} logits relerr {max(errs)} "
+        raise AssertionError(f"{what} {prec} logits relerr {max(errs)} "
                              "vs the reference backend")
     return {"relerr_max": max(errs), "rows": len(errs),
             "greedy_agreement_share": agree / total}
@@ -3138,6 +3170,385 @@ def phase_train(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the static verifier and the tuning stack
+# ---------------------------------------------------------------------------
+
+# a fresh tune database under build/ (deleted before the phase), the serving
+# profile of llama3.2-1b's autotune, the timed runs of each measured
+# candidate, bench and replay (after a warm-up; a candidate's time is the
+# least of its runs, a bench's or a replay's the median) and the envelope
+# of the speculation replay (at 1024 tokens each of its 16 requests would
+# generate 752 tokens: 3 x 4 replays of over 10 s)
+TUNE_DB = os.path.join(ROOT, "build", "tune_smoke.jsonl")
+TUNE_PROFILE = dict(name="chip", batch_buckets=(4, SERVE_SLOTS),
+                    max_seq_len=SERVE_SEQ, block_sizes=(16, 32))
+TUNE_ITERS = 3
+TUNE_SPEC_SEQ = 128
+# the ops a card plan must resolve to the hand kernels, by family
+CARD_OPS = {"cnn": ("conv2d", "matmul"),
+            "lm": ("attention", "decode_attention", "paged_decode_attention",
+                   "copy_block", "matmul", "glu_matmul")}
+
+
+def _verify_card_plans():
+    """``verify_plan`` on the card's plan of every ported config at its
+    default shape (``flow.compile(verify=True)``: no weight is made): its
+    codes, and each hand kernel's largest working set, the shared bytes a
+    block of it asks for at the plan's calls: every call's mirror
+    (``kernels/workingset.py``) held to the kernel library's own query."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import ARCHS, CNNS, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels._build import LIBRARY
+    from repro_torch.kernels.registry import REGISTRY
+    from repro_torch.serving import EngineConfig
+    lib = LIBRARY.get()
+    serve_ecfg = EngineConfig(max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+                              block_size=SERVE_BS, chunk_size=16,
+                              chunked_prefill=True)
+    out = {}
+    for name in ARCHS + CNNS:
+        fam = "cnn" if get_config(name).family == "cnn" else "lm"
+        shape = ShapeConfig("serve", "prefill", 64, B) if fam == "cnn" \
+            else ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
+        cm = tflow.compile(name, shape, verify=True)
+        res = cm.plan.verification
+        if not res.ok or res.diagnostics:
+            raise AssertionError(f"{name}: {res.describe()}")
+        ks = cm.plan.kernels
+        if any(ks[o] != "cuda" for o in CARD_OPS[fam]):
+            raise AssertionError(f"{name}: card plan.kernels {ks}")
+        ws, n_held = {}, 0
+        for op in sorted(o for o, b in ks.items() if b == "cuda"):
+            contract = REGISTRY.get(op, "cuda").contract
+            if contract is None or not contract.workingset:
+                continue
+            calls = contract.workingset(cm.plan, None)
+            # the mirror against the bytes the launches ask for: the
+            # library's own queries at the same calls (and the paged
+            # kernel at the serving envelope's widest tick)
+            for ecfg in [None] + ([serve_ecfg] if fam == "lm" else []):
+                mirror = contract.workingset(cm.plan, ecfg)
+                real = contract.workingset(cm.plan, ecfg, lib=lib)
+                if mirror != real:
+                    raise AssertionError(f"{name} {op}: working sets "
+                                         f"{mirror} != the library's {real}")
+                n_held += len(real)
+            if calls:
+                call, sched, nb = max(calls, key=lambda c: c[2])
+                ws[op] = {"call": call, "schedule": sched, "bytes": nb}
+        out[name] = {"summary": res.summary_line(),
+                     "codes": list(res.codes()), "workingset": ws,
+                     "calls_held_to_library": n_held}
+        log(json.dumps({"verify": name, **out[name]}))
+    return out
+
+
+def _warm_survivors(cfg, shape, flow0):
+    """Build and run, once and untimed, each survivor a measured search of
+    ``shape`` will time (the estimator's top-k on the card), so that no
+    candidate is timed on a colder card or host than another: one timed
+    call after a candidate's own warm-up left the first measured survivor
+    the slowest.  Banks nothing and ticks no count the phase reads."""
+    from repro_torch.core import dse
+    flow = dataclasses.replace(flow0, tuning=dataclasses.replace(
+        flow0.tuning, tune_db=None))
+    er = dse.explore(cfg, shape, flow, use_cache=False)
+    warm = dse.measure_validator(cfg, shape, iters=1)
+    for c in er.candidates[:max(flow.tuning.top_k, 1)]:
+        warm(c.flow)
+    torch.cuda.synchronize()
+
+
+def _survivors(er):
+    """Each measured survivor of a search: its knobs, measured ms, the
+    estimator's h100 prediction and their ratio, its peak bytes."""
+    est = {c.knob_str(): c.step_s for c in er.candidates}
+    rows = []
+    for v in er.validated:
+        if "measured_step_s" not in v:
+            continue
+        e = est[v["knobs"]]
+        rows.append({"knobs": v["knobs"], "ms": v["measured_step_s"] * 1e3,
+                     "est_h100_ms": e * 1e3,
+                     "measured_over_est": v["measured_step_s"] / e,
+                     "peak_bytes": v["per_device_bytes"],
+                     "bytes_source": v["bytes_source"]})
+    return rows
+
+
+def _tune_resnet(smi):
+    """ResNet-34 (224 px, batch 8) through ``flow.compile(autotune=True,
+    validate="measure", verify=True)`` with a fresh tune database: the
+    measured survivors beside the estimator's predictions, the winner (or,
+    when the reference backend wins, the fastest measured survivor on the
+    hand kernels) through conv2d_fused against the reference backend at its
+    own flow, and a second search served by the database."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig, TuningConfig
+    from repro_torch.core import dse
+    serve = ShapeConfig("serve", "prefill", 64, B)
+    flow0 = FlowConfig(mode="folded", tuning=TuningConfig(tune_db=TUNE_DB))
+    t0 = time.perf_counter()
+    _warm_survivors(get_config("resnet34"), serve, flow0)
+    warm_s = time.perf_counter() - t0
+    dse.clear_explore_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    cm = tflow.compile("resnet34", serve, flow0, autotune=True,
+                       validate="measure", verify=True)
+    search_s = time.perf_counter() - t0
+    during = {"launches": read_counts(),
+              "conv_schedules": read_schedules("conv2d_fused")}
+    er = cm.explore_result
+    if er.tunedb_status != "cold" or er.n_measured < 1 or \
+            not cm.plan.verification.ok:
+        raise AssertionError(f"resnet34 search: {er.describe()}")
+    if during["conv_schedules"]["simt"]:
+        raise AssertionError(f"resnet34 search: conv schedules "
+                             f"{during['conv_schedules']}")
+    rows = _survivors(er)
+    for r in rows:
+        log(json.dumps({"tune_resnet34_survivor": r}))
+    flows = {c.knob_str(): c.flow for c in er.candidates}
+    auto = sorted((r for r in rows
+                   if flows[r["knobs"]].kernel_backend == "auto"),
+                  key=lambda r: r["ms"])
+    if not auto:
+        raise AssertionError("resnet34: no measured survivor ran the hand "
+                             "kernels")
+    kflow = cm.flow if cm.flow.kernel_backend == "auto" \
+        else flows[auto[0]["knobs"]]
+    bf = kflow.precision == "bf16"
+    fwd = _forward("resnet34", kflow,
+                   {"wgmma" if bf else "ffma": 35, "small_ci": 1}, 1,
+                   {"small_m" if bf else "ffma_small_m": 1}, smi,
+                   measure=False)
+    dse.clear_explore_cache()
+    cm2 = tflow.compile("resnet34", serve, flow0, autotune=True,
+                        validate="measure", verify=True)
+    er2 = cm2.explore_result
+    if er2.tunedb_status != "hit" or er2.n_measured != 0 or \
+            cm2.flow != cm.flow:
+        raise AssertionError(f"resnet34 second search: {er2.describe()}")
+    # validate="compile": the first fitting survivor in the estimator's
+    # order, its footprint a measured step's peak of allocated memory
+    erc = dse.explore(get_config("resnet34"), serve, FlowConfig(
+        mode="folded"), validator=dse.compile_validator(
+            get_config("resnet34"), serve), use_cache=False)
+    vc = erc.validated
+    if len(vc) != 1 or vc[0]["bytes_source"] != "max_memory_allocated" \
+            or erc.best is not erc.candidates[0]:
+        raise AssertionError(f"resnet34 compile search: {erc.describe()}")
+    rec = {"warm_s": warm_s, "search_s": search_s,
+           "describe": er.describe(), "winner": er.best.knob_str(),
+           "winner_backend": cm.flow.kernel_backend,
+           "checked_flow": {k: v for k, v in
+                            dataclasses.asdict(kflow).items()
+                            if k != "tuning"},
+           "survivors": rows, "during_search": during, "forward": fwd,
+           "second": {"tunedb_status": er2.tunedb_status,
+                      "n_measured": er2.n_measured},
+           "compile_search": {"winner": erc.best.knob_str(),
+                              "peak_bytes": vc[0]["per_device_bytes"]},
+           "nvidia_smi": smi}
+    log(json.dumps({"tune_resnet34": {k: v for k, v in rec.items()
+                                      if k != "describe"}}))
+    return rec
+
+
+def _pinned_serve(at, cm, params, prec, works, smi):
+    """Workload A through an engine pinned to ``at``'s configuration on
+    ``cm`` (a flow on the hand kernels): the launches by schedule its
+    prefill batches and ticks give, then the same engine on the reference
+    backend: bf16 logits within the limit, fp32 tokens identical."""
+    from repro_torch import flow as tflow
+    from repro_torch.serving import Engine
+    if any(cm.plan.kernels[o] != "cuda" for o in CARD_OPS["lm"]):
+        raise AssertionError(f"pinned {prec}: plan.kernels {cm.plan.kernels}")
+    ecfg = at.engine_config()
+    reset_counts()
+    eng = Engine(cm, params, ecfg)
+    rep = eng.run(works["A"])
+    torch.cuda.synchronize()
+    rec = {"precision": prec, **_serve_record(eng, rep)}
+    want = _serve_want(rep, _plan_launches(cm.plan, "prefill"),
+                       _plan_launches(cm.plan, "decode"),
+                       rep.metrics["cow_forks"])
+    rec["launches"] = _counted(read_counts(), want, f"pinned {prec}")
+    rec["matmul_schedules"] = _aligned_only(
+        rec["launches"]["matmul_fused"], prec, f"pinned {prec}")
+    rec["flash_schedules"] = _flash_scheduled(
+        rec["launches"]["flash_attention"], prec, f"pinned {prec}")
+    rec["paged_schedules"] = _decode_scheduled(
+        rec["launches"]["paged_decode_attention"], prec, f"pinned {prec}",
+        "paged_decode_attention")
+    ref = tflow.compile(cm.cfg, cm.shape, cm.flow, backend="reference")
+    if prec == "bf16":
+        cap = Engine(cm, params, at.engine_config(capture_logits=True))
+        cap_r = Engine(ref, params, at.engine_config(capture_logits=True))
+        rec["logits"] = _serve_logits(cap.run(works["A"]),
+                                      cap_r.run(works["A"]), prec,
+                                      "pinned engine")
+    else:
+        rep_r = Engine(ref, params, ecfg).run(works["A"])
+        if _tokens(rep) != _tokens(rep_r):
+            raise AssertionError("pinned fp32 engine: greedy tokens differ "
+                                 "from the reference backend's")
+        rec["tokens_identical_to_reference"] = True
+    # the same model on the engine's defaults (phase 8's configuration),
+    # after the counted run: what the pinned knobs win or lose on A
+    rec["defaults_tokens_per_s"] = _engine_run(
+        cm, params, works["A"])[1].metrics["tokens_per_s"]
+    log(json.dumps({"tune_llama_serve": rec}))
+    return rec
+
+
+def _tune_llama(smi):
+    """llama3.2-1b at full width through ``autotune_decode`` (buckets 4 and
+    8, 1024 tokens, blocks of 16 or 32, measured) with the same database:
+    all six benches on the card, the block and chunk benches counted on
+    ``paged_decode_attention``'s ``mma`` schedule, then the pinned engine on
+    workload A in bf16 and, with the winner's flow in fp32, against the
+    reference backend."""
+    from repro_torch import flow as tflow
+    from repro_torch.core import dse
+    from repro_torch.serving import autotune as sat
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig
+    prof = sat.ServingProfile(**TUNE_PROFILE)
+    t0 = time.perf_counter()
+    for b in prof.batch_buckets:
+        _warm_survivors(get_config(LM_ARCH), prof.shape_for(b),
+                        FlowConfig(mode="folded"))
+    torch.cuda.empty_cache()
+    warm_s = time.perf_counter() - t0
+    dse.clear_explore_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    at = sat.autotune_decode(LM_ARCH, profile=prof, validate="measure",
+                             iters=TUNE_ITERS, db=TUNE_DB, tune_spec=False)
+    # the speculation replay on the same pinned flow and weights with an
+    # envelope of TUNE_SPEC_SEQ tokens (the replay's length is the
+    # profile's)
+    spec_at = dataclasses.replace(
+        at, profile=dataclasses.replace(prof, max_seq_len=TUNE_SPEC_SEQ),
+        _params=at._params)
+    at.speculation, at.spec_times_s = sat.tune_speculation(
+        spec_at, iters=TUNE_ITERS, db=TUNE_DB)
+    search_s = time.perf_counter() - t0
+    during = {"launches": read_counts(),
+              "paged_schedules": read_schedules("paged_decode_attention")}
+    log(at.describe())
+    if during["paged_schedules"]["simt"] or \
+            not during["paged_schedules"]["mma"]:
+        raise AssertionError(f"autotune: paged schedules "
+                             f"{during['paged_schedules']}")
+    ran = {"block": at.block_times_us, "chunk": at.chunk_times_us,
+           "fori": at.fori_times_s, "prefix": at.prefix_times_s,
+           "spec": at.spec_times_s}
+    if not all(ran.values()) or at.tile_overrides or at.tile_times_s:
+        raise AssertionError(f"autotune benches {ran}, tiles "
+                             f"{at.tile_overrides} {at.tile_times_s}")
+    from repro_torch import tunedb
+    fields = sorted(r.key["field"] for r in
+                    tunedb.open_db(TUNE_DB).records("serving"))
+    want = ["block_size", "chunk_size", "fori_seg", "kernel_tiles",
+            "prefix_cache", "speculation"]
+    if at.chunk_replay_s:             # the microbench's chunk, replayed
+        want.append("chunk_replay")
+    if fields != sorted(want):
+        raise AssertionError(f"autotune banked {fields}")
+    # the block and chunk benches alone, no store, counted: one warm-up and
+    # TUNE_ITERS timed calls a candidate, all on mma
+    bench = {}
+    for name, fn, n in (
+            ("block", lambda: sat.tune_block_size(
+                at.cfg, prof, iters=TUNE_ITERS, dtype=torch.bfloat16),
+             len(prof.block_sizes)),
+            ("chunk", lambda: sat.tune_chunk_size(
+                at.cfg, prof, block_size=at.block_size, iters=TUNE_ITERS,
+                dtype=torch.bfloat16), len(prof.chunk_sizes))):
+        reset_counts()
+        fn()
+        bench[name] = _decode_scheduled(n * (TUNE_ITERS + 1), "bf16",
+                                        f"{name} bench",
+                                        "paged_decode_attention")
+    survivors = {b: _survivors(er) for b, er in at.per_bucket.items()}
+    for b, rows in survivors.items():
+        for r in rows:
+            log(json.dumps({"tune_llama_survivor": {"bucket": b, **r}}))
+    # the pinned engine in the winner's precision on its own weights, and
+    # the winner's flow in the other precision on weights drawn for it; on
+    # the hand kernels (the winner's flow with the auto backend) when the
+    # reference backend won: its engine is the reference itself
+    works = _serve_workloads(at.cfg.vocab_size)
+    serve = {}
+    kflow = dataclasses.replace(at.flow_for(), kernel_backend="auto")
+    for prec in ("bf16", "fp32"):
+        if kflow == at.flow_for() and prec == kflow.precision:
+            cm, params = at.compile(), at.init_params(SEED)
+        else:
+            cm = tflow.compile(at.cfg, prof.shape_for(SERVE_SLOTS),
+                               dataclasses.replace(kflow, precision=prec))
+            params = cm.init_params(SEED)
+        serve[prec] = _pinned_serve(at, cm, params, prec, works, smi)
+        del cm, params
+        at._params.clear()
+        torch.cuda.empty_cache()
+    rec = {"warm_s": warm_s, "search_s": search_s,
+           "describe": at.describe(),
+           "winner_backend": at.flow_for().kernel_backend,
+           "pin": {"bucket": at.best_bucket,
+                   "knobs": at.per_bucket[at.best_bucket].best.knob_str(),
+                   "block_size": at.block_size, "chunk_size": at.chunk_size,
+                   "fori_seg": at.fori_seg, "prefix_cache": at.prefix_cache,
+                   "speculation": at.speculation},
+           "times": {"block_us": at.block_times_us,
+                     "chunk_us_per_token": at.chunk_times_us,
+                     "chunk_replay_s": at.chunk_replay_s,
+                     "fori_replay_s": at.fori_times_s,
+                     "prefix_replay_s": at.prefix_times_s,
+                     "spec_replay_s": at.spec_times_s},
+           "tunedb": at.tunedb_statuses, "n_measured": at.n_measured,
+           "survivors": survivors, "during_autotune": during,
+           "benches_counted": bench, "serve": serve, "nvidia_smi": smi}
+    log(json.dumps({"tune_llama": {k: v for k, v in rec.items()
+                                   if k not in ("describe", "serve")}}))
+    return rec
+
+
+def phase_tune(smi):
+    """Phase 15: the static verifier over every card plan, then ResNet-34's
+    and llama3.2-1b's autotune through the hand kernels, and the tune
+    database they banked shown by ``launch.tune``."""
+    from repro_torch.kernels.registry import DISPATCH_REJECTIONS
+    if os.path.exists(TUNE_DB):
+        os.remove(TUNE_DB)
+    DISPATCH_REJECTIONS.clear()
+    out = {"verify": _verify_card_plans(), "resnet34": _tune_resnet(smi)}
+    torch.cuda.empty_cache()
+    out["llama"] = _tune_llama(smi)
+    if DISPATCH_REJECTIONS:
+        raise AssertionError(f"phase 15: dispatch rejections "
+                             f"{dict(DISPATCH_REJECTIONS)}")
+    show = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.tune", "show", "--db",
+         TUNE_DB], capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    key = f"dev=cuda:{torch.cuda.get_device_name(0)}"
+    lines = show.stdout.splitlines()
+    if show.returncode != 0 or len(lines) < 2 or \
+            not all(key in x for x in lines[1:]):
+        raise AssertionError(f"launch.tune show: {show.stdout}"
+                             f"{show.stderr}")
+    out["tunedb_show"] = lines
+    log(show.stdout.rstrip())
+    return out
+
+
 SPLIT = ("matmul_fused", "flash_attention", "conv2d_fused", "decode_attention",
          "paged_decode_attention", "lru_scan")
 
@@ -3520,6 +3931,7 @@ def main() -> int:
     dense_cases = timed(phase_dense_kernels)
     dense = timed(phase_dense_path, smi)
     train = timed(phase_train, smi)
+    tune = timed(phase_tune, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -3540,7 +3952,7 @@ def main() -> int:
                    "rec_kernels": rec_cases, "rec_path": rg,
                    "lru_kernels": lru_cases,
                    "dense_kernels": dense_cases, "dense_path": dense,
-                   "train": train,
+                   "train": train, "tune": tune,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -107,22 +107,13 @@ class ModelConfig:
         return tuple((pat * reps)[: self.n_layers])
 
     def param_count(self) -> int:
-        """Analytic parameter count (used for MODEL_FLOPS = 6·N·D).
-
-        Not available yet: it needs the cost estimator (``core/estimator``),
-        which ROADMAP Queue 1, "Estimator, a Hopper tiling target, DSE,
-        tunedb and autotune", ports.  Raises NotImplementedError."""
-        raise NotImplementedError(
-            "param_count needs core.estimator, not ported yet "
-            "(ROADMAP Queue 1, \"Estimator, a Hopper tiling target, DSE, "
-            "tunedb and autotune\")")
+        """Analytic parameter count (used for MODEL_FLOPS = 6·N·D)."""
+        from repro_torch.core.estimator import count_params
+        return count_params(self)
 
     def active_param_count(self) -> int:
-        """Not available yet, as :meth:`param_count`."""
-        raise NotImplementedError(
-            "active_param_count needs core.estimator, not ported yet "
-            "(ROADMAP Queue 1, \"Estimator, a Hopper tiling target, DSE, "
-            "tunedb and autotune\")")
+        from repro_torch.core.estimator import count_params
+        return count_params(self, active_only=True)
 
 
 # ---------------------------------------------------------------------------
@@ -157,9 +148,12 @@ SHAPES: dict[str, ShapeConfig] = {
 class TuningConfig:
     """Design-space-explorer settings (paper §IV-J factor selection, grown
     into the 'future work' DSE).  ``hbm_bytes`` is the paper's rule 3 — the
-    device resource budget a candidate must fit (v5e HBM by default, but a
-    first-class knob: other device generations/backends set it here)."""
-    hbm_bytes: int = 16 * 1024 ** 3        # per-device budget (v5e default)
+    device resource budget a candidate must fit.  ``None`` means the memory
+    of the device the search runs on: the estimator preset's on the CPU
+    (v5e's 16 GiB, the JAX package's default) and the card's own on the
+    card (``repro_torch.core.dse.budget_bytes``); a number is kept as it is
+    on either."""
+    hbm_bytes: Optional[int] = None        # per-device budget (the device's)
     vmem_candidates: Tuple[int, ...] = (96 * 2 ** 20, 48 * 2 ** 20)
     microbatch_candidates: Tuple[int, ...] = (1, 2, 4, 8)
     scan_unroll_candidates: Tuple[int, ...] = (1, 2, 4)
@@ -175,8 +169,7 @@ class TuningConfig:
     # from its ``devices`` argument; an explicit ``FlowConfig.mesh_split``
     # pins the factorization instead.
     mesh_devices: int = 0
-    # path of the persistent autotune database (repro.tunedb in the JAX
-    # package, not ported yet): measured DSE
+    # path of the persistent autotune database (repro_torch.tunedb): measured DSE
     # and serving-autotune results are written there and served back across
     # processes (exact-fingerprint hits measure nothing; neighboring batch
     # buckets warm-start).  None disables persistence; ``dse.explore(db=)``
@@ -222,8 +215,7 @@ class FlowConfig:
     # Applied by the TilingPass on top of its own selection; None keeps the
     # selector's choices.
     tile_overrides: Optional[Tuple[Tuple[str, Any], ...]] = None
-    # design-space exploration (repro.core.dse in the JAX package, not
-    # ported yet)
+    # design-space exploration (repro_torch.core.dse)
     tuning: TuningConfig = TuningConfig()
 
     def base(self) -> "FlowConfig":

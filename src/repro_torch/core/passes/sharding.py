@@ -267,6 +267,22 @@ def split_roles(flow, split: Tuple[Tuple[str, int], ...]
     return dp, tp, pp
 
 
+def split_rejection_reason(cfg, shape, flow,
+                           split: Tuple[Tuple[str, int], ...]
+                           ) -> Optional[str]:
+    """Divisibility screen (the paper's rule 2, across devices): returns the
+    rejection reason (truthy => reject), or None when the split yields even
+    shards.  Used by the explorer to prune *searched* candidates before
+    estimator scoring; pinned meshes bypass it.
+
+    The rule itself lives in :mod:`repro_torch.analysis.rules` (shared with the
+    static verifier's M401/M402/M403 diagnostics); this is the
+    string-returning legacy surface."""
+    from repro_torch.analysis.rules import mesh_split_rejection
+    hit = mesh_split_rejection(cfg, shape, flow, split)
+    return hit[1] if hit is not None else None
+
+
 # ---------------------------------------------------------------------------
 # the pass
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ one is a :class:`Pass` with a uniform protocol:
 * ``run(ctx)``           — reads/writes the shared :class:`PlanContext`,
   reporting its stats into ``ctx.stats[name]``,
 * ``tunable_space``      — the pass's contribution to the design space the
-  explorer (``core/dse``, not ported yet) searches: a dict mapping ``FlowConfig``
+  explorer (:mod:`repro_torch.core.dse`) searches: a dict mapping ``FlowConfig``
   field names to candidate values.
 
 :class:`PassManager` threads a :class:`PlanContext` through the registered
@@ -59,7 +59,7 @@ class Pass:
     paper: str = ""                        # paper-section tag, e.g. "LF §IV-C"
     # dataflow contract over PlanContext artifacts ("graph" stands for
     # ctx.graph): which keys run() consumes and which it deposits.  The
-    # static verifier (``analysis``, not ported yet) orders-checks these
+    # static verifier (repro_torch.analysis.verify_pipeline) orders-checks these
     # (P101 reader-before-writer, P102 required-artifact-never-written).
     reads: Tuple[str, ...] = ()
     writes: Tuple[str, ...] = ()

@@ -38,8 +38,8 @@ class ExecutionPlan:
     pass_stats: Dict[str, Dict[str, Any]] = field(default_factory=dict)
     pass_timings_ms: Dict[str, float] = field(default_factory=dict)
     trace: List[str] = field(default_factory=list)
-    # set by the plan verifier (repro.analysis in the JAX package, not
-    # ported yet): a VerificationResult when the plan was verified
+    # set by repro_torch.analysis.verify_plan / flow.compile(verify=True);
+    # an analysis.diagnostics.VerificationResult when the plan was verified
     verification: Optional[Any] = None
 
     @property

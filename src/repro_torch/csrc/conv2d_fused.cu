@@ -213,3 +213,21 @@ extern "C" int conv2d_fused(int dtype, const void* x, const void* w,
                          KH, KW, stride, pad_t, pad_l, Ho, Wo, act, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// conv2d_ffma at CO output channels; the simt kernel's static arrays,
+// read off the compiled kernel.
+extern "C" int conv2d_ffma_smem(int CO) {
+  return CO == 64 ? fp32tile::Tile<64, 1>::SMEM_BYTES
+                  : fp32tile::Tile<128, 1>::SMEM_BYTES;
+}
+
+extern "C" int conv2d_simt_smem() {
+  cudaFuncAttributes a{};
+  return cudaFuncGetAttributes(&a, conv2d_fused_kernel<float>) == cudaSuccess
+             ? (int)a.sharedSizeBytes
+             : -1;
+}

@@ -307,6 +307,8 @@ conv_mid_ci(const Params p) {
   cp_async_wait<0>();
 }
 
+int padded_taps(int K) { return (K + KS - 1) / KS * KS; }
+
 size_t smem_bytes(int KP) {
   return (size_t)KP * WLD * 2 + (size_t)SLOTS * TILE_M * ALD * 2 +
          (size_t)TILE_M * WLD * 2 + (size_t)(KP / 8) * 16 +
@@ -367,7 +369,7 @@ extern "C" int conv2d_mid_ci(const void* x, const void* w, const float* scale,
            static_cast<bf16*>(out), N, H, W, CI, CO, KH, KW, stride, pad_t,
            pad_l, Ho, Wo};
   p.K = KH * KW * CI;
-  p.KP = (p.K + KS - 1) / KS * KS;
+  p.KP = padded_taps(p.K);
   p.nst = p.KP / KS;
   p.M = N * Ho * Wo;
   p.mtiles = (p.M + TILE_M - 1) / TILE_M;
@@ -383,4 +385,15 @@ extern "C" int conv2d_mid_ci(const void* x, const void* w, const float* scale,
   if (p.nst == 1 && act == kIdentity)
     return launch<conv_mid_ci<1, kIdentity>>(p, s);
   return launch<conv_mid_ci<0, ANY_ACT>>(p, s);
+}
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// A (KH, KW, CI) filter.
+extern "C" int conv2d_mid_ci_smem(int CI, int KH, int KW) {
+  const int K = KH * KW * CI;
+  if (K < 1 || K > K_MAX) return -1;
+  return (int)smem_bytes(padded_taps(K));
 }

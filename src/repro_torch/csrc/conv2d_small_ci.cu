@@ -498,6 +498,14 @@ conv_small_ci_ffma(const Params p) {
   cp_async_wait<0>();
 }
 
+// The taps and the halo of a (KH, KW, CI) filter at its stride.
+void set_taps(Params& p) {
+  p.K = p.KH * p.KW * p.CI;
+  p.KP = (p.K + 15) / 16 * 16;
+  p.HC = ((TW - 1) * p.stride + p.KW) * p.CI;
+  p.HE = ((TH - 1) * p.stride + p.KH) * p.HC;
+}
+
 size_t smem_bytes(const Params& p, bool bf16) {
   const size_t cols = sizeof(EpilogueCols<NCO>);
   if (bf16)
@@ -551,10 +559,7 @@ extern "C" int conv2d_small_ci(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p{x, w, rt::Epilogue{bias, scale, mean, var, act, 0}, out, N, H, W,
            CI, CO, KH, KW, stride, pad_t, pad_l, Ho, Wo};
-  p.K = KH * KW * CI;
-  p.KP = (p.K + 15) / 16 * 16;
-  p.HC = ((TW - 1) * stride + KW) * CI;
-  p.HE = ((TH - 1) * stride + KH) * p.HC;
+  set_taps(p);
   p.tiles_h = (Ho + TH - 1) / TH;
   p.tiles_w = (Wo + TW - 1) / TW;
   p.tiles = N * p.tiles_h * p.tiles_w * ((CO + NCO - 1) / NCO);
@@ -585,4 +590,20 @@ extern "C" int conv2d_small_ci(int dtype, const void* x, const void* w,
     return launch<conv_small_ci_ffma<ANY_ACT, 0>, FMA_THREADS>(p, smem, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// A (KH, KW, CI) filter at its stride; dtype 0 fp32, 1 bf16.
+extern "C" int conv2d_small_ci_smem(int dtype, int CI, int KH, int KW,
+                                    int stride) {
+  Params p{};
+  p.CI = CI, p.KH = KH, p.KW = KW, p.stride = stride;
+  set_taps(p);
+  if (p.K < 1 || p.K > 256 || p.HE > HALO_MAX ||
+      (dtype != rt::kBF16 && dtype != rt::kF32))
+    return -1;
+  return (int)smem_bytes(p, dtype == rt::kBF16);
 }

@@ -227,3 +227,12 @@ extern "C" int conv2d_wgmma(const void* x, const void* w, const float* scale,
     return launch<64>(xp, wp, epi, ws, op, g, kc, nsplit, s);
   return launch<128>(xp, wp, epi, ws, op, g, kc, nsplit, s);
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// CO output channels (BN 64 at 64, else 128, as conv2d_wgmma picks).
+extern "C" int conv2d_wgmma_smem(int CO) {
+  return CO == 64 ? smem_bytes<64>() : smem_bytes<128>();
+}

@@ -313,3 +313,21 @@ extern "C" int decode_core_smem(int dtype, int D, int extra) {
   }
   return -1;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// The simt kernel at head width D with G query heads a KV head (the mma
+// and ffma schedules: decode_core_smem with extra = the split's slots).
+extern "C" int decode_attention_simt_smem(int D, int G) {
+  if (G < 1) return -1;
+  switch (D) {
+    case 16: return (int)smem_bytes<16>(G);
+    case 32: return (int)smem_bytes<32>(G);
+    case 64: return (int)smem_bytes<64>(G);
+    case 128: return (int)smem_bytes<128>(G);
+    case 256: return (int)smem_bytes<256>(G);
+    default: return -1;
+  }
+}

@@ -238,3 +238,19 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     return dispatch<__nv_bfloat16>(D, q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// Head width D.
+extern "C" int flash_attention_simt_smem(int D) {
+  switch (D) {
+    case 16: return (int)smem_bytes<16>();
+    case 32: return (int)smem_bytes<32>();
+    case 64: return (int)smem_bytes<64>();
+    case 128: return (int)smem_bytes<128>();
+    case 256: return (int)smem_bytes<256>();
+    default: return -1;
+  }
+}

@@ -570,3 +570,17 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// Head width D.
+extern "C" int flash_attention_wgmma_smem(int D) {
+  switch (D) {
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    case 256: return smem_bytes<256>();
+    default: return -1;
+  }
+}

@@ -279,3 +279,34 @@ extern "C" int lru_scan_chunked(int dtype, const void* a, const void* b,
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// lru_scan_chunked at windows of steps (32, 64 or 128) steps; steps 0: the
+// seq kernel, which asks no dynamic bytes (its static ones, as compiled).
+// dtype 0 fp32, 1 bf16.
+extern "C" int lru_scan_smem(int dtype, int steps) {
+  if (dtype != rt::kF32 && dtype != rt::kBF16) return -1;
+  const bool bf = dtype == rt::kBF16;
+  if (steps == 0) {
+    cudaFuncAttributes a{};
+    const cudaError_t e =
+        bf ? cudaFuncGetAttributes(&a, lru_scan_kernel<__nv_bfloat16>)
+           : cudaFuncGetAttributes(&a, lru_scan_kernel<float>);
+    return e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+  }
+  switch (steps) {
+    case 32:
+      return (int)(bf ? chunked_smem<32, __nv_bfloat16>()
+                      : chunked_smem<32, float>());
+    case 64:
+      return (int)(bf ? chunked_smem<64, __nv_bfloat16>()
+                      : chunked_smem<64, float>());
+    case 128:
+      return (int)(bf ? chunked_smem<128, __nv_bfloat16>()
+                      : chunked_smem<128, float>());
+    default: return -1;
+  }
+}

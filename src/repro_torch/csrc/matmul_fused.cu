@@ -325,3 +325,23 @@ extern "C" int matmul_base(int in_dtype, int out_dtype, const void* x,
     return launch_base<bf16, bf16>(x, w, bias, out, M, K, N, bk, act, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// glu 1: the w / w2 pair.  The simt kernel's are its static arrays, read
+// off the compiled kernel.
+extern "C" int matmul_ffma_smem(int glu) {
+  return glu ? fp32tile::Tile<64, 2>::SMEM_BYTES
+             : fp32tile::Tile<128, 1>::SMEM_BYTES;
+}
+
+extern "C" int matmul_simt_smem(int glu) {
+  cudaFuncAttributes a{};
+  const cudaError_t e =
+      glu ? cudaFuncGetAttributes(&a, matmul_fused_kernel<float, float, true>)
+          : cudaFuncGetAttributes(&a,
+                                  matmul_fused_kernel<float, float, false>);
+  return e == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+}

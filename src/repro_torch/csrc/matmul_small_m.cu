@@ -207,11 +207,15 @@ small_m_partial(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 template <int MT, int NW>
+constexpr int partial_smem() {
+  return SSTAGES * (NW * SBK * WLD + 16 * MT * XLD) * (int)sizeof(bf16);
+}
+
+template <int MT, int NW>
 int launch_partial(const void* x, const void* w, const void* w2, float* ws,
                    int M, int K, int N, int kc, int nsplit,
                    cudaStream_t stream) {
-  constexpr int smem =
-      SSTAGES * (NW * SBK * WLD + 16 * MT * XLD) * (int)sizeof(bf16);
+  constexpr int smem = partial_smem<MT, NW>();
   auto kern = small_m_partial<MT, NW>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -474,4 +478,41 @@ extern "C" int matmul_small_m(int out_dtype, const void* x, const void* w,
   if (err != 0) return err;
   const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
   return rt::splitk_reduce_to(out_dtype, ws, epi, out, M, N, nsplit, glu, s);
+}
+
+namespace {
+template <int NW>
+int partial_smem_by_rows(int M) {               // as partial_by_rows
+  switch ((M + 15) / 16) {
+    case 1: return partial_smem<1, NW>();
+    case 2: return partial_smem<2, NW>();
+    case 3: return partial_smem<3, NW>();
+    case 4: return partial_smem<4, NW>();
+    default: return -1;
+  }
+}
+
+template <int NW>
+int ffma_smem_by_rows(int M) {                  // as ffma_partial_by_rows
+  if (M <= 8) return FSmall<1, NW>::SMEM_BYTES;
+  if (M <= 16) return FSmall<2, NW>::SMEM_BYTES;
+  if (M <= 32) return FSmall<4, NW>::SMEM_BYTES;
+  if (M <= 64) return FSmall<8, NW>::SMEM_BYTES;
+  return -1;
+}
+}  // namespace
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// M rows; glu 1: the w / w2 pair.
+extern "C" int matmul_small_m_smem(int M, int glu) {
+  if (M < 1) return -1;
+  return glu ? partial_smem_by_rows<2>(M) : partial_smem_by_rows<1>(M);
+}
+
+extern "C" int matmul_ffma_small_m_smem(int M, int glu) {
+  if (M < 1) return -1;
+  return glu ? ffma_smem_by_rows<2>(M) : ffma_smem_by_rows<1>(M);
 }

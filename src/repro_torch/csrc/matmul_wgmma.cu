@@ -293,3 +293,13 @@ extern "C" int matmul_base_wgmma(int out_dtype, const void* x, const void* w,
         tx, tw, tw, bias, out, M, K, N, act, 0, s, slab);
   return (int)cudaErrorInvalidValue;
 }
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// glu 1: the w / w2 pair.
+extern "C" int matmul_wgmma_smem(int glu) {
+  return glu ? smem_bytes<GLU_BN, 2, GLU_STAGES>()
+             : smem_bytes<PLAIN_BN, 1, PLAIN_STAGES>();
+}

@@ -214,6 +214,13 @@ paged_combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
   }
 }
 
+// A block's bytes at R query rows a KV head (at most ROWS a block).
+template <int D>
+size_t block_smem(int R) {
+  constexpr int ROWS = rows_per_block<D>();
+  return smem_bytes<D>(R < ROWS ? R : ROWS);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* bt,
            const int* qpos, void* out, float* ws, int B, int Sq, int H,
@@ -223,7 +230,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt,
   const int R = Sq * (H / KV);
   const int n_rt = (R + ROWS - 1) / ROWS;
   auto kern = paged_partial_kernel<T, D>;
-  const size_t smem = smem_bytes<D>(R < ROWS ? R : ROWS);
+  const size_t smem = block_smem<D>(R);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -295,6 +302,10 @@ extern "C" int paged_decode_attention(int dtype, const void* q,
 
 namespace {
 
+// The slot-map ints a block of the core keeps: tmax table entries and the
+// Sq query positions of its row.
+int core_extra(int tmax, int Sq) { return tmax + Sq; }
+
 int paged_core_call(int dtype, const void* q, const void* kp, const void* vp,
                     const int* bt, const int* qpos, void* out, float* ws,
                     int* tickets, int B, int Sq, int H, int KV, int D, int NB,
@@ -326,7 +337,7 @@ int paged_core_call(int dtype, const void* q, const void* kp, const void* vp,
   p.scale = (float)(1.0 / std::sqrt((double)D));
   p.nsplit = nsplit, p.chunk = min_chunk, p.cfac = cfac;
   p.n_rt = (Sq * (H / KV) + dcore::RB - 1) / dcore::RB;
-  p.extra = tmax + Sq;
+  p.extra = core_extra(tmax, Sq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
     return dcore::dispatch<float, dcore::PagedMap>(D, p, s);
@@ -364,4 +375,30 @@ extern "C" int paged_decode_attention_ffma(
   return paged_core_call(rt::kF32, q, kp, vp, bt, qpos, out, ws, tickets, B,
                          Sq, H, KV, D, NB, bs, nblk, window, softcap, nsplit,
                          min_chunk, cfac, tmax, stream);
+}
+
+extern "C" int decode_core_smem(int dtype, int D, int extra);
+
+// The shared bytes a block asks for, for the static verifier's K202
+// (kernels/workingset.py mirrors them for a machine with no card and
+// chip_smoke.py holds the mirror to these), or -1 for a shape the
+// kernel does not take.
+// The mma (dtype 1) and ffma (dtype 0) schedules at Sq queries a row and
+// tmax table entries (the wrapper's argument); the simt kernel at R query
+// rows a KV head.
+extern "C" int paged_decode_core_smem(int dtype, int D, int Sq, int tmax) {
+  if (Sq < 1 || tmax < 1) return -1;
+  return decode_core_smem(dtype, D, core_extra(tmax, Sq));
+}
+
+extern "C" int paged_decode_attention_simt_smem(int D, int R) {
+  if (R < 1) return -1;
+  switch (D) {
+    case 16: return (int)block_smem<16>(R);
+    case 32: return (int)block_smem<32>(R);
+    case 64: return (int)block_smem<64>(R);
+    case 128: return (int)block_smem<128>(R);
+    case 256: return (int)block_smem<256>(R);
+    default: return -1;
+  }
 }

@@ -37,8 +37,12 @@ def hopper_ok(device: Optional[torch.device] = None) -> bool:
 
 def device_key(device: Optional[torch.device] = None) -> str:
     """``"<backend>:<device kind>"`` — the tunedb fingerprint form, so a
-    record measured on one platform never serves another."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    record measured on one platform never serves another: ``"cuda:<card
+    name>"`` or ``"cpu:cpu"`` (the JAX package's CPU key).  ``None`` means
+    the entry points' default, the card, or the CPU where CUDA is absent."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
     return "cpu:cpu"

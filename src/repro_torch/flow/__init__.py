@@ -63,9 +63,10 @@ class CompiledModel:
     ``stats["stages"]``."""
 
     def __init__(self, plan: ExecutionPlan, device: torch.device,
-                 build_s: float = 0.0):
+                 explore_result=None, build_s: float = 0.0):
         self.plan = plan
         self.device = device
+        self.explore_result = explore_result
         self.cfg: ModelConfig = plan.cfg
         self.flow: FlowConfig = plan.flow
         self.shape: ShapeConfig = plan.shape
@@ -359,8 +360,14 @@ class CompiledModel:
     # -- reporting -----------------------------------------------------------
     def describe(self, stats: bool = False) -> str:
         """The flow report: plan summary (passes, units, tiles, kernel
-        backends) and, with ``stats``, per-pass and per-stage stats."""
+        backends), the DSE outcome when autotuned and, with ``stats``,
+        per-pass and per-stage stats."""
         lines = [self.plan.describe(stats=stats)]
+        if self.explore_result is not None:
+            er = self.explore_result
+            lines.append(f"  dse: best=[{er.best.knob_str()}] "
+                         f"enumerated={er.n_enumerated} "
+                         f"validated={len(er.validated)}")
         if stats and self.stats["stages"]:
             parts = [f"{k}={v['first_call_s']}s"
                      for k, v in self.stats["stages"].items()]
@@ -393,6 +400,10 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
             shape: Union[str, ShapeConfig],
             flow: Optional[FlowConfig] = None, *,
             backend: str = "auto",
+            autotune: bool = False,
+            mesh=None,
+            validate: str = "compile",
+            verify: bool = False,
             smoke: bool = False,
             device: DeviceLike = None) -> CompiledModel:
     """Compile one (model, shape) cell through the whole flow.
@@ -405,6 +416,25 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
       backend: kernel-backend policy (``auto`` | ``reference`` | ``cuda``).
         A non-``auto`` value overrides the flow's ``kernel_backend``; the
         default keeps the flow's own setting.
+      autotune: run the design-space explorer
+        (:func:`repro_torch.core.dse.explore`: estimator-pruned, validated
+        on ``device``; results are cached per (cfg, shape, flow, device)
+        fingerprint) and compile the winning flow.
+      mesh: not ported yet — a mesh raises NotImplementedError (ROADMAP
+        Queue 1, "Multi-device").
+      validate: with ``autotune``, how the top-k survivors are confirmed:
+        ``"compile"`` (build each and record its footprint: a measured step's
+        peak of allocated memory on the card, the estimator's on the CPU;
+        the estimator's order decides, with no clock) or ``"measure"``
+        (time its stage with :meth:`CompiledModel.measure` and rank the
+        survivors by the measured step time).
+      verify: run the static plan verifier
+        (:func:`repro_torch.analysis.verify_plan`) over the built plan
+        before any weight is made.  The result is recorded on
+        ``plan.verification`` (one ``verify:`` line in ``describe()``); any
+        error-severity diagnostic raises
+        :class:`~repro_torch.analysis.PlanVerificationError` carrying the
+        full diagnostic list.
       smoke: with a string arch, select the reduced config.
       device: where the model runs; ``None`` means ``"cuda"``, and a CUDA
         request without CUDA raises RuntimeError.  Tests pass ``"cpu"``.
@@ -415,7 +445,36 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
     flow = flow if flow is not None else FlowConfig(mode="folded")
     if backend != "auto" and backend != flow.kernel_backend:
         flow = dataclasses.replace(flow, kernel_backend=backend)
-    sp_build = TRACER.timed("flow.build", cat="compile", arch=cfg.name)
-    plan = _build_plan(cfg, flow, shape, platform=dev.type)
+    if validate not in ("compile", "measure"):
+        raise ValueError(f"unknown validate mode {validate!r}; "
+                         "expected 'compile' | 'measure'")
+    if mesh is not None:
+        raise NotImplementedError(
+            "flow.compile(mesh=) is not ported yet (ROADMAP Queue 1, "
+            "\"Multi-device\")")
+
+    explore_result = None
+    sp_build = TRACER.timed("flow.build", cat="compile", arch=cfg.name,
+                            autotune=autotune)
+    if autotune:
+        from repro_torch.core import dse
+        if validate == "measure":
+            validator = dse.measure_validator(cfg, shape, device=dev)
+        else:
+            validator = dse.compile_validator(cfg, shape, device=dev)
+        explore_result = dse.explore(
+            cfg, shape, flow, validator=validator,
+            rank_measured=validate == "measure", device=dev)
+        flow = explore_result.best.flow
+        plan = explore_result.plan          # already built for the best flow
+    else:
+        plan = _build_plan(cfg, flow, shape, platform=dev.type)
+    if verify:
+        from repro_torch.analysis import PlanVerificationError, verify_plan
+        result = verify_plan(plan)
+        plan.verification = result
+        if not result.ok:                   # gate: no weight for a bad plan
+            raise PlanVerificationError(result)
     sp_build.end()
-    return CompiledModel(plan, dev, build_s=sp_build.elapsed_s)
+    return CompiledModel(plan, dev, explore_result=explore_result,
+                         build_s=sp_build.elapsed_s)

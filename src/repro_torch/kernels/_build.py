@@ -70,6 +70,24 @@ SIGNATURES = {
     "copy_block": [_P, _P] + [_I] * 5 + [_P],
     "lru_scan": [_I, _P, _P, _P, _I, _I, _I, _P],
     "lru_scan_chunked": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the shared bytes a block of each schedule asks for (kernels/
+    # workingset.py holds its mirror of them to these on the card)
+    "matmul_wgmma_smem": [_I],
+    "matmul_small_m_smem": [_I, _I],
+    "matmul_ffma_small_m_smem": [_I, _I],
+    "matmul_ffma_smem": [_I],
+    "matmul_simt_smem": [_I],
+    "conv2d_wgmma_smem": [_I],
+    "conv2d_ffma_smem": [_I],
+    "conv2d_simt_smem": [],
+    "conv2d_mid_ci_smem": [_I, _I, _I],
+    "conv2d_small_ci_smem": [_I] * 5,
+    "flash_attention_wgmma_smem": [_I],
+    "flash_attention_simt_smem": [_I],
+    "decode_attention_simt_smem": [_I, _I],
+    "paged_decode_core_smem": [_I] * 4,
+    "paged_decode_attention_simt_smem": [_I, _I],
+    "lru_scan_smem": [_I, _I],
 }
 
 

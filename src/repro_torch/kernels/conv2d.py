@@ -67,8 +67,8 @@ fold and act.
 
 The plan's TPU tile ``(block_h, block_c)`` (``plan.tiles["conv2d"]``) is
 accepted and ignored: the kernels take their own block sizes until the
-tiling pass gains a Hopper target (ROADMAP Queue 1, "Estimator, a Hopper
-tiling target, DSE, tunedb and autotune").
+tiling pass gains a Hopper target (ROADMAP Queue 1, "A Hopper tiling
+target").
 
 On a CPU tensor the wrapper runs :func:`conv2d_fused_plain`; on a CUDA
 tensor it launches a kernel or raises.  ``conv2d_fused.launches`` counts

@@ -397,6 +397,12 @@ def _table_entries(nblk: int, bs: int) -> int:
     return nblk if nblk <= TABLE_WHOLE else min(nblk, MAX_CHUNK // bs + 2)
 
 
+def _paged_tmax(nblk: int, bs: int, Sq: int) -> int:
+    """The ``tmax`` argument of the mma and ffma schedules: the table
+    entries a block loads and the row's Sq query positions."""
+    return _table_entries(nblk, bs) + Sq
+
+
 @functools.lru_cache(maxsize=256)
 def paged_splits(B: int, KV: int, R: int, nblk: int, bs: int, D: int,
                  dtype: torch.dtype, n_sm: int) -> int:
@@ -511,7 +517,7 @@ def paged_decode_attention(q: torch.Tensor, kp: torch.Tensor,
                     _build.ptr(pp), _build.ptr(out), _build.ptr(ws),
                     _build.ptr(tk), B, Sq, H, KV, D, NB, bs, nblk, window,
                     softcap, nsplit, min_chunk(rows, D, elem),
-                    _cfac(rows, D, elem), _table_entries(nblk, bs) + Sq,
+                    _cfac(rows, D, elem), _paged_tmax(nblk, bs, Sq),
                     _build.stream())
     paged_decode_attention.launches += 1
     paged_decode_attention.schedules[sched] += 1

@@ -25,12 +25,17 @@ Call-site capability predicates (facts only known with concrete operands)
 are checked at dispatch time by :func:`plan_kernel`; a failing predicate
 takes the reference path with a machine-readable reason
 (``DISPATCH_REJECTIONS`` counts them, as does the
-``kernels.dispatch.rejections`` metric).
+``kernels.dispatch.rejections`` metric).  The static verifier
+(:mod:`repro_torch.analysis`) reads each impl's declared
+:class:`KernelContract` and surfaces the statically-decidable rejections as
+``K204`` diagnostics.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.obs import METRICS
 
@@ -48,18 +53,55 @@ def canon_backend(name: str) -> str:
 
 
 @dataclass(frozen=True)
+class KernelContract:
+    """The statically-checkable contract a kernel impl declares; consumed by
+    :mod:`repro_torch.analysis` (``verify_plan``) without launching anything.
+
+    * ``workingset`` — ``(plan, ecfg) -> [(call, schedule, bytes), ...]``:
+      the shared memory a block of the hand kernel asks for, under the
+      schedule its ``_schedule`` picks at each distinct call the plan makes
+      (:mod:`repro_torch.kernels.workingset`); checked against 227 KiB a
+      block or ``flow.vmem_budget_bytes`` if that is smaller (K202).  A
+      ``lib=`` keyword (the loaded kernel library) reads the bytes from the
+      library's queries instead of the mirror;
+    * ``donation_safe`` — whether the kernel may write into a donated
+      (in-place) state buffer (a donation-unsafe kernel under
+      ``cache.donate_state`` is K203);
+    * ``index_space`` — ``"block_table"`` marks a gather through the paged
+      pool's block table, whose indices must stay inside the pool (K205
+      checks the pool geometry on the serving side);
+    * ``static_reject`` — the statically-decidable part of the capability
+      predicate, ``(op_attrs, cfg) -> Optional[reason]``: a reason means
+      dispatch will take the reference op (surfaced as K204);
+    * ``tile_key`` / ``tile_candidates`` — the ``plan.tiles`` entry a
+      kernel takes its blocks from and ``(cfg, shape) -> tiles`` to search.
+      No hand kernel declares them: each picks its own schedule and ignores
+      ``plan.tiles``, so the serving autotune's ``tune_kernel_tiles`` finds
+      nothing to bench (ROADMAP Queue 1, "A Hopper tiling target")."""
+    workingset: Optional[Callable[[Any, Any],
+                                  List[Tuple[str, str, int]]]] = None
+    donation_safe: bool = True
+    index_space: Optional[str] = None
+    static_reject: Optional[Callable[[Dict[str, Any], Any],
+                                     Optional[str]]] = None
+    tile_key: Optional[str] = None
+    tile_candidates: Optional[Callable[[Any, Any],
+                                       Tuple[Any, ...]]] = None
+
+
+@dataclass(frozen=True)
 class KernelImpl:
     """One registered kernel implementation.
 
     ``rejects`` is the call-site capability predicate: it receives the
     keyword facts the op layer passes to :func:`plan_kernel` and returns
-    ``None`` (accepted) or a reason string.  (The static ``KernelContract``
-    of the JAX registry joins with the plan verifier, ROADMAP Queue 1,
-    "Static verifier".)"""
+    ``None`` (accepted) or a reason string.  ``contract`` is the declared
+    static contract the verifier checks (see :class:`KernelContract`)."""
     op: str
     backend: str
     fn: Callable
     rejects: Optional[Callable[..., Optional[str]]] = None
+    contract: Optional[KernelContract] = None
 
     def reject_reason(self, **facts) -> Optional[str]:
         """``None`` when this impl can serve the call-site facts, else the
@@ -78,14 +120,15 @@ class KernelRegistry:
 
     # -- registration -------------------------------------------------------
     def register(self, op: str, backend: str, fn: Callable, *,
-                 rejects: Optional[Callable[..., Optional[str]]] = None
-                 ) -> Callable:
+                 rejects: Optional[Callable[..., Optional[str]]] = None,
+                 contract: Optional[KernelContract] = None) -> Callable:
         """Register ``fn`` as the ``backend`` implementation of ``op``."""
         backend = canon_backend(backend)
         if backend == "auto":
             raise ValueError("'auto' is a resolution policy, not a backend")
         self._impls[(op, backend)] = KernelImpl(op, backend, fn,
-                                                rejects=rejects)
+                                                rejects=rejects,
+                                                contract=contract)
         return fn
 
     # -- lookup -------------------------------------------------------------
@@ -102,13 +145,31 @@ class KernelRegistry:
         """Ops with at least one non-reference implementation."""
         return tuple(sorted({op for (op, b) in self._impls if b != "ref"}))
 
+    def has(self, op: str, backend: str) -> bool:
+        backend = canon_backend(backend)
+        if backend == "ref":
+            return (op, "ref") in self._impls or op in self._ref_ops()
+        return (op, backend) in self._impls
+
     def get(self, op: str, backend: str) -> KernelImpl:
-        """The registered (non-reference) implementation of ``op``."""
-        impl = self._impls.get((op, canon_backend(backend)))
+        """The ``backend`` implementation of ``op``; ``ref`` falls back to
+        the reference op table."""
+        backend = canon_backend(backend)
+        impl = self._impls.get((op, backend))
+        if impl is None and backend == "ref":
+            fn = self._ref_ops().get(op)
+            if fn is not None:
+                impl = KernelImpl(op, "ref", fn)
         if impl is None:
             raise KeyError(f"no {backend!r} implementation registered for "
-                           f"op {op!r}")
+                           f"op {op!r} (have: {self.backends(op)})")
         return impl
+
+    def backends(self, op: str) -> Tuple[str, ...]:
+        out = {b for (o, b) in self._impls if o == op}
+        if op in self._ref_ops():
+            out.add("ref")
+        return tuple(sorted(out))
 
     # -- resolution ---------------------------------------------------------
     def resolve(self, op: str, backend: str, platform: str) -> str:
@@ -194,25 +255,158 @@ def _conv2d_reject(groups=1, **kw) -> Optional[str]:
     return None
 
 
+# ---------------------------------------------------------------------------
+# working sets: each hand kernel's shared bytes at the calls a plan makes
+# ---------------------------------------------------------------------------
+
+def _mops(plan, op: str):
+    for block in plan.graph.blocks:
+        for mop in block.ops:
+            if mop.op == op:
+                yield mop
+
+
+def _lm_rows(plan) -> Tuple[int, ...]:
+    """Rows of the plan's products: B x S for a prefill or train cell; a
+    decode cell also prefills prompts of up to its S tokens, then B a step."""
+    sh = plan.shape
+    if plan.cfg.family == "cnn":
+        return (sh.global_batch,)
+    if sh.kind == "decode":
+        return (sh.global_batch * sh.seq_len, sh.global_batch)
+    return (sh.global_batch * sh.seq_len,)
+
+
+def _matmul_ws(op: str):
+    """The working sets of the plan's ``op`` (``matmul`` or
+    ``glu_matmul``) calls: (M, K, N) at each row count."""
+    def calls(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+        from repro_torch.kernels import workingset as ws
+        dt, out = plan.prec.compute_dtype, {}
+        for mop in _mops(plan, op):
+            K, N = mop.params[0].shape
+            for M in _lm_rows(plan):
+                out[(M, K, N)] = ws.matmul(M, K, N, dt, op == "glu_matmul",
+                                           lib=lib)
+        return [(f"{M}x{K}x{N}", s, b) for (M, K, N), (s, b) in out.items()]
+    return calls
+
+
+def _attention_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+    from repro_torch.kernels import workingset as ws
+    a = plan.cfg.attention
+    if a is None or not any(_mops(plan, "attention")):
+        return []
+    s, b = ws.flash_attention(a.head_dim, plan.prec.compute_dtype, lib=lib)
+    return [(f"D={a.head_dim}", s, b)]
+
+
+def _decode_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+    """The rolling-cache kernel at the plan's batch and cache slots."""
+    from repro_torch.kernels import workingset as ws
+    a = plan.cfg.attention
+    if a is None or not any(_mops(plan, "attention")):
+        return []
+    G = a.n_heads // a.n_kv_heads
+    B, C = plan.shape.global_batch, plan.cache_len
+    s, b = ws.decode_attention(a.head_dim, G, plan.prec.compute_dtype, B, C,
+                               a.n_kv_heads, lib=lib)
+    return [(f"D={a.head_dim} G={G} B={B} C={C}", s, b)]
+
+
+def _paged_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+    """The paged kernel at the serving envelope: ``ecfg``'s block size,
+    sequence cap and widest tick (chunk or verify cell), or the plan's
+    sequence length in blocks of 16 and one query a row without one."""
+    from repro_torch.kernels import workingset as ws
+    a = plan.cfg.attention
+    if a is None or not any(_mops(plan, "attention")):
+        return []
+    if ecfg is not None:
+        bs, nblk = ecfg.block_size, ecfg.blocks_per_slot
+        sq = max(ecfg.tick_buckets)
+    else:
+        bs, sq = 16, 1
+        nblk = -(-plan.shape.seq_len // bs)
+    G = a.n_heads // a.n_kv_heads
+    s, b = ws.paged_decode_attention(a.head_dim, plan.prec.compute_dtype,
+                                     sq, G, nblk, bs, lib=lib)
+    return [(f"D={a.head_dim} Sq={sq} G={G} blocks={nblk}x{bs}", s, b)]
+
+
+def _conv2d_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+    from repro_torch.kernels import workingset as ws
+    dt, out = plan.prec.compute_dtype, {}
+    for mop in _mops(plan, "conv2d"):
+        if _conv2d_reject(groups=mop.attrs.get("groups", 1)):
+            continue
+        kh, kw, CI, CO = mop.params[0].shape
+        st = mop.attrs.get("stride", 1)
+        out[(kh, kw, CI, CO, st)] = ws.conv2d(kh, kw, CI, CO, st, dt,
+                                              lib=lib)
+    return [(f"{kh}x{kw} s{st} {CI}->{CO}", s, b)
+            for (kh, kw, CI, CO, st), (s, b) in out.items()]
+
+
+def _lru_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
+    """The scan as ``op_rg_lru`` hands it: fp32 a and b, B x S x W."""
+    from repro_torch.kernels import workingset as ws
+    sh, out = plan.shape, {}
+    for mop in _mops(plan, "rg_lru"):
+        W = mop.params[0].shape[0]
+        out[W] = ws.lru_scan(sh.global_batch, sh.seq_len, W, torch.float32,
+                             lib=lib)
+    return [(f"{sh.global_batch}x{sh.seq_len}x{W}", s, b)
+            for W, (s, b) in out.items()]
+
+
 def _register_builtin():
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.conv2d import conv2d_fused
     from repro_torch.kernels.decode_attention import (
-        copy_block, decode_attention, paged_decode_attention)
+        copy_block, copy_block_plain, decode_attention,
+        paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.lru_scan import lru_scan
     from repro_torch.kernels.matmul_fused import matmul_fused
 
-    REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject)
-    REGISTRY.register("glu_matmul", "cuda", matmul_fused,
-                      rejects=_matmul_reject)
-    REGISTRY.register("attention", "cuda", flash_attention,
-                      rejects=_attention_reject)
-    REGISTRY.register("decode_attention", "cuda", decode_attention)
+    REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject,
+                      contract=KernelContract(workingset=_matmul_ws("matmul")))
+    REGISTRY.register(
+        "glu_matmul", "cuda", matmul_fused, rejects=_matmul_reject,
+        contract=KernelContract(workingset=_matmul_ws("glu_matmul")))
+    REGISTRY.register(
+        "attention", "cuda", flash_attention, rejects=_attention_reject,
+        contract=KernelContract(
+            workingset=_attention_ws,
+            static_reject=lambda attrs, cfg: _attention_reject(
+                window=attrs.get("window"), cross=attrs.get("cross", False))))
+    REGISTRY.register("decode_attention", "cuda", decode_attention,
+                      contract=KernelContract(workingset=_decode_ws))
+    # the serving path: the kernel gathers pool blocks through the block
+    # table; the explicit ref entry is its plain version, which the serving
+    # autotune's benches run off the card.  index_space declares the
+    # gather-bounds contract the serving verifier checks against the pool
+    # geometry (K205).
+    paged = KernelContract(workingset=_paged_ws, index_space="block_table")
     REGISTRY.register("paged_decode_attention", "cuda",
-                      paged_decode_attention)
-    REGISTRY.register("copy_block", "cuda", copy_block)
-    REGISTRY.register("conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject)
-    REGISTRY.register("rg_lru", "cuda", lru_scan)
+                      paged_decode_attention, contract=paged)
+    REGISTRY.register("paged_decode_attention", "ref",
+                      paged_decode_attention_plain,
+                      contract=KernelContract(index_space="block_table"))
+    # prefix-cache copy-on-write fork: one pool block copied over another in
+    # place; safe under donated state because the fork always copies src to
+    # a freshly allocated dst (never aliased)
+    copy = KernelContract(index_space="block_table", donation_safe=True)
+    REGISTRY.register("copy_block", "cuda", copy_block, contract=copy)
+    REGISTRY.register("copy_block", "ref", copy_block_plain, contract=copy)
+    REGISTRY.register(
+        "conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject,
+        contract=KernelContract(
+            workingset=_conv2d_ws,
+            static_reject=lambda attrs, cfg:
+                _conv2d_reject(groups=attrs.get("groups", 1))))
+    REGISTRY.register("rg_lru", "cuda", lru_scan,
+                      contract=KernelContract(workingset=_lru_ws))
 
 
 _register_builtin()

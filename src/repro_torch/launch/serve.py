@@ -25,9 +25,17 @@ prompt lengths::
       --max-seq-len 48 --block-size 8 --prompt-len 16 --steps 4
 
 The model runs on the CUDA card unless ``--device cpu`` is given; the
-weights are random, from seed 0.  ``--autotune``, ``--serving-autotune``
-and ``--tune-db`` wait for the DSE (ROADMAP Queue 1, "Estimator, a Hopper
-tiling target, DSE, tunedb and autotune").
+weights are random, from seed 0.  ``--autotune`` searches the pass design
+space for the decode cell (estimator-pruned, validated) before generating;
+``--serving-autotune`` first searches the decode-cell design space per
+batch bucket (``--validate``: measured-ranked by default) and pins the
+winning flow, block size and engine knobs before the replay; ``--tune-db``
+banks those searches in a persistent store (maintain it with ``python -m
+repro_torch.launch.tune``)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --requests synthetic:8 --max-batch 8 --max-seq-len 1024 \
+      --serving-autotune --tune-db build/tune.jsonl
 """
 from __future__ import annotations
 
@@ -44,10 +52,6 @@ from repro_torch.configs.base import FlowConfig, ShapeConfig
 from repro_torch.serving import (Engine, EngineConfig, load_requests_jsonl,
                                  synthetic_requests)
 from repro_torch.serving.kvcache import needs_exact_prompts
-
-_NOT_PORTED = ("{} is not ported yet: the DSE, the serving autotune and the "
-               "tune database wait for ROADMAP Queue 1, \"Estimator, a Hopper "
-               "tiling target, DSE, tunedb and autotune\"")
 
 
 def _run_replay(args) -> None:
@@ -66,6 +70,7 @@ def _run_replay(args) -> None:
                                   vary_lens=not exact)
     else:
         reqs = load_requests_jsonl(args.requests, cm.cfg.vocab_size)
+    buckets = tuple(sorted({len(r.prompt) for r in reqs})) if exact else None
     ecfg = EngineConfig(temperature=args.temperature,
                         max_batch=args.max_batch,
                         max_seq_len=args.max_seq_len,
@@ -74,11 +79,33 @@ def _run_replay(args) -> None:
                         chunk_size=args.chunk_size,
                         chunked_prefill=args.chunked_prefill,
                         fori_seg=args.fori_seg,
-                        prompt_buckets=tuple(sorted({len(r.prompt)
-                                                     for r in reqs}))
-                        if exact else None,
+                        prompt_buckets=buckets,
                         speculation=spec,
                         trace=args.trace is not None)
+    if args.serving_autotune:
+        from repro_torch.serving.autotune import (ServingProfile,
+                                                  autotune_decode)
+        prof = ServingProfile(name="cli",
+                              batch_buckets=ecfg.batch_buckets,
+                              max_seq_len=args.max_seq_len,
+                              block_sizes=(8, 16, 32))
+        at = autotune_decode(cm.cfg, profile=prof, validate=args.validate,
+                             db=args.tune_db, device=args.device)
+        print(at.describe())
+        cm = at.compile()
+        ecfg = at.engine_config(
+            temperature=args.temperature,
+            trace=args.trace is not None,
+            prompt_buckets=buckets,
+            # explicit --prefix-cache / --no-prefix-cache overrides the
+            # tuned pick; unset defers to the measured A/B
+            prefix_cache=at.prefix_cache if args.prefix_cache is None
+            else args.prefix_cache,
+            # explicit CLI chunk/fori knobs likewise override the tuned ones
+            **({"chunk_size": args.chunk_size,
+                "chunked_prefill": True} if args.chunked_prefill else {}),
+            **({"fori_seg": args.fori_seg} if args.fori_seg else {}),
+            **({"speculation": spec, "fori_seg": 0} if spec else {}))
     params = cm.init_params(0)
     eng = Engine(cm, params, ecfg)
     report = eng.run(reqs)
@@ -125,7 +152,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--on-device-loop", action="store_true",
                     help="generate with the decode loop queued on the "
                          "device (generate_fori)")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="explore the pass design space (estimator-pruned, "
+                         "validated) for the decode cell")
     # continuous-batching replay mode
     ap.add_argument("--requests", default=None,
                     help="jsonl file (or synthetic:N) of requests to serve "
@@ -140,17 +169,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--fori-seg", type=int, default=0)
     ap.add_argument("--speculation", default="off",
                     help="ngram:<k>, draft:<cfg>:<k>, null:<k> or off")
-    ap.add_argument("--serving-autotune", action="store_true")
-    ap.add_argument("--tune-db", default=None, metavar="PATH")
+    ap.add_argument("--serving-autotune", action="store_true",
+                    help="search the decode-cell flow space per batch "
+                         "bucket and pin the winner before replay")
+    ap.add_argument("--validate", default="measure",
+                    choices=("measure", "compile", "none"),
+                    help="autotune ranking mode (--serving-autotune)")
+    ap.add_argument("--tune-db", default=None, metavar="PATH",
+                    help="persistent autotune store (JSONL): "
+                         "--serving-autotune reads banked winners instead "
+                         "of re-measuring and writes new ones back; "
+                         "maintain with python -m repro_torch.launch.tune")
     ap.add_argument("--trace", default=None, metavar="PATH")
     ap.add_argument("--metrics", default=None, metavar="PATH")
     ap.add_argument("--show", type=int, default=4)
     args = ap.parse_args(argv)
-    for flag, on in (("--autotune", args.autotune),
-                     ("--serving-autotune", args.serving_autotune),
-                     ("--tune-db", args.tune_db is not None)):
-        if on:
-            raise NotImplementedError(_NOT_PORTED.format(flag))
 
     if args.requests is not None:
         _run_replay(args)
@@ -159,8 +192,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     shape = ShapeConfig("cli", "decode", args.prompt_len + args.steps,
                         args.batch)
     cm = tflow.compile(args.arch, shape, FlowConfig(mode="folded"),
-                       backend=args.backend, smoke=args.smoke,
-                       device=args.device)
+                       backend=args.backend, autotune=args.autotune,
+                       smoke=args.smoke, device=args.device)
+    if args.autotune:
+        print(cm.explore_result.describe())
     print(cm.describe(stats=True))
     params = cm.init_params(0)
     eng = Engine(cm, params, EngineConfig(temperature=args.temperature))

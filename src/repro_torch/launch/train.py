@@ -8,6 +8,10 @@ used.  It runs on the card unless ``--device cpu``.  ``--backend`` picks
 the forward's kernels: ``auto`` (the hand kernels on a Hopper card, the
 reference ops elsewhere), ``cuda`` or ``reference``; the backward always
 runs through the reference ops (see ``core/ops_impl._KernelForward``).
+``--autotune`` explores the pass design space for the train cell
+(estimator-pruned, each top-k survivor built and its footprint confirmed)
+and trains the winning flow; it prints the search and the plan's ``dse:``
+line.
 """
 from __future__ import annotations
 
@@ -38,19 +42,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet: raises NotImplementedError")
+                    help="explore the pass design space (estimator-pruned, "
+                         "validated) instead of the fixed flow")
     args = ap.parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune needs the design-space explorer, not ported yet "
-            "(ROADMAP Queue 1, \"Estimator, a Hopper tiling target, DSE, "
-            "tunedb and autotune\")")
 
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     cm = tflow.compile(
         args.arch, shape,
         FlowConfig(mode=args.mode, microbatches=args.microbatches),
-        backend=args.backend, smoke=args.smoke, device=args.device)
+        backend=args.backend, autotune=args.autotune, smoke=args.smoke,
+        device=args.device)
+    if args.autotune:
+        print(cm.explore_result.describe())
     print(cm.describe(stats=True))
     cfg = cm.cfg
 

@@ -11,9 +11,8 @@
   prompt blocks, copy-on-write seeds for new requests).
 * :mod:`repro_torch.serving.speculation` — speculative decoding: drafters,
   the verify cell's target sampling, draft->verify->rollback config.
-
-The engine-level autotune waits for the DSE (ROADMAP Queue 1, "Estimator,
-a Hopper tiling target, DSE, tunedb and autotune").
+* :mod:`repro_torch.serving.autotune` — engine-level decode autotune over
+  the DSE.
 """
 from repro_torch.serving.engine import Engine, EngineConfig, RunReport
 from repro_torch.serving.kvcache import (BlockLedger, BlockPool,

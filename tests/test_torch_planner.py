@@ -82,8 +82,11 @@ def test_explicit_cuda_backend_resolves_on_any_platform():
         "paged_decode_attention=cuda rg_lru=cuda")
 
 
-def test_param_count_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("resnet34").param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("resnet34").active_param_count()
+def test_param_count_equals_jax():
+    """``param_count`` / ``active_param_count`` (the port's estimator)
+    count what JAX's count, for every ported config."""
+    from repro_torch.configs import ARCHS, CNNS
+    for name in ARCHS + CNNS:
+        cfg, jcfg = get_config(name), jget_config(name)
+        assert cfg.param_count() == jcfg.param_count() > 0, name
+        assert cfg.active_param_count() == jcfg.active_param_count(), name

@@ -283,7 +283,11 @@ def test_serve_cli_replay_on_cpu(capsys):
                 "--prefix-cache", "--speculation", "ngram:2"])
     out = capsys.readouterr().out
     assert "serving[3 req]" in out and "speculation [ngram:2]" in out
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, \"Estimator, a Hopper tiling target"):
-        serve.main(["--smoke", "--device", "cpu", "--requests",
-                    "synthetic:1", "--serving-autotune"])
+    # --serving-autotune pins the searched flow and serves through it
+    serve.main(["--smoke", "--device", "cpu", "--requests", "synthetic:2",
+                "--max-batch", "2", "--max-seq-len", "32", "--steps", "2",
+                "--prompt-len", "8", "--serving-autotune", "--validate",
+                "compile"])
+    out = capsys.readouterr().out
+    assert "serving-autotune[llama3.2-1b x cli]" in out
+    assert "serving[2 req]" in out

@@ -84,9 +84,18 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert os.path.isdir(tmp_path / "step_00000003")
 
 
-def test_train_cli_refuses_autotune():
-    with pytest.raises(NotImplementedError, match="Estimator"):
-        train_cli.main(["--smoke", "--device", "cpu", "--autotune"])
+def test_train_cli_autotune_prints_its_dse_line(capsys):
+    """``--autotune`` searches the train cell's design space and trains
+    the winner: the search's report and the plan's ``dse:`` line."""
+    train_cli.main(["--smoke", "--device", "cpu", "--autotune", "--steps",
+                    "2", "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "dse[llama3.2-1b x cli]" in out
+    dse_line = [x for x in out.splitlines() if x.startswith("  dse: best=")]
+    assert len(dse_line) == 1 and "validated=1" in dse_line[0]
+    losses = [float(x.split()[-1]) for x in out.splitlines()
+              if x.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def _dispatched(monkeypatch):
