@@ -104,11 +104,12 @@ Phases, each raising on failure:
    workload R's shape (both beside their SIMT kernels); each held against
    its plain version and timed beside it, the library yardstick and the
    bound;
-10. recurrent path — full-width recurrentgemma-2b (26 layers, random
-   weights from seed 0), bf16 then fp32: ``generate`` of 32 tokens after a
-   512-token prompt a row (``ShapeConfig("serve", "decode", 1024, 8)``) with
-   the launches the plan says (8 flash + 18 lru_scan + 138 matmul a
-   prefill, 8 decode + 138 matmul and no lru_scan a step), the prefill and
+10. recurrent path — recurrentgemma-2b at full width and 8 of its 26
+   layers (the script's time limit since phases 16-17 joined; random
+   weights from seed 0), bf16 then fp32: ``generate`` of 32
+   tokens after a 512-token prompt a row (``ShapeConfig("serve", "decode",
+   1024, 8)``) with the launches the plan says (2 flash + 6 lru_scan + 42
+   matmul a prefill, 2 decode + 42 matmul and no lru_scan a step), the prefill and
    every teacher-forced step's logits against the reference backend, the
    fp32 greedy tokens identical to it, in bf16 ``measure`` and
    profiles, in fp32 the prefill timed on ``ffma``, SIMT, ``ffma``; the
@@ -139,9 +140,10 @@ Phases, each raising on failure:
    serving tick, each beside its SIMT kernel, SDPA (gather + SDPA) and the
    plain version; ``matmul_fused`` at each of the model's projection
    shapes (from its plan) at 4096 and 8 rows;
-13. dense path — the three at full width and depth (random weights from
-   seed 0, drawn once in bf16; the fp32 runs take them widened), one after
-   the other: ``generate`` of 32 tokens after a 512-token prompt a row
+13. dense path — the three at full width and a quarter of their depth
+   (10 / 8 / 6 of 40 / 32 / 24 layers: the script's time limit; random
+   weights from seed 0, drawn once in bf16; the fp32 runs take them
+   widened), one after the other: ``generate`` of 32 tokens after a 512-token prompt a row
    (``ShapeConfig("serve", "decode", 1024, 8)``) with the launches the
    plan says (L flash + 6 L matmul a prefill, L decode + 6 L matmul a
    step, L layers), the prefill's and every teacher-forced step's logits
@@ -181,7 +183,7 @@ Phases, each raising on failure:
    (``ShapeConfig("serve", "prefill", 64, 8)``, BN folded into the convs)
    with phase 5's launches by schedule and limits, and ``measure("train")``;
 15. tune — the static verifier and the tuning stack: ``verify_plan`` on the
-   card's plan of every ported config (three CNNs at batch 8, five LMs at
+   card's plan of every ported config (three CNNs at batch 8, eight LMs at
    ``ShapeConfig("serve", "decode", 1024, 8)``; no weight is made), all
    ``ok (9 checks)`` with no diagnostic, each hand kernel's largest
    working set (the shared bytes a block asks for) printed and every
@@ -211,10 +213,42 @@ Phases, each raising on failure:
    within the limit and fp32 tokens identical to the ``reference``
    backend's, and the engine's defaults on A beside it; no dispatch
    rejection; ``launch.tune show`` lists every record under the card's
-   ``cuda:<name>`` key.
+   ``cuda:<name>`` key;
+16. MoE and multimodal kernels — at the heads and projections of
+   deepseek-moe-16b (16 over 16 heads of 128), mixtral-8x7b (32 over 8 of
+   128: groups of 4, window 4096) and llava-next-mistral-7b (32 over 8 of
+   128), bf16 and fp32: ``flash_attention`` at the prefill (8 x 512;
+   llava's 8 x 1024), ``decode_attention`` over the 1024-slot cache half
+   full (llava's 2048-slot cache at position 1039), ``paged_decode_attention``
+   at a workload-A tick (the two MoE models), each beside its SIMT
+   kernel, SDPA and the plain version; ``matmul_fused`` at each model's
+   projection shapes at the prefill's rows and 8;
+17. MoE and multimodal path — deepseek-moe-16b at full width and depth
+   (16.4 B parameters), mixtral-8x7b at full width cut to 8 of its 32
+   layers (93 GB in bf16 whole; the script's time limit) and
+   llava-next-mistral-7b at full width and depth (a 1024-token prompt a
+   row whose first 576 positions are patch embeddings from
+   ``RandomState(0)``, ``ShapeConfig("serve", "decode", 2048, 8)``);
+   random weights from seed 0, drawn once in bf16 (the fp32 runs take
+   them widened, leaf by leaf), one model after the other:
+   ``generate`` of 32 tokens with the launches the plan says (4 matmuls a
+   MoE layer, 6 a dense one), the prefill's and the first 4 teacher-forced
+   steps' logits against the reference backend (bf16 within 5e-2, fp32
+   within 1e-4), the fp32 greedy tokens identical to it, both under the
+   routing-flip rule (where a check fails where, and only where, a
+   compared token's top-k picked other experts than the reference
+   backend's, the check is held on the other rows, and the flips and their
+   smallest reference margin are recorded; every call's flips are
+   recorded); in bf16 ``measure`` of the prefill and a decode step with
+   profiles and the expert products' ms a step; llava's logits moved by a
+   second draw of the patches, its ``Engine.run`` refused (a request has no
+   patches); ``Engine.run`` on workload A (deepseek bf16 and fp32, mixtral
+   bf16) with its launches by schedule, the pool's bytes and the real
+   prompt picks capacity dropped in the padded prefill batches, fp32
+   tokens identical to the reference backend's ``Engine.run``.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9, 10 and 11 come next, then 12, 13, 14 and 15. Every path phase also reads
+9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -225,11 +259,12 @@ on ``wgmma``, its first conv on ``small_ci`` and its 32-channel pointwise
 conv on ``mid_ci``, LeNet-5 2 on ``small_ci``; no conv on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
-window run and workload R, the dense family's generates and workload A),
-in fp32 all on ``ffma``, none on ``simt``; and decode_attention's and
-paged_decode_attention's: in bf16 all on ``mma`` (llama's generate and
-each decode step, serving A-D, the hybrid's generate, window run and
-workload R, the dense family's generates, decode steps and workload A),
+window run and workload R, the dense family's, the MoE family's and
+llava's generates and workload A), in fp32 all on ``ffma``, none on
+``simt``; and decode_attention's and paged_decode_attention's: in bf16
+all on ``mma`` (llama's generate and each decode step, serving A-D, the
+hybrid's generate, window run and workload R, the dense family's, the MoE
+family's and llava's generates, decode steps and workload A),
 in fp32 all on ``ffma``, none on ``simt``. TF32
 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every fp32 reference is full
@@ -242,6 +277,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -1213,13 +1249,14 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
 
 # recurrentgemma-2b's distinct projections (d_model 2560, one KV head of
 # 256, d_ff 7680, RG-LRU width 2560) as (name, K, N, GLU pair, uses per
-# forward): q, o and the recurrent blocks' two in-branches and out
-# projection are 2560 -> 2560 (8 x 2 + 18 x 3), k and v 2560 -> 256 (8 x 2),
-# every layer's GLU pair and down projection (26 each): 138 in all
-RG_MATMUL_SHAPES = [("d2560", 2560, 2560, False, 70),
-                    ("kv", 2560, 256, False, 16),
-                    ("glu", 2560, 7680, True, 26),
-                    ("down", 7680, 2560, False, 26)]
+# forward of phase 10's 8 layers): q, o and the recurrent blocks' two
+# in-branches and out projection are 2560 -> 2560 (2 x 2 + 6 x 3), k and v
+# 2560 -> 256 (2 x 2), every layer's GLU pair and down projection (8 each):
+# 42 in all
+RG_MATMUL_SHAPES = [("d2560", 2560, 2560, False, 22),
+                    ("kv", 2560, 256, False, 4),
+                    ("glu", 2560, 7680, True, 8),
+                    ("down", 7680, 2560, False, 8)]
 
 
 # rows between a decode step's 8 and a prefill's 4096 where the two
@@ -2100,13 +2137,15 @@ def phase_serving(smi):
 # recurrent: the RG-LRU hybrid, recurrentgemma-2b
 # ---------------------------------------------------------------------------
 
-# recurrentgemma-2b at full width (configs/recurrentgemma_2b.py): 26 layers,
-# (rec, rec, attn) x 8 + (rec, rec); 10 heads over 1 KV head of 256 with a
-# 2048-token window; RG-LRU width 2560
+# recurrentgemma-2b at full width (configs/recurrentgemma_2b.py), cut from
+# 26 layers ((rec, rec, attn) x 8 + (rec, rec)) to 8 ((rec, rec, attn) x 2
+# + (rec, rec)) since phases 16-17 joined: the script's time limit; 10
+# heads over 1 KV head of 256 with a 2048-token window; RG-LRU width 2560
 RG_ARCH = "recurrentgemma-2b"
+RG_DEPTH = 8
 RG_S, RG_C, RG_H, RG_KV, RG_D, RG_W = 512, 1024, 10, 1, 256, 2560
-RG_WINDOW, RG_ATTN, RG_REC = 2048, 8, 18
-RG_MATMULS = 138       # a prefill or decode step: 8 attn x 6 + 18 rec x 5
+RG_WINDOW, RG_ATTN, RG_REC = 2048, 2, 6
+RG_MATMULS = 42        # a prefill or decode step: 2 attn x 6 + 6 rec x 5
 RG_STEPS = 32
 # the window run: one row, a 2080-token prompt (the window cuts in the
 # prefill), 24 decode steps over the 2048-slot rolling cache (it wraps)
@@ -2362,13 +2401,19 @@ def _lm_generate(cm, ref, params, prompt, steps, want_p, want_d, prec):
     return rec
 
 
+def _rg_cfg():
+    """recurrentgemma-2b at full width and ``RG_DEPTH`` layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(RG_ARCH), n_layers=RG_DEPTH)
+
+
 def phase_rec_path(smi):
-    """Phase 10: full-width recurrentgemma-2b (random weights from seed 0)
-    through ``flow.compile`` (generate; the window run) and
-    ``Engine.run`` (workload R), bf16 then fp32."""
+    """Phase 10: recurrentgemma-2b at full width and ``RG_DEPTH`` layers
+    (random weights from seed 0) through ``flow.compile`` (generate; the
+    window run) and ``Engine.run`` (workload R), bf16 then fp32."""
     from repro_torch import flow as tflow
     from repro_torch.configs.base import FlowConfig, ShapeConfig
-    rec = {"arch": RG_ARCH, "nvidia_smi": smi}
+    rec = {"arch": RG_ARCH, "nvidia_smi": smi, "layers": RG_DEPTH}
     gen_shape = ShapeConfig("serve", "decode", RG_C, B)
     long_shape = ShapeConfig("serve", "decode", 4096, 1)
     srv_shape = ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
@@ -2376,8 +2421,8 @@ def phase_rec_path(smi):
     runs = {}
     for prec in ("bf16", "fp32"):
         fl = FlowConfig(mode="folded", precision=prec)
-        cm = tflow.compile(RG_ARCH, gen_shape, fl)
-        ref = tflow.compile(RG_ARCH, gen_shape, fl, backend="reference")
+        cm = tflow.compile(_rg_cfg(), gen_shape, fl)
+        ref = tflow.compile(_rg_cfg(), gen_shape, fl, backend="reference")
         ks = cm.plan.kernels
         if any(ks[o] != "cuda" for o in ("attention", "decode_attention",
                                          "matmul", "glu_matmul", "rg_lru")):
@@ -2407,8 +2452,8 @@ def phase_rec_path(smi):
         log(json.dumps({"rec_generate": prec, **g}))
         if prec == "bf16":
             pre = ShapeConfig("serve", "prefill", RG_S, B)
-            cm_p = tflow.compile(RG_ARCH, pre, fl)
-            ref_p = tflow.compile(RG_ARCH, pre, fl, backend="reference")
+            cm_p = tflow.compile(_rg_cfg(), pre, fl)
+            ref_p = tflow.compile(_rg_cfg(), pre, fl, backend="reference")
             mp = cm_p.measure("prefill", iters=3, seed=SEED, params=params)
             mpr = ref_p.measure("prefill", iters=3, seed=SEED, params=params)
             md = cm.measure("decode", iters=20, seed=SEED, params=params)
@@ -2434,13 +2479,13 @@ def phase_rec_path(smi):
             del dstate
         else:
             rec["fp32_prefill"] = _flash_ab(tflow.compile(
-                RG_ARCH, ShapeConfig("serve", "prefill", RG_S, B), fl),
+                _rg_cfg(), ShapeConfig("serve", "prefill", RG_S, B), fl),
                 params, 3)
             log(json.dumps({"rec_fp32_prefill": rec["fp32_prefill"]}))
 
         # b. the window: 2080-token prompt, 24 steps over 2048 slots
-        cml = tflow.compile(RG_ARCH, long_shape, fl)
-        refl = tflow.compile(RG_ARCH, long_shape, fl, backend="reference")
+        cml = tflow.compile(_rg_cfg(), long_shape, fl)
+        refl = tflow.compile(_rg_cfg(), long_shape, fl, backend="reference")
         if cml.plan.cache_len != RG_WINDOW:
             raise AssertionError(f"window run: cache_len "
                                  f"{cml.plan.cache_len}")
@@ -2451,8 +2496,8 @@ def phase_rec_path(smi):
         log(json.dumps({"rec_window": prec, **w}))
 
         # c. serving: workload R through Engine.run
-        cms = tflow.compile(RG_ARCH, srv_shape, fl)
-        refs = tflow.compile(RG_ARCH, srv_shape, fl, backend="reference")
+        cms = tflow.compile(_rg_cfg(), srv_shape, fl)
+        refs = tflow.compile(_rg_cfg(), srv_shape, fl, backend="reference")
         sp = _plan_launches(cms.plan, "prefill")
         st = _plan_launches(cms.plan, "decode")
         reqs = _rg_requests(V)
@@ -2551,6 +2596,10 @@ def phase_rec_path(smi):
 # workload A (llama's serving configuration: 8 slots of 1024 tokens in
 # blocks of 16, a pool of 513 blocks), bf16 then fp32.
 DENSE_ARCHS = ("qwen1.5-4b", "phi4-mini-3.8b", "stablelm-1.6b")
+# phase 13 runs each at a quarter of its depth (10 / 8 / 6 layers of 40 /
+# 32 / 24): the script's time limit, once phases 16-17 joined; widths,
+# heads and every check as at full depth
+DENSE_DEPTH = {"qwen1.5-4b": 10, "phi4-mini-3.8b": 8, "stablelm-1.6b": 6}
 
 
 def _heads(arch):
@@ -2670,20 +2719,24 @@ def _serve_split(eng, rep, shapes, prec):
 
 
 def _dense_model(arch, smi):
-    """One model of the rest of the dense family through ``generate`` and
-    ``Engine.run`` on workload A, bf16 then fp32, each held to the
-    ``reference`` backend; its weights, states and pools freed after."""
+    """One model of the rest of the dense family, at its ``DENSE_DEPTH``,
+    through ``generate`` and ``Engine.run`` on workload A, bf16 then fp32,
+    each held to the ``reference`` backend; its weights, states and pools
+    freed after."""
     from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import FlowConfig, ShapeConfig
-    layers, H, KV, D = _heads(arch)
+    full, H, KV, D = _heads(arch)
+    layers = DENSE_DEPTH[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = ShapeConfig("serve", "decode", LM_C, B)
     rec = {"arch": arch, "nvidia_smi": smi, "layers": layers,
-           "heads": [H, KV, D]}
+           "layers_full": full, "heads": [H, KV, D]}
     params = prompt = None
     for prec in ("bf16", "fp32"):
         fl = FlowConfig(mode="folded", precision=prec)
-        cm = tflow.compile(arch, shape, fl)
-        ref = tflow.compile(arch, shape, fl, backend="reference")
+        cm = tflow.compile(cfg, shape, fl)
+        ref = tflow.compile(cfg, shape, fl, backend="reference")
         ks = cm.plan.kernels
         if any(ks[o] != "cuda" for o in (
                 "attention", "decode_attention", "paged_decode_attention",
@@ -2720,8 +2773,8 @@ def _dense_model(arch, smi):
         rec[f"generate_{prec}"] = g
         log(json.dumps({"dense_generate": arch, "precision": prec, **g}))
         if prec == "bf16":
-            cm_p = tflow.compile(arch, ShapeConfig("serve", "prefill", LM_S,
-                                                   B), fl)
+            cm_p = tflow.compile(cfg, ShapeConfig("serve", "prefill", LM_S,
+                                                  B), fl)
             mp = cm_p.measure("prefill", iters=5, seed=SEED, params=params)
             md = cm.measure("decode", iters=20, seed=SEED, params=params)
             dstate = cm.init_state(B)
@@ -2803,12 +2856,625 @@ def _dense_model(arch, smi):
 
 def phase_dense_path(smi):
     """Phase 13: qwen1.5-4b, phi4-mini-3.8b and stablelm-1.6b at full width
-    and depth (random weights from seed 0) through ``flow.compile`` →
-    ``generate`` and ``Engine.run``, one model after the other."""
+    and ``DENSE_DEPTH`` (random weights from seed 0) through
+    ``flow.compile`` → ``generate`` and ``Engine.run``, one model after the
+    other."""
     out = {}
     for arch in DENSE_ARCHS:
         t0 = time.perf_counter()
         out[arch] = _dense_model(arch, smi)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {out[arch]['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (deepseek-moe-16b, mixtral-8x7b) and the multimodal patch
+# stub (llava-next-mistral-7b) at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek-moe-16b", "mixtral-8x7b")
+VLM_ARCH = "llava-next-mistral-7b"
+NEW_ARCHS = MOE_ARCHS + (VLM_ARCH,)
+# mixtral-8x7b is 93 GB in bf16 whole: 8 of its 32 layers run, in bf16 and
+# in fp32 (16 would fit in bf16; the script's time limit cuts them to 8)
+DEPTH_CUT = {"mixtral-8x7b": 8}
+# llava's cell: a 1024-token prompt whose first 576 positions are the patch
+# embeddings, in a 2048-slot cache
+VLM_S, VLM_C = 1024, 2048
+# the precisions workload A runs in (llava has no Engine.run, as in JAX)
+NEW_SERVE = {"deepseek-moe-16b": ("bf16", "fp32"), "mixtral-8x7b": ("bf16",)}
+# the teacher-forced decode steps held to the reference backend after the
+# prefill (of the 31 a generate takes): the script's time limit
+NEW_CHECK_STEPS = 4
+
+
+def _new_cell(arch):
+    """(prompt tokens, cache slots) of a new model's serving cell."""
+    return (VLM_S, VLM_C) if arch == VLM_ARCH else (LM_S, LM_C)
+
+
+def _new_cfg(arch):
+    """The full config, cut in depth where ``DEPTH_CUT`` says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n = DEPTH_CUT.get(arch)
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
+
+
+def _new_decode_qpos(arch):
+    """The decode case's query position: half the 1024-slot cache, or
+    llava's prompt end plus half its steps in the 2048-slot cache."""
+    return VLM_S + LM_STEPS // 2 - 1 if arch == VLM_ARCH else LM_C // 2 - 1
+
+
+def phase_moe_kernels():
+    """Phase 16: the kernels at the heads and projections of
+    deepseek-moe-16b (16 over 16 heads of 128), mixtral-8x7b (32 over 8 of
+    128, a group of 4, window 4096) and llava-next-mistral-7b (32 over 8 of
+    128), bf16 and fp32: flash_attention at the prefill (8 x 512; llava's
+    8 x 1024), decode_attention over the 1024-slot cache half full (llava's
+    2048-slot cache at position 1039), paged_decode_attention at a
+    workload-A tick (the two MoE models), each beside its SIMT kernel, SDPA
+    (gather + SDPA) and the plain version; matmul_fused at each of the
+    model's projection shapes (its plan's) at the prefill's rows and a
+    decode step's 8.  Each case carries its model's name."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = {"flash_attention": [], "decode_attention": [],
+             "paged_decode_attention": [], "matmul_fused": []}
+    for arch in NEW_ARCHS:
+        cfg = _new_cfg(arch)
+        a = cfg.attention
+        S, C = _new_cell(arch)
+        plan = tflow.compile(cfg, ShapeConfig("serve", "decode", C, B),
+                             FlowConfig(mode="folded")).plan
+        heads = dict(H=a.n_heads, KV=a.n_kv_heads, D=a.head_dim,
+                     window=a.window)
+        for dt in (torch.bfloat16, torch.float32):
+            made = [("flash_attention", _flash_case(dt, gen, S=S, **heads)),
+                    ("decode_attention", _decode_case(
+                        dt, gen, C=C, qpos=_new_decode_qpos(arch), **heads))]
+            if arch != VLM_ARCH:
+                made.append(("paged_decode_attention",
+                             _paged_case(1, dt, gen, **heads)))
+            for kname, c in made:
+                cases[kname].append({**c, "arch": arch})
+                log(json.dumps({"kernel": kname, "arch": arch, **c}))
+            for M in (B * S, B):
+                for name, K, N, glu, uses in _plan_matmuls(plan):
+                    c = _lm_matmul_case(name, M, K, N, glu, dt, gen, uses)
+                    cases["matmul_fused"].append({**c, "arch": arch})
+                    log(json.dumps({"kernel": "matmul_fused", "arch": arch,
+                                    **c}))
+    for kname in ("flash_attention", "decode_attention",
+                  "paged_decode_attention"):
+        cases[kname] += [_simt_twin(c) for c in cases[kname]]
+    return cases
+
+
+class _Routes:
+    """A routing hook (``ops_impl.ROUTING_HOOK``) keeping each MoE layer
+    call's expert picks and its k + 1 largest router probabilities, in
+    call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, ctx, attrs, probs, idx, keep):
+        k = idx.shape[-1]
+        self.calls.append((idx.clone(), probs.topk(k + 1, dim=-1).values))
+
+
+def _routed(fn):
+    """``fn()`` with its MoE layers' routing recorded: (its result, the
+    records)."""
+    from repro_torch.core import ops_impl
+    r = _Routes()
+    ops_impl.ROUTING_HOOK = r
+    try:
+        out = fn()
+    finally:
+        ops_impl.ROUTING_HOOK = None
+    return out, r.calls
+
+
+def _flips(a, b):
+    """The routing records of one call on the kernels (``a``) and on the
+    reference backend (``b``): per row whether its last position (the one
+    whose logits are compared) picked other experts in any layer, per row
+    whether any position did, the picks that differ over every position,
+    and the smallest reference margin among those (its k-th minus its
+    (k+1)-th probability)."""
+    rows = anyrow = None
+    picks, margin = 0, None
+    for (ia, _), (ib, vb) in zip(a, b):
+        k = ia.shape[-1]
+        miss = (ib[..., :, None] != ia[..., None, :]).all(-1).sum(-1)
+        last, some = miss[:, -1] > 0, (miss > 0).any(-1)
+        rows = last if rows is None else rows | last
+        anyrow = some if anyrow is None else anyrow | some
+        n = int(miss.sum())
+        if n:
+            picks += n
+            gap = float((vb[..., k - 1] - vb[..., k])[miss > 0].min())
+            margin = gap if margin is None else min(margin, gap)
+    return rows, anyrow, picks, margin
+
+
+def _forced(fn, calls):
+    """``fn()`` with each MoE layer's top-k taken, call by call, from
+    ``calls`` (the records of a run on the kernels), its gates read off
+    this run's own router probabilities: the reference backend on the
+    kernels' routing, so that a comparison sees the arithmetic alone."""
+    from repro_torch.core import ops_impl
+    picks = iter(calls)
+    top_k = ops_impl._top_k_stable
+
+    def replay(probs, k):
+        idx = next(picks)[0]
+        return probs.gather(-1, idx), idx
+    ops_impl._top_k_stable = replay
+    try:
+        return fn()
+    finally:
+        ops_impl._top_k_stable = top_k
+
+
+def _held_logits(what, y, yr, yf, tol, ra, rb, flips):
+    """The logits ``y`` on the kernels against ``yr`` on the reference
+    backend within ``tol``; for a MoE model under the routing-flip rule.
+    Every call's flipped picks and their smallest reference margin are
+    recorded in ``flips``, and the rows whose routing differed at any
+    position of this call or an earlier one (``flips["dirty"]``: a flip
+    anywhere in a row's past reaches its logits through attention).  Where
+    the check fails and some picks flipped, it is held on the rows that
+    routed alike throughout (where there are any), and, on every row,
+    against ``yf``: the reference backend on the kernels' routing
+    (:func:`_forced`), which must be within ``tol``."""
+    if ra:
+        _, anyrow, picks, margin = _flips(ra, rb)
+        flips["dirty"] = anyrow if flips["dirty"] is None \
+            else flips["dirty"] | anyrow
+    else:
+        picks, margin = 0, None
+    flips["picks"] += picks
+    flips["calls"] += 1
+    flips["calls_with_flips"] += bool(picks)
+    if margin is not None:
+        flips["min_margin"] = margin if flips["min_margin"] is None \
+            else min(flips["min_margin"], margin)
+    try:
+        return _lm_check_logits(what, y, yr, tol)
+    except AssertionError:
+        if flips["dirty"] is None or not flips["dirty"].any():
+            raise                         # no flip: not the rule's case
+    keep = (~flips["dirty"]).nonzero().flatten()
+    held = _lm_check_logits(what, y[keep], yr[keep], tol) \
+        if len(keep) else None
+    err = _lm_check_logits(f"{what} (the kernels' routing)", y, yf, tol)
+    flips["rule"].append({"what": what, "flipped_picks": picks,
+                          "min_margin": margin, "rows_held": keep.tolist(),
+                          "relerr_all": relerr(y, yr), "relerr_held": held,
+                          "relerr_forced": err})
+    return err
+
+
+def _token_flips(ta, tb, ra, rb, steps):
+    """For greedy tokens ``ta`` (kernels) and ``tb`` (reference backend)
+    that differ: each differing row's first differing step, and whether its
+    compared token routed otherwise in some layer at that step or before
+    (the records ``ra``, ``rb``: one call a step)."""
+    n = len(ra) // steps
+    out = []
+    for r in (ta != tb).any(1).nonzero().flatten().tolist():
+        first = int((ta[r] != tb[r]).nonzero()[0])
+        flipped = [c for c in range(first + 1)
+                   if _flips(ra[c * n:(c + 1) * n],
+                             rb[c * n:(c + 1) * n])[1][r]]
+        out.append({"row": r, "first_step": first,
+                    "flipped_at_steps": flipped})
+    return out
+
+
+class _Drops(_Routes):
+    """A routing hook counting on the device the picks that capacity
+    dropped (``keep`` 0) at real positions (>= 0, or every position of a
+    batch without ``positions``) and at padding, and the real tokens that
+    lost a pick; with ``record`` it keeps the routing too (``_Routes``)."""
+
+    def __init__(self, record=False):
+        super().__init__()
+        self.record = record
+        self.real, self.pad, self.tokens = (
+            torch.zeros((), dtype=torch.int64, device="cuda")
+            for _ in range(3))
+
+    def __call__(self, ctx, attrs, probs, idx, keep):
+        if self.record:
+            super().__call__(ctx, attrs, probs, idx, keep)
+        b, s, k = idx.shape
+        pos = ctx.aux["__inputs__"].get("positions")
+        real = torch.ones((b, s), dtype=torch.bool, device=idx.device) \
+            if pos is None else pos >= 0
+        drop = keep.view(b, s, k) == 0
+        self.real += (drop & real[..., None]).sum()
+        self.pad += (drop & ~real[..., None]).sum()
+        self.tokens += (drop.any(-1) & real).sum()
+
+    def read(self):
+        return {"dropped_real_picks": int(self.real),
+                "dropped_pad_picks": int(self.pad),
+                "real_tokens_losing_a_pick": int(self.tokens)}
+
+
+def _new_generate(cm, ref, params, batch, steps, want_p, want_d, prec):
+    """``_lm_generate`` for a new model: one generate through the port's
+    entry point with the counts set to 0 just before and read just after
+    (launches and schedules as the plan says; a MoE model's routing
+    recorded, call by call); then the prefill and each teacher-forced
+    decode step (the first ``NEW_CHECK_STEPS``) held against the reference
+    backend (logits within ``PATH_TOL[prec]``, :func:`_held_logits`), and
+    in fp32 the greedy
+    tokens identical to the reference backend's.  For a MoE model both
+    checks run under the routing-flip rule: every call's flips are
+    counted, and where the reference backend's own routing breaks a check
+    it is held on the rows that routed alike and on every row against the
+    reference backend on the kernels' routing (:func:`_forced`), which
+    keeps its own state through the steps.  ``batch`` carries llava's
+    patches to the prefill."""
+    prompt = batch["tokens"]
+    b, S = prompt.shape
+    moe = cm.cfg.moe is not None
+    reset_counts()
+    t0 = time.perf_counter()
+    (toks, _), rg = _routed(lambda: cm.generate(params, batch, steps=steps))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = _counted(read_counts(), {
+        k: want_p.get(k, 0) + (steps - 1) * want_d.get(k, 0)
+        for k in set(want_p) | set(want_d)}, f"{prec} generate")
+    sched = _lm_scheduled(want_p["matmul_fused"],
+                          (steps - 1) * want_d["matmul_fused"], prec,
+                          f"{prec} generate")
+    fsched = _flash_scheduled(launches["flash_attention"], prec,
+                              f"{prec} generate")
+    dsched = _decode_scheduled(launches["decode_attention"], prec,
+                               f"{prec} generate")
+    V = cm.cfg.vocab_size
+    if tuple(toks.shape) != (b, steps) or not ((toks >= 0) & (toks < V)).all():
+        raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
+    flips = {"picks": 0, "calls": 0, "calls_with_flips": 0,
+             "min_margin": None, "rule": [], "dirty": None}
+    rec = {"launches": launches, "matmul_schedules": sched,
+           "flash_schedules": fsched, "decode_schedules": dsched,
+           "generate_s": gen_s, "tokens_row0": toks[0].tolist()}
+    if prec == "fp32":
+        (tr, _), rr = _routed(lambda: ref.generate(params, batch,
+                                                   steps=steps))
+        if not torch.equal(toks, tr):
+            diff = (toks != tr).float().mean().item()
+            if not moe:
+                raise AssertionError(f"fp32 greedy tokens differ from the "
+                                     f"reference backend's ({diff:.3f})")
+            tf, _ = _forced(lambda: ref.generate(params, batch, steps=steps),
+                            rg)
+            if not torch.equal(toks, tf):
+                raise AssertionError("fp32 greedy tokens differ from the "
+                                     "reference backend's on the kernels' "
+                                     "routing too")
+            rec["tokens_rule"] = {"differing_share": diff,
+                                  "rows": _token_flips(toks, tr, rg, rr,
+                                                       steps),
+                                  "identical_on_kernels_routing": True}
+        rec["greedy_identical_steps"] = steps
+    reset_counts()
+    (y, st, _), ra = _routed(lambda: cm.prefill(params, batch))
+    _counted(read_counts(), want_p, "one prefill")
+    _flash_scheduled(want_p["flash_attention"], prec, "one prefill")
+    (yr, st_r, _), rb = _routed(lambda: ref.prefill(params, batch))
+    yf, st_f, _ = _forced(lambda: ref.prefill(params, batch), ra) if moe \
+        else (None, None, None)
+    errs = [_held_logits("prefill", y, yr, yf, PATH_TOL[prec], ra, rb,
+                         flips)]
+    agree = [(yr[:, -1].argmax(-1) == toks[:, 0]).float().mean().item()]
+    for t in range(min(steps - 1, NEW_CHECK_STEPS)):
+        tok = {"tokens": toks[:, t:t + 1].long()}
+        reset_counts()
+        (y, st, _), ra = _routed(lambda: cm.decode(params, tok, st, S + t))
+        _counted(read_counts(), want_d, f"decode step {t}")
+        _decode_scheduled(want_d["decode_attention"], prec,
+                          f"decode step {t}")
+        (yr, st_r, _), rb = _routed(
+            lambda: ref.decode(params, tok, st_r, S + t))
+        if moe:
+            yf, st_f, _ = _forced(
+                lambda: ref.decode(params, tok, st_f, S + t), ra)
+        errs.append(_held_logits(f"decode step {t}", y, yr, yf,
+                                 PATH_TOL[prec], ra, rb, flips))
+        agree.append((yr[:, -1].argmax(-1) == toks[:, t + 1])
+                     .float().mean().item())
+    dirty = flips.pop("dirty")
+    flips["rows_flipped"] = 0 if dirty is None else int(dirty.sum())
+    rec.update(prefill_relerr=errs[0], decode_relerr_max=max(errs[1:]),
+               greedy_agreement_share=sum(agree) / len(agree),
+               routing_flips=flips)
+    return rec
+
+
+def _widen(params):
+    """The bf16 tree widened to fp32 leaf by leaf, the largest leaves first,
+    each bf16 leaf dropped from ``params`` as its fp32 copy is made
+    (deepseek's 65.5 GB of fp32 beside its 32.8 GB of bf16 would not fit
+    the card); ``params`` is emptied.  Unlike ``_widened``, which keeps
+    the bf16 tree, this one never holds both."""
+    order = sorted(((k, n) for k, d in params.items() for n in d),
+                   key=lambda kn: -params[kn[0]][kn[1]].numel())
+    out = {k: {} for k in params}
+    for k, n in order:
+        out[k][n] = params[k].pop(n).float()
+    params.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expert_ms(cm, params):
+    """CUDA-event ms of one decode step's expert products: a MoE layer's
+    three routed products over (E, B * cap, d) (``ops_impl._moe_bmm``, cap
+    1 at one token a row) and the shared experts' three, times the MoE
+    layers; the step's share that runs outside any hand kernel."""
+    from repro_torch.core import ops_impl
+    cfg, m = cm.cfg, cm.cfg.moe
+    dt = cm.plan.prec.compute_dtype
+    leaves = next(d for d in params.values()
+                  if any(n.endswith("we_gate") for n in d))
+
+    def leaf(suffix):
+        return next(t for n, t in leaves.items() if n.endswith(suffix))[0]
+    wg, wu, wd = leaf("we_gate"), leaf("we_up"), leaf("we_down")
+    E, d, _ = wg.shape
+    cap = max(math.ceil(m.top_k / E * m.capacity_factor), 1)
+    eb = torch.randn(E, B * cap, d, device="cuda").to(dt)
+    x = torch.randn(B, 1, d, device="cuda").to(dt)
+    shared = [leaf(s) for s in ("ws_gate", "ws_up", "ws_down")] \
+        if m.num_shared else None
+
+    def fn():
+        h = (F.silu(ops_impl._moe_bmm(eb, wg, dt))
+             * ops_impl._moe_bmm(eb, wu, dt)).to(dt)
+        y = ops_impl._moe_bmm(h, wd, dt)
+        if shared:
+            s = (F.silu(ops_impl._moe_bmm(x, shared[0], dt))
+                 * ops_impl._moe_bmm(x, shared[1], dt)).to(dt)
+            y = ops_impl._moe_bmm(s, shared[2], dt)
+        return y
+    per_layer = cuda_ms(fn, 10, 2)
+    return {"moe_layers": cfg.n_layers - m.first_dense_layers,
+            "per_layer_ms": per_layer,
+            "ms": per_layer * (cfg.n_layers - m.first_dense_layers),
+            "bf16_out_dtype_bmm": bool(dt == torch.bfloat16
+                                       and ops_impl._bmm_out_dtype_ok())}
+
+
+def _new_serve(arch, cm, ref, params, prec, want_p, want_d, shapes):
+    """Workload A through ``Engine.run`` with the launches by schedule and
+    the pool's bytes, the real prompt tokens capacity dropped counted in the
+    op (``_Drops``); in fp32 the greedy tokens identical to the reference
+    backend's ``Engine.run``."""
+    from repro_torch.core import ops_impl
+    cfg = cm.cfg
+    a = cfg.attention
+    reqs = _serve_workloads(cfg.vocab_size)["A"]
+    drops = _Drops(record=prec == "fp32")
+    reset_counts()
+    ops_impl.ROUTING_HOOK = drops
+    try:
+        eng, rep = _engine_run(cm, params, reqs, trace=True)
+    finally:
+        ops_impl.ROUTING_HOOK = None
+    launches = _counted(read_counts(), _serve_want(rep, want_p, want_d),
+                        f"{arch} {prec} workload A")
+    r = _serve_record(eng, rep)
+    r.update(
+        launches=launches, capacity_drops=drops.read(),
+        matmul_schedules=_scheduled(_serve_split(eng, rep, shapes, prec),
+                                    f"{arch} {prec} workload A"),
+        flash_schedules=_flash_scheduled(
+            launches["flash_attention"], prec, f"{arch} {prec} workload A"),
+        paged_schedules=_decode_scheduled(
+            launches["paged_decode_attention"], prec,
+            f"{arch} {prec} workload A", "paged_decode_attention"),
+        prefill_buckets=[[e["args"]["batch"], e["args"]["bucket"]]
+                         for e in eng.tracer.events()
+                         if e["name"] == "prefill"])
+    elem = 2 if prec == "bf16" else 4
+    pool = 2 * cfg.n_layers * r["pool_blocks"] * SERVE_BS * a.n_kv_heads \
+        * a.head_dim * elem
+    if r["pool_blocks"] != 1 + SERVE_SLOTS * SERVE_SEQ // SERVE_BS \
+            or r["pool_bytes"] != pool:
+        raise AssertionError(f"{arch} {prec}: pool {r['pool_blocks']} "
+                             f"blocks, {r['pool_bytes']} bytes, want {pool}")
+    toks = _tokens(rep)
+    del eng, rep
+    if prec == "fp32":
+        # the kernel engine's pool is freed before the reference's; where
+        # the reference's own routing moves a token, its engine runs again
+        # on the kernels' routing and must give every token
+        torch.cuda.empty_cache()
+        _, rep_r = _engine_run(ref, params, reqs)
+        diff = [rid for rid, t in toks.items() if t != _tokens(rep_r)[rid]]
+        del rep_r
+        if diff:
+            torch.cuda.empty_cache()
+            _, rep_f = _forced(lambda: _engine_run(ref, params, reqs),
+                               drops.calls)
+            if toks != _tokens(rep_f):
+                raise AssertionError(f"{arch} fp32 workload A: greedy "
+                                     f"tokens of {diff} differ from the "
+                                     "reference backend's, on the kernels' "
+                                     "routing too")
+            r["tokens_rule"] = {"requests_differing": diff,
+                                "identical_on_kernels_routing": True}
+            del rep_f
+        r["identical_to_reference"] = True
+    log(json.dumps({"serving": "A", "arch": arch, "precision": prec, **r}))
+    return r
+
+
+def _new_model(arch, smi):
+    """One model through ``generate`` (and, for the MoE models,
+    ``Engine.run`` on workload A), bf16 then fp32, each held to the
+    ``reference`` backend; its weights, states and pools freed after."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig
+    S, C = _new_cell(arch)
+    shape = ShapeConfig("serve", "decode", C, B)
+    rec = {"arch": arch, "nvidia_smi": smi, "prompt": S, "cache": C}
+    params = batch = None
+    cfg = _new_cfg(arch)
+    a = cfg.attention
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(cfg, shape, fl)
+        ref = tflow.compile(cfg, shape, fl, backend="reference")
+        ks = cm.plan.kernels
+        if any(ks[o] != "cuda" for o in (
+                "attention", "decode_attention", "paged_decode_attention",
+                "matmul", "glu_matmul")):
+            raise AssertionError(f"{arch}: plan.kernels {ks}")
+        want_p = _plan_launches(cm.plan, "prefill")
+        want_d = _plan_launches(cm.plan, "decode")
+        shapes = _plan_matmuls(cm.plan)
+        L = cfg.n_layers
+        dense = L if cfg.moe is None else cfg.moe.first_dense_layers
+        mm = 4 * L + 2 * dense                      # q, k, v, o + GLU, down
+        if want_p != {"flash_attention": L, "decode_attention": 0,
+                      "matmul_fused": mm} or \
+                want_d != {"flash_attention": 0, "decode_attention": L,
+                           "matmul_fused": mm}:
+            raise AssertionError(f"{arch}: plan launches {want_p} / {want_d}")
+        rec[f"layers_{prec}"] = L
+        rec["heads"] = [a.n_heads, a.n_kv_heads, a.head_dim, a.window]
+        if prec == "bf16":
+            rec["units"] = cm.describe().splitlines()[2].strip()
+            rec["kernels_line"] = cm.describe().splitlines()[-1].strip()
+            t0 = time.perf_counter()
+            params = cm.init_params(SEED)
+            torch.cuda.synchronize()
+            rec["init_params_s"] = time.perf_counter() - t0
+            rng = np.random.RandomState(SEED)
+            batch = {"tokens": torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (B, S)).astype(np.int64)).cuda()}
+            if cfg.n_patch_tokens:
+                batch["patches"] = torch.from_numpy(rng.randn(
+                    B, cfg.n_patch_tokens, cfg.d_vision).astype(
+                        np.float32)).cuda()
+        else:
+            t0 = time.perf_counter()
+            params = _widen(params)
+            torch.cuda.synchronize()
+            rec["widen_s"] = time.perf_counter() - t0
+        rec[f"params_{prec}"] = sum(t.numel() for d in params.values()
+                                    for t in d.values())
+        rec[f"weight_bytes_{prec}"] = sum(
+            t.numel() * t.element_size() for d in params.values()
+            for t in d.values())
+
+        # a. generate: 32 greedy tokens a row after the prompt
+        g = _new_generate(cm, ref, params, batch, LM_STEPS, want_p, want_d,
+                          prec)
+        rec[f"generate_{prec}"] = g
+        log(json.dumps({"new_generate": arch, "precision": prec, **g}))
+        if cfg.n_patch_tokens and prec == "bf16":
+            # the patches reach the model: a second draw moves the logits
+            other = {**batch, "patches": torch.from_numpy(
+                np.random.RandomState(SEED + 1).randn(
+                    B, cfg.n_patch_tokens, cfg.d_vision).astype(
+                        np.float32)).cuda()}
+            y1, _, _ = cm.prefill(params, batch)
+            y2, _, _ = cm.prefill(params, other)
+            moved = relerr(y2, y1)
+            if not moved > 1e-3:
+                raise AssertionError(f"{arch} {prec}: other patches moved "
+                                     f"the logits by {moved}")
+            rec[f"patch_moved_relerr_{prec}"] = moved
+            del y1, y2, other
+        if prec == "bf16":
+            cm_p = tflow.compile(cfg, ShapeConfig("serve", "prefill", S, B),
+                                 fl)
+            mp = cm_p.measure("prefill", iters=3, seed=SEED, params=params)
+            md = cm.measure("decode", iters=20, seed=SEED, params=params)
+            dstate = cm.init_state(B)
+            dtok = {"tokens": batch["tokens"][:, :1]}
+            dprof = _profile(lambda: cm.decode(params, dtok, dstate, 100), 5)
+            rec["measure"] = {
+                "device": mp["device"],
+                "prefill_ms": mp["measured_step_s"] * 1e3,
+                "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+                "prefill_tokens_per_s": mp["tokens_per_s"],
+                "prefill_peak_bytes": mp["peak_bytes"],
+                "decode_ms": md["measured_step_s"] * 1e3,
+                "decode_mean_ms": md["mean_step_s"] * 1e3,
+                "decode_tokens_per_s": md["tokens_per_s"],
+                "decode_peak_bytes": md["peak_bytes"],
+                "prefill_profile": _profile(
+                    lambda: cm_p.prefill(params, batch), 2),
+                "decode_profile": dprof}
+            if cfg.moe is not None:
+                ex = _expert_ms(cm, params)
+                busy = dprof["device_busy_ms"] / dprof["iters"]
+                ex["share_of_decode_device_ms"] = ex["ms"] / busy \
+                    if busy else None
+                ex["share_of_decode_ms"] = ex["ms"] / rec["measure"][
+                    "decode_ms"]
+                rec["measure"]["experts"] = ex
+            log(json.dumps({"new_measure": arch, **rec["measure"]}))
+            del cm_p, dstate
+
+        # b. serving: workload A through Engine.run (llava: refused)
+        if prec in NEW_SERVE.get(arch, ()):
+            rec[f"serve_{prec}"] = _new_serve(arch, cm, ref, params, prec,
+                                              want_p, want_d, shapes)
+        elif cfg.n_patch_tokens and prec == "bf16":
+            eng = Engine(cm, params, EngineConfig(
+                max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+                block_size=SERVE_BS))
+            rec["engine_refusal"] = _refused(
+                f"{arch} Engine.run",
+                lambda: eng.run(_serve_workloads(cfg.vocab_size)["A"][:2]),
+                "patches")
+            if eng.last_cache is not None:
+                raise AssertionError(f"{arch}: Engine.run made a pool")
+            del eng
+        del cm, ref
+        torch.cuda.empty_cache()
+    del params, batch
+    torch.cuda.empty_cache()
+    g16, g32 = rec["generate_bf16"], rec["generate_fp32"]
+    log(f"{arch}: bf16 logits relerr vs the reference backend: prefill "
+        f"{g16['prefill_relerr']:.3e}, decode max "
+        f"{g16['decode_relerr_max']:.3e}, routing flips "
+        f"{g16['routing_flips']['picks']} (rule applied "
+        f"{len(g16['routing_flips']['rule'])}x); fp32 greedy tokens held "
+        f"{g32['greedy_identical_steps']} steps, routing flips "
+        f"{g32['routing_flips']['picks']}")
+    return rec
+
+
+def phase_moe_path(smi):
+    """Phase 17: deepseek-moe-16b at full width and depth, mixtral-8x7b at
+    full width and 8 layers and llava-next-mistral-7b at
+    full width and depth (random weights from seed 0, drawn once in bf16;
+    the fp32 runs take them widened) through ``flow.compile`` →
+    ``generate`` and, for the MoE models, ``Engine.run``, one model after
+    the other."""
+    out = {}
+    for arch in NEW_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = _new_model(arch, smi)
         out[arch]["seconds"] = time.perf_counter() - t0
         log(f"{arch}: {out[arch]['seconds']:.1f}s")
     return out
@@ -3767,7 +4433,7 @@ def dense_kernel_entries(cases, dense):
     out = []
     for arch in DENSE_ARCHS:
         rec = dense[arch]
-        layers = rec["layers"]
+        layers, full = rec["layers"], rec["layers_full"]
         launches = {}
         for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
             g, s_ = rec[f"generate_{prec}"], rec[f"serve_{prec}"]
@@ -3782,19 +4448,71 @@ def dense_kernel_entries(cases, dense):
                 for k, n in c.items():
                     launches[dt][k] = launches[dt].get(k, 0) + n
 
-        def use(k, r):
+        def use(k, r, layers=layers, full=full):
             if k.startswith("matmul_fused"):
-                return r["uses_per_forward"] * (1 if r["rows"] == B * LM_S
-                                                else steps)
+                per = r["uses_per_forward"] * layers // full
+                return per * (1 if r["rows"] == B * LM_S else steps)
             return {"flash_attention": layers,
                     "decode_attention": layers * steps,
                     "paged_decode_attention": 1}[k.split("[")[0]]
 
-        def per(kname, used):
+        def per(kname, used, arch=arch, layers=layers):
             if kname.startswith("paged"):
                 return f"one call at {used[0][0]['shape']}"
-            return (f"one {arch} generate: prefill of {B}x{LM_S} tokens, "
-                    f"then {steps} decode steps")
+            return (f"one {arch} generate ({layers} layers): prefill of "
+                    f"{B}x{LM_S} tokens, then {steps} decode steps")
+        out += summed_entries(
+            _by_schedule({k: [r for r in v if r.get("arch") == arch]
+                          for k, v in cases.items()}),
+            launches, f"@{arch}", per, use)
+    return out
+
+
+def new_kernel_entries(cases, new):
+    """Each kernel at each of deepseek-moe-16b's, mixtral-8x7b's and
+    llava-next-mistral-7b's shapes, summed over one generate at the depth
+    of that dtype's run (flash and the prefill's matmuls once,
+    decode_attention and the 8-row matmuls at each of 31 decode steps);
+    paged_decode_attention one call at a workload-A tick, where workload A
+    ran in that dtype.  ``launches`` counts the model's runs of that dtype
+    (generate, and workload A where it ran)."""
+    steps = LM_STEPS - 1
+    out = []
+    for arch in NEW_ARCHS:
+        rec = new[arch]
+        S, _ = _new_cell(arch)
+        launches = {}
+        for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
+            g = rec[f"generate_{prec}"]
+            counts = [_sched_launches(g["launches"], g["matmul_schedules"],
+                                      g["flash_schedules"],
+                                      decode=g["decode_schedules"])]
+            s_ = rec.get(f"serve_{prec}")
+            if s_:
+                counts.append(_sched_launches(
+                    s_["launches"], s_["matmul_schedules"],
+                    s_["flash_schedules"], paged=s_["paged_schedules"]))
+            launches[dt] = {}
+            for c in counts:
+                for k, n in c.items():
+                    launches[dt][k] = launches[dt].get(k, 0) + n
+
+        def use(k, r, rec=rec, S=S):
+            prec = "bf16" if r["dtype"] == "bfloat16" else "fp32"
+            layers = rec[f"layers_{prec}"]
+            if k.startswith("matmul_fused"):
+                return r["uses_per_forward"] * (1 if r["rows"] == B * S
+                                                else steps)
+            return {"flash_attention": layers,
+                    "decode_attention": layers * steps,
+                    "paged_decode_attention":
+                        1 if rec.get(f"serve_{prec}") else 0}[k.split("[")[0]]
+
+        def per(kname, used, arch=arch, S=S):
+            if kname.startswith("paged"):
+                return f"one call at {used[0][0]['shape']}"
+            return (f"one {arch} generate: prefill of {B}x{S} tokens, then "
+                    f"{steps} decode steps")
         out += summed_entries(
             _by_schedule({k: [r for r in v if r.get("arch") == arch]
                           for k, v in cases.items()}),
@@ -3932,6 +4650,8 @@ def main() -> int:
     dense = timed(phase_dense_path, smi)
     train = timed(phase_train, smi)
     tune = timed(phase_tune, smi)
+    moe_cases = timed(phase_moe_kernels)
+    new = timed(phase_moe_path, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -3940,7 +4660,8 @@ def main() -> int:
         serving_kernel_entries(serve_cases, serve) + \
         rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg) + \
         lru_kernel_entries(lru_cases) + \
-        dense_kernel_entries(dense_cases, dense)
+        dense_kernel_entries(dense_cases, dense) + \
+        new_kernel_entries(moe_cases, new)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -3953,6 +4674,7 @@ def main() -> int:
                    "lru_kernels": lru_cases,
                    "dense_kernels": dense_cases, "dense_path": dense,
                    "train": train, "tune": tune,
+                   "moe_kernels": moe_cases, "moe_path": new,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

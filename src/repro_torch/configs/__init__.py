@@ -2,10 +2,11 @@
 
 The port's registry holds the paper's three CNNs and the LMs ported so
 far: the dense family (qwen1.5-4b, phi4-mini-3.8b, stablelm-1.6b,
-llama3.2-1b) and the RG-LRU hybrid recurrentgemma-2b.  ``ARCHS`` lists the
-LMs and ``CNNS`` the CNNs, each by its config's ``family``.  The MoE,
-RWKV6, multimodal and encoder-decoder configs join with their families
-(ROADMAP Queue 1, "Other model families").
+llama3.2-1b), the RG-LRU hybrid recurrentgemma-2b, the MoE family
+(deepseek-moe-16b, mixtral-8x7b) and the multimodal patch stub
+llava-next-mistral-7b.  ``ARCHS`` lists the LMs and ``CNNS`` the CNNs, each
+by its config's ``family``.  The RWKV6 and encoder-decoder configs join
+with their families (ROADMAP Queue 1, "Other model families").
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ _MODULES: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_38b",
     "stablelm-1.6b": "stablelm_16b",
     "llama3.2-1b": "llama32_1b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "lenet5": "lenet5",
     "mobilenetv1": "mobilenetv1",
     "resnet34": "resnet34",

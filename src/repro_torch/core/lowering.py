@@ -97,44 +97,63 @@ def unit_key(graph: Graph, unit: Unit) -> str:
     return graph.blocks[unit.indices[0]].name
 
 
-def init_params(plan: ExecutionPlan, seed: int,
-                device: torch.device) -> Dict[str, Any]:
+def init_params(plan: ExecutionPlan, seed: int, device: torch.device,
+                workers: Optional[int] = None) -> Dict[str, Any]:
     """Random parameters from ``seed``: each drawn on the CPU from its own
     generator, then moved to ``device``, so a seed gives the same weights
     on the CPU and on the card.  They are not the JAX package's numbers
-    (``repro_torch.bridge`` carries those across).  The draws (one a
-    parameter, one a repetition's slice of a folded one) run on a pool of
-    host threads: each has its own generator, so the values do not depend
-    on the threads, and a model of billions of parameters is drawn in a
-    fraction of the time one thread takes."""
+    (``repro_torch.bridge`` carries those across).  A folded leaf is drawn
+    one repetition's slice at a time (each from its own generator), and
+    each slice is copied into the stacked leaf on ``device`` as it is
+    drawn.  The draws run on a pool of ``workers`` host threads (the CPUs
+    this process may run on by default), at most two a thread in flight, so the host holds
+    a few slices at once, never a whole stacked leaf (a deepseek-moe-16b
+    expert leaf is 19.9 GB in fp32): the values depend neither on the
+    threads nor on the order the draws finish in."""
     graph, dtype = plan.graph, plan.prec.param_dtype
-    pending: Dict[str, Tuple[Dict[str, List[Future]], bool]] = {}
+    workers = workers or len(os.sched_getaffinity(0)) or 1
     params: Dict[str, Any] = {}
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
-        def draw(name: str, spec: ParamSpec) -> Future:
-            return pool.submit(_init_one, seed, name, spec, dtype)
-        for unit in plan.units:
-            if not unit.folded:
-                b = graph.blocks[unit.indices[0]]
-                bp = {spec.name: [draw(b.name + spec.name, spec)]
-                      for spec in b.param_specs()}
-                if bp:
-                    pending[b.name] = (bp, False)
-            else:
-                period, reps = unit.period, unit.reps
-                pending[_fold_key(graph, unit)] = ({
-                    f"{j}:{spec.name}": [draw(
-                        graph.blocks[unit.indices[r * period + j]].name
-                        + spec.name, spec) for r in range(reps)]
-                    for j in range(period)
-                    for spec in graph.blocks[unit.indices[j]].param_specs()},
-                    True)
-        for key in list(pending):
-            group, stacked = pending.pop(key)
-            params[key] = {
-                name: (torch.stack([f.result() for f in futs]) if stacked
-                       else futs[0].result()).to(device)
-                for name, futs in group.items()}
+    draws: List[Tuple[Dict[str, Any], str, Optional[int], str, ParamSpec]] = []
+    for unit in plan.units:
+        if not unit.folded:
+            b = graph.blocks[unit.indices[0]]
+            bp: Dict[str, Any] = {}
+            for spec in b.param_specs():
+                bp[spec.name] = None
+                draws.append((bp, spec.name, None, b.name + spec.name, spec))
+            if bp:
+                params[b.name] = bp
+        else:
+            period, reps = unit.period, unit.reps
+            gp = {}
+            for j in range(period):
+                for spec in graph.blocks[unit.indices[j]].param_specs():
+                    key = f"{j}:{spec.name}"
+                    gp[key] = torch.empty((reps,) + spec.shape, dtype=dtype,
+                                          device=device)
+                    draws += [(gp, key, r, graph.blocks[
+                        unit.indices[r * period + j]].name + spec.name, spec)
+                        for r in range(reps)]
+            params[_fold_key(graph, unit)] = gp
+
+    def land(fut: Future) -> None:
+        tree, key, r, x = fut.result()
+        if r is None:
+            tree[key] = x.to(device)
+        else:
+            tree[key][r].copy_(x)
+
+    def one(tree, key, r, name, spec):
+        return tree, key, r, _init_one(seed, name, spec, dtype)
+
+    window: List[Future] = []
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for d in draws:
+            window.append(pool.submit(one, *d))
+            if len(window) >= 2 * workers:
+                land(window.pop(0))
+        for fut in window:
+            land(fut)
     return params
 
 
@@ -288,8 +307,13 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
     ``cache_index``) writes the new K/V into ``state`` in place and returns
     that same state: it consumes its argument, as the JAX stage donates it.
     Train returns every position's output and no state.  ``head=False``
-    stops before the LM head block (the loss runs it, chunked).  No ported
-    op adds an aux loss (``aux`` is empty)."""
+    stops before the LM head block (the loss runs it, chunked).  ``aux``
+    holds the auxiliary losses the ops added (``moe_aux``, the MoE
+    router's load-balancing loss in train mode; empty otherwise).  The
+    batch rides in ``ctx.aux["__inputs__"]`` for the ops that read more
+    than the tokens (the multimodal stub's ``patches``) and is not
+    returned.  Decode skips the prompt-only ``mm`` block: the patches live
+    in the KV cache by then."""
     graph, units = plan.graph, plan.units
 
     def apply(params, batch, state=None, cache_index=None, mode="prefill"):
@@ -300,6 +324,7 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
         if mode == "decode" and (state is None or cache_index is None):
             raise ValueError("decode needs the serving state and cache_index")
         ctx = Ctx(mode=mode, plan=plan, cache_index=cache_index)
+        ctx.aux["__inputs__"] = batch
         new_state: Dict[str, Any] = {}
         tokens = "tokens" in batch
         h = batch["tokens"] if tokens else batch["images"]
@@ -330,6 +355,8 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
         for unit in units:
             ukey = unit_key(graph, unit)
             b0 = graph.blocks[unit.indices[0]]
+            if mode == "decode" and b0.kind == "mm":
+                continue            # prompt-only: the patches are in the cache
             if b0.kind == "head":
                 if not head:
                     break
@@ -348,10 +375,11 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
                                     (state or {}).get(ukey), env, mode)
                 if st:
                     new_state[ukey] = st
+        aux = {k: v for k, v in ctx.aux.items() if k != "__inputs__"}
         if mode == "decode":            # the state handed in, updated
             state.update(new_state)
-            return h, state, {}
-        return h, new_state, {}
+            return h, state, aux
+        return h, new_state, aux
 
     return apply
 
@@ -361,11 +389,19 @@ def _slice_tree(tree, r: int):
             for k, v in tree.items()}
 
 
-def _stack_trees(trees: List[Dict[str, Any]]):
-    return {k: _stack_trees([t[k] for t in trees])
-            if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees])
-            for k in trees[0]}
+def _empty_stacked(tree: Dict[str, Any], reps: int) -> Dict[str, Any]:
+    """An uninitialised tree shaped as ``tree`` with a leading (reps,)."""
+    return {k: _empty_stacked(v, reps) if isinstance(v, dict)
+            else v.new_empty((reps,) + tuple(v.shape))
+            for k, v in tree.items()}
+
+
+def _copy_into(stacked: Dict[str, Any], tree: Dict[str, Any], r: int):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _copy_into(stacked[k], v, r)
+        else:
+            stacked[k][r].copy_(v)
 
 
 def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
@@ -374,33 +410,54 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
     ``period`` prototype blocks on slice ``r`` of the stacked params and
     state.  Prefill stacks the repetitions' new state; decode updates the
     stacked state it was given, in place, and returns it; train runs the
-    remat policy (:func:`_run_folded_train`) and returns no state."""
+    remat policy (:func:`_run_folded_train`) and returns no state.  The
+    repetitions' aux losses (``AUX_KEYS``) are summed into ``ctx.aux``;
+    in train mode the sum rides beside ``h`` through the checkpoints, as
+    JAX's scan carries it."""
     protos = [plan.graph.blocks[unit.indices[j]] for j in range(unit.period)]
+    added = set()
 
     def rep(h, r: int):
         step_params = {k: v[r] for k, v in gparams.items()}
         c = Ctx(mode=mode, plan=plan, cache_index=ctx.cache_index,
-                aux=ctx.aux)
+                aux={"__inputs__": ctx.aux.get("__inputs__")})
         c.state_in = _slice_tree(gstate, r) if gstate else {}
         c.state_out = {}
         e = {"h": h, "positions": env["positions"], "cross": env["cross"]}
         for j, blk in enumerate(protos):
             e["h"] = _run_block(c, blk, step_params, e, mode, j=j)
-        return e["h"], c.state_out
+        aux = {k: c.aux[k] for k in AUX_KEYS if k in c.aux}
+        added.update(aux)
+        return e["h"], c.state_out, aux
 
     if mode == "train":
-        return _run_folded_train(lambda h, r: rep(h, r)[0], unit.reps,
-                                 plan.flow.remat, env["h"]), {}
-    h = env["h"]
-    outs: List[Dict[str, Any]] = []
-    for r in range(unit.reps):
-        h, st = rep(h, r)
-        outs.append(st)
-    if not outs[0]:
+        def one(h, acc, r: int):
+            h, _, aux = rep(h, r)
+            return h, tuple(a + aux[k] if k in aux else a
+                            for k, a in zip(AUX_KEYS, acc))
+        zero = torch.zeros((), dtype=torch.float32, device=env["h"].device)
+        h, acc = _run_folded_train(one, unit.reps, plan.flow.remat,
+                                   env["h"], (zero,) * len(AUX_KEYS))
+        for k, a in zip(AUX_KEYS, acc):
+            if k in added:
+                ctx.add_aux(k, a)
         return h, {}
-    if mode == "decode":            # the ops wrote into the slices of gstate
-        return h, gstate
-    return h, _stack_trees(outs)
+    h = env["h"]
+    stacked: Optional[Dict[str, Any]] = None
+    for r in range(unit.reps):
+        h, st, aux = rep(h, r)
+        for k, a in aux.items():
+            ctx.add_aux(k, a)
+        if not st or mode == "decode":  # decode wrote into gstate's slices
+            continue
+        # prefill: each repetition's state lands in its slice of the
+        # stacked tree as it is made, so the unstacked copies never add up
+        if stacked is None:
+            stacked = _empty_stacked(st, unit.reps)
+        _copy_into(stacked, st, r)
+    if mode == "decode":
+        return h, gstate if gstate else {}
+    return h, stacked or {}
 
 
 def _checkpointed(fn):
@@ -409,9 +466,10 @@ def _checkpointed(fn):
     return run
 
 
-def _run_folded_train(one, reps: int, remat: str, h):
-    """A folded unit in train mode, ``one(h, r)`` a repetition, under the
-    JAX package's remat policy (its ``jax.checkpoint`` placement):
+def _run_folded_train(one, reps: int, remat: str, h, acc: tuple):
+    """A folded unit in train mode, ``one(h, acc, r) -> (h, acc)`` a
+    repetition (``acc`` the running aux losses), under the JAX package's
+    remat policy (its ``jax.checkpoint`` placement):
     ``block`` checkpoints each repetition, so the backward pass keeps only
     the repetitions' inputs and recomputes one at a time; ``nested`` (with
     4 or more repetitions) checkpoints groups of k (the largest divisor of
@@ -424,18 +482,18 @@ def _run_folded_train(one, reps: int, remat: str, h):
             k -= 1
         inner = _checkpointed(one)
 
-        def group(x, g0: int):
+        def group(x, a, g0: int):
             for r in range(g0, g0 + k):
-                x = inner(x, r)
-            return x
+                x, a = inner(x, a, r)
+            return x, a
         outer = _checkpointed(group)
         for g0 in range(0, reps, k):
-            h = outer(h, g0)
-        return h
+            h, acc = outer(h, acc, g0)
+        return h, acc
     step = _checkpointed(one) if remat in ("block", "nested") else one
     for r in range(reps):
-        h = step(h, r)
-    return h
+        h, acc = step(h, acc, r)
+    return h, acc
 
 
 # ---------------------------------------------------------------------------
@@ -452,8 +510,8 @@ def make_loss_fn(plan: ExecutionPlan):
     unembed (the final norm), then :func:`_chunked_ce` over the sequence
     with the tied table or ``lm_head``; ``batch["labels"]`` (B, S), entries
     < 0 ignored; metrics ``{"loss", "acc"}`` (argmax accuracy over the
-    valid labels) and any aux losses (``AUX_KEYS``; no ported op adds
-    one)."""
+    valid labels) and the aux losses the ops added (``AUX_KEYS``: a MoE
+    model's ``moe_aux``), which the returned loss includes."""
     cfg = plan.cfg
     apply = _make_apply(plan, head=cfg.family == "cnn")
     head_block = plan.graph.blocks[-1]

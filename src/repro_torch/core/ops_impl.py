@@ -9,11 +9,12 @@ conv entry points dispatch through the :mod:`repro_torch.kernels.registry`
 using the per-op backend table the ``kernels`` pass recorded on the plan
 (``plan.kernels``).
 
-This is the CNN, dense-LM and RG-LRU subset of the JAX package's
-``core/ops_impl.py``; the RWKV6, MoE and multimodal ops arrive with their
-families.  Every dtype cast sits where the JAX op puts it, so bf16 rounds at
-the same places in both, and a product JAX asks in fp32
-(``preferred_element_type``) upcasts its operands here (exact for bf16).
+This is the CNN, dense-LM, RG-LRU, MoE and multimodal-stub subset of the
+JAX package's ``core/ops_impl.py``; the RWKV6 and encoder-decoder ops
+arrive with their families.  Every dtype cast sits where the JAX op puts
+it, so bf16 rounds at the same places in both, and a product JAX asks in
+fp32 (``preferred_element_type``) upcasts its operands here (exact for
+bf16).
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ class Ctx:
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.plan.flow.precision == "bf16" \
             else torch.float32
+
+    def add_aux(self, name: str, value) -> None:
+        self.aux[name] = self.aux.get(name, 0.0) + value
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -525,6 +529,182 @@ def op_rg_lru(ctx: Ctx, op, p, x):
     return h.to(ctx.compute_dtype)
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts FFN (capacity-based dispatch, one device)
+# ---------------------------------------------------------------------------
+
+_BMM_OUT_DTYPE: Optional[bool] = None
+
+
+def _bmm_out_dtype_ok() -> bool:
+    """Whether this torch's ``bmm`` takes ``out_dtype`` on CUDA (bf16
+    operands, an fp32 result), probed once on the card."""
+    global _BMM_OUT_DTYPE
+    if _BMM_OUT_DTYPE is None:
+        a = torch.zeros((1, 16, 16), dtype=torch.bfloat16, device="cuda")
+        try:
+            _BMM_OUT_DTYPE = torch.bmm(a, a, out_dtype=torch.float32).dtype \
+                == torch.float32
+        except (TypeError, RuntimeError):
+            _BMM_OUT_DTYPE = False
+    return _BMM_OUT_DTYPE
+
+
+def _moe_bmm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype
+             ) -> torch.Tensor:
+    """The JAX package's ``_moe_dot``: the product of ``a`` and ``b``
+    rounded to ``dt``, in fp32 (``preferred_element_type=float32``; its
+    ``_cpu_safe_dots`` computes it in fp32 on the same rounded values).
+    A batched (E, M, K) x (E, K, N) product, or (..., K) x (K, N).  On the
+    card a bf16 pair goes to ``bmm(..., out_dtype=float32)`` where torch
+    offers it, outside autograd; elsewhere the operands widen to fp32
+    (TF32 stays off, so the products are fp32's).  A library call, as in
+    JAX, whose expert einsums run outside any Pallas kernel."""
+    a, b = a.to(dt), b.to(dt)
+    if (a.is_cuda and dt == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))
+            and _bmm_out_dtype_ok()):
+        if b.ndim == 2:                  # (..., K) x (K, N): one batch
+            y = torch.bmm(a.reshape(1, -1, a.shape[-1]), b[None],
+                          out_dtype=torch.float32)
+            return y.reshape(*a.shape[:-1], b.shape[-1])
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def _top_k_stable(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, a tie broken
+    toward the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _pos_in_expert(fe: torch.Tensor, E: int) -> torch.Tensor:
+    """Each (token, pick)'s slot within its expert, row by row: the number
+    of earlier picks of the same expert in the row's flattened (S * k)
+    order.  A stable argsort and a left ``searchsorted``, as in JAX."""
+    B, Tk = fe.shape
+    order = torch.sort(fe, dim=-1, stable=True).indices
+    sorted_e = torch.gather(fe, 1, order)
+    experts = torch.arange(E, dtype=fe.dtype, device=fe.device)
+    starts = torch.searchsorted(sorted_e.contiguous(),
+                                experts.expand(B, E).contiguous())
+    pos_sorted = torch.arange(Tk, device=fe.device) \
+        - torch.gather(starts, 1, sorted_e)
+    return torch.zeros_like(fe).scatter_(1, order, pos_sorted)
+
+
+#: an observer of each MoE layer's routing: called as ``hook(ctx, attrs,
+#: probs, idx, keep)`` with the router's (B, S, E) fp32 probabilities, the
+#: (B, S, k) expert ids picked and the (B, S * k) keep mask (1 kept, 0
+#: dropped by capacity); ``ctx.aux["__inputs__"]`` holds the batch, its
+#: ``positions`` included.  ``None`` outside instrumented runs; the op's
+#: arithmetic does not depend on it.
+ROUTING_HOOK: Optional[Callable] = None
+
+
+def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
+    """Dispatch -> expert FFN -> combine, the JAX package's ``_moe_core`` on
+    one device.
+
+    Routing in fp32: softmax over the experts, the top k (ties to the lower
+    index), the gates renormalised.  Each sequence fills an expert's
+    ``cap = ceil(S * k / E * capacity_factor)`` slots in token order; a
+    pick past the last slot is dropped (``keep`` 0) and lands on slot
+    ``cap - 1`` with a zero contribution, so the scatter adds exact zeros.
+    The (B, E, cap, d) buffer runs through the experts as one ``bmm`` over
+    E of (E, B * cap, d) x (E, d, f): every slot of every expert is
+    computed, as in JAX.  Returns the output in the compute dtype and the
+    router's auxiliary load-balancing loss (zero outside train)."""
+    E, topk = attrs["num_experts"], attrs["top_k"]
+    cf = attrs.get("capacity_factor", 1.25)
+    B, S, d = x.shape
+    dt = ctx.compute_dtype
+    logits = torch.matmul(x.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = _top_k_stable(probs, topk)                  # (B, S, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ctx.mode == "train":
+        me = probs.mean(dim=(0, 1))
+        ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+        aux = attrs.get("aux_weight", 0.01) * E * torch.sum(me * ce)
+
+    cap = max(math.ceil(S * topk / E * cf), 1)
+    fe = idx.reshape(B, S * topk)
+    fg = gate.reshape(B, S * topk).float()
+    mypos = _pos_in_expert(fe, E)
+    keep = (mypos < cap).float()
+    mypos = torch.clamp(mypos, max=cap - 1)
+    if ROUTING_HOOK is not None:
+        ROUTING_HOOK(ctx, attrs, probs, idx, keep)
+
+    xr = torch.repeat_interleave(x, topk, dim=1) if topk > 1 else x
+    contrib = (xr.float() * keep[..., None]).to(dt)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, S * topk)
+    buf = torch.zeros((B, E, cap, d), dtype=dt, device=x.device).index_put(
+        (rows, fe, mypos), contrib, accumulate=True)        # (B, E, cap, d)
+    eb = buf.permute(1, 0, 2, 3).reshape(E, B * cap, d)
+    hg = _moe_bmm(eb, wg, dt)                               # (E, B*cap, f)
+    hu = _moe_bmm(eb, wu, dt)
+    hmid = (_act(hg, attrs.get("act", "silu")) * hu).to(dt)
+    out_buf = _moe_bmm(hmid, wd, dt).to(dt)                 # (E, B*cap, d)
+    out_buf = out_buf.reshape(E, B, cap, d).permute(1, 0, 2, 3)
+    y = out_buf[rows, fe, mypos] * (fg * keep)[..., None].to(dt)
+    y = y.reshape(B, S, topk, d).sum(2) if topk > 1 else y.reshape(B, S, d)
+    if shared is not None:
+        ws_g, ws_u, ws_d = shared
+        sg = _moe_bmm(x, ws_g, dt)
+        su = _moe_bmm(x, ws_u, dt)
+        sh = (_act(sg, "silu") * su).to(dt)
+        y = y + _moe_bmm(sh, ws_d, dt).to(dt)
+    return y.to(dt), aux
+
+
+def op_moe_ffn(ctx: Ctx, op, p, x):
+    """Per-sequence, causal capacity dispatch (the JAX package's
+    ``op_moe_ffn``): a token's slot in an expert counts only the earlier
+    picks of its own sequence, so a sequence's routing does not depend on
+    the rest of the batch, and appending a token never moves an earlier
+    one.  A decode step (S = 1, one pick an expert at most) drops nothing.
+    In train mode the router's load-balancing loss joins ``ctx.aux`` as
+    ``moe_aux``.  A plan sharded over a model axis (expert or tensor
+    parallel, the JAX package's ``_moe_shard_map``) is not ported."""
+    if ctx.plan.rules is not None and ctx.plan.rules.tp:
+        raise NotImplementedError(
+            "the MoE layer over a model-sharded mesh (_moe_shard_map) is not "
+            "ported yet (ROADMAP Queue 1, \"Multi-device\")")
+    shared = ((p["ws_gate"], p["ws_up"], p["ws_down"])
+              if op.attrs.get("num_shared") else None)
+    y, aux = _moe_core(ctx, op.attrs, x, p["router"], p["we_gate"],
+                       p["we_up"], p["we_down"], shared)
+    if ctx.mode == "train":
+        ctx.add_aux("moe_aux", aux)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Multimodal stub
+# ---------------------------------------------------------------------------
+
+def op_patch_proj(ctx: Ctx, op, p, h):
+    """Replace the first ``n_patches`` positions of the token-embedded
+    sequence with the projected patch embeddings of the batch's
+    ``patches`` (B, n_patches, d_vision): two products with biases around
+    a tanh-GELU, each on compute-dtype operands in fp32, as in JAX."""
+    patches = ctx.aux["__inputs__"]["patches"]
+    dt = ctx.compute_dtype
+    z = torch.matmul(patches.to(dt).float(), p["mm_w1"].to(dt).float()) \
+        + p["mm_b1"].float()
+    z = F.gelu(z, approximate="tanh")
+    z = torch.matmul(z.to(dt).float(), p["mm_w2"].to(dt).float()) \
+        + p["mm_b2"].float()
+    n = op.attrs["n_patches"]
+    return torch.cat([z.to(dt), h[:, n:, :]], dim=1)
+
+
 def op_image_in(ctx: Ctx, op, p, h):
     return h.to(ctx.compute_dtype)
 
@@ -667,4 +847,5 @@ OPS: Dict[str, Callable] = {
     "maxpool2d": op_maxpool2d, "avgpool2d": op_avgpool2d,
     "global_avgpool": op_global_avgpool, "flatten": op_flatten,
     "conv1d_causal": op_conv1d_causal, "rg_lru": op_rg_lru,
+    "moe_ffn": op_moe_ffn, "patch_proj": op_patch_proj,
 }

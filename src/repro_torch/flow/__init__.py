@@ -184,8 +184,10 @@ class CompiledModel:
         """Prefill the prompt batch, then decode ``steps`` tokens (a host
         loop).  Greedy by ``argmax`` at ``temperature`` 0 (the first of
         tied maxima, as ``jnp.argmax``); otherwise sampled with a
-        ``torch.Generator`` on this device seeded from ``seed``.  Returns
-        the (B, steps) int32 tokens and the final state."""
+        ``torch.Generator`` on this device seeded from ``seed``.  The
+        batch's other inputs (a multimodal model's ``patches``) go to the
+        prefill only.  Returns the (B, steps) int32 tokens and the final
+        state."""
         S = batch["tokens"].shape[1]
         gen = None
         if temperature != 0.0:
@@ -254,7 +256,9 @@ class CompiledModel:
         images for a CNN; for an LM, tokens ``randint(0, vocab)`` of
         (B, seq_len), or (B, 1) on a decode-kind shape; on a train-kind
         shape also ``labels``, ``randint(0, vocab)`` of (B,) or (B, S),
-        drawn after the inputs (the JAX package's order)."""
+        drawn after the inputs; for a multimodal model on a prefill- or
+        train-kind shape ``patches``, ``randn`` fp32 of (B, n_patch_tokens,
+        d_vision), drawn last (the JAX package's order)."""
         rng = np.random.RandomState(seed)
         c, B = self.cfg, self.shape.global_batch
         train = self.shape.kind == "train"
@@ -269,6 +273,9 @@ class CompiledModel:
             out = {"tokens": rng.randint(0, c.vocab_size, (B, S))}
             if train:
                 out["labels"] = rng.randint(0, c.vocab_size, (B, S))
+            if c.n_patch_tokens and self.shape.kind != "decode":
+                out["patches"] = rng.randn(
+                    B, c.n_patch_tokens, c.d_vision).astype(np.float32)
         return {k: torch.from_numpy(v if v.dtype == np.float32
                                     else v.astype(np.int64)).to(self.device)
                 for k, v in out.items()}

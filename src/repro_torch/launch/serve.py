@@ -202,6 +202,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     rng = np.random.RandomState(0)
     batch = {"tokens": torch.from_numpy(rng.randint(
         0, cm.cfg.vocab_size, (args.batch, args.prompt_len))).to(cm.device)}
+    if cm.cfg.n_patch_tokens:            # the multimodal stub's embeddings
+        batch["patches"] = torch.from_numpy(rng.randn(
+            args.batch, cm.cfg.n_patch_tokens, cm.cfg.d_vision).astype(
+                np.float32)).to(cm.device)
     t0 = time.perf_counter()
     if args.on_device_loop:
         toks = eng.generate_fori(batch, args.steps)

@@ -338,7 +338,17 @@ class Engine:
         index first: a hit seeds the slot's block table from shared blocks
         and feeds only the uncovered prompt tail through decode ticks
         (mid-sequence prefill — exact, byte-identical to the cold path),
-        with copy-on-write forks keeping shared blocks immutable."""
+        with copy-on-write forks keeping shared blocks immutable.
+
+        A multimodal model (patch tokens) is refused before any tick: a
+        request carries no patch embeddings (the JAX engine fails there
+        with a ``KeyError``); serve it through :meth:`generate`."""
+        if self.plan.cfg.n_patch_tokens:
+            raise ValueError(
+                f"{self.plan.cfg.name}: Engine.run has no patches for the "
+                f"model's {self.plan.cfg.n_patch_tokens} patch tokens (a "
+                "request carries only its prompt tokens); use generate() "
+                "with a batch holding 'patches'")
         e = self.ecfg
         cache = self.new_cache()
         self.last_cache = cache
@@ -491,6 +501,9 @@ class Engine:
                         sched.slots[a.slot].result.logits.append(
                             logits[i, -1].float().cpu().numpy())
                     sched.record_token(a.slot, int(toks[i]), first=True)
+                # the batch's dense prefill state is in the pool now: free
+                # it before the next prefill makes another
+                del logits, pstate
                 prefill_batches += 1
                 prefill_tokens += sum(a.request.prompt_len for a in adm)
                 sp_prefill.end()

@@ -996,6 +996,73 @@ def test_dense_family_heads_on_their_schedules(card, kernel, model, dt):
     assert torch.isfinite(y.float()).all() and _rel(y, p) < TOL[dt]
 
 
+# the MoE family's and llava-next-mistral-7b's head geometries at their
+# paths' lengths: (kernel, H, KV, D, tokens or cache slots, query position,
+# window).  deepseek-moe-16b: 16 over 16 heads of 128; mixtral-8x7b: 32
+# over 8 (groups of 4) with its 4096-token window; llava: 32 over 8, a
+# 1024-token prefill and a 2048-slot cache
+NEW_HEADS = {
+    "deepseek_flash_s512": ("flash", 16, 16, 128, 512, None, None),
+    "mixtral_flash_s512_window": ("flash", 32, 8, 128, 512, None, 4096),
+    "llava_flash_s1024": ("flash", 32, 8, 128, 1024, None, None),
+    "deepseek_decode_c1024": ("decode", 16, 16, 128, 1024, 542, None),
+    "mixtral_decode_c1024_window": ("decode", 32, 8, 128, 1024, 542, 4096),
+    "llava_decode_c2048": ("decode", 32, 8, 128, 2048, 1039, None),
+    "deepseek_paged": ("paged", 16, 16, 128, None, None, None),
+    "mixtral_paged_window": ("paged", 32, 8, 128, None, None, 4096),
+}
+
+
+def _new_heads_call(g, case, dt):
+    kernel, H, KV, D, n, qpos, window = NEW_HEADS[case]
+    if kernel == "flash":
+        q = _randn(g, 2, n, H, D, dt=dt)
+        k, v = _randn(g, 2, n, KV, D, dt=dt), _randn(g, 2, n, KV, D, dt=dt)
+        return (ka.flash_attention,
+                lambda: ka.flash_attention(q, k, v, causal=True,
+                                           window=window),
+                lambda: ka.flash_attention_plain(q, k, v, causal=True,
+                                                 window=window))
+    if kernel == "decode":
+        args = _rolling(g, 8, n, H, KV, D, dt, qpos)
+        return (kd.decode_attention,
+                lambda: kd.decode_attention(*args, window=window),
+                lambda: kd.decode_attention_plain(*args, window=window))
+    bs, nblk = 16, 64
+    q = _randn(g, 8, 1, H, D, dt=dt)
+    kp, vp = (_randn(g, 1 + 8 * nblk, bs, KV, D, dt=dt) for _ in range(2))
+    perm = torch.randperm(8 * nblk, generator=g, device="cuda")
+    bt = (1 + perm.reshape(8, nblk)).to(torch.int32)
+    lens = torch.arange(505, 537, 4, dtype=torch.int32, device="cuda")
+    return (kd.paged_decode_attention,
+            lambda: kd.paged_decode_attention(q, kp, vp, bt, lens,
+                                              window=window),
+            lambda: kd.paged_decode_attention_plain(q, kp, vp, bt, lens,
+                                                    window=window))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(NEW_HEADS))
+def test_moe_and_vlm_heads_on_their_schedules(card, case, dt):
+    """flash, decode and paged attention at the heads and lengths of the
+    MoE family's and llava's paths against their plain versions, each call
+    one launch counted under its schedule (flash: wgmma / ffma; decode and
+    paged: mma / ffma), bits that repeat."""
+    fn, kern, plain = _new_heads_call(card, case, DTYPES[dt])
+    sched = FLASH_SCHED[dt] if NEW_HEADS[case][0] == "flash" \
+        else CORE_SCHED[dt]
+    n0, s0 = fn.launches, dict(fn.schedules)
+    y, y2 = kern(), kern()
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    assert {k: v - s0[k] for k, v in fn.schedules.items()} == \
+        {k: 2 * (k == sched) for k in s0}
+    assert torch.equal(y, y2)
+    p = plain()
+    assert y.shape == p.shape and y.dtype == DTYPES[dt]
+    assert torch.isfinite(y.float()).all() and _rel(y, p) < TOL[dt]
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_decode_core_one_split_beside_many(card, dt):
     """stablelm-1.6b's decode cache takes one split a group (no workspace,
