@@ -140,8 +140,8 @@ Phases, each raising on failure:
    serving tick, each beside its SIMT kernel, SDPA (gather + SDPA) and the
    plain version; ``matmul_fused`` at each of the model's projection
    shapes (from its plan) at 4096 and 8 rows;
-13. dense path — the three at full width and a quarter of their depth
-   (10 / 8 / 6 of 40 / 32 / 24 layers: the script's time limit; random
+13. dense path — the three at full width and 4 of their 40 / 32 / 24
+   layers (the script's time limit; random
    weights from seed 0, drawn once in bf16; the fp32 runs take them
    widened), one after the other: ``generate`` of 32 tokens after a 512-token prompt a row
    (``ShapeConfig("serve", "decode", 1024, 8)``) with the launches the
@@ -155,8 +155,9 @@ Phases, each raising on failure:
    projections by its rows) and the pool's bytes, fp32 tokens identical
    to the reference backend's ``Engine.run``.  Each model's weights,
    states and pools are freed before the next;
-14. train — full-width llama3.2-1b (16 layers, 1.24 B parameters, fp32
-   masters, bf16 compute, block remat), ``ShapeConfig("train", "train",
+14. train — llama3.2-1b at full width and 4 of its 16 layers (the
+   script's time limit; 0.51 B parameters, fp32 masters, bf16 compute,
+   block remat), ``ShapeConfig("train", "train",
    512, 8)``: 20 ``AdamW(lr=3e-4, warmup_steps=3, total_steps=20)`` steps
    on one fixed ``SyntheticLM`` batch (step 0, 8 x 512): every loss
    finite, the last at least 1.0 nat below the first; the forward
@@ -183,9 +184,10 @@ Phases, each raising on failure:
    (``ShapeConfig("serve", "prefill", 64, 8)``, BN folded into the convs)
    with phase 5's launches by schedule and limits, and ``measure("train")``;
 15. tune — the static verifier and the tuning stack: ``verify_plan`` on the
-   card's plan of every ported config (three CNNs at batch 8, eight LMs at
+   card's plan of every ported config (three CNNs at batch 8, ten LMs at
    ``ShapeConfig("serve", "decode", 1024, 8)``; no weight is made), all
-   ``ok (9 checks)`` with no diagnostic, each hand kernel's largest
+   ``ok`` of 9 checks with no diagnostic but whisper-small's K204 warning
+   (its cross-attention stays off the flash kernel), each hand kernel's largest
    working set (the shared bytes a block asks for) printed and every
    call's working set held to the kernel library's own ``*_smem`` query;
    the survivors of each measured search built and run once, untimed,
@@ -200,7 +202,8 @@ Phases, each raising on failure:
    search on the same database a hit with nothing measured, and a
    ``validate="compile"`` search whose one survivor's footprint is a
    measured step's peak of allocated memory; llama3.2-1b
-   at full width through ``autotune_decode`` (``ServingProfile(
+   at full width and 4 of its 16 layers (the script's time limit) through
+   ``autotune_decode`` (``ServingProfile(
    batch_buckets=(4, 8), max_seq_len=1024, block_sizes=(16, 32))``,
    ``validate="measure"``, three timed runs a candidate, bench and
    replay, the speculation replay on an envelope of 128 tokens): all six
@@ -224,9 +227,9 @@ Phases, each raising on failure:
    kernel, SDPA and the plain version; ``matmul_fused`` at each model's
    projection shapes at the prefill's rows and 8;
 17. MoE and multimodal path — deepseek-moe-16b at full width and depth
-   (16.4 B parameters), mixtral-8x7b at full width cut to 8 of its 32
-   layers (93 GB in bf16 whole; the script's time limit) and
-   llava-next-mistral-7b at full width and depth (a 1024-token prompt a
+   (16.4 B parameters), and at full width cut in depth for the script's
+   time limit mixtral-8x7b at 4 of its 32 layers (93 GB in bf16 whole)
+   and llava-next-mistral-7b at 8 of its 32 (a 1024-token prompt a
    row whose first 576 positions are patch embeddings from
    ``RandomState(0)``, ``ShapeConfig("serve", "decode", 2048, 8)``);
    random weights from seed 0, drawn once in bf16 (the fp32 runs take
@@ -245,10 +248,45 @@ Phases, each raising on failure:
    patches); ``Engine.run`` on workload A (deepseek bf16 and fp32, mixtral
    bf16) with its launches by schedule, the pool's bytes and the real
    prompt picks capacity dropped in the padded prefill batches, fp32
-   tokens identical to the reference backend's ``Engine.run``.
+   tokens identical to the reference backend's ``Engine.run``;
+18. family kernels — at whisper-small's geometries (12 over 12 heads of
+   64, d_model 768, d_ff 3072), bf16 and fp32: ``flash_attention``
+   non-causal over the encoder's 8 x 1500 frames (1500 is no multiple of
+   the kernels' 64- or 128-row tiles) and causal at the decoder's 8 x 128
+   prompt, ``decode_attention`` over the 448-slot cache, each beside its
+   SIMT kernel, SDPA and the plain version; ``matmul_fused`` at every
+   projection (768 -> 768, 768 -> 3072 with bias and tanh-GELU, 3072 ->
+   768 with bias) at the encoder's 12,000 rows, the prompt's 1024 and 8,
+   beside ``torch.addmm`` (+ GELU);
+19. family path — rwkv6-7b at full width and depth (7.62 B parameters;
+   ``ShapeConfig("serve", "decode", 1024, 8)``, a 512-token prompt a row):
+   bf16 then fp32 (the bf16 draw widened), ``generate`` of 32 tokens with
+   no kernel launched (its projections are library products, its WKV
+   recurrence plain PyTorch, as JAX computes both outside Pallas), the
+   fp32 tokens of 4 steps each the argmax of a teacher-forced prefill; at
+   the first 4 layers of the same weights (the model carries a last-bit
+   difference far through 32 layers: the full depth's figures, and the
+   fp32 logits under a 1e-7 nudge of the embedding, are recorded beside)
+   the bf16 prefill's logits within 5e-2 of the fp32 prefill's and the
+   fp32 decode within 2e-4 of a teacher-forced prefill; in bf16
+   ``measure`` with profiles and the WKV recurrence's ms a prefill and a
+   step, ``Engine.run`` refused (no self-attention KV state); the card
+   against the host CPU at 2 layers, full width (bf16 < 5e-2, fp32 <
+   1e-4).  Then whisper-small at full width and depth
+   (``ShapeConfig("serve", "decode", 448, 8)``: a 128-token prompt a row,
+   then ``randn(8, 1500, 768)`` frames, from ``RandomState(0)``):
+   ``generate`` of 32 tokens with the launches the plan says (24 flash a
+   prefill, 12 non-causal and 12 causal, and 192 projections; 12
+   decode_attention and 96 projections a step; cross-attention on the
+   reference op), the prefill and 4 teacher-forced steps against the
+   ``reference`` backend (bf16 within 5e-2, fp32 within 1e-4), fp32 tokens
+   identical to it, the fp32 decode against a teacher-forced prefill, a
+   second draw of the frames moving the cross-attention K/V, ``measure``
+   and profiles in bf16, ``Engine.run`` refused (a request has no frames).
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
-9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17. Every path phase also reads
+9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
+and 19. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -259,9 +297,9 @@ on ``wgmma``, its first conv on ``small_ci`` and its 32-channel pointwise
 conv on ``mid_ci``, LeNet-5 2 on ``small_ci``; no conv on ``simt``.
 Every path phase reads flash_attention's launches by schedule too: in bf16
 all on ``wgmma`` (llama's prefill, serving A-D, the hybrid's generate,
-window run and workload R, the dense family's, the MoE family's and
-llava's generates and workload A), in fp32 all on ``ffma``, none on
-``simt``; and decode_attention's and paged_decode_attention's: in bf16
+window run and workload R, the dense family's, the MoE family's,
+llava's and whisper's generates and workload A), in fp32 all on ``ffma``,
+none on ``simt``; and decode_attention's and paged_decode_attention's: in bf16
 all on ``mma`` (llama's generate and each decode step, serving A-D, the
 hybrid's generate, window run and workload R, the dense family's, the MoE
 family's and llava's generates, decode steps and workload A),
@@ -916,7 +954,7 @@ def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
             "library_ms": timer(library) if lib else None}
 
 
-def _flash_simt(q, k, v, window):
+def _flash_simt(q, k, v, window, causal=True):
     """The SIMT kernel on the same operands, launched directly (no wrapper
     counts it): the schedule bf16 and fp32 at D >= 64 ran on before the
     wgmma and ffma kernels."""
@@ -930,16 +968,17 @@ def _flash_simt(q, k, v, window):
     def run():
         _build.call("flash_attention", _build.DTYPE_CODES[q.dtype],
                     *[t.data_ptr() for t in (q, k, v, pos, pos, out)],
-                    b, S, S, H, KV, D, 1, int(window or 0), 0.0, 0,
-                    _build.stream())
+                    b, S, S, H, KV, D, int(causal), int(window or 0), 0.0,
+                    0, _build.stream())
         return out
     return run
 
 
 def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
-                iters=20):
+                iters=20, causal=True):
     """flash_attention, causal, at llama3.2-1b's prefill by default; with
-    ``window`` the keys older than it are masked (recurrentgemma-2b).  The
+    ``window`` the keys older than it are masked (recurrentgemma-2b); with
+    ``causal=False`` every key of the row is live (whisper's encoder).  The
     schedule the wrapper took, its CUDA-graph device time (and by events)
     beside the plain version's, SDPA's (and the name of the kernel SDPA
     ran) and the bound; the SIMT kernel's at the same shape, held to the
@@ -954,8 +993,8 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
     kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     if window is None:
-        pairs = S * (S + 1) / 2                      # causal pairs only
-        sdpa = dict(is_causal=True)
+        pairs = S * (S + 1) / 2 if causal else S * S  # the live pairs only
+        sdpa = dict(is_causal=causal)
     else:
         ar = torch.arange(S, device=dev)
         mask = (ar[None, :] <= ar[:, None]) & (ar[None, :] > ar[:, None]
@@ -966,10 +1005,11 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
 
     def kern():
-        return ka.flash_attention(q, k, v, causal=True, window=window)
+        return ka.flash_attention(q, k, v, causal=causal, window=window)
 
     def plain():
-        return ka.flash_attention_plain(q, k, v, causal=True, window=window)
+        return ka.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
     s0 = read_schedules("flash_attention")
     kern()
     sched = [n for n, c in read_schedules("flash_attention").items()
@@ -983,11 +1023,12 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
                                               **sdpa).transpose(1, 2)
     c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=iters,
                     timer=lambda fn: graph_ms(fn, iters))
-    c.update(shape=f"prefill_B{b}_S{S}_H{H}_KV{KV}_D{D}_causal"
+    c.update(shape=f"prefill_B{b}_S{S}_H{H}_KV{KV}_D{D}_"
+                   + ("causal" if causal else "noncausal")
                    + (f"_window{window}" if window else ""), rows=b,
              schedule=sched[0], event_ms=cuda_ms(kern, iters, 1),
              timer="cuda_graph", library_kernels=_kernel_names(library))
-    simt = _flash_simt(q, k, v, window)
+    simt = _flash_simt(q, k, v, window, causal)
     p, y = plain(), simt()
     err = relerr(y, p)
     if err >= TOL[dt]:
@@ -1135,8 +1176,10 @@ def _graph_times(c, kern, library, iters=100):
 COLD_BYTES = 100e6
 
 
-def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
-    """matmul_fused at one projection shape: the kernel the wrapper's
+def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
+                    bias=False, act=None):
+    """matmul_fused at one projection shape (with ``bias`` a bias vector in
+    the epilogue, then ``act``; the GLU pair's act is SiLU): the kernel the wrapper's
     schedule picks, held against the plain version; its device time beside
     the SIMT kernel's at the same shape (the old schedule, bf16 only, also
     held against the plain version), the plain version's, ``torch.matmul``'s
@@ -1153,7 +1196,9 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
     x = torch.randn(M, K, generator=gen, device=dev).to(dt)
     ws = [[(torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(dt)
            for _ in range(n_w)] for _ in range(copies)]
-    act = "silu" if glu else None
+    bv = (torch.randn(N, generator=gen, device=dev) * 0.1).to(dt) \
+        if bias else None
+    act = "silu" if glu else act
     turn = [0]
 
     def nxt():
@@ -1163,21 +1208,25 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
 
     def kern():
         w, w2 = nxt()
-        return km.matmul_fused(x, w, w2=w2, act=act, out_dtype=dt)
+        return km.matmul_fused(x, w, bias=bv, w2=w2, act=act, out_dtype=dt)
 
     def plain():
         w, w2 = nxt()
-        return km.matmul_fused_plain(x, w, w2=w2, act=act, out_dtype=dt)
+        return km.matmul_fused_plain(x, w, bias=bv, w2=w2, act=act,
+                                     out_dtype=dt)
 
     def library():                              # cuBLAS, the yardstick only
         w, w2 = nxt()
+        if bias:                   # addmm (+ tanh-GELU): the bias epilogue
+            y = torch.addmm(bv, x, w)
+            return F.gelu(y, approximate="tanh") if act == "gelu" else y
         if not glu:
             return torch.matmul(x, w)
         return (F.silu(torch.matmul(x, w).float())
                 * torch.matmul(x, w2).float()).to(dt)
 
-    simt_calls = [km._prepare(x, w[0], w2=w[1] if glu else None, act=act,
-                              out_dtype=dt) for w in ws]
+    simt_calls = [km._prepare(x, w[0], bias=bv, w2=w[1] if glu else None,
+                              act=act, out_dtype=dt) for w in ws]
 
     def simt():                                 # the old kernel, same shape
         turn[0] = (turn[0] + 1) % copies
@@ -1185,7 +1234,7 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
 
     def simt_wrapper():
         w, w2 = nxt()
-        return _simt_wrapper(x, w, w2=w2, act=act, out_dtype=dt)
+        return _simt_wrapper(x, w, bias=bv, w2=w2, act=act, out_dtype=dt)
 
     turn[0] = copies - 1
     c0 = read_schedules()
@@ -1227,12 +1276,15 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False):
     turn[0] = copies - 1
     lib_err = relerr(library(), p)
     flops = 2.0 * M * K * N * n_w
-    nbytes = (M * K + n_w * K * N + M * N) * x.element_size()
+    nbytes = (M * K + n_w * K * N + M * N + (N if bias else 0)) \
+        * x.element_size()
     bms, by = bound_ms(flops, nbytes, dt)
     iters = copies * -(-20 // copies) if M <= 64 else 5
     ms = graph_ms(kern, iters)
     simt_ms = graph_ms(simt, iters) if old else ms
-    return {"shape": f"{name}_{M}x{K}x{N}" + ("_glu" if glu else ""),
+    return {"shape": f"{name}_{M}x{K}x{N}" + ("_glu" if glu else "")
+                     + ("_bias" if bias else "")
+                     + (f"_{act}" if act and not glu else ""),
             "dtype": str(dt).split(".")[-1], "rows": M, "schedule": sched[0],
             "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
             "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
@@ -1547,13 +1599,21 @@ def _plan_launches(plan, mode):
     """Kernel launches one ``mode`` call of the model makes, derived from
     the plan: its live attention, matmul and RG-LRU ops, times each unit's
     reps (an RG-LRU scans with ``lru_scan`` in prefill; its decode step is
-    plain elementwise work, so a model with one wants 0 there)."""
+    plain elementwise work, so a model with one wants 0 there).
+    Cross-attention runs on the reference op (the registry keeps it off
+    the kernel, as JAX's does), and decode skips the prompt-only ``enc*``
+    and ``mm`` blocks."""
     from repro_torch.core.lowering import live_ops
     want = {"flash_attention": 0, "decode_attention": 0, "matmul_fused": 0}
     for unit in plan.units:
+        b0 = plan.graph.blocks[unit.indices[0]]
+        if mode == "decode" and (b0.kind.startswith("enc") or b0.kind == "mm"):
+            continue
         for j in range(unit.period):
             blk = plan.graph.blocks[unit.indices[j]]
             for op in live_ops(blk, mode):
+                if op.op == "attention" and op.attrs.get("cross"):
+                    continue
                 if op.op == "attention":
                     k = "flash_attention" if mode == "prefill" \
                         else "decode_attention"
@@ -1575,12 +1635,20 @@ def _counted(got, want, what):
     return got
 
 
+def _real_vocab(y, yr):
+    """Logits ``y`` and ``yr`` without the padded vocab entries, which
+    ``op_unembed`` sets to -1e9 at the end of the last axis (whisper pads
+    51865 to 51872): left in, they would set the scale of ``relerr``."""
+    n = int((yr.reshape(-1, yr.shape[-1])[0] > -1e8).sum())
+    return y[..., :n], yr[..., :n]
+
+
 def _lm_check_logits(what, y, yr, tol):
     b, V = yr.shape[0], yr.shape[-1]
     if tuple(y.shape) != (b, 1, V) or not torch.isfinite(y.float()).all():
         raise AssertionError(f"{what}: logits {tuple(y.shape)} not finite "
                              f"({b}, 1, {V})")
-    err = relerr(y, yr)
+    err = relerr(*_real_vocab(y, yr))
     if err >= tol:
         raise AssertionError(f"{what}: logits relerr {err} vs the reference "
                              f"backend (tol {tol})")
@@ -2596,10 +2664,10 @@ def phase_rec_path(smi):
 # workload A (llama's serving configuration: 8 slots of 1024 tokens in
 # blocks of 16, a pool of 513 blocks), bf16 then fp32.
 DENSE_ARCHS = ("qwen1.5-4b", "phi4-mini-3.8b", "stablelm-1.6b")
-# phase 13 runs each at a quarter of its depth (10 / 8 / 6 layers of 40 /
-# 32 / 24): the script's time limit, once phases 16-17 joined; widths,
-# heads and every check as at full depth
-DENSE_DEPTH = {"qwen1.5-4b": 10, "phi4-mini-3.8b": 8, "stablelm-1.6b": 6}
+# phase 13 runs each at 4 layers (of 40 / 32 / 24): the script's time
+# limit, once phases 16-19 joined; widths, heads and every check as at
+# full depth
+DENSE_DEPTH = {"qwen1.5-4b": 4, "phi4-mini-3.8b": 4, "stablelm-1.6b": 4}
 
 
 def _heads(arch):
@@ -2876,9 +2944,12 @@ def phase_dense_path(smi):
 MOE_ARCHS = ("deepseek-moe-16b", "mixtral-8x7b")
 VLM_ARCH = "llava-next-mistral-7b"
 NEW_ARCHS = MOE_ARCHS + (VLM_ARCH,)
-# mixtral-8x7b is 93 GB in bf16 whole: 8 of its 32 layers run, in bf16 and
-# in fp32 (16 would fit in bf16; the script's time limit cuts them to 8)
-DEPTH_CUT = {"mixtral-8x7b": 8}
+# phase 17 runs deepseek-moe-16b whole, mixtral-8x7b at 4 of its 32
+# layers (93 GB in bf16 whole) and llava at 8 of its 32, in bf16 and in
+# fp32: the script's time limit (the phase took 213 s of it with mixtral
+# at 8 and llava whole); widths, heads, experts and every check as at full
+# depth
+DEPTH_CUT = {"mixtral-8x7b": 4, "llava-next-mistral-7b": 8}
 # llava's cell: a 1024-token prompt whose first 576 positions are the patch
 # embeddings, in a 2048-slot cache
 VLM_S, VLM_C = 1024, 2048
@@ -3222,7 +3293,7 @@ def _widen(params):
 
 def _expert_ms(cm, params):
     """CUDA-event ms of one decode step's expert products: a MoE layer's
-    three routed products over (E, B * cap, d) (``ops_impl._moe_bmm``, cap
+    three routed products over (E, B * cap, d) (``ops_impl._lib_dot``, cap
     1 at one token a row) and the shared experts' three, times the MoE
     layers; the step's share that runs outside any hand kernel."""
     from repro_torch.core import ops_impl
@@ -3242,13 +3313,13 @@ def _expert_ms(cm, params):
         if m.num_shared else None
 
     def fn():
-        h = (F.silu(ops_impl._moe_bmm(eb, wg, dt))
-             * ops_impl._moe_bmm(eb, wu, dt)).to(dt)
-        y = ops_impl._moe_bmm(h, wd, dt)
+        h = (F.silu(ops_impl._lib_dot(eb, wg, dt))
+             * ops_impl._lib_dot(eb, wu, dt)).to(dt)
+        y = ops_impl._lib_dot(h, wd, dt)
         if shared:
-            s = (F.silu(ops_impl._moe_bmm(x, shared[0], dt))
-                 * ops_impl._moe_bmm(x, shared[1], dt)).to(dt)
-            y = ops_impl._moe_bmm(s, shared[2], dt)
+            s = (F.silu(ops_impl._lib_dot(x, shared[0], dt))
+                 * ops_impl._lib_dot(x, shared[1], dt)).to(dt)
+            y = ops_impl._lib_dot(s, shared[2], dt)
         return y
     per_layer = cuda_ms(fn, 10, 2)
     return {"moe_layers": cfg.n_layers - m.first_dense_layers,
@@ -3465,9 +3536,9 @@ def _new_model(arch, smi):
 
 
 def phase_moe_path(smi):
-    """Phase 17: deepseek-moe-16b at full width and depth, mixtral-8x7b at
-    full width and 8 layers and llava-next-mistral-7b at
-    full width and depth (random weights from seed 0, drawn once in bf16;
+    """Phase 17: deepseek-moe-16b at full width and depth, mixtral-8x7b
+    and llava-next-mistral-7b at full width and ``DEPTH_CUT`` (random
+    weights from seed 0, drawn once in bf16;
     the fp32 runs take them widened) through ``flow.compile`` →
     ``generate`` and, for the MoE models, ``Engine.run``, one model after
     the other."""
@@ -3480,6 +3551,508 @@ def phase_moe_path(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last two families: rwkv6-7b (the WKV recurrence, no kernel on its
+# path) and whisper-small (the encoder-decoder)
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH, WH_ARCH = "rwkv6-7b", "whisper-small"
+# whisper's decoder context (n_text_ctx of arXiv:2212.04356's model
+# dimensions) and its decoder prompt
+WH_C, WH_S = 448, 128
+# the fp32 decode steps held to a prefill of the same tokens (and the
+# generated tokens to that prefill's argmax)
+TF_STEPS = 4
+TF_TOL = 2e-4                      # JAX's tests/test_models_smoke.py bound
+# rwkv6-7b at random weights carries a last-bit difference far through its
+# 32 layers: a 1e-7 nudge of the embedding moves its fp32 logits by
+# 3.7e-3, a decode step (its products summed in another order than the
+# prefill's) by 4.9e-3, and bf16 sits 0.16 from fp32 (0.027 at 4
+# layers; PERF.md §6).  The bounds of the teacher-forced and the
+# bf16-against-fp32 checks hold at the first RWKV_HELD layers of the same
+# weights and batch, and the full depth's figures are recorded beside
+# them
+RWKV_HELD = 4
+
+
+def _wh_matmuls(plan, S, E):
+    """whisper's matmul_fused calls as [(name, K, N, bias, act, rows,
+    launches)]: a prefill's (the encoder's and the decoder's cross-attention
+    K/V projections at B x E rows, the decoder's others at B x S) and a
+    decode step's (B rows: the decoder's self-attention, cross-attention
+    query and output, and MLP), each with its launches per prefill or per
+    step, the epilogue as the fusion pass left it."""
+    from repro_torch.core.lowering import live_ops
+    uses = {}
+    for mode in ("prefill", "decode"):
+        for unit in plan.units:
+            for j in range(unit.period):
+                blk = plan.graph.blocks[unit.indices[j]]
+                enc = blk.kind.startswith("enc")
+                if mode == "decode" and enc:
+                    continue
+                for op in live_ops(blk, mode):
+                    if op.op == "glu_matmul":
+                        raise AssertionError("whisper has no GLU pair")
+                    if op.op != "matmul":
+                        continue
+                    K, N = op.params[0].shape
+                    rows = B if mode == "decode" else \
+                        B * (E if enc or op.ins[0] == "cross" else S)
+                    key = (K, N, bool(op.attrs.get("bias")),
+                           op.attrs.get("act"), rows)
+                    uses[key] = uses.get(key, 0) + unit.reps
+    return [(f"{K}to{N}", K, N, b, a, rows, n)
+            for (K, N, b, a, rows), n in uses.items()]
+
+
+def phase_family_kernels():
+    """Phase 18: the kernels at whisper-small's geometries (12 heads over
+    12 of 64, d_model 768, d_ff 3072), bf16 and fp32: flash_attention
+    non-causal over the encoder's 8 x 1500 frames (1500 is no multiple of
+    the 64- or 128-row tiles) and causal at the decoder's 8 x 128 prompt,
+    decode_attention over the 448-slot cache at position 143, each beside
+    its SIMT kernel, SDPA and the plain version; matmul_fused at every
+    projection of the plan (768 -> 768; 768 -> 3072 + bias + tanh-GELU;
+    3072 -> 768 + bias) at the encoder's 12,000 rows, the decoder prompt's
+    1024 and a decode step's 8, beside ``torch.addmm`` (+ GELU).  rwkv6-7b
+    has no case: no kernel runs on its path (JAX computes its projections
+    and recurrence outside Pallas)."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cfg = get_config(WH_ARCH)
+    a, E = cfg.attention, cfg.encoder_seq
+    heads = dict(H=a.n_heads, KV=a.n_kv_heads, D=a.head_dim)
+    plan = tflow.compile(cfg, ShapeConfig("serve", "decode", WH_C, B),
+                         FlowConfig(mode="folded")).plan
+    cases = {"flash_attention": [], "decode_attention": [],
+             "matmul_fused": []}
+    for dt in (torch.bfloat16, torch.float32):
+        made = [("flash_attention",
+                 _flash_case(dt, gen, S=E, causal=False, **heads)),
+                ("flash_attention", _flash_case(dt, gen, S=WH_S, **heads)),
+                ("decode_attention", _decode_case(
+                    dt, gen, C=WH_C, qpos=WH_S + LM_STEPS // 2 - 1,
+                    **heads))]
+        for kname, c in made:
+            cases[kname].append({**c, "arch": WH_ARCH})
+            log(json.dumps({"kernel": kname, "arch": WH_ARCH, **c}))
+        for name, K, N, bias, act, rows, uses in _wh_matmuls(plan, WH_S, E):
+            c = _lm_matmul_case(name, rows, K, N, False, dt, gen, uses,
+                                bias=bias, act=act)
+            cases["matmul_fused"].append({**c, "arch": WH_ARCH})
+            log(json.dumps({"kernel": "matmul_fused", "arch": WH_ARCH, **c}))
+    for kname in ("flash_attention", "decode_attention"):
+        cases[kname] += [_simt_twin(c) for c in cases[kname]]
+    return cases
+
+
+def _flash_by_causal(fn):
+    """``fn()`` with the op layer's flash_attention calls counted by their
+    ``causal`` flag (the wrapper's own count does not split them): (its
+    result, {"causal": n, "noncausal": n})."""
+    from repro_torch.core import ops_impl
+    seen = {"causal": 0, "noncausal": 0}
+    resolve = ops_impl.plan_kernel
+
+    def counted_plan_kernel(plan, op, **facts):
+        kern = resolve(plan, op, **facts)
+        if op != "attention" or kern is None:
+            return kern
+
+        def flash(*args, causal=True, **kw):
+            seen["causal" if causal else "noncausal"] += 1
+            return kern(*args, causal=causal, **kw)
+        return flash
+    ops_impl.plan_kernel = counted_plan_kernel
+    try:
+        out = fn()
+    finally:
+        ops_impl.plan_kernel = resolve
+    return out, seen
+
+
+def _teacher_forced(cm, params, batch, toks, steps=TF_STEPS, held=True):
+    """The fp32 decode logits at each of the first ``steps`` steps after
+    the prompt against a prefill of the prompt and the generated tokens up
+    to that step (the same tokens, teacher-forced): relerr < ``TF_TOL``
+    (with ``held=False`` recorded only), and each generated token the
+    argmax of that prefill's logits (with the smallest top-2 gap of those
+    logits recorded)."""
+    prompt = batch["tokens"]
+    S = prompt.shape[1]
+    _, st, _ = cm.prefill(params, batch)
+    errs, gap = [], None
+    for t in range(steps):
+        y, st, _ = cm.decode(params, {"tokens": toks[:, t:t + 1].long()}, st,
+                             S + t)
+        full = {**batch, "tokens": torch.cat([prompt, toks[:, :t + 1].long()],
+                                             1)}
+        yr, _, _ = cm.prefill(params, full)
+        err = relerr(*_real_vocab(y, yr))
+        top = yr[:, -1].float().topk(2, dim=-1).values
+        g = float((top[:, 0] - top[:, 1]).min())
+        gap = g if gap is None else min(gap, g)
+        if held and err >= TF_TOL:
+            raise AssertionError(f"decode step {t}: relerr {err} vs the "
+                                 f"teacher-forced prefill (tol {TF_TOL})")
+        if t + 1 < toks.shape[1] and not torch.equal(
+                yr[:, -1].argmax(-1).to(torch.int32), toks[:, t + 1]):
+            raise AssertionError(f"step {t}: generated tokens differ from "
+                                 f"the teacher-forced prefill's argmax "
+                                 f"(smallest top-2 gap {g})")
+        errs.append(err)
+    return {"teacher_forced_steps": steps,
+            "teacher_forced_relerr_max": max(errs), "held": held,
+            "tokens_are_prefill_argmax": True, "min_top2_gap": gap}
+
+
+def _wkv_ms(cm):
+    """CUDA-event ms of the WKV recurrence of one prefill (``_wkv_chunked``
+    at the cell's (B, S, H, dh) and the plan's chunk) and of one decode
+    step (``_wkv_step`` on the (B, H, dh, dh) state), each times the
+    model's layers, on random fp32 inputs: the work outside any hand
+    kernel."""
+    from repro_torch.core import ops_impl
+    r = cm.cfg.recurrence
+    L, H, dh = cm.cfg.n_layers, r.n_heads, r.head_dim
+    chunk = cm.plan.tiles.get("wkv_chunk", 32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+    rk, kk, vk = (rnd(B, LM_S, H, dh) for _ in range(3))
+    w = -torch.exp(rnd(B, LM_S, H, dh, scale=0.5) - 1.5)
+    u = rnd(H, dh, scale=0.5)
+    pre = cuda_ms(lambda: ops_impl._wkv_chunked(rk, kk, vk, w, u, chunk),
+                  3, 1)
+    st = rnd(B, H, dh, dh)
+    one = [t[:, 0] for t in (rk, kk, vk, torch.exp(w))]
+    step = cuda_ms(lambda: ops_impl._wkv_step(st, *one, u), 20, 3)
+    return {"chunk": chunk, "prefill_ms_per_layer": pre,
+            "prefill_ms": pre * L, "step_ms_per_layer": step,
+            "step_ms": step * L}
+
+
+def _nudged(params, seed=SEED):
+    """``params`` with the embedding table moved by one part in 1e7, each
+    entry up or down at random: a perturbation the size of an fp32
+    rounding, to read how far the model carries one."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    t = params["embed"]["table"]
+    sign = torch.randint(0, 2, t.shape, generator=g, device=t.device) * 2 - 1
+    return {**params, "embed": {"table": t * (1 + 1e-7 * sign)}}
+
+
+def _first_layers(cm, params, n):
+    """A compiled copy of ``cm`` cut to its first ``n`` layers, and the
+    parameter tree's matching slice (the folded leaves' first ``n``
+    repetitions)."""
+    from repro_torch import flow as tflow
+    cut = tflow.compile(dataclasses.replace(cm.cfg, n_layers=n), cm.shape,
+                        cm.flow)
+    return cut, {k: ({m: t[:n] for m, t in d.items()}
+                     if k.startswith("fold_") else d)
+                 for k, d in params.items()}
+
+
+def _rwkv_card_vs_cpu():
+    """rwkv6-7b at 2 layers and full width on the card and on the host CPU
+    from the same weights (drawn in bf16, widened for fp32): a prefill of 2
+    x 256 tokens and 2 decode steps, logits within ``PATH_TOL`` (fp32
+    1e-4: sums in another order; bf16 5e-2: the card's bf16 products,
+    ``bmm(..., out_dtype=float32)``, and the host's fp32 products of the
+    same rounded operands land on either side of a bf16 rounding)."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=2)
+    shape = ShapeConfig("serve", "decode", 512, 2)
+    tok = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (2, 256)).astype(np.int64))
+    out, ph = {"layers": 2, "tokens": [2, 256], "decode_steps": 2}, None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        host = tflow.compile(cfg, shape, fl, device="cpu")
+        card = tflow.compile(cfg, shape, fl)
+        ph = host.init_params(SEED) if ph is None else \
+            {k: {n: t.float() for n, t in d.items()} for k, d in ph.items()}
+        pc = {k: {n: t.cuda() for n, t in d.items()} for k, d in ph.items()}
+        t0 = time.perf_counter()
+        yh, sh, _ = host.prefill(ph, {"tokens": tok})
+        host_s = time.perf_counter() - t0
+        yc, sc, _ = card.prefill(pc, {"tokens": tok.cuda()})
+        errs = [relerr(yc.cpu(), yh)]
+        for t in range(2):
+            nxt = yh[:, -1].argmax(-1)[:, None]
+            yh, sh, _ = host.decode(ph, {"tokens": nxt}, sh, 256 + t)
+            yc, sc, _ = card.decode(pc, {"tokens": nxt.cuda()}, sc, 256 + t)
+            errs.append(relerr(yc.cpu(), yh))
+        if max(errs) >= PATH_TOL[prec]:
+            raise AssertionError(f"rwkv {prec} card vs CPU: logits relerr "
+                                 f"{errs} (tol {PATH_TOL[prec]})")
+        out[prec] = {"relerr": errs, "host_prefill_s": host_s}
+        del pc, card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rwkv_model(smi):
+    """rwkv6-7b at full width and depth, bf16 then fp32 (the bf16 draw
+    widened): ``generate`` of 32 tokens after a 512-token prompt a row with
+    no kernel launched (its projections are library products and its WKV
+    recurrence plain PyTorch, as in JAX); the fp32 generate's tokens each
+    the argmax of a teacher-forced prefill of the same tokens; at the first
+    ``RWKV_HELD`` layers the bf16 prefill's logits within 5e-2 of the fp32
+    prefill's and the fp32 decode within 2e-4 of the teacher-forced
+    prefill, with the full depth's figures recorded beside them (and the
+    fp32 prefill under a 1e-7 nudge of the embedding: how far the model
+    carries a last-bit difference); in bf16 ``measure`` and profiles and the WKV's ms,
+    ``Engine.run`` refused; then the card against the host CPU at 2
+    layers."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = get_config(RWKV_ARCH)
+    shape = ShapeConfig("serve", "decode", LM_C, B)
+    rec = {"arch": RWKV_ARCH, "nvidia_smi": smi, "prompt": LM_S,
+           "cache": LM_C, "layers": cfg.n_layers}
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, LM_S)).astype(np.int64)).cuda()}
+    none = {"flash_attention": 0, "decode_attention": 0, "matmul_fused": 0}
+    params = y16 = y16_cut = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(cfg, shape, fl)
+        if _plan_launches(cm.plan, "prefill") != none or \
+                _plan_launches(cm.plan, "decode") != none:
+            raise AssertionError(f"{RWKV_ARCH}: a kernel op in the plan")
+        t0 = time.perf_counter()
+        if prec == "bf16":
+            rec["units"] = cm.describe().splitlines()[2].strip()
+            params = cm.init_params(SEED)
+        else:
+            params = _widen(params)
+        torch.cuda.synchronize()
+        rec[f"params_s_{prec}"] = time.perf_counter() - t0
+        rec[f"params_{prec}"] = sum(t.numel() for d in params.values()
+                                    for t in d.values())
+        rec[f"weight_bytes_{prec}"] = sum(
+            t.numel() * t.element_size() for d in params.values()
+            for t in d.values())
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, _ = cm.generate(params, batch, steps=LM_STEPS)
+        torch.cuda.synchronize()
+        g = {"generate_s": time.perf_counter() - t0,
+             "launches": _counted(read_counts(), {}, f"{prec} generate"),
+             "tokens_row0": toks[0].tolist()}
+        if tuple(toks.shape) != (B, LM_STEPS) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"generate: tokens {tuple(toks.shape)}")
+        y, _, _ = cm.prefill(params, batch)
+        if tuple(y.shape) != (B, 1, cfg.padded_vocab) or \
+                not torch.isfinite(y.float()).all():
+            raise AssertionError(f"{prec} prefill: logits {tuple(y.shape)}")
+        if prec == "bf16":
+            y16 = y.float()
+            cut, pc = _first_layers(cm, params, RWKV_HELD)
+            y16_cut = cut.prefill(pc, batch)[0].float()
+            del cut, pc
+            cm_p = tflow.compile(cfg, ShapeConfig("serve", "prefill", LM_S,
+                                                  B), fl)
+            mp = cm_p.measure("prefill", iters=3, seed=SEED, params=params)
+            md = cm.measure("decode", iters=20, seed=SEED, params=params)
+            dstate = cm.init_state(B)
+            dtok = {"tokens": batch["tokens"][:, :1]}
+            rec["measure"] = {
+                "device": mp["device"],
+                "prefill_ms": mp["measured_step_s"] * 1e3,
+                "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+                "prefill_tokens_per_s": mp["tokens_per_s"],
+                "prefill_peak_bytes": mp["peak_bytes"],
+                "decode_ms": md["measured_step_s"] * 1e3,
+                "decode_mean_ms": md["mean_step_s"] * 1e3,
+                "decode_tokens_per_s": md["tokens_per_s"],
+                "decode_peak_bytes": md["peak_bytes"],
+                "prefill_profile": _profile(
+                    lambda: cm_p.prefill(params, batch), 2),
+                "decode_profile": _profile(
+                    lambda: cm.decode(params, dtok, dstate, 100), 5),
+                "wkv": _wkv_ms(cm)}
+            log(json.dumps({"family_measure": RWKV_ARCH, **rec["measure"]}))
+            eng = Engine(cm, params, EngineConfig(
+                max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+                block_size=SERVE_BS))
+            rec["engine_refusal"] = _refused(
+                f"{RWKV_ARCH} Engine.run",
+                lambda: eng.run(_serve_workloads(cfg.vocab_size)["A"][:2]),
+                "has no self-attention KV state")
+            if eng.last_cache is not None:
+                raise AssertionError(f"{RWKV_ARCH}: Engine.run made a pool")
+            del cm_p, dstate, eng
+        else:
+            # at full depth recorded; held at the first RWKV_HELD layers
+            g["bf16_prefill_relerr_vs_fp32"] = relerr(y16, y.float())
+            g["nudged_prefill_relerr"] = relerr(
+                cm.prefill(_nudged(params), batch)[0], y)
+            g.update(_teacher_forced(cm, params, batch, toks, held=False))
+            cut, pc = _first_layers(cm, params, RWKV_HELD)
+            ct, _ = cut.generate(pc, batch, steps=TF_STEPS + 1)
+            g[f"layers_{RWKV_HELD}"] = {
+                "bf16_prefill_relerr_vs_fp32": _lm_check_logits(
+                    f"{RWKV_HELD}-layer bf16 prefill vs fp32",
+                    y16_cut, cut.prefill(pc, batch)[0], PATH_TOL["bf16"]),
+                **_teacher_forced(cut, pc, batch, ct)}
+            del cut, pc
+        rec[f"generate_{prec}"] = g
+        log(json.dumps({"family_generate": RWKV_ARCH, "precision": prec,
+                        **g}))
+        del cm, y
+        torch.cuda.empty_cache()
+    del params, y16, y16_cut
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = _rwkv_card_vs_cpu()
+    log(json.dumps({"family_card_vs_cpu": RWKV_ARCH, **rec["card_vs_cpu"]}))
+    return rec
+
+
+def _whisper_model(smi):
+    """whisper-small at full width and depth, ``ShapeConfig("serve",
+    "decode", 448, 8)``, bf16 then fp32 (the bf16 draw widened): 8 x 128
+    prompt tokens then ``randn(8, 1500, 768)`` frames from
+    ``RandomState(0)``; ``generate`` of 32 tokens with the launches the plan
+    says (24 flash a prefill, 12 of them non-causal, 192 projections; 12
+    decode_attention and 96 projections a step; cross-attention on the
+    reference op), the prefill and teacher-forced steps against the
+    ``reference`` backend, fp32 tokens identical to it and the fp32 decode
+    against a teacher-forced prefill; in bf16 ``measure`` and profiles;
+    ``Engine.run`` refused (a request has no frames)."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = get_config(WH_ARCH)
+    L, E = cfg.n_layers, cfg.encoder_seq
+    shape = ShapeConfig("serve", "decode", WH_C, B)
+    rng = np.random.RandomState(SEED)
+    tokens = rng.randint(0, cfg.vocab_size, (B, WH_S)).astype(np.int64)
+    frames = rng.randn(B, E, cfg.d_model).astype(np.float32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "frames": torch.from_numpy(frames).cuda()}
+    rec = {"arch": WH_ARCH, "nvidia_smi": smi, "prompt": WH_S,
+           "frames": E, "cache": WH_C, "layers": [cfg.n_encoder_layers, L]}
+    params = params16 = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(cfg, shape, fl)
+        ref = tflow.compile(cfg, shape, fl, backend="reference")
+        ks = cm.plan.kernels
+        if any(ks[o] != "cuda" for o in ("attention", "decode_attention",
+                                         "matmul")):
+            raise AssertionError(f"{WH_ARCH}: plan.kernels {ks}")
+        want_p = _plan_launches(cm.plan, "prefill")
+        want_d = _plan_launches(cm.plan, "decode")
+        n_enc = cfg.n_encoder_layers
+        if want_p != {"flash_attention": n_enc + L, "decode_attention": 0,
+                      "matmul_fused": 6 * n_enc + 10 * L} or \
+                want_d != {"flash_attention": 0, "decode_attention": L,
+                           "matmul_fused": 8 * L}:
+            raise AssertionError(f"{WH_ARCH}: plan launches {want_p} / "
+                                 f"{want_d}")
+        if prec == "bf16":
+            rec["units"] = cm.describe().splitlines()[2].strip()
+            rec["kernels_line"] = cm.describe().splitlines()[-1].strip()
+            params = params16 = cm.init_params(SEED)
+        else:
+            params = _widened(params16)
+        rec[f"params_{prec}"] = sum(t.numel() for d in params.values()
+                                    for t in d.values())
+        g = _new_generate(cm, ref, params, batch, LM_STEPS, want_p, want_d,
+                          prec)
+        del g["routing_flips"]
+        reset_counts()
+        _, g["flash_by_causal"] = _flash_by_causal(
+            lambda: cm.prefill(params, batch))
+        if g["flash_by_causal"] != {"causal": L, "noncausal": n_enc} or \
+                read_counts()["flash_attention"] != n_enc + L:
+            raise AssertionError(f"{WH_ARCH} prefill: flash calls "
+                                 f"{g['flash_by_causal']}")
+        if prec == "fp32":
+            toks, _ = cm.generate(params, batch, steps=TF_STEPS + 1)
+            g.update(_teacher_forced(cm, params, batch, toks))
+        else:
+            other = {**batch, "frames": torch.from_numpy(
+                np.random.RandomState(SEED + 1).randn(
+                    B, E, cfg.d_model).astype(np.float32)).cuda()}
+            y1, s1, _ = cm.prefill(params, batch)
+            y2, s2, _ = cm.prefill(params, other)
+            xk = [st["fold_dec0"]["xdec_xkv0"]["k"] for st in (s1, s2)]
+            g["frames_moved"] = {"cross_k_relerr": relerr(xk[1], xk[0]),
+                                 "logits_relerr": relerr(*_real_vocab(y2,
+                                                                      y1))}
+            if not g["frames_moved"]["cross_k_relerr"] > 1e-2:
+                raise AssertionError(f"{WH_ARCH}: other frames moved the "
+                                     f"cross K/V by {g['frames_moved']}")
+            del s1, s2, xk
+            cm_p = tflow.compile(cfg, ShapeConfig("serve", "prefill", WH_S,
+                                                  B), fl)
+            mp = cm_p.measure("prefill", iters=5, seed=SEED, params=params)
+            md = cm.measure("decode", iters=20, seed=SEED, params=params)
+            pst = cm.prefill(params, batch)[1]
+            dtok = {"tokens": batch["tokens"][:, :1]}
+            rec["measure"] = {
+                "device": mp["device"],
+                "prefill_ms": mp["measured_step_s"] * 1e3,
+                "prefill_mean_ms": mp["mean_step_s"] * 1e3,
+                "prefill_tokens_per_s": mp["tokens_per_s"],
+                "prefill_peak_bytes": mp["peak_bytes"],
+                "decode_ms": md["measured_step_s"] * 1e3,
+                "decode_mean_ms": md["mean_step_s"] * 1e3,
+                "decode_tokens_per_s": md["tokens_per_s"],
+                "decode_peak_bytes": md["peak_bytes"],
+                "prefill_profile": _profile(
+                    lambda: cm_p.prefill(params, batch), 3),
+                "decode_profile": _profile(
+                    lambda: cm.decode(params, dtok, pst, WH_S), 5)}
+            log(json.dumps({"family_measure": WH_ARCH, **rec["measure"]}))
+            eng = Engine(cm, params, EngineConfig(
+                max_batch=SERVE_SLOTS, max_seq_len=WH_C, block_size=SERVE_BS))
+            rec["engine_refusal"] = _refused(
+                f"{WH_ARCH} Engine.run",
+                lambda: eng.run(_serve_workloads(cfg.vocab_size)["A"][:2]),
+                "frames")
+            if eng.last_cache is not None:
+                raise AssertionError(f"{WH_ARCH}: Engine.run made a pool")
+            del cm_p, pst, eng, y1, y2, other
+        rec[f"generate_{prec}"] = g
+        log(json.dumps({"family_generate": WH_ARCH, "precision": prec, **g}))
+        del cm, ref
+        torch.cuda.empty_cache()
+    del params, params16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_family_path(smi):
+    """Phase 19: rwkv6-7b and whisper-small at full width and depth through
+    ``flow.compile`` → ``generate`` (:func:`_rwkv_model`,
+    :func:`_whisper_model`), one after the other."""
+    out = {}
+    for arch, run in ((RWKV_ARCH, _rwkv_model), (WH_ARCH, _whisper_model)):
+        t0 = time.perf_counter()
+        out[arch] = run(smi)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {out[arch]['seconds']:.1f}s")
+    return out
+
+
 # kernels with schedules
 # ---------------------------------------------------------------------------
 # training: full-width llama3.2-1b and ResNet-34 on the card, then their
@@ -3487,6 +4060,9 @@ def phase_moe_path(smi):
 # ---------------------------------------------------------------------------
 
 TRAIN_S, TRAIN_STEPS, TRAIN_CNN_STEPS = 512, 20, 10
+# llama3.2-1b trains at full width and 4 of its 16 layers: the script's
+# time limit (the phase took 88-104 s of it at 16 layers)
+TRAIN_DEPTH = 4
 
 
 def _train_run(cm, opt, params, batch, steps, what, kernels):
@@ -3538,8 +4114,8 @@ def _tree_relerr(a, b):
                zip(tree_leaves(a), tree_leaves(b)))
 
 
-def _serve_trained_lm(params, prompt, smi):
-    """The trained llama weights through the kernels: cast to bf16 into
+def _serve_trained_lm(cfg, params, prompt, smi):
+    """The trained llama weights (of ``cfg``) through the kernels: cast to bf16 into
     ``ShapeConfig("serve", "decode", 1024, 8)``, a 32-step generate with
     the launches by schedule the plan says, the prefill's and every
     teacher-forced step's logits against the reference backend (< 5e-2);
@@ -3552,8 +4128,8 @@ def _serve_trained_lm(params, prompt, smi):
     out = {}
     for prec in ("bf16", "fp32"):
         fl = FlowConfig(mode="folded", precision=prec)
-        cm = tflow.compile(LM_ARCH, serve, fl)
-        ref = tflow.compile(LM_ARCH, serve, fl, backend="reference")
+        cm = tflow.compile(cfg, serve, fl)
+        ref = tflow.compile(cfg, serve, fl, backend="reference")
         p = tree_map(lambda t: t.to(torch.bfloat16), params) \
             if prec == "bf16" else params
         want_p = _plan_launches(cm.plan, "prefill")
@@ -3770,11 +4346,13 @@ def phase_train(smi):
     kernels, the backward through the reference ops), then the trained
     weights through the kernels."""
     from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import FlowConfig, ShapeConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import AdamW
     out = {}
-    cm = tflow.compile(LM_ARCH, ShapeConfig("train", "train", TRAIN_S, B),
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_DEPTH)
+    cm = tflow.compile(cfg, ShapeConfig("train", "train", TRAIN_S, B),
                        FlowConfig(mode="folded"))
     ks = cm.plan.kernels
     if any(ks[o] != "cuda" for o in ("attention", "matmul", "glu_matmul")):
@@ -3785,7 +4363,7 @@ def phase_train(smi):
     raw = SyntheticLM(DataConfig(vocab_size=cm.cfg.vocab_size,
                                  seq_len=TRAIN_S, global_batch=B)).get(0)
     batch = _device_batch(raw)
-    rec = {"arch": LM_ARCH, "shape": [B, TRAIN_S],
+    rec = {"arch": LM_ARCH, "layers": TRAIN_DEPTH, "shape": [B, TRAIN_S],
            "init_params_s": time.perf_counter() - t0,
            "remat": cm.flow.remat, "nvidia_smi": smi,
            "kernels_line": cm.describe().splitlines()[-1].strip()}
@@ -3812,7 +4390,7 @@ def phase_train(smi):
         f"{peak / 1e9:.2f} GB")
     del state
     torch.cuda.empty_cache()
-    rec["serve"] = _serve_trained_lm(params, batch["tokens"], smi)
+    rec["serve"] = _serve_trained_lm(cfg, params, batch["tokens"], smi)
     m = cm.measure("train", iters=5, seed=SEED, params=params)
     rec["measure"] = {"ms_per_step": m["measured_step_s"] * 1e3,
                       "mean_ms_per_step": m["mean_step_s"] * 1e3,
@@ -3851,10 +4429,17 @@ TUNE_PROFILE = dict(name="chip", batch_buckets=(4, SERVE_SLOTS),
                     max_seq_len=SERVE_SEQ, block_sizes=(16, 32))
 TUNE_ITERS = 3
 TUNE_SPEC_SEQ = 128
+# llama3.2-1b's autotune runs at full width and 4 of its 16 layers: its
+# replays are host-bound engine runs whose ticks grow with the layers, and
+# the script's time limit (at 16 layers the phase took 180 s of it)
+TUNE_DEPTH = 4
 # the ops a card plan must resolve to the hand kernels, by family
 CARD_OPS = {"cnn": ("conv2d", "matmul"),
             "lm": ("attention", "decode_attention", "paged_decode_attention",
                    "copy_block", "matmul", "glu_matmul")}
+# the one diagnostic a clean card plan carries: whisper's decoder
+# cross-attends, which the flash kernel's contract rejects statically
+CARD_WARNINGS = {"whisper-small": ("K204",)}
 
 
 def _verify_card_plans():
@@ -3880,7 +4465,7 @@ def _verify_card_plans():
             else ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
         cm = tflow.compile(name, shape, verify=True)
         res = cm.plan.verification
-        if not res.ok or res.diagnostics:
+        if not res.ok or tuple(res.codes()) != CARD_WARNINGS.get(name, ()):
             raise AssertionError(f"{name}: {res.describe()}")
         ks = cm.plan.kernels
         if any(ks[o] != "cuda" for o in CARD_OPS[fam]):
@@ -4073,8 +4658,9 @@ def _pinned_serve(at, cm, params, prec, works, smi):
 
 
 def _tune_llama(smi):
-    """llama3.2-1b at full width through ``autotune_decode`` (buckets 4 and
-    8, 1024 tokens, blocks of 16 or 32, measured) with the same database:
+    """llama3.2-1b at full width and ``TUNE_DEPTH`` layers through
+    ``autotune_decode`` (buckets 4 and 8, 1024 tokens, blocks of 16 or 32,
+    measured) with the same database:
     all six benches on the card, the block and chunk benches counted on
     ``paged_decode_attention``'s ``mma`` schedule, then the pinned engine on
     workload A in bf16 and, with the winner's flow in fp32, against the
@@ -4085,16 +4671,16 @@ def _tune_llama(smi):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FlowConfig
     prof = sat.ServingProfile(**TUNE_PROFILE)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TUNE_DEPTH)
     t0 = time.perf_counter()
     for b in prof.batch_buckets:
-        _warm_survivors(get_config(LM_ARCH), prof.shape_for(b),
-                        FlowConfig(mode="folded"))
+        _warm_survivors(cfg, prof.shape_for(b), FlowConfig(mode="folded"))
     torch.cuda.empty_cache()
     warm_s = time.perf_counter() - t0
     dse.clear_explore_cache()
     reset_counts()
     t0 = time.perf_counter()
-    at = sat.autotune_decode(LM_ARCH, profile=prof, validate="measure",
+    at = sat.autotune_decode(cfg, profile=prof, validate="measure",
                              iters=TUNE_ITERS, db=TUNE_DB, tune_spec=False)
     # the speculation replay on the same pinned flow and weights with an
     # envelope of TUNE_SPEC_SEQ tokens (the replay's length is the
@@ -4164,7 +4750,7 @@ def _tune_llama(smi):
         del cm, params
         at._params.clear()
         torch.cuda.empty_cache()
-    rec = {"warm_s": warm_s, "search_s": search_s,
+    rec = {"layers": TUNE_DEPTH, "warm_s": warm_s, "search_s": search_s,
            "describe": at.describe(),
            "winner_backend": at.flow_for().kernel_backend,
            "pin": {"bucket": at.best_bucket,
@@ -4520,6 +5106,37 @@ def new_kernel_entries(cases, new):
     return out
 
 
+def family_kernel_entries(cases, fam):
+    """Each kernel at whisper-small's geometries, summed over one generate
+    (flash at the encoder's and the decoder's prefill, each 12 a prefill;
+    the prefill's matmuls once; decode_attention and the 8-row matmuls at
+    each of 31 decode steps); ``launches`` counts whisper's generate of that
+    dtype.  rwkv6-7b has none: no kernel runs on its path."""
+    steps = LM_STEPS - 1
+    rec = fam[WH_ARCH]
+    n_enc, L = rec["layers"]
+    launches = {}
+    for dt, prec in (("bfloat16", "bf16"), ("float32", "fp32")):
+        g = rec[f"generate_{prec}"]
+        launches[dt] = _sched_launches(g["launches"], g["matmul_schedules"],
+                                       g["flash_schedules"],
+                                       decode=g["decode_schedules"])
+
+    def use(k, r):
+        if k.startswith("matmul_fused"):
+            return r["uses_per_forward"] * (steps if r["rows"] == B else 1)
+        if k.startswith("flash_attention"):
+            return n_enc if "noncausal" in r["shape"] else L
+        return L * steps
+
+    def per(kname, used):
+        return (f"one {WH_ARCH} generate: prefill of {B}x{rec['frames']} "
+                f"frames and {B}x{rec['prompt']} tokens, then {steps} "
+                "decode steps")
+    return summed_entries(_by_schedule(cases), launches, f"@{WH_ARCH}", per,
+                          use)
+
+
 KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
     "conv2d_fused[wgmma]": ("src/repro_torch/csrc/conv2d_wgmma.cu",
                             "src/repro/kernels/conv2d.py:64"),
@@ -4652,6 +5269,8 @@ def main() -> int:
     tune = timed(phase_tune, smi)
     moe_cases = timed(phase_moe_kernels)
     new = timed(phase_moe_path, smi)
+    fam_cases = timed(phase_family_kernels)
+    fam = timed(phase_family_path, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -4661,7 +5280,8 @@ def main() -> int:
         rec_kernel_entries({**rec_cases, "matmul_fused": rg_mm_cases}, rg) + \
         lru_kernel_entries(lru_cases) + \
         dense_kernel_entries(dense_cases, dense) + \
-        new_kernel_entries(moe_cases, new)
+        new_kernel_entries(moe_cases, new) + \
+        family_kernel_entries(fam_cases, fam)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -4675,6 +5295,7 @@ def main() -> int:
                    "dense_kernels": dense_cases, "dense_path": dense,
                    "train": train, "tune": tune,
                    "moe_kernels": moe_cases, "moe_path": new,
+                   "family_kernels": fam_cases, "family_path": fam,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -1,12 +1,12 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke(arch)``.
 
-The port's registry holds the paper's three CNNs and the LMs ported so
-far: the dense family (qwen1.5-4b, phi4-mini-3.8b, stablelm-1.6b,
-llama3.2-1b), the RG-LRU hybrid recurrentgemma-2b, the MoE family
-(deepseek-moe-16b, mixtral-8x7b) and the multimodal patch stub
-llava-next-mistral-7b.  ``ARCHS`` lists the LMs and ``CNNS`` the CNNs, each
-by its config's ``family``.  The RWKV6 and encoder-decoder configs join
-with their families (ROADMAP Queue 1, "Other model families").
+The port's registry holds the JAX package's thirteen configurations, in
+its order: the paper's three CNNs and the ten LMs, that is the dense
+family (qwen1.5-4b, phi4-mini-3.8b, stablelm-1.6b, llama3.2-1b), the RG-LRU
+hybrid recurrentgemma-2b, the MoE family (deepseek-moe-16b, mixtral-8x7b),
+the RWKV6 recurrence rwkv6-7b, the multimodal patch stub
+llava-next-mistral-7b and the encoder-decoder whisper-small.  ``ARCHS``
+lists the LMs and ``CNNS`` the CNNs, each by its config's ``family``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ _MODULES: Dict[str, str] = {
     "llama3.2-1b": "llama32_1b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "rwkv6-7b": "rwkv6_7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "whisper-small": "whisper_small",
     "lenet5": "lenet5",
     "mobilenetv1": "mobilenetv1",
     "resnet34": "resnet34",
@@ -46,6 +48,6 @@ def get_smoke(name: str) -> ModelConfig:
     return _mod(name).SMOKE
 
 
-# the LMs ported so far, and the paper's own networks
+# the LMs, and the paper's own networks
 ARCHS: List[str] = [a for a in _MODULES if get_config(a).family != "cnn"]
 CNNS: List[str] = [a for a in _MODULES if get_config(a).family == "cnn"]

@@ -72,6 +72,17 @@ def _init_one(seed: int, name: str, spec: ParamSpec,
                        dtype=torch.float32) * (0.999 - 0.9) + 0.9
         r = u ** (1.0 / 8.0)
         return torch.log(r / (1 - r)).to(dtype)
+    if spec.init == "rwkv_mix":
+        # the token-shift mixes: uniform on [0, 1)
+        return torch.rand(shape, generator=_generator(seed, name),
+                          dtype=torch.float32).to(dtype)
+    if spec.init == "rwkv_decay":
+        # the decay base and bonus: the deterministic ramp
+        # -6 + 5 (i / (n - 1))^0.9 over the last axis (no draw)
+        n = shape[-1]
+        ramp = -6.0 + 5.0 * (torch.arange(n, dtype=torch.float32)
+                             / max(n - 1, 1)) ** 0.9
+        return ramp.expand(shape).to(dtype)
     if spec.init == "embed":
         scale = spec.init_scale or shape[-1] ** -0.5
     elif spec.init == "normal":
@@ -80,8 +91,9 @@ def _init_one(seed: int, name: str, spec: ParamSpec,
         scale = spec.init_scale or fan_in ** -0.5
     else:
         raise NotImplementedError(
-            f"init {spec.init!r} of {name} is not ported yet (the port uses "
-            "normal, embed, lru_lambda, zeros and ones)")
+            f"unknown init {spec.init!r} of {name} (the JAX package's are "
+            "normal, embed, lru_lambda, rwkv_mix, rwkv_decay, zeros and "
+            "ones)")
     x = torch.randn(shape, generator=_generator(seed, name),
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)
@@ -188,11 +200,18 @@ def param_shapes(plan: ExecutionPlan) -> Dict[str, Any]:
 def _op_state_shapes(op: MicroOp, cfg, B: int, C: int, dtype):
     """{suffix: (shape, dtype)} for one stateful op: the rolling KV cache of
     a self-attention op (``pos`` holds each slot's absolute position, -1
-    for empty); the last ``kw - 1`` inputs of a causal conv; the hidden
-    state of an RG-LRU.  The other families' state arrives with them."""
-    if op.op == "attention" and not op.attrs.get("cross"):
+    for empty); the encoder's K/V of a cross-attention op (B,
+    encoder_seq, KV, Dh); the last ``kw - 1`` inputs of a causal conv; the
+    hidden state of an RG-LRU; an RWKV6 time-mix's last input ``_shift``
+    (B, d) and WKV state ``_s`` (B, H, dh, dh), a channel-mix's ``_shift``."""
+    a = op.attrs
+    if op.op == "attention":
         att = cfg.attention
         KV, Dh = att.n_kv_heads, att.head_dim
+        if a.get("cross"):
+            S = cfg.encoder_seq
+            return {"k": ((B, S, KV, Dh), dtype),
+                    "v": ((B, S, KV, Dh), dtype)}
         return {"k": ((B, C, KV, Dh), dtype),
                 "v": ((B, C, KV, Dh), dtype),
                 "pos": ((B, C), torch.int32)}
@@ -202,9 +221,14 @@ def _op_state_shapes(op: MicroOp, cfg, B: int, C: int, dtype):
     if op.op == "rg_lru":
         w = op.params[0].shape[0]
         return {"": ((B, w), dtype)}
-    raise NotImplementedError(
-        f"serving state of {op.op!r} (cross={op.attrs.get('cross', False)}) "
-        "is not ported yet (ROADMAP Queue 1, \"Other model families\")")
+    if op.op == "rwkv6_timemix":
+        d = [s for s in op.params if s.name.endswith("w_r")][0].shape[0]
+        H, dh = a["n_heads"], a["head_dim"]
+        return {"_shift": ((B, d), dtype), "_s": ((B, H, dh, dh), dtype)}
+    if op.op == "rwkv6_channelmix":
+        d = [s for s in op.params if s.name.endswith("cw_r")][0].shape[0]
+        return {"_shift": ((B, d), dtype)}
+    return {}
 
 
 def _mk_state(shapes: Dict[str, tuple], lead: Tuple[int, ...],
@@ -287,6 +311,9 @@ def _run_block(ctx: Ctx, block: Block, bparams, env: Dict[str, Any],
                tied_tables: Optional[Dict[str, Any]] = None):
     for op in live_ops(block, mode):
         args = [env[i] for i in _used_ins(op, mode)]
+        if op.op == "attention" and len(args) == 2:    # decode cross-attn
+            q, pos = args
+            args = [q, q, q, pos]                       # K/V placeholders
         if op.op == "unembed" and op.attrs.get("tied"):
             args.append(tied_tables[op.attrs["tied"]])
         env[op.out] = OPS[op.op](ctx, op, _param_slice(op, bparams, j), *args)
@@ -311,9 +338,13 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
     holds the auxiliary losses the ops added (``moe_aux``, the MoE
     router's load-balancing loss in train mode; empty otherwise).  The
     batch rides in ``ctx.aux["__inputs__"]`` for the ops that read more
-    than the tokens (the multimodal stub's ``patches``) and is not
-    returned.  Decode skips the prompt-only ``mm`` block: the patches live
-    in the KV cache by then."""
+    than the tokens (the multimodal stub's ``patches``, the
+    encoder-decoder's ``frames``) and is not returned.  Decode skips the
+    prompt-only ``mm`` and ``enc*`` blocks: the patches live in the KV
+    cache by then, the encoder's output in the cross-attention K/V.  An
+    encoder-decoder's chain restarts from the tokens at ``dec_embed``, and
+    every unit after the ``captures_cross`` block sees its output as
+    ``cross``."""
     graph, units = plan.graph, plan.units
 
     def apply(params, batch, state=None, cache_index=None, mode="prefill"):
@@ -330,13 +361,14 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
         h = batch["tokens"] if tokens else batch["images"]
         B = h.shape[0]
 
-        def pos_for(x):
+        def pos_for(x, encoder=False):
             # positions of the current chain: explicit per-row positions
-            # (left-padded prefill), the decode position, or an arange
+            # (left-padded prefill; decoder chains only), the decode
+            # position, or an arange (an encoder chain always)
             if not tokens:
                 return None
             S = x.shape[1]
-            p = batch.get("positions")
+            p = None if encoder else batch.get("positions")
             if p is not None and p.ndim == 2 and p.shape[1] == S:
                 return p.to(torch.int32)
             if mode == "decode":
@@ -352,17 +384,22 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
                 if spec.name == "table":
                     tied_tables[f"{b0.name}/table"] = params[b0.name]["table"]
 
+        cross = None
         for unit in units:
             ukey = unit_key(graph, unit)
             b0 = graph.blocks[unit.indices[0]]
-            if mode == "decode" and b0.kind == "mm":
-                continue            # prompt-only: the patches are in the cache
+            encoder = b0.kind.startswith("enc")
+            if mode == "decode" and (encoder or b0.kind == "mm"):
+                continue   # prompt-only: patches and frames are in the cache
+            if b0.kind == "dec_embed":
+                h = batch["tokens"]
             if b0.kind == "head":
                 if not head:
                     break
                 if mode == "prefill":
                     h = h[:, -1:]
-            env = {"h": h, "cross": None, "positions": pos_for(h)}
+            env = {"h": h, "cross": cross,
+                   "positions": pos_for(h, encoder=encoder)}
             if not unit.folded:
                 ctx.state_in = (state or {}).get(ukey, {})
                 ctx.state_out = {}
@@ -375,6 +412,8 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
                                     (state or {}).get(ukey), env, mode)
                 if st:
                     new_state[ukey] = st
+            if b0.attrs.get("captures_cross"):
+                cross = h                 # the encoder's output
         aux = {k: v for k, v in ctx.aux.items() if k != "__inputs__"}
         if mode == "decode":            # the state handed in, updated
             state.update(new_state)

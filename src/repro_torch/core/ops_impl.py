@@ -9,11 +9,10 @@ conv entry points dispatch through the :mod:`repro_torch.kernels.registry`
 using the per-op backend table the ``kernels`` pass recorded on the plan
 (``plan.kernels``).
 
-This is the CNN, dense-LM, RG-LRU, MoE and multimodal-stub subset of the
-JAX package's ``core/ops_impl.py``; the RWKV6 and encoder-decoder ops
-arrive with their families.  Every dtype cast sits where the JAX op puts
-it, so bf16 rounds at the same places in both, and a product JAX asks in
-fp32 (``preferred_element_type``) upcasts its operands here (exact for
+These are the ops of the JAX package's ``core/ops_impl.py``, one device
+(its mesh-sharded MoE path aside).  Every dtype cast sits where the JAX op
+puts it, so bf16 rounds at the same places in both, and a product JAX asks
+in fp32 (``preferred_element_type``) upcasts its operands here (exact for
 bf16).
 """
 from __future__ import annotations
@@ -280,7 +279,8 @@ def op_merge_heads(ctx: Ctx, op, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Attention (full / causal / sliding-window), GQA, with the rolling KV cache
+# Attention (full / causal / sliding-window / cross), GQA, with the rolling
+# KV cache
 # ---------------------------------------------------------------------------
 
 def _sdpa(ctx: Ctx, q, k, v, qpos, kpos, *, causal, window, softcap,
@@ -337,9 +337,7 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
     softcap = attrs.get("softcap")
     B, Sq, H, Dh = q.shape
     if attrs.get("cross", False):
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is not ported yet "
-            "(ROADMAP Queue 1, \"Other model families\")")
+        return _cross_attention(ctx, skey, q, k, v, positions, softcap)
 
     if ctx.mode in ("train", "prefill"):
         kern = plan_kernel(ctx.plan, "attention", window=window, cross=False)
@@ -392,6 +390,24 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
         return kern(q, kc, vc, pc, qpos, window=window, softcap=softcap,
                     tile=ctx.plan.tiles.get("decode_attention"))
     return _sdpa(ctx, q, kc, vc, qpos, pc, causal=True, window=window,
+                 softcap=softcap)
+
+
+def _cross_attention(ctx: Ctx, skey, q, k, v, positions, softcap):
+    """Cross-attention to the encoder's output on the reference path (the
+    registry keeps it off the flash kernel, as JAX's does): no mask, the
+    keys at ``arange(encoder_seq)``.  Prefill caches the encoder's K/V in
+    the state; decode reads them back (its K/V inputs are placeholders)
+    and hands the same state on."""
+    if ctx.mode == "decode":
+        st = ctx.state_in[skey]
+        k, v = st["k"], st["v"]
+        ctx.state_out[skey] = st
+    elif ctx.mode == "prefill":          # cache the encoder K/V once
+        ctx.state_out[skey] = {"k": k, "v": v}
+    B, Skv = q.shape[0], k.shape[1]
+    kpos = torch.arange(Skv, dtype=torch.int32, device=q.device).expand(B, Skv)
+    return _sdpa(ctx, q, k, v, positions, kpos, causal=False, window=None,
                  softcap=softcap)
 
 
@@ -530,7 +546,8 @@ def op_rg_lru(ctx: Ctx, op, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Mixture-of-Experts FFN (capacity-based dispatch, one device)
+# Products outside the kernels: the JAX package's einsums on compute-dtype
+# operands with fp32 output (the MoE expert products, the RWKV6 projections)
 # ---------------------------------------------------------------------------
 
 _BMM_OUT_DTYPE: Optional[bool] = None
@@ -550,16 +567,17 @@ def _bmm_out_dtype_ok() -> bool:
     return _BMM_OUT_DTYPE
 
 
-def _moe_bmm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype
+def _lib_dot(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype
              ) -> torch.Tensor:
-    """The JAX package's ``_moe_dot``: the product of ``a`` and ``b``
-    rounded to ``dt``, in fp32 (``preferred_element_type=float32``; its
-    ``_cpu_safe_dots`` computes it in fp32 on the same rounded values).
+    """The JAX package's ``_moe_dot`` (and its RWKV6 projections, einsums
+    with ``preferred_element_type=float32``): the product of ``a`` and
+    ``b`` rounded to ``dt``, in fp32 (its ``_cpu_safe_dots`` computes it in
+    fp32 on the same rounded values).
     A batched (E, M, K) x (E, K, N) product, or (..., K) x (K, N).  On the
     card a bf16 pair goes to ``bmm(..., out_dtype=float32)`` where torch
     offers it, outside autograd; elsewhere the operands widen to fp32
     (TF32 stays off, so the products are fp32's).  A library call, as in
-    JAX, whose expert einsums run outside any Pallas kernel."""
+    JAX, whose einsums run outside any Pallas kernel."""
     a, b = a.to(dt), b.to(dt)
     if (a.is_cuda and dt == torch.bfloat16
             and not (torch.is_grad_enabled()
@@ -572,6 +590,184 @@ def _moe_bmm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 
+
+# ---------------------------------------------------------------------------
+# RWKV6 time-mix / channel-mix
+# ---------------------------------------------------------------------------
+#
+# The WKV recurrence runs in fp32 in every precision (r, k, v come out of
+# fp32-output products); the token-shift and WKV states are kept in the op
+# input's dtype, so in bf16 the WKV state rounds to bf16 at every decode
+# step, as in the JAX package.  A decode step writes both states into the
+# state tensors it was handed, in place.  No Pallas kernel computes any of
+# this in JAX: the products are einsums and the recurrence plain jnp.
+
+def _token_shift(ctx: Ctx, x, skey):
+    """x_{t-1}: zeros at t = 0 in a full sequence, the cached last input in
+    decode; the state keeps the last input."""
+    if ctx.mode == "decode":
+        st = ctx.state_in[skey]                    # (B, d)
+        prev = st.to(x.dtype).clone()[:, None, :]  # read before the write
+        st.copy_(x[:, -1])
+        ctx.state_out[skey] = st
+        return prev
+    prev = F.pad(x[:, :-1], (0, 0, 1, 0))
+    if ctx.mode == "prefill":
+        ctx.state_out[skey] = x[:, -1].contiguous()
+    return prev
+
+
+def _wkv_step(St, rt, kt, vt, wt, u):
+    """One step of the recurrence on (..., dk) inputs and a (..., dk, dv)
+    state: ``y = r . (S + (u * k) v^T)``, ``S' = w * S + k v^T``."""
+    bonus = (rt * (u * kt)).sum(-1, keepdim=True) * vt
+    yt = torch.matmul(rt[..., None, :], St)[..., 0, :] + bonus
+    St = wt[..., None] * St + kt[..., None] * vt[..., None, :]
+    return St, yt
+
+
+def _wkv_chunked(r, k, v, w, u, chunk: int, parallel: bool = True,
+                 boundary_dt: torch.dtype = torch.float32):
+    """The RWKV6 linear recurrence over chunks of C steps (``chunk`` halved
+    until it divides S), as the JAX package's ``_wkv_chunked``.
+
+    ``parallel=True`` (prefill): each chunk's decay and summed k v^T, the
+    chunk recurrence ``S_c = D_c * S_{c-1} + M_c`` as a loop over the
+    chunks (JAX combines them by an associative scan in tree order, so the
+    roundings differ), the state entering chunk n the inclusive result of
+    chunk n - 1, then one sequential scan over the C steps of every chunk
+    at once.  ``parallel=False`` (train): a loop over the chunks carrying
+    only the boundary state, rounded to ``boundary_dt`` between chunks,
+    each chunk's C steps in fp32 and, under autograd, recomputed in the
+    backward pass (``torch.utils.checkpoint``).
+
+    Shapes: r, k, w (B, S, H, dk), w the log-decay; v (B, S, H, dv); u
+    (H, dk).  Returns y (B, S, H, dv) and the final state (B, H, dk, dv)
+    in fp32."""
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    C = min(chunk, S)
+    while S % C:
+        C //= 2
+    nc = S // C
+    if not parallel:
+        xs = [t.reshape(B, nc, C, H, -1).permute(1, 2, 0, 3, 4)
+              for t in (r, k, v, torch.exp(w))]       # (nc, C, B, H, d)
+
+        def chunk_body(S0, rc, kc, vc, wc):
+            St, ys = S0.float(), []
+            for t in range(C):
+                St, yt = _wkv_step(St, rc[t], kc[t], vc[t], wc[t], u)
+                ys.append(yt)
+            return St.to(boundary_dt), torch.stack(ys)
+
+        remat = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u))
+        St = torch.zeros((B, H, dk, dv), dtype=boundary_dt, device=r.device)
+        ys = []
+        for n in range(nc):
+            args = (St, *(t[n] for t in xs))
+            St, yc = (checkpoint(chunk_body, *args, use_reentrant=False)
+                      if remat else chunk_body(*args))
+            ys.append(yc)
+        y = torch.stack(ys).permute(2, 0, 1, 3, 4).reshape(B, S, H, dv)
+        return y, St.float()
+    rs, ks, vs, logw = (t.reshape(B, nc, C, H, -1) for t in (r, k, v, w))
+    Lc = torch.cumsum(logw, dim=2)                         # (B,nc,C,H,dk)
+    chunk_decay = torch.exp(Lc[:, :, -1])                  # (B,nc,H,dk)
+    # sum_s exp(L_C - L_s) k_s v_s^T (the exponent is <= 0)
+    kd = ks * torch.exp(Lc[:, :, -1:] - Lc)
+    chunk_kv = torch.einsum("bnchk,bnchv->bnhkv", kd, vs)
+    macc = [chunk_kv[:, 0]]
+    for n in range(1, nc):
+        macc.append(chunk_decay[:, n][..., None] * macc[-1] + chunk_kv[:, n])
+    # the state entering chunk n: the inclusive result of chunk n - 1
+    St = torch.stack([torch.zeros_like(macc[0])] + macc[:-1], dim=1)
+    xs = [t.permute(2, 0, 1, 3, 4) for t in (rs, ks, vs, torch.exp(logw))]
+    ys = []
+    for t in range(C):                     # (B, nc, H) at once
+        St, yt = _wkv_step(St, xs[0][t], xs[1][t], xs[2][t], xs[3][t], u)
+        ys.append(yt)
+    y = torch.stack(ys, dim=2)                             # (B,nc,C,H,dv)
+    return y.reshape(B, S, H, dv), macc[-1]
+
+
+def op_rwkv6_timemix(ctx: Ctx, op, p, x):
+    """RWKV6 time-mix: the data-dependent token-shift lerps (compute
+    dtype; their LoRA in fp32), the r, k, v, g projections on
+    compute-dtype operands with fp32 output (library products, as JAX's
+    einsums), the data-dependent decay, the WKV recurrence (one step in
+    decode, :func:`_wkv_chunked` over ``plan.tiles["wkv_chunk"]`` steps
+    otherwise), the per-head group norm (eps 64e-5), the SiLU gate and the
+    output projection."""
+    H, dh = op.attrs["n_heads"], op.attrs["head_dim"]
+    rank = op.attrs["lora_rank"]
+    skey = op.attrs["state_key"]
+    B, S, d = x.shape
+    dt = ctx.compute_dtype
+    xf = x.to(dt)
+    prev = _token_shift(ctx, xf, skey + "_shift")
+    dx = prev - xf
+    # the data-dependent token-shift mixes of the 5 targets r, k, v, w, g
+    lo = torch.tanh(torch.matmul(xf.float(), p["mu_lora_a"].float()))
+    lo = lo.reshape(B, S, 5, rank)
+    delta = torch.einsum("bsnr,nrd->nbsd", lo, p["mu_lora_b"].float())
+    mix = p["mu_base"].float()[:, None, None, :] + delta   # (5, B, S, d)
+    xr, xk, xv, xw, xg = (xf + dx * mix[j].to(dt) for j in range(5))
+    r = _lib_dot(xr, p["w_r"], dt).reshape(B, S, H, dh)
+    k = _lib_dot(xk, p["w_k"], dt).reshape(B, S, H, dh)
+    v = _lib_dot(xv, p["w_v"], dt).reshape(B, S, H, dh)
+    g = _lib_dot(xg, p["w_g"], dt)
+    wraw = p["decay_base"].float() + torch.matmul(
+        torch.tanh(torch.matmul(xw.float(), p["decay_lora_a"].float())),
+        p["decay_lora_b"].float())
+    logw = -torch.exp(torch.clamp(wraw, -20.0, 4.0)).reshape(B, S, H, dh)
+    u = p["bonus"].float().reshape(H, dh)
+    if ctx.mode == "decode":
+        st = ctx.state_in[skey + "_s"]                     # (B, H, dk, dv)
+        St, yt = _wkv_step(st.float(), r[:, 0], k[:, 0], v[:, 0],
+                           torch.exp(logw[:, 0]), u)
+        st.copy_(St)                  # rounds to the state's dtype
+        ctx.state_out[skey + "_s"] = st
+        y = yt[:, None]
+    else:
+        y, s_fin = _wkv_chunked(r, k, v, logw, u,
+                                ctx.plan.tiles.get("wkv_chunk", 32),
+                                parallel=ctx.mode != "train",
+                                boundary_dt=dt)
+        if ctx.mode == "prefill":
+            ctx.state_out[skey + "_s"] = s_fin.to(x.dtype)
+    # per-head group norm, gate, output projection
+    y = y.reshape(B, S, H, dh)
+    mu = y.mean(-1, keepdim=True)
+    var = torch.square(y - mu).mean(-1, keepdim=True)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(B, S, H * dh) * p["ln_x_scale"].float() \
+        + p["ln_x_bias"].float()
+    y = y * F.silu(g)
+    return _lib_dot(y, p["w_o"], dt).to(dt)
+
+
+def op_rwkv6_channelmix(ctx: Ctx, op, p, x):
+    """RWKV6 channel-mix: token-shift lerps in the compute dtype, then
+    ``sigmoid(x_r W_r) * (relu(x_k W_k)^2 W_v)`` on compute-dtype operands
+    with fp32 products."""
+    skey = op.attrs["state_key"]
+    dt = ctx.compute_dtype
+    xf = x.to(dt)
+    prev = _token_shift(ctx, xf, skey + "_shift")
+    dx = prev - xf
+    mu = p["cm_mu"].to(dt)
+    xr = xf + dx * mu[0]
+    xk = xf + dx * mu[1]
+    r = torch.sigmoid(_lib_dot(xr, p["cw_r"], dt))
+    k = torch.square(F.relu(_lib_dot(xk, p["cw_k"], dt))).to(dt)
+    return (r * _lib_dot(k, p["cw_v"], dt)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts FFN (capacity-based dispatch, one device)
+# ---------------------------------------------------------------------------
 
 def _top_k_stable(probs: torch.Tensor, k: int):
     """``lax.top_k``: the k largest along the last axis, a tie broken
@@ -647,19 +843,19 @@ def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
     buf = torch.zeros((B, E, cap, d), dtype=dt, device=x.device).index_put(
         (rows, fe, mypos), contrib, accumulate=True)        # (B, E, cap, d)
     eb = buf.permute(1, 0, 2, 3).reshape(E, B * cap, d)
-    hg = _moe_bmm(eb, wg, dt)                               # (E, B*cap, f)
-    hu = _moe_bmm(eb, wu, dt)
+    hg = _lib_dot(eb, wg, dt)                               # (E, B*cap, f)
+    hu = _lib_dot(eb, wu, dt)
     hmid = (_act(hg, attrs.get("act", "silu")) * hu).to(dt)
-    out_buf = _moe_bmm(hmid, wd, dt).to(dt)                 # (E, B*cap, d)
+    out_buf = _lib_dot(hmid, wd, dt).to(dt)                 # (E, B*cap, d)
     out_buf = out_buf.reshape(E, B, cap, d).permute(1, 0, 2, 3)
     y = out_buf[rows, fe, mypos] * (fg * keep)[..., None].to(dt)
     y = y.reshape(B, S, topk, d).sum(2) if topk > 1 else y.reshape(B, S, d)
     if shared is not None:
         ws_g, ws_u, ws_d = shared
-        sg = _moe_bmm(x, ws_g, dt)
-        su = _moe_bmm(x, ws_u, dt)
+        sg = _lib_dot(x, ws_g, dt)
+        su = _lib_dot(x, ws_u, dt)
         sh = (_act(sg, "silu") * su).to(dt)
-        y = y + _moe_bmm(sh, ws_d, dt).to(dt)
+        y = y + _lib_dot(sh, ws_d, dt).to(dt)
     return y.to(dt), aux
 
 
@@ -686,7 +882,7 @@ def op_moe_ffn(ctx: Ctx, op, p, x):
 
 
 # ---------------------------------------------------------------------------
-# Multimodal stub
+# Multimodal and audio stubs
 # ---------------------------------------------------------------------------
 
 def op_patch_proj(ctx: Ctx, op, p, h):
@@ -703,6 +899,16 @@ def op_patch_proj(ctx: Ctx, op, p, h):
         + p["mm_b2"].float()
     n = op.attrs["n_patches"]
     return torch.cat([z.to(dt), h[:, n:, :]], dim=1)
+
+
+def op_frames_in(ctx: Ctx, op, p, h):
+    """The encoder-decoder's frontend stub: the batch's ``frames`` (B,
+    encoder_seq, d_model) plus fp32 sinusoids of positions 0..S-1, in the
+    compute dtype (``h``, the tokens, is not read)."""
+    frames = ctx.aux["__inputs__"]["frames"]
+    B, S, d = frames.shape
+    pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
+    return (frames.float() + _sinusoid(pos, d)).to(ctx.compute_dtype)
 
 
 def op_image_in(ctx: Ctx, op, p, h):
@@ -848,4 +1054,6 @@ OPS: Dict[str, Callable] = {
     "global_avgpool": op_global_avgpool, "flatten": op_flatten,
     "conv1d_causal": op_conv1d_causal, "rg_lru": op_rg_lru,
     "moe_ffn": op_moe_ffn, "patch_proj": op_patch_proj,
+    "rwkv6_timemix": op_rwkv6_timemix,
+    "rwkv6_channelmix": op_rwkv6_channelmix, "frames_in": op_frames_in,
 }

@@ -185,8 +185,8 @@ class CompiledModel:
         loop).  Greedy by ``argmax`` at ``temperature`` 0 (the first of
         tied maxima, as ``jnp.argmax``); otherwise sampled with a
         ``torch.Generator`` on this device seeded from ``seed``.  The
-        batch's other inputs (a multimodal model's ``patches``) go to the
-        prefill only.  Returns the (B, steps) int32 tokens and the final
+        batch's other inputs (a multimodal model's ``patches``, an
+        encoder-decoder's ``frames``) go to the prefill only.  Returns the (B, steps) int32 tokens and the final
         state."""
         S = batch["tokens"].shape[1]
         gen = None
@@ -258,7 +258,8 @@ class CompiledModel:
         shape also ``labels``, ``randint(0, vocab)`` of (B,) or (B, S),
         drawn after the inputs; for a multimodal model on a prefill- or
         train-kind shape ``patches``, ``randn`` fp32 of (B, n_patch_tokens,
-        d_vision), drawn last (the JAX package's order)."""
+        d_vision), and for an encoder-decoder ``frames``, ``randn`` fp32 of
+        (B, encoder_seq, d_model), drawn last (the JAX package's order)."""
         rng = np.random.RandomState(seed)
         c, B = self.cfg, self.shape.global_batch
         train = self.shape.kind == "train"
@@ -276,6 +277,9 @@ class CompiledModel:
             if c.n_patch_tokens and self.shape.kind != "decode":
                 out["patches"] = rng.randn(
                     B, c.n_patch_tokens, c.d_vision).astype(np.float32)
+            if c.n_encoder_layers and self.shape.kind != "decode":
+                out["frames"] = rng.randn(
+                    B, c.encoder_seq, c.d_model).astype(np.float32)
         return {k: torch.from_numpy(v if v.dtype == np.float32
                                     else v.astype(np.int64)).to(self.device)
                 for k, v in out.items()}

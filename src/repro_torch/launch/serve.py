@@ -206,6 +206,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         batch["patches"] = torch.from_numpy(rng.randn(
             args.batch, cm.cfg.n_patch_tokens, cm.cfg.d_vision).astype(
                 np.float32)).to(cm.device)
+    if cm.cfg.n_encoder_layers:          # the audio stub's frame embeddings
+        batch["frames"] = torch.from_numpy(rng.randn(
+            args.batch, cm.cfg.encoder_seq, cm.cfg.d_model).astype(
+                np.float32)).to(cm.device)
     t0 = time.perf_counter()
     if args.on_device_loop:
         toks = eng.generate_fori(batch, args.steps)

@@ -1,6 +1,5 @@
-"""Graph construction by model family.  The port builds the paper's CNNs and
-the decoder-only dense and RG-LRU hybrid LMs; the other families arrive
-with their slices (ROADMAP Queue 1, "Other model families")."""
+"""Graph construction by model family: the paper's CNNs, the decoder-only
+LMs and the encoder-decoder (whisper)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

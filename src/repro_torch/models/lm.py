@@ -1,14 +1,16 @@
-"""Graph builders for the LM-family architectures.
+"""Graph builders for the LM-family architectures (all ten of the JAX
+package's).
 
-The port builds the decoder-only dense family (llama3.2-1b, qwen1.5-4b,
+The decoder-only builder covers the dense family (llama3.2-1b, qwen1.5-4b,
 phi4-mini-3.8b, stablelm-1.6b), the RG-LRU hybrid (recurrentgemma-2b), the
-MoE family (deepseek-moe-16b, mixtral-8x7b) and the multimodal patch stub
-(llava-next-mistral-7b): embedding, the projected patch embeddings in
-place of the first positions, attention or RG-LRU temporal mixing +
-GLU-FFN or MoE layers, and the head.  RWKV6 layers and the
-encoder-decoder builder (whisper) arrive with their families (ROADMAP
-Queue 1, "Other model families").  Each raises NotImplementedError naming
-what is missing.
+MoE family (deepseek-moe-16b, mixtral-8x7b), the RWKV6 recurrence
+(rwkv6-7b) and the multimodal patch stub (llava-next-mistral-7b):
+embedding, the projected patch embeddings in place of the first
+positions, attention, RG-LRU or RWKV6 time-mix temporal mixing + GLU-FFN,
+MoE or RWKV6 channel-mix layers, and the head.  The encoder-decoder
+builder covers whisper-small: the frames stub, the non-causal encoder, and
+a decoder with causal self-attention and cross-attention to the encoder's
+output.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import Block, Graph, ParamSpec as P
 from repro_torch.models.layers import (emit_attention, emit_glu_ffn,
                                        emit_mlp_ffn, emit_moe_ffn,
-                                       emit_rglru_block)
+                                       emit_rglru_block,
+                                       emit_rwkv6_channelmix,
+                                       emit_rwkv6_timemix)
 
 
 def _embed_block(cfg: ModelConfig, scale: bool) -> Block:
@@ -55,9 +59,7 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
     elif kind == "rec" and cfg.recurrence.kind == "rg_lru":
         emit_rglru_block(b, cfg, cfg.recurrence, li)
     elif kind == "rec":
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent layers ({cfg.recurrence.kind}) are not "
-            "ported yet (ROADMAP Queue 1, \"Other model families\")")
+        emit_rwkv6_timemix(b, cfg, cfg.recurrence, li)
     else:
         raise ValueError(kind)
     # channel mixing
@@ -72,10 +74,10 @@ def _decoder_layer(cfg: ModelConfig, li: int, kind: str) -> Block:
         emit_glu_ffn(b, cfg, "gelu")
     elif cfg.ffn_kind == "gelu_mlp":
         emit_mlp_ffn(b, cfg, "gelu", bias=cfg.family == "audio")
+    elif cfg.ffn_kind == "rwkv_cm":
+        emit_rwkv6_channelmix(b, cfg, li)
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: ffn kind {cfg.ffn_kind!r} is not ported yet "
-            "(ROADMAP Queue 1, \"Other model families\")")
+        raise ValueError(cfg.ffn_kind)
     return b
 
 
@@ -84,7 +86,8 @@ def _with_dff(cfg: ModelConfig, d_ff: int) -> ModelConfig:
 
 
 def build_decoder_graph(cfg: ModelConfig) -> Graph:
-    """Decoder-only LM (the dense, hybrid, MoE and multimodal families)."""
+    """Decoder-only LM (the dense, hybrid, MoE, ssm and multimodal
+    families)."""
     blocks = [_embed_block(cfg, scale=cfg.family == "hybrid")]
     if cfg.n_patch_tokens:
         # multimodal stub: project precomputed patch embeddings and prepend.
@@ -108,7 +111,45 @@ def build_decoder_graph(cfg: ModelConfig) -> Graph:
 
 
 def build_encdec_graph(cfg: ModelConfig) -> Graph:
-    """Encoder-decoder (whisper): not ported yet."""
-    raise NotImplementedError(
-        f"{cfg.name}: the encoder-decoder graph (whisper) is not ported yet "
-        "(ROADMAP Queue 1, \"Other model families\")")
+    """Encoder-decoder (whisper).  The frontend is a stub: the batch's
+    ``frames`` are the frame embeddings (B, encoder_seq, d_model).  The
+    ``dec_embed`` op carries ``learned_pos`` as in the JAX package, whose
+    embed op reads only ``sinusoid_pos``: the decoder sees positions
+    through its causal mask alone, here as there."""
+    blocks: list[Block] = []
+    b = Block("enc_embed", "enc_embed")
+    b.add("h", "frames_in", "h", encoder_seq=cfg.encoder_seq)  # + sinusoids
+    blocks.append(b)
+    enc_cfg = dataclasses.replace(cfg, norm_kind="layernorm")
+    for li in range(cfg.n_encoder_layers):
+        eb = Block(f"enc{li}", "encoder_layer", attrs={"index": li})
+        a = dataclasses.replace(cfg.attention, causal=False, rope=None)
+        emit_attention(eb, enc_cfg, a, li, prefix="enc_")
+        emit_mlp_ffn(eb, enc_cfg, "gelu", bias=True, prefix="enc_")
+        blocks.append(eb)
+    fe = Block("enc_final", "enc_final", attrs={"captures_cross": True})
+    fe.add("h", "norm", "h",
+           params=[P("enc_fnorm_scale", (cfg.d_model,), ("d_model",), "ones"),
+                   P("enc_fnorm_bias", (cfg.d_model,), ("d_model",), "zeros")],
+           kind="layernorm", eps=cfg.norm_eps)
+    blocks.append(fe)
+
+    db = Block("dec_embed", "dec_embed")
+    db.add("h", "embed", "h",
+           params=[P("table", (cfg.padded_vocab, cfg.d_model),
+                     ("vocab", "d_model"), "embed")],
+           scale_by_sqrt_d=False, learned_pos=True, max_pos=cfg.max_seq_len)
+    blocks.append(db)
+    for li in range(cfg.n_layers):
+        lb = Block(f"dec{li}", "decoder_layer", attrs={"index": li})
+        a = dataclasses.replace(cfg.attention, rope=None)  # whisper: no rope
+        emit_attention(lb, enc_cfg, a, li, prefix="dec_")
+        emit_attention(lb, enc_cfg, a, li, prefix="xdec_", cross=True)
+        emit_mlp_ffn(lb, enc_cfg, "gelu", bias=True, prefix="dec_")
+        blocks.append(lb)
+    blocks.append(_head_block(dataclasses.replace(cfg, norm_kind="layernorm",
+                                                  tie_embeddings=True),
+                              tied_ref="dec_embed/table"))
+    g = Graph(cfg.name, blocks, meta={"config": cfg})
+    g.validate()
+    return g

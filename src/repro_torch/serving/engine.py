@@ -340,15 +340,25 @@ class Engine:
         (mid-sequence prefill — exact, byte-identical to the cold path),
         with copy-on-write forks keeping shared blocks immutable.
 
-        A multimodal model (patch tokens) is refused before any tick: a
-        request carries no patch embeddings (the JAX engine fails there
-        with a ``KeyError``); serve it through :meth:`generate`."""
-        if self.plan.cfg.n_patch_tokens:
+        A multimodal model (patch tokens) and an encoder-decoder (audio
+        frames) are refused before any tick: a request carries no patch
+        embeddings and no frames (the JAX engine fails there with a
+        ``KeyError``); serve them through :meth:`generate`.  A model with
+        no self-attention KV state (rwkv6) is refused by the paged cache,
+        as in JAX."""
+        cfg = self.plan.cfg
+        if cfg.n_patch_tokens:
             raise ValueError(
-                f"{self.plan.cfg.name}: Engine.run has no patches for the "
-                f"model's {self.plan.cfg.n_patch_tokens} patch tokens (a "
+                f"{cfg.name}: Engine.run has no patches for the "
+                f"model's {cfg.n_patch_tokens} patch tokens (a "
                 "request carries only its prompt tokens); use generate() "
                 "with a batch holding 'patches'")
+        if cfg.n_encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: Engine.run has no frames for the encoder's "
+                f"{cfg.encoder_seq} positions (a request carries only its "
+                "prompt tokens); use generate() with a batch holding "
+                "'frames'")
         e = self.ecfg
         cache = self.new_cache()
         self.last_cache = cache

@@ -476,13 +476,22 @@ def test_flash_ffma_bytes_read_the_tiles_query():
 # golden sweep — every ported config verifies clean, as in JAX
 # ---------------------------------------------------------------------------
 
+# the one diagnostic a clean card plan carries: whisper's decoder
+# cross-attends, which the flash kernel's contract rejects on a static
+# fact (JAX's CPU plan resolves attention to ref and never sees it; its
+# own K204 test builds that rejection on whisper's smoke plan)
+CARD_WARNINGS = {"whisper-small": [
+    "[K204] warning attention:dec0: attention will fall back to ref at "
+    "dispatch: cross-attention caches K/V outside the kernel"]}
+
+
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("name", ARCHS + CNNS)
 def test_ported_configs_verify_clean(name, device):
     from repro_torch.launch.check import check_config
     summary, diags = check_config(name, device=device)
     assert summary.startswith("ok"), (name, summary, diags)
-    assert diags == []
+    assert diags == (CARD_WARNINGS.get(name, []) if device == "cuda" else [])
 
 
 def test_card_plan_resolves_the_hand_kernels():
@@ -594,7 +603,9 @@ def test_launch_check_all_exits_zero(capsys):
     from repro_torch.launch import check
     assert check.main(["--all"]) == 0
     out = capsys.readouterr().out
-    assert out.count("ok (9 checks)") == len(ARCHS + CNNS)
+    assert out.count("ok (9 checks") == len(ARCHS + CNNS)
+    assert out.count("ok (9 checks)") == len(ARCHS + CNNS) - len(
+        CARD_WARNINGS)
     assert check.main(["--all", "--device", "cpu", "--smoke"]) == 0
 
 

@@ -89,8 +89,10 @@ def _rules(C, chunk, nsplit, pairs, rows, D, dt, fit):
 
 # (name, B, C, KV, G, D): the rolling caches chip_smoke.py runs (the
 # qwen1.5-4b generate's is qwen_kernel_case; phi4-mini-3.8b's a group of 3,
-# stablelm-1.6b's a group of 1 at head width 64 over 32 KV heads)
+# stablelm-1.6b's a group of 1 at head width 64 over 32 KV heads,
+# whisper-small's over 12 KV heads in its 448-slot cache)
 ROLLING = [("llama_generate", 8, 1024, 8, 4, 64),
+           ("whisper_generate", 8, 448, 12, 1, 64),
            ("rg_generate", 8, 1024, 1, 10, 256),
            ("rg_window", 1, 2048, 1, 10, 256),
            ("qwen_kernel_case", 8, 1024, 20, 1, 128),

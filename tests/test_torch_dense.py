@@ -1,6 +1,7 @@
 """The port's registry and the dense family's configurations and plans
-against the JAX package's: ``ARCHS`` and ``CNNS`` by family (the MoE and
-multimodal configs are checked in ``tests/test_torch_{moe,vlm}.py``),
+against the JAX package's: ``ARCHS`` and ``CNNS`` by family (the MoE,
+multimodal, RWKV6 and encoder-decoder configs are checked in
+``tests/test_torch_{moe,vlm,rwkv,whisper}.py``),
 each of qwen1.5-4b, phi4-mini-3.8b and stablelm-1.6b field by field (full and
 smoke), and ``describe()`` line for line apart from the ``kernels:`` line.
 The models' numerics are held to JAX in
@@ -22,12 +23,15 @@ DENSE = ["qwen1.5-4b", "phi4-mini-3.8b", "stablelm-1.6b"]
 
 
 def test_registry_lists_the_lms_and_the_cnns():
+    """The ten LMs and the three CNNs, in the JAX package's order."""
+    from repro.configs import ARCHS as JARCHS, CNNS as JCNNS
     assert ARCHS == ["recurrentgemma-2b", "qwen1.5-4b", "phi4-mini-3.8b",
                      "stablelm-1.6b", "llama3.2-1b", "deepseek-moe-16b",
-                     "mixtral-8x7b", "llava-next-mistral-7b"]
-    assert CNNS == ["lenet5", "mobilenetv1", "resnet34"]
-    assert all(get_config(a).family in ("dense", "hybrid", "moe", "vlm")
-               for a in ARCHS)
+                     "mixtral-8x7b", "rwkv6-7b", "llava-next-mistral-7b",
+                     "whisper-small"] == JARCHS
+    assert CNNS == ["lenet5", "mobilenetv1", "resnet34"] == JCNNS
+    assert all(get_config(a).family in ("dense", "hybrid", "moe", "ssm",
+                                        "vlm", "audio") for a in ARCHS)
     assert all(get_config(a).family == "cnn" for a in CNNS)
 
 

@@ -67,6 +67,12 @@ FLASH = {
     # Skv, q_offset and windows; MHA 20 and MQA 10 with a bidirectional
     # window
     "f64_q_offset_window": (2, 77, 301, 8, 2, 64, True, 50, 224),
+    # whisper-small's encoder: bidirectional over 1500 frames (11 x 128 +
+    # 92 rows, 23 x 64 + 28 keys), 12 over 12 heads of 64, at batch 2 and
+    # at the path's batch 8; its decoder's causal 128-token prompt
+    "whisper_encoder": (2, 1500, 1500, 12, 12, 64, False, None, 0),
+    "whisper_encoder_b8": (8, 1500, 1500, 12, 12, 64, False, None, 0),
+    "whisper_decoder_prompt": (8, 128, 128, 12, 12, 64, True, None, 0),
     "f256_mha20_ragged": (2, 100, 100, 20, 20, 256, True, None, 0),
     "f128_mqa10_bidir_window": (2, 130, 150, 10, 1, 128, False, 40, 0),
 }

@@ -220,11 +220,11 @@ def test_measure_on_cpu_counts_tokens(stage):
     (dict(n_patch_tokens=4), "patch tokens"),
 ])
 def test_unported_families_raise(change, what):
-    """The encoder-decoder graph is not ported and raises naming its
-    ROADMAP item.  MoE layers and the multimodal patch stub are ported
-    since (``tests/test_torch_{moe,vlm}.py`` hold them to JAX): llama's
-    smoke config with either change, given the config it needs, compiles
-    and runs a prefill."""
+    """Every family this test once saw raise is ported since: MoE layers,
+    the multimodal patch stub and the encoder-decoder graph
+    (``tests/test_torch_{moe,vlm,whisper}.py`` hold them to JAX).  llama's
+    smoke config with each change, given the config it needs (and the
+    batch its stub reads), compiles and runs a prefill."""
     cfg = dataclasses.replace(get_smoke(ARCH), **change)
     if what not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -237,6 +237,9 @@ def test_unported_families_raise(change, what):
     if cfg.n_patch_tokens:
         batch["patches"] = torch.from_numpy(rng.randn(
             2, cfg.n_patch_tokens, cfg.d_vision).astype(np.float32))
+    if cfg.n_encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.randn(
+            2, cfg.encoder_seq, cfg.d_model).astype(np.float32))
     y, _, _ = tcm.prefill(tcm.init_params(0), batch)
     assert tuple(y.shape) == (2, 1, 256) and torch.isfinite(y.float()).all()
 
@@ -247,4 +250,5 @@ PORTED = {
     "MoE": dict(moe=MoEConfig(num_experts=4, top_k=2, d_expert=48,
                               capacity_factor=4.0)),
     "patch tokens": dict(d_vision=32),
+    "encoder-decoder": dict(encoder_seq=10, cross_attention=True),
 }

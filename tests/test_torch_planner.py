@@ -55,9 +55,9 @@ def test_plan_stats_match_jax(arch, variant):
     t = tcm.plan.describe(stats=True)
     j = jcm.plan.describe(stats=True)
     assert _without_kernels(t) == _without_kernels(j)
-    # every op of ops_impl.OPS on its reference path, moe_ffn and
-    # patch_proj among them
-    assert "    kernels: backend=auto cuda_ops=[] ref_ops=29" in t
+    # every op of ops_impl.OPS on its reference path, moe_ffn,
+    # patch_proj, rwkv6_timemix, rwkv6_channelmix and frames_in among them
+    assert "    kernels: backend=auto cuda_ops=[] ref_ops=32" in t
 
 
 def test_cuda_platform_plan_differs_only_in_kernels():

@@ -369,12 +369,20 @@ def test_lru_lambda_init_draws_the_decay_range():
 
 
 def test_rwkv6_still_raises_naming_the_roadmap():
-    cfg = get_smoke(ARCH)
-    cfg = dataclasses.replace(cfg, recurrence=dataclasses.replace(
-        cfg.recurrence, kind="rwkv6"))
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, \"Other model families\""):
-        tflow.compile(cfg, ShapeConfig(*SHAPE), device="cpu")
+    """The RWKV6 recurrence, which this test once saw raise, is ported
+    (``tests/test_torch_rwkv.py`` holds it to JAX): its smoke config
+    compiles and runs a prefill, leaving each layer's token-shift inputs
+    and WKV state."""
+    tcm = tflow.compile("rwkv6-7b", ShapeConfig(*SHAPE), smoke=True,
+                        device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, 256, (2, 8)))}
+    y, st, _ = tcm.prefill(tcm.init_params(0), batch)
+    assert tuple(y.shape) == (2, 1, 256) and torch.isfinite(y).all()
+    s = st["fold_layer0"]
+    assert sorted(s) == ["cm0_shift", "wkv0_s", "wkv0_shift"]
+    assert tuple(s["wkv0_s"].shape) == (3, 2, 4, 16, 16)
+    assert s["wkv0_s"].dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
