@@ -229,7 +229,7 @@ Phases, each raising on failure:
 17. MoE and multimodal path — deepseek-moe-16b at full width and depth
    (16.4 B parameters), and at full width cut in depth for the script's
    time limit mixtral-8x7b at 4 of its 32 layers (93 GB in bf16 whole)
-   and llava-next-mistral-7b at 8 of its 32 (a 1024-token prompt a
+   and llava-next-mistral-7b at 4 of its 32 (a 1024-token prompt a
    row whose first 576 positions are patch embeddings from
    ``RandomState(0)``, ``ShapeConfig("serve", "decode", 2048, 8)``);
    random weights from seed 0, drawn once in bf16 (the fp32 runs take
@@ -258,14 +258,15 @@ Phases, each raising on failure:
    projection (768 -> 768, 768 -> 3072 with bias and tanh-GELU, 3072 ->
    768 with bias) at the encoder's 12,000 rows, the prompt's 1024 and 8,
    beside ``torch.addmm`` (+ GELU);
-19. family path — rwkv6-7b at full width and depth (7.62 B parameters;
-   ``ShapeConfig("serve", "decode", 1024, 8)``, a 512-token prompt a row):
+19. family path — rwkv6-7b at full width and 8 of its 32 layers (the
+   script's time limit; ``ShapeConfig("serve", "decode", 1024, 8)``, a
+   512-token prompt a row):
    bf16 then fp32 (the bf16 draw widened), ``generate`` of 32 tokens with
    no kernel launched (its projections are library products, its WKV
    recurrence plain PyTorch, as JAX computes both outside Pallas), the
    fp32 tokens of 4 steps each the argmax of a teacher-forced prefill; at
    the first 4 layers of the same weights (the model carries a last-bit
-   difference far through 32 layers: the full depth's figures, and the
+   difference far through its layers: the 8 layers' figures, and the
    fp32 logits under a 1e-7 nudge of the embedding, are recorded beside)
    the bf16 prefill's logits within 5e-2 of the fp32 prefill's and the
    fp32 decode within 2e-4 of a teacher-forced prefill; in bf16
@@ -282,11 +283,30 @@ Phases, each raising on failure:
    ``reference`` backend (bf16 within 5e-2, fp32 within 1e-4), fp32 tokens
    identical to it, the fp32 decode against a teacher-forced prefill, a
    second draw of the frames moving the cross-attention K/V, ``measure``
-   and profiles in bf16, ``Engine.run`` refused (a request has no frames).
+   and profiles in bf16, ``Engine.run`` refused (a request has no frames);
+20. mesh — the multi-device runtime at world size 1 over NCCL, on a
+   ``(("data", 1), ("model", 1))`` DeviceMesh (the card's machine has one
+   card), each check against the unsharded ``CompiledModel`` on the same
+   weights: full-width llama3.2-1b (16 layers) ``generate`` of 32 tokens
+   from 8 x 512 prompts on DTensor weights and state, bf16 and fp32, its
+   prefill logits within 5e-2 / 2e-4, fp32 tokens identical and the
+   launches of matmul_fused, flash_attention and decode_attention (by
+   schedule) equal to the unsharded run's; ``Trainer(mesh=)`` at full
+   width and 4 of the 16 layers, 3 steps against 3 unsharded ones (losses
+   within 1e-5); deepseek-moe-16b at 2 layers (1 dense + 1 MoE) a bf16
+   prefill on DTensor weights within 5e-2 of the unsharded one (the
+   one-rank model axis carries data parallelism, as in JAX, so
+   ``op_moe_ffn`` runs on the rank's rows); ``make_pipeline_loss`` on a
+   ``(("pod", 1), ("data", 1))`` mesh, llama at 4 layers in fp32 with 2
+   microbatches, its loss and gradients against the unsharded loss_fn
+   (1e-5 / 1e-4) and twice its launches; ResNet-34 at batch 8 a bf16
+   forward with conv2d_fused x 36 launched.
+   One line logs the backend, the world size, each relerr, the launch
+   counts and the phase's seconds.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19. Every path phase also reads
+and 19, then 20. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -2751,13 +2771,13 @@ def _unembed(cm, params):
     (the whole table widened to fp32, then an fp32 GEMM), on the model's
     own table."""
     from types import SimpleNamespace
-    from repro_torch.core.ops_impl import op_unembed
+    from repro_torch.core.ops_impl import Ctx, op_unembed
     cfg = cm.cfg
     dt = cm.plan.prec.compute_dtype
     table = params["embed"]["table"] if cfg.tie_embeddings \
         else params["head"]["lm_head"]
     x = torch.randn(B, 1, cfg.d_model, device=table.device).to(dt)
-    ctx = SimpleNamespace(compute_dtype=dt)
+    ctx = Ctx(mode="decode", plan=cm.plan)
     op = SimpleNamespace(attrs={"true_vocab": cfg.vocab_size})
 
     def fn():
@@ -2945,11 +2965,11 @@ MOE_ARCHS = ("deepseek-moe-16b", "mixtral-8x7b")
 VLM_ARCH = "llava-next-mistral-7b"
 NEW_ARCHS = MOE_ARCHS + (VLM_ARCH,)
 # phase 17 runs deepseek-moe-16b whole, mixtral-8x7b at 4 of its 32
-# layers (93 GB in bf16 whole) and llava at 8 of its 32, in bf16 and in
+# layers (93 GB in bf16 whole) and llava at 4 of its 32, in bf16 and in
 # fp32: the script's time limit (the phase took 213 s of it with mixtral
 # at 8 and llava whole); widths, heads, experts and every check as at full
 # depth
-DEPTH_CUT = {"mixtral-8x7b": 4, "llava-next-mistral-7b": 8}
+DEPTH_CUT = {"mixtral-8x7b": 4, "llava-next-mistral-7b": 4}
 # llava's cell: a 1024-token prompt whose first 576 positions are the patch
 # embeddings, in a 2048-slot cache
 VLM_S, VLM_C = 1024, 2048
@@ -3573,6 +3593,10 @@ TF_TOL = 2e-4                      # JAX's tests/test_models_smoke.py bound
 # weights and batch, and the full depth's figures are recorded beside
 # them
 RWKV_HELD = 4
+# phase 19 runs rwkv6-7b at 8 of its 32 layers (the script's time limit:
+# the phase took 129.4 s with it whole); widths, heads and every check as
+# at full depth
+RWKV_DEPTH = 8
 
 
 def _wh_matmuls(plan, S, E):
@@ -3803,8 +3827,8 @@ def _rwkv_card_vs_cpu():
 
 
 def _rwkv_model(smi):
-    """rwkv6-7b at full width and depth, bf16 then fp32 (the bf16 draw
-    widened): ``generate`` of 32 tokens after a 512-token prompt a row with
+    """rwkv6-7b at full width and ``RWKV_DEPTH`` layers, bf16 then fp32
+    (the bf16 draw widened): ``generate`` of 32 tokens after a 512-token prompt a row with
     no kernel launched (its projections are library products and its WKV
     recurrence plain PyTorch, as in JAX); the fp32 generate's tokens each
     the argmax of a teacher-forced prefill of the same tokens; at the first
@@ -3819,7 +3843,7 @@ def _rwkv_model(smi):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FlowConfig, ShapeConfig
     from repro_torch.serving import Engine, EngineConfig
-    cfg = get_config(RWKV_ARCH)
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=RWKV_DEPTH)
     shape = ShapeConfig("serve", "decode", LM_C, B)
     rec = {"arch": RWKV_ARCH, "nvidia_smi": smi, "prompt": LM_S,
            "cache": LM_C, "layers": cfg.n_layers}
@@ -4041,9 +4065,9 @@ def _whisper_model(smi):
 
 
 def phase_family_path(smi):
-    """Phase 19: rwkv6-7b and whisper-small at full width and depth through
-    ``flow.compile`` → ``generate`` (:func:`_rwkv_model`,
-    :func:`_whisper_model`), one after the other."""
+    """Phase 19: rwkv6-7b (at ``RWKV_DEPTH`` layers) and whisper-small at
+    full width and depth through ``flow.compile`` → ``generate``
+    (:func:`_rwkv_model`, :func:`_whisper_model`), one after the other."""
     out = {}
     for arch, run in ((RWKV_ARCH, _rwkv_model), (WH_ARCH, _whisper_model)):
         t0 = time.perf_counter()
@@ -4945,7 +4969,7 @@ def serving_kernel_entries(cases, serve):
         lambda k, r: int(r.get("sq", 1) == 1))
 
 
-def kernel_entries(cases, path):
+def kernel_entries(cases, path, tag=""):
     """Each CNN kernel, summed over its launches in one ResNet-34 forward
     (each shape times its uses)."""
     launches = {"bfloat16": {}, "float32": {}}
@@ -4958,12 +4982,12 @@ def kernel_entries(cases, path):
                 d[k] = d.get(k, 0) + n
     return summed_entries(
         _by_schedule({k: [r for r in v if r.get("arch") is None]
-                      for k, v in cases.items()}), launches, "",
+                      for k, v in cases.items()}), launches, tag,
         lambda k, used: "one ResNet-34 forward at batch 8, 224 px",
         lambda k, r: r["uses"])
 
 
-def lm_kernel_entries(cases, lm):
+def lm_kernel_entries(cases, lm, tag=f"@{LM_ARCH}"):
     """Each LM kernel, summed over one ``generate`` of 32 tokens (a prefill
     of 8 x 512 tokens, then 31 decode steps), each case's time times its
     uses there (the 128- and 40-row matmul cases are on no such path)."""
@@ -4984,7 +5008,7 @@ def lm_kernel_entries(cases, lm):
                                     lm["matmul_schedules_fp32"],
                                     lm["flash_schedules_fp32"],
                                     decode=lm["decode_schedules_fp32"])},
-        f"@{LM_ARCH}",
+        tag,
         lambda k, used: f"one {LM_ARCH} generate: prefill of {B}x{LM_S} "
                         f"tokens, then {steps} decode steps", uses)
 
@@ -5200,6 +5224,308 @@ KERNEL_SOURCES = {   # kernel: (its source, the TPU kernel it replaces)
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the multi-device runtime on a one-card mesh
+# ---------------------------------------------------------------------------
+
+MESH_AXES = (("data", 1), ("model", 1))
+MESH_TRAIN_STEPS = 3
+MESH_MOE_ARCH, MESH_MOE_DEPTH = "deepseek-moe-16b", 2
+MESH_TOL = {"bf16": 5e-2, "fp32": 2e-4}
+MESH_PIPE_MB = 2
+
+
+def _schedules_now():
+    """The wrappers' launches by schedule since the last ``reset_counts``
+    (the schedules that ran)."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import matmul_fused as km
+
+    def ran(d):
+        return {k: n for k, n in d.items() if n}
+    return {"matmul_fused": ran(km.matmul_fused.schedule_launches),
+            "flash_attention": ran(ka.flash_attention.schedules),
+            "decode_attention": ran(kd.decode_attention.schedules),
+            "conv2d_fused": ran(kc.conv2d_fused.schedule_launches)}
+
+
+def _counted_run(fn):
+    """``fn()`` with the counts set to 0 just before and read just after:
+    (its result, the launches, the launches by schedule)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), _schedules_now()
+
+
+def _same_launches(got, want, kernels, what):
+    for k in kernels:
+        if got[0][k] != want[0][k] or not got[0][k] or \
+                got[1].get(k) != want[1].get(k):
+            raise AssertionError(f"{what}: {k} launches {got[0][k]} "
+                                 f"{got[1].get(k)} on the mesh, "
+                                 f"{want[0][k]} {want[1].get(k)} unsharded")
+
+
+def _on_mesh(cm, params):
+    """The unsharded tree as the mesh's DTensors (at world size 1 each
+    rank's chunk is the whole tensor: no copy)."""
+    return cm.rules.distribute(params, cm.rules.params_shardings(cm.plan))
+
+
+def _mesh_pipeline(cfg):
+    """``make_pipeline_loss`` on a ``(("pod", 1), ("data", 1))`` mesh
+    (GPipe over a one-stage pod axis: the card's machine has one card, so
+    no activation is sent) against the unsharded ``loss_fn`` on the same
+    fp32 weights and batch: loss within 1e-5 and gradients within 1e-4
+    (relerr; the microbatches sum the gradients in another order), the
+    launches of matmul_fused and flash_attention ``MESH_PIPE_MB`` times
+    the unsharded run's (one forward and backward a microbatch)."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.distributed.pipeline_parallel import make_pipeline_loss
+    from repro_torch.distributed.sharding import local_of
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.trainer import _grads
+    shape = ShapeConfig("train", "train", TRAIN_S, B)
+    fl = FlowConfig(mode="folded", precision="fp32", remat="none",
+                    pp_axis="pod")
+    cm0 = tflow.compile(cfg, shape, fl)
+    cm = tflow.compile(cfg, shape, fl, mesh={"pod": 1, "data": 1})
+    p0 = cm0.init_params(SEED)
+    p = _on_mesh(cm, p0)
+    rng = np.random.RandomState(SEED)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        B, TRAIN_S)).astype(np.int64)).cuda() for k in ("tokens", "labels")}
+    loss = make_pipeline_loss(cm.plan, cm.mesh, n_microbatches=MESH_PIPE_MB,
+                              pp_axis="pod")
+    (l0, _, g0), *want = _counted_run(lambda: _grads(cm0.loss_fn, p0,
+                                                      batch))
+    (l1, _, g1), *got = _counted_run(lambda: _grads(
+        lambda q, b: (loss(q, b), {}), tree_map(local_of, p), batch))
+    g1 = loss.reduce_grads(g1)
+    lerr = abs(float(l1) - float(l0)) / abs(float(l0))
+    gerr = max(relerr(a, b) for a, b in zip(tree_leaves(g1),
+                                            tree_leaves(g0)))
+    kern = ("matmul_fused", "flash_attention")
+    launches = {k: got[0][k] for k in kern}
+    if not lerr <= 1e-5 or not gerr <= 1e-4 or any(
+            not launches[k] or launches[k] != MESH_PIPE_MB * want[0][k]
+            for k in kern):
+        raise AssertionError(f"mesh pipeline: loss {float(l1)} vs "
+                             f"{float(l0)}, grads relerr {gerr}, launches "
+                             f"{launches} vs {want[0]}")
+    out = {"layers": cfg.n_layers, "microbatches": MESH_PIPE_MB,
+           "loss_relerr": lerr, "grads_relerr": gerr, "launches": launches}
+    del cm0, cm, p0, p, g0, g1
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(smi):
+    """Phase 20: ``compile(mesh=)``, ``Trainer(mesh=)``, the MoE, GPipe
+    and a CNN on a DeviceMesh of the one card, each held to the unsharded
+    ``CompiledModel``."""
+    import torch.distributed as dist
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.core import ops_impl
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import init_process_group
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from torch.distributed.tensor import DTensor
+    t_start = time.perf_counter()
+    backend = init_process_group(1, 0, "cuda")
+    mesh = MeshSpec(MESH_AXES).build()
+    rec = {"backend": backend, "world_size": dist.get_world_size(),
+           "mesh": MeshSpec.of(mesh).describe(), "nvidia_smi": smi}
+    kern3 = ("matmul_fused", "flash_attention", "decode_attention")
+
+    # llama3.2-1b at full width and depth: generate and the prefill
+    cfg = get_config(LM_ARCH)
+    shape = ShapeConfig("serve", "decode", LM_C, B)
+    rng = np.random.RandomState(SEED)
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (B, LM_S)).astype(np.int64)).cuda()}
+    params16 = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm0 = tflow.compile(cfg, shape, fl)
+        cm = tflow.compile(cfg, shape, fl, mesh=mesh)
+        if prec == "bf16":
+            rec["sharding_line"] = next(
+                ln.strip() for ln in cm.describe().splitlines()
+                if ln.strip().startswith("sharding:"))
+            params16 = cm0.init_params(SEED)
+        p0 = params16 if prec == "bf16" else _widened(params16)
+        p = _on_mesh(cm, p0)
+        if not isinstance(p["embed"]["table"], DTensor):
+            raise AssertionError("mesh params are not DTensors")
+        (t0, _), *want = _counted_run(lambda: cm0.generate(
+            p0, batch, steps=LM_STEPS))
+        (t1, st), *got = _counted_run(lambda: cm.generate(
+            p, batch, steps=LM_STEPS))
+        _same_launches(got, want, kern3, f"{prec} mesh generate")
+        if not isinstance(next(iter(next(iter(st.values())).values()))["k"],
+                          DTensor):
+            raise AssertionError("mesh state is not DTensors")
+        y0 = cm0.prefill(p0, batch)[0]
+        y1 = full_tensor(cm.prefill(p, batch)[0])
+        err = relerr(y1.float(), y0.float())
+        if not err <= MESH_TOL[prec]:
+            raise AssertionError(f"{prec} mesh prefill logits relerr {err}")
+        if prec == "fp32" and not torch.equal(t0, t1):
+            raise AssertionError("fp32 mesh greedy tokens differ from the "
+                                 "unsharded run's")
+        rec[f"llama_{prec}"] = {
+            "prefill_relerr": err, "tokens_identical": torch.equal(t0, t1),
+            "launches": {k: got[0][k] for k in kern3},
+            "matmul_schedules": got[1]["matmul_fused"],
+            "flash_schedules": got[1]["flash_attention"],
+            "decode_schedules": got[1]["decode_attention"]}
+        del cm0, cm, p0, p, st, y0, y1
+        torch.cuda.empty_cache()
+    del params16
+    torch.cuda.empty_cache()
+
+    # Trainer(mesh=) at full width, TRAIN_DEPTH layers
+    tcfg_m = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH)
+    tshape = ShapeConfig("train", "train", TRAIN_S, B)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=B))
+    opt = AdamW(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    tc = TrainerConfig(steps=MESH_TRAIN_STEPS, log_every=1)
+    cm0 = tflow.compile(tcfg_m, tshape, FlowConfig(mode="folded"))
+    cm = tflow.compile(tcfg_m, tshape, FlowConfig(mode="folded"), mesh=mesh)
+    (_, _, h0), *want = _counted_run(lambda: Trainer(cm0, opt, tc).fit(
+        data, SEED))
+    (pm, _, h1), *got = _counted_run(lambda: Trainer(cm, opt, tc).fit(
+        data, SEED))
+    _same_launches(got, want, ("matmul_fused", "flash_attention"),
+                   "mesh train")
+    terr = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(h1, h0))
+    if len(h1) != MESH_TRAIN_STEPS or not terr <= 1e-5 or \
+            not isinstance(pm["embed"]["table"], DTensor):
+        raise AssertionError(f"mesh train losses {h1} vs {h0}")
+    rec["train"] = {"layers": TRAIN_DEPTH, "losses": [a for _, a in h1],
+                    "unsharded_losses": [b for _, b in h0],
+                    "loss_relerr_max": terr,
+                    "launches": {k: got[0][k] for k in
+                                 ("matmul_fused", "flash_attention")}}
+    del cm0, cm, pm
+    torch.cuda.empty_cache()
+
+    # deepseek-moe-16b at 2 layers: the prefill on DTensor weights.  A
+    # one-rank model axis carries data parallelism (JAX's split_roles), so
+    # op_moe_ffn runs on the rank's rows, as JAX runs it on this mesh
+    mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                               n_layers=MESH_MOE_DEPTH)
+    mshape = ShapeConfig("serve", "prefill", LM_S, B)
+    fl = FlowConfig(mode="folded")
+    cm0 = tflow.compile(mcfg, mshape, fl)
+    cm = tflow.compile(mcfg, mshape, fl, mesh=mesh)
+    if cm.rules.tp is not None:
+        raise AssertionError(f"one-rank model axis kept as tp: {cm.rules}")
+    p0 = cm0.init_params(SEED)
+    p = _on_mesh(cm, p0)
+    mb = {"tokens": torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, mcfg.vocab_size, (B, LM_S)).astype(np.int64)).cuda()}
+    moe_calls = []
+    inner = ops_impl.OPS["moe_ffn"]
+
+    def counted(ctx, op, pp, x):
+        moe_calls.append(ctx.plan.rules is not None and
+                         not isinstance(pp["we_gate"], DTensor))
+        return inner(ctx, op, pp, x)
+    y0, *want = _counted_run(lambda: cm0.prefill(p0, mb)[0])
+    ops_impl.OPS["moe_ffn"] = counted
+    try:
+        y1, *got = _counted_run(lambda: full_tensor(cm.prefill(p, mb)[0]))
+    finally:
+        ops_impl.OPS["moe_ffn"] = inner
+    _same_launches(got, want, ("matmul_fused", "flash_attention"),
+                   "mesh MoE prefill")
+    merr = relerr(y1.float(), y0.float())
+    if moe_calls != [True] * (MESH_MOE_DEPTH - 1) or \
+            not merr <= MESH_TOL["bf16"]:
+        raise AssertionError(f"mesh MoE prefill: op_moe_ffn calls "
+                             f"{moe_calls}, relerr {merr}")
+    rec["moe"] = {"arch": MESH_MOE_ARCH, "layers": MESH_MOE_DEPTH,
+                  "moe_calls": len(moe_calls), "prefill_relerr": merr,
+                  "launches": {k: got[0][k] for k in
+                               ("matmul_fused", "flash_attention")}}
+    del cm0, cm, p0, p, y0, y1
+    torch.cuda.empty_cache()
+
+    # GPipe on a one-stage pod axis: llama3.2-1b at TRAIN_DEPTH layers, fp32,
+    # MESH_PIPE_MB microbatches; its loss and gradients against the
+    # unsharded loss_fn's (the stage's buffers and positions on the card)
+    rec["pipeline"] = _mesh_pipeline(tcfg_m)
+
+    # ResNet-34 at batch 8: a bf16 forward on the mesh
+    ccfg = get_config("resnet34")
+    cshape = ShapeConfig("serve", "prefill", 64, B)
+    cm0 = tflow.compile(ccfg, cshape, FlowConfig(mode="folded"))
+    cm = tflow.compile(ccfg, cshape, FlowConfig(mode="folded"), mesh=mesh)
+    p0 = cm0.init_params(SEED)
+    p = _on_mesh(cm, p0)
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(
+        B, ccfg.image_size, ccfg.image_size,
+        ccfg.image_channels).astype(np.float32)).cuda()
+    y0, *want = _counted_run(lambda: cm0.prefill(p0, {"images": x})[0])
+    y1, *got = _counted_run(lambda: full_tensor(cm.prefill(
+        p, {"images": x})[0]))
+    _same_launches(got, want, ("conv2d_fused", "matmul_fused"),
+                   "mesh ResNet-34")
+    cerr = relerr(y1.float(), y0.float())
+    if got[0]["conv2d_fused"] != 36 or not cerr <= MESH_TOL["bf16"]:
+        raise AssertionError(f"mesh ResNet-34: {got[0]} relerr {cerr}")
+    rec["resnet34"] = {"arch": "resnet34", "flow": "bf16",
+                       "logits_relerr": cerr,
+                       "launches": {k: got[0][k] for k in
+                                    ("conv2d_fused", "matmul_fused")},
+                       "matmul_schedules": got[1]["matmul_fused"],
+                       "conv_schedules": got[1]["conv2d_fused"]}
+    del cm0, cm, p0, p
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"mesh": {
+        "backend": backend, "world_size": rec["world_size"],
+        "llama_prefill_relerr": {q: rec[f"llama_{q}"]["prefill_relerr"]
+                                 for q in ("bf16", "fp32")},
+        "llama_launches": {q: rec[f"llama_{q}"]["launches"]
+                           for q in ("bf16", "fp32")},
+        "fp32_tokens_identical": rec["llama_fp32"]["tokens_identical"],
+        "train_loss_relerr": terr, "moe_prefill_relerr": merr,
+        "moe_calls": len(moe_calls),
+        "pipeline": rec["pipeline"], "resnet34_relerr": cerr,
+        "resnet34_launches": rec["resnet34"]["launches"],
+        "seconds": rec["seconds"]}}))
+    return rec
+
+
+def mesh_kernel_entries(cases, lm_cases, mesh):
+    """The kernels of the mesh phase's runs: llama's generates (summed as
+    :func:`lm_kernel_entries` sums them) and ResNet-34's bf16 forward (as
+    :func:`kernel_entries`), their ``launches`` counted on the mesh."""
+    lm = {"launches": mesh["llama_bf16"]["launches"],
+          "launches_fp32": mesh["llama_fp32"]["launches"]}
+    for prec, suf in (("bf16", ""), ("fp32", "_fp32")):
+        g = mesh[f"llama_{prec}"]
+        lm.update({f"matmul_schedules{suf}": g["matmul_schedules"],
+                   f"flash_schedules{suf}": g["flash_schedules"],
+                   f"decode_schedules{suf}": g["decode_schedules"]})
+    return lm_kernel_entries(lm_cases, lm, tag=f"@{LM_ARCH}/mesh") + \
+        kernel_entries(cases, [mesh["resnet34"]], tag="@mesh")
+
+
 def summed_entries(cases, launches, tag, per, uses):
     """One ``kernels``-line entry per kernel and dtype.  Each case's times
     and bound count ``uses(kernel, case)`` times (0 leaves a case out) and
@@ -5271,6 +5597,7 @@ def main() -> int:
     new = timed(phase_moe_path, smi)
     fam_cases = timed(phase_family_kernels)
     fam = timed(phase_family_path, smi)
+    mesh = timed(phase_mesh, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -5281,7 +5608,8 @@ def main() -> int:
         lru_kernel_entries(lru_cases) + \
         dense_kernel_entries(dense_cases, dense) + \
         new_kernel_entries(moe_cases, new) + \
-        family_kernel_entries(fam_cases, fam)
+        family_kernel_entries(fam_cases, fam) + \
+        mesh_kernel_entries(cases, lm_cases, mesh)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -5296,7 +5624,7 @@ def main() -> int:
                    "train": train, "tune": tune,
                    "moe_kernels": moe_cases, "moe_path": new,
                    "family_kernels": fam_cases, "family_path": fam,
-                   "entries": entries, "phase_seconds": walls,
+                   "mesh": mesh, "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

@@ -28,8 +28,14 @@ def tensor_from_numpy(a: Any, device: DeviceLike = "cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)     # a writable copy
 
 
-def params_from_numpy(tree: Dict[str, Any],
-                      device: DeviceLike = "cpu") -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> the same nesting of tensors."""
+def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = "cpu", *,
+                      rules=None, plan=None) -> Dict[str, Any]:
+    """Nested dict of numpy arrays -> the same nesting of tensors; with
+    ``rules`` and ``plan`` (a mesh) DTensors under
+    ``rules.params_shardings(plan)``, each rank keeping its chunk: the
+    leaves are made on the host and only the chunks move to ``device``."""
+    if rules is not None:
+        return rules.distribute(params_from_numpy(tree, "cpu"),
+                                rules.params_shardings(plan), device)
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else tensor_from_numpy(v, device) for k, v in tree.items()}

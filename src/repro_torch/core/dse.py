@@ -230,19 +230,23 @@ def measure_validator(cfg: ModelConfig, shape: ShapeConfig, *,
     ``per_device_bytes`` is the timed calls' peak of allocated memory on the
     card less what was allocated beside the candidate, the estimator's
     footprint on the CPU.  Weights come from seed 0
-    (``measure``'s default).  A mesh (or a candidate
-    that proposes one) raises: multi-device runs wait for ROADMAP Queue 1,
-    "Multi-device"."""
+    (``measure``'s default).  A candidate is timed on ``mesh`` (a live
+    DeviceMesh) or, when it proposes a ``mesh_split`` of its own, on that
+    mesh, built over the ranks of the process group: every rank runs the
+    same search, and ``measure`` keeps the slowest rank's times, so every
+    rank picks the same winner."""
     dev = resolve_device(device)
     last: Dict[Any, Any] = {}         # the weights of the last candidate
 
     def validate(flow: FlowConfig) -> Dict[str, Any]:
         from repro_torch import flow as tflow
-        if mesh is not None or flow.mesh_split is not None:
-            raise NotImplementedError(
-                "measuring a candidate on a mesh is not ported yet "
-                "(ROADMAP Queue 1, \"Multi-device\")")
-        cm = tflow.compile(cfg, shape, flow, device=dev)
+        from repro_torch.distributed.meshspec import MeshSpec
+        m = mesh
+        if m is None and flow.mesh_split is not None:
+            # mesh-search mode: each candidate is timed on the mesh it
+            # proposes, not as an unsharded single-device program
+            m = MeshSpec.of(flow.mesh_split).build(dev)
+        cm = tflow.compile(cfg, shape, flow, mesh=m, device=dev)
         params = None
         if shape.kind != "train":
             # serving candidates with the same parameter tree (most differ
@@ -250,7 +254,7 @@ def measure_validator(cfg: ModelConfig, shape: ShapeConfig, *,
             # from seed 0; a train step updates its weights, so each train
             # candidate draws its own
             sig = (repr(sorted(cm.param_shapes().items())),
-                   cm.plan.prec.param_dtype)
+                   cm.plan.prec.param_dtype, flow.mesh_split)
             if sig not in last:
                 last.clear()
                 last[sig] = cm.init_params(0)
@@ -459,9 +463,8 @@ def explore(cfg: ModelConfig, shape: ShapeConfig,
     ``mesh_split`` candidates, and candidates whose splits would produce
     uneven shards are rejected before scoring (the paper's even-division
     rule, across devices).  An explicit ``mesh`` (MeshSpec / axis-size dict)
-    pins the factorization instead, like a pinned kernel backend.  The
-    mesh search is the estimator's alone: measuring a candidate on a mesh
-    waits for ROADMAP Queue 1, "Multi-device".
+    pins the factorization instead, like a pinned kernel backend.  A
+    :func:`measure_validator` times each mesh candidate on its own mesh.
 
     Before any scoring, the static verifier screens the space: candidates
     whose flow knobs hold values no pass or registry accepts (F501) are

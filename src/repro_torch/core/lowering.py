@@ -7,6 +7,14 @@
 * ``make_loss_fn`` — the training loss, with the LM head's cross-entropy
   chunked over the sequence (the LM-head analogue of the paper's loop
   fusion: the full logits never exist)
+* ``state_shardings`` — the serving state's placements on a mesh
+
+On a mesh (``plan.rules``, set by ``repro_torch.flow.compile(mesh=...)``)
+the parameters and the serving state are DTensors, each rank holding its
+chunk; the functions above run on the rank's local tensors (the rules'
+canonical layout: the batch split over dp, whole over tp) with explicit
+collectives (:mod:`repro_torch.distributed.sharding`), and hand back
+DTensors.  No kernel wrapper ever sees a DTensor.
 
 Folded units (the paper's parameterized kernels; a ``lax.scan`` in the JAX
 package) lower to a Python loop over the unit's repetitions, each step
@@ -31,9 +39,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import Block, Graph, MicroOp, ParamSpec
-from repro_torch.core.ops_impl import OPS, Ctx
+from repro_torch.core.ops_impl import OPS, TP_SPLIT_OPS, Ctx
 from repro_torch.core.passes.folding import Unit
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.distributed import collectives as col
 
 MODES = ("train", "prefill", "decode")
 AUX_KEYS = ("moe_aux",)
@@ -110,7 +119,7 @@ def unit_key(graph: Graph, unit: Unit) -> str:
 
 
 def init_params(plan: ExecutionPlan, seed: int, device: torch.device,
-                workers: Optional[int] = None) -> Dict[str, Any]:
+                workers: Optional[int] = None, rules=None) -> Dict[str, Any]:
     """Random parameters from ``seed``: each drawn on the CPU from its own
     generator, then moved to ``device``, so a seed gives the same weights
     on the CPU and on the card.  They are not the JAX package's numbers
@@ -121,32 +130,53 @@ def init_params(plan: ExecutionPlan, seed: int, device: torch.device,
     this process may run on by default), at most two a thread in flight, so the host holds
     a few slices at once, never a whole stacked leaf (a deepseek-moe-16b
     expert leaf is 19.9 GB in fp32): the values depend neither on the
-    threads nor on the order the draws finish in."""
+    threads nor on the order the draws finish in.
+
+    With ``rules`` (a mesh) each leaf becomes a DTensor under
+    ``rules.params_shardings(plan)`` and the rank draws the same values,
+    keeping its chunk: a leaf (a folded leaf's slice) is drawn whole on
+    the host, cut there to the rank's index range, and only that chunk
+    moves to ``device``; a folded leaf split over its repetitions draws
+    only the rank's.  The device never holds more than the rank's shard."""
     graph, dtype = plan.graph, plan.prec.param_dtype
     workers = workers or len(os.sched_getaffinity(0)) or 1
+    shd = rules.params_shardings(plan) if rules is not None else None
     params: Dict[str, Any] = {}
-    draws: List[Tuple[Dict[str, Any], str, Optional[int], str, ParamSpec]] = []
+    draws: List[Tuple[Dict[str, Any], str, Optional[int], str, ParamSpec,
+                      Tuple[slice, ...]]] = []
+
+    def cut_of(top, key, shape):
+        if shd is None:
+            return (slice(None),) * len(shape)
+        return rules.local_slices(shape, shd[top][key].placements)
+
     for unit in plan.units:
         if not unit.folded:
             b = graph.blocks[unit.indices[0]]
             bp: Dict[str, Any] = {}
             for spec in b.param_specs():
                 bp[spec.name] = None
-                draws.append((bp, spec.name, None, b.name + spec.name, spec))
+                draws.append((bp, spec.name, None, b.name + spec.name, spec,
+                              cut_of(b.name, spec.name, spec.shape)))
             if bp:
                 params[b.name] = bp
         else:
             period, reps = unit.period, unit.reps
+            top = _fold_key(graph, unit)
             gp = {}
             for j in range(period):
                 for spec in graph.blocks[unit.indices[j]].param_specs():
                     key = f"{j}:{spec.name}"
-                    gp[key] = torch.empty((reps,) + spec.shape, dtype=dtype,
-                                          device=device)
-                    draws += [(gp, key, r, graph.blocks[
-                        unit.indices[r * period + j]].name + spec.name, spec)
-                        for r in range(reps)]
-            params[_fold_key(graph, unit)] = gp
+                    cut = cut_of(top, key, (reps,) + spec.shape)
+                    r0, r1, _ = cut[0].indices(reps)
+                    gp[key] = torch.empty(
+                        (r1 - r0,) + tuple(len(range(n)[c]) for n, c in
+                                           zip(spec.shape, cut[1:])),
+                        dtype=dtype, device=device)
+                    draws += [(gp, key, r - r0, graph.blocks[
+                        unit.indices[r * period + j]].name + spec.name, spec,
+                        cut[1:]) for r in range(r0, r1)]
+            params[top] = gp
 
     def land(fut: Future) -> None:
         tree, key, r, x = fut.result()
@@ -155,8 +185,11 @@ def init_params(plan: ExecutionPlan, seed: int, device: torch.device,
         else:
             tree[key][r].copy_(x)
 
-    def one(tree, key, r, name, spec):
-        return tree, key, r, _init_one(seed, name, spec, dtype)
+    def one(tree, key, r, name, spec, cut):
+        x = _init_one(seed, name, spec, dtype)
+        y = x[cut]
+        return tree, key, r, (y.contiguous().clone() if y.numel() != x.numel()
+                              else y)
 
     window: List[Future] = []
     with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -166,7 +199,13 @@ def init_params(plan: ExecutionPlan, seed: int, device: torch.device,
                 land(window.pop(0))
         for fut in window:
             land(fut)
-    return params
+    if shd is None:
+        return params
+    shapes = param_shapes(plan)
+    return {top: {k: rules.wrap(v, shd[top][k].placements,
+                                shapes[top][k].shape)
+                  for k, v in leaves.items()}
+            for top, leaves in params.items()}
 
 
 def param_shapes(plan: ExecutionPlan) -> Dict[str, Any]:
@@ -189,6 +228,26 @@ def param_shapes(plan: ExecutionPlan) -> Dict[str, Any]:
                 proto = graph.blocks[unit.indices[j]]
                 for s in proto.param_specs():
                     gp[f"{j}:{s.name}"] = meta((unit.reps,) + s.shape)
+            out[_fold_key(graph, unit)] = gp
+    return out
+
+
+def param_specs_tree(plan: ExecutionPlan) -> Dict[str, Any]:
+    """Same structure as params, holding (ParamSpec, stacked: bool)."""
+    graph = plan.graph
+    out: Dict[str, Any] = {}
+    for unit in plan.units:
+        if not unit.folded:
+            b = graph.blocks[unit.indices[0]]
+            bp = {s.name: (s, False) for s in b.param_specs()}
+            if bp:
+                out[b.name] = bp
+        else:
+            gp = {}
+            for j in range(unit.period):
+                proto = graph.blocks[unit.indices[j]]
+                for s in proto.param_specs():
+                    gp[f"{j}:{s.name}"] = (s, True)
             out[_fold_key(graph, unit)] = gp
     return out
 
@@ -244,15 +303,18 @@ def _mk_state(shapes: Dict[str, tuple], lead: Tuple[int, ...],
 
 
 def init_state(plan: ExecutionPlan, batch_size: int,
-               device: torch.device) -> Dict[str, Any]:
+               device: torch.device, rules=None) -> Dict[str, Any]:
     """Serving state, stacked to match the folded units: the JAX package's
     layout, ``{unit_key: {state_key: {"k", "v", "pos"}}}`` for attention
     and ``{unit_key: {state_key: tensor}}`` for the recurrent ops, with a
-    leading ``(reps,)`` axis for folded units."""
+    leading ``(reps,)`` axis for folded units.  With ``rules`` (a mesh)
+    each leaf is a DTensor placed by :func:`state_shardings`, the rank's
+    chunk made on ``device`` (the whole state is never made)."""
     graph, cfg = plan.graph, plan.cfg
     dtype = plan.prec.compute_dtype
     C = plan.cache_len
     state: Dict[str, Any] = {}
+    made_on = "meta" if rules is not None else device
     for unit in plan.units:
         ust: Dict[str, Any] = {}
         blocks = [graph.blocks[unit.indices[j]] for j in range(unit.period)]
@@ -260,7 +322,7 @@ def init_state(plan: ExecutionPlan, batch_size: int,
         for b in blocks:
             for op in b.stateful_ops():
                 shapes = _op_state_shapes(op, cfg, batch_size, C, dtype)
-                made = _mk_state(shapes, lead, device)
+                made = _mk_state(shapes, lead, made_on)
                 key = op.attrs["state_key"]
                 if op.op == "attention":      # attention state: a dict
                     ust[key] = made
@@ -269,7 +331,82 @@ def init_state(plan: ExecutionPlan, batch_size: int,
                         ust[key + suf] = v
         if ust:
             state[unit_key(graph, unit)] = ust
-    return state
+    if rules is None:
+        return state
+
+    def local(x, sh):             # the rank's chunk, made on the device
+        if isinstance(x, dict):
+            return {k: local(v, sh[k]) for k, v in x.items()}
+        fill = -1 if x.dtype == torch.int32 else 0
+        return rules.wrap(torch.full(rules.local_shape(x.shape,
+                                                       sh.placements),
+                                     fill, dtype=x.dtype, device=device),
+                          sh.placements, x.shape)
+    return local(state, state_shardings(plan, batch_size, rules))
+
+
+def _op_state_roles(op: MicroOp) -> Dict[str, Tuple[str, ...]]:
+    """{suffix: per-dim roles} of one stateful op's state (the JAX
+    package's roles: the KV length over tp, the batch over dp, a
+    recurrence's width or heads over tp)."""
+    if op.op == "attention":
+        if op.attrs.get("cross"):
+            r = ("batch", "none", "none", "none")
+            return {"k": r, "v": r}
+        r = ("batch", "kv_len", "none", "none")
+        return {"k": r, "v": r, "pos": ("batch", "kv_len")}
+    if op.op == "conv1d_causal":
+        return {"": ("batch", "none", "d_ff")}
+    if op.op == "rg_lru":
+        return {"": ("batch", "d_ff")}
+    if op.op == "rwkv6_timemix":
+        return {"_shift": ("batch", "none"),
+                "_s": ("batch", "heads", "none", "none")}
+    if op.op == "rwkv6_channelmix":
+        return {"_shift": ("batch", "none")}
+    return {}
+
+
+def state_layout(plan: ExecutionPlan, batch_size: int) -> Dict[str, Any]:
+    """The serving state's tree (as :func:`init_state` builds it) with
+    ``(shape, roles)`` leaves; a folded unit's leaves lead with
+    ``("layers",)``."""
+    graph, cfg = plan.graph, plan.cfg
+    out: Dict[str, Any] = {}
+    for unit in plan.units:
+        ust: Dict[str, Any] = {}
+        lead = (unit.reps,) if unit.folded else ()
+        lroles = ("layers",) * len(lead)
+        for j in range(unit.period):
+            for op in graph.blocks[unit.indices[j]].stateful_ops():
+                shapes = _op_state_shapes(op, cfg, batch_size,
+                                          plan.cache_len, None)
+                roles = _op_state_roles(op)
+                made = {suf: (lead + tuple(shp), lroles + roles[suf])
+                        for suf, (shp, _) in shapes.items()}
+                key = op.attrs["state_key"]
+                if op.op == "attention":
+                    ust[key] = made
+                else:
+                    for suf, v in made.items():
+                        ust[key + suf] = v
+        if ust:
+            out[unit_key(graph, unit)] = ust
+    return out
+
+
+def state_shardings(plan: ExecutionPlan, batch_size: int, rules
+                    ) -> Dict[str, Any]:
+    """NamedSharding tree for the serving state (role-driven: the batch
+    over dp, the KV length over tp)."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        shape, roles = x
+        return NamedSharding(rules.mesh, rules.act_pspec(roles, shape))
+    return one(state_layout(plan, batch_size))
 
 
 # ---------------------------------------------------------------------------
@@ -306,18 +443,72 @@ def _param_slice(op: MicroOp, bparams: Dict[str, Any], j: Optional[int]):
     return out
 
 
+def _op_params(ctx: Ctx, op: MicroOp, bparams, j: Optional[int],
+               bdims: Optional[Dict[str, int]]):
+    """One op's params, and ``ctx.tp_dims`` set to the dims left split over
+    tp: on a mesh an op of ``TP_SPLIT_OPS`` computes on its tp chunks, the
+    others get each tp-split param all-gathered (backward: the chunk)."""
+    p = _param_slice(op, bparams, j)
+    dims = {}
+    if bdims:
+        for spec in op.params:
+            d = bdims.get(spec.name if j is None else f"{j}:{spec.name}")
+            if d is not None:
+                dims[spec.name] = d
+    if dims and op.op not in TP_SPLIT_OPS:
+        g = ctx.plan.rules.tp_group
+        p = {n: col.gather(t, dims[n], g) if n in dims else t
+             for n, t in p.items()}
+        dims = {}
+    ctx.tp_dims = dims
+    return p
+
+
 def _run_block(ctx: Ctx, block: Block, bparams, env: Dict[str, Any],
                mode: str, j: Optional[int] = None,
-               tied_tables: Optional[Dict[str, Any]] = None):
+               tied_tables: Optional[Dict[str, Any]] = None,
+               bdims: Optional[Dict[str, int]] = None):
+    """Run one block's live ops.  ``tied_tables`` maps ``"<block>/table"``
+    to (table, its tp-split dim or None); ``bdims`` holds the tp-split dim
+    of each of ``bparams``' leaves on a mesh."""
     for op in live_ops(block, mode):
         args = [env[i] for i in _used_ins(op, mode)]
         if op.op == "attention" and len(args) == 2:    # decode cross-attn
             q, pos = args
             args = [q, q, q, pos]                       # K/V placeholders
+        p = _op_params(ctx, op, bparams, j, bdims)
         if op.op == "unembed" and op.attrs.get("tied"):
-            args.append(tied_tables[op.attrs["tied"]])
-        env[op.out] = OPS[op.op](ctx, op, _param_slice(op, bparams, j), *args)
+            table, d = tied_tables[op.attrs["tied"]]
+            args.append(table)
+            if d is not None:
+                ctx.tp_dims["tied"] = d
+        env[op.out] = OPS[op.op](ctx, op, p, *args)
     return env["h"]
+
+
+class _Params:
+    """The parameters as the ops see them, a unit at a time: without a mesh
+    the tree itself; on a mesh (``rules``) each leaf's local chunk (a
+    DTensor's, or a local tensor the train step holds) gathered over dp at
+    its unit's first use (the FSDP all-gather, once a call), its tp chunk
+    kept and its tp-split dim recorded."""
+
+    def __init__(self, params, rules=None, shardings=None):
+        self.params, self.rules, self.shardings = params, rules, shardings
+        self._views: Dict[str, Any] = {}
+
+    def unit(self, key: str) -> Tuple[Dict[str, Any], Dict[str, int]]:
+        if self.rules is None:
+            return self.params.get(key, {}), {}
+        if key not in self._views:
+            vals, dims = {}, {}
+            for k, x in self.params.get(key, {}).items():
+                vals[k], d = self.rules.materialize(
+                    x, self.shardings[key][k])
+                if d is not None:
+                    dims[k] = d
+            self._views[key] = (vals, dims)
+        return self._views[key]
 
 
 # ---------------------------------------------------------------------------
@@ -346,15 +537,19 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
     every unit after the ``captures_cross`` block sees its output as
     ``cross``."""
     graph, units = plan.graph, plan.units
+    rules = plan.rules
+    shardings = rules.params_shardings(plan) if rules is not None else None
+    vocab = _vocab_rows(plan) if rules is not None and head and \
+        plan.cfg.family != "cnn" else None
 
-    def apply(params, batch, state=None, cache_index=None, mode="prefill"):
-        if mode not in MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet; the port runs {MODES} "
-                "(ROADMAP Queue 1)")
-        if mode == "decode" and (state is None or cache_index is None):
-            raise ValueError("decode needs the serving state and cache_index")
-        ctx = Ctx(mode=mode, plan=plan, cache_index=cache_index)
+    def constrain(x, roles):
+        return x if rules is None else rules.constrain_act(x, roles)
+
+    def run(pv: _Params, batch, state, cache_index, mode):
+        """The program on one rank's tensors: ``pv`` the parameter views,
+        ``batch`` and ``state`` local (the whole of them without a mesh)."""
+        ctx = Ctx(mode=mode, plan=plan, cache_index=cache_index,
+                  constrain=constrain)
         ctx.aux["__inputs__"] = batch
         new_state: Dict[str, Any] = {}
         tokens = "tokens" in batch
@@ -382,9 +577,13 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
             b0 = graph.blocks[unit.indices[0]]
             for spec in b0.param_specs():
                 if spec.name == "table":
-                    tied_tables[f"{b0.name}/table"] = params[b0.name]["table"]
+                    vals, dims = pv.unit(b0.name)
+                    tied_tables[f"{b0.name}/table"] = (vals["table"],
+                                                       dims.get("table"))
 
         cross = None
+        if not tokens:                  # the CNN batch, over dp
+            h = ctx.cst(h, ("batch",) + ("none",) * (h.ndim - 1))
         for unit in units:
             ukey = unit_key(graph, unit)
             b0 = graph.blocks[unit.indices[0]]
@@ -400,16 +599,18 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
                     h = h[:, -1:]
             env = {"h": h, "cross": cross,
                    "positions": pos_for(h, encoder=encoder)}
+            uparams, udims = pv.unit(ukey)
             if not unit.folded:
                 ctx.state_in = (state or {}).get(ukey, {})
                 ctx.state_out = {}
-                h = _run_block(ctx, b0, params.get(ukey, {}), env, mode,
-                               tied_tables=tied_tables)
+                h = _run_block(ctx, b0, uparams, env, mode,
+                               tied_tables=tied_tables, bdims=udims)
                 if ctx.state_out:
                     new_state[ukey] = ctx.state_out
             else:
-                h, st = _run_folded(ctx, plan, unit, params[ukey],
-                                    (state or {}).get(ukey), env, mode)
+                h, st = _run_folded(ctx, plan, unit, uparams,
+                                    (state or {}).get(ukey), env, mode,
+                                    gdims=udims)
                 if st:
                     new_state[ukey] = st
             if b0.attrs.get("captures_cross"):
@@ -420,7 +621,131 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
             return h, state, aux
         return h, new_state, aux
 
+    def local_batch(batch):
+        if rules is None:
+            return batch
+        return {k: rules.local_batch(v) if torch.is_tensor(v) and v.ndim
+                else v for k, v in batch.items()}
+
+    def params_view(params) -> _Params:
+        return _Params(params, rules, shardings)
+
+    def check(mode, state, cache_index):
+        if mode not in MODES:
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported yet; the port runs {MODES} "
+                "(ROADMAP Queue 1)")
+        if mode == "decode" and (state is None or cache_index is None):
+            raise ValueError("decode needs the serving state and cache_index")
+
+    if rules is None:
+        def apply(params, batch, state=None, cache_index=None,
+                  mode="prefill"):
+            check(mode, state, cache_index)
+            return run(_Params(params), batch, state, cache_index, mode)
+    else:
+        def apply(params, batch, state=None, cache_index=None,
+                  mode="prefill"):
+            check(mode, state, cache_index)
+            return _mesh_apply(plan, rules, run, params_view(params), batch,
+                               state, cache_index, mode, head,
+                               local_batch(batch), vocab)
+
+    apply.run = run
+    apply.local_batch = local_batch
+    apply.params_view = params_view
     return apply
+
+
+def _is_attention(tree) -> bool:
+    return isinstance(tree, dict) and ("k" in tree or "pos" in tree)
+
+
+def _state_locals(rules, state):
+    """A mesh's DTensor state -> the rank's tensors for the ops: an
+    attention op's caches as their chunks (the op gathers the length over
+    tp itself), every other leaf all-gathered over tp into the canonical
+    layout.  Returns the tree and [(at-rest local, canonical, tp dim)]
+    for :func:`_state_writeback`."""
+    from repro_torch.distributed.sharding import local_of
+    back = []
+
+    def one(x, attention):
+        if isinstance(x, dict):
+            return {k: one(v, attention or _is_attention(x))
+                    for k, v in x.items()}
+        local = local_of(x)
+        d = rules.tp_dim(x.placements)
+        if attention or d is None:
+            return local
+        whole = rules.gather_act(local, [d])
+        back.append((local, whole, d))
+        return whole
+    return one(state, False), back
+
+
+def _wrap_state(rules, tree, layout, shardings):
+    """The rank's state tree after a prefill -> DTensors: attention caches
+    come chunked by the op's constraint, every other leaf canonical and
+    cut here."""
+    def one(x, lay, sh, attention):
+        if isinstance(x, dict):
+            return {k: one(v, lay[k], sh[k], attention or _is_attention(x))
+                    for k, v in x.items()}
+        d = rules.tp_dim(sh.placements)
+        if not attention and d is not None:
+            x = x.chunk(rules.tp_size, dim=d)[rules.tp_rank]
+        return rules.wrap(x.contiguous(), sh.placements, lay[0])
+    return one(tree, layout, shardings, False)
+
+
+def _mesh_apply(plan, rules, run, pv, batch, state, cache_index, mode,
+                head: bool, lbatch, vocab: Optional[int]):
+    """``apply`` on a mesh: the rank runs its rows of ``batch`` (a whole
+    batch, replicated on every rank) on its parameter and state chunks;
+    the output comes back a DTensor (an LM's logits: the batch over dp and
+    the vocab over tp, as ``op_unembed`` leaves them; a CNN's: the batch
+    over dp), the state a DTensor tree (a decode's in place)."""
+    x0 = batch["tokens"] if "tokens" in batch else batch["images"]
+    B = x0.shape[0]
+    if mode == "decode":
+        local, back = _state_locals(rules, state)
+        h, _, aux = run(pv, lbatch, local, cache_index, mode)
+        _state_writeback(rules, back)
+        new_state = state
+    else:
+        h, new_state, aux = run(pv, lbatch, None, cache_index, mode)
+        if new_state:
+            new_state = _wrap_state(rules, new_state, state_layout(plan, B),
+                                    state_shardings(plan, B, rules))
+    if not head:
+        return h, new_state, aux
+    if "tokens" in batch:
+        shape = (B, h.shape[1], vocab)
+        roles = ("batch", "seq", "vocab")
+    else:
+        shape = (B,) + tuple(h.shape[1:])
+        roles = ("batch",) + ("none",) * (h.ndim - 1)
+    from repro_torch.distributed.sharding import placements_of
+    pl = placements_of(rules.act_pspec(roles, shape), rules.spec.names)
+    return rules.wrap(h.contiguous(), pl, shape), new_state, aux
+
+
+def _state_writeback(rules, back) -> None:
+    """After a decode: each canonical state leaf's tp chunk back into the
+    at-rest chunk it was gathered from."""
+    with torch.no_grad():
+        for local, whole, d in back:
+            local.copy_(whole.chunk(rules.tp_size, dim=d)[rules.tp_rank])
+
+
+def _vocab_rows(plan: ExecutionPlan) -> int:
+    """The rows of the LM head's table (the padded vocabulary)."""
+    un = plan.graph.blocks[-1].ops[-1]
+    if un.attrs.get("tied"):
+        top, leaf = un.attrs["tied"].split("/")
+        return param_shapes(plan)[top][leaf].shape[0]
+    return param_shapes(plan)[plan.graph.blocks[-1].name]["lm_head"].shape[0]
 
 
 def _slice_tree(tree, r: int):
@@ -444,7 +769,8 @@ def _copy_into(stacked: Dict[str, Any], tree: Dict[str, Any], r: int):
 
 
 def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
-                gstate, env, mode: str):
+                gstate, env, mode: str,
+                gdims: Optional[Dict[str, int]] = None):
     """A folded unit: a loop over its repetitions, each running the unit's
     ``period`` prototype blocks on slice ``r`` of the stacked params and
     state.  Prefill stacks the repetitions' new state; decode updates the
@@ -452,19 +778,23 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
     remat policy (:func:`_run_folded_train`) and returns no state.  The
     repetitions' aux losses (``AUX_KEYS``) are summed into ``ctx.aux``;
     in train mode the sum rides beside ``h`` through the checkpoints, as
-    JAX's scan carries it."""
+    JAX's scan carries it.  ``gdims`` (a mesh) holds each stacked leaf's
+    tp-split dim."""
     protos = [plan.graph.blocks[unit.indices[j]] for j in range(unit.period)]
     added = set()
+    step_dims = {k: d - 1 for k, d in (gdims or {}).items()}
 
     def rep(h, r: int):
         step_params = {k: v[r] for k, v in gparams.items()}
         c = Ctx(mode=mode, plan=plan, cache_index=ctx.cache_index,
-                aux={"__inputs__": ctx.aux.get("__inputs__")})
+                aux={"__inputs__": ctx.aux.get("__inputs__")},
+                constrain=ctx.constrain)
         c.state_in = _slice_tree(gstate, r) if gstate else {}
         c.state_out = {}
         e = {"h": h, "positions": env["positions"], "cross": env["cross"]}
         for j, blk in enumerate(protos):
-            e["h"] = _run_block(c, blk, step_params, e, mode, j=j)
+            e["h"] = _run_block(c, blk, step_params, e, mode, j=j,
+                                bdims=step_dims)
         aux = {k: c.aux[k] for k in AUX_KEYS if k in c.aux}
         added.update(aux)
         return e["h"], c.state_out, aux
@@ -546,67 +876,116 @@ def make_loss_fn(plan: ExecutionPlan):
     A CNN: the mean NLL of the fp32 ``log_softmax`` of the logits at
     ``batch["labels"]`` (B,); metrics ``{"loss"}``.  An LM: the trunk in
     train mode without its head block, then the head block's ops up to the
-    unembed (the final norm), then :func:`_chunked_ce` over the sequence
+    unembed (the final norm), then :func:`_chunked_ce_sums` over the sequence
     with the tied table or ``lm_head``; ``batch["labels"]`` (B, S), entries
     < 0 ignored; metrics ``{"loss", "acc"}`` (argmax accuracy over the
     valid labels) and the aux losses the ops added (``AUX_KEYS``: a MoE
-    model's ``moe_aux``), which the returned loss includes."""
+    model's ``moe_aux``), which the returned loss includes.
+
+    On a mesh the batch is the global one and ``params`` DTensors or the
+    local chunks the train step holds; each rank takes its rows, its part
+    of the loss carries 1 / (the global count), and the returned loss is
+    the sum of the parts over dp (backward: each rank's own part), so the
+    loss and the gradients are the single-device ones over the global
+    batch (a MoE's aux loss: the mean over dp of each rank's, GShard's
+    per-shard means, as in JAX)."""
     cfg = plan.cfg
+    rules = plan.rules
     apply = _make_apply(plan, head=cfg.family == "cnn")
     head_block = plan.graph.blocks[-1]
     if head_block.kind not in ("head", "cnn_head"):
         raise ValueError(f"the last block is {head_block.kind!r}, not a head")
 
+    def dp_sum(x, grad=True):
+        if rules is None:
+            return x
+        if grad:
+            return col.reduce_over(x, rules.dp_groups)
+        return col.all_reduce_(x.detach().clone(), rules.dp_groups)
+
     def loss_fn(params, batch):
+        pv = apply.params_view(params)
+        lb = apply.local_batch(batch)
         if cfg.family == "cnn":
-            logits, _, _ = apply(params, batch, mode="train")
-            labels = batch["labels"].long()
+            logits, _, _ = apply.run(pv, lb, None, None, "train")
+            labels = lb["labels"].long()
             lp = torch.log_softmax(logits.float(), dim=-1)
-            loss = -torch.mean(lp.gather(-1, labels[:, None])[:, 0])
+            ll = lp.gather(-1, labels[:, None])[:, 0]
+            if rules is None:
+                loss = -torch.mean(ll)
+            else:
+                n = dp_sum(torch.tensor(float(labels.shape[0]),
+                                        device=ll.device), grad=False)
+                loss = dp_sum(-torch.sum(ll) / n)
             return loss, {"loss": loss}
 
-        h, _, aux = apply(params, batch, mode="train")
+        h, _, aux = apply.run(pv, lb, None, None, "train")
         ctx = Ctx(mode="train", plan=plan)
+        if rules is not None:
+            ctx.constrain = rules.constrain_act
         env = {"h": h}
-        hp = params.get("head", {})
+        hp, hdims = pv.unit("head")
         ops = head_block.ops
         for op in ops:
             if op.op == "unembed":
                 break
-            env[op.out] = OPS[op.op](ctx, op, _param_slice(op, hp, None),
+            env[op.out] = OPS[op.op](ctx, op,
+                                     _op_params(ctx, op, hp, None, hdims),
                                      *[env[i] for i in op.ins])
         un = ops[-1]
         hn = env[un.ins[0]] if un.op == "unembed" else env["h"]
-        table = (params[un.attrs["tied"].split("/")[0]]["table"]
-                 if un.attrs.get("tied") else hp["lm_head"])
-        loss, acc = _chunked_ce(ctx, hn, table, batch["labels"],
-                                cfg.vocab_size,
-                                plan.tiles.get("ce_chunk", 256))
-        total = loss + sum(aux.get(k, 0.0) for k in AUX_KEYS)
-        return total, {"loss": loss, "acc": acc, **aux}
+        if un.attrs.get("tied"):
+            tp_, td = pv.unit(un.attrs["tied"].split("/")[0])
+            table, tdim = tp_["table"], td.get("table")
+        else:
+            table, tdim = hp["lm_head"], hdims.get("lm_head")
+        nll, cnt, cor = _chunked_ce_sums(ctx, hn, table, lb["labels"],
+                                         cfg.vocab_size,
+                                         plan.tiles.get("ce_chunk", 256),
+                                         tp_dim=tdim)
+        denom = torch.clamp(dp_sum(cnt, grad=False), min=1.0)
+        part = nll / denom
+        auxs = {k: aux[k] for k in AUX_KEYS if k in aux}
+        total = dp_sum(part + sum(auxs.values()))
+        if rules is None:
+            return total, {"loss": part, "acc": cor / denom, **aux}
+        return total, {"loss": dp_sum(part, grad=False),
+                       "acc": dp_sum(cor / denom, grad=False),
+                       **{k: dp_sum(v, grad=False) for k, v in aux.items()}}
 
     return loss_fn
 
 
-def _chunked_ce(ctx: Ctx, h, table, labels, true_vocab: int, chunk: int):
-    """Mean cross-entropy and argmax accuracy of ``h @ table.T`` against
-    ``labels`` over sequence chunks (the chunk halved until it divides S).
-    Each chunk's (B, chunk, V) fp32 logits come from the bf16-rounded (in
-    bf16 compute) operands multiplied in fp32, as ``op_unembed`` computes
-    them, padded vocab entries at -1e9; the chunk is checkpointed, so the
-    backward pass recomputes its logits instead of keeping them."""
+def _chunked_ce_sums(ctx: Ctx, h, table, labels, true_vocab: int,
+                     chunk: int, tp_dim: Optional[int] = None):
+    """(the NLL's sum, the valid labels' count, the argmax hits' count) of
+    ``h @ table.T`` against ``labels`` over sequence chunks (the chunk
+    halved until it divides S).  Each chunk's (B, chunk, V) fp32 logits
+    come from the bf16-rounded (in bf16 compute) operands multiplied in
+    fp32, as ``op_unembed`` computes them, padded vocab entries at -1e9;
+    the chunk is checkpointed, so the backward pass recomputes its logits
+    instead of keeping them.  ``tp_dim`` (a mesh): the table is this tp
+    rank's rows of the vocabulary, and each chunk's logits are
+    all-gathered over tp before the softmax."""
     B, S, _ = h.shape
-    Vp = table.shape[0]
+    Vl = table.shape[0]
     dt = ctx.compute_dtype
     while S % chunk:
         chunk //= 2
     chunk = max(chunk, 1)
-    pad = torch.arange(Vp, device=h.device) >= true_vocab
+    off, g = 0, None
+    if tp_dim is not None:
+        rules = ctx.plan.rules
+        off, g = rules.tp_rank * Vl, rules.tp_group
+        h = col.copy(h, g)       # each rank's vocab rows: a partial dh
+    pad = torch.arange(off, off + Vl, device=h.device) >= true_vocab
     labels = labels.long()
 
     def one(hc, lc):
         logits = torch.matmul(hc.to(dt).float(), table.to(dt).float().T)
         logits = logits.masked_fill(pad, -1e9)
+        if g is not None:
+            logits = col.gather(logits, -1, g)
         lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
         valid = (lc >= 0).float()
@@ -615,6 +994,5 @@ def _chunked_ce(ctx: Ctx, h, table, labels, true_vocab: int, chunk: int):
 
     parts = [checkpoint(one, h[:, i:i + chunk], labels[:, i:i + chunk],
                         use_reentrant=False) for i in range(0, S, chunk)]
-    nll, cnt, cor = (sum(p[i] for p in parts) for i in range(3))
-    denom = torch.clamp(cnt, min=1.0)
-    return nll / denom, cor / denom
+    return tuple(sum(p[i] for p in parts) for i in range(3))
+

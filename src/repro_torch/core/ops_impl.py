@@ -9,11 +9,18 @@ conv entry points dispatch through the :mod:`repro_torch.kernels.registry`
 using the per-op backend table the ``kernels`` pass recorded on the plan
 (``plan.kernels``).
 
-These are the ops of the JAX package's ``core/ops_impl.py``, one device
-(its mesh-sharded MoE path aside).  Every dtype cast sits where the JAX op
-puts it, so bf16 rounds at the same places in both, and a product JAX asks
-in fp32 (``preferred_element_type``) upcasts its operands here (exact for
-bf16).
+These are the ops of the JAX package's ``core/ops_impl.py``.  Every dtype
+cast sits where the JAX op puts it, so bf16 rounds at the same places in
+both, and a product JAX asks in fp32 (``preferred_element_type``) upcasts
+its operands here (exact for bf16).
+
+On a mesh (``ctx.plan.rules``) every op runs on the rank's local tensors in
+the rules' canonical layout (the batch split over dp, whole over tp); the
+ops of :data:`TP_SPLIT_OPS` compute on the tp chunks of their parameters
+(``ctx.tp_dims``) with explicit collectives, the others get whole
+parameters from the lowering, and ``ctx.cst`` applies the JAX package's
+activation constraints (attention's query sequence and the decode caches'
+length over tp).  The hand kernels launch on those local tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as col
 from repro_torch.kernels.conv2d import same_pads
 from repro_torch.kernels.lru_scan import lru_scan_plain
 from repro_torch.kernels.registry import plan_kernel
@@ -48,14 +56,35 @@ class Ctx:
     # decode position (an int, or a 0-d integer tensor)
     cache_index: Optional[Union[int, torch.Tensor]] = None
     aux: Dict[str, Any] = field(default_factory=dict)
+    # sharding-constraint hook, set by the lowering when a mesh is active:
+    # the canonical layout -> this rank's chunk of the dims the roles put
+    # on tp (ShardingRules.constrain_act)
+    constrain: Callable[[torch.Tensor, tuple], torch.Tensor] = \
+        lambda x, roles: x
+    # on a mesh, the tp-split dim of each of the running op's params (only
+    # the ops of TP_SPLIT_OPS see split ones; "tied" names a tied table)
+    tp_dims: Dict[str, int] = field(default_factory=dict)
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.plan.flow.precision == "bf16" \
             else torch.float32
 
+    def cst(self, x, *roles):
+        if len(roles) == 1 and isinstance(roles[0], (tuple, list)):
+            roles = tuple(roles[0])
+        return self.constrain(x, roles)
+
     def add_aux(self, name: str, value) -> None:
         self.aux[name] = self.aux.get(name, 0.0) + value
+
+
+#: the ops that compute on the tp chunks of their parameters on a mesh:
+#: the products (column split: N over tp, the output all-gathered; row
+#: split: K over tp, the partial sums all-reduced), the unembed (the
+#: logits of this rank's vocabulary rows) and the MoE (expert or d_ff
+#: parallel, one fp32 sum over the model axis)
+TP_SPLIT_OPS = ("matmul", "glu_matmul", "unembed", "moe_ffn")
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -113,7 +142,8 @@ def _on_kernel(ctx: Ctx, kern: Callable, ref: Callable, *ts):
     return kern(*ts)
 
 
-def _matmul_ref(ctx: Ctx, x, w, bias=None, w2=None, *, act=None):
+def _matmul_ref(ctx: Ctx, x, w, bias=None, w2=None, *, act=None,
+                out_dtype=None):
     dt = ctx.compute_dtype
     xf = x.to(dt).float()
     y = torch.matmul(xf, w.to(dt).float())
@@ -125,10 +155,11 @@ def _matmul_ref(ctx: Ctx, x, w, bias=None, w2=None, *, act=None):
         y = y + bias.float()
     if act is not None:
         y = _act(y, act)
-    return y.to(dt)
+    return y.to(out_dtype or dt)
 
 
-def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None):
+def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None,
+                    out_dtype=None):
     """Single entry point for all (possibly fused) matmuls; routes to the
     CUDA kernel when the plan's backend table selects it.  A train plan's
     fp32 master weights reach the kernel rounded to the compute dtype, as
@@ -136,34 +167,74 @@ def _matmul_backend(ctx: Ctx, x, w, *, bias=None, act=None, w2=None):
     kern = plan_kernel(ctx.plan, "glu_matmul" if w2 is not None else "matmul",
                        x=x, w=w)
     if kern is None:
-        return _matmul_ref(ctx, x, w, bias, w2, act=act)
+        return _matmul_ref(ctx, x, w, bias, w2, act=act, out_dtype=out_dtype)
     dt, tile = ctx.compute_dtype, ctx.plan.tiles.get("matmul")
+    odt = out_dtype or dt
 
     def launch(x, w, bias, w2):
         if ctx.mode == "train":
             w = w.to(dt)
             w2 = None if w2 is None else w2.to(dt)
-        return kern(x, w, bias=bias, act=act, w2=w2, tile=tile, out_dtype=dt)
+        return kern(x, w, bias=bias, act=act, w2=w2, tile=tile,
+                    out_dtype=odt)
     return _on_kernel(ctx, launch,
-                      lambda x, w, bias, w2: _matmul_ref(ctx, x, w, bias, w2,
-                                                         act=act),
+                      lambda x, w, bias, w2: _matmul_ref(
+                          ctx, x, w, bias, w2, act=act, out_dtype=odt),
                       x, w, bias, w2)
 
 
+def _matmul_tp(ctx: Ctx, x, w, tpd: Optional[int], *, bias=None, act=None,
+               w2=None, bias_tpd: Optional[int] = None):
+    """A (possibly fused) product whose weight may be split over tp on a
+    mesh (``tpd``: the split dim of ``w``, None when whole).
+
+    Column split (N over tp): this rank's output columns from the kernel,
+    epilogue included, then all-gathered over tp (the input's backward
+    all-reduced).  Row split (K over tp): the kernel on this rank's K
+    chunk of ``x`` with an fp32 output, the partial sums all-reduced over
+    tp in fp32, then the bias and the activation, rounded once to the
+    compute dtype, as the unsplit kernel rounds its fp32 accumulator."""
+    if tpd is None:
+        return _matmul_backend(ctx, x, w, bias=bias, act=act, w2=w2)
+    g = ctx.plan.rules.tp_group
+    if tpd == 1:
+        if bias is not None and bias_tpd is None:
+            bias = col.split(bias, 0, g)
+        y = _matmul_backend(ctx, col.copy(x, g), w, bias=bias, act=act,
+                            w2=w2)
+        return col.gather(y, -1, g)
+    if w2 is not None:
+        raise ValueError("a GLU pair splits over its output columns only")
+    y = _matmul_backend(ctx, col.split(x, -1, g), w, out_dtype=torch.float32)
+    y = col.reduce(y, g)
+    if bias is not None:
+        if bias_tpd is not None:
+            bias = col.gather(bias, 0, g)
+        y = y + bias.float()
+    if act is not None:
+        y = _act(y, act)
+    return y.to(ctx.compute_dtype)
+
+
 def op_matmul(ctx: Ctx, op, p, x, *extra):
-    vals = list(p.values())
-    w = vals[0]
-    bias = vals[1] if op.attrs.get("bias") else None
-    y = _matmul_backend(ctx, x, w, bias=bias, act=op.attrs.get("act"))
+    names = list(p)
+    bias = p[names[1]] if op.attrs.get("bias") else None
+    y = _matmul_tp(ctx, x, p[names[0]], ctx.tp_dims.get(names[0]),
+                   bias=bias, act=op.attrs.get("act"),
+                   bias_tpd=ctx.tp_dims.get(names[1]) if bias is not None
+                   else None)
     if op.attrs.get("residual"):
         y = (y.float() + extra[0].float()).to(y.dtype)
     return y
 
 
 def op_glu_matmul(ctx: Ctx, op, p, x):
-    vals = list(p.values())
-    return _matmul_backend(ctx, x, vals[0], w2=vals[1],
-                           act=op.attrs.get("act", "silu"))
+    names = list(p)
+    tpd = ctx.tp_dims.get(names[0])
+    if tpd != ctx.tp_dims.get(names[1]):
+        raise ValueError(f"GLU pair split unlike: {ctx.tp_dims}")
+    return _matmul_tp(ctx, x, p[names[0]], tpd, w2=p[names[1]],
+                      act=op.attrs.get("act", "silu"))
 
 
 def op_bias_add(ctx: Ctx, op, p, x):
@@ -224,7 +295,7 @@ def op_embed(ctx: Ctx, op, p, tokens):
             pos = torch.arange(S, dtype=torch.int32,
                                device=y.device).expand(B, S)
         y = y + _sinusoid(pos, d).to(y.dtype)
-    return y
+    return ctx.cst(y, ("batch", "seq", "none"))
 
 
 def _sinusoid(pos, d):
@@ -237,14 +308,24 @@ def _sinusoid(pos, d):
 
 
 def op_unembed(ctx: Ctx, op, p, x, *tied):
+    """fp32 logits of the compute-dtype operands, padded vocabulary entries
+    at -1e9.  On a mesh with the table's vocabulary split over tp, the
+    logits of this rank's rows: the JAX package's constraint (the vocab
+    over tp) holds as they are made."""
     table = tied[0] if tied else p["lm_head"]
+    tpd = ctx.tp_dims.get("tied" if tied else "lm_head")
     dt = ctx.compute_dtype
-    logits = torch.matmul(x.to(dt).float(), table.to(dt).float().T)
+    xin = x if tpd is None else col.copy(x, ctx.plan.rules.tp_group)
+    logits = torch.matmul(xin.to(dt).float(), table.to(dt).float().T)
+    off = 0 if tpd is None else ctx.plan.rules.tp_rank * table.shape[0]
     vocab = op.attrs.get("true_vocab")
-    if vocab is not None and vocab < table.shape[0]:
-        mask = torch.arange(table.shape[0], device=logits.device) < vocab
+    if vocab is not None and vocab < off + table.shape[0]:
+        mask = torch.arange(off, off + table.shape[0],
+                            device=logits.device) < vocab
         logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
-    return logits
+    if tpd is not None:
+        return logits
+    return ctx.cst(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -341,19 +422,44 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
 
     if ctx.mode in ("train", "prefill"):
         kern = plan_kernel(ctx.plan, "attention", window=window, cross=False)
+        rules = ctx.plan.rules
+        # context parallelism (the JAX constraints): this tp rank's chunk of
+        # the query sequence against the whole K / V, at its own positions
+        # (``q_offset``: the chunk of an arange; explicit per-row positions
+        # keep the query whole)
+        qroles = ("batch", "seq_cp", "none", "none")
+        cp = [] if rules is None or "positions" in ctx.aux.get(
+            "__inputs__", {}) else rules.act_tp_dims(q, qroles)
+        q0, off = q, 0
+        if cp:
+            # every query chunk reads the whole K / V: each tp rank's
+            # gradient of them is a partial sum (all-reduced in backward)
+            g = rules.tp_group
+            q = ctx.cst(q, qroles)
+            k = col.copy(ctx.cst(k, ("batch", "gather", "none", "none")), g)
+            v = col.copy(ctx.cst(v, ("batch", "gather", "none", "none")), g)
+            off = rules.tp_rank * q.shape[1]
+        qpos = positions[:, off:off + q.shape[1]]
 
-        def ref(q, k, v, pos):
-            return _sdpa(ctx, q, k, v, pos, pos, causal=causal,
+        def ref(q, k, v, qpos, kpos):
+            return _sdpa(ctx, q, k, v, qpos, kpos, causal=causal,
                          window=window, softcap=softcap)
         if kern is not None:
             tile = ctx.plan.tiles.get("attention")
-            out = _on_kernel(
-                ctx, lambda q, k, v, pos: kern(
-                    q, k, v, positions=pos, causal=causal, window=window,
-                    softcap=softcap, tile=tile),
-                ref, q, k, v, positions)
+            if cp:
+                def launch(q, k, v, qpos, kpos):
+                    return kern(q, k, v, causal=causal, window=window,
+                                softcap=softcap, q_offset=off, tile=tile)
+            else:
+                def launch(q, k, v, qpos, kpos):
+                    return kern(q, k, v, positions=kpos, causal=causal,
+                                window=window, softcap=softcap, tile=tile)
+            out = _on_kernel(ctx, launch, ref, q, k, v, qpos, positions)
         else:
-            out = ref(q, k, v, positions)
+            out = ref(q, k, v, qpos, positions)
+        if cp:
+            out = rules.gather_act(out, cp)
+        q = q0
         if ctx.mode == "prefill" and skey is not None:
             C = ctx.plan.cache_len
             if Sq >= C:
@@ -364,9 +470,11 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
                 kc = F.pad(k, (0, 0, 0, 0, 0, pad))
                 vc = F.pad(v, (0, 0, 0, 0, 0, pad))
                 pc = F.pad(positions, (0, pad), value=-1)
-            ctx.state_out[skey] = {"k": kc.contiguous(),
-                                   "v": vc.contiguous(),
-                                   "pos": pc.to(torch.int32).contiguous()}
+            croles = ("batch", "kv_len", "none", "none")
+            ctx.state_out[skey] = {
+                "k": ctx.cst(kc, croles).contiguous(),
+                "v": ctx.cst(vc, croles).contiguous(),
+                "pos": ctx.cst(pc.to(torch.int32), croles[:2]).contiguous()}
         return out
 
     st = ctx.state_in[skey]
@@ -375,15 +483,31 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
                              window=window, softcap=softcap)
     # -- decode over the rolling cache ----------------------------------
     # the new K/V land in the cache tensors in place (JAX updates a donated
-    # copy); the state dict handed in is the state handed out
+    # copy); the state dict handed in is the state handed out.  On a mesh
+    # the caches are this rank's chunk of their length: gathered over tp
+    # for the kernel (which returns no log-sum-exp to merge chunks by),
+    # written there, and the chunk copied back
     kc, vc, pc = st["k"], st["v"], st["pos"]
+    rules = ctx.plan.rules
+    cut = []
+    if rules is not None and kc.shape[1] != ctx.plan.cache_len:
+        cut = [1]
+        kc, vc, pc = (rules.gather_act(t, cut) for t in (kc, vc, pc))
     C = kc.shape[1]
     ci = int(ctx.cache_index)
     idx = ci % C
     kc[:, idx:idx + Sq] = k.to(kc.dtype)
     vc[:, idx:idx + Sq] = v.to(vc.dtype)
     pc[:, idx:idx + Sq] = ci
-    ctx.state_out[skey] = {"k": kc, "v": vc, "pos": pc}
+    if cut:
+        croles = ("batch", "kv_len", "none", "none")
+        for whole, local, roles in ((kc, st["k"], croles),
+                                    (vc, st["v"], croles),
+                                    (pc, st["pos"], croles[:2])):
+            local.copy_(ctx.cst(whole, roles))
+        ctx.state_out[skey] = st
+    else:
+        ctx.state_out[skey] = {"k": kc, "v": vc, "pos": pc}
     qpos = torch.full((B, 1), ci, dtype=torch.int32, device=q.device)
     kern = plan_kernel(ctx.plan, "decode_attention")
     if kern is not None:
@@ -801,9 +925,20 @@ def _pos_in_expert(fe: torch.Tensor, E: int) -> torch.Tensor:
 ROUTING_HOOK: Optional[Callable] = None
 
 
-def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
+def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared,
+              eid0: int = 0, e_local: Optional[int] = None,
+              stat_groups=None, stat_n: int = 1):
     """Dispatch -> expert FFN -> combine, the JAX package's ``_moe_core`` on
-    one device.
+    one model shard.
+
+    ``eid0`` / ``e_local``: the expert range this shard owns (expert
+    parallel); with expert-TP every shard owns all experts on a d_ff
+    slice.  Routing and the slot bookkeeping run whole on every shard;
+    only this shard's experts (and its shared-expert slice) contribute to
+    the output, a partial sum the caller reduces over the model axis.
+    ``stat_groups`` (a dp-only mesh): the aux loss's router statistics
+    are means over the global batch (sums over these groups / ``stat_n``),
+    as GSPMD computes them.
 
     Routing in fp32: softmax over the experts, the top k (ties to the lower
     index), the gates renormalised.  Each sequence fills an expert's
@@ -826,6 +961,9 @@ def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
     if ctx.mode == "train":
         me = probs.mean(dim=(0, 1))
         ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+        if stat_groups:
+            me = col.sync_sum_over(me, stat_groups) / stat_n
+            ce = col.sync_sum_over(ce, stat_groups) / stat_n
         aux = attrs.get("aux_weight", 0.01) * E * torch.sum(me * ce)
 
     cap = max(math.ceil(S * topk / E * cf), 1)
@@ -836,18 +974,23 @@ def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
     mypos = torch.clamp(mypos, max=cap - 1)
     if ROUTING_HOOK is not None:
         ROUTING_HOOK(ctx, attrs, probs, idx, keep)
+    El = e_local or E
+    if El != E:                  # this shard's experts only (EP)
+        fl = fe - eid0
+        keep = keep * ((fl >= 0) & (fl < El)).float()
+        fe = torch.clamp(fl, 0, El - 1)
 
     xr = torch.repeat_interleave(x, topk, dim=1) if topk > 1 else x
     contrib = (xr.float() * keep[..., None]).to(dt)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, S * topk)
-    buf = torch.zeros((B, E, cap, d), dtype=dt, device=x.device).index_put(
+    buf = torch.zeros((B, El, cap, d), dtype=dt, device=x.device).index_put(
         (rows, fe, mypos), contrib, accumulate=True)        # (B, E, cap, d)
-    eb = buf.permute(1, 0, 2, 3).reshape(E, B * cap, d)
+    eb = buf.permute(1, 0, 2, 3).reshape(El, B * cap, d)
     hg = _lib_dot(eb, wg, dt)                               # (E, B*cap, f)
     hu = _lib_dot(eb, wu, dt)
     hmid = (_act(hg, attrs.get("act", "silu")) * hu).to(dt)
     out_buf = _lib_dot(hmid, wd, dt).to(dt)                 # (E, B*cap, d)
-    out_buf = out_buf.reshape(E, B, cap, d).permute(1, 0, 2, 3)
+    out_buf = out_buf.reshape(El, B, cap, d).permute(1, 0, 2, 3)
     y = out_buf[rows, fe, mypos] * (fg * keep)[..., None].to(dt)
     y = y.reshape(B, S, topk, d).sum(2) if topk > 1 else y.reshape(B, S, d)
     if shared is not None:
@@ -859,6 +1002,40 @@ def _moe_core(ctx: Ctx, attrs, x, router, wg, wu, wd, shared):
     return y.to(dt), aux
 
 
+def _moe_shard_map(ctx: Ctx, op, p, x):
+    """The MoE over the model axis, every collective explicit (the JAX
+    package's ``_moe_shard_map``).
+
+    The batch is the rank's rows; the expert weights are this rank's tp
+    chunk (expert parallel when the experts split over tp, expert-TP on
+    d_ff otherwise; the shared experts on d_ff), already gathered over dp
+    by the lowering (the FSDP gather at the region's edge).  Each rank
+    routes the whole of its rows, runs its experts and adds one fp32 sum of
+    the (B, S, d) partial outputs over the model axis.  In train mode the
+    router's aux loss joins ``ctx.aux`` as the rank's share of the mean
+    over dp (each dp rank's own rows: GShard's per-shard means)."""
+    rules, attrs = ctx.plan.rules, op.attrs
+    E, tp, g = attrs["num_experts"], rules.tp_size, rules.tp_group
+    ep = ctx.tp_dims.get("we_gate") == 0
+    E_loc = E // tp if ep else E
+    eid0 = rules.tp_rank * E_loc if ep else 0
+    split = any(k in ctx.tp_dims for k in ("we_gate", "ws_gate"))
+    xin = col.copy(x.to(ctx.compute_dtype), g) if split else x
+    router = p["router"]             # routing runs whole on every shard
+    if "router" in ctx.tp_dims:
+        router = col.gather(router, ctx.tp_dims["router"], g)
+    shared = ((p["ws_gate"], p["ws_up"], p["ws_down"])
+              if attrs.get("num_shared") else None)
+    y, aux = _moe_core(ctx, attrs, xin, router, p["we_gate"],
+                       p["we_up"], p["we_down"], shared, eid0=eid0,
+                       e_local=E_loc)
+    if split:
+        y = col.reduce(y.float(), g)
+    if ctx.mode == "train":
+        ctx.add_aux("moe_aux", aux / rules.dp_size)
+    return y.to(ctx.compute_dtype)
+
+
 def op_moe_ffn(ctx: Ctx, op, p, x):
     """Per-sequence, causal capacity dispatch (the JAX package's
     ``op_moe_ffn``): a token's slot in an expert counts only the earlier
@@ -866,18 +1043,21 @@ def op_moe_ffn(ctx: Ctx, op, p, x):
     the rest of the batch, and appending a token never moves an earlier
     one.  A decode step (S = 1, one pick an expert at most) drops nothing.
     In train mode the router's load-balancing loss joins ``ctx.aux`` as
-    ``moe_aux``.  A plan sharded over a model axis (expert or tensor
-    parallel, the JAX package's ``_moe_shard_map``) is not ported."""
-    if ctx.plan.rules is not None and ctx.plan.rules.tp:
-        raise NotImplementedError(
-            "the MoE layer over a model-sharded mesh (_moe_shard_map) is not "
-            "ported yet (ROADMAP Queue 1, \"Multi-device\")")
+    ``moe_aux``.  On a mesh the experts run sharded over the model axis
+    (:func:`_moe_shard_map`); over dp alone, on the rank's rows with the
+    aux loss's statistics over the global batch."""
+    rules = ctx.plan.rules
+    if rules is not None and rules.tp:
+        return _moe_shard_map(ctx, op, p, x)
     shared = ((p["ws_gate"], p["ws_up"], p["ws_down"])
               if op.attrs.get("num_shared") else None)
+    dp = rules.dp_size if rules is not None else 1
     y, aux = _moe_core(ctx, op.attrs, x, p["router"], p["we_gate"],
-                       p["we_up"], p["we_down"], shared)
+                       p["we_up"], p["we_down"], shared,
+                       stat_groups=rules.dp_groups if dp > 1 else None,
+                       stat_n=dp)
     if ctx.mode == "train":
-        ctx.add_aux("moe_aux", aux)
+        ctx.add_aux("moe_aux", aux / dp)
     return y
 
 
@@ -999,9 +1179,19 @@ def op_depthwise_conv2d(ctx: Ctx, op, p, x):
 def op_batchnorm(ctx: Ctx, op, p, x):
     """Inference BN on the running ``mean``/``var``; in train mode on the
     batch's statistics over (N, H, W) in fp32, the population variance
-    (``jnp.var``), the running ones neither read nor updated (as in JAX)."""
+    (``jnp.var``), the running ones neither read nor updated (as in JAX);
+    on a mesh over the global batch (sums over the dp ranks)."""
     scale, bias, mean, var = _bn_params(p)
-    if ctx.mode == "train":
+    rules = ctx.plan.rules
+    if ctx.mode == "train" and rules is not None and rules.dp_size > 1:
+        # the global batch's statistics: sums over the dp ranks' rows
+        gs = rules.dp_groups
+        xf = x.float()
+        n = xf.shape[0] * xf.shape[1] * xf.shape[2] * rules.dp_size
+        mean = col.sync_sum_over(xf.sum(dim=(0, 1, 2)), gs) / n
+        var = col.sync_sum_over(
+            torch.square(xf - mean).sum(dim=(0, 1, 2)), gs) / n
+    elif ctx.mode == "train":
         xf = x.float()
         mean = torch.mean(xf, dim=(0, 1, 2))
         var = torch.mean(torch.square(xf - mean), dim=(0, 1, 2))

@@ -11,11 +11,10 @@ the (post-folding) plan, assigns pipeline stages when a pp axis is present,
 and records the result as a :class:`ShardingPlan` on the ``ExecutionPlan``
 (``plan.sharding``, shown in ``plan.describe()``).
 
-The runtime (``ShardingRules``, not ported yet: ROADMAP Queue 1,
-"Multi-device") binds
-these recorded decisions to a live device mesh; the solver itself lives
-here so the explorer can search mesh factorizations without touching a
-device.
+The runtime (:mod:`repro_torch.distributed.sharding`'s ``ShardingRules``)
+binds these recorded decisions to a live DeviceMesh as DTensor placements;
+the solver itself lives here so the explorer can search mesh
+factorizations without touching a device.
 
 Solver policy (moved from ``distributed/sharding.py``):
 

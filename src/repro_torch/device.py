@@ -46,3 +46,42 @@ def device_key(device: Optional[torch.device] = None) -> str:
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
     return "cpu:cpu"
+
+
+def init_process_group(world_size: int = 1, rank: int = 0,
+                       device: DeviceLike = None,
+                       init_file: Optional[str] = None) -> str:
+    """Start the default process group of this process, if none is: ``nccl``
+    on the card (the rank's card is ``cuda:<rank % device_count>``),
+    ``gloo`` on the CPU, over a ``FileStore`` at ``init_file`` (every rank
+    of the group passes the same path; a fresh file in a temp dir when
+    ``world_size`` is 1), so no port or network is needed.  A group that is
+    already up must have ``world_size`` ranks, or this raises ValueError.
+    Returns the backend's name."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise ValueError(
+                f"the process group has {dist.get_world_size()} ranks, not "
+                f"the {world_size} asked for")
+        return dist.get_backend()
+    if init_file is None:
+        if world_size != 1:
+            raise ValueError("a group of more than one rank needs the "
+                             "init_file every rank shares")
+        init_file = os.path.join(tempfile.mkdtemp(prefix="repro_pg_"),
+                                 "store")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = {}
+    if dev.type == "cuda":
+        idx = rank % torch.cuda.device_count()
+        torch.cuda.set_device(idx)
+        kw["device_id"] = torch.device("cuda", idx)
+    dist.init_process_group(backend, store=dist.FileStore(init_file,
+                                                          world_size),
+                            rank=rank, world_size=world_size, **kw)
+    return backend

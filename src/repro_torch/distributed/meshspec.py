@@ -12,10 +12,11 @@ hashable (axis name, size) tuple, so it can live on ``FlowConfig``
 * a ``MeshSpec`` (identity),
 * an axis-size dict ``{"data": 2, "model": 2}`` (insertion order kept),
 * a ``(("data", 2), ("model", 2))`` tuple,
+* a live ``torch.distributed.DeviceMesh`` (``mesh_dim_names`` + sizes),
 * any mesh object with ``axis_names`` and a name -> size ``shape``.
 
-Binding a spec to devices is multi-device work that the port has not taken
-on yet (ROADMAP Queue 1, "Multi-device").
+``build()`` binds the spec to the ranks of the default process group
+(``init_device_mesh``) — the only place a device is touched.
 """
 from __future__ import annotations
 
@@ -46,14 +47,18 @@ class MeshSpec:
             return cls(tuple((str(k), int(v)) for k, v in mesh.items()))
         if isinstance(mesh, tuple):
             return cls(tuple((str(k), int(v)) for k, v in mesh))
+        dim_names = getattr(mesh, "mesh_dim_names", None)
+        if dim_names is not None:                  # a torch DeviceMesh
+            return cls(tuple((str(a), int(n))
+                             for a, n in zip(dim_names, mesh.shape)))
         axis_names = getattr(mesh, "axis_names", None)
         shape = getattr(mesh, "shape", None)       # Mesh.shape: name -> size
         if axis_names is not None and shape is not None:
             return cls(tuple((a, int(shape[a])) for a in axis_names))
         raise TypeError(
             f"cannot interpret {type(mesh).__name__} as a mesh spec; pass a "
-            "MeshSpec, an axis-size dict, a ((name, size), ...) tuple, or a "
-            "mesh object")
+            "MeshSpec, an axis-size dict, a ((name, size), ...) tuple, a "
+            "DeviceMesh or a mesh object")
 
     # -- views --------------------------------------------------------------
     @property
@@ -80,3 +85,42 @@ class MeshSpec:
 
     def describe(self) -> str:
         return ",".join(f"{a}:{n}" for a, n in self.axes)
+
+    # -- device binding -----------------------------------------------------
+    def build(self, device=None):
+        """Bind to the ranks of the default process group:
+        ``init_device_mesh(device_type, sizes, mesh_dim_names=names)``,
+        made once per (device type, axes) in a process.  ``device`` is the
+        entry points' (``None`` is the card).  With no group up, a
+        one-rank mesh starts one (:func:`repro_torch.device.
+        init_process_group`); a larger mesh needs the group started by the
+        caller, and a group whose size is not the mesh's raises
+        ValueError."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.device import init_process_group, resolve_device
+        dev = resolve_device(device)
+        if not dist.is_initialized():
+            _BUILT.clear()                 # meshes of a group now gone
+            if self.size != 1:
+                raise ValueError(
+                    f"a mesh of {self.size} ranks needs the process group "
+                    "started first (repro_torch.device.init_process_group)")
+            init_process_group(1, 0, dev)
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(f"mesh {{{self.describe()}}} has {self.size} "
+                             f"ranks but the process group has {world}")
+        key = (dev.type, self.axes)
+        mesh = _BUILT.get(key)
+        if mesh is None:
+            mesh = init_device_mesh(dev.type, self.sizes,
+                                    mesh_dim_names=self.names)
+            _BUILT[key] = mesh
+        return mesh
+
+
+#: the DeviceMeshes built in this process, by (device type, axes): building
+#: one makes a process group per axis, a collective call on every rank
+_BUILT: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], object] = {}

@@ -33,6 +33,12 @@ serving engine's host-free decode segments) queue their whole loop on the
 device and read nothing back inside it.  ``train_step`` runs the forward
 products on the same kernels as ``prefill`` and the backward through the
 reference ops (the hand kernels have no backward of their own).
+
+``compile(mesh=...)`` binds the model to a ``DeviceMesh`` over the ranks of
+the process group (``{"data": 2, "model": 2}``): the ShardingPass records
+the partitioning on the plan, the parameters and the serving state are
+DTensors (:mod:`repro_torch.distributed.sharding`), ``prefill`` / ``decode``
+return DTensor logits and ``generate`` whole tokens on every rank.
 """
 from __future__ import annotations
 
@@ -48,6 +54,8 @@ from repro_torch.configs.base import FlowConfig, ModelConfig, ShapeConfig
 from repro_torch.core import lowering
 from repro_torch.core.plan import ExecutionPlan, _build_plan
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.meshspec import MeshSpec
+from repro_torch.distributed.sharding import full_tensor
 from repro_torch.obs import TRACER
 
 __all__ = ["compile", "CompiledModel"]
@@ -63,9 +71,11 @@ class CompiledModel:
     ``stats["stages"]``."""
 
     def __init__(self, plan: ExecutionPlan, device: torch.device,
-                 explore_result=None, build_s: float = 0.0):
+                 explore_result=None, build_s: float = 0.0, mesh=None):
         self.plan = plan
         self.device = device
+        self.mesh = mesh                   # DeviceMesh, or None
+        self.rules = plan.rules
         self.explore_result = explore_result
         self.cfg: ModelConfig = plan.cfg
         self.flow: FlowConfig = plan.flow
@@ -97,7 +107,10 @@ class CompiledModel:
         return self._loss_fn
 
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
-        return lowering.init_params(self.plan, seed, self.device)
+        """Random weights from ``seed`` (on a mesh DTensors, each rank
+        keeping its chunk of the same draw)."""
+        return lowering.init_params(self.plan, seed, self.device,
+                                    rules=self.rules)
 
     def param_shapes(self) -> Dict[str, Any]:
         return lowering.param_shapes(self.plan)
@@ -106,7 +119,8 @@ class CompiledModel:
         """Empty serving state (KV caches of ``plan.cache_len`` slots, every
         position -1; a hybrid's conv and RG-LRU states zero) for
         ``batch_size`` rows, on this model's device."""
-        return lowering.init_state(self.plan, batch_size, self.device)
+        return lowering.init_state(self.plan, batch_size, self.device,
+                                   rules=self.rules)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -194,12 +208,12 @@ class CompiledModel:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
         logits, state, _ = self.prefill(params, batch)
-        tok = self._sample(logits[:, -1], gen, temperature)
+        tok = self._sample(full_tensor(logits)[:, -1], gen, temperature)
         out = [tok]
         for t in range(steps - 1):
             lg, state, _ = self.decode(params, {"tokens": tok[:, None]},
                                        state, S + t)
-            tok = self._sample(lg[:, -1], gen, temperature)
+            tok = self._sample(full_tensor(lg)[:, -1], gen, temperature)
             out.append(tok)
         return torch.stack(out, dim=1), state
 
@@ -213,11 +227,11 @@ class CompiledModel:
         logits, state, _ = self.prefill(params, batch)
         B = logits.shape[0]
         toks = torch.zeros((B, steps), dtype=torch.int32, device=self.device)
-        toks[:, 0] = torch.argmax(logits[:, -1], -1)
+        toks[:, 0] = torch.argmax(full_tensor(logits)[:, -1], -1)
         for t in range(steps - 1):
             lg, state, _ = self.decode(params, {"tokens": toks[:, t:t + 1]},
                                        state, S + t)
-            toks[:, t + 1] = torch.argmax(lg[:, -1], -1)
+            toks[:, t + 1] = torch.argmax(full_tensor(lg)[:, -1], -1)
         return toks
 
     def decode_segment(self, steps: int, *,
@@ -244,7 +258,7 @@ class CompiledModel:
                     params, {"tokens": cur[:, None],
                              "positions": pos[:, None]}, state=state,
                     cache_index=0, mode="decode")
-                cur = self._sample(lg[:, -1], gen, temperature)
+                cur = self._sample(full_tensor(lg)[:, -1], gen, temperature)
                 toks[:, t] = cur
                 pos = pos + 1
             return toks, state, gen
@@ -355,6 +369,13 @@ class CompiledModel:
                 step(i + 1)
                 times.append(time.perf_counter() - t)
             sp.end()
+        if self.rules is not None and self.rules.spec.size > 1:
+            # every rank keeps the slowest rank's times, so a search that
+            # ranks by them picks the same winner on every rank
+            import torch.distributed as dist
+            t = torch.tensor(times, dtype=torch.float64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            times = t.tolist()
         rate = per_call / min(times)
         rec = {"stage": stage, "iters": len(times),
                "device": (torch.cuda.get_device_name(self.device)
@@ -407,6 +428,28 @@ def _resolve_shape(shape: Union[str, ShapeConfig]) -> ShapeConfig:
     return shape
 
 
+def _rules_for(mesh, flow: FlowConfig):
+    """The ShardingRules of a live mesh under the flow's axis roles
+    (``split_roles``: a tp axis of one rank carries data parallelism, as
+    every axis but tp and pp does)."""
+    from repro_torch.core.passes.sharding import split_roles
+    from repro_torch.distributed.sharding import ShardingRules
+    dp, tp, _pp = split_roles(flow, MeshSpec.of(mesh).axes)
+    return ShardingRules(mesh, dp=dp or ("data",), tp=tp)
+
+
+def _resolve_mesh(mesh, device) -> Tuple[Optional[Any], Optional[MeshSpec]]:
+    """(live DeviceMesh, MeshSpec) from any accepted mesh spelling: a spec
+    or an axis-size dict is built over the process group's ranks, a live
+    mesh passes through."""
+    if mesh is None:
+        return None, None
+    spec = MeshSpec.of(mesh)
+    if hasattr(mesh, "get_group"):          # already a live DeviceMesh
+        return mesh, spec
+    return spec.build(device), spec
+
+
 def compile(arch_or_cfg: Union[str, ModelConfig],
             shape: Union[str, ShapeConfig],
             flow: Optional[FlowConfig] = None, *,
@@ -431,8 +474,14 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
         (:func:`repro_torch.core.dse.explore`: estimator-pruned, validated
         on ``device``; results are cached per (cfg, shape, flow, device)
         fingerprint) and compile the winning flow.
-      mesh: not ported yet — a mesh raises NotImplementedError (ROADMAP
-        Queue 1, "Multi-device").
+      mesh: the device mesh — a :class:`MeshSpec`, an axis-size dict
+        (``{"data": 2, "model": 2}``), or a live ``DeviceMesh``.  The
+        factorization is recorded on the flow (``mesh_split``), the
+        ShardingPass writes the partitioning decisions onto the plan, and
+        the runtime binds them via ShardingRules (``model`` TP, other axes
+        DP, ``flow.pp_axis`` PP).  A spec is built over the ranks of the
+        process group (a one-rank mesh starts a group of its own; a larger
+        one needs :func:`repro_torch.device.init_process_group` first).
       validate: with ``autotune``, how the top-k survivors are confirmed:
         ``"compile"`` (build each and record its footprint: a measured step's
         peak of allocated memory on the card, the estimator's on the CPU;
@@ -459,27 +508,35 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
     if validate not in ("compile", "measure"):
         raise ValueError(f"unknown validate mode {validate!r}; "
                          "expected 'compile' | 'measure'")
-    if mesh is not None:
-        raise NotImplementedError(
-            "flow.compile(mesh=) is not ported yet (ROADMAP Queue 1, "
-            "\"Multi-device\")")
+    mesh_obj, mesh_spec = _resolve_mesh(mesh, dev)
+    if mesh_spec is not None and flow.mesh_split != mesh_spec.axes:
+        flow = dataclasses.replace(flow, mesh_split=mesh_spec.axes)
 
     explore_result = None
     sp_build = TRACER.timed("flow.build", cat="compile", arch=cfg.name,
                             autotune=autotune)
     if autotune:
         from repro_torch.core import dse
+        n_dev = mesh_spec.size if mesh_spec is not None else 1
         if validate == "measure":
-            validator = dse.measure_validator(cfg, shape, device=dev)
+            validator = dse.measure_validator(cfg, shape, mesh=mesh_obj,
+                                              device=dev)
         else:
             validator = dse.compile_validator(cfg, shape, device=dev)
         explore_result = dse.explore(
-            cfg, shape, flow, validator=validator,
+            cfg, shape, flow, devices=n_dev, validator=validator,
             rank_measured=validate == "measure", device=dev)
         flow = explore_result.best.flow
+    rules = None
+    mesh_axes: Tuple[str, ...] = ()
+    if mesh_obj is not None:
+        rules = _rules_for(mesh_obj, flow)
+        mesh_axes = mesh_spec.names
+    if explore_result is not None and mesh_obj is None:
         plan = explore_result.plan          # already built for the best flow
     else:
-        plan = _build_plan(cfg, flow, shape, platform=dev.type)
+        plan = _build_plan(cfg, flow, shape, mesh_axes=mesh_axes,
+                           rules=rules, platform=dev.type)
     if verify:
         from repro_torch.analysis import PlanVerificationError, verify_plan
         result = verify_plan(plan)
@@ -488,4 +545,4 @@ def compile(arch_or_cfg: Union[str, ModelConfig],
             raise PlanVerificationError(result)
     sp_build.end()
     return CompiledModel(plan, dev, explore_result=explore_result,
-                         build_s=sp_build.elapsed_s)
+                         build_s=sp_build.elapsed_s, mesh=mesh_obj)

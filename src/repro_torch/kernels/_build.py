@@ -23,6 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -195,7 +196,12 @@ def call(name: str, *args) -> None:
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    """Device pointer of a tensor (None for an absent operand)."""
+    """Device pointer of a tensor (None for an absent operand).  A DTensor
+    has no storage of its own: the mesh runtime hands the kernels local
+    tensors, and one reaching here raises."""
+    if isinstance(t, DTensor):
+        raise TypeError("a kernel operand is a DTensor; launch on its "
+                        "local tensor")
     return None if t is None else t.data_ptr()
 
 

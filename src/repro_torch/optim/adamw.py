@@ -14,6 +14,11 @@ sequence of updates stays unbiased.
 The update runs under ``torch.no_grad()`` and writes the parameters, the
 moments and the error buffers in place: it consumes its arguments, as the
 jitted JAX step donates them.
+
+On a mesh the leaves are DTensors: the moments take their parameter's
+placements, each update runs on the rank's local chunks (elementwise, no
+collective), and the clip's global norm sums every element once (the
+local sums all-reduced over the mesh dims a leaf is sharded on).
 """
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+
+def _local(x):
+    return x._local_tensor if isinstance(x, DTensor) else x
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -61,10 +71,18 @@ class AdamW:
     min_lr_frac: float = 0.1
 
     def init(self, params) -> AdamWState:
+        def zero(x):
+            if isinstance(x, DTensor):
+                loc = torch.zeros(x._local_tensor.shape, dtype=torch.float32,
+                                  device=x._local_tensor.device)
+                return DTensor.from_local(loc, x.device_mesh, x.placements,
+                                          run_check=False, shape=x.shape,
+                                          stride=x.stride())
+            return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+
         def z(p):
-            return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                                  device=x.device), p)
-        dev = tree_leaves(params)[0].device
+            return tree_map(zero, p)
+        dev = _local(tree_leaves(params)[0]).device
         err = z(params) if self.compress else None
         return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                           z(params), z(params), err)
@@ -99,11 +117,23 @@ class AdamW:
         """One step: ``params``, ``state.mu``, ``state.nu`` (and
         ``state.err``) are written in place and returned, with the new step
         count and ``{"grad_norm", "lr"}`` (0-d tensors, not read back)."""
-        grads = tree_map(lambda g: g.float(), grads)
-        err = state.err
-        if self.compress == "int8_ef":
-            grads, err = self.compress_grads(grads, err)
-        gsq = sum(torch.sum(torch.square(g)) for g in tree_leaves(grads))
+        out_params = params
+        if any(isinstance(g, DTensor) for g in tree_leaves(grads)):
+            from repro_torch.distributed.sharding import global_sq_sum
+            gsq = global_sq_sum(tree_leaves(grads))
+            if self.compress:
+                raise NotImplementedError(
+                    "int8 gradient compression over DTensor gradients")
+            grads, params = tree_map(_local, grads), tree_map(_local, params)
+            mu, nu = tree_map(_local, state.mu), tree_map(_local, state.nu)
+            err = None
+        else:
+            grads = tree_map(lambda g: g.float(), grads)
+            err = state.err
+            if self.compress == "int8_ef":
+                grads, err = self.compress_grads(grads, err)
+            gsq = sum(torch.sum(torch.square(g)) for g in tree_leaves(grads))
+            mu, nu = state.mu, state.nu
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0) \
             if self.grad_clip else 1.0
@@ -121,6 +151,6 @@ class AdamW:
                 delta = delta + self.weight_decay * p.float()
             p.copy_((p.float() - lr * delta).to(p.dtype))
 
-        tree_map(upd, params, grads, state.mu, state.nu)
-        return params, AdamWState(step, state.mu, state.nu, err), \
+        tree_map(upd, params, tree_map(lambda g: g.float(), grads), mu, nu)
+        return out_params, AdamWState(step, state.mu, state.nu, err), \
             {"grad_norm": gnorm, "lr": lr}

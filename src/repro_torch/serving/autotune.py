@@ -754,7 +754,7 @@ def autotune_decode(arch_or_cfg, *, profile: Optional[ServingProfile] = None,
     footprints only (use for reproducible tuning decisions in CI);
     ``"none"`` skips validation (the estimator ranking alone — cheapest).
     ``mesh`` raises: multi-device serving waits for ROADMAP Queue 1,
-    "Multi-device".  ``tune_prefix`` A/Bs the prefix-cache toggle on a
+    "Multi-device serving".  ``tune_prefix`` A/Bs the prefix-cache toggle on a
     measured shared-prefix replay (default: only under
     ``validate="measure"`` — it times real engine runs).  ``tune_chunks``
     microbenchmarks the chunked-prefill catch-up width ``k`` (adopted only
@@ -783,7 +783,7 @@ def autotune_decode(arch_or_cfg, *, profile: Optional[ServingProfile] = None,
     if mesh is not None:
         raise NotImplementedError(
             "autotune_decode(mesh=) is not ported yet (ROADMAP Queue 1, "
-            "\"Multi-device\")")
+            "\"Multi-device serving\")")
     dev = resolve_device(device)
     cfg = _resolve_cfg(arch_or_cfg, smoke)
     profile = profile if profile is not None else ServingProfile()

@@ -263,6 +263,11 @@ class Engine:
     def __init__(self, compiled: CompiledModel, params,
                  ecfg: Optional[EngineConfig] = None,
                  clock: Optional[Callable[[], float]] = None):
+        if compiled.plan.rules is not None:
+            raise NotImplementedError(
+                "serving a model compiled on a mesh (a sharded paged pool) "
+                "is not ported yet (ROADMAP Queue 1, \"Multi-device "
+                "serving\")")
         self.compiled = compiled
         self.plan = compiled.plan
         self.device = compiled.device

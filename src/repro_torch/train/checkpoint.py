@@ -13,6 +13,12 @@ mid-save never corrupts the latest checkpoint) and can run on a thread.
 numpy has no bfloat16 of its own, so a bfloat16 leaf raises ``TypeError``
 before anything is written; training trees are fp32 (the masters, the
 moments) with an int32 step.
+
+A DTensor leaf (a tree trained on a mesh) is saved whole: every rank
+gathers it and the first rank writes.  ``restore(..., shardings=)`` places
+each leaf on a mesh and placements of the caller's choice, each rank
+keeping its chunk — the elastic path: a checkpoint saved on one mesh
+resumes on another.
 """
 from __future__ import annotations
 
@@ -20,10 +26,11 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -58,6 +65,9 @@ def _unflatten(like, values: Dict[str, Any], prefix: str = ""):
 
 
 def _to_host(key: str, leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        from repro_torch.distributed.sharding import full_tensor
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
@@ -73,7 +83,12 @@ def save(ckpt_dir: str, step: int, tree, wait: bool = True,
     """Write the checkpoint of ``step``.  The leaves are copied to the host
     before this returns; with ``wait=False`` the files are written on a
     thread, which is returned."""
-    host = {k: _to_host(k, v) for k, v in _flatten(tree).items()}
+    flat = _flatten(tree)
+    host = {k: _to_host(k, v) for k, v in flat.items()}
+    sharded = any(isinstance(v, DTensor) for v in flat.values())
+    if sharded and _rank() != 0:        # the first rank writes
+        _barrier(wait)
+        return None
 
     def _write():
         tmp = os.path.join(ckpt_dir, f".tmp_{step}")
@@ -93,10 +108,25 @@ def save(ckpt_dir: str, step: int, tree, wait: bool = True,
 
     if wait:
         _write()
+        if sharded:
+            _barrier(wait)
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
     return t
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier(wait: bool) -> None:
+    """A saved sharded tree is on disk for every rank once ``save`` returns
+    (with ``wait``)."""
+    import torch.distributed as dist
+    if wait and dist.is_initialized():
+        dist.barrier()
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -113,15 +143,35 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like):
+def restore(ckpt_dir: str, step: int, like, shardings=None):
     """The checkpoint of ``step`` in the structure of ``like``: each leaf a
-    new tensor of the dtype and device of ``like``'s leaf at that key."""
+    new tensor of the dtype and device of ``like``'s leaf at that key.
+    ``shardings`` (a tree like ``like``'s of
+    :class:`~repro_torch.distributed.sharding.NamedSharding`, ``None``
+    fields left out) places each leaf it names as a DTensor on that mesh
+    and spec; a DTensor leaf of ``like`` it does not name keeps that
+    leaf's mesh and placements.  A placed leaf is read whole on the host
+    and only the rank's chunk moves to the device."""
+    from repro_torch.distributed.sharding import ShardingRules
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
+    where = _flatten(shardings) if shardings is not None else {}
     out = {}
     for k, leaf in _flatten(like).items():
         arr = np.load(os.path.join(d, meta["leaves"][k]))
-        out[k] = torch.from_numpy(arr).to(device=leaf.device,
-                                          dtype=leaf.dtype)
+        sh = where.get(k)
+        if sh is None and isinstance(leaf, DTensor):
+            sh = _Placed(leaf.device_mesh, leaf.placements)
+        loc = leaf._local_tensor if isinstance(leaf, DTensor) else leaf
+        full = torch.from_numpy(arr)
+        out[k] = full.to(device=loc.device, dtype=loc.dtype) if sh is None \
+            else ShardingRules(sh.mesh).place(full, sh, loc.device, loc.dtype)
     return _unflatten(like, out)
+
+
+class _Placed(NamedTuple):
+    """A DTensor's own mesh and placements (what ``ShardingRules.place``
+    reads of a sharding), to restore a leaf as it was."""
+    mesh: Any
+    placements: tuple

@@ -5,11 +5,17 @@ package's ``train/trainer.py``).
 The step runs eagerly: the loss in train mode (the forward products on the
 kernels the plan selects, the backward through the reference ops, with the
 plan's remat policy), ``torch.autograd.grad`` for every parameter, then the
-in-place AdamW update.  Multi-device training (a mesh,
-sharding rules) is not ported yet.
+in-place AdamW update.  On a mesh (``plan.rules``) the parameters and the
+moments are DTensors: the step differentiates the rank's local chunks
+(the FSDP gathers, tp splits and the loss's dp sum are explicit
+collectives with their backward, :mod:`repro_torch.distributed`), sums
+each gradient over the dp axes its parameter is replicated on, and
+updates the chunks in place, so the loss and the update are the
+single-device ones over the global batch.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -59,8 +65,11 @@ def make_train_step(plan: ExecutionPlan, opt: AdamW, microbatches: int = 1):
     leading axis is cut into that many equal slices, their gradients summed
     in fp32 and averaged, and the metrics are ``loss`` (the mean of the
     slices' losses) and the optimizer's; with one, the loss function's
-    metrics and the optimizer's."""
+    metrics and the optimizer's.  On a mesh ``params`` and the moments are
+    DTensors and ``batch`` the global batch on every rank."""
     loss_fn = lowering.make_loss_fn(plan)
+    if plan.rules is not None:
+        return _mesh_train_step(plan, opt, microbatches, loss_fn)
 
     def train_step(params, opt_state: AdamWState, batch):
         if microbatches == 1:
@@ -90,31 +99,70 @@ def make_train_step(plan: ExecutionPlan, opt: AdamW, microbatches: int = 1):
     return train_step
 
 
+def _mesh_train_step(plan: ExecutionPlan, opt: AdamW, microbatches: int,
+                     loss_fn: Callable):
+    from repro_torch.distributed.sharding import local_of
+    rules = plan.rules
+    shardings = rules.params_shardings(plan)
+
+    def train_step(params, opt_state: AdamWState, batch):
+        local = tree_map(local_of, params)
+        n = max(microbatches, 1)
+        grads, loss, metrics = None, 0.0, {}
+        for i in range(n):
+            mb = batch if n == 1 else {
+                k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+                for k, x in batch.items()}
+            lo, metrics, g = _grads(loss_fn, local, mb)
+            g = rules.reduce_grads(g, shardings)
+            grads = tree_map(lambda a: a.float(), g) if grads is None \
+                else tree_map(lambda a, b: a.add_(b.float()), grads, g)
+            loss = loss + lo
+        if n > 1:
+            grads = tree_map(lambda g: g / n, grads)
+            loss, metrics = loss / n, {}
+        grads = tree_map(lambda g, p: rules.wrap(g, p.placements, p.shape),
+                         grads, params)
+        params, opt_state, om = opt.update(grads, opt_state, params)
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
 class Trainer:
     """``Trainer(model, opt, tcfg)``: ``model`` is a
-    :class:`repro_torch.flow.CompiledModel` (its plan and device) or an
-    :class:`ExecutionPlan` (on the device of the platform it was resolved
-    for).  ``mesh`` and ``rules`` (multi-device training) raise
-    ``NotImplementedError``."""
+    :class:`repro_torch.flow.CompiledModel` (its plan, device and mesh) or
+    an :class:`ExecutionPlan` (on the device of the platform it was
+    resolved for).  ``mesh`` / ``rules`` train on a mesh (a compiled
+    model's own by default): the parameters and moments are DTensors,
+    checkpoints hold whole arrays and restore onto the rules' placements."""
 
     def __init__(self, model, opt: AdamW, tcfg: TrainerConfig, mesh=None,
                  rules=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "sharded training is not ported yet (ROADMAP Queue 1, "
-                "\"Multi-device\")")
-        from repro_torch.flow import CompiledModel
+        from repro_torch.flow import CompiledModel, _rules_for
         if isinstance(model, CompiledModel):
             self.plan, self.device = model.plan, model.device
+            mesh = mesh if mesh is not None else model.mesh
         else:
             self.plan, self.device = model, torch.device(model.platform)
+        if rules is None and mesh is not None:
+            rules = self.plan.rules if self.plan.rules is not None \
+                else _rules_for(mesh, self.plan.flow)
+        if rules is not None and self.plan.rules is not rules:
+            self.plan = copy.copy(self.plan)
+            self.plan.rules = rules
+        self.mesh, self.rules = mesh, rules
         self.opt, self.tcfg = opt, tcfg
         self.step_fn: Optional[Callable] = None
         self._restarts = 0
 
     # -- setup ----------------------------------------------------------------
     def init(self, seed: int = 0) -> tuple:
-        params = lowering.init_params(self.plan, seed, self.device)
+        params = lowering.init_params(self.plan, seed, self.device,
+                                      rules=self.rules)
         return params, self.opt.init(params)
 
     def compile_step(self, microbatches: int = 1) -> Callable:
@@ -174,6 +222,12 @@ class Trainer:
         return params, opt_state, history
 
     def restore(self, step: int, params_like, opt_like):
+        shardings = None
+        if self.rules is not None:
+            psh = self.rules.params_shardings(self.plan)
+            shardings = {"params": psh, "opt": AdamWState(
+                None, psh, psh, None if opt_like.err is None else psh)}
         tree = ckpt_lib.restore(self.tcfg.ckpt_dir, step,
-                                {"params": params_like, "opt": opt_like})
+                                {"params": params_like, "opt": opt_like},
+                                shardings)
         return tree["params"], tree["opt"]

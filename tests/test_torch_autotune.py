@@ -166,7 +166,7 @@ def test_profile_rules_raise_the_jax_messages():
 
 
 def test_autotune_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    with pytest.raises(NotImplementedError, match="Multi-device serving"):
         autotune_decode("llama3.2-1b", smoke=True, mesh={"data": 2},
                         device="cpu")
 

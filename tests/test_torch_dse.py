@@ -6,6 +6,7 @@ F501 pruning counts and the explorer cache; then the port's own parts: the
 ``h100`` preset and the budget a search on the card takes."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -317,16 +318,18 @@ def test_enumeration_respects_cap():
 
 def test_measure_validator_on_the_cpu():
     """The measured validator times the stage (the wall clock on the CPU)
-    and records the estimator's footprint; a mesh raises."""
+    and records the estimator's footprint; a candidate that proposes a mesh
+    is timed on that mesh (here a one-rank one; four ranks in
+    ``tests/test_torch_mesh.py``)."""
     cfg = get_config("lenet5")
     sh = ShapeConfig(*CNN_SERVE)
     rec = dse.measure_validator(cfg, sh, iters=1, device="cpu")(
         FlowConfig(mode="folded"))
     assert rec["measured_step_s"] > 0 and rec["timer"] == "wall_clock"
     assert rec["bytes_source"] == "estimator" and rec["per_device_bytes"] > 0
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        dse.measure_validator(cfg, sh, device="cpu")(
-            FlowConfig(mesh_split=(("data", 2),)))
+    rec = dse.measure_validator(cfg, sh, iters=1, device="cpu")(
+        FlowConfig(mode="folded", mesh_split=(("data", 1),)))
+    assert rec["measured_step_s"] > 0 and rec["timer"] == "wall_clock"
 
 
 def test_compile_autotune_describe_has_dse_line():
@@ -337,6 +340,17 @@ def test_compile_autotune_describe_has_dse_line():
     assert cm.describe().splitlines()[-1] == (
         f"  dse: best=[{er.best.knob_str()}] enumerated={er.n_enumerated} "
         f"validated={len(er.validated)}")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # compile(mesh=): the sharding line on the plan, DTensor logits equal
+    # to the unsharded ones; a mesh larger than the process group raises
+    cm1 = tflow.compile("lenet5", ShapeConfig(*CNN_SERVE), mesh={"data": 1},
+                        device="cpu")
+    cm0 = tflow.compile("lenet5", ShapeConfig(*CNN_SERVE), device="cpu")
+    assert "  sharding: mesh={data:1} dp=data:1" in cm1.describe()
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        CNN_SERVE[3], 32, 32, 1).astype(np.float32))
+    got, _, _ = cm1.prefill(cm1.init_params(0), {"images": x})
+    want, _, _ = cm0.prefill(cm0.init_params(0), {"images": x})
+    assert torch.equal(got.to_local(), want)
+    with pytest.raises(ValueError, match="process group has 1"):
         tflow.compile("lenet5", ShapeConfig(*CNN_SERVE), mesh={"data": 2},
                       device="cpu")

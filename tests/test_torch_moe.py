@@ -159,13 +159,42 @@ def test_train_mode_aux_loss_matches_jax(cf):
 
 
 def test_model_sharded_plan_is_refused():
-    """A plan whose sharding rules carry a model axis (the JAX package's
-    ``_moe_shard_map``) is not ported: the op raises naming it."""
-    _, tc = _ctxs("fp32")
-    tc.plan.rules = SimpleNamespace(tp="model")
-    op = SimpleNamespace(attrs=dict(num_experts=8, top_k=2))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        tops.op_moe_ffn(tc, op, {}, torch.zeros(1, 4, 32))
+    """A plan whose sharding rules carry a model axis runs the MoE through
+    ``_moe_shard_map`` (the JAX package's explicit-collective region): on
+    a one-rank mesh it computes JAX's single-device ``_moe_core`` (four
+    ranks in ``tests/test_torch_mesh.py``), its aux loss the mean over
+    the one dp rank."""
+    for mode in ("prefill", "train"):
+        _moe_on_a_one_rank_mesh(mode)
+
+
+def _moe_on_a_one_rank_mesh(mode):
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.distributed.sharding import ShardingRules
+    x, ws, sh = _core_inputs()
+    attrs = dict(num_experts=8, top_k=2, capacity_factor=4.0, act="silu",
+                 aux_weight=0.01, num_shared=1)
+    jc, tc = _ctxs("fp32", mode)
+    mesh = MeshSpec((("data", 1), ("model", 1))).build("cpu")
+    tc.plan = SimpleNamespace(flow=tc.plan.flow,
+                              rules=ShardingRules(mesh, ("data",), "model"))
+    names = ("router", "we_gate", "we_up", "we_down", "ws_gate", "ws_up",
+             "ws_down")
+    p = {n: torch.from_numpy(np.asarray(w, np.float32))
+         for n, w in zip(names, ws + sh)}
+    op = SimpleNamespace(attrs=attrs)
+    ty = tops.op_moe_ffn(tc, op, p, torch.from_numpy(
+        np.asarray(x, np.float32)))
+    jx, _ = _both(x, "fp32")
+    jy, jaux = jops._moe_core(jc, attrs, jx,
+                              *[_both(w, "fp32")[0] for w in ws],
+                              tuple(_both(w, "fp32")[0] for w in sh))
+    assert relerr(ty.numpy(), np.asarray(jy)) < 1e-5
+    if mode == "train":
+        assert abs(float(tc.aux["moe_aux"]) - float(jaux)) <= \
+            1e-6 * abs(float(jaux))
+    else:
+        assert "moe_aux" not in tc.aux
 
 
 # ---------------------------------------------------------------------------

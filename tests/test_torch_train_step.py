@@ -17,7 +17,7 @@ from repro.train.trainer import make_train_step as jmake_train_step
 from repro_torch import flow as tflow
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import FlowConfig, ShapeConfig
-from repro_torch.core.lowering import _chunked_ce
+from repro_torch.core.lowering import _chunked_ce_sums
 from repro_torch.core.ops_impl import Ctx
 from repro_torch.optim.adamw import AdamW, tree_leaves
 from repro_torch.train.trainer import _grads, make_train_step
@@ -60,6 +60,13 @@ def test_sdpa_chunks_checkpointed_in_train():
     tl, _, tg = _grads(tcm.loss_fn, tp, tb)
     assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
     assert max(_leaf_errs(jg, tg)) < 1e-4
+
+
+def _chunked_ce(ctx, h, table, labels, true_vocab, chunk):
+    """Mean cross-entropy and argmax accuracy over the valid labels."""
+    nll, cnt, cor = _chunked_ce_sums(ctx, h, table, labels, true_vocab, chunk)
+    denom = torch.clamp(cnt, min=1.0)
+    return nll / denom, cor / denom
 
 
 def test_chunked_ce_ignores_negative_labels_and_halves_the_chunk():

@@ -104,7 +104,23 @@ def test_async_checkpoints_resume(tmp_path):
 
 
 def test_mesh_and_rules_are_not_ported():
-    _, cm = _setup()
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError, match="Multi-device"):
-            Trainer(cm, AdamW(), TrainerConfig(), **kw)
+    """``Trainer(mesh=)`` and ``Trainer(rules=)`` train on a mesh: on a
+    one-rank one the parameters are DTensors and three steps give the
+    unsharded trainer's losses (four ranks in ``tests/test_torch_mesh.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.flow import _rules_for
+    cfg, cm = _setup()
+    mesh = MeshSpec((("data", 1), ("model", 1))).build("cpu")
+    rules = _rules_for(mesh, cm.flow)
+    tcfg = TrainerConfig(steps=3, log_every=1)
+    _, _, want = Trainer(cm, AdamW(lr=3e-3, warmup_steps=1), tcfg).fit(
+        _lm_data(cfg), 0)
+    for kw in (dict(mesh=mesh), dict(rules=rules)):
+        tr = Trainer(cm, AdamW(lr=3e-3, warmup_steps=1), tcfg, **kw)
+        params, _, got = tr.fit(_lm_data(cfg), 0)
+        assert isinstance(params["head"]["final_norm_scale"], DTensor)
+        assert [s for s, _ in got] == [s for s, _ in want]
+        for (_, a), (_, b) in zip(got, want):
+            assert abs(a - b) <= 1e-5 * abs(b)

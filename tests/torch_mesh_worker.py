@@ -1,0 +1,334 @@
+"""Rank program of ``tests/test_torch_mesh.py``: four gloo ranks on the CPU
+run one case of the port's mesh runtime against the JAX package's
+single-device numbers, which the test made in its own process and left in
+``<dir>/ref.npz``.  No JAX is imported here.
+
+    python tests/torch_mesh_worker.py <case> <dir>          # the launcher
+    python tests/torch_mesh_worker.py <case> <dir> <rank>   # one rank
+
+The launcher starts the four ranks, stops them all when one fails, and
+exits with the first failing rank's code; rank 0 prints ``<case> OK`` and
+its figures.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+WORLD = 4
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def _relerr(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b))) / (float(np.max(np.abs(b))) + 1e-9)
+
+
+def _tree(ref, prefix):
+    """The ``prefix|top|leaf`` arrays of the npz as a nested dict."""
+    out = {}
+    for k in ref.files:
+        if k.startswith(prefix + "|"):
+            _, top, leaf = k.split("|")
+            out.setdefault(top, {})[leaf] = ref[k]
+    return out
+
+
+def _batch(ref):
+    import torch
+    return {k: torch.from_numpy(ref[k].astype(np.int64))
+            for k in ("tokens", "labels") if k in ref.files}
+
+
+def _compile(arch, kind, mesh, cfg=None, **flow_kw):
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    fl = FlowConfig(mode="folded", precision="fp32", **flow_kw)
+    return flow.compile(cfg or arch, ShapeConfig("s", kind, 16, 4), fl,
+                        smoke=cfg is None, device="cpu", mesh=mesh)
+
+
+def _mesh_params(cm, ref, prefix="params"):
+    from repro_torch import bridge
+    return bridge.params_from_numpy(_tree(ref, prefix), "cpu",
+                                    rules=cm.rules, plan=cm.plan)
+
+
+def case_train_step(rank, ref):
+    """The sharded llama train step: its loss against JAX's, a tp- and
+    dp-sharded weight's local numel, the gradients and one AdamW step
+    (taken where the learning rate is not 0) against the port's unsharded
+    ones.  AdamW's first update is ``lr * m / (sqrt(v) + eps)``: where a
+    gradient is near ``eps`` it turns a last-bit difference of the
+    gradient into up to ``lr`` of the weight, so the step is held to 1e-5
+    where |g| > 1e-6 and to ``lr`` elsewhere."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.distributed.sharding import full_tensor, local_of
+    from repro_torch.optim.adamw import AdamW, tree_map
+    from repro_torch.train.trainer import _grads
+    mesh = {"data": 2, "model": 2}
+    cm = _compile("llama3.2-1b", "train", mesh)
+    c1 = _compile("llama3.2-1b", "train", None)
+    p = _mesh_params(cm, ref)
+    p1 = bridge.params_from_numpy(_tree(ref, "params"), "cpu")
+    b = _batch(ref)
+    loss, _ = cm.loss_fn(p, b)
+    err = _relerr(float(loss), ref["loss"])
+    assert err < 2e-5, (float(loss), float(ref["loss"]))
+    wq = p["fold_layer0"]["0:wq"]
+    assert str(cm.plan.sharding.param_specs["fold_layer0/0:wq"]) == \
+        "PartitionSpec(None, 'data', 'model')"
+    assert wq.to_local().numel() * 4 == wq.numel()
+    # init_params(rules=): each rank draws only its chunk of the same values
+    drawn, whole = cm.init_params(3), c1.init_params(3)
+    for t in whole:
+        for k in whole[t]:
+            d = drawn[t][k]
+            assert torch.equal(d.to_local(), cm.rules.local_chunk(
+                whole[t][k], d.placements))
+    assert drawn["fold_layer0"]["0:wq"].to_local().numel() * 4 == wq.numel()
+    shd = cm.rules.params_shardings(cm.plan)
+    _, _, g = _grads(cm.loss_fn, tree_map(local_of, p), b)
+    g = cm.rules.reduce_grads(g, shd)
+    _, _, g1 = _grads(c1.loss_fn, p1, b)
+    gerr = max(_relerr(full_tensor(cm.rules.wrap(
+        g[t][k], shd[t][k].placements, p[t][k].shape)).numpy(),
+        g1[t][k].numpy()) for t in g1 for k in g1[t])
+    assert gerr < 1e-5, gerr
+    lr = 1e-3
+    opt = AdamW(lr=lr, warmup_steps=1)
+    o, o1 = opt.init(p), opt.init(p1)
+    o = o._replace(step=torch.ones((), dtype=torch.int32))
+    o1 = o1._replace(step=torch.ones((), dtype=torch.int32))
+    p, o, m = cm.train_step(opt)(p, o, b)
+    p1, o1, m1 = c1.train_step(opt)(p1, o1, b)
+    perr = loose = moved = 0.0
+    for t in p1:
+        for k in p1[t]:
+            d = (full_tensor(p[t][k]) - p1[t][k]).abs()
+            well = g1[t][k].abs() > 1e-6
+            perr = max(perr, float(d[well].max()))
+            loose = max(loose, float(d.max()))
+            moved = max(moved, float((p1[t][k] - torch.from_numpy(
+                np.array(ref[f"params|{t}|{k}"]))).abs().max()))
+    assert perr < 1e-5 and loose <= lr and moved > 1e-4, \
+        (perr, loose, moved)
+    return f"loss relerr {err:.2e} grads relerr {gerr:.2e} step " \
+        f"max|dparam| {perr:.2e} (near-eps gradients {loose:.2e})"
+
+
+def case_compile_mesh(rank, ref, arch="llama3.2-1b"):
+    """compile(mesh=): the plan's sharding line, fp32 prefill logits and
+    greedy tokens against JAX's single-device ones (recurrentgemma-2b:
+    its conv and RG-LRU states gathered over tp for each decode step and
+    cut back after)."""
+    import torch
+    from repro_torch.distributed.sharding import full_tensor
+    cm = _compile(arch, "prefill", {"data": 2, "model": 2})
+    assert "sharding: mesh={data:2,model:2} dp=data:2 tp=model:2" in \
+        cm.plan.describe()
+    p = _mesh_params(cm, ref)
+    b = {"tokens": _batch(ref)["tokens"]}
+    logits, state, _ = cm.prefill(p, b)
+    err = _relerr(full_tensor(logits).numpy(), ref["logits"])
+    assert err < 1e-4, err
+    toks, _ = cm.generate(p, b, 4)
+    assert torch.equal(toks.long(), torch.from_numpy(
+        ref["tokens_out"].astype(np.int64))), (toks, ref["tokens_out"])
+    return f"logits relerr {err:.2e} tokens identical"
+
+
+def case_moe(rank, ref, arch):
+    """The MoE over the model axis (_moe_shard_map) on (data 2, model 2):
+    its CE against JAX's single-device CE, and its total loss (CE + aux)
+    against JAX's CE plus the mean over the two dp shards of JAX's aux on
+    each shard's rows (JAX's _moe_shard_map: each dp shard's router
+    statistics, averaged over dp)."""
+    cm = _compile(arch, "train", {"data": 2, "model": 2})
+    assert cm.rules.tp == "model" and cm.rules.dp == ("data",)
+    p = _mesh_params(cm, ref)
+    total, m = cm.loss_fn(p, _batch(ref))
+    err = _relerr(float(m["loss"]), ref["loss"])
+    assert err < 1e-5, (float(m["loss"]), float(ref["loss"]))
+    terr = _relerr(float(total), ref["total"])
+    assert terr < 1e-5, (float(total), float(ref["total"]))
+    return f"{arch} CE relerr {err:.2e} total relerr {terr:.2e}"
+
+
+def case_moe_dp(rank, ref, arch):
+    """The MoE on (data 4, model 1): a one-rank model axis carries data
+    parallelism (no model-axis region); the total loss (CE + aux, the
+    router statistics over the global batch) and every gradient, the
+    router's included, against JAX's single-device ones."""
+    from repro_torch.distributed.sharding import full_tensor, local_of
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.trainer import _grads
+    cm = _compile(arch, "train", {"data": 4, "model": 1})
+    assert cm.rules.tp is None and cm.rules.dp_size == 4
+    p = _mesh_params(cm, ref)
+    total, _, g = _grads(cm.loss_fn, tree_map(local_of, p), _batch(ref))
+    terr = _relerr(float(total), ref["total"])
+    assert terr < 1e-5, (float(total), float(ref["total"]))
+    shd = cm.rules.params_shardings(cm.plan)
+    g = cm.rules.reduce_grads(g, shd)
+    gerr, rerr = 0.0, 0.0
+    for t in g:
+        for k in g[t]:
+            whole = full_tensor(cm.rules.wrap(g[t][k], shd[t][k].placements,
+                                              p[t][k].shape))
+            e = _relerr(whole.numpy(), ref[f"grads|{t}|{k}"])
+            gerr = max(gerr, e)
+            if k.endswith("router"):
+                rerr = max(rerr, e)
+    assert gerr < 1e-4, gerr
+    return f"{arch} total relerr {terr:.2e} grads relerr {gerr:.2e} " \
+        f"(router {rerr:.2e})"
+
+
+def case_pipeline(rank, ref):
+    """GPipe over pod:2 (data:2 beside it), 2 microbatches: the loss against
+    JAX's folded loss, the gradients against JAX's unsharded ones."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.pipeline_parallel import make_pipeline_loss
+    from repro_torch.distributed.sharding import full_tensor, local_of
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.trainer import _grads
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), n_layers=4)
+    cm = _compile(None, "train", {"pod": 2, "data": 2}, cfg=cfg,
+                  remat="none", pp_axis="pod")
+    sp = cm.plan.sharding
+    assert sp.pp_axis == "pod" and sp.stage_of_layer == (0, 0, 1, 1)
+    p = _mesh_params(cm, ref)
+    loss = make_pipeline_loss(cm.plan, cm.mesh, n_microbatches=2)
+    lo, _, g = _grads(lambda q, b: (loss(q, b), {}), tree_map(local_of, p),
+                      _batch(ref))
+    err = _relerr(float(lo), ref["loss"])
+    assert err < 2e-4, (float(lo), float(ref["loss"]))
+    g = loss.reduce_grads(g)
+    shd = cm.rules.params_shardings(cm.plan)
+    gerr = 0.0
+    for t in g:
+        for k in g[t]:
+            whole = full_tensor(cm.rules.wrap(g[t][k], shd[t][k].placements,
+                                              p[t][k].shape))
+            gerr = max(gerr, _relerr(whole.numpy(), ref[f"grads|{t}|{k}"]))
+    assert gerr < 1e-4, gerr
+    return f"loss relerr {err:.2e} grads relerr {gerr:.2e}"
+
+
+def case_elastic(rank, ref):
+    """A checkpoint saved on (data 2, model 2) restored onto (data 4,
+    model 1) with the placements asked for; a train state too."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.distributed.sharding import (
+        P, NamedSharding, ShardingRules, full_tensor)
+    from repro_torch.train import checkpoint as ckpt
+    m1 = MeshSpec((("data", 2), ("model", 2))).build("cpu")
+    m2 = MeshSpec((("data", 4), ("model", 1))).build("cpu")
+    x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    xs = ShardingRules(m1).place(x, NamedSharding(m1, P("data", "model")))
+    assert xs.to_local().shape == (4, 4)
+    d = os.path.join(os.environ["MESH_TEST_DIR"], "ckpt")
+    ckpt.save(d, 1, {"x": xs})
+    out = ckpt.restore(d, 1, {"x": xs},
+                       {"x": NamedSharding(m2, P(None, "data"))})
+    assert tuple(out["x"].placements) == (Shard(1), Replicate())
+    assert out["x"].to_local().shape == (8, 2)
+    assert torch.equal(full_tensor(out["x"]), x)
+    back = ckpt.restore(d, 1, {"x": xs})      # the like tree's placements
+    assert tuple(back["x"].placements) == tuple(xs.placements)
+    assert torch.equal(full_tensor(back["x"]), x)
+    return "values identical, placements as asked"
+
+
+def case_explore(rank, ref):
+    """explore(devices=4): at least 2 mesh splits measured on their own
+    meshes, and the winner compiles and runs."""
+    import torch
+    from repro_torch import flow
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import dse
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.distributed.sharding import full_tensor
+    cfg, shape = get_smoke("llama3.2-1b"), ShapeConfig("s", "prefill", 16, 4)
+    r = dse.explore(cfg, shape, devices=4, rank_measured=True, device="cpu",
+                    validator=dse.measure_validator(cfg, shape, iters=1,
+                                                    device="cpu"))
+    splits = {c.flow.mesh_split for c in r.candidates}
+    assert len(splits) >= 2, splits
+    assert r.validated and all(v["measured_step_s"] > 0
+                               for v in r.validated)
+    best = flow.compile(cfg, shape, r.best.flow, device="cpu",
+                        mesh=MeshSpec.of(r.best.flow.mesh_split))
+    lg, _, _ = best.prefill(best.init_params(0),
+                            {"tokens": _batch(ref)["tokens"]})
+    assert bool(torch.isfinite(full_tensor(lg)).all())
+    return f"splits {sorted(splits)} best {r.best.flow.mesh_split} " \
+        f"measured {len(r.validated)}"
+
+
+CASES = {
+    "train_step": case_train_step,
+    "compile_mesh": case_compile_mesh,
+    "compile_mesh-recurrentgemma-2b": lambda r, ref: case_compile_mesh(
+        r, ref, "recurrentgemma-2b"),
+    "moe-mixtral-8x7b": lambda r, ref: case_moe(r, ref, "mixtral-8x7b"),
+    "moe-deepseek-moe-16b": lambda r, ref: case_moe(r, ref,
+                                                    "deepseek-moe-16b"),
+    "moe_dp-mixtral-8x7b": lambda r, ref: case_moe_dp(r, ref,
+                                                      "mixtral-8x7b"),
+    "moe_dp-deepseek-moe-16b": lambda r, ref: case_moe_dp(
+        r, ref, "deepseek-moe-16b"),
+    "pipeline": case_pipeline,
+    "elastic": case_elastic,
+    "explore": case_explore,
+}
+
+
+def rank_main(case: str, d: str, rank: int) -> None:
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.device import init_process_group
+    init_process_group(WORLD, rank, "cpu", os.path.join(d, "store"))
+    path = os.path.join(d, "ref.npz")
+    ref = np.load(path) if os.path.exists(path) else None
+    os.environ["MESH_TEST_DIR"] = d
+    msg = CASES[case](rank, ref)
+    if rank == 0:
+        print(f"{case} OK {msg}", flush=True)
+
+
+def launch(case: str, d: str, limit: float = 280.0) -> int:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               case, d, str(r)], env=env)
+             for r in range(WORLD)]
+    t0, code = time.time(), 0
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs if p.returncode]
+            if bad or time.time() - t0 > limit:
+                code = bad[0] if bad else 124
+                break
+            time.sleep(0.05)
+        else:
+            code = next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return code
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3:
+        sys.exit(launch(sys.argv[1], sys.argv[2]))
+    rank_main(sys.argv[1], sys.argv[2], int(sys.argv[3]))
