@@ -302,11 +302,24 @@ Phases, each raising on failure:
    (1e-5 / 1e-4) and twice its launches; ResNet-34 at batch 8 a bf16
    forward with conv2d_fused x 36 launched.
    One line logs the backend, the world size, each relerr, the launch
-   counts and the phase's seconds.
+   counts and the phase's seconds. Its process group stays up for 21.
+21. serve_mesh — serving on the same one-card mesh: ``Engine(mesh=)``
+   over full-width llama3.2-1b at 4 of its 16 layers, the serving
+   envelope of phase 9 (8 slots, 1024 tokens, blocks of 16), workloads A
+   and B in bf16 and fp32, each against the unsharded engine on the same
+   weights: tokens identical, the launches of matmul_fused,
+   flash_attention and paged_decode_attention by schedule equal, one
+   copy_block launch a fork; ``autotune_decode(mesh=, validate=
+   "compile")`` on one batch bucket and its pinned engine on the mesh;
+   the dry-run (``python -m repro_torch.launch.dryrun``) of llama3.2-1b
+   ``decode_32k`` and ``train_4k`` and resnet34 ``train_4k`` on the
+   256-rank fake production mesh, in processes started first and stopped
+   before the phase returns, each cell's ``per_device_bytes`` and
+   ``fits_budget`` on a line of its own.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19, then 20. Every path phase also reads
+and 19, then 20 and 21. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -5248,6 +5261,8 @@ def _schedules_now():
     return {"matmul_fused": ran(km.matmul_fused.schedule_launches),
             "flash_attention": ran(ka.flash_attention.schedules),
             "decode_attention": ran(kd.decode_attention.schedules),
+            "paged_decode_attention": ran(
+                kd.paged_decode_attention.schedules),
             "conv2d_fused": ran(kc.conv2d_fused.schedule_launches)}
 
 
@@ -5327,7 +5342,8 @@ def _mesh_pipeline(cfg):
 def phase_mesh(smi):
     """Phase 20: ``compile(mesh=)``, ``Trainer(mesh=)``, the MoE, GPipe
     and a CNN on a DeviceMesh of the one card, each held to the unsharded
-    ``CompiledModel``."""
+    ``CompiledModel``.  The process group it starts stays up for phase
+    21."""
     import torch.distributed as dist
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
@@ -5494,7 +5510,7 @@ def phase_mesh(smi):
                        "conv_schedules": got[1]["conv2d_fused"]}
     del cm0, cm, p0, p
     torch.cuda.empty_cache()
-    dist.destroy_process_group()
+    # the group stays up: phase 21 serves on it
     rec["seconds"] = time.perf_counter() - t_start
     log(json.dumps({"mesh": {
         "backend": backend, "world_size": rec["world_size"],
@@ -5524,6 +5540,240 @@ def mesh_kernel_entries(cases, lm_cases, mesh):
                    f"decode_schedules{suf}": g["decode_schedules"]})
     return lm_kernel_entries(lm_cases, lm, tag=f"@{LM_ARCH}/mesh") + \
         kernel_entries(cases, [mesh["resnet34"]], tag="@mesh")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: serving on a one-card mesh, its autotune, and the dry-run
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_DEPTH = 4          # llama3.2-1b's 16 layers cut: the time limit
+SERVE_MESH_KERNELS = ("matmul_fused", "flash_attention",
+                      "paged_decode_attention")
+DRYRUN_CELLS = (("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "train_4k"),
+                ("resnet34", "train_4k"))
+
+
+def _dryrun_start():
+    """The dry-run's cells, each ``python -m repro_torch.launch.dryrun`` in
+    a process of its own (its own fake group of 256 ranks on the
+    production mesh), started together: (cell, process, out path)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(ROOT, "build", f"dryrun_{arch}_{shape}.json")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", path], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        out.append(((arch, shape), proc, path))
+    return out
+
+
+def _dryrun_finish(started, limit=300):
+    """Each dry-run cell's ``OK`` line and record (per-device bytes and
+    whether they fit the budget); a cell that fails or prints no ``OK``
+    line raises."""
+    rows = []
+    for (arch, shape), proc, path in started:
+        try:
+            text, _ = proc.communicate(timeout=limit)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry-run {arch} x {shape}: past {limit} s")
+        ok = [ln for ln in text.splitlines() if ln.startswith("OK ")]
+        if proc.returncode or not ok:
+            raise AssertionError(f"dry-run {arch} x {shape}: exit "
+                                 f"{proc.returncode}\n{text[-2000:]}")
+        with open(path) as f:
+            r = json.load(f)[0]
+        m = r["memory"]
+        row = {"arch": arch, "shape": shape, "mesh": r["mesh"],
+               "per_device_bytes": m["per_device_bytes"],
+               "per_device_gib": m["per_device_bytes"] / 2 ** 30,
+               "fits_budget": m["fits_budget"],
+               "budget_bytes": m["budget_bytes"],
+               "flops": r["cost_analysis"]["flops"],
+               "collective_bytes": r["collectives"]["collective_bytes"],
+               "fake_step_s": r["compile_s"], "ok_line": ok[0]}
+        log(json.dumps({"dryrun": row}))
+        rows.append(row)
+    return rows
+
+
+def _served_alike(got, want, forks, forks0, must_fork, prec, what):
+    """A mesh serving run against the unsharded one: matmul_fused's,
+    flash_attention's and paged_decode_attention's launches by schedule
+    equal, paged on ``mma`` (fp32 ``ffma``) and flash on ``wgmma``
+    (``ffma``), and copy_block launched once a fork in each (``must_fork``:
+    at least one)."""
+    _same_launches(got, want, SERVE_MESH_KERNELS, what)
+    if got[0]["copy_block"] != forks or want[0]["copy_block"] != forks0 \
+            or (must_fork and not forks):
+        raise AssertionError(f"{what}: copy_block {got[0]['copy_block']} "
+                             f"for {forks} forks")
+    _decode_scheduled(got[0]["paged_decode_attention"], prec, what,
+                      "paged_decode_attention")
+    _flash_scheduled(got[0]["flash_attention"], prec, what)
+
+
+def phase_serve_mesh(smi):
+    """Phase 21: ``Engine(mesh=)`` on the one-card ``(("data", 1),
+    ("model", 1))`` mesh over NCCL (phase 20's group): llama3.2-1b at full
+    width and SERVE_MESH_DEPTH layers, serving workloads A and B in bf16
+    and fp32, each held to the unsharded engine on the same weights
+    (tokens equal; the launches of matmul_fused, flash_attention and
+    paged_decode_attention by schedule equal; copy_block once a fork);
+    ``autotune_decode(mesh=, validate="compile")`` on one batch bucket and
+    its pinned engine on the mesh; the dry-run of ``DRYRUN_CELLS`` on the
+    256-rank production mesh in processes of their own, started first and
+    stopped, whatever happens, before the phase returns."""
+    t_start = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    dry = _dryrun_start()                  # host CPU work, runs meanwhile
+    try:
+        return _serve_mesh(smi, dry, t_start)
+    finally:
+        for _, proc, _ in dry:             # stop every process started
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _serve_mesh(smi, dry, t_start):
+    import torch.distributed as dist
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.device import init_process_group
+    from repro_torch.distributed.meshspec import MeshSpec
+    from repro_torch.serving.autotune import ServingProfile, autotune_decode
+    from torch.distributed.tensor import DTensor
+    backend = init_process_group(1, 0, "cuda")
+    mesh = MeshSpec(MESH_AXES).build()
+    rec = {"backend": backend, "world_size": dist.get_world_size(),
+           "mesh": MeshSpec.of(mesh).describe(), "nvidia_smi": smi,
+           "layers": SERVE_MESH_DEPTH, "slots": SERVE_SLOTS,
+           "max_seq_len": SERVE_SEQ, "block_size": SERVE_BS}
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=SERVE_MESH_DEPTH)
+    shape = ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
+    works = _serve_workloads(cfg.vocab_size)
+    params16 = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm0 = tflow.compile(cfg, shape, fl)
+        cm = tflow.compile(cfg, shape, fl, mesh=mesh)
+        if params16 is None:
+            params16 = cm0.init_params(SEED)
+        p0 = params16 if prec == "bf16" else _widened(params16)
+        launches = {k: 0 for k in SERVE_MESH_KERNELS + ("copy_block",)}
+        scheds = {k: {} for k in SERVE_MESH_KERNELS}
+        for name in ("A", "B"):
+            wl, kw = SERVE_KNOBS[name]
+            (_, rep0), *want = _counted_run(lambda: _engine_run(
+                cm0, p0, works[wl], **kw))
+            (eng, rep), *got = _counted_run(lambda: _engine_run(
+                cm, p0, works[wl], **kw))
+            what = f"{prec} mesh serving {name}"
+            if not isinstance(eng.params["embed"]["table"], DTensor) or \
+                    eng.mesh is None:
+                raise AssertionError(f"{what}: not served on the mesh")
+            if _tokens(rep) != _tokens(rep0):
+                raise AssertionError(f"{what}: tokens differ from the "
+                                     "unsharded engine's")
+            forks = rep.metrics["cow_forks"]
+            _served_alike(got, want, forks, rep0.metrics["cow_forks"],
+                          name == "B", prec, what)
+            for k in launches:
+                launches[k] += got[0][k]
+            for k in SERVE_MESH_KERNELS:
+                for s_, n in got[1][k].items():
+                    scheds[k][s_] = scheds[k].get(s_, 0) + n
+            rec[f"{prec}_{name}"] = {
+                "tokens_identical": True, "cow_forks": forks,
+                "prefix_hits": rep.metrics["prefix_hits"],
+                "prefill_batches": rep.metrics["prefill_batches"],
+                "decode_ticks": rep.metrics["decode_ticks"],
+                "tokens_per_s": rep.metrics["tokens_per_s"],
+                "unsharded_tokens_per_s": rep0.metrics["tokens_per_s"],
+                "launches": {k: got[0][k] for k in launches}}
+            log(json.dumps({"serve_mesh": name, "precision": prec,
+                            **rec[f"{prec}_{name}"]}))
+            del eng
+        rec[f"launches_{prec}"] = launches
+        rec[f"schedules_{prec}"] = scheds
+        del cm0, cm, p0
+        torch.cuda.empty_cache()
+    del params16
+    torch.cuda.empty_cache()
+
+    # the serving autotune on the mesh: one batch bucket, the compile
+    # validator; its pinned engine serves on the mesh
+    t = time.perf_counter()
+    prof = ServingProfile(name="serve_mesh", batch_buckets=(SERVE_SLOTS,),
+                          max_seq_len=SERVE_SEQ, block_sizes=(SERVE_BS,),
+                          chunk_sizes=(1,))
+    at = autotune_decode(cfg, profile=prof, mesh={"data": 1, "model": 1},
+                         validate="compile", iters=1)
+    pinned = at.engine()
+    reset_counts()
+    rep = pinned.run(works["A"][:SERVE_SLOTS])
+    got = read_counts()
+    if at.mesh is None or pinned.mesh is None or \
+            pinned.plan.rules is None or not got["paged_decode_attention"] \
+            or rep.metrics["generated_tokens"] != SERVE_SLOTS * SERVE_NEW:
+        raise AssertionError(f"mesh autotune: {at.describe()} {got}")
+    rec["autotune"] = {"describe": at.describe(), "seconds":
+                       time.perf_counter() - t, "validate": "compile",
+                       "pinned_launches": {k: got[k] for k in
+                                           SERVE_MESH_KERNELS}}
+    del at, pinned
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    rec["dryrun"] = _dryrun_finish(dry)
+    rec["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"serve_mesh": {
+        "backend": backend, "world_size": rec["world_size"],
+        "layers": SERVE_MESH_DEPTH,
+        "launches_bf16": rec["launches_bf16"],
+        "launches_fp32": rec["launches_fp32"],
+        "autotune_s": rec["autotune"]["seconds"],
+        "dryrun": [(r["arch"], r["shape"], r["per_device_bytes"],
+                    r["fits_budget"]) for r in rec["dryrun"]],
+        "seconds": rec["seconds"]}}))
+    return rec
+
+
+def serve_mesh_kernel_entries(lm_cases, serve_cases, sm):
+    """The kernels of the served mesh runs (workloads A and B at
+    SERVE_MESH_DEPTH layers): one call of each at the serving shapes
+    (matmul_fused at a decode tick's 8 rows and the prefill's 4096,
+    flash_attention at 8 x 512, paged_decode_attention at a tick, a fork's
+    copy_block), ``launches`` counted on the mesh."""
+    cases = _by_schedule({k: v for k, v in lm_cases.items()
+                          if k in ("matmul_fused", "flash_attention")})
+    cases.update(_by_schedule(serve_cases))
+
+    def uses(kname, r):
+        if kname.startswith("paged_decode_attention"):
+            return int(r.get("sq", 1) == 1)
+        if kname.startswith("matmul_fused"):
+            return int(r.get("rows") in (B, B * LM_S))
+        return 1
+
+    def per(kname, used):
+        return "one call at each of " + ", ".join(
+            str(r["shape"]) for r, _ in used)
+    launches = {}
+    for prec, dt in (("bf16", "bfloat16"), ("fp32", "float32")):
+        s_ = sm[f"schedules_{prec}"]
+        launches[dt] = _sched_launches(
+            sm[f"launches_{prec}"],
+            s_["matmul_fused"], s_["flash_attention"],
+            paged=s_["paged_decode_attention"])
+    return summed_entries(cases, launches, f"@{LM_ARCH}/serve_mesh", per,
+                          uses)
 
 
 def summed_entries(cases, launches, tag, per, uses):
@@ -5598,6 +5848,7 @@ def main() -> int:
     fam_cases = timed(phase_family_kernels)
     fam = timed(phase_family_path, smi)
     mesh = timed(phase_mesh, smi)
+    serve_mesh = timed(phase_serve_mesh, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -5609,7 +5860,8 @@ def main() -> int:
         dense_kernel_entries(dense_cases, dense) + \
         new_kernel_entries(moe_cases, new) + \
         family_kernel_entries(fam_cases, fam) + \
-        mesh_kernel_entries(cases, lm_cases, mesh)
+        mesh_kernel_entries(cases, lm_cases, mesh) + \
+        serve_mesh_kernel_entries(lm_cases, serve_cases, serve_mesh)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -5624,7 +5876,8 @@ def main() -> int:
                    "train": train, "tune": tune,
                    "moe_kernels": moe_cases, "moe_path": new,
                    "family_kernels": fam_cases, "family_path": fam,
-                   "mesh": mesh, "entries": entries, "phase_seconds": walls,
+                   "mesh": mesh, "serve_mesh": serve_mesh,
+                   "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")
     log(json.dumps({"kernels": entries}))

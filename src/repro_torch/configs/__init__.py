@@ -11,7 +11,7 @@ lists the LMs and ``CNNS`` the CNNs, each by its config's ``family``.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from repro_torch.configs.base import (  # noqa: F401
     FlowConfig, ModelConfig, ShapeConfig, SHAPES,
@@ -51,3 +51,21 @@ def get_smoke(name: str) -> ModelConfig:
 # the LMs, and the paper's own networks
 ARCHS: List[str] = [a for a in _MODULES if get_config(a).family != "cnn"]
 CNNS: List[str] = [a for a in _MODULES if get_config(a).family == "cnn"]
+
+# archs with sub-quadratic decode state run long_500k; the pure
+# full-attention archs skip it (the JAX package's DESIGN.md)
+LONG_CONTEXT_OK = ("recurrentgemma-2b", "mixtral-8x7b", "rwkv6-7b")
+
+
+def cells(include_skipped: bool = False) -> List[Tuple[str, str, bool]]:
+    """The 40 (arch, shape, runnable) cells of the LMs by the shapes of
+    :data:`SHAPES` (the dry-run's ``--all``); a full-attention arch's
+    ``long_500k`` is not runnable and is listed only with
+    ``include_skipped``."""
+    out = []
+    for a in ARCHS:
+        for s in SHAPES:
+            runnable = not (s == "long_500k" and a not in LONG_CONTEXT_OK)
+            if runnable or include_skipped:
+                out.append((a, s, runnable))
+    return out

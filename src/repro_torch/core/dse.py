@@ -78,6 +78,17 @@ def budget_bytes(tuning: TuningConfig, device: torch.device) -> int:
     return HBM_BYTES
 
 
+def per_device_bytes(mem: Dict[str, int]) -> int:
+    """Per-device footprint of one step from its memory record (the
+    dry-run's ``memory``: ``argument_bytes``, ``output_bytes``,
+    ``temp_bytes``, ``alias_bytes``): arguments + outputs + temporaries -
+    the outputs written into donated arguments, the JAX package's
+    ``argument + output + temp - alias`` — the one definition the dry-run
+    and its validator use."""
+    return (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+            - mem["alias_bytes"])
+
+
 # ---------------------------------------------------------------------------
 # candidates
 # ---------------------------------------------------------------------------
@@ -181,6 +192,40 @@ def enumerate_candidates(cfg: ModelConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 # compile-in-the-loop validation ("place & route" in seconds)
 # ---------------------------------------------------------------------------
+
+def abstract_inputs(cfg: ModelConfig, shape: ShapeConfig,
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """Fake stand-ins for one cell's whole batch on ``device`` (the card
+    unless told otherwise), made under the active ``FakeTensorMode`` or a
+    new one: shapes and dtypes, nothing allocated (the JAX package's
+    ``ShapeDtypeStruct``s).  Images (and labels) for a CNN; tokens (and
+    labels) for an LM, one token a row on a decode shape; a multimodal
+    model's ``patches`` and an encoder-decoder's ``frames`` off decode."""
+    from repro_torch.core.lowering import fake_mode
+    dev = torch.device("cuda" if device is None else device)
+    B = shape.global_batch
+    S = shape.seq_len if shape.kind != "decode" else 1
+    with fake_mode():
+        def t(*shp, dtype=torch.int64):
+            return torch.empty(shp, dtype=dtype, device=dev)
+        if cfg.family == "cnn":
+            out = {"images": t(B, cfg.image_size, cfg.image_size,
+                               cfg.image_channels, dtype=torch.float32)}
+            if shape.kind == "train":
+                out["labels"] = t(B)
+            return out
+        out = {"tokens": t(B, S)}
+        if shape.kind == "train":
+            out["labels"] = t(B, S)
+        if shape.kind != "decode":
+            if cfg.n_patch_tokens:
+                out["patches"] = t(B, cfg.n_patch_tokens, cfg.d_vision,
+                                   dtype=torch.float32)
+            if cfg.n_encoder_layers:
+                out["frames"] = t(B, cfg.encoder_seq, cfg.d_model,
+                                  dtype=torch.float32)
+        return out
+
 
 def _tree_bytes(tree: Any) -> int:
     if isinstance(tree, dict):
@@ -698,3 +743,31 @@ def explore(cfg: ModelConfig, shape: ShapeConfig,
     if use_cache:
         _cache_put(fp_key, result)
     return result
+
+
+# ---------------------------------------------------------------------------
+# mesh-level train-cell autotune (the dry-run's)
+# ---------------------------------------------------------------------------
+
+def autotune_train_cell(arch: str, shape_name: str, mesh, base_flow,
+                        candidates: Optional[Tuple[int, ...]] = None,
+                        hbm_bytes: Optional[int] = None):
+    """Returns (flow, record) for the first microbatch count whose dry-run
+    per-device footprint (:func:`repro_torch.launch.dryrun.run_cell` on
+    ``mesh``) fits the budget — ``hbm_bytes``, else the flow's
+    (:func:`budget_bytes` for the card) — or the last one tried when none
+    fits.  Runs where the dry-run runs: on its fake process group."""
+    from repro_torch.launch.dryrun import run_cell
+    budget = hbm_bytes if hbm_bytes is not None else \
+        budget_bytes(base_flow.tuning, torch.device("cuda"))
+    cands = candidates if candidates is not None else \
+        base_flow.tuning.microbatch_candidates
+    last = None
+    for mb in cands:
+        flow = dataclasses.replace(base_flow, microbatches=mb)
+        r = run_cell(arch, shape_name, mesh=mesh, flow=flow)
+        r["autotuned_microbatches"] = mb
+        last = (flow, r)
+        if r["memory"]["per_device_bytes"] < budget:
+            return flow, r
+    return last

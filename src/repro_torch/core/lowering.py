@@ -302,14 +302,33 @@ def _mk_state(shapes: Dict[str, tuple], lead: Tuple[int, ...],
     return out
 
 
+def fake_mode():
+    """The active ``FakeTensorMode``'s context, or a new mode's: tensors
+    made inside have shapes, dtypes and devices but no storage (the
+    dry-run's stand-ins; the JAX package's ``ShapeDtypeStruct``)."""
+    import contextlib
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    if any(isinstance(m, FakeTensorMode)
+           for m in _get_current_dispatch_mode_stack()):
+        return contextlib.nullcontext()
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
 def init_state(plan: ExecutionPlan, batch_size: int,
-               device: torch.device, rules=None) -> Dict[str, Any]:
+               device: torch.device, rules=None,
+               abstract: bool = False) -> Dict[str, Any]:
     """Serving state, stacked to match the folded units: the JAX package's
     layout, ``{unit_key: {state_key: {"k", "v", "pos"}}}`` for attention
     and ``{unit_key: {state_key: tensor}}`` for the recurrent ops, with a
     leading ``(reps,)`` axis for folded units.  With ``rules`` (a mesh)
     each leaf is a DTensor placed by :func:`state_shardings`, the rank's
-    chunk made on ``device`` (the whole state is never made)."""
+    chunk made on ``device`` (the whole state is never made).  With
+    ``abstract`` the leaves are fake tensors (:func:`fake_mode`): shapes
+    and placements, no storage."""
+    if abstract:
+        with fake_mode():
+            return init_state(plan, batch_size, device, rules)
     graph, cfg = plan.graph, plan.cfg
     dtype = plan.prec.compute_dtype
     C = plan.cache_len
@@ -545,11 +564,12 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
     def constrain(x, roles):
         return x if rules is None else rules.constrain_act(x, roles)
 
-    def run(pv: _Params, batch, state, cache_index, mode):
+    def run(pv: _Params, batch, state, cache_index, mode, row_groups=None):
         """The program on one rank's tensors: ``pv`` the parameter views,
-        ``batch`` and ``state`` local (the whole of them without a mesh)."""
+        ``batch`` and ``state`` local (the whole of them without a mesh;
+        ``row_groups``: see :attr:`Ctx.row_groups`)."""
         ctx = Ctx(mode=mode, plan=plan, cache_index=cache_index,
-                  constrain=constrain)
+                  constrain=constrain, row_groups=row_groups)
         ctx.aux["__inputs__"] = batch
         new_state: Dict[str, Any] = {}
         tokens = "tokens" in batch
@@ -708,7 +728,11 @@ def _mesh_apply(plan, rules, run, pv, batch, state, cache_index, mode,
     over dp), the state a DTensor tree (a decode's in place)."""
     x0 = batch["tokens"] if "tokens" in batch else batch["images"]
     B = x0.shape[0]
-    if mode == "decode":
+    if mode == "decode" and not _is_dtensor_tree(state):
+        h, aux = _replicated_decode(plan, rules, run, pv, lbatch, state,
+                                    cache_index, B)
+        new_state = state
+    elif mode == "decode":
         local, back = _state_locals(rules, state)
         h, _, aux = run(pv, lbatch, local, cache_index, mode)
         _state_writeback(rules, back)
@@ -729,6 +753,59 @@ def _mesh_apply(plan, rules, run, pv, batch, state, cache_index, mode,
     from repro_torch.distributed.sharding import placements_of
     pl = placements_of(rules.act_pspec(roles, shape), rules.spec.names)
     return rules.wrap(h.contiguous(), pl, shape), new_state, aux
+
+
+def _is_dtensor_tree(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return any(_is_dtensor_tree(v) for v in tree.values())
+    return isinstance(tree, DTensor)
+
+
+#: the leaves of a paged entry that hold no row of the batch (the pools)
+_POOL_KEYS = ("kp", "vp")
+
+
+def _replicated_decode(plan, rules, run, pv, lbatch, state, cache_index,
+                       B: int):
+    """A decode over a state every rank holds whole (the serving engine's
+    paged pool, block tables, lengths and dense per-slot rows; JAX keeps it
+    one logical array outside any sharding).  The rank runs its rows of the
+    batch (its dp chunk where ``B`` splits over dp, every row where it does
+    not): the ops see the pools whole and every other leaf as a view of the
+    rank's rows.  The pool writes gather their rows over dp
+    (``Ctx.row_groups``); after the step each row leaf the step writes
+    (lengths, dense rows) is gathered over dp into the whole leaf, so the
+    state is identical on every rank.  Returns (h, aux)."""
+    split = rules.batch_is_split(B) and rules.dp_size > 1
+    groups = rules.dp_groups if split else None
+    folded = {unit_key(plan.graph, u): u.folded for u in plan.units}
+    back = []
+
+    def rows(x, ax):
+        if not split:
+            return x
+        n = x.shape[ax] // rules.dp_size
+        idx = col.split_over(torch.arange(x.shape[ax]), 0, rules.dp_groups)
+        return x.narrow(ax, int(idx[0]), n)
+
+    def local(tree, ax, key=""):
+        if isinstance(tree, dict):
+            return {k: local(v, ax, k) for k, v in tree.items()}
+        if key in _POOL_KEYS:
+            return tree
+        view = rows(tree, ax)
+        if split and key != "bt":
+            back.append((tree, view, ax))
+        return view
+    lstate = {u: local(s, 1 if folded.get(u) else 0)
+              for u, s in state.items()}
+    h, _, aux = run(pv, lbatch, lstate, cache_index, "decode",
+                    row_groups=groups)
+    with torch.no_grad():
+        for whole, view, ax in back:
+            whole.copy_(col.gather_over(view, ax, rules.dp_groups))
+    return h, aux
 
 
 def _state_writeback(rules, back) -> None:
@@ -788,7 +865,7 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
         step_params = {k: v[r] for k, v in gparams.items()}
         c = Ctx(mode=mode, plan=plan, cache_index=ctx.cache_index,
                 aux={"__inputs__": ctx.aux.get("__inputs__")},
-                constrain=ctx.constrain)
+                constrain=ctx.constrain, row_groups=ctx.row_groups)
         c.state_in = _slice_tree(gstate, r) if gstate else {}
         c.state_out = {}
         e = {"h": h, "positions": env["positions"], "cross": env["cross"]}

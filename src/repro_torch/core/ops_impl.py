@@ -64,6 +64,11 @@ class Ctx:
     # on a mesh, the tp-split dim of each of the running op's params (only
     # the ops of TP_SPLIT_OPS see split ones; "tied" names a tied table)
     tp_dims: Dict[str, int] = field(default_factory=dict)
+    # on a mesh serving a state every rank holds whole (the engine's paged
+    # pool): the dp groups this rank's rows are a chunk over, or None when
+    # it runs every row; a pool write gathers the rows' new K/V over them
+    # first, so every rank writes every row
+    row_groups: Optional[list] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -564,7 +569,12 @@ def _paged_decode(ctx: Ctx, st, skey, q, k, v, positions, *, window,
     verify): row b's tokens sit at ``positions[b]``; entries < 0 are
     padding, written to block 0 and masked; ``len`` grows by the live
     entries.  The pools, tables and lengths are written in place (the JAX
-    stage donates them) and the same state dict comes back."""
+    stage donates them) and the same state dict comes back.
+
+    On a mesh whose ranks each hold the whole pool (``ctx.row_groups``:
+    this rank runs its chunk of the rows, ``bt`` and ``len`` are its rows'
+    views) the new tokens' K, V and pool slots are gathered over dp first,
+    so every rank writes every row and the pools stay identical."""
     kp, vp, bt, ln = st["kp"], st["vp"], st["bt"], st["len"]
     B, Sq = q.shape[0], q.shape[1]
     bs, nblk = kp.shape[1], bt.shape[1]
@@ -574,18 +584,21 @@ def _paged_decode(ctx: Ctx, st, skey, q, k, v, positions, *, window,
         act = pos >= 0
         safe = torch.where(act, pos, torch.zeros_like(pos)).long()
         blk = torch.where(act, bt[rows[:, None], (safe // bs) % nblk],
-                          torch.zeros_like(pos))
+                          torch.zeros_like(pos)).long()
         off = torch.where(act, safe % bs, torch.zeros_like(safe))
-        kp.index_put_((blk.long(), off), k.to(kp.dtype))
-        vp.index_put_((blk.long(), off), v.to(vp.dtype))
+        kn, vn = k, v
         qpos, grow = pos, act.sum(1).to(ln.dtype)
     else:
         lnl = ln.long()
         blk = bt[rows, (lnl // bs) % nblk].long()
         off = lnl % bs
-        kp.index_put_((blk, off), k[:, 0].to(kp.dtype))
-        vp.index_put_((blk, off), v[:, 0].to(vp.dtype))
+        kn, vn = k[:, 0], v[:, 0]
         qpos, grow = ln.reshape(B, 1), 1
+    if ctx.row_groups is not None:
+        blk, off, kn, vn = (col.gather_over(t, 0, ctx.row_groups)
+                            for t in (blk, off, kn, vn))
+    kp.index_put_((blk, off), kn.to(kp.dtype))
+    vp.index_put_((blk, off), vn.to(vp.dtype))
     kern = plan_kernel(ctx.plan, "paged_decode_attention")
     if kern is not None:
         out = kern(q, kp, vp, bt, ln, qpos=qpos if Sq > 1 else None,

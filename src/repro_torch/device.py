@@ -13,11 +13,23 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
+def fake_group() -> bool:
+    """Whether the default process group is a ``fake`` one: the dry-run's
+    (:mod:`repro_torch.launch.dryrun`), whose program runs on fake tensors
+    for the plan's target device, with no such device present."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_backend() == "fake"
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The ``torch.device`` an entry point runs on (``None`` -> ``cuda``).
-    Raises RuntimeError when CUDA is asked for and absent."""
+    Raises RuntimeError when CUDA is asked for and absent, except on a
+    :func:`fake_group`, where the card is the target of a program that
+    allocates nothing."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and \
+            not fake_group():
         raise RuntimeError(
             "CUDA was requested (the default device) but torch.cuda is not "
             "available; pass device='cpu' to run the plain versions on the CPU")
@@ -43,6 +55,8 @@ def device_key(device: Optional[torch.device] = None) -> str:
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return "cuda:fake"                  # a fake group's target
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
     return "cpu:cpu"

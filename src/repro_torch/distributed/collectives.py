@@ -24,6 +24,9 @@ Under these two rules:
   dp-sharded parameter at its use.
 * :func:`sync_sum` — all-reduce both ways: a statistic every dp rank's
   objective reads (train-mode BatchNorm over the global batch).
+* :func:`gather_over` — the rows every dp rank computed, whole on every
+  rank (no autograd): the serving engine's state writes, which every rank
+  applies to its whole copy of the state.
 
 A ``None`` group or a group of one rank makes each of them the identity:
 a one-rank mesh adds no collective to the program.  A bfloat16 sum runs
@@ -176,6 +179,17 @@ def split_over(x: torch.Tensor, dim: int, groups: Sequence) -> torch.Tensor:
     major (``PartitionSpec(("pod", "data"))``'s order)."""
     for g in groups:
         x = split(x, dim, g)
+    return x
+
+
+@torch.no_grad()
+def gather_over(x: torch.Tensor, dim: int, groups: Sequence) -> torch.Tensor:
+    """The inverse of :func:`split_over` (no autograd): the chunks along
+    ``dim`` all-gathered over each group, the last (minor) first, so every
+    rank holds the whole tensor in :func:`split_over`'s order."""
+    for g in reversed(list(groups)):
+        if group_size(g) > 1:
+            x = _all_gather(x, dim % x.ndim, g)
     return x
 
 

@@ -95,7 +95,9 @@ class MeshSpec:
         one-rank mesh starts one (:func:`repro_torch.device.
         init_process_group`); a larger mesh needs the group started by the
         caller, and a group whose size is not the mesh's raises
-        ValueError."""
+        ValueError.  On the dry-run's ``fake`` group the mesh is built for
+        ``device``'s type whether or not such a device is present
+        (:func:`repro_torch.device.fake_group`)."""
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 

@@ -249,15 +249,15 @@ class ShardingRules:
         """This rank's index range of each dim of a tensor of ``shape``
         under ``placements`` (``torch.chunk``'s split, nested over the mesh
         dims in mesh order, as DTensor cuts it)."""
-        idx = [torch.arange(n) for n in shape]
+        idx = [range(n) for n in shape]     # host ints: no tensor is made
         for name, pl in zip(self.spec.names, placements):
             if isinstance(pl, Shard):
                 g = self.group(name)
                 n, r = col.group_size(g), col.group_rank(g)
-                parts = idx[pl.dim].chunk(n)
-                idx[pl.dim] = parts[r] if r < len(parts) else idx[pl.dim][:0]
-        return tuple(slice(int(i[0]), int(i[-1]) + 1) if len(i) else
-                     slice(0, 0) for i in idx)
+                size = -(-len(idx[pl.dim]) // n)
+                idx[pl.dim] = idx[pl.dim][r * size:(r + 1) * size]
+        return tuple(slice(i.start, i.stop) if len(i) else slice(0, 0)
+                     for i in idx)
 
     def local_shape(self, shape, placements) -> Tuple[int, ...]:
         """The shape of this rank's chunk (:meth:`local_slices`)."""

@@ -89,6 +89,16 @@ class CompiledModel:
         self._loss_fn: Optional[Callable] = None
         self._train_steps: Dict[Tuple[Any, int], Callable] = {}
 
+    @classmethod
+    def from_plan(cls, plan: ExecutionPlan, mesh=None,
+                  device: DeviceLike = None) -> "CompiledModel":
+        """The CompiledModel of ``plan``'s (cfg, shape, flow) on ``mesh``
+        (a MeshSpec, an axis-size dict or a live DeviceMesh) and
+        ``device``: the plan is built again for that mesh, as the JAX
+        package re-jits a plan inside another mesh."""
+        return compile(plan.cfg, plan.shape, plan.flow, mesh=mesh,
+                       device=device)
+
     # -- lowering primitives -------------------------------------------------
     @property
     def apply(self) -> Callable:
@@ -115,12 +125,15 @@ class CompiledModel:
     def param_shapes(self) -> Dict[str, Any]:
         return lowering.param_shapes(self.plan)
 
-    def init_state(self, batch_size: int) -> Dict[str, Any]:
+    def init_state(self, batch_size: int,
+                   abstract: bool = False) -> Dict[str, Any]:
         """Empty serving state (KV caches of ``plan.cache_len`` slots, every
         position -1; a hybrid's conv and RG-LRU states zero) for
-        ``batch_size`` rows, on this model's device."""
+        ``batch_size`` rows, on this model's device; with ``abstract``
+        fake tensors of the same shapes and placements, nothing
+        allocated (the dry-run's)."""
         return lowering.init_state(self.plan, batch_size, self.device,
-                                   rules=self.rules)
+                                   rules=self.rules, abstract=abstract)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -224,3 +224,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.schedules = dict.fromkeys(SCHEDULES, 0)
+
+
+def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, positions: Optional[torch.Tensor] = None,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None, q_offset: int = 0,
+                         tile=None) -> torch.Tensor:
+    """:func:`flash_attention`'s shape-only stand-in (the dry-run): the
+    output, unfilled, and 4 D operations a (query head, key) pair it
+    scores (Q·Kᵀ and P·V), the pairs the causal mask and the window leave
+    (``positions`` are taken as each row's arange: their values are not
+    known)."""
+    from repro_torch.kernels import _fake
+    B, Sq, H, D = q.shape
+    pairs = _fake.attended(Sq, k.shape[1], causal, window, q_offset)
+    out = torch.empty_like(q)
+    _fake.count("flash_attention", 4 * B * H * D * pairs,
+                _fake.nbytes(q, k, v, positions, out))
+    return out

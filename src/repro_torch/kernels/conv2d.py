@@ -306,3 +306,20 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 conv2d_fused.launches = 0
 conv2d_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
+
+
+def conv2d_fused_fake(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                      padding: str = "SAME",
+                      bn: Optional[Sequence[torch.Tensor]] = None,
+                      act: Optional[str] = None, tile=None) -> torch.Tensor:
+    """:func:`conv2d_fused`'s shape-only stand-in (the dry-run): the
+    (N, Ho, Wo, CO) output, unfilled, and 2 kh kw CI operations an output
+    element."""
+    from repro_torch.kernels import _fake
+    N, H, W, CI = x.shape
+    kh, kw, _, CO = w.shape
+    _, _, ho, wo = conv_geometry(H, W, kh, kw, stride, padding)
+    out = x.new_empty((N, ho, wo, CO))
+    _fake.count("conv2d_fused", 2 * N * ho * wo * CO * kh * kw * CI,
+                _fake.nbytes(x, w, out, *(bn or ())))
+    return out

@@ -313,6 +313,23 @@ decode_attention.launches = 0
 decode_attention.schedules = dict.fromkeys(SCHEDULES, 0)
 
 
+def decode_attention_fake(q: torch.Tensor, kc: torch.Tensor,
+                          vc: torch.Tensor, pos: torch.Tensor,
+                          qpos: torch.Tensor, *,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          tile=None) -> torch.Tensor:
+    """:func:`decode_attention`'s shape-only stand-in (the dry-run): the
+    output, unfilled, and 4 D operations a query head and cache slot (the
+    slots' positions are not known, so every slot counts)."""
+    from repro_torch.kernels import _fake
+    B, _, H, D = q.shape
+    out = torch.empty_like(q)
+    _fake.count("decode_attention", 4 * B * H * D * kc.shape[1],
+                _fake.nbytes(q, kc, vc, pos, qpos, out))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Paged decode attention: the serving engine's lookup over the block pool
 # ---------------------------------------------------------------------------
@@ -528,6 +545,27 @@ paged_decode_attention.launches = 0
 paged_decode_attention.schedules = dict.fromkeys(SCHEDULES, 0)
 
 
+def paged_decode_attention_fake(q: torch.Tensor, kp: torch.Tensor,
+                                vp: torch.Tensor, bt: torch.Tensor,
+                                lens: torch.Tensor, *,
+                                qpos: Optional[torch.Tensor] = None,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None
+                                ) -> torch.Tensor:
+    """:func:`paged_decode_attention`'s shape-only stand-in (the dry-run):
+    the output, unfilled; every slot of a row's table counts (4 D
+    operations a query head and slot), the K/V of those slots read."""
+    from repro_torch.kernels import _fake
+    B, Sq, H, D = q.shape
+    slots = bt.shape[1] * kp.shape[1]
+    KV = kp.shape[2]
+    out = torch.empty_like(q)
+    _fake.count("paged_decode_attention", 4 * B * Sq * H * D * slots,
+                _fake.nbytes(q, bt, lens, qpos, out)
+                + 2 * B * slots * KV * D * kp.element_size())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # copy_block: the copy-on-write fork of one pool block
 # ---------------------------------------------------------------------------
@@ -590,3 +628,16 @@ def copy_block(pool, src: int, dst: int):
 
 
 copy_block.launches = 0
+
+
+def copy_block_fake(pool, src: int, dst: int):
+    """:func:`copy_block`'s stand-in (the dry-run): nothing is copied; one
+    block of each pool read and written is counted."""
+    from repro_torch.kernels import _fake
+    pools = pool if isinstance(pool, tuple) else (pool,)
+    p0 = pools[0]
+    reps = p0.shape[0] if p0.ndim == 5 else 1
+    block = p0[0, 0] if p0.ndim == 5 else p0[0]
+    _fake.count("copy_block", 0,
+                2 * len(pools) * reps * _fake.nbytes(block))
+    return pool

@@ -132,3 +132,12 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 lru_scan.launches = 0
 lru_scan.schedules = dict.fromkeys(SCHEDULES, 0)
 lru_scan.shapes = {}
+
+
+def lru_scan_fake(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`lru_scan`'s shape-only stand-in (the dry-run): h unfilled,
+    and 2 operations an element (one multiply, one add)."""
+    from repro_torch.kernels import _fake
+    h = torch.empty_like(a)
+    _fake.count("lru_scan", 2 * a.numel(), _fake.nbytes(a, b, h))
+    return h

@@ -451,3 +451,23 @@ matmul_fused.launches = 0
 matmul_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
 matmul_fused.base_launches = 0
 matmul_fused.base_schedule_launches = dict.fromkeys(SCHEDULES, 0)
+
+
+def matmul_fused_fake(x: torch.Tensor, w: torch.Tensor, *,
+                      bias: Optional[torch.Tensor] = None,
+                      w2: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None, tile=None,
+                      out_dtype: Optional[torch.dtype] = None,
+                      vmem_accum: bool = True) -> torch.Tensor:
+    """:func:`matmul_fused`'s shape-only stand-in (the dry-run): the
+    (..., N) output, unfilled, and its work counted in
+    :data:`repro_torch.kernels._fake.COST`: 2 M K N operations a product
+    (two for the GLU pair)."""
+    from repro_torch.kernels import _fake
+    K, N = w.shape
+    M = x.numel() // K
+    out = x.new_empty(tuple(x.shape[:-1]) + (N,),
+                      dtype=out_dtype or x.dtype)
+    _fake.count("matmul_fused", 2 * M * K * N * (1 if w2 is None else 2),
+                _fake.nbytes(x, w, w2, bias, out))
+    return out

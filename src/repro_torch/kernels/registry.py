@@ -32,6 +32,7 @@ takes the reference path with a machine-readable reason
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -96,12 +97,16 @@ class KernelImpl:
     ``rejects`` is the call-site capability predicate: it receives the
     keyword facts the op layer passes to :func:`plan_kernel` and returns
     ``None`` (accepted) or a reason string.  ``contract`` is the declared
-    static contract the verifier checks (see :class:`KernelContract`)."""
+    static contract the verifier checks (see :class:`KernelContract`).
+    ``fake`` is the kernel's shape-only stand-in (same signature, outputs
+    unfilled, its work counted in :mod:`repro_torch.kernels._fake`), which
+    :func:`plan_kernel` hands out inside :func:`fake_kernels`."""
     op: str
     backend: str
     fn: Callable
     rejects: Optional[Callable[..., Optional[str]]] = None
     contract: Optional[KernelContract] = None
+    fake: Optional[Callable] = None
 
     def reject_reason(self, **facts) -> Optional[str]:
         """``None`` when this impl can serve the call-site facts, else the
@@ -121,14 +126,16 @@ class KernelRegistry:
     # -- registration -------------------------------------------------------
     def register(self, op: str, backend: str, fn: Callable, *,
                  rejects: Optional[Callable[..., Optional[str]]] = None,
-                 contract: Optional[KernelContract] = None) -> Callable:
-        """Register ``fn`` as the ``backend`` implementation of ``op``."""
+                 contract: Optional[KernelContract] = None,
+                 fake: Optional[Callable] = None) -> Callable:
+        """Register ``fn`` as the ``backend`` implementation of ``op``
+        (``fake``: its shape-only stand-in, see :class:`KernelImpl`)."""
         backend = canon_backend(backend)
         if backend == "auto":
             raise ValueError("'auto' is a resolution policy, not a backend")
         self._impls[(op, backend)] = KernelImpl(op, backend, fn,
                                                 rejects=rejects,
-                                                contract=contract)
+                                                contract=contract, fake=fake)
         return fn
 
     # -- lookup -------------------------------------------------------------
@@ -177,7 +184,9 @@ class KernelRegistry:
         (``"cpu"`` | ``"cuda"``).
 
         ``auto`` → the CUDA kernel where one exists, the platform is
-        ``cuda`` and the card is a Hopper; reference elsewhere.  An explicit
+        ``cuda`` and the card is a Hopper (inside :func:`fake_kernels` the
+        plan's target is taken for one, and no device is asked);
+        reference elsewhere.  An explicit
         ``cuda`` request degrades to ``ref`` for ops with no CUDA kernel; on
         a CPU model it reaches the kernel wrappers, which run their plain
         versions on CPU tensors."""
@@ -185,7 +194,7 @@ class KernelRegistry:
         backend = canon_backend(backend)
         has_cuda = (op, "cuda") in self._impls
         if backend == "auto":
-            if has_cuda and platform == "cuda" and hopper_ok():
+            if has_cuda and platform == "cuda" and (_FAKE[0] or hopper_ok()):
                 return "cuda"
             return "ref"
         if backend == "cuda":
@@ -198,6 +207,28 @@ class KernelRegistry:
 
 
 REGISTRY = KernelRegistry()
+
+# whether plan_kernel hands out the stand-ins (fake_kernels is entered)
+_FAKE = [False]
+
+
+@contextlib.contextmanager
+def fake_kernels():
+    """Inside, :func:`plan_kernel` returns each kernel's shape-only
+    stand-in (``KernelImpl.fake``) instead of its wrapper, and ``auto``
+    resolves for a ``cuda`` platform as on a Hopper card without asking
+    the device: the dry-run's program on fake tensors, which no wrapper
+    can launch on.  Yields :data:`repro_torch.kernels._fake.COST`, emptied
+    on entry, which the stand-ins fill.  Nothing on the card's launch path
+    changes outside it."""
+    from repro_torch.kernels import _fake
+    prev = _FAKE[0]
+    _FAKE[0] = True
+    _fake.COST.clear()
+    try:
+        yield _fake.COST
+    finally:
+        _FAKE[0] = prev
 
 # dispatch-time fall-throughs to ref, keyed by (op, machine-readable reason).
 DISPATCH_REJECTIONS: Dict[Tuple[str, str], int] = {}
@@ -223,6 +254,10 @@ def plan_kernel(plan, op: str, **facts) -> Optional[Callable]:
         DISPATCH_REJECTIONS[key] = DISPATCH_REJECTIONS.get(key, 0) + 1
         METRICS.counter("kernels.dispatch.rejections").inc()
         return None
+    if _FAKE[0]:
+        if impl.fake is None:
+            raise NotImplementedError(f"{op}: no shape-only stand-in")
+        return impl.fake
     return impl.fn
 
 
@@ -361,27 +396,34 @@ def _lru_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
 
 
 def _register_builtin():
-    from repro_torch.kernels.attention import flash_attention
-    from repro_torch.kernels.conv2d import conv2d_fused
+    from repro_torch.kernels.attention import (flash_attention,
+                                               flash_attention_fake)
+    from repro_torch.kernels.conv2d import conv2d_fused, conv2d_fused_fake
     from repro_torch.kernels.decode_attention import (
-        copy_block, copy_block_plain, decode_attention,
-        paged_decode_attention, paged_decode_attention_plain)
-    from repro_torch.kernels.lru_scan import lru_scan
-    from repro_torch.kernels.matmul_fused import matmul_fused
+        copy_block, copy_block_fake, copy_block_plain, decode_attention,
+        decode_attention_fake, paged_decode_attention,
+        paged_decode_attention_fake, paged_decode_attention_plain)
+    from repro_torch.kernels.lru_scan import lru_scan, lru_scan_fake
+    from repro_torch.kernels.matmul_fused import (matmul_fused,
+                                                  matmul_fused_fake)
 
     REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject,
-                      contract=KernelContract(workingset=_matmul_ws("matmul")))
+                      contract=KernelContract(workingset=_matmul_ws("matmul")),
+                      fake=matmul_fused_fake)
     REGISTRY.register(
         "glu_matmul", "cuda", matmul_fused, rejects=_matmul_reject,
-        contract=KernelContract(workingset=_matmul_ws("glu_matmul")))
+        contract=KernelContract(workingset=_matmul_ws("glu_matmul")),
+        fake=matmul_fused_fake)
     REGISTRY.register(
         "attention", "cuda", flash_attention, rejects=_attention_reject,
         contract=KernelContract(
             workingset=_attention_ws,
             static_reject=lambda attrs, cfg: _attention_reject(
-                window=attrs.get("window"), cross=attrs.get("cross", False))))
+                window=attrs.get("window"), cross=attrs.get("cross", False))),
+        fake=flash_attention_fake)
     REGISTRY.register("decode_attention", "cuda", decode_attention,
-                      contract=KernelContract(workingset=_decode_ws))
+                      contract=KernelContract(workingset=_decode_ws),
+                      fake=decode_attention_fake)
     # the serving path: the kernel gathers pool blocks through the block
     # table; the explicit ref entry is its plain version, which the serving
     # autotune's benches run off the card.  index_space declares the
@@ -389,7 +431,8 @@ def _register_builtin():
     # geometry (K205).
     paged = KernelContract(workingset=_paged_ws, index_space="block_table")
     REGISTRY.register("paged_decode_attention", "cuda",
-                      paged_decode_attention, contract=paged)
+                      paged_decode_attention, contract=paged,
+                      fake=paged_decode_attention_fake)
     REGISTRY.register("paged_decode_attention", "ref",
                       paged_decode_attention_plain,
                       contract=KernelContract(index_space="block_table"))
@@ -397,16 +440,19 @@ def _register_builtin():
     # place; safe under donated state because the fork always copies src to
     # a freshly allocated dst (never aliased)
     copy = KernelContract(index_space="block_table", donation_safe=True)
-    REGISTRY.register("copy_block", "cuda", copy_block, contract=copy)
+    REGISTRY.register("copy_block", "cuda", copy_block, contract=copy,
+                      fake=copy_block_fake)
     REGISTRY.register("copy_block", "ref", copy_block_plain, contract=copy)
     REGISTRY.register(
         "conv2d", "cuda", conv2d_fused, rejects=_conv2d_reject,
         contract=KernelContract(
             workingset=_conv2d_ws,
             static_reject=lambda attrs, cfg:
-                _conv2d_reject(groups=attrs.get("groups", 1))))
+                _conv2d_reject(groups=attrs.get("groups", 1))),
+        fake=conv2d_fused_fake)
     REGISTRY.register("rg_lru", "cuda", lru_scan,
-                      contract=KernelContract(workingset=_lru_ws))
+                      contract=KernelContract(workingset=_lru_ws),
+                      fake=lru_scan_fake)
 
 
 _register_builtin()

@@ -11,11 +11,13 @@ microbenchmarks of the paged decode kernel pick the KV block size and the
 catch-up chunk width, and engine replays A/B the prefix cache, the decode
 segment length and speculation.
 
-Everything runs on one device (``device=``: the card unless the caller asks
-for the CPU).  On the card the block and chunk benches launch the hand
-kernel ``paged_decode_attention`` through its wrapper (the registry's
-``auto`` resolution) and time each call with CUDA events; on the CPU they
-time its plain version on the wall clock.
+Everything runs on one device type (``device=``: the card unless the
+caller asks for the CPU), on one device or, with ``mesh=``, on a mesh over
+the process group's ranks, where every rank runs the same search and the
+engine replays serve on the mesh.  On the card the block and chunk benches
+launch the hand kernel ``paged_decode_attention`` through its wrapper (the
+registry's ``auto`` resolution) and time each call with CUDA events; on
+the CPU they time its plain version on the wall clock.
 
 Usage::
 
@@ -44,7 +46,7 @@ from repro_torch.obs import TRACER
 
 def _timed_runs(label: str, fn: Callable[[], Any], iters: int,
                 warmup: int = 1, device: Optional[torch.device] = None,
-                **attrs: Any) -> List[float]:
+                mesh: Any = None, **attrs: Any) -> List[float]:
     """Time ``fn`` ``iters`` times, one ``autotune`` span a run through the
     module tracer.  On a CUDA ``device`` each run is bracketed by CUDA
     events and waited for (its device time, the host's launch cost
@@ -52,7 +54,9 @@ def _timed_runs(label: str, fn: Callable[[], Any], iters: int,
     ``warmup`` run(s) are discarded — the first call can pay a kernel build
     or a first-call set-up, and with few iters a set-up-heavy candidate
     would win or lose on it rather than steady-state time.  Callers
-    aggregate the returned samples by median."""
+    aggregate the returned samples by median.  On a ``mesh`` of more than
+    one rank every rank keeps the slowest rank's samples, so every rank of
+    the search makes the same pick."""
     for _ in range(max(warmup, 0)):
         fn()
     on_card = device is not None and device.type == "cuda"
@@ -74,7 +78,32 @@ def _timed_runs(label: str, fn: Callable[[], Any], iters: int,
             fn()
             sp.end()
             ts.append(sp.elapsed_s)
-    return ts
+    return _agreed(ts, mesh)
+
+
+def _agreed(ts: List[float], mesh: Any) -> List[float]:
+    """``ts`` all-reduced to the slowest rank's over the process group the
+    ``mesh`` spans (as ``CompiledModel.measure`` does); as it is without a
+    mesh or on one rank."""
+    if mesh is None:
+        return ts
+    from repro_torch.distributed.meshspec import MeshSpec
+    if MeshSpec.of(mesh).size == 1:
+        return ts
+    import torch.distributed as dist
+    t = torch.tensor(ts, dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def _mesh_key(mesh: Any) -> Dict[str, Any]:
+    """The mesh part of a bench's tunedb key (empty on one device)."""
+    if mesh is None:
+        return {}
+    from repro_torch.distributed.meshspec import MeshSpec
+    return {"mesh": MeshSpec.of(mesh).describe()}
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +151,7 @@ def _pinned_facts(at: "DecodeAutotune") -> Dict[str, Any]:
     on — part of its key, so re-tuning one stage after an upstream stage
     changed never serves the stale replay."""
     return {"flow": tunedb.flow_facts(at.flow_for()),
+            **_mesh_key(at.mesh),
             "bucket": at.best_bucket,
             "block_size": at.block_size,
             "chunk_size": at.chunk_size,
@@ -200,6 +230,7 @@ class DecodeAutotune:
     tile_overrides: Tuple[Tuple[str, Any], ...] = ()
     tile_times_s: Dict[str, float] = field(default_factory=dict)
     device: torch.device = torch.device("cpu")   # where it was tuned
+    mesh: Any = None                     # the DeviceMesh it was tuned on
     # the pinned flow's weights by seed, made once (init_params)
     _params: Dict[int, Any] = field(default_factory=dict, repr=False)
 
@@ -254,7 +285,8 @@ class DecodeAutotune:
         return tflow.compile(self.cfg,
                              self.profile.shape_for(
                                  self.profile.batch_buckets[-1]),
-                             self.flow_for(b), device=self.device)
+                             self.flow_for(b), mesh=self.mesh,
+                             device=self.device)
 
     def engine_config(self, **overrides) -> "EngineConfig":
         """EngineConfig matching the tuned profile (slots = largest bucket,
@@ -365,7 +397,7 @@ def _pool(rng: np.random.RandomState, B: int, nblk: int, bs: int, KV: int,
 def tune_block_size(cfg: ModelConfig, profile: ServingProfile, *,
                     iters: int = 5, seed: int = 0, db: Any = None,
                     dtype: torch.dtype = torch.float32,
-                    device: DeviceLike = None
+                    device: DeviceLike = None, mesh: Any = None
                     ) -> Tuple[int, Dict[int, float]]:
     """Microbenchmark the paged decode-attention lookup per candidate block
     size at the profile's largest bucket and pick the fastest (ties -> the
@@ -379,7 +411,7 @@ def tune_block_size(cfg: ModelConfig, profile: ServingProfile, *,
     dev = resolve_device(device)
     tdb = tunedb.open_db(db)
     key = _serving_key(cfg, profile, "block_size", dev, iters=iters,
-                       seed=seed, dtype=str(dtype))
+                       seed=seed, dtype=str(dtype), **_mesh_key(mesh))
     hit = _db_served(tdb, key)
     if hit is not None:
         return hit
@@ -398,7 +430,7 @@ def tune_block_size(cfg: ModelConfig, profile: ServingProfile, *,
                           device=dev)
         ts = _timed_runs("autotune.block_size",
                          lambda: fn(q, kp, vp, bt, lens), iters,
-                         device=dev, bs=bs)
+                         device=dev, mesh=mesh, bs=bs)
         times[bs] = float(np.median(ts) * 1e6)
     best = min(sorted(times, reverse=True), key=lambda b: times[b])
     _db_bank(tdb, key, best, times)
@@ -409,7 +441,7 @@ def tune_chunk_size(cfg: ModelConfig, profile: ServingProfile, *,
                     block_size: Optional[int] = None,
                     iters: int = 5, seed: int = 0, db: Any = None,
                     dtype: torch.dtype = torch.float32,
-                    device: DeviceLike = None
+                    device: DeviceLike = None, mesh: Any = None
                     ) -> Tuple[int, Dict[int, float]]:
     """Microbenchmark the chunked catch-up cell — a (B, k) multi-query
     lookup against the paged pool — per candidate chunk width ``k`` and
@@ -429,7 +461,8 @@ def tune_chunk_size(cfg: ModelConfig, profile: ServingProfile, *,
     bs = block_size if block_size is not None else profile.block_sizes[0]
     tdb = tunedb.open_db(db)
     key = _serving_key(cfg, profile, "chunk_size", dev, block_size=bs,
-                       iters=iters, seed=seed, dtype=str(dtype))
+                       iters=iters, seed=seed, dtype=str(dtype),
+                       **_mesh_key(mesh))
     hit = _db_served(tdb, key)
     if hit is not None:
         return hit
@@ -448,7 +481,7 @@ def tune_chunk_size(cfg: ModelConfig, profile: ServingProfile, *,
         ts = _timed_runs(
             "autotune.chunk_size",
             lambda: fn(q, kp, vp, bt, lens, qpos=qpos), iters,
-            device=dev, k=k)
+            device=dev, mesh=mesh, k=k)
         times[k] = float(np.median(ts) * 1e6 / k)      # per catch-up token
     best = min(sorted(times, reverse=True), key=lambda k: times[k])
     _db_bank(tdb, key, best, times)
@@ -492,7 +525,7 @@ def _confirm_chunk(at: DecodeAutotune, chunk: int, *, iters: int = 2,
                                       prompt_buckets=buckets))
         eng.run(reqs)                         # warm the tick programs
         ts = _timed_runs("autotune.chunk_replay", lambda: eng.run(reqs),
-                         iters, warmup=0, k=k)
+                         iters, warmup=0, mesh=at.mesh, k=k)
         times[str(k)] = float(np.median(ts))
     best = chunk if times[str(chunk)] < times["1"] else 1
     _db_bank(tdb, key, best, times)
@@ -540,7 +573,7 @@ def tune_fori_seg(at: DecodeAutotune, *, iters: int = 2, seed: int = 0,
                      at.engine_config(fori_seg=seg, prompt_buckets=buckets))
         eng.run(reqs)                         # warm the tick programs
         ts = _timed_runs("autotune.fori_seg", lambda: eng.run(reqs),
-                         iters, warmup=0, seg=seg)
+                         iters, warmup=0, mesh=at.mesh, seg=seg)
         times[str(seg)] = float(np.median(ts))
     best = min(sorted(cands, reverse=True), key=lambda s: times[str(s)])
     _db_bank(tdb, key, best, times)
@@ -596,7 +629,7 @@ def tune_prefix_cache(at: DecodeAutotune, *, iters: int = 2, seed: int = 0,
                                       prompt_buckets=buckets))
         eng.run(reqs)                         # warm the tick programs
         ts = _timed_runs("autotune.prefix_cache", lambda: eng.run(reqs),
-                         iters, warmup=0, toggle=toggle)
+                         iters, warmup=0, mesh=at.mesh, toggle=toggle)
         times[label] = float(np.median(ts))
     best = bool(times["on"] <= times["off"])
     _db_bank(tdb, key, best, times)
@@ -656,7 +689,7 @@ def tune_speculation(at: DecodeAutotune, *, iters: int = 2, seed: int = 0,
                      at.engine_config(prompt_buckets=buckets, **kw))
         eng.run(reqs)                         # warm the tick programs
         ts = _timed_runs("autotune.speculation", lambda: eng.run(reqs),
-                         iters, warmup=0, k=k)
+                         iters, warmup=0, mesh=at.mesh, k=k)
         times[label(k)] = float(np.median(ts))
     best = min(sorted(ks, reverse=True), key=lambda k: times[label(k)])
     spec = f"ngram:{best}" if best else None
@@ -753,8 +786,12 @@ def autotune_decode(arch_or_cfg, *, profile: Optional[ServingProfile] = None,
     ``"compile"`` ranks by the deterministic estimator order and confirms
     footprints only (use for reproducible tuning decisions in CI);
     ``"none"`` skips validation (the estimator ranking alone — cheapest).
-    ``mesh`` raises: multi-device serving waits for ROADMAP Queue 1,
-    "Multi-device serving".  ``tune_prefix`` A/Bs the prefix-cache toggle on a
+    ``mesh`` (a MeshSpec, an axis-size dict or a live DeviceMesh over the
+    process group's ranks) makes the dp/tp/pp factorization part of each
+    bucket's search (``dse.explore(devices=)``; under ``"measure"`` every
+    survivor is timed on the mesh) and pins the result to the mesh: the
+    compiled model and every engine replay run there (``Engine`` on the
+    mesh), every rank running the same search.  ``tune_prefix`` A/Bs the prefix-cache toggle on a
     measured shared-prefix replay (default: only under
     ``validate="measure"`` — it times real engine runs).  ``tune_chunks``
     microbenchmarks the chunked-prefill catch-up width ``k`` (adopted only
@@ -780,38 +817,44 @@ def autotune_decode(arch_or_cfg, *, profile: Optional[ServingProfile] = None,
     from repro_torch.flow import _resolve_cfg
     if validate not in ("measure", "compile", "none"):
         raise ValueError(f"unknown validate mode {validate!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "autotune_decode(mesh=) is not ported yet (ROADMAP Queue 1, "
-            "\"Multi-device serving\")")
     dev = resolve_device(device)
     cfg = _resolve_cfg(arch_or_cfg, smoke)
     profile = profile if profile is not None else ServingProfile()
     flow0 = base_flow if base_flow is not None else FlowConfig(mode="folded")
     tdb = tunedb.open_db(db if db is not None else flow0.tuning.tune_db)
 
+    mesh_obj = None
+    devices = 1
+    if mesh is not None:
+        from repro_torch.distributed.meshspec import MeshSpec
+        spec = MeshSpec.of(mesh)
+        mesh_obj = mesh if hasattr(mesh, "get_group") else spec.build(dev)
+        devices = spec.size
+
     per_bucket: Dict[int, Any] = {}
     for bucket in profile.batch_buckets:
         shape = profile.shape_for(bucket)
         if validate == "measure":
-            validator = dse.measure_validator(cfg, shape, iters=iters,
-                                              device=dev)
+            validator = dse.measure_validator(cfg, shape, mesh=mesh_obj,
+                                              iters=iters, device=dev)
         elif validate == "compile":
             validator = dse.compile_validator(cfg, shape, device=dev)
         else:
             validator = None
         per_bucket[bucket] = dse.explore(
-            cfg, shape, flow0, validator=validator,
+            cfg, shape, flow0, devices=devices, validator=validator,
             rank_measured=validate == "measure", use_cache=use_cache,
             db=tdb, device=dev)
 
     at = DecodeAutotune(cfg=cfg, profile=profile, per_bucket=per_bucket,
-                        block_size=profile.block_sizes[0], device=dev)
+                        block_size=profile.block_sizes[0], device=dev,
+                        mesh=mesh_obj)
     bench_dt = torch.bfloat16 if at.flow_for().precision == "bf16" \
         else torch.float32
     if tune_blocks:
         at.block_size, at.block_times_us = tune_block_size(
-            cfg, profile, iters=iters, db=tdb, dtype=bench_dt, device=dev)
+            cfg, profile, iters=iters, db=tdb, dtype=bench_dt, device=dev,
+            mesh=mesh_obj)
     do_tiles = tune_tiles if tune_tiles is not None \
         else validate == "measure"
     if do_tiles:
@@ -830,7 +873,8 @@ def autotune_decode(arch_or_cfg, *, profile: Optional[ServingProfile] = None,
         chunk, chunk_times = tune_chunk_size(cfg, profile,
                                              block_size=at.block_size,
                                              iters=iters, db=tdb,
-                                             dtype=bench_dt, device=dev)
+                                             dtype=bench_dt, device=dev,
+                                             mesh=mesh_obj)
         at.chunk_times_us = chunk_times
         if chunk > 1 and validate == "measure":
             # the Engine's chunked paths require fully paged per-request

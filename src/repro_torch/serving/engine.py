@@ -52,6 +52,8 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch.distributed.meshspec import MeshSpec
+from repro_torch.distributed.sharding import full_tensor
 from repro_torch.flow import CompiledModel
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.kvcache import (PagedKVCache, blocks_for_tokens,
@@ -259,19 +261,62 @@ class RunReport:
         return out
 
 
+def _whole(tree):
+    """A state tree with every DTensor leaf gathered whole (a plain tree
+    comes back as it is)."""
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return full_tensor(tree)
+
+
+def _on_mesh(compiled: CompiledModel, params):
+    """``params`` as ``compiled``'s mesh places them: a DTensor already so
+    placed passes through, anything else (a whole tensor, a DTensor of
+    another mesh or placement) is cut to this rank's chunk, as ``jit``
+    reshards its arguments in the JAX package."""
+    from torch.distributed.tensor import DTensor
+    rules = compiled.rules
+    shd = rules.params_shardings(compiled.plan)
+
+    def one(x, sh):
+        if isinstance(x, DTensor) and x.device_mesh is rules.mesh and \
+                tuple(x.placements) == tuple(sh.placements):
+            return x
+        return rules.place(full_tensor(x), sh, device=compiled.device)
+    return {top: {k: one(v, shd[top][k]) for k, v in leaves.items()}
+            for top, leaves in params.items()}
+
+
 class Engine:
+    """The serving engine over one :class:`CompiledModel`.
+
+    On a mesh (``compiled`` built with ``mesh=``, or ``mesh=`` here, which
+    builds the plan again on that mesh when it is not ``compiled``'s) every
+    rank runs the same engine: the scheduler, the ledger, the prefix index
+    and the drafters are host code that runs alike everywhere, and each
+    rank holds the whole paged state (pools, tables, lengths, dense rows),
+    as JAX keeps one logical pool outside any sharding.  A tick's forward
+    runs each rank's rows of the batch on the mesh
+    (``lowering._replicated_decode``: the new K/V gathered over dp so every
+    rank writes every row, the state identical on every rank after every
+    tick); the logits come back whole on every rank and one seed drives
+    every rank's sampler, so every rank samples the same tokens."""
+
     def __init__(self, compiled: CompiledModel, params,
-                 ecfg: Optional[EngineConfig] = None,
+                 ecfg: Optional[EngineConfig] = None, mesh=None,
                  clock: Optional[Callable[[], float]] = None):
-        if compiled.plan.rules is not None:
-            raise NotImplementedError(
-                "serving a model compiled on a mesh (a sharded paged pool) "
-                "is not ported yet (ROADMAP Queue 1, \"Multi-device "
-                "serving\")")
+        if mesh is not None and (compiled.mesh is None or MeshSpec.of(
+                mesh) != MeshSpec.of(compiled.mesh)):
+            # honour an explicitly requested mesh: the plan is built again
+            # for it (the JAX engine re-jits inside the mesh)
+            compiled = CompiledModel.from_plan(compiled.plan, mesh=mesh,
+                                               device=compiled.device)
         self.compiled = compiled
         self.plan = compiled.plan
         self.device = compiled.device
-        self.params = params
+        self.mesh = compiled.mesh
+        self.params = params if compiled.rules is None \
+            else _on_mesh(compiled, params)
         self.ecfg = ecfg if ecfg is not None else EngineConfig()
         # one clock drives wall_s, latency/TTFT (through the Scheduler) and
         # the span timeline, so an injected clock makes every timing in the
@@ -492,6 +537,10 @@ class Engine:
                 logits, pstate, _ = self.compiled.prefill(
                     self.params, {"tokens": self._dev(tokens),
                                   "positions": self._dev(positions)})
+                # on a mesh: the logits and the prefill state whole on every
+                # rank (no-ops on one device)
+                logits = full_tensor(logits)
+                pstate = _whole(pstate)
                 if spec_on and e.temperature > 0:
                     # per-request rng streams: the first generated token is
                     # commit index 0 of its request's stream, so prefilled
@@ -688,6 +737,7 @@ class Engine:
                 self.params, {"tokens": self._dev(tokens),
                               "positions": self._dev(positions)},
                 part, 0)
+            logits = full_tensor(logits)
             cache.state = merge_state(cache.state, new_part,
                                       cache.slot_axes, B)
             cache.note_decode_tick(active, fills)

@@ -16,6 +16,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import dse
 from repro_torch.serving import autotune
 from repro_torch.serving.autotune import ServingProfile, autotune_decode
+from repro_torch.serving.scheduler import synthetic_requests
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROF = dict(name="t", batch_buckets=(1, 2), max_seq_len=32,
@@ -166,9 +167,21 @@ def test_profile_rules_raise_the_jax_messages():
 
 
 def test_autotune_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Multi-device serving"):
+    """The mesh refusal is gone: on a one-rank mesh (a gloo group of this
+    process) the search runs, the result is pinned to the mesh and its
+    engine serves there; a mesh larger than the process group raises."""
+    prof = ServingProfile(name="m1", batch_buckets=(2,), max_seq_len=32,
+                          block_sizes=(8,), chunk_sizes=(1,))
+    at = autotune_decode("llama3.2-1b", smoke=True, mesh={"data": 1},
+                         device="cpu", profile=prof, validate="compile")
+    eng = at.engine()
+    assert at.mesh is not None and eng.mesh is at.mesh
+    assert eng.plan.rules is not None
+    rep = eng.run(synthetic_requests(3, 256, prompt_len=8, max_new_tokens=3))
+    assert rep.metrics["generated_tokens"] == 9
+    with pytest.raises(ValueError, match="ranks"):
         autotune_decode("llama3.2-1b", smoke=True, mesh={"data": 2},
-                        device="cpu")
+                        device="cpu", profile=prof, validate="compile")
 
 
 def _run(*args):

@@ -216,10 +216,24 @@ def test_one_rank_pipeline_matches_unsharded():
 
 
 def test_engine_refuses_a_mesh_model():
-    from repro_torch.serving import Engine
-    _, cm = _one_rank("llama3.2-1b", "decode")
-    with pytest.raises(NotImplementedError, match="Multi-device serving"):
-        Engine(cm, cm.init_params(0))
+    """The engine no longer refuses a model compiled on a mesh: on a
+    one-rank mesh it serves the unsharded engine's tokens from the same
+    weights (whole weights are placed on the mesh), and ``mesh=`` builds
+    the plan again on the mesh asked for."""
+    from repro_torch.serving import (Engine, EngineConfig,
+                                     synthetic_requests)
+    cm0, cm = _one_rank("llama3.2-1b", "decode")
+    p0 = cm0.init_params(0)
+    reqs = synthetic_requests(5, 256, prompt_len=12, max_new_tokens=4,
+                              seed=3)
+    ecfg = EngineConfig(max_batch=2, max_seq_len=32, block_size=8)
+    want = Engine(cm0, p0, ecfg).run(reqs)
+    for eng in (Engine(cm, p0, ecfg),
+                Engine(cm0, p0, ecfg, mesh={"data": 1, "model": 1})):
+        assert eng.mesh is not None and eng.plan.rules is not None
+        got = eng.run(reqs)
+        assert {r.rid: r.tokens for r in got.results} == \
+            {r.rid: r.tokens for r in want.results}
 
 
 def test_one_rank_collectives_are_the_identity():

@@ -11,6 +11,7 @@ exits with the first failing rank's code; rank 0 prints ``<case> OK`` and
 its figures.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -274,7 +275,186 @@ def case_explore(rank, ref):
         f"measured {len(r.validated)}"
 
 
+# -- serving on a mesh ---------------------------------------------------------
+
+SERVE_SHAPE = ("serve", "decode", 64, 4)
+SERVE_BASE = dict(max_batch=4, max_seq_len=64, block_size=8)
+SERVE_MESHES = ({"data": 2, "model": 2}, {"data": 4, "model": 1},
+                {"data": 1, "model": 4})
+HYBRID_BASE = dict(max_batch=4, max_seq_len=64, block_size=8,
+                   prompt_buckets=(16,))
+
+
+def serve_requests(name):
+    """The requests of a serving workload: ``mixed`` (prompts of 15-30
+    tokens, left-padded to their bucket, 7 requests over 4 slots: evictions
+    and refills), ``cow`` (one 12-token prompt, 1.5 blocks, sent four times:
+    prefix hits and a copy-on-write fork), ``exact`` (the hybrid's: prompts
+    of exactly 16 tokens, 3-30 new tokens each)."""
+    from repro_torch.serving import Request, synthetic_requests
+    if name == "mixed":
+        return synthetic_requests(7, 256, prompt_len=30, max_new_tokens=6,
+                                  seed=5)
+    rng = np.random.RandomState(21 if name == "cow" else 3)
+    if name == "cow":
+        p = rng.randint(0, 256, 12).astype(np.int32)
+        return [Request(x, p, max_new_tokens=4) for x in "abcd"]
+    return [Request(f"r{i}", rng.randint(0, 256, 16).astype(np.int32),
+                    max_new_tokens=int(rng.randint(3, 31))) for i in range(7)]
+
+
+#: workload -> (requests, the cold run's knobs, the knobs on top): A mixed
+#: lengths, B a prefix hit with a fork, C chunked prefill with n-gram
+#: speculation, D host-free decode segments; each held to the JAX
+#: package's cold run of its requests
+SERVE_RUNS = {
+    "A": ("mixed", {}, {}),
+    "B": ("cow", dict(max_batch=2, prompt_buckets=(16, 64)),
+          dict(prefix_cache=True)),
+    "C": ("mixed", {}, dict(chunked_prefill=True, chunk_size=8,
+                            speculation="ngram:4")),
+    "D": ("mixed", {}, dict(fori_seg=4)),
+}
+
+
+def _tokens(report):
+    return {r.rid: list(r.tokens) for r in report.results}
+
+
+def _ref_tokens(ref, name):
+    return {k.split("|", 2)[2]: [int(t) for t in ref[k]] for k in ref.files
+            if k.startswith(f"tok|{name}|")}
+
+
+def _same_on_every_rank(tree):
+    """Every leaf of ``tree`` bitwise equal on every rank of the group."""
+    import torch
+    import torch.distributed as dist
+    n = 0
+    for leaf in _leaves(tree):
+        b = leaf.contiguous().view(torch.uint8).reshape(-1)
+        parts = [torch.empty_like(b) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, b)
+        assert all(torch.equal(p, parts[0]) for p in parts), leaf.shape
+        n += 1
+    return n
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _serve_check(eng, report, name):
+    m = report.metrics
+    if name == "B":
+        assert m["prefix_hits"] >= 2 and m["cow_forks"] >= 1, m
+    if name == "C":
+        assert m["spec_tokens_drafted"] > 0 and m["catchup_tokens"] > 0, m
+    if name == "D":
+        assert m["fori_segments"] > 0, m
+    return _same_on_every_rank(eng.last_cache.state)
+
+
+def case_serve(rank, ref):
+    """``Engine`` on the three meshes over smoke llama3.2-1b (fp32, bridged
+    weights): workloads A-D give the JAX package's cold greedy tokens and
+    the port's unsharded engine's on every rank, and the paged state
+    (pools, tables, lengths) is bitwise equal across ranks after each
+    run."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch import flow
+    fl = FlowConfig(mode="folded", precision="fp32")
+    c1 = flow.compile("llama3.2-1b", ShapeConfig(*SERVE_SHAPE), fl,
+                      smoke=True, device="cpu")
+    p1 = bridge.params_from_numpy(_tree(ref, "params"), "cpu")
+    whole = {}
+    for name, (reqs, cold, on) in SERVE_RUNS.items():
+        want = _ref_tokens(ref, reqs)
+        got = _tokens(Engine(c1, p1, EngineConfig(
+            **{**SERVE_BASE, **cold, **on})).run(serve_requests(reqs)))
+        assert got == want, (name, got, want)
+        whole[name] = got
+    leaves = 0
+    for mesh in SERVE_MESHES:
+        cm = flow.compile("llama3.2-1b", ShapeConfig(*SERVE_SHAPE), fl,
+                          smoke=True, device="cpu", mesh=mesh)
+        p = _mesh_params(cm, ref)
+        for name, (reqs, cold, on) in SERVE_RUNS.items():
+            eng = Engine(cm, p, EngineConfig(**{**SERVE_BASE, **cold, **on}))
+            rep = eng.run(serve_requests(reqs))
+            assert _tokens(rep) == whole[name], (mesh, name)
+            leaves += _serve_check(eng, rep, name)
+    return f"3 meshes x workloads {''.join(SERVE_RUNS)}: JAX's cold " \
+        f"tokens on every rank, {leaves} state leaves bitwise equal"
+
+
+def case_serve_hybrid(rank, ref):
+    """The hybrid (smoke recurrentgemma-2b: paged attention and dense conv
+    and RG-LRU rows) on {data:2, model:2}: JAX's tokens, the state equal
+    across ranks; then ``autotune_decode(mesh=, validate="compile")``:
+    each bucket's search enumerates JAX's mesh splits for 4 devices (its
+    survivors are the splits the batch bucket admits), and
+    the pinned engine serves on the mesh with the state equal across
+    ranks and the tokens of the unsharded engine on the same weights."""
+    import torch
+    from repro_torch import bridge, flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.core import dse
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.autotune import ServingProfile, autotune_decode
+    fl = FlowConfig(mode="folded", precision="fp32")
+    cm = flow.compile("recurrentgemma-2b", ShapeConfig(*SERVE_SHAPE), fl,
+                      smoke=True, device="cpu",
+                      mesh={"data": 2, "model": 2})
+    eng = Engine(cm, _mesh_params(cm, ref), EngineConfig(**HYBRID_BASE))
+    rep = eng.run(serve_requests("exact"))
+    assert _tokens(rep) == _ref_tokens(ref, "exact")
+    assert rep.metrics["refills"] >= 1
+    leaves = _same_on_every_rank(eng.last_cache.state)
+    prof = ServingProfile(batch_buckets=(1, 4), max_seq_len=64,
+                          block_sizes=(8, 16), chunk_sizes=(1, 2))
+    at = autotune_decode("llama3.2-1b", smoke=True, device="cpu",
+                         profile=prof, mesh={"data": 2, "model": 2},
+                         validate="compile", iters=1)
+    want = {tuple(map(tuple, s)) for s in json.loads(str(ref["jax_splits"]))}
+    base = FlowConfig(mode="folded")
+    base = dataclasses.replace(base, tuning=dataclasses.replace(
+        base.tuning, mesh_devices=4))
+    for b, er in at.per_bucket.items():
+        cands = dse.enumerate_candidates(at.cfg, prof.shape_for(b), base,
+                                         device="cpu")
+        assert {f.mesh_split for f, _ in cands} == want, b
+        assert er.n_enumerated == len(cands), (b, er.n_enumerated)
+        assert {c.flow.mesh_split for c in er.candidates} <= want, b
+    assert at.mesh is not None and "b1" in at.describe()
+    pinned = at.engine(capture_logits=False)
+    assert pinned.plan.rules is not None
+    reqs = serve_requests("mixed")
+    rep = pinned.run(reqs)
+    leaves += _same_on_every_rank(pinned.last_cache.state)
+    one = flow.compile("llama3.2-1b", pinned.plan.shape,
+                       dataclasses.replace(pinned.plan.flow,
+                                           mesh_split=None),
+                       smoke=True, device="cpu")
+    p1 = tree_map(full_tensor, pinned.params)
+    solo = Engine(one, p1, at.engine_config(capture_logits=False)).run(reqs)
+    assert _tokens(rep) == _tokens(solo)
+    assert torch.isfinite(torch.tensor(float(rep.metrics["wall_s"])))
+    return f"hybrid JAX tokens, autotune splits {sorted(want)} pinned " \
+        f"block {at.block_size}, {leaves} state leaves bitwise equal"
+
+
 CASES = {
+    "serve": case_serve,
+    "serve_hybrid": case_serve_hybrid,
     "train_step": case_train_step,
     "compile_mesh": case_compile_mesh,
     "compile_mesh-recurrentgemma-2b": lambda r, ref: case_compile_mesh(
