@@ -316,10 +316,31 @@ Phases, each raising on failure:
    256-rank fake production mesh, in processes started first and stopped
    before the phase returns, each cell's ``per_device_bytes`` and
    ``fits_budget`` on a line of its own.
+22. tiles — the Hopper tiles the tiling pass selects and the kernels take
+   (``plan.tiles``): ``flash_attention`` at llama3.2-1b's, qwen1.5-4b's
+   and recurrentgemma-2b's heads (8 x 512, causal; the hybrid's 2048-token
+   window) at bq 64 and 128, ``conv2d_fused`` at three of ResNet-34's
+   3 x 3 convs at bn 64 and 128 and ``matmul_fused`` at llama's q
+   projection (4096 rows) at bn 64 and 128, in bf16 and fp32, each held to
+   its plain version and timed by CUDA graph beside it, the library call
+   and the bound (the ffma flash kernel refuses bq 128 at head width 256
+   before any launch); ResNet-34's base flow (phase 5's row: every conv on
+   the minimal tile) beside the same flow pinned to the selected tiles,
+   its convs counted by schedule and tile, its ms a forward (host clock)
+   and its kernels' device ms a forward, timed in turns;
+   ``tune_kernel_tiles`` on llama3.2-1b at full width and ``TUNE_DEPTH``
+   layers with a fresh tune database under ``build/``: every attention
+   candidate compiled, measured and counted at its tile, the winner
+   banked, a second call a hit that compiles nothing, and the pinned
+   flow's bf16 prefill logits within 5e-2 of the ``reference`` backend's
+   and its fp32 greedy tokens (8 steps) identical to them.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19, then 20 and 21. Every path phase also reads
+and 19, then 20, 21 and 22. Every path phase on a default flow also holds
+every launch of the three tiled kernels to its default tile (the block
+each took before it took a plan tile: ``retiled`` is 0); the base flow
+and the tuned flows to the blocks their plan's tiles give. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
 steps on ``small_m`` (``ffma_small_m``) in the counts the plan gives, no
 serving projection on ``simt`` in either precision; the CNN heads as their
@@ -435,7 +456,8 @@ def reset_counts() -> None:
     """Every launch count to 0: the seven wrappers', matmul_fused's,
     conv2d_fused's, flash_attention's, decode_attention's,
     paged_decode_attention's and lru_scan's splits by schedule, lru_scan's
-    by shape and the base variant's."""
+    by shape, the base variant's, and the three tiled kernels' splits by
+    (schedule, tile) and launches off their default tile."""
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import decode_attention as kd
@@ -453,6 +475,41 @@ def reset_counts() -> None:
     ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
     kd.decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
     kd.paged_decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
+    for fn in (km.matmul_fused, kc.conv2d_fused, ka.flash_attention):
+        fn.tiles = {}
+        fn.retiled = 0
+
+
+# the kernels that take a Hopper tile (plan.tiles: matmul, conv2d,
+# attention)
+TILED = ("matmul_fused", "conv2d_fused", "flash_attention")
+
+
+def _tile_label(block):
+    return None if block is None else "x".join(str(v) for v in block)
+
+
+def read_tiles(kernel):
+    """A tiled kernel's launches since the last reset by schedule and the
+    block it ran (``"wgmma@128x64"``; a schedule that takes no tile
+    alone)."""
+    torch.cuda.synchronize()
+    return {(s if b is None else f"{s}@{_tile_label(b)}"): n
+            for (s, b), n in sorted(counters()[kernel].tiles.items(),
+                                    key=str)}
+
+
+def _snap_tiles():
+    return {k: dict(counters()[k].tiles) for k in TILED}
+
+
+def _new_tile(snap):
+    """The block of the one tiled launch since ``snap`` (None for a
+    schedule that takes no tile or no tiled launch)."""
+    torch.cuda.synchronize()
+    new = [b for k in TILED for key, n in counters()[k].tiles.items()
+           if n != snap[k].get(key, 0) for b in [key[1]]]
+    return _tile_label(new[0]) if len(new) == 1 else None
 
 
 def read_counts():
@@ -485,24 +542,36 @@ def read_schedules(kernel="matmul_fused"):
     return dict(km.matmul_fused.schedule_launches)
 
 
-def _scheduled(want, what, kernel="matmul_fused"):
+def _scheduled(want, what, kernel="matmul_fused", default_tiles=True):
     """The kernel's launches by schedule must be ``want`` (a schedule left
-    out must be 0)."""
+    out must be 0); with ``default_tiles`` (every default flow) a tiled
+    kernel's launches must all be at the block it took before it took a
+    tile (its default: the card plan's selected tile)."""
     got = read_schedules(kernel)
     full = {k: want.get(k, 0) for k in got}
     if got != full:
         raise AssertionError(f"{what}: {kernel} schedules {got}, want "
                              f"{full}")
+    if default_tiles and kernel in TILED and counters()[kernel].retiled:
+        raise AssertionError(f"{what}: {kernel} launched "
+                             f"{counters()[kernel].retiled} times off its "
+                             f"default tile: {read_tiles(kernel)}")
     return {k: v for k, v in got.items() if v}
+
+
+def _default_flow(flow):
+    """Whether ``flow`` runs the selected tiles (no override)."""
+    return flow.tile_select and not flow.tile_overrides
 
 
 FLASH_SCHEDULES = {"bf16": "wgmma", "fp32": "ffma"}   # at head widths 64-256
 
 
-def _flash_scheduled(n, prec, what):
+def _flash_scheduled(n, prec, what, default_tiles=True):
     """All ``n`` flash_attention launches on wgmma in bf16 and on ffma in
     fp32 (every head width of the LM paths is 64 or 256), none on simt."""
-    return _scheduled({FLASH_SCHEDULES[prec]: n}, what, "flash_attention")
+    return _scheduled({FLASH_SCHEDULES[prec]: n}, what, "flash_attention",
+                      default_tiles)
 
 
 # decode_attention's and paged_decode_attention's schedule at head widths
@@ -537,16 +606,45 @@ def _lru_scheduled(n, what):
     return [[*k, v] for k, v in sorted(kl.lru_scan.shapes.items())]
 
 
-def _aligned_only(total, prec, what):
+def _aligned_only(total, prec, what, default_tiles=True):
     """Every one of ``total`` projections ran on the precision's two
-    schedules (tensor-core in bf16, FFMA in fp32), none on simt."""
+    schedules (tensor-core in bf16, FFMA in fp32), none on simt; with
+    ``default_tiles`` all at matmul_fused's default tile."""
     got = read_schedules()
     ok = sum(got[k] for k in LM_SCHEDULES[prec])
     if ok != total or ok != sum(got.values()):
         raise AssertionError(f"{what}: matmul_fused schedules {got}, want "
                              f"{total} on {' + '.join(LM_SCHEDULES[prec])}"
                              " and none on simt")
-    return {k: v for k, v in got.items() if v}
+    return _scheduled(got, what, default_tiles=default_tiles)
+
+
+def _at_plan_tiles(plan, what):
+    """Every tiled launch since the last reset ran the block the plan's
+    tile gives its schedule (the GLU form and a 64-channel conv at bn 64;
+    flash at the plan's head width and precision).  Returns the launches
+    by schedule and block."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import matmul_fused as km
+    t = plan.tiles
+    took = {"matmul_fused": {km.block_of(s, g, t["matmul"])
+                             for s in km.SCHEDULES for g in (False, True)},
+            "conv2d_fused": {kc.block_of(s, co, t["conv2d"])
+                             for s in kc.SCHEDULES for co in (64, 128)}}
+    a = plan.cfg.attention
+    if a is not None:
+        dt = plan.prec.compute_dtype
+        took["flash_attention"] = {
+            ka.block_of(s, a.head_dim, dt, t["attention"])
+            for s in {ka._schedule(dt, a.head_dim), "simt"}}
+    for k in TILED:
+        bad = [b for (_, b) in counters()[k].tiles if b not in
+               took.get(k, {None})]
+        if bad:
+            raise AssertionError(f"{what}: {k} tiles {read_tiles(k)} under "
+                                 f"the plan's {t}")
+    return {k: read_tiles(k) for k in TILED if counters()[k].tiles}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -677,7 +775,8 @@ FP32_EPILOGUE = ("stem7x7s2", "3x3s1_64@56", "3x3s2_128to256",
                  "1x1s2_256to512")
 
 
-def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
+def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True,
+               tile=None, twin=True):
     """conv2d_fused at one ResNet-34 shape: the schedule the wrapper took,
     held against the plain version; its CUDA-graph device time (and by
     events) beside the SIMT kernel's at the same shape (held to the plain
@@ -687,7 +786,9 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
     the fp32 BN/ReLU ops (``library_ms``).  The bf16 (opt flow) cases carry
     the BN fold and act, the fp32 (base flow) ones run bare, as the flows
     run them, but with ``epilogue`` (a case in no forward: uses 0).
-    ``bn_on=False`` drops the BN fold (LeNet-5 has none)."""
+    ``bn_on=False`` drops the BN fold (LeNet-5 has none).  ``tile``: the
+    Hopper tile the wrapper is given (None: its default); the tile it ran
+    at is recorded.  ``twin=False`` leaves the SIMT kernel out."""
     from repro_torch.kernels import conv2d as kc
     name, H, CI, CO, k, s, uses, act = spec
     dev = torch.device("cuda")
@@ -701,7 +802,7 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
 
     def kern():
         return kc.conv2d_fused(x, w, stride=s, padding=padding, bn=bn,
-                               act=act)
+                               act=act, tile=tile)
 
     def plain():
         return kc.conv2d_fused_plain(x, w, stride=s, padding=padding, bn=bn,
@@ -726,11 +827,12 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
     def library_conv():                         # one cuDNN call
         return F.conv2d(xpad, wn, stride=s)
 
-    c0 = read_schedules("conv2d_fused")
+    c0, snap = read_schedules("conv2d_fused"), _snap_tiles()
     y = kern()
     torch.cuda.synchronize()
     sched = [k_ for k_, v in read_schedules("conv2d_fused").items()
              if v != c0[k_]]
+    ran_tile = _new_tile(snap)
     p = plain()
     torch.cuda.synchronize()
     err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
@@ -742,7 +844,7 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
                              f"schedules {sched}")
     simt = (_conv_simt(x, w, s, bn, act, padding) if sched[0] != "simt"
             else kern)
-    ys = simt()
+    ys = simt() if twin else p
     simt_err = relerr(ys, p)
     simt_aerr = (ys.float() - p.float()).abs().max().item()
     if simt_err >= TOL[dt]:
@@ -755,7 +857,7 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
     bms, by = bound_ms(flops, nbytes, dt)
     return {"shape": name + ("+bn_relu" if epilogue else ""),
             "dtype": str(dt).split(".")[-1], "uses": 0 if epilogue else uses,
-            "schedule": sched[0],
+            "schedule": sched[0], "tile": ran_tile,
             "x": [B, H, H, CI], "w": [k, k, CI, CO], "stride": s,
             "padding": padding, "bn": bn is not None, "act": act,
             "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
@@ -763,7 +865,8 @@ def _conv_case(spec, dt, gen, epilogue=False, padding="SAME", bn_on=True):
             "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
             "bound_ms": bms, "bound_by": by, "timer": "cuda_graph",
             "ms": graph_ms(kern), "event_ms": cuda_ms(kern),
-            "simt_ms": graph_ms(simt), "simt_event_ms": cuda_ms(simt),
+            "simt_ms": graph_ms(simt) if twin else None,
+            "simt_event_ms": cuda_ms(simt) if twin else None,
             "plain_ms": graph_ms(plain), "library_ms": graph_ms(library),
             "library_event_ms": cuda_ms(library),
             "library_conv_ms": graph_ms(library_conv)}
@@ -963,11 +1066,14 @@ def _conv_checks(cases):
 def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
                 timer=None):
     """Kernel vs plain version (relerr, max |diff|), then the three times
-    and the bound of one call.  ``library`` is None where no one PyTorch
-    call computes the same function.  The times are CUDA events over
-    back-to-back calls, or ``timer(fn)``."""
+    and the bound of one call, and the tile the call ran at (None for a
+    kernel or schedule that takes none).  ``library`` is None where no one
+    PyTorch call computes the same function.  The times are CUDA events
+    over back-to-back calls, or ``timer(fn)``."""
+    snap = _snap_tiles()
     y = kern()
     torch.cuda.synchronize()
+    tile = _new_tile(snap)
     p = plain()
     torch.cuda.synchronize()
     err, aerr = relerr(y, p), (y.float() - p.float()).abs().max().item()
@@ -979,7 +1085,7 @@ def _timed_case(kern, plain, library, dt, flops, nbytes, iters=20,
     warm = 1 if iters < 20 else 3
     lib = library is not None
     timer = timer or (lambda fn: cuda_ms(fn, iters, warm))
-    return {"dtype": str(dt).split(".")[-1], "relerr": err,
+    return {"dtype": str(dt).split(".")[-1], "relerr": err, "tile": tile,
             "max_abs_err": aerr, "tol": TOL[dt],
             "library_relerr": relerr(library(), p) if lib else None,
             "flops": flops, "bytes": nbytes, "bound_ms": bms, "bound_by": by,
@@ -1008,14 +1114,15 @@ def _flash_simt(q, k, v, window, causal=True):
 
 
 def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
-                iters=20, causal=True):
+                iters=20, causal=True, tile=None, twin=True):
     """flash_attention, causal, at llama3.2-1b's prefill by default; with
     ``window`` the keys older than it are masked (recurrentgemma-2b); with
     ``causal=False`` every key of the row is live (whisper's encoder).  The
     schedule the wrapper took, its CUDA-graph device time (and by events)
     beside the plain version's, SDPA's (and the name of the kernel SDPA
     ran) and the bound; the SIMT kernel's at the same shape, held to the
-    plain version too."""
+    plain version too (not with ``twin=False``).  ``tile``: the Hopper tile
+    the wrapper is given (None: its default)."""
     from repro_torch.kernels import attention as ka
     dev = torch.device("cuda")
     q = torch.randn(b, S, H, D, generator=gen, device=dev).to(dt)
@@ -1038,7 +1145,8 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
 
     def kern():
-        return ka.flash_attention(q, k, v, causal=causal, window=window)
+        return ka.flash_attention(q, k, v, causal=causal, window=window,
+                                  tile=tile)
 
     def plain():
         return ka.flash_attention_plain(q, k, v, causal=causal,
@@ -1061,6 +1169,8 @@ def _flash_case(dt, gen, b=B, S=LM_S, H=LM_H, KV=LM_KV, D=LM_D, window=None,
                    + (f"_window{window}" if window else ""), rows=b,
              schedule=sched[0], event_ms=cuda_ms(kern, iters, 1),
              timer="cuda_graph", library_kernels=_kernel_names(library))
+    if not twin:
+        return c
     simt = _flash_simt(q, k, v, window, causal)
     p, y = plain(), simt()
     err = relerr(y, p)
@@ -1210,7 +1320,7 @@ COLD_BYTES = 100e6
 
 
 def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
-                    bias=False, act=None):
+                    bias=False, act=None, tile=None, twin=True):
     """matmul_fused at one projection shape (with ``bias`` a bias vector in
     the epilogue, then ``act``; the GLU pair's act is SiLU): the kernel the wrapper's
     schedule picks, held against the plain version; its device time beside
@@ -1220,7 +1330,9 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
     forced (small_m only up to 64 rows).  Timed with CUDA graphs
     (``graph_ms``), cold weights at M <= 64; the wrapper and the old
     wrapper's steps (``_simt_wrapper``) also with events (``event_ms``,
-    ``simt_event_ms``), which at few rows read the host's cost a call."""
+    ``simt_event_ms``), which at few rows read the host's cost a call.
+    ``tile``: the Hopper tile the wrapper is given (None: its default);
+    ``twin=False`` leaves the SIMT kernel out."""
     from repro_torch.kernels import matmul_fused as km
     dev = torch.device("cuda")
     n_w = 2 if glu else 1
@@ -1241,7 +1353,8 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
 
     def kern():
         w, w2 = nxt()
-        return km.matmul_fused(x, w, bias=bv, w2=w2, act=act, out_dtype=dt)
+        return km.matmul_fused(x, w, bias=bv, w2=w2, act=act, out_dtype=dt,
+                               tile=tile)
 
     def plain():
         w, w2 = nxt()
@@ -1270,10 +1383,11 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
         return _simt_wrapper(x, w, bias=bv, w2=w2, act=act, out_dtype=dt)
 
     turn[0] = copies - 1
-    c0 = read_schedules()
+    c0, snap = read_schedules(), _snap_tiles()
     y = kern()
     torch.cuda.synchronize()
     sched = [k for k, v in read_schedules().items() if v != c0[k]]
+    ran_tile = _new_tile(snap)
     turn[0] = copies - 1
     p = plain()
     torch.cuda.synchronize()
@@ -1282,7 +1396,7 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
             and err < TOL[dt] and len(sched) == 1):
         raise AssertionError(f"matmul_fused {name} {M} rows {dt}: relerr "
                              f"{err} (tol {TOL[dt]}), schedules {sched}")
-    old = sched[0] != "simt"
+    old = sched[0] != "simt" and twin
     if old:
         turn[0] = copies - 1
         simt()
@@ -1319,6 +1433,7 @@ def _lm_matmul_case(name, M, K, N, glu, dt, gen, uses, crossover=False,
                      + ("_bias" if bias else "")
                      + (f"_{act}" if act and not glu else ""),
             "dtype": str(dt).split(".")[-1], "rows": M, "schedule": sched[0],
+            "tile": ran_tile,
             "relerr": err, "max_abs_err": aerr, "tol": TOL[dt],
             "library_relerr": lib_err, "flops": flops, "bytes": nbytes,
             "bound_ms": bms, "bound_by": by, "ms": ms, "simt_ms": simt_ms,
@@ -1537,8 +1652,10 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True,
              params=None):
     """One forward through the port's entry point with the counters read
     just around it (conv2d_fused's split by schedule ``want_conv``,
-    matmul_fused's ``want_sched``), held against the reference backend on
-    the same weights (``params``, or drawn from the seed) and images."""
+    matmul_fused's ``want_sched``; on a default flow every tiled launch at
+    its default tile, otherwise every conv block the plan's tile gives),
+    held against the reference backend on the same weights (``params``,
+    or drawn from the seed) and images."""
     from repro_torch import flow as tflow
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -1564,8 +1681,18 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True,
         raise AssertionError(f"{arch}: launches {launches}, want "
                              f"{n_conv} conv / {want_mm} matmul")
     launches = {k: launches[k] for k in ("conv2d_fused", "matmul_fused")}
-    schedules = _scheduled(want_sched, arch)
-    conv_schedules = _scheduled(want_conv, arch, "conv2d_fused")
+    dflt = _default_flow(flow)
+    schedules = _scheduled(want_sched, arch, default_tiles=dflt)
+    conv_schedules = _scheduled(want_conv, arch, "conv2d_fused",
+                                default_tiles=dflt)
+    from repro_torch.kernels import conv2d as kc
+    plan_tile = cm.plan.tiles["conv2d"]
+    took = {kc.block_of("wgmma", 64, plan_tile),
+            kc.block_of("wgmma", 128, plan_tile), None}
+    conv_tiles = read_tiles("conv2d_fused")
+    if any(b not in took for (_, b) in counters()["conv2d_fused"].tiles):
+        raise AssertionError(f"{arch}: conv tiles {conv_tiles} under the "
+                             f"plan's {plan_tile}")
     ref = tflow.compile(get_config(arch), serve, flow, backend="reference")
     if any(b != "ref" for b in ref.plan.kernels.values()):
         raise AssertionError(f"reference plan {ref.plan.kernels}")
@@ -1574,7 +1701,8 @@ def _forward(arch, flow, want_conv, want_mm, want_sched, smi, measure=True,
     rec = {"arch": arch, "flow": flow.precision, "mode": cm.plan.stream.mode,
            "units": cm.describe().splitlines()[2].strip(),
            "launches": launches, "matmul_schedules": schedules,
-           "conv_schedules": conv_schedules,
+           "conv_schedules": conv_schedules, "conv_tiles": conv_tiles,
+           "plan_tiles": {k: cm.plan.tiles[k] for k in ("matmul", "conv2d")},
            "logits_relerr_vs_reference": err,
            "logits_max_abs": y.float().abs().max().item()}
     if measure:
@@ -4666,10 +4794,12 @@ def _pinned_serve(at, cm, params, prec, works, smi):
                        _plan_launches(cm.plan, "decode"),
                        rep.metrics["cow_forks"])
     rec["launches"] = _counted(read_counts(), want, f"pinned {prec}")
+    dflt = _default_flow(cm.flow)
     rec["matmul_schedules"] = _aligned_only(
-        rec["launches"]["matmul_fused"], prec, f"pinned {prec}")
+        rec["launches"]["matmul_fused"], prec, f"pinned {prec}", dflt)
     rec["flash_schedules"] = _flash_scheduled(
-        rec["launches"]["flash_attention"], prec, f"pinned {prec}")
+        rec["launches"]["flash_attention"], prec, f"pinned {prec}", dflt)
+    rec["tiles"] = _at_plan_tiles(cm.plan, f"pinned {prec}")
     rec["paged_schedules"] = _decode_scheduled(
         rec["launches"]["paged_decode_attention"], prec, f"pinned {prec}",
         "paged_decode_attention")
@@ -4738,7 +4868,16 @@ def _tune_llama(smi):
     ran = {"block": at.block_times_us, "chunk": at.chunk_times_us,
            "fori": at.fori_times_s, "prefix": at.prefix_times_s,
            "spec": at.spec_times_s}
-    if not all(ran.values()) or at.tile_overrides or at.tile_times_s:
+    # the tile bench: every attention candidate of the winner's flow timed
+    # (none when the reference backend won: tile-invariant), the fastest
+    # pinned
+    from repro_torch.kernels.registry import REGISTRY
+    att = REGISTRY.get("attention", "cuda").contract
+    wflow = at.per_bucket[at.best_bucket].best.flow
+    cands = att.tile_candidates(cfg, None, wflow)
+    want_t = {f"attention:{c}" for c in cands}
+    if not all(ran.values()) or set(at.tile_times_s) != want_t or \
+            [k for k, _ in at.tile_overrides] != ["attention"] * bool(cands):
         raise AssertionError(f"autotune benches {ran}, tiles "
                              f"{at.tile_overrides} {at.tile_times_s}")
     from repro_torch import tunedb
@@ -5776,13 +5915,257 @@ def serve_mesh_kernel_entries(lm_cases, serve_cases, sm):
                           uses)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the Hopper tiles
+# ---------------------------------------------------------------------------
+
+# flash_attention at each tile, 8 x 512 causal: (arch, H, KV, D, window)
+TILE_FLASH = (("llama3.2-1b", LM_H, LM_KV, LM_D, None),
+              ("qwen1.5-4b", 20, 20, 128, None),
+              ("recurrentgemma-2b", RG_H, RG_KV, RG_D, 2048))
+TILE_CONVS = ("3x3s1_128@28", "3x3s1_256@14", "3x3s1_512@7")
+TILE_DB = os.path.join(ROOT, "build", "tiles_smoke.jsonl")
+
+
+def _tile_kernel_cases(gen):
+    """Each tiled kernel at each tile its schedule takes, held to its plain
+    version, timed by CUDA graph beside its plain version, the library
+    call and the bound: flash at llama's, qwen's and the hybrid's heads,
+    three of ResNet-34's 3 x 3 convs, llama's q projection at 4096 rows,
+    in bf16 and fp32.  The ffma flash kernel at head width 256 refuses bq
+    128 before any launch."""
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import matmul_fused as km
+    cases = {"flash_attention": [], "conv2d_fused": [], "matmul_fused": []}
+
+    def keep(kname, c, tile, arch):
+        if c["tile"] != _tile_label(tile):
+            raise AssertionError(f"{kname} {c['shape']}: ran at tile "
+                                 f"{c['tile']}, given {tile}")
+        c["arch"] = arch
+        cases[kname].append(c)
+        log(json.dumps({"tile_kernel": kname, **c}))
+    for dt in (torch.bfloat16, torch.float32):
+        for arch, H, KV, D, window in TILE_FLASH:
+            sched = ka._schedule(dt, D)
+            for tile in ka.TILES:
+                if sched == "ffma" and (D, tile[0]) not in ka.FFMA_RING:
+                    q = torch.zeros(1, 64, 1, D, dtype=dt, device="cuda")
+                    n0 = ka.flash_attention.launches
+                    try:
+                        ka.flash_attention(q, q, q, tile=tile)
+                    except ValueError:
+                        pass
+                    else:
+                        raise AssertionError(f"ffma D {D} took {tile}")
+                    if ka.flash_attention.launches != n0:
+                        raise AssertionError("a refused tile launched")
+                    continue
+                keep("flash_attention",
+                     _flash_case(dt, gen, H=H, KV=KV, D=D, window=window,
+                                 iters=10, tile=tile, twin=False), tile, arch)
+        for spec in RESNET_CONVS:
+            if spec[0] in TILE_CONVS:
+                for tile in kc.TILES:
+                    keep("conv2d_fused", _conv_case(spec, dt, gen, tile=tile,
+                                                    twin=False),
+                         kc.block_of("wgmma", spec[3], tile), "resnet34")
+        name, K, N, glu = LM_MATMULS[0]
+        for tile in km.TILES:
+            keep("matmul_fused", _lm_matmul_case(
+                name, B * LM_S, K, N, glu, dt, gen, LM_LAYERS, tile=tile,
+                twin=False), tile, LM_ARCH)
+    return cases
+
+
+def _tune_tiles(smi):
+    """``tune_kernel_tiles`` on llama3.2-1b at full width and ``TUNE_DEPTH``
+    layers with a fresh tune database: every attention candidate compiled
+    and measured (its flash launches counted at its tile), the winner
+    banked; a second call a hit that compiles nothing; the pinned flow's
+    bf16 prefill logits against the ``reference`` backend and its fp32
+    greedy tokens identical to it."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.kernels.registry import REGISTRY
+    from repro_torch.serving import autotune as sat
+    prof = sat.ServingProfile(**TUNE_PROFILE)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TUNE_DEPTH)
+    flow0 = FlowConfig(mode="folded")
+    if os.path.exists(TILE_DB):
+        os.remove(TILE_DB)
+    cands = REGISTRY.get("attention", "cuda").contract.tile_candidates(
+        cfg, None, flow0)
+    compiles, orig = [], tflow.compile
+
+    def counted(*a, **kw):
+        compiles.append(1)
+        return orig(*a, **kw)
+    tflow.compile = counted
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        best, times = sat.tune_kernel_tiles(cfg, prof, flow=flow0,
+                                            iters=TUNE_ITERS, db=TILE_DB)
+        search_s = time.perf_counter() - t0
+        measured = read_tiles("flash_attention")
+        n_first = len(compiles)
+        best2, times2 = sat.tune_kernel_tiles(cfg, prof, flow=flow0,
+                                              iters=TUNE_ITERS, db=TILE_DB)
+        n_second = len(compiles) - n_first
+    finally:
+        tflow.compile = orig
+    norm = tuple((k, tuple(t)) for k, t in best)
+    win = min(cands, key=lambda c: times[f"attention:{c}"])
+    if set(times) != {f"attention:{c}" for c in cands} or \
+            n_first != len(cands) or norm != (("attention", win),) or \
+            any(not measured.get(f"wgmma@{_tile_label(c)}") for c in cands):
+        raise AssertionError(f"tune_kernel_tiles: {best} {times}, "
+                             f"{n_first} compiles, flash {measured}")
+    if n_second or tuple((k, tuple(t)) for k, t in best2) != norm or \
+            times2 != times:
+        raise AssertionError(f"tune_kernel_tiles second call: {best2} "
+                             f"{times2}, {n_second} compiles")
+    rec = {"layers": TUNE_DEPTH, "candidates": [list(c) for c in cands],
+           "times_s": times, "winner": list(win), "search_s": search_s,
+           "flash_tiles_measured": measured, "second_compiles": n_second,
+           "launches": {}}
+    # the pinned flow in bf16 (prefill logits) and fp32 (greedy tokens)
+    serve = ShapeConfig("serve", "decode", LM_C, B)
+    prompt = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, LM_S)).astype(np.int64)).cuda()
+    batch = {"tokens": prompt}
+    for prec in ("bf16", "fp32"):
+        fl = dataclasses.replace(flow0, precision=prec, tile_overrides=norm)
+        cm = tflow.compile(cfg, serve, fl)
+        ref = tflow.compile(cfg, serve, fl, backend="reference")
+        if cm.plan.tiles["attention"] != win:
+            raise AssertionError(f"pinned plan tiles {cm.plan.tiles}")
+        params = cm.init_params(SEED)
+        reset_counts()
+        if prec == "bf16":
+            y, _, _ = cm.prefill(params, batch)
+            tiles = _at_plan_tiles(cm.plan, "pinned tiles bf16")
+            rec["logits_relerr_vs_reference"] = _lm_check_logits(
+                "pinned tiles bf16", y, ref.prefill(params, batch)[0],
+                PATH_TOL["bf16"])
+        else:
+            toks, _ = cm.generate(params, batch, steps=8)
+            tiles = _at_plan_tiles(cm.plan, "pinned tiles fp32")
+            if not torch.equal(toks, ref.generate(params, batch,
+                                                  steps=8)[0]):
+                raise AssertionError("pinned tiles fp32: greedy tokens "
+                                     "differ from the reference backend's")
+            rec["tokens_identical_to_reference"] = True
+        if not tiles.get("flash_attention"):
+            raise AssertionError(f"pinned tiles {prec}: no flash launch")
+        rec["launches"][prec] = tiles
+        del cm, ref, params
+        torch.cuda.empty_cache()
+    log(json.dumps({"tune_tiles": rec}))
+    return rec
+
+
+def _base_tiles(smi, path):
+    """ResNet-34's base flow at the minimal tiles (phase 5's row: its convs
+    counted by schedule and tile) and pinned to the selected ones (counted
+    too), then both timed in turns (minimal, selected, selected, minimal):
+    ``measure("prefill")`` (the host's clock: the forward is host-bound)
+    and the device time of a forward's kernels under the profiler."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    base = next(r for r in path if r["arch"] == "resnet34"
+                and r.get("flow_name") == "base")
+    if base["conv_tiles"] != {"ffma@128x64": 35, "small_ci": 1} or \
+            tuple(base["plan_tiles"]["conv2d"]) != (128, 64):
+        raise AssertionError(f"resnet34 base flow: conv tiles "
+                             f"{base['conv_tiles']}, plan "
+                             f"{base['plan_tiles']}")
+    flows = {"minimal": FlowConfig().base(),
+             "selected": FlowConfig(tile_overrides=(
+                 ("conv2d", (128, 128)), ("matmul", (128, 64, 128)))).base()}
+    sel = _forward("resnet34", flows["selected"], {"ffma": 35, "small_ci": 1},
+                   1, {"ffma_small_m": 1}, smi, measure=False)
+    if sel["conv_tiles"] != {"ffma@128x128": 29, "ffma@128x64": 6,
+                             "small_ci": 1}:
+        raise AssertionError(f"resnet34 base flow at the selected tiles: "
+                             f"{sel['conv_tiles']}")
+    serve = ShapeConfig("serve", "prefill", 64, B)
+    cms = {k: tflow.compile("resnet34", serve, f) for k, f in flows.items()}
+    params = cms["minimal"].init_params(SEED)
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(
+        B, 224, 224, 3).astype(np.float32)).cuda()
+    ms = {k: [] for k in cms}
+    dev = {k: [] for k in cms}
+    for k in ("minimal", "selected", "selected", "minimal"):
+        ms[k].append(cms[k].measure("prefill", iters=10,
+                                    seed=SEED)["measured_step_s"] * 1e3)
+        p = _profile(lambda: cms[k].prefill(params, {"images": x}))
+        dev[k].append(p["device_busy_ms"] / p["iters"])
+    rec = {k: {"conv_tiles": r["conv_tiles"], "plan_tiles": r["plan_tiles"],
+               "ms_per_forward": ms[k], "device_ms_per_forward": dev[k]}
+           for k, r in (("minimal", base), ("selected", sel))}
+    rec["phase5_minimal_ms_per_forward"] = base["ms_per_forward"]
+    log(json.dumps({"tiles_resnet34_base": rec}))
+    return rec
+
+
+def phase_tiles(smi, path):
+    """Phase 22: the Hopper tiles.  Each tiled kernel at each candidate
+    tile; ResNet-34's base flow (phase 5's row, at the minimal tiles: its
+    convs counted by schedule and tile) beside the same flow pinned to the
+    selected tiles; ``tune_kernel_tiles`` on llama3.2-1b and its pinned
+    flow against the reference backend."""
+    from repro_torch.configs.base import FlowConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    out = {"cases": _tile_kernel_cases(gen)}
+    out["cases_s"] = time.perf_counter() - t0
+    out["resnet34_base"] = _base_tiles(smi, path)
+    torch.cuda.empty_cache()
+    out["tune"] = _tune_tiles(smi)
+    out["nvidia_smi"] = smi
+    return out
+
+
+def tile_kernel_entries(tiles):
+    """One entry per tiled kernel, schedule, shape, dtype and tile: one
+    call.  ``launches`` counts that kernel at that schedule and tile over
+    phase 22's runs of the dtype: ResNet-34's base-flow forwards (fp32, at
+    the minimal and the selected tiles) and the pinned llama3.2-1b flow
+    (bf16 prefill, fp32 generate)."""
+    runs = {"bfloat16": [tiles["tune"]["launches"]["bf16"]],
+            "float32": [tiles["tune"]["launches"]["fp32"],
+                        {"conv2d_fused": tiles["resnet34_base"][
+                            "minimal"]["conv_tiles"]},
+                        {"conv2d_fused": tiles["resnet34_base"][
+                            "selected"]["conv_tiles"]}]}
+    out = []
+    for kname, rows in tiles["cases"].items():
+        for r in rows:
+            k = f"{kname}[{r['schedule']}]"
+            at = f"{r['schedule']}@{r['tile']}"
+            n = sum(run.get(kname, {}).get(at, 0) for run in runs[r["dtype"]])
+            out += summed_entries(
+                {k: [r]}, {r["dtype"]: {k: n}},
+                f"@{r['arch']}:{r['shape']}:tile{r['tile']}",
+                lambda kn, used: f"one call at {used[0][0]['shape']}",
+                lambda kn, c: 1)
+    return out
+
+
 def summed_entries(cases, launches, tag, per, uses):
     """One ``kernels``-line entry per kernel and dtype.  Each case's times
     and bound count ``uses(kernel, case)`` times (0 leaves a case out) and
     are summed; ``per(kernel, [(case, uses), ...])`` names what the sum
     covers; ``launches`` is {dtype: {kernel: count}} from that dtype's
     main-path run.  A kernel with no case of a dtype, or none used, has no
-    entry for it."""
+    entry for it.  ``tile`` lists the tiles its cases ran at (the Hopper
+    block ``bm x bn``, the base variant's TPU slab tile; None where the
+    schedule takes none)."""
     out = []
     for kname, rows in cases.items():
         for dt in ("bfloat16", "float32"):
@@ -5796,6 +6179,9 @@ def summed_entries(cases, launches, tag, per, uses):
             by_ops = sum(r["bound_ms"] * u for r, u in used
                          if r["bound_by"] == "operations")
             lib = all(r["library_ms"] is not None for r, _ in used)
+            tiles = sorted({_tile_label(r["tile"])
+                            if isinstance(r.get("tile"), (list, tuple))
+                            else r.get("tile") for r, _ in used} - {None})
             out.append({
                 "name": f"{kname}{tag}/{dt}", "route": "cuda",
                 "source": KERNEL_SOURCES[kname][0],
@@ -5807,7 +6193,7 @@ def summed_entries(cases, launches, tag, per, uses):
                 "bound_by": ("operations" if by_ops >= tot("bound_ms") / 2
                              else "bytes"),
                 "library_ms": tot("library_ms") if lib else None, "ok": True,
-                "per": per(kname, used)})
+                "tile": "/".join(tiles) or None, "per": per(kname, used)})
     return out
 
 
@@ -5849,6 +6235,7 @@ def main() -> int:
     fam = timed(phase_family_path, smi)
     mesh = timed(phase_mesh, smi)
     serve_mesh = timed(phase_serve_mesh, smi)
+    tiles = timed(phase_tiles, smi, path)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -5861,7 +6248,8 @@ def main() -> int:
         new_kernel_entries(moe_cases, new) + \
         family_kernel_entries(fam_cases, fam) + \
         mesh_kernel_entries(cases, lm_cases, mesh) + \
-        serve_mesh_kernel_entries(lm_cases, serve_cases, serve_mesh)
+        serve_mesh_kernel_entries(lm_cases, serve_cases, serve_mesh) + \
+        tile_kernel_entries(tiles)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build": build,
@@ -5876,7 +6264,7 @@ def main() -> int:
                    "train": train, "tune": tune,
                    "moe_kernels": moe_cases, "moe_path": new,
                    "family_kernels": fam_cases, "family_path": fam,
-                   "mesh": mesh, "serve_mesh": serve_mesh,
+                   "mesh": mesh, "serve_mesh": serve_mesh, "tiles": tiles,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -53,10 +53,20 @@ def check_units(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
             where="folding")
 
 
+def _hopper_kernels():
+    from repro_torch.kernels import attention, conv2d, matmul_fused
+    return {"matmul": matmul_fused, "attention": attention,
+            "conv2d": conv2d}
+
+
 def check_tiles(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
     """X002 — rule 2 (even division): selected tile dims divide their
-    problem dims, so no prologue/epilogue grid steps exist.  X008 — the
-    tile table only carries keys some kernel or pass consumes."""
+    problem dims, so no prologue/epilogue grid steps exist.  On a card plan
+    the hand kernels mask their edges and need no even division: there
+    X002 holds the matmul, attention and conv2d tiles to those the kernels
+    take (each module's ``TILES``); whether a taken tile's working set fits
+    is K202's.  X008 — the tile table only carries keys some kernel or
+    pass consumes."""
     cfg, shape, tiles = plan.cfg, plan.shape, plan.tiles
     for key in tiles:
         if key not in _TILE_KEYS:
@@ -64,6 +74,17 @@ def check_tiles(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
                 "X008", ERROR,
                 f"tile entry {key!r} has no consumer (known: "
                 f"{list(_TILE_KEYS)})", where="tiling", op=key)
+    if plan.platform == "cuda":
+        for key, mod in _hopper_kernels().items():
+            tile = tiles.get(key)
+            if tile is None:
+                continue
+            try:
+                mod.check_tile(tile)
+            except (TypeError, ValueError) as e:
+                yield Diagnostic("X002", ERROR, f"{key} tile {tile}: {e}",
+                                 where="tiling", op=key)
+        return
     if not plan.flow.tile_select:
         return          # base flow: fixed minimal tiles, kernels pad
     seq = shape.seq_len if shape.kind != "decode" else 1
@@ -211,7 +232,10 @@ def check_kernel_contracts(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
         if contract is None:
             continue
         if contract.workingset is not None:
-            calls = contract.workingset(plan, ecfg)
+            try:
+                calls = contract.workingset(plan, ecfg)
+            except ValueError:
+                calls = []      # a tile no kernel takes: X002 reports it
             if calls:
                 call, sched, ws = max(calls, key=lambda c: c[2])
                 if ws > budget:

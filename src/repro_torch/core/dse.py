@@ -25,7 +25,7 @@ the JAX package's, the estimator ranks under the ``v5e`` preset and the
 budget is ``FlowConfig.tuning.hbm_bytes``, or v5e's 16 GiB when that is
 ``None`` (the default): the same candidates, rankings and winners as the
 JAX package, which the CPU tests hold it to.  On the card the space leaves
-out the knobs no hand kernel reads (:data:`TILE_KNOBS`), the estimator
+out the knob that changes no launch there (:data:`TILE_KNOBS`), the estimator
 ranks under the ``h100`` preset and a ``None`` budget is the card's own
 memory (``total_memory``), so a full-width cell that fits 80 GB is not
 pruned for missing 16 GiB; a budget the caller set is kept on both.  The
@@ -147,13 +147,16 @@ class ExploreResult:
         return "\n".join(lines)
 
 
-# The TilingPass's knobs: they only shape ``plan.tiles``, which no hand
-# kernel reads (each picks its own schedule), so on the card two candidates
-# that differ in them run the same program.  Searched on the CPU, where the
-# space is the JAX package's; fixed at the base flow's values on the card
-# until the kernels accept a tile (ROADMAP Queue 1, "A Hopper tiling
-# target").
-TILE_KNOBS = ("tile_select", "vmem_budget_bytes")
+# The TilingPass's knob that changes no launch on the card.  The hand
+# kernels take their blocks from ``plan.tiles`` (the tiling pass's Hopper
+# target), so ``tile_select`` (selected or minimal tiles) stays in the
+# card's space.  ``vmem_budget_bytes`` only bounds a kernel's shared-memory
+# allowance, min(227 KiB, budget // 4): at its candidates (96 and 48 MiB,
+# 24 and 12 MiB a kernel) the 227 KiB a block may opt in to binds first,
+# so two candidates that differ in it run the same program there.
+# Searched on the CPU, where the space is the JAX package's; fixed at the
+# base flow's value on the card.
+TILE_KNOBS = ("vmem_budget_bytes",)
 
 
 def tunable_space(cfg: ModelConfig, flow: FlowConfig, shape: ShapeConfig,

@@ -30,12 +30,16 @@ DEVICE_PRESETS: Dict[str, Dict[str, float]] = {
     # them (the hand kernels' fp32 schedules: no TF32), HBM3 bandwidth; the
     # bounds of chip_smoke.py use the same constants.  NVLink (450 GB/s a
     # direction) stands in for ICI and goes unused on one card.  hbm_bytes
-    # is the nominal 80 GiB: h100_hbm_bytes() reads the card's own.  The
-    # hand kernels pick their own tiles and ignore plan.tiles: plan_tiles 0
-    # keeps tile_select out of the card's byte count.
+    # is the nominal 80 GiB: h100_hbm_bytes() reads the card's own.
+    # plan_tiles is the bytes factor of the base flow's minimal tiles (the
+    # TPU presets take JAX's 2.0).  The Hopper target's minimal tiles halve
+    # bn (matmul and conv: 64 columns against 128; flash: 64 query rows
+    # against 128) and keep bm 128, so an (M, K) x (K, N) product re-reads
+    # A N / bn times and B M / bm times: at bm = bn the two streams are
+    # equal and halving bn doubles only A's, (2 + 1) / (1 + 1) = 1.5.
     "h100": {"hbm_bytes": 80 * 1024 ** 3, "hbm_bw": 3.35e12,
              "bf16_flops": 989e12, "fp32_flops": 67e12, "ici_bw": 450e9,
-             "plan_tiles": 0.0},
+             "plan_tiles": 1.5},
 }
 
 
@@ -300,9 +304,9 @@ def estimate_step_seconds(cfg: ModelConfig, shape: ShapeConfig,
         bytes_ *= 3.0
     if not flow.fuse_epilogues:
         bytes_ *= 1.5
-    if not flow.tile_select and dev.get("plan_tiles", 1.0):
+    if not flow.tile_select:
         # minimal 128-tiles re-stream weights once per output tile row
-        bytes_ *= 2.0
+        bytes_ *= dev.get("plan_tiles", 2.0)
     if shape.kind == "train":
         # memory savers are not free: each extra microbatch re-gathers the
         # sharded weights; remat recomputes (part of) the forward in backward

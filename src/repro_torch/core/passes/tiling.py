@@ -15,6 +15,44 @@ block shapes:
 The selector maximizes arithmetic intensity (prefer large N,M tiles; deep K
 streaming) subject to those constraints — the analogue of "unroll as wide as
 the bandwidth roof allows".
+
+A plan for the CPU (``platform == "cpu"``) keeps that table exactly (the
+JAX package's, key for key).  A plan for the card (``"cuda"``) takes the
+Hopper target (:func:`hopper_tiles`) for the three keys whose hand kernels
+take a block, the rest as the TPU table writes them:
+
+=========  ===============  ===================  =======================
+key        Hopper tile      selected (default)   base flow (tile_select
+                                                 off: minimal)
+=========  ===============  ===================  =======================
+matmul     (128, 64, bn)    bn 128               bn 64
+attention  (bq, 64)         bf16: bq 128; fp32:  (64, 64)
+                            64 / 128 / 64 at
+                            head width 64 / 128
+                            / 256
+conv2d     (128, bn)        bn 128               bn 64
+=========  ===============  ===================  =======================
+
+Read by: matmul the ``wgmma`` and ``ffma`` schedules of ``matmul_fused``
+(128 rows x bn columns in 64-deep stages; the GLU form runs bn 64 under
+either tile); attention ``flash_attention``'s ``wgmma`` (bq / 64 consumer
+warpgroups) and ``ffma`` (bq query rows a block) over 64-key K/V tiles;
+conv2d ``conv2d_fused``'s ``wgmma`` and ``ffma`` (128 pixels x bn
+channels; a conv of 64 channels runs bn 64 under either tile).  The
+selected table is the block each kernel took before it took a tile, so a
+default flow launches what it launched then; only the base flow, an
+override or tuning changes a block.  The same three rules hold on the
+card: 1. the blocks are multiples of 64 (a ``wgmma`` row group, a
+128-byte swizzle row of bf16); 2. no even division is needed (the kernels
+mask their edges); 3. a kernel's shared-memory allowance is
+``min(227 KiB, vmem_budget_bytes // 4)`` (the same ``// 4`` as the TPU's)
+and the selector shrinks a tile until its working set (the shared bytes a
+block asks for, :mod:`repro_torch.kernels.workingset`) fits it: at the
+flow's 96 / 48 MiB candidates the allowance never binds.  ``decode_attention``
+is the TPU table's entry: the decode kernels split the cache by the card's
+SM count and take no tile (nor do the paged kernel, ``copy_block`` and
+``lru_scan``); ``wkv_chunk`` and ``ce_chunk`` are read by the op layer
+as on the TPU.
 """
 from __future__ import annotations
 
@@ -100,11 +138,82 @@ def apply_overrides(tiles: Dict[str, object], flow) -> Dict[str, str]:
     return applied
 
 
-def run(cfg, shape, flow) -> Dict[str, object]:
+#: the shared bytes a block of an H100 may opt in to (227 KiB)
+BLOCK_SHARED = 232448
+
+
+def hopper_allowance(flow) -> int:
+    """A hand kernel's shared-memory allowance: ``min(227 KiB,
+    vmem_budget_bytes // 4)``, the TPU's per-kernel share of the budget."""
+    return min(BLOCK_SHARED, flow.vmem_budget_bytes // 4)
+
+
+def compute_dtype(flow):
+    """The kernels' operand dtype under ``flow``: fp32 when its precision
+    is fp32, bf16 otherwise (and without a flow)."""
+    import torch
+    return torch.float32 if flow is not None and flow.precision == "fp32" \
+        else torch.bfloat16
+
+
+def hopper_workingset(key: str, tile, cfg, flow) -> int:
+    """The shared bytes a block of ``key``'s tiled schedule asks for at
+    ``tile`` in the flow's precision (``wgmma`` in bf16, ``ffma`` in fp32):
+    the plain product's form for matmul, a conv of 128 output channels,
+    flash at the model's head width (0 for a model without one)."""
+    import torch
+    from repro_torch.kernels import workingset as ws
+    dt = compute_dtype(flow)
+    if key == "matmul":
+        return ws.matmul(4096, 4096, 4096, dt, False, tile=tile)[1]
+    if key == "conv2d":
+        return ws.conv2d(3, 3, 64 if dt == torch.bfloat16 else 4, 128, 1,
+                         dt, tile=tile)[1]
+    if cfg.attention is None:
+        return 0
+    return ws.flash_attention(cfg.attention.head_dim, dt, tile=tile)[1]
+
+
+def hopper_tiles(cfg, flow) -> Dict[str, Tuple[int, ...]]:
+    """The Hopper target's matmul, attention and conv2d tiles (module
+    docstring): with ``tile_select`` the blocks the kernels take by
+    default, each shrunk to its minimal tile when its working set exceeds
+    :func:`hopper_allowance`; without, the minimal tiles."""
+    from repro_torch.kernels import attention, conv2d, matmul_fused
+    dt = compute_dtype(flow)
+    hd = cfg.attention.head_dim if cfg.attention is not None else 0
+    minimal = {"matmul": matmul_fused.TILES[0], "attention": attention.TILES[0],
+               "conv2d": conv2d.TILES[0]}
+    if not flow.tile_select:
+        return minimal
+    out = {"matmul": matmul_fused.HOPPER_TILE,
+           "attention": attention.default_tile(dt, hd),
+           "conv2d": conv2d.DEFAULT_TILE}
+    allowance = hopper_allowance(flow)
+    for key, tile in out.items():
+        if hopper_workingset(key, tile, cfg, flow) > allowance:
+            out[key] = minimal[key]
+    return out
+
+
+def run(cfg, shape, flow, platform: str = "cpu") -> Dict[str, object]:
     """Produce the plan's tile table.  With ``tile_select`` off (the paper's
     base configuration) everything falls back to minimal 128 tiles — the
-    analogue of the unparallelized base kernels.  ``flow.tile_overrides``
-    (tuned per-kernel schedules) are applied on top in both modes."""
+    analogue of the unparallelized base kernels.  On ``platform`` "cuda"
+    the matmul, attention and conv2d entries are the Hopper target's
+    (:func:`hopper_tiles`).  ``flow.tile_overrides`` (tuned per-kernel
+    schedules) are applied on top in both modes."""
+    tiles = _tpu_table(cfg, shape, flow)
+    if platform == "cuda":
+        for key, tile in hopper_tiles(cfg, flow).items():
+            if key in tiles:
+                tiles[key] = tile
+    apply_overrides(tiles, flow)
+    return tiles
+
+
+def _tpu_table(cfg, shape, flow) -> Dict[str, object]:
+    """The JAX package's tile table, before the overrides."""
     vmem = flow.vmem_budget_bytes // 4   # conservative per-kernel allowance
     tiles: Dict[str, object] = {}
     if not flow.tile_select:
@@ -114,7 +223,6 @@ def run(cfg, shape, flow) -> Dict[str, object]:
         tiles["conv2d"] = (8, 128)
         tiles["wkv_chunk"] = 16
         tiles["ce_chunk"] = flow.ce_chunk
-        apply_overrides(tiles, flow)
         return tiles
     d, f = cfg.d_model, cfg.d_ff
     seq = shape.seq_len if shape.kind != "decode" else 1
@@ -128,7 +236,6 @@ def run(cfg, shape, flow) -> Dict[str, object]:
     tiles["conv2d"] = (8, 128)
     tiles["wkv_chunk"] = 32
     tiles["ce_chunk"] = flow.ce_chunk
-    apply_overrides(tiles, flow)
     return tiles
 
 
@@ -139,12 +246,22 @@ class TilingPass(Pass):
     writes = ("tiles",)
 
     def run(self, ctx: PlanContext) -> None:
-        tiles = run(ctx.cfg, ctx.shape, ctx.flow)
+        tiles = run(ctx.cfg, ctx.shape, ctx.flow, ctx.platform)
         ctx.artifacts["tiles"] = tiles
         stats = {"applied": True, "selected": ctx.flow.tile_select,
                  "tiles": dict(tiles)}
-        bm, bk, bn = tiles["matmul"]
-        stats["matmul_workingset_bytes"] = (bm * bk + bk * bn) * 2 + bm * bn * 6
+        if ctx.platform == "cuda":
+            # the shared bytes a block of the product's kernel asks for
+            # (None for a tile no kernel takes: the verifier's X002)
+            try:
+                stats["matmul_workingset_bytes"] = hopper_workingset(
+                    "matmul", tiles["matmul"], ctx.cfg, ctx.flow)
+            except ValueError:
+                stats["matmul_workingset_bytes"] = None
+        else:
+            bm, bk, bn = tiles["matmul"]
+            stats["matmul_workingset_bytes"] = \
+                (bm * bk + bk * bn) * 2 + bm * bn * 6
         ctx.stats[self.name] = stats
 
     def tunable_space(self, cfg, flow, shape):

@@ -18,8 +18,9 @@
 // LeNet-5's 1 and 6, the bf16 convs conv2d_wgmma.cu does not take).
 // conv2d_ffma is the `ffma` schedule: fp32 with CI and CO multiples of 4
 // (every ResNet-34 conv but the stem in the base flow).  The mainloop is
-// ffma_tile.cuh's (full fp32 FMAs, 128 x 128 tiles, 128 x 64 when CO is 64,
-// a 4-slot cp.async ring); its A loader is the im2col gather below, one
+// ffma_tile.cuh's (full fp32 FMAs, 128 x bn tiles, bn the plan's tile: 128
+// by default, 64 in the base flow's minimal tile and when CO is 64; a
+// 4-slot cp.async ring); its A loader is the im2col gather below, one
 // float4 of 4 channels of one tap a chunk (CI % 4 == 0: a chunk never
 // straddles two taps), zeros where the tap falls in the padding.  A grid
 // under half a wave splits K (the wrapper's _conv_split) and sums the fp32
@@ -172,21 +173,24 @@ struct Im2col {
 // multiples of 4 (the wrapper checks them); the batch-norm pointers as
 // below.  K = KH KW CI is split in nsplit slabs of kc (a multiple of 16);
 // with nsplit > 1, ws is an fp32 workspace of nsplit * M * CO floats.
-// Returns the first CUDA error of the launches.
+// bn: the output channels a block, 64 or 128 (the plan's tile).  Returns
+// the first CUDA error of the launches.
 extern "C" int conv2d_ffma(const void* x, const void* w, const float* scale,
                            const float* bias, const float* mean,
                            const float* var, float* ws, void* out, int N,
                            int H, int W, int CI, int CO, int KH, int KW,
                            int stride, int pad_t, int pad_l, int Ho, int Wo,
-                           int act, int kc, int nsplit, void* stream) {
+                           int act, int kc, int nsplit, int bn,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kc % fp32tile::BK != 0) return (int)cudaErrorInvalidValue;
+  if (kc % fp32tile::BK != 0 || (bn != 64 && bn != 128))
+    return (int)cudaErrorInvalidValue;
   const int M = N * Ho * Wo, K = KH * KW * CI;
   const Im2col::Args a{static_cast<const float*>(x), M, H, W, CI, KW,
                        stride, pad_t, pad_l, Ho, Wo};
   const rt::Epilogue epi{bias, scale, mean, var, act, 0};
   const float* wp = static_cast<const float*>(w);
-  if (CO == 64)
+  if (bn == 64)
     return fp32tile::launch<64, 1, float, Im2col>(a, wp, nullptr, epi, ws,
                                                   out, M, CO, K, kc, nsplit,
                                                   s);
@@ -218,11 +222,12 @@ extern "C" int conv2d_fused(int dtype, const void* x, const void* w,
 // (kernels/workingset.py mirrors them for a machine with no card and
 // chip_smoke.py holds the mirror to these), or -1 for a shape the
 // kernel does not take.
-// conv2d_ffma at CO output channels; the simt kernel's static arrays,
-// read off the compiled kernel.
-extern "C" int conv2d_ffma_smem(int CO) {
-  return CO == 64 ? fp32tile::Tile<64, 1>::SMEM_BYTES
-                  : fp32tile::Tile<128, 1>::SMEM_BYTES;
+// conv2d_ffma at bn output channels a block; the simt kernel's static
+// arrays, read off the compiled kernel.
+extern "C" int conv2d_ffma_smem(int bn) {
+  return bn == 64    ? fp32tile::Tile<64, 1>::SMEM_BYTES
+         : bn == 128 ? fp32tile::Tile<128, 1>::SMEM_BYTES
+                     : -1;
 }
 
 extern "C" int conv2d_simt_smem() {

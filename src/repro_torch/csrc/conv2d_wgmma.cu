@@ -16,8 +16,10 @@
 // batch 8 does 100-300 flops a byte, near or above the H100's bf16 ridge of
 // ~295), and only wgmma reaches the tensor cores' rate.
 //
-// The design: a block of two warpgroups owns a 128 x BN output tile (BN 64
-// when CO is 64, else 128), 64 rows a warpgroup on wgmma m64nBNk16 with fp32
+// The design: a block of two warpgroups owns a 128 x BN output tile (BN the
+// plan's tile, plan.tiles["conv2d"][1], 64 or 128, which
+// kernels/conv2d.py hands down: 128 by default, 64 in the base flow's
+// minimal tile and whenever CO is 64), 64 rows a warpgroup on wgmma m64nBNk16 with fp32
 // accumulators in registers, two blocks an SM.  K walks 64-deep stages
 // through a 3-slot ring; as CI % 64 == 0 a stage is one tap (dh, dw) x 64
 // channels, so each output pixel's A row of the stage is 128 contiguous
@@ -205,17 +207,18 @@ int launch(const bf16* x, const bf16* w, const rt::Epilogue& epi, float* ws,
 // four batch-norm pointers (fp32, (CO,)) are all null when the conv has no
 // batch norm.  K = KH KW CI is split in nsplit slabs of kc rows (kc a
 // multiple of 64); with nsplit > 1, ws is an fp32 workspace of
-// nsplit * M * CO floats (M = N Ho Wo).  Returns the first CUDA error of
-// the launches.
+// nsplit * M * CO floats (M = N Ho Wo).  bn: the output channels a block,
+// 64 or 128.  Returns the first CUDA error of the launches.
 extern "C" int conv2d_wgmma(const void* x, const void* w, const float* scale,
                             const float* bias, const float* mean,
                             const float* var, float* ws, void* out, int N,
                             int H, int W, int CI, int CO, int KH, int KW,
                             int stride, int pad_t, int pad_l, int Ho, int Wo,
-                            int act, int kc, int nsplit, void* stream) {
+                            int act, int kc, int nsplit, int bn,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (CI % BK != 0 || CO % 8 != 0 || kc % BK != 0 || nsplit < 1 ||
-      (nsplit > 1 && ws == nullptr))
+      (nsplit > 1 && ws == nullptr) || (bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
   const Geom g{N * Ho * Wo, KH * KW * CI, H, W, CI, CO, KW, stride,
                pad_t, pad_l, Ho, Wo};
@@ -223,8 +226,7 @@ extern "C" int conv2d_wgmma(const void* x, const void* w, const float* scale,
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* wp = static_cast<const bf16*>(w);
   bf16* op = static_cast<bf16*>(out);
-  if (CO == 64)
-    return launch<64>(xp, wp, epi, ws, op, g, kc, nsplit, s);
+  if (bn == 64) return launch<64>(xp, wp, epi, ws, op, g, kc, nsplit, s);
   return launch<128>(xp, wp, epi, ws, op, g, kc, nsplit, s);
 }
 
@@ -232,7 +234,7 @@ extern "C" int conv2d_wgmma(const void* x, const void* w, const float* scale,
 // (kernels/workingset.py mirrors them for a machine with no card and
 // chip_smoke.py holds the mirror to these), or -1 for a shape the
 // kernel does not take.
-// CO output channels (BN 64 at 64, else 128, as conv2d_wgmma picks).
-extern "C" int conv2d_wgmma_smem(int CO) {
-  return CO == 64 ? smem_bytes<64>() : smem_bytes<128>();
+// bn output channels a block.
+extern "C" int conv2d_wgmma_smem(int bn) {
+  return bn == 64 ? smem_bytes<64>() : bn == 128 ? smem_bytes<128>() : -1;
 }

@@ -49,12 +49,17 @@
 // divides by max(l, 1e-30) and writes rows < Sq as float4s.  No atomics:
 // the same inputs give the same bits on every run.
 //
-// Tiles by head width (Cfg): D 64 takes 64 query rows (4 a thread, 16
+// Tiles by head width and query rows (Cfg; BQ is the plan's tile,
+// plan.tiles["attention"][0], which kernels/attention.py hands down, by
+// default its FFMA_TILES entry): D 64 takes 64 query rows (4 a thread, 16
 // output accumulators) and 105,472 bytes of shared memory, two blocks an SM
 // at up to 128 registers a thread; D 128 128 rows (8 a thread, 64
 // accumulators) and 204,544 bytes, D 256 64 rows (4 a thread, 64
 // accumulators) and 217,600 bytes, one block an SM under the 232,448 a
-// block may opt in to; the ring has 4, 3 and 2 slots.
+// block may opt in to; the ring has 4, 3 and 2 slots.  The other tiles
+// the kernel takes: D 64 at 128 rows (3 slots, 122,624 bytes) and D 128 at
+// 64 rows (3 slots, 153,344 bytes), one block an SM.  D 256 at 128 rows
+// would need 301,568 bytes even at 2 slots: no such tile.
 #include <climits>
 #include <cmath>
 
@@ -68,23 +73,30 @@ constexpr int KN = BK / 16;       // keys a thread: tx + 16 j
 constexpr int PLD = BK + 4;       // padded P row (floats)
 constexpr float NEG = -1e30f;
 
-// Per head width: the query rows a block, the ring's slots, the blocks an
-// SM (two at D 64: at most 128 registers a thread) and the unroll of Q K^T's
-// 4-deep steps (2 at D 64, where 4 spills at 128 registers)
-template <int D> struct Cfg;
-template <> struct Cfg<64> {
-  static constexpr int BQ = 64, SLOTS = 4, MINB = 2, UNROLL = 2;
+// Per head width and query rows a block: the ring's slots, the blocks an
+// SM (two at D 64 and 64 rows: at most 128 registers a thread) and the
+// unroll of Q K^T's 4-deep steps (2 at D 64, where 4 spills at 128
+// registers)
+template <int D, int BQ> struct Cfg;
+template <> struct Cfg<64, 64> {
+  static constexpr int SLOTS = 4, MINB = 2, UNROLL = 2;
 };
-template <> struct Cfg<128> {
-  static constexpr int BQ = 128, SLOTS = 3, MINB = 1, UNROLL = 4;
+template <> struct Cfg<64, 128> {
+  static constexpr int SLOTS = 3, MINB = 1, UNROLL = 4;
 };
-template <> struct Cfg<256> {
-  static constexpr int BQ = 64, SLOTS = 2, MINB = 1, UNROLL = 4;
+template <> struct Cfg<128, 64> {
+  static constexpr int SLOTS = 3, MINB = 1, UNROLL = 4;
+};
+template <> struct Cfg<128, 128> {
+  static constexpr int SLOTS = 3, MINB = 1, UNROLL = 4;
+};
+template <> struct Cfg<256, 64> {
+  static constexpr int SLOTS = 2, MINB = 1, UNROLL = 4;
 };
 
-template <int D>
+template <int D, int BQ_>
 struct Layout {
-  static constexpr int BQ = Cfg<D>::BQ, SLOTS = Cfg<D>::SLOTS;
+  static constexpr int BQ = BQ_, SLOTS = Cfg<D, BQ_>::SLOTS;
   static constexpr int LD = D + 4;                  // padded Q, K, V row
   static constexpr int Q_FLOATS = BQ * LD;
   static constexpr int SLOT_FLOATS = BK * LD + BK;  // a tile, its key positions
@@ -92,12 +104,16 @@ struct Layout {
   static constexpr int SMEM_BYTES =
       (Q_FLOATS + SLOTS * SLOT_FLOATS + P_FLOATS) * 4;
 };
-// kernels/attention.py FFMA_TILES and _ffma_smem_bytes state the same
-static_assert(Layout<64>::SMEM_BYTES == 105472, "D 64 shared bytes");
-static_assert(Layout<128>::SMEM_BYTES == 204544, "D 128 shared bytes");
-static_assert(Layout<256>::SMEM_BYTES == 217600, "D 256 shared bytes");
-static_assert(Layout<256>::SMEM_BYTES <= 232448, "one block an SM");
-static_assert(2 * (Layout<64>::SMEM_BYTES + 1024) <= 233472, "two an SM");
+// kernels/attention.py FFMA_TILES, FFMA_RING and _ffma_smem_bytes state
+// the same
+static_assert(Layout<64, 64>::SMEM_BYTES == 105472, "D 64 shared bytes");
+static_assert(Layout<128, 128>::SMEM_BYTES == 204544, "D 128 shared bytes");
+static_assert(Layout<256, 64>::SMEM_BYTES == 217600, "D 256 shared bytes");
+static_assert(Layout<64, 128>::SMEM_BYTES == 122624, "D 64 x 128 bytes");
+static_assert(Layout<128, 64>::SMEM_BYTES == 153344, "D 128 x 64 bytes");
+static_assert(Layout<256, 64>::SMEM_BYTES <= 232448, "one block an SM");
+static_assert(2 * (Layout<64, 64>::SMEM_BYTES + 1024) <= 233472,
+              "two an SM");
 
 // 4 bytes global -> shared; src_bytes 0 writes a zero.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -114,14 +130,14 @@ __device__ __forceinline__ int patch_row(int ii) {
   return (ii >> 2) * 64 + (threadIdx.x >> 4) * 4 + (ii & 3);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, Cfg<D>::MINB)
+template <int D, int BQ_>
+__global__ void __launch_bounds__(THREADS, Cfg<D, BQ_>::MINB)
 flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ qpos,
                   const int* __restrict__ kpos, float* __restrict__ out,
                   int B, int Sq, int Skv, int H, int KV, int causal,
                   int window, float softcap, int q_offset, float scale) {
-  using L = Layout<D>;
+  using L = Layout<D, BQ_>;
   constexpr int BQ = L::BQ, SLOTS = L::SLOTS, LD = L::LD;
   constexpr int RM = BQ / 16;     // query rows a thread
   constexpr int DN = D / 16;      // output columns a thread
@@ -221,7 +237,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int ii = 0; ii < RM; ++ii)
 #pragma unroll
         for (int j = 0; j < KN; ++j) s[ii][j] = 0.0f;
-#pragma unroll Cfg<D>::UNROLL
+#pragma unroll Cfg<D, BQ_>::UNROLL
       for (int d = 0; d < D; d += 4) {
         float4 a[RM], kk[KN];
 #pragma unroll
@@ -355,18 +371,18 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int BQ>
 int launch(const float* q, const float* k, const float* v, const int* qpos,
            const int* kpos, float* out, int B, int Sq, int Skv, int H, int KV,
            int causal, int window, float softcap, int q_offset,
            cudaStream_t stream) {
-  auto kern = flash_ffma_kernel<D>;
-  constexpr int smem = Layout<D>::SMEM_BYTES;
+  auto kern = flash_ffma_kernel<D, BQ>;
+  constexpr int smem = Layout<D, BQ>::SMEM_BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks =
-      (long long)((Sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ) * H * B;
+      (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, THREADS, smem, stream>>>(
       q, k, v, qpos, kpos, out, B, Sq, Skv, H, KV, causal, window, softcap,
@@ -381,14 +397,16 @@ int launch(const float* q, const float* k, const float* v, const int* qpos,
 // aligned (the wrapper sees to it), D in {64, 128, 256}; qpos (B, Sq) and
 // kpos (B, Skv) int32, -1 for padding, or both null for the positions of
 // the indices (query i at q_offset + i, key j at j).  window 0 means none,
-// softcap 0 means none.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a shape it does not take.
+// softcap 0 means none.  bq: the query rows a block (the plan's tile): 64
+// or 128 at D 64 and 128, 64 at D 256.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a shape or tile it does not
+// take.
 extern "C" int flash_attention_ffma(const void* q, const void* k,
                                     const void* v, const int* qpos,
                                     const int* kpos, void* out, int B, int Sq,
                                     int Skv, int H, int KV, int D, int causal,
                                     int window, float softcap, int q_offset,
-                                    void* stream) {
+                                    int bq, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
@@ -396,42 +414,47 @@ extern "C" int flash_attention_ffma(const void* q, const void* k,
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
-  switch (D) {
-    case 64:
-      return launch<64>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV, causal,
-                        window, softcap, q_offset, s);
-    case 128:
-      return launch<128>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
-                         causal, window, softcap, q_offset, s);
-    case 256:
-      return launch<256>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
-                         causal, window, softcap, q_offset, s);
+  switch (D * 1000 + bq) {
+    case 64064:
+      return launch<64, 64>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
+                            causal, window, softcap, q_offset, s);
+    case 64128:
+      return launch<64, 128>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
+                             causal, window, softcap, q_offset, s);
+    case 128064:
+      return launch<128, 64>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
+                             causal, window, softcap, q_offset, s);
+    case 128128:
+      return launch<128, 128>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
+                              causal, window, softcap, q_offset, s);
+    case 256064:
+      return launch<256, 64>(qf, kf, vf, qpos, kpos, of, B, Sq, Skv, H, KV,
+                             causal, window, softcap, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 namespace {
-template <int D>
+template <int D, int BQ>
 int tiles_of(int* t) {
-  t[0] = Cfg<D>::BQ, t[1] = BK, t[2] = Cfg<D>::SLOTS, t[3] = Cfg<D>::MINB;
-  t[4] = Layout<D>::SMEM_BYTES;
+  t[0] = BQ, t[1] = BK, t[2] = Cfg<D, BQ>::SLOTS, t[3] = Cfg<D, BQ>::MINB;
+  t[4] = Layout<D, BQ>::SMEM_BYTES;
   return 0;
 }
 }  // namespace
 
-// The tiles of head width D as the kernel takes them: tiles[0..4] = query
-// rows a block, keys a K/V tile, ring slots, blocks an SM, dynamic shared
-// bytes.  Returns cudaErrorInvalidValue for a head width it does not take.
-extern "C" int flash_attention_ffma_tiles(int D, int* tiles) {
-  switch (D) {
-    case 64:
-      return tiles_of<64>(tiles);
-    case 128:
-      return tiles_of<128>(tiles);
-    case 256:
-      return tiles_of<256>(tiles);
-    default:
-      return (int)cudaErrorInvalidValue;
+// The tile of head width D and bq query rows as the kernel takes it:
+// tiles[0..4] = query rows a block, keys a K/V tile, ring slots, blocks an
+// SM, dynamic shared bytes.  Returns cudaErrorInvalidValue for a head width
+// or tile it does not take.
+extern "C" int flash_attention_ffma_tiles(int D, int bq, int* tiles) {
+  switch (D * 1000 + bq) {
+    case 64064: return tiles_of<64, 64>(tiles);
+    case 64128: return tiles_of<64, 128>(tiles);
+    case 128064: return tiles_of<128, 64>(tiles);
+    case 128128: return tiles_of<128, 128>(tiles);
+    case 256064: return tiles_of<256, 64>(tiles);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,11 +14,14 @@
 // and, through L2, by the G heads of a KV head), and runs both products on
 // wgmma so that the exponentials, not the products, are the arithmetic.
 //
-// The design: one block per (128 query rows, head, batch row), 288 threads:
-// two consumer warpgroups of 64 query rows each and one producer warp, as in
-// matmul_wgmma.cu (at D = 256 a producer warpgroup, for setmaxnreg: Cfg).
-// q is viewed as the 2-D row-major (B * Sq, H * D) and k, v as
-// (B * Skv, KV * D); a block's Q tile is D / 64 TMA boxes of 128 rows x
+// The design: one block per (BQ query rows, head, batch row): BQ / 64
+// consumer warpgroups of 64 query rows each and one producer warp, as in
+// matmul_wgmma.cu (at D = 256 and BQ = 128 a producer warpgroup, for
+// setmaxnreg: Cfg).  BQ is the plan's tile (plan.tiles["attention"][0],
+// 64 or 128, which kernels/attention.py hands down): 128 by default, two
+// consumer warpgroups sharing each K/V tile; 64 in the base flow's
+// minimal tile.  q is viewed as the 2-D row-major (B * Sq, H * D) and k, v
+// as (B * Skv, KV * D); a block's Q tile is D / 64 TMA boxes of BQ rows x
 // 64 columns (128 bytes, the 128-byte swizzle) at (b * Sq + q0, h * D +
 // 64 c), a K or V tile D / 64 boxes of 64 keys at (b * Skv + k0, kvh * D +
 // 64 c).  Rows of that view past Sq or Skv belong to the next batch row
@@ -66,48 +69,54 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int BQ = 128;          // query rows a block: two consumer warpgroups
 constexpr int BK = 64;           // keys a K/V tile
-constexpr int QBOX = BQ * 128;   // one 128-row x 64-column Q box, 16 KB
+constexpr int WGQ = 64 * 128;    // a warpgroup's 64 rows of a Q box, 8 KB
 constexpr int KBOX = BK * 128;   // one 64-key x 64-column K or V box, 8 KB
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Per head width: the ring's depth, the blocks an SM, the threads (two
-// consumer warpgroups and a producer warp, or a producer warpgroup where
-// setmaxnreg moves registers to the consumers: it acts on whole
-// warpgroups) and the consumers' registers after setmaxnreg (0: none).  A
-// block's warps share the SM's four 16K-register quarters, so 9 warps get at
-// most 168 registers a thread (3 warps in one quarter).  D = 64: a Q tile of
-// 16 KB and 16 KB a stage, 4 stages, two blocks an SM (at most 96
-// registers: 32 output and 32 score accumulators fit).  D = 128: 32 KB and
-// 32 KB, 3 stages, one block (64 output accumulators fit in 168).  D = 256:
-// 64 KB and 64 KB, 2 stages (192 KB), one block of 384 threads, the
-// producer warpgroup down to 40 registers and the consumers up to 232 (128
-// output accumulators; at 168 they spilled).
-template <int D> struct Cfg;
-template <> struct Cfg<64> {
-  static constexpr int STAGES = 4, MINB = 2, THREADS = 288, REGS = 0;
-};
-template <> struct Cfg<128> {
-  static constexpr int STAGES = 3, MINB = 1, THREADS = 288, REGS = 0;
-};
-template <> struct Cfg<256> {
-  static constexpr int STAGES = 2, MINB = 1, THREADS = 384, REGS = 232;
+// Per head width and query rows: the ring's depth, the blocks an SM, the
+// threads (BQ / 64 consumer warpgroups and a producer warp, or a producer
+// warpgroup where setmaxnreg moves registers to the consumers: it acts on
+// whole warpgroups) and the consumers' registers after setmaxnreg (0:
+// none).  A block's warps share the SM's four 16K-register quarters, so 9
+// warps get at most 168 registers a thread (3 warps in one quarter).  At
+// BQ 128: D = 64: a Q tile of 16 KB and 16 KB a stage, 4 stages, two blocks
+// an SM (at most 96 registers: 32 output and 32 score accumulators fit).
+// D = 128: 32 KB and 32 KB, 3 stages, one block (64 output accumulators fit
+// in 168).  D = 256: 64 KB and 64 KB, 2 stages (192 KB), one block of 384
+// threads, the producer warpgroup down to 40 registers and the consumers up
+// to 232 (128 output accumulators; at 168 they spilled).  At BQ 64 the same
+// rings under half the Q tile, 160 threads (one consumer warpgroup and the
+// producer warp) and no setmaxnreg: 5 warps may take 255 registers a
+// thread, enough for D = 256's 128 output accumulators.
+template <int D> struct Ring;
+template <> struct Ring<64> { static constexpr int STAGES = 4, MINB = 2; };
+template <> struct Ring<128> { static constexpr int STAGES = 3, MINB = 1; };
+template <> struct Ring<256> { static constexpr int STAGES = 2, MINB = 1; };
+template <int D, int BQ> struct Cfg {
+  static_assert(BQ == 64 || BQ == 128, "one or two consumer warpgroups");
+  static constexpr int STAGES = Ring<D>::STAGES, MINB = Ring<D>::MINB;
+  static constexpr int NWG = BQ / 64;            // consumer warpgroups
+  static constexpr int CONSUMERS = 128 * NWG;    // their threads
+  static constexpr bool WIDE = D == 256 && BQ == 128;   // setmaxnreg
+  static constexpr int THREADS = CONSUMERS + (WIDE ? 128 : 32);
+  static constexpr int REGS = WIDE ? 232 : 0;
 };
 
-template <int D>
-__host__ __device__ constexpr int q_bytes() { return (D / 64) * QBOX; }
+template <int D, int BQ>
+__host__ __device__ constexpr int q_bytes() { return (D / 64) * BQ * 128; }
 template <int D>
 __host__ __device__ constexpr int stage_bytes() {   // K's boxes, then V's
   return 2 * (D / 64) * KBOX;
 }
-template <int D>
+template <int D, int BQ>
 __host__ __device__ constexpr int smem_bytes() {
   // alignment slack, Q, the stages, their key positions, the mbarriers,
   // the stages' pad flags
-  return 1024 + q_bytes<D>() + Cfg<D>::STAGES * (stage_bytes<D>() + BK * 4) +
-         (1 + 2 * Cfg<D>::STAGES) * 8 + Cfg<D>::STAGES * 4;
+  return 1024 + q_bytes<D, BQ>() +
+         Cfg<D, BQ>::STAGES * (stage_bytes<D>() + BK * 4) +
+         (1 + 2 * Cfg<D, BQ>::STAGES) * 8 + Cfg<D, BQ>::STAGES * 4;
 }
 
 // D (64 x 64 fp32, 32 registers a thread) = or += A (64 x 16, K-major)
@@ -286,8 +295,8 @@ __device__ __forceinline__ void tile_range(int q_lo, int rows, int nk,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
+template <int D, int BQ>
+__global__ void __launch_bounds__(Cfg<D, BQ>::THREADS, Cfg<D, BQ>::MINB)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -295,16 +304,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    bf16* __restrict__ out, int Sq, int Skv, int H, int KV,
                    int causal, int window, float softcap, int q_offset,
                    float scale) {
-  constexpr int STAGES = Cfg<D>::STAGES;
+  using C = Cfg<D, BQ>;
+  constexpr int STAGES = C::STAGES;
   constexpr int NB = D / 64;                 // 64-column boxes across a head
+  constexpr int QBOX = BQ * 128;             // one BQ-row x 64-column Q box
   constexpr int STAGE = stage_bytes<D>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzled boxes need 1024-byte aligned slots
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t q_s = base, kv_s = base + q_bytes<D>();
-  int* kpos_s = reinterpret_cast<int*>(smem_raw + (base - raw) + q_bytes<D>() +
-                                       STAGES * STAGE);
+  const uint32_t q_s = base, kv_s = base + q_bytes<D, BQ>();
+  int* kpos_s = reinterpret_cast<int*>(smem_raw + (base - raw) +
+                                       q_bytes<D, BQ>() + STAGES * STAGE);
   const uint32_t bars = smem_u32(kpos_s + STAGES * BK);
   const uint32_t full_q = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
@@ -326,20 +337,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(full_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);               // lane 0 of each consumer warp
+      mbar_init(empty(s), 4 * C::NWG);      // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (tid >= 256) {                          // the producer warp
-    if constexpr (Cfg<D>::REGS > 0) {
+  if (tid >= C::CONSUMERS) {                 // the producer warp
+    if constexpr (C::REGS > 0) {
       setmaxnreg_dec<40>();
-      if (tid >= 288) return;                // the rest of its warpgroup
+      if (tid >= C::CONSUMERS + 32) return;  // the rest of its warpgroup
     }
-    const int lane = tid - 256;
+    const int lane = tid - C::CONSUMERS;
     if (lane == 0) {
-      mbar_expect_tx(full_q, q_bytes<D>());
+      mbar_expect_tx(full_q, q_bytes<D, BQ>());
       for (int c = 0; c < NB; ++c)
         tma_load_2d(q_s + c * QBOX, &tq, h * D + 64 * c, b * Sq + q0, full_q);
     }
@@ -376,7 +387,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; a thread
   // holds rows r and r + 8 (accumulator fragment i: row r + 8 ((i % 4) / 2),
   // column 8 (i / 4) + 2 (lane % 4) + i % 2)
-  if constexpr (Cfg<D>::REGS > 0) setmaxnreg_inc<Cfg<D>::REGS>();
+  if constexpr (C::REGS > 0) setmaxnreg_inc<C::REGS>();
   const int wg = tid / 128, t = tid % 128, warp = t / 32, lane = t % 32;
   const int r = q0 + wg * 64 + warp * 16 + lane / 4;
   int qp[2];
@@ -396,7 +407,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
   float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
-  const uint32_t qa = q_s + wg * (QBOX / 2);
+  const uint32_t qa = q_s + wg * WGQ;
   mbar_wait(full_q, 0);
 
   for (int kt = kb; kt < ke; ++kt) {
@@ -514,22 +525,48 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, const int* qpos, const int* kpos,
-           void* out, int B, int Sq, int Skv, int H, int KV, int causal,
-           int window, float softcap, int q_offset, cudaStream_t stream) {
-  auto kern = flash_wgmma_kernel<D>;
-  constexpr int smem = smem_bytes<D>();
+template <int D, int BQ>
+int launch(const void* q, const CUtensorMap& tk, const CUtensorMap& tv,
+           const int* qpos, const int* kpos, void* out, int B, int Sq,
+           int Skv, int H, int KV, int causal, int window, float softcap,
+           int q_offset, cudaStream_t stream) {
+  CUtensorMap tq;
+  if (!encode(&tq, q, B * Sq, H * D, BQ)) return (int)cudaErrorInvalidValue;
+  auto kern = flash_wgmma_kernel<D, BQ>;
+  constexpr int smem = smem_bytes<D, BQ>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-  kern<<<grid, Cfg<D>::THREADS, smem, stream>>>(
+  kern<<<grid, Cfg<D, BQ>::THREADS, smem, stream>>>(
       tq, tk, tv, qpos, kpos, static_cast<bf16*>(out), Sq, Skv, H, KV,
       causal, window, softcap, q_offset,
       (float)(1.0 / std::sqrt((double)D)));
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bq(int bq, const void* q, const CUtensorMap& tk,
+              const CUtensorMap& tv, const int* qpos, const int* kpos,
+              void* out, int B, int Sq, int Skv, int H, int KV, int causal,
+              int window, float softcap, int q_offset, cudaStream_t s) {
+  if (bq == 128)
+    return launch<D, 128>(q, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
+                          causal, window, softcap, q_offset, s);
+  if (bq == 64)
+    return launch<D, 64>(q, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
+                         causal, window, softcap, q_offset, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int BQ>
+int smem_of(int D) {
+  switch (D) {
+    case 64: return smem_bytes<64, BQ>();
+    case 128: return smem_bytes<128, BQ>();
+    case 256: return smem_bytes<256, BQ>();
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -539,33 +576,33 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 // aligned (the TMA rules; the wrapper sees to them), D in {64, 128, 256};
 // qpos (B, Sq) and kpos (B, Skv) int32, -1 for padding, or both null for
 // the positions of the indices (query i at q_offset + i, key j at j).
-// window 0 means none, softcap 0 means none.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a shape it does not take or
+// window 0 means none, softcap 0 means none.  bq: the query rows a block,
+// 64 or 128 (the plan's tile).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a shape or tile it does not take or
 // a tensor map it cannot encode.
 extern "C" int flash_attention_wgmma(const void* q, const void* k,
                                      const void* v, const int* qpos,
                                      const int* kpos, void* out, int B,
                                      int Sq, int Skv, int H, int KV, int D,
                                      int causal, int window, float softcap,
-                                     int q_offset, void* stream) {
+                                     int q_offset, int bq, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, B * Sq, H * D, BQ) ||
-      !encode(&tk, k, B * Skv, KV * D, BK) ||
+  CUtensorMap tk, tv;
+  if (!encode(&tk, k, B * Skv, KV * D, BK) ||
       !encode(&tv, v, B * Skv, KV * D, BK))
     return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<64>(tq, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
-                        causal, window, softcap, q_offset, s);
+      return launch_bq<64>(bq, q, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
+                           causal, window, softcap, q_offset, s);
     case 128:
-      return launch<128>(tq, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
-                         causal, window, softcap, q_offset, s);
+      return launch_bq<128>(bq, q, tk, tv, qpos, kpos, out, B, Sq, Skv, H,
+                            KV, causal, window, softcap, q_offset, s);
     case 256:
-      return launch<256>(tq, tk, tv, qpos, kpos, out, B, Sq, Skv, H, KV,
-                         causal, window, softcap, q_offset, s);
+      return launch_bq<256>(bq, q, tk, tv, qpos, kpos, out, B, Sq, Skv, H,
+                            KV, causal, window, softcap, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -575,12 +612,7 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k,
 // (kernels/workingset.py mirrors them for a machine with no card and
 // chip_smoke.py holds the mirror to these), or -1 for a shape the
 // kernel does not take.
-// Head width D.
-extern "C" int flash_attention_wgmma_smem(int D) {
-  switch (D) {
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    case 256: return smem_bytes<256>();
-    default: return -1;
-  }
+// Head width D, bq query rows a block.
+extern "C" int flash_attention_wgmma_smem(int D, int bq) {
+  return bq == 128 ? smem_of<128>(D) : bq == 64 ? smem_of<64>(D) : -1;
 }

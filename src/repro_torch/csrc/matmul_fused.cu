@@ -12,8 +12,9 @@
 //
 // matmul_ffma is the `ffma` schedule: fp32 operands with K and N multiples
 // of 4, 16-byte aligned, above the small-M cut (the fp32 prefills).  The
-// mainloop is ffma_tile.cuh's (full fp32 FMAs, no TF32; 128 x 128 tiles,
-// 128 x 64 in the GLU form, a 4-slot cp.async ring) with dense rows of x as
+// mainloop is ffma_tile.cuh's (full fp32 FMAs, no TF32; 128 x bn tiles, bn
+// the plan's tile, 128 by default and 64 in the base flow's minimal tile;
+// 128 x 64 in the GLU form; a 4-slot cp.async ring) with dense rows of x as
 // its A loader, the same epilogue in registers and one write; a grid under
 // half a wave splits K (the wrapper's _wave_split) and sums the partials in
 // a fixed order.
@@ -224,11 +225,15 @@ struct DenseRows {
 template <typename TOut>
 int launch_ffma(const float* x, const float* w, const float* w2,
                 const rt::Epilogue& epi, float* ws, void* out, int M, int K,
-                int N, int kc, int nsplit, cudaStream_t s) {
+                int N, int kc, int nsplit, int bn, cudaStream_t s) {
   const DenseRows::Args a{x, M, K};
   if (w2 != nullptr)
     return fp32tile::launch<64, 2, TOut, DenseRows>(a, w, w2, epi, ws, out,
                                                     M, N, K, kc, nsplit, s);
+  if (bn == 64)
+    return fp32tile::launch<64, 1, TOut, DenseRows>(a, w, nullptr, epi, ws,
+                                                    out, M, N, K, kc, nsplit,
+                                                    s);
   return fp32tile::launch<128, 1, TOut, DenseRows>(a, w, nullptr, epi, ws,
                                                    out, M, N, K, kc, nsplit,
                                                    s);
@@ -241,23 +246,27 @@ int launch_ffma(const float* x, const float* w, const float* w2,
 // wrapper checks them).  out_dtype 0 fp32, 1 bf16.  K is split in nsplit
 // slabs of kc rows (kc a multiple of 16); with nsplit > 1, ws is an fp32
 // workspace of (w2 ? 2 : 1) * nsplit * M * N floats.  w2 and bias may be
-// null.  Returns the first CUDA error of the launches.
+// null.  bn: the output columns a block, 64 or 128 in the plain form (the
+// plan's tile), 64 in the GLU form.  Returns the first CUDA error of the
+// launches.
 extern "C" int matmul_ffma(int out_dtype, const void* x, const void* w,
                            const void* w2, const float* bias, float* ws,
                            void* out, int M, int K, int N, int kc, int nsplit,
-                           int act, int glu_act, void* stream) {
+                           int act, int glu_act, int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kc % fp32tile::BK != 0) return (int)cudaErrorInvalidValue;
+  if (kc % fp32tile::BK != 0 ||
+      (w2 != nullptr ? bn != 64 : (bn != 64 && bn != 128)))
+    return (int)cudaErrorInvalidValue;
   const rt::Epilogue epi{bias, nullptr, nullptr, nullptr, act, glu_act};
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
   const float* w2p = static_cast<const float*>(w2);
   if (out_dtype == rt::kF32)
     return launch_ffma<float>(xp, wp, w2p, epi, ws, out, M, K, N, kc, nsplit,
-                              s);
+                              bn, s);
   if (out_dtype == rt::kBF16)
     return launch_ffma<__nv_bfloat16>(xp, wp, w2p, epi, ws, out, M, K, N, kc,
-                                      nsplit, s);
+                                      nsplit, bn, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -330,11 +339,13 @@ extern "C" int matmul_base(int in_dtype, int out_dtype, const void* x,
 // (kernels/workingset.py mirrors them for a machine with no card and
 // chip_smoke.py holds the mirror to these), or -1 for a shape the
 // kernel does not take.
-// glu 1: the w / w2 pair.  The simt kernel's are its static arrays, read
-// off the compiled kernel.
-extern "C" int matmul_ffma_smem(int glu) {
-  return glu ? fp32tile::Tile<64, 2>::SMEM_BYTES
-             : fp32tile::Tile<128, 1>::SMEM_BYTES;
+// glu 1: the w / w2 pair; bn the output columns a block.  The simt
+// kernel's are its static arrays, read off the compiled kernel.
+extern "C" int matmul_ffma_smem(int glu, int bn) {
+  if (glu) return bn == 64 ? fp32tile::Tile<64, 2>::SMEM_BYTES : -1;
+  return bn == 64    ? fp32tile::Tile<64, 1>::SMEM_BYTES
+         : bn == 128 ? fp32tile::Tile<128, 1>::SMEM_BYTES
+                     : -1;
 }
 
 extern "C" int matmul_simt_smem(int glu) {

@@ -11,8 +11,11 @@
 // flops a byte, far above the H100's ridge of ~295 (989 TFLOP/s bf16 over
 // 3.35 TB/s).  Only wgmma reaches the tensor cores' full rate.
 //
-// The design: one block computes a 128 x 128 output tile (128 x 64 per
-// accumulator in the GLU form, two accumulators), two blocks an SM. Its K
+// The design: one block computes a 128 x BN output tile, BN the plan's
+// tile (plan.tiles["matmul"][2], which kernels/matmul_fused.py hands down):
+// 128 by default, 64 in the base flow's minimal tile; the GLU form takes
+// 128 x 64 per accumulator, two accumulators, under either tile.  Two
+// blocks an SM. Its K
 // loop walks 64-deep stages through a ring of 3 shared-memory slots. One
 // producer thread (warp 8) issues TMA loads of the x tile (128 x 64,
 // K-major) and the w tile (64 x 128 as two 64 x 64 boxes; w2's box beside
@@ -65,6 +68,7 @@ constexpr int BOX_BYTES = BK * 64 * 2;               // one 64 x 64 w box, 8 KB
 // most 112 registers a thread) ran faster than one block of 4-6 stages, the
 // second block's loads and epilogue filling the first one's waits, and
 // faster than 128 x 256 tiles (128 accumulator registers a thread).
+// The plain form at BN 64 keeps the ring and the blocks an SM (3 x 65 KB).
 constexpr int PLAIN_BN = 128, PLAIN_STAGES = 3, PLAIN_MINB = 2;
 constexpr int GLU_BN = 64, GLU_STAGES = 3, GLU_MINB = 2;
 
@@ -237,11 +241,15 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw,
 }
 
 template <typename TOut>
-int launch_form(bool glu, const CUtensorMap& tx, const CUtensorMap& tw,
-                const CUtensorMap& tw2, const float* bias, void* out, int M,
-                int K, int N, int act, int glu_act, cudaStream_t s) {
+int launch_form(bool glu, int bn, const CUtensorMap& tx,
+                const CUtensorMap& tw, const CUtensorMap& tw2,
+                const float* bias, void* out, int M, int K, int N, int act,
+                int glu_act, cudaStream_t s) {
   if (glu)
     return launch<GLU_BN, 2, GLU_STAGES, GLU_MINB, TOut>(
+        tx, tw, tw2, bias, out, M, K, N, act, glu_act, s);
+  if (bn == 64)
+    return launch<64, 1, PLAIN_STAGES, PLAIN_MINB, TOut>(
         tx, tw, tw2, bias, out, M, K, N, act, glu_act, s);
   return launch<PLAIN_BN, 1, PLAIN_STAGES, PLAIN_MINB, TOut>(
       tx, tw, tw2, bias, out, M, K, N, act, glu_act, s);
@@ -252,23 +260,27 @@ int launch_form(bool glu, const CUtensorMap& tx, const CUtensorMap& tw,
 // C interface (bound with ctypes in kernels/_build.py).  x (M, K), w and w2
 // (K, N) are bf16, row-major, 16-byte aligned, K and N multiples of 8 (the
 // TMA rules; the wrapper checks them).  out_dtype 0 fp32, 1 bf16.  w2 and
-// bias may be null.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue when a tensor map cannot be encoded.
+// bias may be null.  bn: the output columns a block, 64 or 128 in the plain
+// form, 64 in the GLU form.  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a tile it does not take or a tensor map it
+// cannot encode.
 extern "C" int matmul_wgmma(int out_dtype, const void* x, const void* w,
                             const void* w2, const float* bias, void* out,
-                            int M, int K, int N, int act, int glu_act,
+                            int M, int K, int N, int act, int glu_act, int bn,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool glu = w2 != nullptr;
+  if (glu ? bn != GLU_BN : (bn != 64 && bn != 128))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw, tw2;
   if (!encode(&tx, x, M, K, BM) || !encode(&tw, w, K, N, BK) ||
       !encode(&tw2, glu ? w2 : w, K, N, BK))
     return (int)cudaErrorInvalidValue;
   if (out_dtype == rt::kF32)
-    return launch_form<float>(glu, tx, tw, tw2, bias, out, M, K, N, act,
+    return launch_form<float>(glu, bn, tx, tw, tw2, bias, out, M, K, N, act,
                               glu_act, s);
   if (out_dtype == rt::kBF16)
-    return launch_form<bf16>(glu, tx, tw, tw2, bias, out, M, K, N, act,
+    return launch_form<bf16>(glu, bn, tx, tw, tw2, bias, out, M, K, N, act,
                              glu_act, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -298,8 +310,10 @@ extern "C" int matmul_base_wgmma(int out_dtype, const void* x, const void* w,
 // (kernels/workingset.py mirrors them for a machine with no card and
 // chip_smoke.py holds the mirror to these), or -1 for a shape the
 // kernel does not take.
-// glu 1: the w / w2 pair.
-extern "C" int matmul_wgmma_smem(int glu) {
-  return glu ? smem_bytes<GLU_BN, 2, GLU_STAGES>()
-             : smem_bytes<PLAIN_BN, 1, PLAIN_STAGES>();
+// glu 1: the w / w2 pair; bn the output columns a block.
+extern "C" int matmul_wgmma_smem(int glu, int bn) {
+  if (glu) return bn == GLU_BN ? smem_bytes<GLU_BN, 2, GLU_STAGES>() : -1;
+  return bn == 64    ? smem_bytes<64, 1, PLAIN_STAGES>()
+         : bn == 128 ? smem_bytes<PLAIN_BN, 1, PLAIN_STAGES>()
+                     : -1;
 }

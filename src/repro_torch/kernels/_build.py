@@ -44,21 +44,21 @@ SIGNATURES = {
     "conv2d_fused": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "conv2d_small_ci": [_I] + [_P] * 7 + [_I] * 13 + [_P],
     "conv2d_mid_ci": [_P] * 7 + [_I] * 13 + [_P],
-    "conv2d_wgmma": [_P] * 8 + [_I] * 15 + [_P],
-    "conv2d_ffma": [_P] * 8 + [_I] * 15 + [_P],
+    "conv2d_wgmma": [_P] * 8 + [_I] * 16 + [_P],
+    "conv2d_ffma": [_P] * 8 + [_I] * 16 + [_P],
     "matmul_fused": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "matmul_base": [_I, _I, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "matmul_base_wgmma": [_I] + [_P] * 4 + [_I] * 5 + [_P],
     "matmul_base_small_m": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],
     "matmul_base_ffma": [_I] + [_P] * 5 + [_I] * 7 + [_P],
-    "matmul_wgmma": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "matmul_wgmma": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "matmul_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
-    "matmul_ffma": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+    "matmul_ffma": [_I] + [_P] * 6 + [_I] * 8 + [_P],
     "matmul_ffma_small_m": [_I] + [_P] * 6 + [_I] * 7 + [_P],
     "flash_attention": [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _P],
-    "flash_attention_wgmma": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
-    "flash_attention_ffma": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
-    "flash_attention_ffma_tiles": [_I, _P],
+    "flash_attention_wgmma": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
+    "flash_attention_ffma": [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
+    "flash_attention_ffma_tiles": [_I, _I, _P],
     "decode_attention": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "decode_attention_mma": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "decode_attention_ffma": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
@@ -73,17 +73,17 @@ SIGNATURES = {
     "lru_scan_chunked": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # the shared bytes a block of each schedule asks for (kernels/
     # workingset.py holds its mirror of them to these on the card)
-    "matmul_wgmma_smem": [_I],
+    "matmul_wgmma_smem": [_I, _I],
     "matmul_small_m_smem": [_I, _I],
     "matmul_ffma_small_m_smem": [_I, _I],
-    "matmul_ffma_smem": [_I],
+    "matmul_ffma_smem": [_I, _I],
     "matmul_simt_smem": [_I],
     "conv2d_wgmma_smem": [_I],
     "conv2d_ffma_smem": [_I],
     "conv2d_simt_smem": [],
     "conv2d_mid_ci_smem": [_I, _I, _I],
     "conv2d_small_ci_smem": [_I] * 5,
-    "flash_attention_wgmma_smem": [_I],
+    "flash_attention_wgmma_smem": [_I, _I],
     "flash_attention_simt_smem": [_I],
     "decode_attention_simt_smem": [_I, _I],
     "paged_decode_core_smem": [_I] * 4,

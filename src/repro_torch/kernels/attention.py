@@ -20,10 +20,11 @@ fallback: a build or launch failure raises):
 
 - ``wgmma`` (``csrc/flash_attention_wgmma.cu``): bf16 at head widths 64,
   128 and 256 — every LM prefill and serving prefill batch in bf16.  One
-  block per (128 query rows, head, batch row): a producer warp brings the Q
-  tile and a ring of 64-key K/V tiles in by TMA; two consumer warpgroups run
-  Q·Kᵀ and P·V on ``wgmma`` with fp32 accumulators and keep the online
-  softmax in registers.  P is rounded to bf16 before P·V (the Pallas kernel
+  block per (bq query rows, head, batch row): a producer warp brings the Q
+  tile and a ring of 64-key K/V tiles in by TMA; bq / 64 consumer
+  warpgroups (two at the default bq of 128) run Q·Kᵀ and P·V on
+  ``wgmma`` with fp32 accumulators and keep the online softmax in
+  registers.  P is rounded to bf16 before P·V (the Pallas kernel
   keeps it in fp32): about 2⁻⁹ relative on each probability, far inside
   the bf16 tolerance of 2e-2.
 - ``ffma`` (``csrc/flash_attention_ffma.cu``): fp32 at head widths 64,
@@ -31,30 +32,44 @@ fallback: a build or launch failure raises):
   stays off the tensor cores: they would need TF32, which breaks the fp32
   parity of 1e-5 that keeps the fp32 greedy tokens identical to the
   ``reference`` backend's.  Both products are register-tiled FFMA GEMMs:
-  one block of 256 threads per (64 query rows, head, batch row) at D 64
-  (two blocks an SM) and 256, per 128 rows at D 128 (:data:`FFMA_TILES`);
-  Q once and 64-key
+  one block of 256 threads per (bq query rows, head, batch row), by
+  default 64 at D 64 (two blocks an SM) and 256, 128 at D 128
+  (:data:`FFMA_TILES`; the other tiles in :data:`FFMA_RING`); Q once and
+  64-key
   K and V tiles through a ring of 16-byte ``cp.async`` slots, the next
   tiles in flight while this one's products run; Q·Kᵀ read as float4s
   along D, P through a padded shared tile into P·V; the mask only on the
   tiles that straddle the diagonal, the window's edge or padding; the
   query tiles with the most keys launched first.
 - ``simt`` (``csrc/flash_attention.cu``): fp32 and bf16 at head widths 16
-  and 32.  One block of 256 threads per (64 query rows, head, batch row);
+  and 32.  It takes no tile: one block of 256 threads per (64 query rows,
+  head, batch row);
   each K/V tile staged in shared memory as fp32, the score tile a 16 x 16
   thread grid of 4 x 4 register patches, the row max and sum reduced with
   warp shuffles, P through shared memory into P·V, fp32 FMAs.
 
 Both skip tiles dead in index space (above the causal diagonal, or wholly
 outside the window), as the Pallas kernel does, which is exact under its
-positions contract (per-row shifted aranges).  The plan's TPU tile
-(``plan.tiles["attention"]``) is ignored: the kernels take their own.
+positions contract (per-row shifted aranges).
 
-On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
-tensor it launches a kernel or raises.  ``flash_attention.launches`` counts
-the launches and ``flash_attention.schedules`` splits them by schedule.  It
-uses no ``scaled_dot_product_attention`` and no ``torch.matmul`` on the
-card.
+The tile: ``wgmma`` and ``ffma`` take their block from the plan's Hopper
+tile ``plan.tiles["attention"]`` = ``(bq, bk)``, one of :data:`TILES`
+(bk is the 64-key K/V tile; the tiling pass's Hopper target selects it).
+By default (``tile=None``, and the tiling pass's selection)
+:func:`default_tile`: bq 128 for ``wgmma``, ``FFMA_TILES[D][0]`` for
+``ffma``; the base flow's minimal tile is (64, 64).  ``ffma`` takes a tile
+only where its working set fits the 227 KiB a block may opt in to
+(:data:`FFMA_RING`: not (128, 64) at D 256).  A tile a schedule does not
+take raises; it is never replaced by another.
+
+On a CPU tensor the wrapper runs :func:`flash_attention_plain` (which no
+tile changes); on a CUDA tensor it launches a kernel or raises.
+``flash_attention.launches`` counts the launches,
+``flash_attention.schedules`` splits them by schedule,
+``flash_attention.tiles`` by (schedule, tile) (None for ``simt``), and
+``flash_attention.retiled`` counts those at a tile other than
+:func:`default_tile`'s.  It uses no ``scaled_dot_product_attention`` and
+no ``torch.matmul`` on the card.
 """
 from __future__ import annotations
 
@@ -68,9 +83,17 @@ NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
 TILED_HEAD_DIMS = (64, 128, 256)    # those of the wgmma and ffma schedules
 SCHEDULES = ("wgmma", "ffma", "simt")
-# the ffma schedule's tiles by head width, as csrc/flash_attention_ffma.cu
-# takes them: (query rows a block, keys a K/V tile, ring slots, blocks an SM)
-FFMA_TILES = {64: (64, 64, 4, 2), 128: (128, 64, 3, 1), 256: (64, 64, 2, 1)}
+BK = 64                             # keys a K/V tile, every schedule
+TILES = ((64, BK), (128, BK))       # the (bq, bk) tiles wgmma and ffma take
+# every (head width, query rows) the ffma kernel takes, as
+# csrc/flash_attention_ffma.cu's Cfg: (ring slots, blocks an SM); D 256 at
+# 128 rows would need 301,568 shared bytes
+FFMA_RING = {(64, 64): (4, 2), (64, 128): (3, 1), (128, 64): (3, 1),
+             (128, 128): (3, 1), (256, 64): (2, 1)}
+# the ffma schedule's default tile by head width: (query rows a block, keys
+# a K/V tile, ring slots, blocks an SM)
+FFMA_TILES = {D: (bq, BK, *FFMA_RING[(D, bq)])
+              for D, bq in ((64, 64), (128, 128), (256, 64))}
 
 
 def _schedule(dtype: torch.dtype, D: int) -> str:
@@ -82,21 +105,63 @@ def _schedule(dtype: torch.dtype, D: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "ffma"
 
 
-def _ffma_smem_bytes(D: int) -> int:
-    """The ffma kernel's dynamic shared bytes at head width D: the Q tile,
-    the ring's slots (a K or V tile and the K tile's key positions) and the
-    P tile, rows padded by 4 floats."""
-    bq, bk, slots, _ = FFMA_TILES[D]
+def default_tile(dtype: torch.dtype, D: int):
+    """The (bq, bk) tile a call takes without one, and the tiling pass's
+    selection: bq 128 in bf16 (``wgmma``'s two consumer warpgroups),
+    ``FFMA_TILES[D][0]`` in fp32; (64, 64) at the ``simt`` widths (its
+    fixed block, which it takes without a tile)."""
+    if D not in TILED_HEAD_DIMS:
+        return (64, BK)
+    return (128 if dtype == torch.bfloat16 else FFMA_TILES[D][0], BK)
+
+
+def check_tile(tile) -> tuple:
+    """``tile`` as a tuple of ints, one of :data:`TILES`; raises
+    ``ValueError`` for any other."""
+    t = tuple(int(v) for v in tile)
+    if t not in TILES:
+        raise ValueError(f"flash_attention: no kernel takes the tile {t}; "
+                         f"the tiles are {TILES}")
+    return t
+
+
+def block_of(sched: str, D: int, dtype: torch.dtype, tile=None):
+    """The (bq, bk) block a call on ``sched`` runs at head width D: the
+    tile given (:func:`check_tile`), or :func:`default_tile`'s; None for
+    ``simt``, which takes no tile.  Raises ``ValueError`` for a tile the
+    schedule does not take (``ffma`` at a (D, bq) outside
+    :data:`FFMA_RING`)."""
+    t = default_tile(dtype, D) if tile is None else check_tile(tile)
+    if sched == "simt":
+        return None
+    if sched == "ffma" and (D, t[0]) not in FFMA_RING:
+        raise ValueError(f"flash_attention: the ffma kernel takes no tile "
+                         f"{t} at head width {D} (its working set exceeds "
+                         "the 232,448 shared bytes a block may opt in to)")
+    return t
+
+
+def _ffma_smem_bytes(D: int, bq: Optional[int] = None) -> int:
+    """The ffma kernel's dynamic shared bytes at head width D and ``bq``
+    query rows a block (by default ``FFMA_TILES[D][0]``): the Q tile, the
+    ring's slots (a K or V tile and the K tile's key positions) and the P
+    tile, rows padded by 4 floats.  A (D, bq) outside :data:`FFMA_RING`
+    counts its ring at 2 slots, the fewest the kernel could run."""
+    bq = FFMA_TILES[D][0] if bq is None else bq
+    slots = FFMA_RING.get((D, bq), (2, 1))[0]
     ld = D + 4
-    return 4 * (bq * ld + slots * (bk * ld + bk) + bq * (bk + 4))
+    return 4 * (bq * ld + slots * (BK * ld + BK) + bq * (BK + 4))
 
 
-def _ffma_blocks(B: int, Sq: int, H: int, D: int):
-    """The ffma kernel's blocks in launch order, (query tile, head, batch
-    row) for block i = 0, 1, ...: the query tile varies slowest and runs
-    from the last (under causal the tiles with the most keys go first), the
-    heads of a KV head side by side."""
-    nq, per = -(-Sq // FFMA_TILES[D][0]), H * B
+def _ffma_blocks(B: int, Sq: int, H: int, D: int,
+                 bq: Optional[int] = None):
+    """The ffma kernel's blocks in launch order at ``bq`` query rows a block
+    (by default ``FFMA_TILES[D][0]``), (query tile, head, batch row) for
+    block i = 0, 1, ...: the query tile varies slowest and runs from the
+    last (under causal the tiles with the most keys go first), the heads of
+    a KV head side by side."""
+    bq = FFMA_TILES[D][0] if bq is None else bq
+    nq, per = -(-Sq // bq), H * B
     return [(nq - 1 - i // per, (i % per) % H, (i % per) // H)
             for i in range(nq * per)]
 
@@ -167,7 +232,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q[0].  ``positions`` — optional (B, Sq) per-row absolute positions used
     for both queries and keys (needs Skv == Sq and q_offset == 0); entries
     < 0 mark padding, and valid entries of a row form a shifted arange.
-    ``tile`` is the plan's TPU tile, ignored."""
+    ``tile`` is the plan's Hopper tile (bq, bk) (module docstring); None
+    takes :func:`default_tile`'s."""
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -198,6 +264,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if max(q.numel(), k.numel()) >= 2 ** 31:
         raise ValueError("flash_attention: operands of 2**31 elements or more")
     sched = _schedule(q.dtype, D)
+    block = block_of(sched, D, q.dtype, tile)
     if positions is not None:
         qp = kp = positions.to(torch.int32).contiguous()
     elif sched != "simt":
@@ -216,14 +283,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.call("flash_attention", _build.DTYPE_CODES[q.dtype], *ptrs,
                     *rest)
     else:
-        _build.call(f"flash_attention_{sched}", *ptrs, *rest)
+        _build.call(f"flash_attention_{sched}", *ptrs, *rest[:-1], block[0],
+                    rest[-1])
     flash_attention.launches += 1
     flash_attention.schedules[sched] += 1
+    key = (sched, block)
+    flash_attention.tiles[key] = flash_attention.tiles.get(key, 0) + 1
+    if block is not None and block != default_tile(q.dtype, D):
+        flash_attention.retiled += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.schedules = dict.fromkeys(SCHEDULES, 0)
+flash_attention.tiles = {}
+flash_attention.retiled = 0
 
 
 def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -235,8 +309,10 @@ def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output, unfilled, and 4 D operations a (query head, key) pair it
     scores (Q·Kᵀ and P·V), the pairs the causal mask and the window leave
     (``positions`` are taken as each row's arange: their values are not
-    known)."""
+    known).  A tile none of the kernels takes raises, as in the wrapper."""
     from repro_torch.kernels import _fake
+    if tile is not None:
+        check_tile(tile)
     B, Sq, H, D = q.shape
     pairs = _fake.attended(Sq, k.shape[1], causal, window, q_offset)
     out = torch.empty_like(q)

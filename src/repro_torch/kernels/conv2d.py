@@ -26,12 +26,13 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   convs from 64 channels up.  A 64-deep K stage is one tap x 64 channels,
   128 contiguous bytes of x a pixel, gathered with ``cp.async`` into the
   128-byte swizzle the ``wgmma`` descriptors read; two warpgroups on
-  m64n128k16 (m64n64k16 when CO is 64), a 3-slot ring, two blocks an SM.
+  m64nBNk16 (BN the tile's, below), a 3-slot ring, two blocks an SM.
 - ``ffma`` (``csrc/conv2d_fused.cu`` ``conv2d_ffma`` on
   ``csrc/ffma_tile.cuh``): fp32 with CI and CO multiples of 4 — the base
   flow's ResNet-34 convs but the stem.  Full fp32 FMAs (no TF32), 128 x
-  128 tiles of 8 x 8 a thread (128 x 64 when CO is 64), the im2col gather
-  one float4 of channels a chunk through a 4-slot ``cp.async`` ring.
+  BN tiles of 8 x BN / 16 a thread (BN the tile's, below), the im2col
+  gather one float4 of channels a chunk through a 4-slot ``cp.async``
+  ring.
 - ``mid_ci`` (``csrc/conv2d_mid_ci.cu``): bf16 with 8 <= CI < 64, CI and
   CO multiples of 8, K = kh kw CI at most :data:`MID_CI_K_MAX` (576, so
   that a block's 64-channel w strip stays resident in shared memory: at
@@ -65,15 +66,24 @@ hand-written kernels, not a fallback: a build or launch failure raises):
 kernel sums in a fixed order (no float atomics: the bits repeat) before the
 fold and act.
 
-The plan's TPU tile ``(block_h, block_c)`` (``plan.tiles["conv2d"]``) is
-accepted and ignored: the kernels take their own block sizes until the
-tiling pass gains a Hopper target (ROADMAP Queue 1, "A Hopper tiling
-target").
+The tile: ``wgmma`` and ``ffma`` take their block from the plan's Hopper
+tile ``plan.tiles["conv2d"]`` = ``(bm, bn)``, one of :data:`TILES`: 128
+output pixels by bn output channels.  By default (``tile=None``, and the
+tiling pass's selection) :data:`DEFAULT_TILE` (128, 128); the base flow's
+minimal tile is (128, 64).  A conv of 64 output channels runs bn 64 under
+either tile (its 64 channels are the whole tile).  ``mid_ci``,
+``small_ci`` and ``simt`` take no tile: their blocks are fixed by their
+own rules (above).  A tile none of the kernels takes raises; it is never
+replaced by another.
 
-On a CPU tensor the wrapper runs :func:`conv2d_fused_plain`; on a CUDA
-tensor it launches a kernel or raises.  ``conv2d_fused.launches`` counts
-the launches and ``conv2d_fused.schedule_launches`` splits them by
-schedule.  No ``F.conv2d``, no cuDNN and no TF32 on the card.
+On a CPU tensor the wrapper runs :func:`conv2d_fused_plain` (which no tile
+changes); on a CUDA tensor it launches a kernel or raises.
+``conv2d_fused.launches`` counts the launches,
+``conv2d_fused.schedule_launches`` splits them by schedule,
+``conv2d_fused.tiles`` by (schedule, block run) (None for the schedules
+that take no tile), and ``conv2d_fused.retiled`` counts those at a block
+other than the default tile's.  No ``F.conv2d``, no cuDNN and no TF32 on
+the card.
 """
 from __future__ import annotations
 
@@ -93,6 +103,28 @@ MID_CI_K_MAX = 576                    # its taps kh kw CI at most
 SMALL_CI_TILE = (8, 16)               # small_ci's output tile (rows, cols)
 SMALL_CI_HALO_MAX = 3072              # its halo's elements at most
 SMALL_CI_K_MAX = 256                  # its taps kh kw CI at most
+TILES = ((CONV_BM, 64), (CONV_BM, 128))   # the (bm, bn) tiles wgmma and
+DEFAULT_TILE = (CONV_BM, 128)             # ffma take; the default
+
+
+def check_tile(tile) -> tuple:
+    """``tile`` as a tuple of ints, one of :data:`TILES`; raises
+    ``ValueError`` for any other."""
+    t = tuple(int(v) for v in tile)
+    if t not in TILES:
+        raise ValueError(f"conv2d_fused: no kernel takes the tile {t}; the "
+                         f"tiles are {TILES}")
+    return t
+
+
+def block_of(sched: str, CO: int, tile=None):
+    """The (bm, bn) block a conv of CO output channels runs on ``sched``:
+    the tile given (:func:`check_tile`) or :data:`DEFAULT_TILE`, bn 64 when
+    CO is 64; None for the schedules that take no tile."""
+    t = DEFAULT_TILE if tile is None else check_tile(tile)
+    if sched not in ("wgmma", "ffma"):
+        return None
+    return (t[0], 64) if CO == 64 else t
 
 
 def small_ci_halo(kh: int, kw: int, CI: int, stride: int) -> Tuple[int, int,
@@ -185,12 +217,12 @@ def _schedule(CI: int, CO: int, dtype: torch.dtype, aligned: bool,
     return "simt"
 
 
-def _conv_split(M: int, K: int, CO: int, sms: int = 132):
+def _conv_split(M: int, K: int, CO: int, sms: int = 132, tile=None):
     """(nsplit, kc) of the ``wgmma`` and ``ffma`` schedules: their grid of
-    128-pixel x BN-channel blocks (BN 64 when CO is 64, else 128) split
-    along K in whole 64-deep stages by :func:`_wave_split` when it is under
-    half a wave."""
-    bn = 64 if CO == 64 else 128
+    128-pixel x bn-channel blocks (:func:`block_of` at ``tile``: bn 64 when
+    CO is 64, else the tile's, by default 128) split along K in whole
+    64-deep stages by :func:`_wave_split` when it is under half a wave."""
+    bn = block_of("wgmma", CO, tile)[1]
     return _wave_split(-(-M // CONV_BM) * -(-CO // bn), K, sms)
 
 
@@ -247,8 +279,8 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  act: Optional[str] = None, tile=None) -> torch.Tensor:
     """x: (N, H, W, CI) NHWC; w: (kh, kw, CI, CO) HWIO; bn: optional
     (scale, bias, mean, var), each (CO,).  Returns (N, Ho, Wo, CO) in
-    ``x.dtype``.  ``tile`` is the plan's TPU tile, ignored (see module
-    docstring)."""
+    ``x.dtype``.  ``tile`` is the plan's Hopper tile (bm, bn) (module
+    docstring); None takes :data:`DEFAULT_TILE`."""
     if x.device.type == "cpu":
         return conv2d_fused_plain(x, w, stride=stride, padding=padding,
                                   bn=bn, act=act)
@@ -282,6 +314,7 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             _build.ACT_CODES[act])
     aligned = all(t.data_ptr() % 16 == 0 for t in (xc, wc, out))
     sched = _schedule(CI, CO, dt, aligned, (kh, kw, stride))
+    block = block_of(sched, CO, tile)
     if sched in ("simt", "small_ci"):
         _build.call("conv2d_fused" if sched == "simt" else "conv2d_small_ci",
                     _build.DTYPE_CODES[dt], _build.ptr(xc), _build.ptr(wc),
@@ -293,19 +326,27 @@ def conv2d_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                     _build.stream())
     else:
         M = N * ho * wo
-        nsplit, kc = _conv_split(M, kh * kw * CI, CO, _sm_count(x.device))
+        nsplit, kc = _conv_split(M, kh * kw * CI, CO, _sm_count(x.device),
+                                 block)
         ws = (torch.empty(nsplit * M * CO, dtype=torch.float32,
                           device=x.device) if nsplit > 1 else None)
         _build.call(f"conv2d_{sched}", _build.ptr(xc), _build.ptr(wc),
                     *[_build.ptr(t) for t in bnc], _build.ptr(ws),
-                    _build.ptr(out), *geom, kc, nsplit, _build.stream())
+                    _build.ptr(out), *geom, kc, nsplit, block[1],
+                    _build.stream())
     conv2d_fused.launches += 1
     conv2d_fused.schedule_launches[sched] += 1
+    key = (sched, block)
+    conv2d_fused.tiles[key] = conv2d_fused.tiles.get(key, 0) + 1
+    if block is not None and block != block_of(sched, CO):
+        conv2d_fused.retiled += 1
     return out if dt == x.dtype else out.to(x.dtype)
 
 
 conv2d_fused.launches = 0
 conv2d_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
+conv2d_fused.tiles = {}
+conv2d_fused.retiled = 0
 
 
 def conv2d_fused_fake(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -314,8 +355,10 @@ def conv2d_fused_fake(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                       act: Optional[str] = None, tile=None) -> torch.Tensor:
     """:func:`conv2d_fused`'s shape-only stand-in (the dry-run): the
     (N, Ho, Wo, CO) output, unfilled, and 2 kh kw CI operations an output
-    element."""
+    element.  A tile none of the kernels takes raises, as in the wrapper."""
     from repro_torch.kernels import _fake
+    if tile is not None:
+        check_tile(tile)
     N, H, W, CI = x.shape
     kh, kw, _, CO = w.shape
     _, _, ho, wo = conv_geometry(H, W, kh, kw, stride, padding)

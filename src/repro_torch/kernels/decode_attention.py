@@ -38,8 +38,11 @@ fallback: a build or launch failure raises):
   FMAs, and a second kernel that combines the splits.
 
 The split (:func:`splits`) is the card's choice, made from the SM count
-and the shapes; the plan's TPU tile (``plan.tiles["decode_attention"]``)
-is ignored.  One difference from the plain version: a row none of whose
+and the shapes: these kernels take no tile.  The plan's
+``plan.tiles["decode_attention"]`` is the TPU table's entry (the tiling
+pass's Hopper target leaves it so) and is ignored; the paged kernel's
+KV block is the pool block, and ``copy_block`` copies whole blocks:
+neither has a tile either.  One difference from the plain version: a row none of whose
 slots is valid gets zeros from ``mma`` and ``ffma`` (its tiles are never
 read), where the plain version and the Pallas kernel give the mean of V.
 The main path never has such a row: the query's own slot is valid.

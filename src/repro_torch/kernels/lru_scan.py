@@ -33,7 +33,9 @@ kernels, not a fallback):
 
 The chunked scan reassociates the recurrence across chunks, as the plain
 version (log-step doubling) and the JAX package's ``lru_scan_ref``
-(associative scan) do.
+(associative scan) do.  Neither schedule takes a tile: the window follows
+:func:`scan_geometry`, and no ``plan.tiles`` entry names the scan (the
+JAX kernel takes none either).
 
 On a CPU tensor the wrapper runs :func:`lru_scan_plain`; on a CUDA tensor
 it launches a kernel or raises.  ``lru_scan.launches`` counts the

@@ -18,10 +18,11 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   of 8, 16-byte aligned operands (the TMA rules) — the LM prefills, serving
   prefill batches and chunked catch-up.  Bound by the operations (a
   4096-row projection does some 1,000-3,000 flops a byte against the
-  H100's ridge of ~295): TMA loads of 128 x 64 x tiles and 64 x 128 w
-  tiles into a 3-stage ring, one producer warp, two consumer warpgroups on
-  ``wgmma`` m64n128k16 (m64n64k16 twice in the GLU form), fp32
-  accumulators and the epilogue in registers, two blocks an SM.
+  H100's ridge of ~295): TMA loads of 128 x 64 x tiles and 64 x bn w
+  tiles (bn the tile's, below) into a 3-stage ring, one producer warp, two
+  consumer warpgroups on ``wgmma`` m64nBNk16 (m64n64k16 twice in the GLU
+  form), fp32 accumulators and the epilogue in registers, two blocks an
+  SM.
 - ``small_m`` (``csrc/matmul_small_m.cu``): the same operands with M at or
   below :data:`SMALL_M_MAX` — decode steps and serving ticks (8 rows),
   speculative verify of the plain projections (40), the CNN heads at batch
@@ -35,9 +36,9 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   ``csrc/ffma_tile.cuh``): fp32 operands, M above :data:`SMALL_M_MAX`, K
   and N multiples of 4, 16-byte aligned — the fp32 (base flow) prefills.
   Full fp32 FMAs (no TF32: the fp32 checks and the fp32 greedy identity
-  need it), bound by the operations at 67 TFLOP/s: 128 x 128 output tiles
-  (128 x 64 in the GLU form) of 8 x 8 a thread, 16-deep K stages through
-  a 4-slot ``cp.async`` ring; a grid under half a wave splits K
+  need it), bound by the operations at 67 TFLOP/s: 128 x bn output tiles
+  (bn the tile's; 128 x 64 in the GLU form) of 8 x bn / 16 a thread,
+  16-deep K stages through a 4-slot ``cp.async`` ring; a grid under half a wave splits K
   (:func:`_wave_split`), the partials summed in a fixed order.
 - ``ffma_small_m`` (``csrc/matmul_small_m.cu`` ``matmul_ffma_small_m``):
   the same fp32 operands at or below :data:`SMALL_M_MAX` rows — the fp32
@@ -50,11 +51,26 @@ hand-written kernels, not a fallback: a build or launch failure raises):
   256-thread block, 16-deep K steps staged in shared memory as fp32, fp32
   FMAs.
 
+The tile: ``wgmma`` and ``ffma`` take their block from the plan's Hopper
+tile ``plan.tiles["matmul"]`` = ``(bm, bk, bn)``, one of :data:`TILES`:
+128 rows by bn columns in 64-deep (``wgmma``) K stages.  By default
+(``tile=None``, and the tiling pass's selection) :data:`HOPPER_TILE`
+(128, 64, 128); the base flow's minimal tile is (128, 64, 64).  The GLU
+form runs 128 x 64 per accumulator under either tile (its two
+accumulators fill the registers of the plain form's one).  ``small_m``,
+``ffma_small_m`` and ``simt`` take no tile: their blocks follow the rows
+and the K split.  A tile none of the kernels takes raises; it is never
+replaced by another.
+
 ``vmem_accum=False`` is the Pallas kernel's base branch (the paper's base
 kernel, ``matmul_fused.py:70-80``): the sum goes through the output dtype
 one ``bk``-deep K slab at a time, ``bk = min(tile[1], rup(K, 128))`` as in
 JAX — ``sum = round(sum + round(slab))`` — and has no GLU form; nothing on
-the op layer passes it, in either package.  It runs on the CW schedules'
+the op layer passes it, in either package.  Its ``tile`` is the TPU tile
+of the JAX package's tile table (the kernel facade's ``tile``, by default
+:data:`DEFAULT_TILE`), never the Hopper tile: its slabs are a rounding
+rule of the function, which a Hopper block (bk 64) must not change, and
+its cores run their default blocks.  It runs on the CW schedules'
 cores, chosen by :func:`_base_schedule` (the CW rule at the plain form's
 crossover, and a slab that is a whole number of the core's K stages):
 
@@ -75,7 +91,10 @@ On a CPU tensor the wrapper runs the plain versions; on a CUDA tensor it
 launches a kernel or raises.  ``matmul_fused.launches`` counts the CW
 launches, ``matmul_fused.schedule_launches`` splits them by schedule,
 ``matmul_fused.base_launches`` counts the base variant's and
-``matmul_fused.base_schedule_launches`` splits those.  No
+``matmul_fused.base_schedule_launches`` splits those,
+``matmul_fused.tiles`` splits the CW launches by (schedule, block run)
+(None for the schedules that take no tile) and ``matmul_fused.retiled``
+counts those at a block other than the default tile's.  No
 ``torch.matmul``, no cuBLAS and no TF32 on the card.
 """
 from __future__ import annotations
@@ -98,6 +117,10 @@ SCHEDULES = ("wgmma", "small_m", "ffma", "ffma_small_m", "simt")
 # pair's wide N fills the card and wgmma wins above 32 rows.
 SMALL_M_MAX = {False: 64, True: 32}
 DEFAULT_TILE = (256, 512, 256)        # repro/kernels/ops.py's default
+# the (bm, bk, bn) tiles wgmma and ffma take, and the default
+TILES = ((128, 64, 64), (128, 64, 128))
+HOPPER_TILE = (128, 64, 128)
+GLU_BN = 64                           # the GLU form's bn under either tile
 SMALL_M_BK = 32                       # K a stage of the small_m kernel
 SMALL_M_BN = 128                      # columns a block of the small_m kernel
 FFMA_BM = 128                         # rows a block of the ffma kernel
@@ -112,6 +135,26 @@ def _slab_depth(K: int, tile) -> int:
     """The base variant's K slab: the tile's K extent cut to rup(K, 128)
     (JAX's ``bk``), the tile (256, 512, 256) when none is given."""
     return min((tile or DEFAULT_TILE)[1], _rup(K, 128))
+
+
+def check_tile(tile) -> tuple:
+    """``tile`` as a tuple of ints, one of :data:`TILES`; raises
+    ``ValueError`` for any other."""
+    t = tuple(int(v) for v in tile)
+    if t not in TILES:
+        raise ValueError(f"matmul_fused: no kernel takes the tile {t}; the "
+                         f"tiles are {TILES}")
+    return t
+
+
+def block_of(sched: str, glu: bool, tile=None):
+    """The (bm, bk, bn) block a CW product runs on ``sched``: the tile
+    given (:func:`check_tile`) or :data:`HOPPER_TILE`, bn :data:`GLU_BN`
+    in the GLU form; None for the schedules that take no tile."""
+    t = HOPPER_TILE if tile is None else check_tile(tile)
+    if sched not in ("wgmma", "ffma"):
+        return None
+    return (t[0], t[1], GLU_BN) if glu else t
 
 
 def _schedule(M: int, K: int, N: int, in_dtype: torch.dtype, glu: bool,
@@ -323,10 +366,11 @@ def _launch_simt(c: _Call) -> None:
                 c.M, c.K, c.N, c.act, c.glu_act, _build.stream())
 
 
-def _launch_wgmma(c: _Call) -> None:
+def _launch_wgmma(c: _Call, bn: Optional[int] = None) -> None:
+    bn = bn or block_of("wgmma", c.w2 is not None)[2]
     _build.call("matmul_wgmma", _codes(c)[1], _build.ptr(c.x),
                 _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
-                _build.ptr(c.out), c.M, c.K, c.N, c.act, c.glu_act,
+                _build.ptr(c.out), c.M, c.K, c.N, c.act, c.glu_act, bn,
                 _build.stream())
 
 
@@ -352,8 +396,8 @@ def _launch_small_m(c: _Call) -> None:
                 c.act, c.glu_act, _build.stream())
 
 
-def _launch_ffma(c: _Call) -> None:
-    bn = 64 if c.w2 is not None else 128
+def _launch_ffma(c: _Call, bn: Optional[int] = None) -> None:
+    bn = bn or block_of("ffma", c.w2 is not None)[2]
     blocks = -(-c.M // FFMA_BM) * -(-c.N // bn)
     nsplit, kc = _wave_split(blocks, c.K, _sm_count(c.x.device))
     nw = 2 if c.w2 is not None else 1
@@ -362,7 +406,7 @@ def _launch_ffma(c: _Call) -> None:
     _build.call("matmul_ffma", _codes(c)[1], _build.ptr(c.x),
                 _build.ptr(c.w), _build.ptr(c.w2), _build.ptr(c.bias),
                 _build.ptr(ws), _build.ptr(c.out), c.M, c.K, c.N, kc, nsplit,
-                c.act, c.glu_act, _build.stream())
+                c.act, c.glu_act, bn, _build.stream())
 
 
 def _launch_ffma_small_m(c: _Call) -> None:
@@ -424,8 +468,10 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
                  vmem_accum: bool = True) -> torch.Tensor:
     """y = epilogue(x @ w [, x @ w2]); x (..., K), w and w2 (K, N), bias
     (N,).  Returns (..., N) in ``out_dtype`` (default ``x.dtype``).
-    ``tile`` is the plan's TPU tile: the CW schedules take their own; with
-    ``vmem_accum=False`` its K extent sets the slabs of the base variant."""
+    ``tile`` is the plan's Hopper tile (bm, bk, bn) of the CW schedules
+    (module docstring; None takes :data:`HOPPER_TILE`); with
+    ``vmem_accum=False`` it is the TPU tile whose K extent sets the base
+    variant's slabs, as in JAX."""
     if not vmem_accum and w2 is not None:
         raise ValueError("base (non-CW) kernel does not support the GLU "
                          "epilogue")
@@ -440,15 +486,23 @@ def matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
         matmul_fused.base_launches += 1
         matmul_fused.base_schedule_launches[sched] += 1
         return c.out.reshape(*lead, c.N)
-    sched = _schedule(c.M, c.K, c.N, c.x.dtype, w2 is not None, _aligned(c))
-    _LAUNCH[sched](c)
+    glu = w2 is not None
+    sched = _schedule(c.M, c.K, c.N, c.x.dtype, glu, _aligned(c))
+    block = block_of(sched, glu, tile)
+    _LAUNCH[sched](c, *(() if block is None else (block[2],)))
     matmul_fused.launches += 1
     matmul_fused.schedule_launches[sched] += 1
+    key = (sched, block)
+    matmul_fused.tiles[key] = matmul_fused.tiles.get(key, 0) + 1
+    if block is not None and block != block_of(sched, glu):
+        matmul_fused.retiled += 1
     return c.out.reshape(*lead, c.N)
 
 
 matmul_fused.launches = 0
 matmul_fused.schedule_launches = dict.fromkeys(SCHEDULES, 0)
+matmul_fused.tiles = {}
+matmul_fused.retiled = 0
 matmul_fused.base_launches = 0
 matmul_fused.base_schedule_launches = dict.fromkeys(SCHEDULES, 0)
 
@@ -462,8 +516,11 @@ def matmul_fused_fake(x: torch.Tensor, w: torch.Tensor, *,
     """:func:`matmul_fused`'s shape-only stand-in (the dry-run): the
     (..., N) output, unfilled, and its work counted in
     :data:`repro_torch.kernels._fake.COST`: 2 M K N operations a product
-    (two for the GLU pair)."""
+    (two for the GLU pair).  A CW tile none of the kernels takes raises,
+    as in the wrapper."""
     from repro_torch.kernels import _fake
+    if tile is not None and vmem_accum:
+        check_tile(tile)
     K, N = w.shape
     M = x.numel() // K
     out = x.new_empty(tuple(x.shape[:-1]) + (N,),

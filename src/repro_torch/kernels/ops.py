@@ -5,9 +5,11 @@ Each function calls the hand kernel's wrapper, which launches the CUDA
 kernel on a CUDA tensor (or raises) and runs its plain version on a CPU
 tensor.  ``interpret`` is the Pallas interpret mode of the JAX facade; a
 wrapper picks kernel or plain version by its operands' device, so it is
-accepted and changes nothing.  ``tile`` is the plan's TPU tile: only the
-base variant of ``matmul_fused`` (``vmem_accum=False``) reads it (its K
-extent is the slab depth); the other kernels pick their own schedules.
+accepted and changes nothing.  ``tile`` is the JAX facade's TPU tile: only
+the base variant of ``matmul_fused`` (``vmem_accum=False``) reads it (its K
+extent is the slab depth, by default (256, 512, 256)'s 512); the other
+kernels run their default Hopper tiles (a plan's Hopper tile reaches them
+through the registry).
 The op layer reaches the kernels through the registry
 (:func:`repro_torch.kernels.registry.plan_kernel`), not through here; the
 base variant has no op-layer caller and is reached through this facade,
@@ -24,7 +26,8 @@ from repro_torch.kernels import matmul_fused as _mm
 def matmul_fused(x, w, *, bias=None, w2=None, act=None, tile=None,
                  out_dtype=None, vmem_accum=True, interpret=False):
     return _mm.matmul_fused(
-        x, w, bias=bias, w2=w2, act=act, tile=tile or (256, 512, 256),
+        x, w, bias=bias, w2=w2, act=act,
+        tile=None if vmem_accum else tile or _mm.DEFAULT_TILE,
         out_dtype=out_dtype, vmem_accum=vmem_accum)
 
 
@@ -32,7 +35,7 @@ def flash_attention(q, k, v, positions=None, *, causal=True, window=None,
                     softcap=None, tile=None, q_offset=0, interpret=False):
     return _fa.flash_attention(
         q, k, v, positions=positions, causal=causal, window=window,
-        softcap=softcap, q_offset=q_offset, tile=tile)
+        softcap=softcap, q_offset=q_offset)
 
 
 def decode_attention(q, kc, vc, pos, qpos, *, window=None, softcap=None,
@@ -59,4 +62,4 @@ def copy_block(pool, src, dst, *, interpret=False):
 def conv2d_fused(x, w, *, stride=1, padding="SAME", bn=None, act=None,
                  tile=None, interpret=False):
     return _cv.conv2d_fused(x, w, stride=stride, padding=padding, bn=bn,
-                            act=act, tile=tile)
+                            act=act)

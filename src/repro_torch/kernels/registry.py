@@ -75,10 +75,12 @@ class KernelContract:
       predicate, ``(op_attrs, cfg) -> Optional[reason]``: a reason means
       dispatch will take the reference op (surfaced as K204);
     * ``tile_key`` / ``tile_candidates`` — the ``plan.tiles`` entry a
-      kernel takes its blocks from and ``(cfg, shape) -> tiles`` to search.
-      No hand kernel declares them: each picks its own schedule and ignores
-      ``plan.tiles``, so the serving autotune's ``tune_kernel_tiles`` finds
-      nothing to bench (ROADMAP Queue 1, "A Hopper tiling target")."""
+      kernel takes its blocks from (on a card plan the tiling pass's
+      Hopper target) and ``(cfg, shape, flow=None) -> tiles`` to search:
+      the Hopper tiles the kernel takes at the cell's shapes and the flow's
+      precision (bf16 without a flow), which the serving autotune's
+      ``tune_kernel_tiles`` benches through ``FlowConfig.tile_overrides``.
+      matmul declares its key without candidates, as in JAX."""
     workingset: Optional[Callable[[Any, Any],
                                   List[Tuple[str, str, int]]]] = None
     donation_safe: bool = True
@@ -312,17 +314,26 @@ def _lm_rows(plan) -> Tuple[int, ...]:
     return (sh.global_batch * sh.seq_len,)
 
 
+def _hopper_tile(plan, key: str):
+    """The plan's ``key`` tile where the kernels take it (a card plan: the
+    tiling pass's Hopper target); None (the kernels' default) on a CPU
+    plan, whose table is the TPU's and whose wrappers run their plain
+    versions."""
+    return plan.tiles.get(key) if plan.platform == "cuda" else None
+
+
 def _matmul_ws(op: str):
     """The working sets of the plan's ``op`` (``matmul`` or
     ``glu_matmul``) calls: (M, K, N) at each row count."""
     def calls(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
         from repro_torch.kernels import workingset as ws
         dt, out = plan.prec.compute_dtype, {}
+        tile = _hopper_tile(plan, "matmul")
         for mop in _mops(plan, op):
             K, N = mop.params[0].shape
             for M in _lm_rows(plan):
                 out[(M, K, N)] = ws.matmul(M, K, N, dt, op == "glu_matmul",
-                                           lib=lib)
+                                           lib=lib, tile=tile)
         return [(f"{M}x{K}x{N}", s, b) for (M, K, N), (s, b) in out.items()]
     return calls
 
@@ -332,7 +343,8 @@ def _attention_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
     a = plan.cfg.attention
     if a is None or not any(_mops(plan, "attention")):
         return []
-    s, b = ws.flash_attention(a.head_dim, plan.prec.compute_dtype, lib=lib)
+    s, b = ws.flash_attention(a.head_dim, plan.prec.compute_dtype, lib=lib,
+                              tile=_hopper_tile(plan, "attention"))
     return [(f"D={a.head_dim}", s, b)]
 
 
@@ -372,13 +384,14 @@ def _paged_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
 def _conv2d_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
     from repro_torch.kernels import workingset as ws
     dt, out = plan.prec.compute_dtype, {}
+    tile = _hopper_tile(plan, "conv2d")
     for mop in _mops(plan, "conv2d"):
         if _conv2d_reject(groups=mop.attrs.get("groups", 1)):
             continue
         kh, kw, CI, CO = mop.params[0].shape
         st = mop.attrs.get("stride", 1)
         out[(kh, kw, CI, CO, st)] = ws.conv2d(kh, kw, CI, CO, st, dt,
-                                              lib=lib)
+                                              lib=lib, tile=tile)
     return [(f"{kh}x{kw} s{st} {CI}->{CO}", s, b)
             for (kh, kw, CI, CO, st), (s, b) in out.items()]
 
@@ -395,6 +408,30 @@ def _lru_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
             for W, (s, b) in out.items()]
 
 
+def _attention_tile_candidates(cfg, shape, flow=None) -> Tuple[Any, ...]:
+    """The (bq, bk) tiles flash attention takes at the cfg's head width and
+    the flow's precision whose working set fits the 232,448 shared bytes a
+    block may opt in to (not (128, 64) in fp32 at head width 256); none at
+    the ``simt`` widths, which take no tile, or without attention."""
+    from repro_torch.core.passes.tiling import compute_dtype
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import workingset as ws
+    a = cfg.attention
+    if a is None or a.head_dim not in ka.TILED_HEAD_DIMS:
+        return ()
+    dt = compute_dtype(flow)
+    return tuple(t for t in ka.TILES
+                 if ws.flash_attention(a.head_dim, dt, tile=t)[1]
+                 <= ws.BLOCK_SHARED)
+
+
+def _conv2d_tile_candidates(cfg, shape, flow=None) -> Tuple[Any, ...]:
+    """The (bm, bn) tiles the conv kernels take; none for a model without
+    a conv (the overrides would time a program that never reads them)."""
+    from repro_torch.kernels import conv2d as kc
+    return kc.TILES if cfg.family == "cnn" else ()
+
+
 def _register_builtin():
     from repro_torch.kernels.attention import (flash_attention,
                                                flash_attention_fake)
@@ -408,18 +445,22 @@ def _register_builtin():
                                                   matmul_fused_fake)
 
     REGISTRY.register("matmul", "cuda", matmul_fused, rejects=_matmul_reject,
-                      contract=KernelContract(workingset=_matmul_ws("matmul")),
+                      contract=KernelContract(workingset=_matmul_ws("matmul"),
+                                              tile_key="matmul"),
                       fake=matmul_fused_fake)
     REGISTRY.register(
         "glu_matmul", "cuda", matmul_fused, rejects=_matmul_reject,
-        contract=KernelContract(workingset=_matmul_ws("glu_matmul")),
+        contract=KernelContract(workingset=_matmul_ws("glu_matmul"),
+                                tile_key="matmul"),
         fake=matmul_fused_fake)
     REGISTRY.register(
         "attention", "cuda", flash_attention, rejects=_attention_reject,
         contract=KernelContract(
             workingset=_attention_ws,
             static_reject=lambda attrs, cfg: _attention_reject(
-                window=attrs.get("window"), cross=attrs.get("cross", False))),
+                window=attrs.get("window"), cross=attrs.get("cross", False)),
+            tile_key="attention",
+            tile_candidates=_attention_tile_candidates),
         fake=flash_attention_fake)
     REGISTRY.register("decode_attention", "cuda", decode_attention,
                       contract=KernelContract(workingset=_decode_ws),
@@ -448,7 +489,8 @@ def _register_builtin():
         contract=KernelContract(
             workingset=_conv2d_ws,
             static_reject=lambda attrs, cfg:
-                _conv2d_reject(groups=attrs.get("groups", 1))),
+                _conv2d_reject(groups=attrs.get("groups", 1)),
+            tile_key="conv2d", tile_candidates=_conv2d_tile_candidates),
         fake=conv2d_fused_fake)
     REGISTRY.register("rg_lru", "cuda", lru_scan,
                       contract=KernelContract(workingset=_lru_ws),

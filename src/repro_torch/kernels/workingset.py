@@ -17,6 +17,10 @@ reads the bytes from the library instead: each source exports one
 ``*_smem`` query built on the expression its launch uses, so
 ``chip_smoke.py`` holds the mirror to the bytes the real launches ask for
 at every card plan's calls.  Every function returns ``(schedule, bytes)``.
+The functions of the three kernels that take a Hopper tile (matmul, conv2d,
+flash_attention) count their bytes at ``tile`` (the plan's; None: the
+kernel's default), as the launch would run it; a tile no kernel takes
+raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -61,27 +65,31 @@ def _ffma_tile(bn: int, nacc: int) -> int:
 
 
 def matmul(M: int, K: int, N: int, dtype: torch.dtype, glu: bool,
-           aligned: bool = True, lib: Any = None) -> Tuple[str, int]:
+           aligned: bool = True, lib: Any = None,
+           tile=None) -> Tuple[str, int]:
     """matmul_fused's schedule and shared bytes for an (M, K) x (K, N)
-    product (``glu``: the w / w2 pair)."""
-    from repro_torch.kernels.matmul_fused import _schedule
+    product (``glu``: the w / w2 pair) at the Hopper ``tile``."""
+    from repro_torch.kernels.matmul_fused import _schedule, block_of
     s = _schedule(M, K, N, dtype, glu, aligned)
     nw = 2 if glu else 1
+    block = block_of(s, glu, tile)
     if s == "wgmma":
         # csrc/matmul_wgmma.cu smem_bytes<BN, NACC, STAGES>: 3 stages of a
-        # 128 x 64 A box and NACC * BN / 64 64 x 64 w boxes (BN 128 plain,
-        # 64 for the pair), 1024 of alignment, two mbarriers a stage
-        boxes = (128 // 64) if not glu else 2 * (64 // 64)
-        return _pick(s, 3 * (128 * 64 * 2 + boxes * 64 * 64 * 2) + 1024
-                     + 2 * 3 * 8, lib, "matmul_wgmma_smem", nw - 1)
+        # 128 x 64 A box and NACC * BN / 64 64 x 64 w boxes (BN the
+        # block's, 64 for the pair), 1024 of alignment, two mbarriers a
+        # stage
+        bn = block[2]
+        return _pick(s, 3 * (128 * 64 * 2 + nw * (bn // 64) * 64 * 64 * 2)
+                     + 1024 + 2 * 3 * 8, lib, "matmul_wgmma_smem", nw - 1,
+                     bn)
     if s == "small_m":
         # csrc/matmul_small_m.cu partial_smem<MT, NW>: MT = ceil(M / 16)
         mt = (M + 15) // 16
         return _pick(s, 4 * (nw * 32 * (128 + 8) + 16 * mt * (32 + 8)) * 2,
                      lib, "matmul_small_m_smem", M, nw - 1)
     if s == "ffma":
-        return _pick(s, _ffma_tile(64, 2) if glu else _ffma_tile(128, 1),
-                     lib, "matmul_ffma_smem", nw - 1)
+        return _pick(s, _ffma_tile(block[2], nw), lib, "matmul_ffma_smem",
+                     nw - 1, block[2])
     if s == "ffma_small_m":
         # csrc/matmul_small_m.cu FSmall<MT, NW>: MT 1, 2, 4 or 8 (M <= 8 MT)
         mt = next(m for m in (1, 2, 4, 8) if M <= 8 * m)
@@ -95,21 +103,22 @@ def matmul(M: int, K: int, N: int, dtype: torch.dtype, glu: bool,
 
 def conv2d(kh: int, kw: int, CI: int, CO: int, stride: int,
            dtype: torch.dtype, aligned: bool = True,
-           lib: Any = None) -> Tuple[str, int]:
+           lib: Any = None, tile=None) -> Tuple[str, int]:
     """conv2d_fused's schedule and shared bytes for a (kh, kw, CI, CO)
-    filter at ``stride``."""
-    from repro_torch.kernels.conv2d import _schedule
+    filter at ``stride`` and the Hopper ``tile``."""
+    from repro_torch.kernels.conv2d import _schedule, block_of
     s = _schedule(CI, CO, dtype, aligned, kernel=(kh, kw, stride))
+    block = block_of(s, CO, tile)
     K = kh * kw * CI
     if s == "wgmma":
         # csrc/conv2d_wgmma.cu smem_bytes<BN>: 3 stages of a 128 x 64 A box
-        # and BN / 64 w boxes (BN 64 when CO is 64, else 128), + 1024
-        bn = 64 if CO == 64 else 128
+        # and BN / 64 w boxes (BN the block's), + 1024
+        bn = block[1]
         return _pick(s, 3 * (128 * 64 * 2 + (bn // 64) * 64 * 64 * 2) + 1024,
-                     lib, "conv2d_wgmma_smem", CO)
+                     lib, "conv2d_wgmma_smem", bn)
     if s == "ffma":
-        return _pick(s, _ffma_tile(64 if CO == 64 else 128, 1), lib,
-                     "conv2d_ffma_smem", CO)
+        return _pick(s, _ffma_tile(block[1], 1), lib, "conv2d_ffma_smem",
+                     block[1])
     cols = 3 * 64 * 4                  # rt::EpilogueCols<64>: f, mean, bias
     if s == "mid_ci":
         # csrc/conv2d_mid_ci.cu smem_bytes(KP): the w strip, the 3-slot
@@ -136,27 +145,33 @@ def conv2d(kh: int, kw: int, CI: int, CO: int, stride: int,
 
 
 def flash_attention(D: int, dtype: torch.dtype,
-                    lib: Any = None) -> Tuple[str, int]:
-    """flash_attention's schedule and shared bytes at head width D."""
-    from repro_torch.kernels.attention import _ffma_smem_bytes, _schedule
+                    lib: Any = None, tile=None) -> Tuple[str, int]:
+    """flash_attention's schedule and shared bytes at head width D and the
+    Hopper ``tile`` (bq, bk).  The mirror counts a tile the ``ffma`` kernel
+    does not take for its size (the static verifier's K202 refuses it); the
+    library refuses it."""
+    from repro_torch.kernels.attention import (_ffma_smem_bytes, _schedule,
+                                               check_tile, default_tile)
     s = _schedule(dtype, D)
+    bq = (default_tile(dtype, D) if tile is None else check_tile(tile))[0]
     if s == "wgmma":
-        # csrc/flash_attention_wgmma.cu smem_bytes<D>: 1024 of alignment,
-        # Q's D / 64 boxes of 128 x 64, STAGES of K and V boxes (64 keys)
-        # and their key positions, the mbarriers and pad flags
+        # csrc/flash_attention_wgmma.cu smem_bytes<D, BQ>: 1024 of
+        # alignment, Q's D / 64 boxes of BQ x 64, STAGES of K and V boxes
+        # (64 keys) and their key positions, the mbarriers and pad flags
         stages = {64: 4, 128: 3, 256: 2}[D]
-        q = (D // 64) * 128 * 128
+        q = (D // 64) * bq * 128
         stage = 2 * (D // 64) * 64 * 128
         return _pick(s, (1024 + q + stages * (stage + 64 * 4)
                          + (1 + 2 * stages) * 8 + stages * 4),
-                     lib, "flash_attention_wgmma_smem", D)
+                     lib, "flash_attention_wgmma_smem", D, bq)
     if s == "ffma":
         if lib is None:
-            return s, _ffma_smem_bytes(D)
+            return s, _ffma_smem_bytes(D, bq)
         # csrc/flash_attention_ffma.cu: the tiles' fifth entry
         tiles = (ctypes.c_int * 5)()
-        if lib.flash_attention_ffma_tiles(D, tiles) != 0:
-            raise ValueError(f"flash_attention_ffma_tiles({D}): no such width")
+        if lib.flash_attention_ffma_tiles(D, bq, tiles) != 0:
+            raise ValueError(f"flash_attention_ffma_tiles({D}, {bq}): no "
+                             "such shape")
         return s, int(tiles[4])
     # csrc/flash_attention.cu smem_bytes<D>: Qs, Ks, Vs, Ps and key positions
     return _pick(s, (D * 68 + D * 68 + 64 * D + 64 * 68) * 4 + 64 * 4, lib,

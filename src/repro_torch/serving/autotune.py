@@ -703,17 +703,19 @@ def tune_kernel_tiles(cfg: ModelConfig, profile: ServingProfile, *,
                       device: DeviceLike = None
                       ) -> Tuple[Tuple[Tuple[str, Any], ...],
                                  Dict[str, float]]:
-    """Search *below* the plan level: per-kernel tile schedules declared via
-    :attr:`KernelContract.tile_candidates`.  Each candidate tile would be
-    pinned through ``FlowConfig.tile_overrides``, the cell compiled and
-    timed, and the fastest tile per ``tile_key`` kept.
+    """Search *below* the plan level: per-kernel Hopper tiles declared via
+    :attr:`KernelContract.tile_candidates` (flash attention's (bq, bk) at
+    the cell's head width and the flow's precision, the conv's (bm, bn)).
+    Each candidate tile is pinned through ``FlowConfig.tile_overrides``
+    (the tiling pass applies it on top of its Hopper target), the cell is
+    compiled for ``device`` and timed with ``cm.measure``, and the fastest
+    tile per ``tile_key`` wins.
 
-    No hand kernel declares candidates: each picks its own schedule with
-    ``_schedule`` and ignores ``plan.tiles``, so there is nothing to bench
-    and this returns ``((), {})`` on every device, as the JAX package does
-    off the TPU.  The outcome is still banked through ``db``.  The search
-    comes back when the kernels accept a tile (ROADMAP Queue 1, "A Hopper
-    tiling target")."""
+    Only ops the registry resolves to the ``cuda`` backend on ``device``
+    are benched: the plain versions are tile-invariant, so on the CPU there
+    is nothing to measure and the selector's tiles stand (``((), {})``, as
+    the JAX package returns off the TPU).  Winners are banked and served
+    again through ``db`` like every other microbench."""
     from repro_torch import flow as tflow
     from repro_torch.kernels.registry import REGISTRY
     dev = resolve_device(device)
@@ -745,7 +747,7 @@ def tune_kernel_tiles(cfg: ModelConfig, profile: ServingProfile, *,
         shape = decode_shape if "decode" in contract.tile_key \
             else prefill_shape
         best_tile, best_t = None, float("inf")
-        for tile in contract.tile_candidates(cfg, shape):
+        for tile in contract.tile_candidates(cfg, shape, flow0):
             f = dataclasses.replace(
                 flow0, tile_overrides=((contract.tile_key, tile),))
             sp = TRACER.timed("autotune.kernel_tiles", cat="autotune",

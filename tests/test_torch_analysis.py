@@ -424,10 +424,10 @@ class _FakeLibrary:
 
 
 @pytest.mark.parametrize("fn,args,query,qargs", [
-    (ws.matmul, (4096, 2048, 2048, BF, False), "matmul_wgmma_smem", (0,)),
-    (ws.matmul, (4096, 2048, 8192, BF, True), "matmul_wgmma_smem", (1,)),
+    (ws.matmul, (4096, 2048, 2048, BF, False), "matmul_wgmma_smem", (0, 128)),
+    (ws.matmul, (4096, 2048, 8192, BF, True), "matmul_wgmma_smem", (1, 64)),
     (ws.matmul, (40, 2048, 2048, BF, False), "matmul_small_m_smem", (40, 0)),
-    (ws.matmul, (4096, 2048, 2048, F32, True), "matmul_ffma_smem", (1,)),
+    (ws.matmul, (4096, 2048, 2048, F32, True), "matmul_ffma_smem", (1, 64)),
     (ws.matmul, (8, 2048, 2048, F32, False), "matmul_ffma_small_m_smem",
      (8, 0)),
     (ws.matmul, (8, 84, 10, BF, False), "matmul_simt_smem", (0,)),
@@ -436,7 +436,8 @@ class _FakeLibrary:
     (ws.conv2d, (1, 1, 32, 64, 1, BF), "conv2d_mid_ci_smem", (32, 1, 1)),
     (ws.conv2d, (7, 7, 3, 64, 2, F32), "conv2d_small_ci_smem",
      (0, 3, 7, 7, 2)),
-    (ws.flash_attention, (128, BF), "flash_attention_wgmma_smem", (128,)),
+    (ws.flash_attention, (128, BF), "flash_attention_wgmma_smem",
+     (128, 128)),
     (ws.flash_attention, (32, F32), "flash_attention_simt_smem", (32,)),
     (ws.decode_attention, (64, 4, BF, 8, 1024, 8), "decode_core_smem",
      None),
@@ -466,10 +467,12 @@ def test_workingset_asks_the_library_for_each_schedule(fn, args, query,
 
 def test_flash_ffma_bytes_read_the_tiles_query():
     class Lib:
-        def flash_attention_ffma_tiles(self, D, tiles):
-            tiles[4] = 7 * D
+        def flash_attention_ffma_tiles(self, D, bq, tiles):
+            tiles[4] = 7 * D + bq
             return 0
-    assert ws.flash_attention(128, F32, lib=Lib()) == ("ffma", 896)
+    assert ws.flash_attention(128, F32, lib=Lib()) == ("ffma", 1024)
+    assert ws.flash_attention(128, F32, lib=Lib(), tile=(64, 64)) == \
+        ("ffma", 960)
 
 
 # ---------------------------------------------------------------------------

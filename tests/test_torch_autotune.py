@@ -12,7 +12,8 @@ import sys
 import pytest
 
 from repro_torch import tunedb
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs.base import FlowConfig, ShapeConfig
 from repro_torch.core import dse
 from repro_torch.serving import autotune
 from repro_torch.serving.autotune import ServingProfile, autotune_decode
@@ -144,14 +145,31 @@ def test_five_tuners_same_winners_on_fake_clock(monkeypatch):
 
 
 def test_kernel_tiles_find_nothing_to_bench(tmp_path):
-    """No hand kernel takes a plan tile: ``((), {})`` on every device, and
-    the outcome is banked."""
+    """On the CPU the plain versions are tile-invariant: ``((), {})``, as
+    JAX returns off the TPU, and the outcome is banked.  The contracts the
+    card's search benches are declared: flash attention's Hopper tiles at
+    llama3.2-1b's head width (both in bf16 and fp32), the conv's for a CNN
+    only, matmul's key without candidates."""
+    from repro_torch.kernels.registry import REGISTRY
     path = str(tmp_path / "tune.jsonl")
     ov, times = autotune.tune_kernel_tiles(
         get_smoke("llama3.2-1b"), ServingProfile(**PROF), db=path,
         device="cpu")
     assert ov == () and times == {}
     assert tunedb.TuneDB(path).records("serving")
+    att = REGISTRY.get("attention", "cuda").contract
+    conv = REGISTRY.get("conv2d", "cuda").contract
+    cfg, sh = get_config("llama3.2-1b"), ShapeConfig("s", "prefill", 1024, 8)
+    assert att.tile_key == "attention"
+    for prec in ("bf16", "fp32"):
+        assert att.tile_candidates(cfg, sh, FlowConfig(precision=prec)) == \
+            ((64, 64), (128, 64))
+    assert conv.tile_key == "conv2d" and conv.tile_candidates(cfg, sh) == ()
+    assert conv.tile_candidates(get_config("resnet34"), sh) == \
+        ((128, 64), (128, 128))
+    for op in ("matmul", "glu_matmul"):
+        c = REGISTRY.get(op, "cuda").contract
+        assert c.tile_key == "matmul" and c.tile_candidates is None
 
 
 def test_profile_rules_raise_the_jax_messages():

@@ -117,7 +117,12 @@ def test_h100_preset():
         estimator.attention_flops(cfg, shape) * 4 / 3
     untiled = estimator.estimate_step_seconds(
         cfg, shape, FlowConfig(tile_select=False), device="h100")
-    assert untiled == bf          # the hand kernels ignore plan.tiles
+    # the base flow's minimal Hopper tiles re-read A twice as often: 1.5x
+    # the bytes (estimator.DEVICE_PRESETS["h100"]["plan_tiles"])
+    assert p["plan_tiles"] == 1.5
+    assert untiled["memory_s"] == pytest.approx(bf["memory_s"] * 1.5,
+                                                rel=1e-12)
+    assert untiled["compute_s"] == bf["compute_s"]
     assert fp["bound"] == "compute"
     assert fp["compute_s"] == pytest.approx(flops / 67e12, rel=1e-12)
     assert bf["compute_s"] == pytest.approx(flops / 989e12, rel=1e-12)
@@ -262,24 +267,29 @@ def test_explore_cache_keys_on_backend_and_device(monkeypatch):
 @pytest.mark.parametrize("kind", list(SHAPES))
 @pytest.mark.parametrize("name", ["llama3.2-1b", "resnet34"])
 def test_card_space_leaves_out_the_tile_knobs(name, kind):
-    """On the card no hand kernel reads plan.tiles, so the space drops the
-    tiling pass's knobs and keeps the rest of the CPU's (a cuda
-    torch.device needs no card); every candidate keeps the base flow's
-    tile_select and vmem_budget_bytes."""
+    """On the card the hand kernels take their blocks from plan.tiles, so
+    the space keeps ``tile_select`` (selected or minimal Hopper tiles) and
+    drops only ``vmem_budget_bytes`` (:data:`dse.TILE_KNOBS`: its allowance
+    never binds below the 227 KiB a block may opt in to); the rest is the
+    CPU's (a cuda torch.device needs no card).  Every candidate keeps the
+    base flow's vmem_budget_bytes, and both tile_select values are
+    searched."""
     cfg = get_smoke(name)
     sh = ShapeConfig(*SHAPES[kind]) if cfg.family != "cnn" \
         else ShapeConfig(*CNN_SERVE)
     base = FlowConfig(mode="folded", vmem_budget_bytes=64 * 2 ** 20)
     cpu = dse.tunable_space(cfg, base, sh, "cpu")
     card = dse.tunable_space(cfg, base, sh, torch.device("cuda"))
+    assert dse.TILE_KNOBS == ("vmem_budget_bytes",)
     assert set(dse.TILE_KNOBS) <= set(cpu)
     assert not set(dse.TILE_KNOBS) & set(card)
+    assert card["tile_select"] == cpu["tile_select"] == (True, False)
     assert card == {k: v for k, v in cpu.items() if k not in dse.TILE_KNOBS}
     assert dse.tunable_space(cfg, base, sh) == card      # the card's default
     cands = dse.enumerate_candidates(cfg, sh, base, device="cuda")
     assert len({f for f, _ in cands}) == len(cands)
     assert {(f.tile_select, f.vmem_budget_bytes) for f, _ in cands} == \
-        {(True, 64 * 2 ** 20)}
+        {(True, 64 * 2 ** 20), (False, 64 * 2 ** 20)}
 
 
 def test_kernel_backend_is_a_tunable_dimension():

@@ -736,17 +736,126 @@ def test_flash_attention_ffma_repeats_its_bits(card, D):
 
 
 def test_flash_attention_ffma_tiles(card):
-    """The kernel's tiles and shared bytes per head width are those the
-    wrapper's table states (``FFMA_TILES``, ``_ffma_smem_bytes``)."""
+    """The kernel's tiles and shared bytes per head width and query rows
+    are those the wrapper's tables state (``FFMA_TILES`` by default,
+    ``FFMA_RING``, ``_ffma_smem_bytes``); it refuses the rest."""
     import ctypes
     from repro_torch.kernels import _build
     for D in ka.TILED_HEAD_DIMS:
         got = (ctypes.c_int * 5)()
-        _build.call("flash_attention_ffma_tiles", D, ctypes.addressof(got))
+        _build.call("flash_attention_ffma_tiles", D, ka.FFMA_TILES[D][0],
+                    ctypes.addressof(got))
         assert tuple(got) == (*ka.FFMA_TILES[D], ka._ffma_smem_bytes(D))
-    with pytest.raises(RuntimeError, match="cudaError_t"):
-        _build.call("flash_attention_ffma_tiles", 32,
-                    ctypes.addressof((ctypes.c_int * 5)()))
+    for (D, bq), (slots, blocks) in ka.FFMA_RING.items():
+        got = (ctypes.c_int * 5)()
+        _build.call("flash_attention_ffma_tiles", D, bq,
+                    ctypes.addressof(got))
+        assert tuple(got) == (bq, 64, slots, blocks,
+                              ka._ffma_smem_bytes(D, bq))
+    for D, bq in ((32, 64), (256, 128), (64, 96)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            _build.call("flash_attention_ffma_tiles", D, bq,
+                        ctypes.addressof((ctypes.c_int * 5)()))
+
+
+# flash_attention at every Hopper tile: (B, Sq, Skv, H, KV, window,
+# q_offset) cutting the 64- and 128-row blocks, GQA, a window and an offset
+FLASH_TILED = {"ragged_gqa": (2, 200, 200, 8, 2, None, 0),
+               "window": (2, 300, 300, 4, 1, 90, 0),
+               "q_offset": (2, 70, 200, 4, 2, None, 130)}
+
+
+@pytest.mark.parametrize("tile", ka.TILES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("D", ka.TILED_HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(FLASH_TILED))
+def test_flash_attention_at_each_tile(card, case, D, dt, tile):
+    """wgmma (bf16) and ffma (fp32) at each tile they take, against the
+    plain version, counted under the tile; ffma refuses (128, 64) at D 256
+    before any launch."""
+    B, Sq, Skv, H, KV, window, off = FLASH_TILED[case]
+    dtype = DTYPES[dt]
+    q = _randn(card, B, Sq, H, D, dt=dtype)
+    k = _randn(card, B, Skv, KV, D, dt=dtype)
+    v = _randn(card, B, Skv, KV, D, dt=dtype)
+    sched = ka._schedule(dtype, D)
+    n0 = ka.flash_attention.launches
+    if sched == "ffma" and (D, tile[0]) not in ka.FFMA_RING:
+        with pytest.raises(ValueError, match="takes no tile"):
+            ka.flash_attention(q, k, v, window=window, q_offset=off,
+                               tile=tile)
+        assert ka.flash_attention.launches == n0
+        return
+    t0 = ka.flash_attention.tiles.get((sched, tile), 0)
+    y = ka.flash_attention(q, k, v, window=window, q_offset=off, tile=tile)
+    p = ka.flash_attention_plain(q, k, v, window=window, q_offset=off)
+    assert _rel(y, p) < TOL[dt]
+    assert ka.flash_attention.tiles[(sched, tile)] == t0 + 1
+
+
+# conv2d_fused at every Hopper tile: (N, H, CI, CO, k, stride), a conv of 64
+# output channels (bn 64 under either tile) among them
+CONV_TILED = {"c64": (2, 14, 64, 64, 3, 1), "c128s2": (2, 15, 64, 128, 3, 2),
+              "c192": (2, 9, 128, 192, 3, 1), "p1x1": (3, 7, 128, 256, 1, 1)}
+
+
+@pytest.mark.parametrize("tile", kc.TILES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CONV_TILED))
+def test_conv2d_at_each_tile(card, case, dt, tile):
+    N, H, CI, CO, kk, s = CONV_TILED[case]
+    dtype = DTYPES[dt]
+    x = _randn(card, N, H, H, CI, dt=dtype)
+    w = (_randn(card, kk, kk, CI, CO) * (kk * kk * CI) ** -0.5).to(dtype)
+    bn = [torch.rand(CO, device="cuda") + 0.5 for _ in range(4)]
+    sched = kc._schedule(CI, CO, dtype, True, (kk, kk, s))
+    assert sched == ("wgmma" if dt == "bf16" else "ffma")
+    block = kc.block_of(sched, CO, tile)
+    t0 = kc.conv2d_fused.tiles.get((sched, block), 0)
+    y = kc.conv2d_fused(x, w, stride=s, bn=bn, act="relu", tile=tile)
+    p = kc.conv2d_fused_plain(x, w, stride=s, bn=bn, act="relu")
+    assert _rel(y, p) < TOL[dt]
+    assert kc.conv2d_fused.tiles[(sched, block)] == t0 + 1
+    assert block == ((128, 64) if CO == 64 else tile)
+
+
+@pytest.mark.parametrize("tile", km.TILES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("M,K,N,glu", [(300, 512, 520, False),
+                                       (4096, 2048, 2048, False),
+                                       (200, 256, 384, True)])
+def test_matmul_at_each_tile(card, M, K, N, glu, dt, tile):
+    dtype = DTYPES[dt]
+    x = _randn(card, M, K, dt=dtype)
+    w = (_randn(card, K, N) * K ** -0.5).to(dtype)
+    w2 = (_randn(card, K, N) * K ** -0.5).to(dtype) if glu else None
+    b = None if glu else _randn(card, N) * 0.1
+    sched = km._schedule(M, K, N, dtype, glu, True)
+    assert sched == ("wgmma" if dt == "bf16" else "ffma")
+    block = km.block_of(sched, glu, tile)
+    t0 = km.matmul_fused.tiles.get((sched, block), 0)
+    y = km.matmul_fused(x, w, bias=b, w2=w2, act="gelu", tile=tile)
+    p = km.matmul_fused_plain(x, w, bias=b, w2=w2, act="gelu")
+    assert _rel(y, p) < TOL[dt]
+    assert km.matmul_fused.tiles[(sched, block)] == t0 + 1
+
+
+def test_a_tile_no_kernel_takes_raises(card):
+    """A TPU tile reaching a hand kernel raises at dispatch; no block is
+    put in its place and nothing launches."""
+    x = _randn(card, 256, 128, dt=torch.bfloat16)
+    w = _randn(card, 128, 128, dt=torch.bfloat16)
+    n0 = km.matmul_fused.launches
+    with pytest.raises(ValueError, match="no kernel takes the tile"):
+        km.matmul_fused(x, w, tile=(256, 512, 256))
+    q = _randn(card, 1, 64, 2, 64, dt=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel takes the tile"):
+        ka.flash_attention(q, q, q, tile=(128, 128))
+    xi = _randn(card, 1, 8, 8, 64, dt=torch.bfloat16)
+    wi = _randn(card, 3, 3, 64, 64, dt=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel takes the tile"):
+        kc.conv2d_fused(xi, wi, tile=(8, 128))
+    assert km.matmul_fused.launches == n0
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))

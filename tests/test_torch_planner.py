@@ -61,15 +61,23 @@ def test_plan_stats_match_jax(arch, variant):
 
 
 def test_cuda_platform_plan_differs_only_in_kernels():
-    """A plan built for the card resolves ``auto`` by the card's capability;
-    the rest of the plan does not depend on the platform."""
+    """A plan built for the card resolves ``auto`` by the card's capability
+    and takes the tiling pass's Hopper target for the tiles the hand
+    kernels read (matmul, attention, conv2d); the rest of the plan does not
+    depend on the platform."""
     from repro_torch.core.plan import _build_plan
     from repro_torch.device import hopper_ok
     cfg, shape = get_config("resnet34"), ShapeConfig("bench", "prefill", 64, 8)
     cpu = _build_plan(cfg, FlowConfig(mode="auto"), shape, platform="cpu")
     gpu = _build_plan(cfg, FlowConfig(mode="auto"), shape, platform="cuda")
     assert gpu.platform == "cuda" and cpu.platform == "cpu"
-    assert _without_kernels(gpu.describe()) == _without_kernels(cpu.describe())
+    hopper = {"matmul": (128, 64, 128), "conv2d": (128, 128)}
+    assert gpu.tiles == {**cpu.tiles, **hopper}
+
+    def without_tiles(text):
+        return [ln for ln in _without_kernels(text)
+                if not ln.lstrip().startswith("tiles:")]
+    assert without_tiles(gpu.describe()) == without_tiles(cpu.describe())
     want = "cuda" if hopper_ok() else "ref"
     assert gpu.kernels["conv2d"] == gpu.kernels["matmul"] == want
     assert gpu.kernels["depthwise_conv2d"] == "ref"

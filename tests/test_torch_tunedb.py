@@ -375,10 +375,17 @@ def test_tile_overrides_applied_by_tiling_pass():
 
 
 def test_no_hand_kernel_declares_tile_candidates():
+    """Only the kernels that take a Hopper tile declare candidates to tune
+    (flash attention and the conv); no other hand kernel does, matmul
+    declares its tile key without candidates, as in JAX."""
     from repro_torch.kernels.registry import REGISTRY
+    tuned = set()
     for op in REGISTRY.accelerated_ops():
         c = REGISTRY.get(op, "cuda").contract
-        assert c is not None and c.tile_candidates is None, op
+        assert c is not None, op
+        if c.tile_candidates is not None:
+            tuned.add(op)
+    assert tuned == {"attention", "conv2d"}
 
 
 # ---------------------------------------------------------------------------
