@@ -334,11 +334,33 @@ Phases, each raising on failure:
    banked, a second call a hit that compiles nothing, and the pinned
    flow's bf16 prefill logits within 5e-2 of the ``reference`` backend's
    and its fp32 greedy tokens (8 steps) identical to them.
+23. graphs — the stages on captured CUDA graphs (``repro_torch.flow.
+   graphs``), each beside its eager run under ``flow.disable_graphs()``
+   in the same call, every launch count equal: full-width llama3.2-1b
+   (bf16 drawn, fp32 widened): 4 teacher-forced decode steps' logits bit
+   for bit, ``measure("decode")`` in turns (eager, graph, graph, eager)
+   and in bf16 the graph's busy share, ``generate_fori`` (tokens equal to
+   the eager run's), in bf16 ``generate`` of 32 steps (tokens identical
+   to eager and to ``generate_fori``) and ``decode_segment`` at
+   temperature 1.0 on admitted chains against the host loop (tokens
+   identical); ``Engine.run`` on workloads A and D in fp32 (tokens
+   identical to eager and to the ``reference`` backend's, tokens/s and
+   ms a tick); ResNet-34's opt forward in bf16 and fp32 (logits bit for
+   bit, ms in turns); the graphs captured, the capture seconds and the
+   pool's bytes.
+
+Phases 5-22 run the stages on graphs wherever the port puts them (the
+decode stage, generate_fori, decode segments, a CNN's forward; an LM
+prefill eagerly); phases 20-21, on a mesh, run eagerly, and so do the
+runs that record or force MoE routing through a Python hook (phase 17's
+``_routed``, ``_forced`` and workload A's capacity drops), under
+``disable_graphs()``. A replay adds the launch counts its capture
+recorded, so every launch check reads as on the eager run.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19, then 20, 21 and 22. Every path phase on a default flow also holds
-every launch of the three tiled kernels to its default tile (the block
+and 19, then 20, 21 and 22, then 23. Every path phase on a default flow
+also holds every launch of the three tiled kernels to its default tile (the block
 each took before it took a plan tile: ``retiled`` is 0); the base flow
 and the tuned flows to the blocks their plan's tiles give. Every path phase also reads
 matmul_fused's launches by schedule: the LM prefills on ``wgmma`` (``ffma`` in fp32) and the decode
@@ -439,45 +461,21 @@ def log(msg: str) -> None:
 
 
 def counters():
-    """The launch counts of the seven kernel wrappers."""
-    from repro_torch.kernels import attention as ka
-    from repro_torch.kernels import conv2d as kc
-    from repro_torch.kernels import decode_attention as kd
-    from repro_torch.kernels import lru_scan as kl
-    from repro_torch.kernels import matmul_fused as km
-    return {"conv2d_fused": kc.conv2d_fused, "matmul_fused": km.matmul_fused,
-            "flash_attention": ka.flash_attention,
-            "decode_attention": kd.decode_attention,
-            "paged_decode_attention": kd.paged_decode_attention,
-            "copy_block": kd.copy_block, "lru_scan": kl.lru_scan}
+    """The kernel wrappers by name (their launch counters are attributes:
+    ``repro_torch.kernels.registry.COUNTER_ATTRS``)."""
+    from repro_torch.kernels import registry
+    return registry.kernel_wrappers()
 
 
 def reset_counts() -> None:
-    """Every launch count to 0: the seven wrappers', matmul_fused's,
-    conv2d_fused's, flash_attention's, decode_attention's,
-    paged_decode_attention's and lru_scan's splits by schedule, lru_scan's
-    by shape, the base variant's, and the three tiled kernels' splits by
-    (schedule, tile) and launches off their default tile."""
-    from repro_torch.kernels import attention as ka
-    from repro_torch.kernels import conv2d as kc
-    from repro_torch.kernels import decode_attention as kd
-    from repro_torch.kernels import lru_scan as kl
-    from repro_torch.kernels import matmul_fused as km
+    """Every launch count to 0 (``registry.reset_counts``): the seven
+    wrappers', their splits by schedule, lru_scan's by shape, the base
+    variant's, and the three tiled kernels' splits by (schedule, tile) and
+    launches off their default tile.  A stage replayed from a CUDA graph
+    adds the counts its capture recorded, so they read as the eager run's."""
+    from repro_torch.kernels import registry
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
-    km.matmul_fused.schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
-    kc.conv2d_fused.schedule_launches = dict.fromkeys(kc.SCHEDULES, 0)
-    km.matmul_fused.base_launches = 0
-    km.matmul_fused.base_schedule_launches = dict.fromkeys(km.SCHEDULES, 0)
-    kl.lru_scan.schedules = dict.fromkeys(kl.SCHEDULES, 0)
-    kl.lru_scan.shapes = {}
-    ka.flash_attention.schedules = dict.fromkeys(ka.SCHEDULES, 0)
-    kd.decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
-    kd.paged_decode_attention.schedules = dict.fromkeys(kd.SCHEDULES, 0)
-    for fn in (km.matmul_fused, kc.conv2d_fused, ka.flash_attention):
-        fn.tiles = {}
-        fn.retiled = 0
+    registry.reset_counts()
 
 
 # the kernels that take a Hopper tile (plan.tiles: matmul, conv2d,
@@ -2200,10 +2198,14 @@ def _serve_record(eng, rep):
 
 
 def _segment_is_host_free(cm, params):
-    """A decode segment at the serving shape queues its 8 ticks without a
-    device-to-host read: run it with PyTorch's sync debug mode set to
-    raise on any synchronising call."""
+    """A decode segment at the serving shape (its 8 ticks), generate_fori
+    (32 tokens after a 512-token prompt) and the decode stage of one
+    engine tick (the tick's own read-back of its tokens aside) queue their
+    work without a device-to-host read: each runs once (the warm-up and
+    the capture of its graph), then again with PyTorch's sync debug mode
+    set to raise on any synchronising call."""
     from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.kvcache import slice_state
     eng = Engine(cm, params, EngineConfig(max_batch=SERVE_SLOTS,
                                           max_seq_len=SERVE_SEQ,
                                           block_size=SERVE_BS))
@@ -2212,14 +2214,28 @@ def _segment_is_host_free(cm, params):
     z = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    seg(params, cache.state, z, z, gen)             # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        toks, _, _ = seg(params, cache.state, z, z + 8, gen)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    return tuple(toks.shape) == (SERVE_SLOTS, 8)
+    prompt = {"tokens": torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cm.cfg.vocab_size, (SERVE_SLOTS, LM_S)).astype(np.int64)).cuda()}
+    part = slice_state(cache.state, cache.slot_axes, SERVE_SLOTS)
+    tick = {"tokens": z[:, None].long(), "positions": z[:, None]}
+    runs = {"segment": lambda i: seg(params, cache.state, z, z + 8 * i,
+                                     gen)[0],
+            "generate_fori": lambda i: cm.generate_fori(params, prompt,
+                                                        LM_STEPS),
+            "tick": lambda i: cm.decode(params, tick, part, 0)[0]}
+    out = {}
+    for name, run in runs.items():
+        run(0)                                  # warm-up and capture
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = run(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[name] = bool(y.shape[0] == SERVE_SLOTS)
+    if not all(out.values()):
+        raise AssertionError(f"host-free runs {out}")
+    return out
 
 
 def _serve_want(rep, want_p, per_tick, n_forks=0):
@@ -3203,11 +3219,13 @@ class _Routes:
 def _routed(fn):
     """``fn()`` with its MoE layers' routing recorded: (its result, the
     records)."""
+    from repro_torch import flow as tflow
     from repro_torch.core import ops_impl
     r = _Routes()
     ops_impl.ROUTING_HOOK = r
     try:
-        out = fn()
+        with tflow.disable_graphs():    # the hook runs in Python: eager
+            out = fn()
     finally:
         ops_impl.ROUTING_HOOK = None
     return out, r.calls
@@ -3241,6 +3259,7 @@ def _forced(fn, calls):
     ``calls`` (the records of a run on the kernels), its gates read off
     this run's own router probabilities: the reference backend on the
     kernels' routing, so that a comparison sees the arithmetic alone."""
+    from repro_torch import flow as tflow
     from repro_torch.core import ops_impl
     picks = iter(calls)
     top_k = ops_impl._top_k_stable
@@ -3250,7 +3269,8 @@ def _forced(fn, calls):
         return probs.gather(-1, idx), idx
     ops_impl._top_k_stable = replay
     try:
-        return fn()
+        with tflow.disable_graphs():    # a replay would bake one call's picks
+            return fn()
     finally:
         ops_impl._top_k_stable = top_k
 
@@ -3495,6 +3515,7 @@ def _new_serve(arch, cm, ref, params, prec, want_p, want_d, shapes):
     the pool's bytes, the real prompt tokens capacity dropped counted in the
     op (``_Drops``); in fp32 the greedy tokens identical to the reference
     backend's ``Engine.run``."""
+    from repro_torch import flow as tflow
     from repro_torch.core import ops_impl
     cfg = cm.cfg
     a = cfg.attention
@@ -3503,7 +3524,8 @@ def _new_serve(arch, cm, ref, params, prec, want_p, want_d, shapes):
     reset_counts()
     ops_impl.ROUTING_HOOK = drops
     try:
-        eng, rep = _engine_run(cm, params, reqs, trace=True)
+        with tflow.disable_graphs():    # the hook runs in Python: eager
+            eng, rep = _engine_run(cm, params, reqs, trace=True)
     finally:
         ops_impl.ROUTING_HOOK = None
     launches = _counted(read_counts(), _serve_want(rep, want_p, want_d),
@@ -6197,6 +6219,275 @@ def summed_entries(cases, launches, tag, per, uses):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the stages on captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_SEG = 8        # a decode segment's ticks (workload D's fori_seg)
+GRAPH_TF = 4         # teacher-forced decode steps held bit for bit
+
+
+def _graphed(fn, on):
+    """``fn()`` on the stages' CUDA graphs, or eagerly (``disable_graphs``)."""
+    from repro_torch import flow as tflow
+    if on:
+        return fn()
+    with tflow.disable_graphs():
+        return fn()
+
+
+TURNS = ("eager", "graph", "graph", "eager")
+
+
+def _turns(fns, what, ways=TURNS):
+    """Each way's function (``{"eager": f, "graph": g}``, or one function
+    for both) run in the order of ``ways`` (eagerly, on graphs, on graphs
+    and eagerly by default), each with the counts set to 0 before it and
+    timed on the host clock to a synchronise: ({"eager_ms", "graph_ms"}:
+    the least of each way), the graph way's last result, the eager way's.
+    Both ways' launch counts must be equal."""
+    from repro_torch.kernels import registry
+    if callable(fns):
+        fns = {"eager": fns, "graph": fns}
+    ms = {"eager": [], "graph": []}
+    out, counts = {}, {}
+    for way in ways:
+        reset_counts()
+        c0 = registry.snapshot_counts()
+        t = time.perf_counter()
+        out[way] = _graphed(fns[way], way == "graph")
+        torch.cuda.synchronize()
+        ms[way].append((time.perf_counter() - t) * 1e3)
+        counts[way] = registry.count_delta(c0, registry.snapshot_counts())
+    if counts["graph"] != counts["eager"]:
+        raise AssertionError(f"{what}: launches on graphs {counts['graph']}"
+                             f", eagerly {counts['eager']}")
+    return ({f"{w}_ms": min(v) for w, v in ms.items()}, out["graph"],
+            out["eager"])
+
+
+def _measure_turns(cm, stage, params, iters):
+    """``cm.measure(stage)`` eagerly, on graphs, on graphs, eagerly: the
+    least ms a step of each way (CUDA events, min over ``iters``)."""
+    ms = {"eager": [], "graph": []}
+    for way in TURNS:
+        m = _graphed(lambda: cm.measure(stage, iters=iters, seed=SEED,
+                                        params=params), way == "graph")
+        ms[way].append(m["measured_step_s"] * 1e3)
+    return {f"{w}_ms": min(v) for w, v in ms.items()}
+
+
+def _busy(fn, ways=("graph", "eager")):
+    """The device busy share of 5 calls of ``fn`` each way, and the
+    seconds each profile took."""
+    out = {}
+    for way in ways:
+        t = time.perf_counter()
+        p = _graphed(lambda: _profile(fn, 5), way == "graph")
+        out[f"{way}_busy_share"] = p["device_busy_share"]
+        out[f"{way}_wall_ms"] = p["wall_ms"] / p["iters"]
+        out[f"{way}_profile_s"] = time.perf_counter() - t
+    return out
+
+
+def _clone_state(t):
+    return {k: _clone_state(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.clone()
+
+
+def _admitted(cm, params, prompt):
+    """A serving cache with row r of ``prompt``'s prefill admitted into
+    slot r (its own block chain, room for 64 more tokens), as the engine
+    admits a request; and each row's first sampled token (greedy)."""
+    from repro_torch.serving import Engine, EngineConfig
+    cache = Engine(cm, params, EngineConfig(
+        max_batch=SERVE_SLOTS, max_seq_len=SERVE_SEQ,
+        block_size=SERVE_BS)).new_cache()
+    y, pst, _ = cm.prefill(params, {"tokens": prompt})
+    S = prompt.shape[1]
+    for r in range(prompt.shape[0]):
+        cache.admit(r, S, S + 64, pst, r, 0)
+    return cache, y[:, -1].argmax(-1).to(torch.int32)
+
+
+def _segment_way(cm, params, prompt):
+    """A decode segment runner at temperature 1.0 over its own admitted
+    cache (``_admitted``) and generator (seeded alike for every runner):
+    each call runs the next ``GRAPH_SEG`` ticks after the last."""
+    cache, tok0 = _admitted(cm, params, prompt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    seg = cm.decode_segment(GRAPH_SEG, temperature=1.0)
+    at = {"tok": tok0, "pos": torch.full_like(tok0, prompt.shape[1])}
+
+    def run():
+        toks, _, _ = seg(params, cache.state, at["tok"], at["pos"], gen)
+        at["tok"], at["pos"] = toks[:, -1].contiguous(), at["pos"] + GRAPH_SEG
+        return toks
+    return run
+
+
+def _graph_lm(cm, params, prec):
+    """llama3.2-1b's decode stage (timed in turns; in bf16 its busy share
+    on graphs: an LM step's profile takes seconds, and PR 29's runs
+    recorded the eager one) and generate_fori (two graph runs, the first
+    of which captures, then an eager one), each on graphs beside its
+    eager run; in bf16 also generate (a graph run, then an eager one:
+    each call captures anew, a prefill makes a new state) and a sampled
+    decode segment (in turns: each way's runner carries its own cache and
+    generator, so both ways make the same number of calls).  fp32 leaves
+    those two to the engine's runs: the time limit."""
+    V = cm.cfg.vocab_size
+    t0 = time.perf_counter()
+    prompt = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, V, (B, LM_S)).astype(np.int64)).cuda()
+    batch = {"tokens": prompt}
+    rec = {}
+    # teacher-forced decode steps: the graph's logits are the eager ones
+    _, st, _ = cm.prefill(params, batch)
+    st_e = _clone_state(st)
+    toks = prompt[:, :GRAPH_TF + 1]
+    for t in range(GRAPH_TF):
+        tok = {"tokens": toks[:, t + 1:t + 2]}
+        yg = cm.decode(params, tok, st, LM_S + t)[0]
+        ye = _graphed(lambda: cm.decode(params, tok, st_e, LM_S + t)[0],
+                      False)
+        if not torch.equal(yg, ye):
+            raise AssertionError(f"{prec} decode step {t}: graph logits "
+                                 "differ from the eager step's")
+    del st, st_e
+    dstate = cm.init_state(B)
+    dtok = {"tokens": prompt[:, :1]}
+    rec["decode"] = {**_measure_turns(cm, "decode", params, 5),
+                     "bitwise_steps": GRAPH_TF}
+    if prec == "bf16":
+        rec["decode"].update(_busy(lambda: cm.decode(params, dtok, dstate,
+                                                     100), ("graph",)))
+    del dstate
+    rec["decode_s"] = time.perf_counter() - t0
+    t, fg, fe = _turns(lambda: cm.generate_fori(params, batch, LM_STEPS),
+                       f"{prec} generate_fori", ("graph", "graph", "eager"))
+    if not torch.equal(fg, fe):
+        raise AssertionError(f"{prec} generate_fori: tokens on graphs "
+                             "differ from the eager run's")
+    rec["generate_fori"] = {**t, "steps": LM_STEPS}
+    if prec == "bf16":
+        t, tg, te = _turns(lambda: cm.generate(params, batch,
+                                               steps=LM_STEPS)[0],
+                           f"{prec} generate", ("graph", "eager"))
+        if not (torch.equal(tg, te) and torch.equal(tg, fg)):
+            raise AssertionError(f"{prec} generate: tokens on graphs, "
+                                 "eagerly and from generate_fori differ")
+        rec["generate"] = {**t, "steps": LM_STEPS}
+        t, sg, se = _turns({"graph": _segment_way(cm, params, prompt),
+                            "eager": _segment_way(cm, params, prompt)},
+                           f"{prec} sampled segment")
+        if not torch.equal(sg, se):
+            raise AssertionError(f"{prec} decode_segment at temperature "
+                                 "1.0: tokens differ from the host loop's")
+        rec["segment_t1"] = {**t, "ticks": GRAPH_SEG}
+    rec["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"graphs_lm": prec, **rec}))
+    return rec
+
+
+def _graph_engine(cm, ref, params, works):
+    """fp32 ``Engine.run`` on workloads A and D on graphs and eagerly, the
+    tokens identical to each other and to the reference backend's."""
+    out = {}
+    for name in ("A", "D"):
+        wl, kw = SERVE_KNOBS[name]
+        runs = {}
+        for way in ("eager", "graph"):
+            reset_counts()
+            eng, rep = _graphed(lambda: _engine_run(cm, params, works[wl],
+                                                    trace=True, **kw),
+                                way == "graph")
+            r = _serve_record(eng, rep)
+            runs[way] = (_tokens(rep), read_counts())
+            out[f"{name}_{way}"] = {k: r[k] for k in (
+                "tokens_per_s", "wall_s", "ms_per_tick",
+                "ms_per_segment_tick", "decode_ticks", "fori_segments",
+                "host_syncs")}
+        if runs["graph"] != runs["eager"]:
+            raise AssertionError(f"fp32 workload {name}: tokens or launches "
+                                 "on graphs differ from the eager run's")
+        if name == "A":
+            _, rep_r = _engine_run(ref, params, works[wl], **kw)
+            want = _tokens(rep_r)
+        if runs["graph"][0] != want:
+            raise AssertionError(f"fp32 workload {name}: tokens differ from "
+                                 "the reference backend's workload A")
+    return out
+
+
+def _graph_cnn(prec, smi):
+    """ResNet-34's opt forward on a graph beside the eager one."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    cm = tflow.compile(get_config("resnet34"),
+                       ShapeConfig("serve", "prefill", 64, B),
+                       FlowConfig(mode="auto", precision=prec))
+    params = cm.init_params(SEED)
+    cfg = cm.cfg
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(
+        B, cfg.image_size, cfg.image_size, cfg.image_channels).astype(
+        np.float32)).cuda()
+    batch = {"images": x}
+    _, yg, ye = _turns(lambda: cm.prefill(params, batch)[0],
+                       f"resnet34 {prec} forward")
+    if not torch.equal(yg, ye) or not torch.isfinite(yg.float()).all():
+        raise AssertionError(f"resnet34 {prec}: graph logits differ from "
+                             "the eager forward's")
+    rec = {**_measure_turns(cm, "prefill", params, 10),
+           **(_busy(lambda: cm.prefill(params, batch)) if prec == "bf16"
+              else {}),
+           "bitwise": True, "graphs": dict(cm.stage_graphs.stats),
+           "nvidia_smi": smi}
+    log(json.dumps({"graphs_resnet34": prec, **rec}))
+    return rec
+
+
+def phase_graphs(smi):
+    """Phase 23: the decode stage, generate_fori, decode_segment and the
+    CNN forward replayed from captured CUDA graphs, each beside its eager
+    run under ``disable_graphs()`` in the same call: llama3.2-1b at full
+    width and depth in bf16 and fp32 (the bf16 draw widened), ResNet-34's
+    opt forward in bf16 and fp32."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    shape = ShapeConfig("serve", "decode", SERVE_SEQ, SERVE_SLOTS)
+    rec = {"arch": LM_ARCH, "nvidia_smi": smi}
+    params = None
+    for prec in ("bf16", "fp32"):
+        fl = FlowConfig(mode="folded", precision=prec)
+        cm = tflow.compile(LM_ARCH, shape, fl)
+        t0 = time.perf_counter()
+        params = cm.init_params(SEED) if params is None \
+            else _widened(params)
+        torch.cuda.synchronize()
+        rec[f"params_{prec}_s"] = time.perf_counter() - t0
+        rec[prec] = _graph_lm(cm, params, prec)
+        if prec == "fp32":
+            t0 = time.perf_counter()
+            ref = tflow.compile(LM_ARCH, shape, fl, backend="reference")
+            rec["engine_fp32"] = _graph_engine(
+                cm, ref, params, _serve_workloads(cm.cfg.vocab_size))
+            rec["engine_fp32_s"] = time.perf_counter() - t0
+            log(json.dumps({"graphs_engine": rec["engine_fp32"]}))
+        rec[f"graphs_{prec}"] = dict(cm.stage_graphs.stats)
+        del cm
+    del params
+    t0 = time.perf_counter()
+    rec["resnet34"] = {prec: _graph_cnn(prec, smi)
+                       for prec in ("bf16", "fp32")}
+    rec["resnet34_s"] = time.perf_counter() - t0
+    log(json.dumps({"graphs": {k: rec[k] for k in rec if k.startswith(
+        ("graphs_", "params_")) or k.endswith("_s")}}))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -6236,6 +6527,7 @@ def main() -> int:
     mesh = timed(phase_mesh, smi)
     serve_mesh = timed(phase_serve_mesh, smi)
     tiles = timed(phase_tiles, smi, path)
+    graphs = timed(phase_graphs, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -6265,6 +6557,7 @@ def main() -> int:
                    "moe_kernels": moe_cases, "moe_path": new,
                    "family_kernels": fam_cases, "family_path": fam,
                    "mesh": mesh, "serve_mesh": serve_mesh, "tiles": tiles,
+                   "graphs": graphs,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -39,7 +39,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import Block, Graph, MicroOp, ParamSpec
-from repro_torch.core.ops_impl import OPS, TP_SPLIT_OPS, Ctx
+from repro_torch.core.ops_impl import (OPS, TP_SPLIT_OPS, Ctx,
+                                       decode_positions)
 from repro_torch.core.passes.folding import Unit
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.distributed import collectives as col
@@ -587,8 +588,7 @@ def _make_apply(plan: ExecutionPlan, head: bool = True):
             if p is not None and p.ndim == 2 and p.shape[1] == S:
                 return p.to(torch.int32)
             if mode == "decode":
-                return torch.full((B, S), int(cache_index), dtype=torch.int32,
-                                  device=x.device)
+                return decode_positions(cache_index, B, S, x.device)
             return torch.arange(S, dtype=torch.int32,
                                 device=x.device).expand(B, S)
 

@@ -285,17 +285,30 @@ def op_norm(ctx: Ctx, op, p, x):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+def decode_positions(cache_index, B: int, S: int,
+                     device: torch.device) -> torch.Tensor:
+    """The (B, S) int32 positions of a decode step at ``cache_index``
+    (every entry the index, as the JAX package broadcasts it): an int
+    fills them, a 0-d tensor (a CUDA graph's static index) is read on the
+    device."""
+    if torch.is_tensor(cache_index):
+        return cache_index.to(device=device, dtype=torch.int32).reshape(
+            1, 1).expand(B, S).contiguous()
+    return torch.full((B, S), int(cache_index), dtype=torch.int32,
+                      device=device)
+
+
 def op_embed(ctx: Ctx, op, p, tokens):
     table = p["table"]
     y = table[tokens.long()].to(ctx.compute_dtype)
     if op.attrs.get("scale_by_sqrt_d"):
-        y = y * torch.tensor(math.sqrt(table.shape[1]), dtype=y.dtype,
-                             device=y.device)
+        # the factor rounded to y's dtype on the host: a device scalar
+        # would be a host-to-device copy, which a CUDA graph cannot hold
+        y = y * torch.tensor(math.sqrt(table.shape[1]), dtype=y.dtype).item()
     if op.attrs.get("sinusoid_pos"):
         B, S, d = y.shape
         if ctx.mode == "decode" and ctx.cache_index is not None:
-            pos = torch.full((B, S), int(ctx.cache_index), dtype=torch.int32,
-                             device=y.device)
+            pos = decode_positions(ctx.cache_index, B, S, y.device)
         else:
             pos = torch.arange(S, dtype=torch.int32,
                                device=y.device).expand(B, S)
@@ -499,11 +512,20 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
         cut = [1]
         kc, vc, pc = (rules.gather_act(t, cut) for t in (kc, vc, pc))
     C = kc.shape[1]
-    ci = int(ctx.cache_index)
-    idx = ci % C
-    kc[:, idx:idx + Sq] = k.to(kc.dtype)
-    vc[:, idx:idx + Sq] = v.to(vc.dtype)
-    pc[:, idx:idx + Sq] = ci
+    ci = ctx.cache_index
+    if torch.is_tensor(ci):
+        # a device index (a CUDA graph's): slots (ci + j) % C, written with
+        # index_copy_, nothing read back to the host
+        slots = (ci.long() + torch.arange(Sq, device=kc.device)) % C
+        kc.index_copy_(1, slots, k.to(kc.dtype))
+        vc.index_copy_(1, slots, v.to(vc.dtype))
+        pc.index_copy_(1, slots, decode_positions(ci, B, Sq, pc.device))
+    else:
+        ci = int(ci)
+        idx = ci % C
+        kc[:, idx:idx + Sq] = k.to(kc.dtype)
+        vc[:, idx:idx + Sq] = v.to(vc.dtype)
+        pc[:, idx:idx + Sq] = ci
     if cut:
         croles = ("batch", "kv_len", "none", "none")
         for whole, local, roles in ((kc, st["k"], croles),
@@ -513,7 +535,7 @@ def op_attention(ctx: Ctx, op, p, q, k, v, positions):
         ctx.state_out[skey] = st
     else:
         ctx.state_out[skey] = {"k": kc, "v": vc, "pos": pc}
-    qpos = torch.full((B, 1), ci, dtype=torch.int32, device=q.device)
+    qpos = decode_positions(ci, B, 1, q.device)
     kern = plan_kernel(ctx.plan, "decode_attention")
     if kern is not None:
         return kern(q, kc, vc, pc, qpos, window=window, softcap=softcap,

@@ -30,9 +30,20 @@ selection happens behind it through the
 resolves per op: the hand-written CUDA kernel on a Hopper card, the
 reference path elsewhere).  ``generate_fori`` and ``decode_segment`` (the
 serving engine's host-free decode segments) queue their whole loop on the
-device and read nothing back inside it.  ``train_step`` runs the forward
-products on the same kernels as ``prefill`` and the backward through the
-reference ops (the hand kernels have no backward of their own).
+device and read nothing back inside it.
+
+On the card ``decode``, ``generate_fori``'s decode loop, ``decode_segment``
+and a CNN's ``prefill`` replay captured CUDA graphs
+(:mod:`repro_torch.flow.graphs`, the counterpart of the JAX package's
+``jax.jit``): each is captured once a key (the batch's shapes, the
+addresses of the parameters and of the state) and replayed with one host
+launch.  ``with flow.disable_graphs():`` (the counterpart of
+``jax.disable_jit()``) runs the eager code; so does a CPU model, a model
+on a mesh, and an LM's prefill, which makes the state.
+
+``train_step`` runs the forward products on the same kernels as
+``prefill`` and the backward through the reference ops (the hand kernels
+have no backward of their own).
 
 ``compile(mesh=...)`` binds the model to a ``DeviceMesh`` over the ranks of
 the process group (``{"data": 2, "model": 2}``): the ShardingPass records
@@ -48,17 +59,20 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs import SHAPES, get_config, get_smoke
 from repro_torch.configs.base import FlowConfig, ModelConfig, ShapeConfig
-from repro_torch.core import lowering
+from repro_torch.core import lowering, ops_impl
 from repro_torch.core.plan import ExecutionPlan, _build_plan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.meshspec import MeshSpec
 from repro_torch.distributed.sharding import full_tensor
+from repro_torch.flow import graphs
+from repro_torch.flow.graphs import disable_graphs
 from repro_torch.obs import TRACER
 
-__all__ = ["compile", "CompiledModel"]
+__all__ = ["compile", "CompiledModel", "disable_graphs"]
 
 MEASURED_STAGES = ("train", "prefill", "decode")
 
@@ -88,6 +102,8 @@ class CompiledModel:
         self._apply: Optional[Callable] = None
         self._loss_fn: Optional[Callable] = None
         self._train_steps: Dict[Tuple[Any, int], Callable] = {}
+        # the captured stages (made at the first capture)
+        self._graphs: Optional[graphs.StageGraphs] = None
 
     @classmethod
     def from_plan(cls, plan: ExecutionPlan, mesh=None,
@@ -140,9 +156,11 @@ class CompiledModel:
             torch.cuda.synchronize(self.device)
 
     def _timed_first(self, name: str, fn: Callable) -> Any:
-        """Run ``fn``; record the wall-clock of the stage's first call."""
+        """Run ``fn``; record the wall-clock of the stage's first call (a
+        call inside a CUDA-graph capture, which cannot synchronise, is not
+        timed)."""
         st = self.stats["stages"]
-        if name in st:
+        if name in st or graphs.capturing(self.device):
             return fn()
         sp = TRACER.timed(f"stage.{name}", cat="stage")
         out = fn()
@@ -151,21 +169,93 @@ class CompiledModel:
         st[name] = {"first_call_s": round(sp.elapsed_s, 4)}
         return out
 
+    # -- captured stages -----------------------------------------------------
+    def _on_graphs(self) -> bool:
+        """Whether a stage runs on a captured CUDA graph: on the card,
+        without a mesh, outside :func:`disable_graphs` and outside another
+        capture (whose ops it then joins).  A routing hook runs in Python,
+        which a replay skips: with one set, a stage on the card raises."""
+        if self.device.type != "cuda" or self.mesh is not None \
+                or not graphs.graphs_enabled() \
+                or graphs.capturing(self.device):
+            return False
+        if ops_impl.ROUTING_HOOK is not None:
+            raise RuntimeError("a routing hook (ops_impl.ROUTING_HOOK) would "
+                               "run at capture only: call the stage under "
+                               "flow.disable_graphs()")
+        return True
+
+    @property
+    def stage_graphs(self) -> graphs.StageGraphs:
+        """The captured stages of this model (their ``stats``: graphs
+        captured, capture seconds, replays, pool bytes)."""
+        if self._graphs is None:
+            self._graphs = graphs.StageGraphs(self.device)
+        return self._graphs
+
+    def _replay(self, key, inputs, fn, stage: str, generator=None) -> Any:
+        return self.stage_graphs.run(
+            (stage,) + key, inputs, fn, generator=generator,
+            first=lambda f: self._timed_first(stage, f))
+
+    @staticmethod
+    def _batch_key(batch) -> tuple:
+        """What a graph bakes in of a batch: its tensors' shapes and
+        dtypes, anything else by value."""
+        return tuple((k, (tuple(v.shape), v.dtype) if torch.is_tensor(v)
+                      else graphs.signature(v))
+                     for k, v in sorted(batch.items()))
+
+    @staticmethod
+    def _check_in_place(sig: tuple, new_state) -> None:
+        """A graph replays the writes into the state tensors it was
+        captured on: a stage whose state out is not the state in (``sig``,
+        its :func:`graphs.signature`) cannot be replayed."""
+        if graphs.signature(new_state) != sig:
+            raise RuntimeError("a decode stage replaced a state tensor "
+                               "instead of writing it in place")
+
     def prefill(self, params, batch) -> Any:
         """prefill(params, batch) -> (logits, state, aux).  For an LM the
-        logits are those of the last position, (B, 1, vocab)."""
-        return self._timed_first(
-            "prefill", lambda: self.apply(params, batch, mode="prefill"))
+        logits are those of the last position, (B, 1, vocab).  A CNN's
+        (which has no state) replays a graph per input shape on the card."""
+        if self.cfg.family != "cnn" or not self._on_graphs():
+            return self._timed_first(
+                "prefill", lambda: self.apply(params, batch, mode="prefill"))
+        return self._replay(
+            (self._batch_key(batch), graphs.signature(params)),
+            {k: v for k, v in batch.items() if torch.is_tensor(v)},
+            lambda st: self.apply(params, {**batch, **st}, mode="prefill"),
+            "prefill")
 
     def decode(self, params, batch, state, cache_index) -> Any:
         """decode(params, {"tokens": (B, 1)}, state, cache_index) ->
         (logits, state, aux).  Consumes ``state``: the new K/V (and
         recurrent states) are written into its tensors in place and the
-        same state comes back (the JAX stage donates its state argument)."""
-        return self._timed_first(
-            "decode", lambda: self.apply(params, batch, state=state,
-                                         cache_index=cache_index,
-                                         mode="decode"))
+        same state comes back (the JAX stage donates its state argument).
+        ``cache_index`` is an int or a 0-d integer tensor on the device.
+        On the card one graph per (batch shape, parameters, state) replays
+        the step, ``cache_index`` read on the device."""
+        if not self._on_graphs():
+            return self._timed_first(
+                "decode", lambda: self.apply(params, batch, state=state,
+                                             cache_index=cache_index,
+                                             mode="decode"))
+
+        sig = graphs.signature(state)
+
+        def step(st):
+            b = {k: st.get(k, v) for k, v in batch.items()}
+            lg, new_state, aux = self.apply(params, b, state=state,
+                                            cache_index=st["cache_index"],
+                                            mode="decode")
+            self._check_in_place(sig, new_state)
+            return lg, aux
+        inputs = {k: v for k, v in batch.items() if torch.is_tensor(v)}
+        lg, aux = self._replay(
+            (self._batch_key(batch), graphs.signature(params), sig),
+            {**inputs, "cache_index": cache_index}, step, "decode")
+        return lg, state, aux
 
     def train_step(self, opt, microbatches: Optional[int] = None) -> Callable:
         """The train step for ``opt``, made once per (``opt``,
@@ -235,17 +325,41 @@ class CompiledModel:
         """Greedy generation with the whole decode loop queued on the
         device: prefill, then ``steps - 1`` decode steps whose tokens stay
         on the device until the caller reads the (B, steps) int32 result
-        (the JAX package's one-program ``fori_loop``)."""
+        (the JAX package's one-program ``fori_loop``).  On the card the
+        prefill runs eagerly and the decode loop is one captured graph a
+        (prompt shape, steps, parameters), which reads each step's token
+        and cache index on the device; the prefill's state is copied into
+        the graph's own."""
         S = batch["tokens"].shape[1]
         logits, state, _ = self.prefill(params, batch)
-        B = logits.shape[0]
-        toks = torch.zeros((B, steps), dtype=torch.int32, device=self.device)
-        toks[:, 0] = torch.argmax(full_tensor(logits)[:, -1], -1)
-        for t in range(steps - 1):
-            lg, state, _ = self.decode(params, {"tokens": toks[:, t:t + 1]},
-                                       state, S + t)
-            toks[:, t + 1] = torch.argmax(full_tensor(lg)[:, -1], -1)
-        return toks
+        tok0 = torch.argmax(full_tensor(logits)[:, -1], -1).to(torch.int32)
+        B = tok0.shape[0]
+
+        def loop(tok0, state, index):
+            toks = torch.zeros((B, steps), dtype=torch.int32,
+                               device=tok0.device)
+            toks[:, 0] = tok0
+            for t in range(steps - 1):
+                lg, state, _ = self.apply(
+                    params, {"tokens": toks[:, t:t + 1]}, state=state,
+                    cache_index=index(t), mode="decode")
+                toks[:, t + 1] = torch.argmax(full_tensor(lg)[:, -1], -1)
+            return toks
+        if steps < 2 or not self._on_graphs():
+            return loop(tok0, state, lambda t: S + t)
+        leaves, spec = tree_flatten(state)
+
+        def run(st):
+            index = S + torch.arange(steps - 1, dtype=torch.int32,
+                                     device=self.device)
+            return loop(st["tok0"], tree_unflatten(
+                [st[f"state{i}"] for i in range(len(leaves))], spec),
+                lambda t: index[t])
+        return self._replay(
+            (S, steps, graphs.signature(params),
+             tuple((tuple(x.shape), x.dtype) for x in leaves)),
+            {"tok0": tok0, **{f"state{i}": x for i, x in enumerate(leaves)}},
+            run, "generate_fori")
 
     def decode_segment(self, steps: int, *,
                        temperature: float = 0.0) -> Callable:
@@ -260,20 +374,38 @@ class CompiledModel:
         exactly — decode cell, then sample from ``gen`` — so the tokens
         are the ones ``steps`` host ticks give, at any temperature, while
         nothing is read back until the caller reads ``tokens``.  ``state``
-        is written in place."""
-        def run(params, state, tok0, pos0, gen):
+        is written in place.  On the card the ``steps`` ticks are one
+        captured graph a (batch, parameters, state, generator), positions
+        advanced on the device; a sampled segment registers ``gen`` with
+        it, so each replay draws what the host loop would."""
+        def ticks(params, state, tok0, pos0, gen):
             B = tok0.shape[0]
             toks = torch.zeros((B, steps), dtype=torch.int32,
                                device=tok0.device)
             cur, pos = tok0, pos0
+            sig = graphs.signature(state)
             for t in range(steps):
-                lg, state, _ = self.apply(
+                lg, new_state, _ = self.apply(
                     params, {"tokens": cur[:, None],
                              "positions": pos[:, None]}, state=state,
                     cache_index=0, mode="decode")
+                self._check_in_place(sig, new_state)
                 cur = self._sample(full_tensor(lg)[:, -1], gen, temperature)
                 toks[:, t] = cur
                 pos = pos + 1
+            return toks
+
+        def run(params, state, tok0, pos0, gen):
+            if not self._on_graphs():
+                return ticks(params, state, tok0, pos0, gen), state, gen
+            sampled = temperature != 0.0
+            toks = self._replay(
+                (steps, temperature, tuple(tok0.shape), tok0.dtype,
+                 tuple(pos0.shape), pos0.dtype, graphs.signature(params),
+                 graphs.signature(state), id(gen) if sampled else None),
+                {"tok0": tok0, "pos0": pos0},
+                lambda st: ticks(params, state, st["tok0"], st["pos0"], gen),
+                "decode_segment", generator=gen if sampled else None)
             return toks, state, gen
         return run
 

@@ -190,8 +190,10 @@ def _simt_splits(B: int, C: int, KV: int, n_sm: int):
     return -(-C // chunk), chunk
 
 
-# per device: the tickets of the one-launch combine (``_tickets``)
+# per device: the tickets of the one-launch combine (``_tickets``), and
+# the smaller buffers they replaced
 _TICKETS = {}
+_RETIRED_TICKETS = []
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
@@ -200,9 +202,13 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     one buffer serves every call on the device's stream and no memset
     launch is needed (calls on one stream run one after another; two
     streams must not run these kernels at once).  Grown to at least ``n``,
-    never during a CUDA-graph capture, whose warm-up call allocates it."""
+    never during a CUDA-graph capture, whose warm-up call allocates it.  A
+    buffer that is outgrown stays alive: a graph captured before the
+    growth replays against it."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t

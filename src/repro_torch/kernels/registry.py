@@ -498,3 +498,89 @@ def _register_builtin():
 
 
 _register_builtin()
+
+
+# ---------------------------------------------------------------------------
+# The wrappers' launch counters
+# ---------------------------------------------------------------------------
+
+# each wrapper's counters: ints, or dicts by schedule (their keys stay at 0
+# on a reset) or by tile and shape (their keys go)
+COUNTER_ATTRS = ("launches", "retiled", "base_launches", "schedule_launches",
+                 "schedules", "base_schedule_launches", "tiles", "shapes")
+_KEYED_BY_SCHEDULE = ("schedule_launches", "schedules",
+                      "base_schedule_launches")
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """Every hand-kernel wrapper by its kernel's name; each counts its
+    launches in the attributes of :data:`COUNTER_ATTRS` it has."""
+    from repro_torch.kernels import attention, conv2d, lru_scan, matmul_fused
+    from repro_torch.kernels import decode_attention as dec
+    return {"conv2d_fused": conv2d.conv2d_fused,
+            "matmul_fused": matmul_fused.matmul_fused,
+            "flash_attention": attention.flash_attention,
+            "decode_attention": dec.decode_attention,
+            "paged_decode_attention": dec.paged_decode_attention,
+            "copy_block": dec.copy_block, "lru_scan": lru_scan.lru_scan}
+
+
+def snapshot_counts() -> Dict[Tuple[str, str], Any]:
+    """Every counter of every wrapper, {(kernel, attribute): value}, and
+    :data:`DISPATCH_REJECTIONS` under ``("dispatch", "rejections")``, the
+    dicts copied."""
+    out = {(name, a): (dict(v) if isinstance(v, dict) else v)
+           for name, fn in kernel_wrappers().items()
+           for a in COUNTER_ATTRS if hasattr(fn, a)
+           for v in (getattr(fn, a),)}
+    out[("dispatch", "rejections")] = dict(DISPATCH_REJECTIONS)
+    return out
+
+
+def count_delta(before: Dict[Tuple[str, str], Any],
+                after: Dict[Tuple[str, str], Any]
+                ) -> Dict[Tuple[str, str], Any]:
+    """What the counters moved from ``before`` to ``after`` (two
+    snapshots): the counters and dict keys that changed, by how much."""
+    out: Dict[Tuple[str, str], Any] = {}
+    for key, v in after.items():
+        b = before.get(key, {} if isinstance(v, dict) else 0)
+        if isinstance(v, dict):
+            d = {k: n - b.get(k, 0) for k, n in v.items()
+                 if n != b.get(k, 0)}
+            if d:
+                out[key] = d
+        elif v != b:
+            out[key] = v - b
+    return out
+
+
+def add_counts(delta: Dict[Tuple[str, str], Any], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`count_delta`) to the counters;
+    a tile or shape key that falls to 0 goes, as after a reset."""
+    fns = kernel_wrappers()
+    for (name, attr), d in delta.items():
+        if not isinstance(d, dict):
+            setattr(fns[name], attr, getattr(fns[name], attr) + times * d)
+            continue
+        cur = DISPATCH_REJECTIONS if name == "dispatch" \
+            else getattr(fns[name], attr)
+        for k, n in d.items():
+            cur[k] = cur.get(k, 0) + times * n
+            if cur[k] == 0 and attr not in _KEYED_BY_SCHEDULE:
+                del cur[k]
+
+
+def reset_counts() -> None:
+    """Every wrapper's counter to 0: the ints, the dicts by schedule (their
+    keys kept); the dicts by tile and shape emptied.
+    :data:`DISPATCH_REJECTIONS` is kept (its readers clear it)."""
+    fns = kernel_wrappers()
+    for (name, attr), v in snapshot_counts().items():
+        if name == "dispatch":
+            continue
+        if isinstance(v, dict):
+            v = dict.fromkeys(v, 0) if attr in _KEYED_BY_SCHEDULE else {}
+        else:
+            v = 0
+        setattr(fns[name], attr, v)

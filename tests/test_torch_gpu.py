@@ -1787,3 +1787,166 @@ def test_trained_smoke_model_prefill_through_the_kernels(card):
     assert km.matmul_fused.launches - m0 == 3 * 6
     yr, _, _ = ref.prefill(p16, {"tokens": batch["tokens"]})
     assert _rel(y, yr) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the stages on captured CUDA graphs (repro_torch.flow.graphs)
+# ---------------------------------------------------------------------------
+
+def _clone_tree(t):
+    return {k: _clone_tree(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.clone()
+
+
+def _smoke_lm(prec="bf16", arch="llama3.2-1b"):
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    cm = flow.compile(arch, ShapeConfig("serve", "decode", 32, 2),
+                      FlowConfig(mode="folded", precision=prec), smoke=True)
+    tok = torch.randint(0, 256, (2, 12), generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    return cm, cm.init_params(0), tok
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+def test_graph_decode_is_eager_bit_for_bit(card, arch):
+    """Six decode steps replayed from one graph give the eager steps'
+    logits bit for bit (recurrentgemma's 16-slot window wraps at 16), leave
+    the same state, and count the same launches; each replay's logits are
+    the caller's: the next replay leaves them as they were."""
+    from repro_torch import flow
+    from repro_torch.kernels import registry
+    cm, params, tok = _smoke_lm(arch=arch)
+    _, st, _ = cm.prefill(params, {"tokens": tok})
+    st_e = _clone_tree(st)
+    c0 = registry.snapshot_counts()
+    got = [cm.decode(params, {"tokens": tok[:, t:t + 1]}, st, 12 + t)[0]
+           for t in range(6)]
+    torch.cuda.synchronize()
+    c1 = registry.snapshot_counts()
+    with flow.disable_graphs():
+        want = [cm.decode(params, {"tokens": tok[:, t:t + 1]}, st_e,
+                          12 + t)[0] for t in range(6)]
+    torch.cuda.synchronize()
+    c2 = registry.snapshot_counts()
+    assert cm.stage_graphs.stats["captured"] == 1
+    assert cm.stage_graphs.stats["replays"] == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    flat = lambda t: [x for v in t.values() for x in (  # noqa: E731
+        flat(v) if isinstance(v, dict) else [v])]
+    assert all(torch.equal(a, b) for a, b in zip(flat(st), flat(st_e)))
+    assert registry.count_delta(c0, c1) == registry.count_delta(c1, c2)
+
+
+def test_second_params_tree_gets_its_own_capture(card):
+    from repro_torch import flow
+    cm, params, tok = _smoke_lm()
+    p2 = cm.init_params(1)
+    for p in (params, p2, params, p2):
+        _, st, _ = cm.prefill(p, {"tokens": tok})
+        st_e = _clone_tree(st)
+        y = cm.decode(p, {"tokens": tok[:, :1]}, st, 12)[0]
+        y = cm.decode(p, {"tokens": tok[:, 1:2]}, st, 13)[0]
+        with flow.disable_graphs():
+            cm.decode(p, {"tokens": tok[:, :1]}, st_e, 12)
+            w = cm.decode(p, {"tokens": tok[:, 1:2]}, st_e, 13)[0]
+        assert torch.equal(y, w)
+    # one capture per (params, state): each prefill makes a new state
+    assert cm.stage_graphs.stats["captured"] >= 2
+
+
+def test_graph_ticket_buffer_outlives_a_grown_call(card):
+    """A graph captured over decode_attention's tickets (llama's split-KV
+    shape) replays right after a larger call has grown them: the old
+    buffer is kept, and the replay equals the eager call."""
+    from repro_torch.flow.graphs import StageGraphs
+    dev = torch.device("cuda", torch.cuda.current_device())
+    B, C, H, KV, D = DECODE["llama"][:5]
+    q = _randn(card, B, 1, H, D, dt=torch.bfloat16)
+    kc = _randn(card, B, C, KV, D, dt=torch.bfloat16)
+    vc = _randn(card, B, C, KV, D, dt=torch.bfloat16)
+    pos = torch.arange(C, dtype=torch.int32, device="cuda").repeat(B, 1)
+    pos[:, C // 2:] = -1
+    qpos = torch.full((B, 1), C // 2 - 1, dtype=torch.int32, device="cuda")
+
+    def attend(st):
+        return kd.decode_attention(st["q"], kc, vc, pos, qpos)
+    sg = StageGraphs(dev)
+    sg.run(("tickets",), {"q": q}, attend)
+    old = kd._TICKETS[dev]
+    kd._tickets(dev, old.numel() + 1)
+    assert kd._TICKETS[dev] is not old
+    assert any(t is old for t in kd._RETIRED_TICKETS)
+    y = sg.run(("tickets",), {"q": 2 * q}, attend)
+    assert sg.stats["replays"] == 1
+    assert torch.equal(y, kd.decode_attention(2 * q, kc, vc, pos, qpos))
+
+
+def test_capture_that_reads_the_host_raises(card):
+    """The warm-up may read the host; the capture of the same function
+    raises, and nothing is kept."""
+    from repro_torch.flow.graphs import StageGraphs
+    sg = StageGraphs(torch.device("cuda", 0))
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        sg.run(("host_read",), {"x": x}, lambda st: st["x"] * st["x"].sum()
+               .item())
+    assert len(sg) == 0
+    y = sg.run(("ok",), {"x": x}, lambda st: st["x"] * 2)
+    y2 = sg.run(("ok",), {"x": x + 1}, lambda st: st["x"] * 2)
+    assert torch.equal(y, x * 2) and torch.equal(y2, (x + 1) * 2)
+
+
+def test_generate_fori_and_segments_replay_graphs(card):
+    """generate_fori equals generate; a sampled decode segment draws the
+    host loop's tokens; both replay without a device-to-host read."""
+    from repro_torch import flow
+    from repro_torch.serving import Engine, EngineConfig
+    cm, params, tok = _smoke_lm("fp32")
+    want, _ = cm.generate(params, {"tokens": tok}, steps=6)
+    assert torch.equal(cm.generate_fori(params, {"tokens": tok}, 6), want)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = cm.generate_fori(params, {"tokens": tok}, 6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again, want)
+    eng = Engine(cm, params, EngineConfig(max_batch=2, max_seq_len=32,
+                                          block_size=8))
+    seg = cm.decode_segment(4, temperature=1.0)
+    y, pst, _ = cm.prefill(params, {"tokens": tok})
+    out = {}
+    for graphed in (True, False):
+        cache = eng.new_cache()          # each row its own block chain
+        for r in range(2):
+            cache.admit(r, 12, 28, pst, r, 0)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        cur = y[:, -1].argmax(-1).to(torch.int32)
+        runs = []
+        for i in range(3):
+            pos = torch.full_like(cur, 12 + 4 * i)
+            if graphed:
+                t = seg(params, cache.state, cur, pos, gen)[0]
+            else:
+                with flow.disable_graphs():
+                    t = seg(params, cache.state, cur, pos, gen)[0]
+            runs.append(t)
+            cur = t[:, -1].contiguous()
+        out[graphed] = torch.cat(runs, 1)
+    assert torch.equal(out[True], out[False])
+
+
+def test_cnn_prefill_replays_a_graph(card):
+    from repro_torch import flow
+    from repro_torch.configs.base import ShapeConfig
+    cm = flow.compile("lenet5", ShapeConfig("serve", "prefill", 32, 4))
+    params = cm.init_params(0)
+    x = torch.randn(4, 32, 32, 1, generator=card, device="cuda")
+    ys = [cm.prefill(params, {"images": x * s})[0] for s in (1.0, 2.0)]
+    with flow.disable_graphs():
+        ws = [cm.prefill(params, {"images": x * s})[0] for s in (1.0, 2.0)]
+    assert cm.stage_graphs.stats["replays"] == 1
+    assert all(torch.equal(y, w) for y, w in zip(ys, ws))
