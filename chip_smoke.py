@@ -293,7 +293,8 @@ Phases, each raising on failure:
    launches of matmul_fused, flash_attention and decode_attention (by
    schedule) equal to the unsharded run's; ``Trainer(mesh=)`` at full
    width and 4 of the 16 layers, 3 steps against 3 unsharded ones (losses
-   within 1e-5); deepseek-moe-16b at 2 layers (1 dense + 1 MoE) a bf16
+   within 1e-5), and again with ``AdamW(compress="int8_ef")`` (the error
+   buffers DTensors; losses within 1e-5); deepseek-moe-16b at 2 layers (1 dense + 1 MoE) a bf16
    prefill on DTensor weights within 5e-2 of the unsharded one (the
    one-rank model axis carries data parallelism, as in JAX, so
    ``op_moe_ffn`` runs on the rank's rows); ``make_pipeline_loss`` on a
@@ -348,6 +349,29 @@ Phases, each raising on failure:
    ms a tick); ResNet-34's opt forward in bf16 and fp32 (logits bit for
    bit, ms in turns); the graphs captured, the capture seconds and the
    pool's bytes.
+24. family train — ``measure("prefill", trace_dir=)`` of full-width
+   llama3.2-1b's bf16 prefill (8 x 512 tokens, 5 timed calls between two
+   plain ``measure`` calls): the Chrome trace under ``build/`` names
+   ``matmul_wgmma_kernel`` and ``flash_wgmma_kernel``, the counters put
+   every projection and flash call the plan says on ``wgmma``, and the
+   trace's kernel counts (in all and a call), its device busy share and
+   the host's self time by op are logged.  Then the train step, eager, of three families at full width,
+   bf16 compute with fp32 masters, ``ShapeConfig("train", "train", S, 8)``
+   on one fixed ``SyntheticLM`` batch: recurrentgemma-2b at 3 of its 26
+   layers (rec, rec, attn; S 512), deepseek-moe-16b at 2 of 28 (1 dense +
+   1 MoE, capacity 1.25; S 512) and whisper-small whole (12 + 12, S 448,
+   its ``n_text_ctx``, with ``randn(8, 1500, 768)`` frames), 6
+   ``AdamW(lr=1e-3, warmup_steps=1)`` steps each: the last loss below the
+   first, the forward's launches by schedule as the plan says (a folded
+   unit's twice a step: the block remat's recompute; every product and
+   flash call on ``wgmma``, every lru_scan on ``chunked``, none on simt),
+   the flash calls by ``causal`` and window (recurrentgemma's at its
+   2048-token window, whisper's encoder non-causal), no dispatch
+   rejection, the MoE's aux loss every step and its capacity drops; then
+   one fp32 step of each at 3 / 2 / 2 + 2 layers, 2 x 256 tokens, on the
+   card's kernels and through the ``reference`` backend on the host's CPU
+   from the same tree (deepseek's CPU step on the card's routing,
+   replayed): the loss and every gradient within 1e-4.
 
 Phases 5-22 run the stages on graphs wherever the port puts them (the
 decode stage, generate_fori, decode segments, a CNN's forward; an LM
@@ -359,7 +383,7 @@ recorded, so every launch check reads as on the eager run.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19, then 20, 21 and 22, then 23. Every path phase on a default flow
+and 19, then 20, 21 and 22, then 23, then 24. Every path phase on a default flow
 also holds every launch of the three tiled kernels to its default tile (the block
 each took before it took a plan tile: ``retiled`` is 0); the base flow
 and the tuned flows to the blocks their plan's tiles give. Every path phase also reads
@@ -1761,27 +1785,31 @@ def _plan_launches(plan, mode):
     plain elementwise work, so a model with one wants 0 there).
     Cross-attention runs on the reference op (the registry keeps it off
     the kernel, as JAX's does), and decode skips the prompt-only ``enc*``
-    and ``mm`` blocks."""
+    and ``mm`` blocks.  ``train`` is one train step's forward: a folded
+    unit's launches twice under the ``block`` remat (each repetition is
+    recomputed in the backward pass)."""
     from repro_torch.core.lowering import live_ops
     want = {"flash_attention": 0, "decode_attention": 0, "matmul_fused": 0}
     for unit in plan.units:
         b0 = plan.graph.blocks[unit.indices[0]]
         if mode == "decode" and (b0.kind.startswith("enc") or b0.kind == "mm"):
             continue
+        n = unit.reps * (2 if mode == "train" and unit.folded and
+                         plan.flow.remat == "block" else 1)
         for j in range(unit.period):
             blk = plan.graph.blocks[unit.indices[j]]
             for op in live_ops(blk, mode):
                 if op.op == "attention" and op.attrs.get("cross"):
                     continue
                 if op.op == "attention":
-                    k = "flash_attention" if mode == "prefill" \
-                        else "decode_attention"
-                    want[k] += unit.reps
+                    k = "decode_attention" if mode == "decode" \
+                        else "flash_attention"
+                    want[k] += n
                 elif op.op in ("matmul", "glu_matmul"):
-                    want["matmul_fused"] += unit.reps
+                    want["matmul_fused"] += n
                 elif op.op == "rg_lru":
                     want["lru_scan"] = want.get("lru_scan", 0) + (
-                        unit.reps if mode == "prefill" else 0)
+                        0 if mode == "decode" else n)
     return want
 
 
@@ -3839,8 +3867,9 @@ def phase_family_kernels():
 
 def _flash_by_causal(fn):
     """``fn()`` with the op layer's flash_attention calls counted by their
-    ``causal`` flag (the wrapper's own count does not split them): (its
-    result, {"causal": n, "noncausal": n})."""
+    ``causal`` flag (the wrapper's own count does not split them) and, for
+    a windowed call, its window: (its result, {"causal": n, "noncausal":
+    n, "causal@<window>": n, ...})."""
     from repro_torch.core import ops_impl
     seen = {"causal": 0, "noncausal": 0}
     resolve = ops_impl.plan_kernel
@@ -3851,7 +3880,10 @@ def _flash_by_causal(fn):
             return kern
 
         def flash(*args, causal=True, **kw):
-            seen["causal" if causal else "noncausal"] += 1
+            key = "causal" if causal else "noncausal"
+            if kw.get("window"):
+                key += f"@{kw['window']}"
+            seen[key] = seen.get(key, 0) + 1
             return kern(*args, causal=causal, **kw)
         return flash
     ops_impl.plan_kernel = counted_plan_kernel
@@ -4258,20 +4290,23 @@ def _train_run(cm, opt, params, batch, steps, what, kernels):
     the forward products run on the hand kernels (bf16 on the tensor-core
     schedules), so every kernel in ``kernels`` must have launched, every
     other none, and none on simt; no dispatch rejection.  Returns (losses,
-    host ms a step, the optimizer state, the launches and their schedules,
-    the device's peak bytes over the run)."""
+    host ms a step, the optimizer state, the launches and their schedules
+    (and a MoE model's aux loss a step), the device's peak bytes over the
+    run)."""
     from repro_torch.kernels.registry import DISPATCH_REJECTIONS
     step = cm.train_step(opt)
     state = opt.init(params)
     DISPATCH_REJECTIONS.clear()
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    losses, ms = [], []
+    losses, ms, aux = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))          # reads back: the step ends
         ms.append((time.perf_counter() - t0) * 1e3)
+        if "moe_aux" in m:
+            aux.append(float(m["moe_aux"]))
     peak = torch.cuda.max_memory_allocated()
     got = {k: v for k, v in read_counts().items() if v}
     if set(got) != set(kernels):
@@ -4286,7 +4321,10 @@ def _train_run(cm, opt, params, batch, steps, what, kernels):
                              f"{DISPATCH_REJECTIONS}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: losses {losses}")
-    return losses, ms, state, {"launches": got, "schedules": sched}, peak
+    kern = {"launches": got, "schedules": sched}
+    if aux:
+        kern["moe_aux"] = aux
+    return losses, ms, state, kern, peak
 
 
 def _device_batch(batch):
@@ -4563,10 +4601,10 @@ def phase_train(smi):
                              "1.0 nat")
     # each step runs every layer's forward twice (the block remat's
     # recompute), every projection on wgmma and every flash call on it
-    fwd = _plan_launches(cm.plan, "prefill")
-    want = {"matmul_fused": {"wgmma": 2 * TRAIN_STEPS * fwd["matmul_fused"]},
+    fwd = _plan_launches(cm.plan, "train")
+    want = {"matmul_fused": {"wgmma": TRAIN_STEPS * fwd["matmul_fused"]},
             "flash_attention": {
-                "wgmma": 2 * TRAIN_STEPS * fwd["flash_attention"]}}
+                "wgmma": TRAIN_STEPS * fwd["flash_attention"]}}
     if kern["schedules"] != want:
         raise AssertionError(f"{LM_ARCH} train: launches by schedule "
                              f"{kern['schedules']}, want {want}")
@@ -5514,7 +5552,7 @@ def phase_mesh(smi):
     from repro_torch.device import init_process_group
     from repro_torch.distributed.meshspec import MeshSpec
     from repro_torch.distributed.sharding import full_tensor
-    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.adamw import AdamW, tree_leaves
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from torch.distributed.tensor import DTensor
     t_start = time.perf_counter()
@@ -5595,7 +5633,30 @@ def phase_mesh(smi):
                     "loss_relerr_max": terr,
                     "launches": {k: got[0][k] for k in
                                  ("matmul_fused", "flash_attention")}}
-    del cm0, cm, pm
+    del pm
+    # the same with int8 error-feedback compression: on the mesh the
+    # gradients, moments and error buffers are DTensors, the scale the
+    # whole tensor's (a MAX all-reduce over the sharded dims)
+    optc = dataclasses.replace(opt, compress="int8_ef")
+    (_, oc0, hc0), *want = _counted_run(lambda: Trainer(cm0, optc, tc).fit(
+        data, SEED))
+    (_, oc1, hc1), *got = _counted_run(lambda: Trainer(cm, optc, tc).fit(
+        data, SEED))
+    _same_launches(got, want, ("matmul_fused", "flash_attention"),
+                   "mesh compressed train")
+    tcerr = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(hc1, hc0))
+    eerr = max(relerr(full_tensor(a), b) for a, b in zip(
+        tree_leaves(oc1.err), tree_leaves(oc0.err)))
+    if len(hc1) != MESH_TRAIN_STEPS or not tcerr <= 1e-5 or \
+            not isinstance(tree_leaves(oc1.err)[0], DTensor):
+        raise AssertionError(f"mesh compressed train losses {hc1} vs {hc0}")
+    rec["train_compressed"] = {
+        "layers": TRAIN_DEPTH, "losses": [a for _, a in hc1],
+        "unsharded_losses": [b for _, b in hc0], "loss_relerr_max": tcerr,
+        "err_relerr_max": eerr,
+        "launches": {k: got[0][k] for k in
+                     ("matmul_fused", "flash_attention")}}
+    del cm0, cm, oc0, oc1
     torch.cuda.empty_cache()
 
     # deepseek-moe-16b at 2 layers: the prefill on DTensor weights.  A
@@ -5680,7 +5741,8 @@ def phase_mesh(smi):
         "llama_launches": {q: rec[f"llama_{q}"]["launches"]
                            for q in ("bf16", "fp32")},
         "fp32_tokens_identical": rec["llama_fp32"]["tokens_identical"],
-        "train_loss_relerr": terr, "moe_prefill_relerr": merr,
+        "train_loss_relerr": terr,
+        "compressed_train_loss_relerr": tcerr, "moe_prefill_relerr": merr,
         "moe_calls": len(moe_calls),
         "pipeline": rec["pipeline"], "resnet34_relerr": cerr,
         "resnet34_launches": rec["resnet34"]["launches"],
@@ -6488,6 +6550,331 @@ def phase_graphs(smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the prefill's trace, and the train step of the other families
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = os.path.join(ROOT, "build", "measure_trace")
+TRACE_ITERS = 5
+TRACE_KERNELS = {"matmul_fused": "matmul_wgmma_kernel",
+                 "flash_attention": "flash_wgmma_kernel"}
+# each run: (arch, layers kept (None: all), sequence length, the kernels
+# its forward launches, the layers of its card-against-CPU step); whisper's
+# 448 is its n_text_ctx
+FAMILY_TRAIN = (
+    ("recurrentgemma-2b", 3, 512,
+     ("matmul_fused", "flash_attention", "lru_scan"), 3),
+    ("deepseek-moe-16b", 2, 512, ("matmul_fused", "flash_attention"), 2),
+    ("whisper-small", None, 448, ("matmul_fused", "flash_attention"), 2),
+)
+FAMILY_TRAIN_STEPS = 6
+FAMILY_CPU_S, FAMILY_CPU_B = 256, 2
+FAMILY_CPU_TOL = 1e-4
+
+
+def _trace_summary(path, iters):
+    """The Chrome trace ``measure(trace_dir=)`` wrote: the device kernels by
+    name (launches and ms a call), the device busy share (the kernels'
+    summed time over the ``measure.step`` spans' summed time: one stream,
+    so kernels do not overlap) and the host's split, each event's self
+    time (its time less its children's on its thread) summed by name over
+    the CPU ops, the CUDA runtime and driver calls and the ``measure.step``
+    span itself (the Python between the ops), in ms a call."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("name") == "measure.step" and
+             e.get("cat") == "user_annotation"]
+    if len(steps) != iters:
+        raise AssertionError(f"trace {path}: {len(steps)} measure.step "
+                             f"spans, want {iters}")
+    window_us = sum(e["dur"] for e in steps)
+    kern = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, us = kern.get(e["name"], (0, 0.0))
+            kern[e["name"]] = (n + 1, us + e["dur"])
+    busy_us = sum(us for _, us in kern.values())
+    host, threads = {}, {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver",
+                            "user_annotation") and "dur" in e:
+            threads.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+
+    def pop(stack):
+        end, name, child, dur = stack.pop()
+        host[name] = host.get(name, 0.0) + dur - child
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []
+        for e in evs:
+            while stack and stack[-1][0] <= e["ts"]:
+                pop(stack)
+            if stack:
+                stack[-1][2] += e["dur"]
+            stack.append([e["ts"] + e["dur"], e["name"], 0.0, e["dur"]])
+        while stack:
+            pop(stack)
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])
+    # the named kernels inside each call's span on the device's timeline
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "measure.step" and
+                   e.get("cat") == "gpu_user_annotation")
+    per_call = [{name: sum(1 for e in events if e.get("cat") == "kernel"
+                           and name in e["name"] and t0 <= e["ts"] <= t1)
+                 for name in TRACE_KERNELS.values()} for t0, t1 in spans]
+    return {"iters": iters, "bytes": os.path.getsize(path),
+            "window_ms_per_call": window_us / 1e3 / iters,
+            "device_busy_ms_per_call": busy_us / 1e3 / iters,
+            "device_busy_share": busy_us / window_us,
+            "kernel_launches_per_call": sum(n for n, _ in kern.values())
+            / iters,
+            "kernels": [{"kernel": k[:80], "launches_per_call": n / iters,
+                         "ms_per_call": us / 1e3 / iters}
+                        for k, (n, us) in top[:8]],
+            "host_self": [{"op": k[:60], "ms_per_call": us / 1e3 / iters}
+                          for k, us in sorted(host.items(),
+                                              key=lambda kv: -kv[1])[:10]],
+            "named": {name: sum(n for k, (n, _) in kern.items()
+                                if name in k)
+                      for name in TRACE_KERNELS.values()},
+            "named_per_call": per_call}
+
+
+def _prefill_trace(smi):
+    """``measure("prefill", trace_dir=)`` of full-width llama3.2-1b's bf16
+    prefill (8 x 512 tokens), between two plain ``measure`` calls (the
+    profiler's cost): the trace names matmul_fused's and flash_attention's
+    ``wgmma`` kernels, and the counters put every launch the plan says on
+    ``wgmma``.  The trace's own counts are recorded beside the counters':
+    the profiler can miss a kernel record (3 of 480 in one run), so the
+    counters hold the launches."""
+    import shutil
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    cm = tflow.compile(LM_ARCH, ShapeConfig("serve", "prefill", LM_S, B),
+                       FlowConfig(mode="folded"))
+    params = cm.init_params(SEED)
+    want = _plan_launches(cm.plan, "prefill")
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    plain = [cm.measure("prefill", iters=TRACE_ITERS, seed=SEED,
+                        params=params)]
+    reset_counts()
+    m = cm.measure("prefill", iters=TRACE_ITERS, seed=SEED, params=params,
+                   trace_dir=TRACE_DIR)
+    counted = {k: read_schedules(k) for k in TRACE_KERNELS}
+    plain.append(cm.measure("prefill", iters=TRACE_ITERS, seed=SEED,
+                            params=params))
+    if m["trace"] != os.path.join(TRACE_DIR, "measure_prefill.json"):
+        raise AssertionError(f"trace at {m['trace']}")
+    for k in TRACE_KERNELS:
+        n = (TRACE_ITERS + 1) * want[k]             # the warm-up's too
+        if {s: c for s, c in counted[k].items() if c} != {"wgmma": n}:
+            raise AssertionError(f"traced prefill: {k} by schedule "
+                                 f"{counted[k]}, want {n} on wgmma")
+    rec = _trace_summary(m["trace"], TRACE_ITERS)
+    for name in TRACE_KERNELS.values():
+        if not rec["named"][name]:
+            raise AssertionError(f"the trace does not name {name}: "
+                                 f"{rec['kernels']}")
+    rec.update({"arch": LM_ARCH, "shape": [B, LM_S], "nvidia_smi": smi,
+                "traced_ms": m["measured_step_s"] * 1e3,
+                "traced_mean_ms": m["mean_step_s"] * 1e3,
+                "plain_ms": [r["measured_step_s"] * 1e3 for r in plain],
+                "plain_mean_ms": [r["mean_step_s"] * 1e3 for r in plain],
+                "want_per_call": {k: want[k] for k in TRACE_KERNELS},
+                "counted": {k: TRACE_ITERS * want[k] for k in TRACE_KERNELS}})
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _family_batch(cfg, S, b):
+    """One fixed SyntheticLM batch (step 0) of ``b`` x ``S`` on the card;
+    for an encoder-decoder also ``randn(b, encoder_seq, d_model)`` fp32
+    frames from ``RandomState(SEED)``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    raw = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                 global_batch=b)).get(0)
+    if cfg.n_encoder_layers:
+        raw["frames"] = np.random.RandomState(SEED).randn(
+            b, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    return _device_batch(raw)
+
+
+def _family_card_vs_cpu(cfg, layers, kernels):
+    """One step's loss and gradients of ``cfg`` cut to ``layers`` (an
+    encoder-decoder: that many of each) at full width, fp32, on a 2 x 256
+    SyntheticLM batch: on the card (the forward on the hand kernels' fp32
+    schedules) and through the reference backend on the host's CPU, from
+    the same tree.  A MoE model's CPU step takes the card's routing, call
+    by call (``_routed`` / ``_forced``): at random weights the router's top
+    k is a near-tie, so a last-bit difference may pick another expert.
+    Limits: the loss and every gradient leaf relerr < 1e-4."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.trainer import _grads
+    cut = {"n_layers": layers}
+    if cfg.n_encoder_layers:
+        cut["n_encoder_layers"] = layers
+    c = dataclasses.replace(cfg, **cut)
+    shape = ShapeConfig("train", "train", FAMILY_CPU_S, FAMILY_CPU_B)
+    f32 = FlowConfig(mode="folded", precision="fp32")
+    cm_g = tflow.compile(c, shape, f32)
+    cm_c = tflow.compile(c, shape, f32, device="cpu")
+    p_g = cm_g.init_params(SEED)
+    p_c = tree_map(lambda t: t.cpu(), p_g)
+    b_g = _family_batch(c, FAMILY_CPU_S, FAMILY_CPU_B)
+    b_c = {k: v.cpu() for k, v in b_g.items()}
+    moe = c.moe is not None
+    reset_counts()
+    t0 = time.perf_counter()
+    on_card = lambda: _grads(cm_g.loss_fn, p_g, b_g)         # noqa: E731
+    if moe:
+        (lg, mg, gg), calls = _routed(on_card)
+    else:
+        lg, mg, gg = on_card()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    sched = {k: {s: n for s, n in read_schedules(k).items() if n}
+             for k in kernels}
+    if set(launches) != set(kernels) or any("simt" in v
+                                            for v in sched.values()):
+        raise AssertionError(f"{c.name} card against CPU: launches "
+                             f"{launches}, {sched}")
+    t0 = time.perf_counter()
+    on_cpu = lambda: _grads(cm_c.loss_fn, p_c, b_c)          # noqa: E731
+    if moe:
+        lc, mc, gc = _forced(on_cpu, [(i.cpu(), v.cpu()) for i, v in calls])
+    else:
+        lc, mc, gc = on_cpu()
+    cpu_s = time.perf_counter() - t0
+    errs = {f"{t}/{k}": relerr(gg[t][k].cpu(), gc[t][k])
+            for t in gc for k in gc[t]}
+    worst = max(errs, key=errs.get)
+    rec = {"layers": layers, "tokens": FAMILY_CPU_S * FAMILY_CPU_B,
+           "loss_card": float(lg), "loss_cpu": float(lc),
+           "loss_relerr": abs(float(lg) - float(lc)) / abs(float(lc)),
+           "grad_relerr_max": errs[worst], "grad_worst_leaf": worst,
+           "n_leaves": len(errs), "launches": launches, "schedules": sched,
+           "card_s": card_s, "cpu_s": cpu_s}
+    if moe:
+        rec["moe_aux_relerr"] = abs(float(mg["moe_aux"]) - float(
+            mc["moe_aux"])) / abs(float(mc["moe_aux"]))
+        rec["routing_calls"] = len(calls)
+    if not rec["loss_relerr"] < FAMILY_CPU_TOL or \
+            not rec["grad_relerr_max"] < FAMILY_CPU_TOL:
+        raise AssertionError(f"{c.name} card against CPU: {rec}")
+    del cm_g, p_g, gg, b_g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _family_train(arch, layers, S, kernels, cpu_layers, smi):
+    """``FAMILY_TRAIN_STEPS`` AdamW steps of ``arch`` at full width (cut to
+    ``layers``) on one fixed batch, bf16 compute, fp32 masters, block
+    remat: the loss at the last step below the first; the forward's
+    launches by schedule as the plan says (a folded unit's twice a step:
+    the remat's recompute), every product and flash call on ``wgmma``,
+    every lru_scan on ``chunked``, none on simt, no dispatch rejection; the
+    flash calls by ``causal`` and window (an encoder's non-causal, a
+    windowed model's at its window); a MoE model's aux loss each step and
+    the picks its capacity dropped (a MoE layer counted at each call: twice
+    a step where the remat recomputes it); then the card against the CPU
+    (:func:`_family_card_vs_cpu`)."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.core import ops_impl
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cm = tflow.compile(cfg, ShapeConfig("train", "train", S, B),
+                       FlowConfig(mode="folded"))
+    ops = ("attention", "matmul", "glu_matmul") + (
+        ("rg_lru",) if "lru_scan" in kernels else ())
+    if any(cm.plan.kernels.get(o) != "cuda" for o in ops) or \
+            cm.flow.remat != "block":
+        raise AssertionError(f"{arch} train plan: kernels "
+                             f"{cm.plan.kernels}, remat {cm.flow.remat}")
+    t0 = time.perf_counter()
+    params = cm.init_params(SEED)                     # fp32 masters
+    torch.cuda.synchronize()
+    rec = {"arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers, "shape": [B, S],
+           "init_params_s": time.perf_counter() - t0, "nvidia_smi": smi,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
+           "kernels_line": cm.describe().splitlines()[-1].strip()}
+    batch = _family_batch(cfg, S, B)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS)
+    drops = _Drops() if cfg.moe is not None else None
+    ops_impl.ROUTING_HOOK = drops
+    try:
+        (losses, ms, state, kern, peak), flash = _flash_by_causal(
+            lambda: _train_run(cm, opt, params, batch, FAMILY_TRAIN_STEPS,
+                               f"{arch} train", kernels))
+    finally:
+        ops_impl.ROUTING_HOOK = None
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: losses {losses} did not fall")
+    fwd = _plan_launches(cm.plan, "train")
+    n = FAMILY_TRAIN_STEPS
+    want = {"matmul_fused": {"wgmma": n * fwd["matmul_fused"]},
+            "flash_attention": {"wgmma": n * fwd["flash_attention"]}}
+    if "lru_scan" in kernels:
+        want["lru_scan"] = {"chunked": n * fwd["lru_scan"]}
+    if kern["schedules"] != want:
+        raise AssertionError(f"{arch} train: launches by schedule "
+                             f"{kern['schedules']}, want {want}")
+    n_fl = n * fwd["flash_attention"]
+    enc = 2 * n * cfg.n_encoder_layers
+    w = cfg.attention.window
+    want_fl = {"causal": 0 if w else n_fl - enc, "noncausal": enc}
+    if w:
+        want_fl[f"causal@{w}"] = n_fl - enc
+    if flash != want_fl:
+        raise AssertionError(f"{arch} train: flash calls {flash}, want "
+                             f"{want_fl}")
+    rec.update({"losses": losses, "host_ms_per_step": ms, "kernels": kern,
+                "flash_calls": flash, "peak_bytes_train": peak,
+                "train_s": sum(ms) / 1e3})
+    if drops is not None:
+        if not kern.get("moe_aux") or not all(
+                np.isfinite(a) and a > 0 for a in kern["moe_aux"]):
+            raise AssertionError(f"{arch}: aux losses {kern.get('moe_aux')}")
+        rec["capacity_factor"] = cfg.moe.capacity_factor
+        rec["capacity_drops"] = drops.read()
+    del state, params, batch
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = _family_card_vs_cpu(cfg, cpu_layers, kernels)
+    rec["seconds"] = time.perf_counter() - t_start
+    log(json.dumps({"family_train": {
+        k: rec[k] for k in ("arch", "layers", "losses", "flash_calls",
+                            "peak_bytes_train", "seconds")},
+        "launches": kern["launches"], "card_vs_cpu": {
+            k: rec["card_vs_cpu"][k] for k in (
+                "layers", "loss_relerr", "grad_relerr_max",
+                "grad_worst_leaf", "card_s", "cpu_s")}}))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_family_train(smi):
+    """Phase 24: ``measure("prefill", trace_dir=)`` on full-width llama3.2-1b,
+    then the train step of the recurrent, MoE and encoder-decoder
+    families on the card (``FAMILY_TRAIN``)."""
+    out = {"prefill_trace": _prefill_trace(smi)}
+    log(json.dumps({"prefill_trace": {k: v for k, v in
+                                      out["prefill_trace"].items()
+                                      if k != "nvidia_smi"}}))
+    for arch, layers, S, kernels, cpu_layers in FAMILY_TRAIN:
+        out[arch] = _family_train(arch, layers, S, kernels, cpu_layers, smi)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -6528,6 +6915,7 @@ def main() -> int:
     serve_mesh = timed(phase_serve_mesh, smi)
     tiles = timed(phase_tiles, smi, path)
     graphs = timed(phase_graphs, smi)
+    fam_train = timed(phase_family_train, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -6557,7 +6945,7 @@ def main() -> int:
                    "moe_kernels": moe_cases, "moe_path": new,
                    "family_kernels": fam_cases, "family_path": fam,
                    "mesh": mesh, "serve_mesh": serve_mesh, "tiles": tiles,
-                   "graphs": graphs,
+                   "graphs": graphs, "family_train": fam_train,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

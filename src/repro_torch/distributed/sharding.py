@@ -336,14 +336,22 @@ class ShardingRules:
         return col.all_reduce_(grads.contiguous(), groups)
 
 
-def _sq_sum_local(x) -> Tuple[torch.Tensor, tuple]:
-    if isinstance(x, DTensor):
-        loc = local_of(x)
-        names = MeshSpec.of(x.device_mesh).names
-        sharded = tuple(n for n, p in zip(names, x.placements)
-                        if isinstance(p, Shard))
-        return torch.sum(torch.square(loc.float())), (x.device_mesh, sharded)
-    return torch.sum(torch.square(x.float())), None
+def _shard_key(x) -> Optional[tuple]:
+    """(mesh, the names of the mesh dims of more than one rank a DTensor is
+    sharded on), or None where each rank holds every element (a plain
+    tensor, a replicated DTensor, any DTensor on a one-rank mesh)."""
+    if not isinstance(x, DTensor):
+        return None
+    spec = MeshSpec.of(x.device_mesh)
+    sharded = tuple(n for n, p in zip(spec.names, x.placements)
+                    if isinstance(p, Shard) and spec.axis_size(n) > 1)
+    return (x.device_mesh, sharded) if sharded else None
+
+
+def _reduce_over(t: torch.Tensor, key: tuple, op=None) -> torch.Tensor:
+    mesh, axes = key
+    return col.all_reduce_(t, [mesh.get_group(mesh_dim=a) for a in axes],
+                           op)
 
 
 def global_sq_sum(leaves) -> torch.Tensor:
@@ -354,17 +362,40 @@ def global_sq_sum(leaves) -> torch.Tensor:
     total = None
     groups: Dict[Any, torch.Tensor] = {}
     for x in leaves:
-        s, key = _sq_sum_local(x)
-        if key is None or not key[1]:
+        s = torch.sum(torch.square(local_of(x).float()))
+        key = _shard_key(x)
+        if key is None:
             total = s if total is None else total + s
         else:
             groups[key] = groups[key] + s if key in groups else s
-    for (mesh, axes), s in groups.items():
-        s = s.clone()
-        col.all_reduce_(s, [mesh.get_group(mesh_dim=a) for a in axes
-                            if MeshSpec.of(mesh).axis_size(a) > 1])
+    for key, s in groups.items():
+        s = _reduce_over(s.clone(), key)
         total = s if total is None else total + s
     return total
+
+
+def global_amax(leaves) -> List[torch.Tensor]:
+    """The largest ``|x|`` of each leaf over all its elements, DTensor or
+    not (0-d tensors, one a leaf): a DTensor's local maxima are all-reduced
+    with MAX over the mesh dims it is sharded on, the leaves grouped by
+    those dims so a group costs one all-reduce an axis.  Nothing is
+    gathered."""
+    import torch.distributed as dist
+    out = []
+    groups: Dict[Any, List[int]] = {}
+    for i, x in enumerate(leaves):
+        loc = local_of(x)
+        out.append(loc.abs().amax() if loc.numel() else
+                   torch.zeros((), dtype=loc.dtype, device=loc.device))
+        key = _shard_key(x)
+        if key is not None:
+            groups.setdefault(key, []).append(i)
+    for key, idx in groups.items():
+        m = _reduce_over(torch.stack([out[i] for i in idx]), key,
+                         dist.ReduceOp.MAX)
+        for j, i in enumerate(idx):
+            out[i] = m[j]
+    return out
 
 
 @torch.no_grad()

@@ -53,7 +53,9 @@ return DTensor logits and ``generate`` whole tokens on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -444,8 +446,8 @@ class CompiledModel:
                 for k, v in out.items()}
 
     def measure(self, stage: Optional[str] = None, iters: int = 10, *,
-                seed: int = 0, params: Optional[Dict[str, Any]] = None
-                ) -> Dict[str, Any]:
+                seed: int = 0, params: Optional[Dict[str, Any]] = None,
+                trace_dir: Optional[str] = None) -> Dict[str, Any]:
         """Time one stage of this compiled cell: one warm-up call, then
         ``iters`` calls.  ``train`` runs the train step of a default
         ``AdamW()`` on the cell's batch with labels, from ``opt.init``,
@@ -455,7 +457,21 @@ class CompiledModel:
         ``params`` defaults to ``init_params(seed)``.  On the card each call
         is timed with CUDA events and ``peak_bytes`` is the peak of
         allocated device memory over the timed calls; on a CPU model the
-        wall clock times them, and the record says ``cpu``."""
+        wall clock times them, and the record says ``cpu``.
+
+        Each timed call runs inside a ``measure.step`` span of the module
+        tracer (:data:`repro_torch.obs.TRACER`) and a
+        ``torch.profiler.record_function("measure.step")`` of the same
+        name.  ``trace_dir`` runs the timed loop (never the warm-up) under
+        ``torch.profiler.profile`` (CPU activity, and CUDA on the card) and
+        writes its Chrome trace to ``<trace_dir>/measure_<stage>.json``
+        (``measure_<stage>.rank<r>.json`` on a mesh of more than one rank;
+        the directory is made if missing); the record then also holds the
+        file's path under ``trace``.  The times are then taken under the
+        profiler, as the JAX package's are under ``jax.profiler.trace``.
+        On the card a profile that recorded no device activity raises
+        RuntimeError: no trace of the host alone is written in its
+        place."""
         stage = stage if stage is not None else self.shape.kind
         if stage not in MEASURED_STAGES:
             raise NotImplementedError(
@@ -499,21 +515,28 @@ class CompiledModel:
         if on_card:
             torch.cuda.reset_peak_memory_stats(self.device)
         times = []
-        for i in range(max(iters, 1)):
-            sp = TRACER.timed("measure.step", cat="measure", stage=stage)
-            if on_card:
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                step(i + 1)
-                t1.record()
-                t1.synchronize()
-                times.append(t0.elapsed_time(t1) / 1e3)
-            else:
-                t = time.perf_counter()
-                step(i + 1)
-                times.append(time.perf_counter() - t)
-            sp.end()
+        prof = None
+        if trace_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if on_card else []))
+        with prof if prof is not None else contextlib.nullcontext():
+            for i in range(max(iters, 1)):
+                sp = TRACER.timed("measure.step", cat="measure", stage=stage)
+                with torch.profiler.record_function("measure.step"):
+                    if on_card:
+                        t0 = torch.cuda.Event(enable_timing=True)
+                        t1 = torch.cuda.Event(enable_timing=True)
+                        t0.record()
+                        step(i + 1)
+                        t1.record()
+                        t1.synchronize()
+                        times.append(t0.elapsed_time(t1) / 1e3)
+                    else:
+                        t = time.perf_counter()
+                        step(i + 1)
+                        times.append(time.perf_counter() - t)
+                sp.end()
         if self.rules is not None and self.rules.spec.size > 1:
             # every rank keeps the slowest rank's times, so a search that
             # ranks by them picks the same winner on every rank
@@ -531,8 +554,30 @@ class CompiledModel:
                ("tokens_per_s" if lm else "images_per_s"): rate,
                "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
                               if on_card else None)}
+        if prof is not None:
+            rec["trace"] = self._write_trace(prof, trace_dir, stage, on_card)
         self.stats.setdefault("measure", {})[stage] = rec
         return rec
+
+    def _write_trace(self, prof, trace_dir: str, stage: str,
+                     on_card: bool) -> str:
+        """Export ``prof``'s Chrome trace into ``trace_dir``; on the card
+        raise if it holds no device activity."""
+        if on_card:
+            from torch.autograd import DeviceType
+            if not any(e.device_type == DeviceType.CUDA
+                       for e in prof.events()):
+                raise RuntimeError(
+                    "torch.profiler recorded no device activity in "
+                    f"measure({stage!r}); no trace written")
+        name = f"measure_{stage}"
+        if self.rules is not None and self.rules.spec.size > 1:
+            import torch.distributed as dist
+            name += f".rank{dist.get_rank()}"
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, name + ".json")
+        prof.export_chrome_trace(path)
+        return path
 
     # -- reporting -----------------------------------------------------------
     def describe(self, stats: bool = False) -> str:

@@ -12,14 +12,27 @@ runs through the reference ops (see ``core/ops_impl._KernelForward``).
 (estimator-pruned, each top-k survivor built and its footprint confirmed)
 and trains the winning flow; it prints the search and the plan's ``dse:``
 line.
+
+``--mesh data=2,model=2`` trains on a DeviceMesh (``Trainer(mesh=)``: the
+parameters, moments and, with ``--compress``, the error buffers are
+DTensors).  Each of the mesh's ranks runs the command with its own
+``--rank`` and the same ``--init-file`` (a path every rank can reach); a
+one-rank mesh needs neither::
+
+  python -m repro_torch.launch.train --smoke --compress --mesh data=1,model=1
+  # four ranks on the CPU, one command each (r = 0..3):
+  python -m repro_torch.launch.train --smoke --device cpu --compress \\
+      --mesh data=2,model=2 --rank $r --init-file /tmp/pg_store
 """
 from __future__ import annotations
 
 import argparse
+import math
 
 from repro_torch import flow as tflow
 from repro_torch.configs.base import FlowConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticImages, SyntheticLM
+from repro_torch.device import init_process_group
 from repro_torch.optim.adamw import AdamW
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -44,14 +57,26 @@ def main(argv=None):
     ap.add_argument("--autotune", action="store_true",
                     help="explore the pass design space (estimator-pruned, "
                          "validated) instead of the fixed flow")
+    ap.add_argument("--mesh", default=None,
+                    help="train on a mesh, e.g. data=2,model=2")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="this process's rank on the mesh")
+    ap.add_argument("--init-file", default=None,
+                    help="the file store every rank of the mesh shares")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        mesh = {k: int(v) for k, v in
+                (a.split("=") for a in args.mesh.split(","))}
+        init_process_group(math.prod(mesh.values()), args.rank, args.device,
+                           args.init_file)
 
     shape = ShapeConfig("cli", "train", args.seq, args.batch)
     cm = tflow.compile(
         args.arch, shape,
         FlowConfig(mode=args.mode, microbatches=args.microbatches),
         backend=args.backend, autotune=args.autotune, smoke=args.smoke,
-        device=args.device)
+        device=args.device, mesh=mesh)
     if args.autotune:
         print(cm.explore_result.describe())
     print(cm.describe(stats=True))

@@ -15,10 +15,12 @@ The update runs under ``torch.no_grad()`` and writes the parameters, the
 moments and the error buffers in place: it consumes its arguments, as the
 jitted JAX step donates them.
 
-On a mesh the leaves are DTensors: the moments take their parameter's
-placements, each update runs on the rank's local chunks (elementwise, no
-collective), and the clip's global norm sums every element once (the
-local sums all-reduced over the mesh dims a leaf is sharded on).
+On a mesh the leaves are DTensors: the moments and the error buffers take
+their parameter's placements, each update runs on the rank's local chunks
+(elementwise, no collective), the clip's global norm sums every element
+once (the local sums all-reduced over the mesh dims a leaf is sharded on),
+and the compression's per-tensor scale is the whole tensor's (the local
+maxima all-reduced the same way); no gradient is gathered.
 """
 from __future__ import annotations
 
@@ -32,6 +34,16 @@ from torch.distributed.tensor import DTensor
 
 def _local(x):
     return x._local_tensor if isinstance(x, DTensor) else x
+
+
+def _like(x, loc):
+    """``loc`` as a DTensor with ``x``'s mesh, placements and global shape
+    when ``x`` is one (no collective), else ``loc``."""
+    if not isinstance(x, DTensor):
+        return loc
+    return DTensor.from_local(loc, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -72,13 +84,9 @@ class AdamW:
 
     def init(self, params) -> AdamWState:
         def zero(x):
-            if isinstance(x, DTensor):
-                loc = torch.zeros(x._local_tensor.shape, dtype=torch.float32,
-                                  device=x._local_tensor.device)
-                return DTensor.from_local(loc, x.device_mesh, x.placements,
-                                          run_check=False, shape=x.shape,
-                                          stride=x.stride())
-            return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            loc = _local(x)
+            return _like(x, torch.zeros(loc.shape, dtype=torch.float32,
+                                        device=loc.device))
 
         def z(p):
             return tree_map(zero, p)
@@ -101,39 +109,43 @@ class AdamW:
     @torch.no_grad()
     def compress_grads(self, grads, err):
         """int8 quantize (per-tensor scale) with error feedback: returns the
-        dequantized gradients; ``err`` is overwritten with the new error."""
-        def one(g, e):
-            gf = g.float() + e
-            scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
-            q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        dequantized gradients; ``err`` is overwritten with the new error.
+        A DTensor leaf is quantized on the rank's chunk with the whole
+        tensor's scale (:func:`~repro_torch.distributed.sharding.global_amax`
+        of ``g + e``), and its dequantized gradient is a DTensor with the
+        gradient's placements."""
+        from repro_torch.distributed.sharding import global_amax
+        gf = tree_map(lambda g, e: _like(g, _local(g).float() + _local(e)),
+                      grads, err)
+        leaves = tree_leaves(gf)
+        amax = dict(zip(map(id, leaves), global_amax(leaves)))
+
+        def one(x, e):
+            loc = _local(x)
+            scale = torch.clamp(amax[id(x)], min=1e-12) / 127.0
+            q = torch.clamp(torch.round(loc / scale), -127, 127) \
+                .to(torch.int8)
             deq = q.float() * scale
-            e.copy_(gf - deq)
-            return deq
-        return tree_map(one, grads, err), err
+            _local(e).copy_(loc - deq)
+            return _like(x, deq)
+        return tree_map(one, gf, err), err
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
         """One step: ``params``, ``state.mu``, ``state.nu`` (and
         ``state.err``) are written in place and returned, with the new step
-        count and ``{"grad_norm", "lr"}`` (0-d tensors, not read back)."""
+        count and ``{"grad_norm", "lr"}`` (0-d tensors, not read back).
+        The clip's norm is taken of the dequantized gradients when
+        compressing, as in the JAX package."""
+        from repro_torch.distributed.sharding import global_sq_sum
         out_params = params
-        if any(isinstance(g, DTensor) for g in tree_leaves(grads)):
-            from repro_torch.distributed.sharding import global_sq_sum
-            gsq = global_sq_sum(tree_leaves(grads))
-            if self.compress:
-                raise NotImplementedError(
-                    "int8 gradient compression over DTensor gradients")
-            grads, params = tree_map(_local, grads), tree_map(_local, params)
-            mu, nu = tree_map(_local, state.mu), tree_map(_local, state.nu)
-            err = None
-        else:
-            grads = tree_map(lambda g: g.float(), grads)
-            err = state.err
-            if self.compress == "int8_ef":
-                grads, err = self.compress_grads(grads, err)
-            gsq = sum(torch.sum(torch.square(g)) for g in tree_leaves(grads))
-            mu, nu = state.mu, state.nu
+        err = state.err
+        if self.compress == "int8_ef":
+            grads, err = self.compress_grads(grads, err)
+        gsq = global_sq_sum(tree_leaves(grads))
+        grads, params = tree_map(_local, grads), tree_map(_local, params)
+        mu, nu = tree_map(_local, state.mu), tree_map(_local, state.nu)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0) \
             if self.grad_clip else 1.0

@@ -1950,3 +1950,59 @@ def test_cnn_prefill_replays_a_graph(card):
         ws = [cm.prefill(params, {"images": x * s})[0] for s in (1.0, 2.0)]
     assert cm.stage_graphs.stats["replays"] == 1
     assert all(torch.equal(y, w) for y, w in zip(ys, ws))
+
+
+def test_measure_trace_names_the_wgmma_matmul(card, tmp_path):
+    """``measure("prefill", trace_dir=)`` of a bf16 prefill (smoke llama at
+    2 x 64 tokens: 128 rows, the projections on ``wgmma``): the Chrome
+    trace names ``matmul_wgmma_kernel`` among its device kernels and holds
+    one ``measure.step`` annotation a timed call."""
+    import json
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    cm = flow.compile("llama3.2-1b", ShapeConfig("s", "prefill", 64, 2),
+                      FlowConfig(mode="folded"), smoke=True)
+    rec = cm.measure("prefill", iters=3, trace_dir=str(tmp_path))
+    with open(rec["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("matmul_wgmma_kernel" in k for k in kernels), sorted(kernels)
+    assert sum(e.get("name") == "measure.step" and
+               e.get("cat") == "user_annotation" for e in events) == 3
+    assert rec["device"] == torch.cuda.get_device_name(0)
+
+
+def test_compressed_adamw_on_a_one_rank_mesh_is_the_unsharded_step(card):
+    """Two ``AdamW(compress="int8_ef")`` updates of smoke llama's fp32
+    masters on a one-rank NCCL mesh (DTensor parameters, gradients, moments
+    and error buffers) against the same updates of the plain tensors:
+    every parameter, moment and error buffer equal bit for bit (at one
+    rank the scale's MAX all-reduce and the norm's sum reduce nothing, and
+    the clip bites: the gradients' norm is above 1)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
+    from torch.distributed.tensor import DTensor
+    shape = ShapeConfig("train", "train", 16, 2)
+    fl = FlowConfig(mode="folded")
+    cm0 = flow.compile("llama3.2-1b", shape, fl, smoke=True)
+    cm = flow.compile("llama3.2-1b", shape, fl, smoke=True,
+                      mesh={"data": 1, "model": 1})
+    shd = cm.rules.params_shardings(cm.plan)
+    p0 = cm0.init_params(0)
+    p = cm.rules.distribute(_clone_tree(p0), shd)
+    opt = AdamW(lr=1e-3, warmup_steps=1, compress="int8_ef")
+    s0, s = opt.init(p0), opt.init(p)
+    for _ in range(2):
+        g0 = tree_map(lambda t: torch.randn(t.shape, generator=card,
+                                            device="cuda"), p0)
+        g = tree_map(lambda t, q: cm.rules.wrap(t.clone(), q.placements,
+                                                q.shape), g0, p)
+        p0, s0, m0 = opt.update(g0, s0, p0)
+        p, s, m = opt.update(g, s, p)
+        assert float(m0["grad_norm"]) > 1.0
+        assert torch.equal(m0["grad_norm"], m["grad_norm"])
+    assert isinstance(tree_leaves(s.err)[0], DTensor)
+    for a, b in ((p0, p), (s0.mu, s.mu), (s0.nu, s.nu), (s0.err, s.err)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            assert torch.equal(x, y.to_local())

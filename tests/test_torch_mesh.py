@@ -6,7 +6,10 @@ leaves the function unchanged).
 
 Each case makes JAX's numbers here, writes them with the weights to an
 npz, and runs ``tests/torch_mesh_worker.py``, which starts the four ranks
-(no JAX in them)."""
+(no JAX in them).  ``train_step``, ``compress`` (``Trainer(mesh=)`` with
+``AdamW(compress="int8_ef")`` against JAX's compressed steps) and
+``train_cli`` (``launch/train.py --compress --mesh``) share one group of
+ranks."""
 import dataclasses
 import os
 import subprocess
@@ -21,6 +24,7 @@ from repro import flow as jflow
 from repro.configs import get_smoke as jget_smoke
 from repro.configs.base import FlowConfig as JFlowConfig
 from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.optim.adamw import AdamW as JAdamW
 
 WORKER = os.path.join(os.path.dirname(__file__), "torch_mesh_worker.py")
 CASES = ("train_step", "compile_mesh", "compile_mesh-recurrentgemma-2b",
@@ -49,12 +53,36 @@ def _jax(arch, kind, cfg=None, **flow_kw):
     return jcm, params
 
 
+def _codes(deq):
+    """The int8 codes of a dequantized leaf (its largest |value| is 127
+    scales)."""
+    m = np.max(np.abs(deq))
+    return np.zeros_like(deq) if m == 0 else np.round(deq * 127 / m)
+
+
 def _reference(case):
     """JAX's single-device numbers for ``case`` (and the weights)."""
     b = _batch()
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     if case in ("elastic", "explore"):
         return dict(b)
+    if case == "compress":
+        # 3 steps of AdamW(compress="int8_ef") on the batch from init: the
+        # parameters, each step's loss and each step's int8 codes
+        jcm, params = _jax("llama3.2-1b", "train")
+        opt = JAdamW(lr=1e-3, warmup_steps=1, compress="int8_ef")
+        st, out, losses = opt.init(params), _flat("params", params), []
+        for s in range(3):
+            (loss, _), g = jax.value_and_grad(jcm.loss_fn, has_aux=True)(
+                params, jb)
+            deq, _ = opt.compress_grads(
+                jax.tree.map(lambda x: x.astype(jnp.float32), g), st.err)
+            out.update(_flat(f"codes{s}", jax.tree.map(
+                lambda d: _codes(np.asarray(d)), deq)))
+            params, st, _ = opt.update(g, st, params)
+            losses.append(float(loss))
+        return {**b, **out, "jlosses": np.asarray(losses, np.float64),
+                **_flat("jparams", jax.tree.map(np.asarray, params))}
     if case == "train_step":
         jcm, params = _jax("llama3.2-1b", "train")
         loss, _ = jcm.loss_fn(params, jb)
@@ -95,10 +123,44 @@ def _reference(case):
             "loss": np.float64(loss)}
 
 
+def _run(case, d, ref):
+    np.savez(d / "ref.npz", **ref)
+    return subprocess.run([sys.executable, WORKER, case, str(d)],
+                          capture_output=True, text=True, timeout=300)
+
+
+def _ok(r, case):
+    assert f"{case} OK" in r.stdout, \
+        r.stdout[-3000:] + "\n" + r.stderr[-4000:]
+
+
+@pytest.fixture(scope="module")
+def train_group(tmp_path_factory):
+    """One group of four ranks runs ``train_step``, ``compress`` and
+    ``train_cli``, one after the other."""
+    return _run("train_step+compress+train_cli", tmp_path_factory.mktemp("train"),
+                {**_reference("train_step"), **_reference("compress")})
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_mesh_case(case, tmp_path):
-    np.savez(tmp_path / "ref.npz", **_reference(case))
-    r = subprocess.run([sys.executable, WORKER, case, str(tmp_path)],
-                       capture_output=True, text=True, timeout=300)
+def test_mesh_case(case, tmp_path, request):
+    if case == "train_step":
+        _ok(request.getfixturevalue("train_group"), case)
+        return
+    r = _run(case, tmp_path, _reference(case))
     assert r.returncode == 0, r.stdout[-3000:] + "\n" + r.stderr[-4000:]
-    assert f"{case} OK" in r.stdout, r.stdout[-3000:]
+    _ok(r, case)
+
+
+def test_mesh_compress(train_group):
+    """``Trainer(mesh=)`` with ``AdamW(compress="int8_ef")``: the worker's
+    ``case_compress`` bounds; the group exits 0."""
+    _ok(train_group, "compress")
+
+
+def test_mesh_train_cli_compress(train_group):
+    """``launch/train.py --compress --mesh data=2,model=2`` on the four
+    ranks; the group exits 0."""
+    assert train_group.returncode == 0, \
+        train_group.stdout[-3000:] + "\n" + train_group.stderr[-4000:]
+    _ok(train_group, "train_cli")

@@ -7,8 +7,9 @@ single-device numbers, which the test made in its own process and left in
     python tests/torch_mesh_worker.py <case> <dir> <rank>   # one rank
 
 The launcher starts the four ranks, stops them all when one fails, and
-exits with the first failing rank's code; rank 0 prints ``<case> OK`` and
-its figures.
+exits with the first failing rank's code; once every rank has passed a
+case, rank 0 prints ``<case> OK`` and its figures.  ``<a>+<b>`` runs the
+cases one after the other in the same group (``train_step+compress+train_cli``).
 """
 import dataclasses
 import json
@@ -120,6 +121,123 @@ def case_train_step(rank, ref):
         (perr, loose, moved)
     return f"loss relerr {err:.2e} grads relerr {gerr:.2e} step " \
         f"max|dparam| {perr:.2e} (near-eps gradients {loose:.2e})"
+
+
+COMPRESS_STEPS, COMPRESS_LR = 3, 1e-3
+
+
+def _codes(deq):
+    """The int8 codes of a dequantized leaf: its largest |value| is 127
+    scales, so ``round(deq * 127 / max|deq|)`` gives the codes back."""
+    import torch
+    m = deq.abs().max()
+    return torch.zeros_like(deq) if m == 0 else torch.round(deq * 127 / m)
+
+
+def case_compress(rank, ref):
+    """``Trainer(mesh=)`` with ``AdamW(compress="int8_ef")`` on (data 2,
+    model 2): 3 steps of smoke llama on one batch from the bridged weights,
+    against the port's unsharded step and JAX's ``AdamW.update`` (the npz's
+    ``jparams`` and ``codes<step>``).  The scale is each whole tensor's
+    (the chunks' maxima all-reduced), no gradient is gathered, and the
+    error buffers stay DTensors with the parameters' placements.  A
+    gradient summed over dp in another order can move an element across a
+    rounding boundary: its int8 code flips, and that element is held to
+    2 lr a step; the flips are counted (any step, against either side) and
+    must stay under 1e-3 of the elements.  Every other element: 1e-5 where
+    the first step's |g| > 1e-6, ``lr`` elsewhere (the mesh train step's
+    bounds); the losses within 2e-5."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import bridge
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.optim.adamw import AdamW, tree_map
+    from repro_torch.train.trainer import Trainer, TrainerConfig, _grads
+
+    @dataclasses.dataclass(frozen=True)
+    class Logged(AdamW):
+        log: list = dataclasses.field(default_factory=list, compare=False,
+                                      hash=False)
+
+        def compress_grads(self, grads, err):
+            deq, err = super().compress_grads(grads, err)
+            self.log.append(tree_map(lambda d: _codes(full_tensor(d)), deq))
+            return deq, err
+
+    class Fixed:                       # one batch at every step
+        def get(self, step):
+            return {k: ref[k].astype(np.int64) for k in ("tokens", "labels")}
+
+    kw = dict(lr=COMPRESS_LR, warmup_steps=1, compress="int8_ef")
+    tc = TrainerConfig(steps=COMPRESS_STEPS, log_every=1)
+    cm = _compile("llama3.2-1b", "train", {"data": 2, "model": 2})
+    c1 = _compile("llama3.2-1b", "train", None)
+    opt, opt1 = Logged(**kw), Logged(**kw)
+    tr, tr1 = Trainer(cm, opt, tc), Trainer(c1, opt1, tc)
+    assert tr.rules is not None and tr1.rules is None
+    p = _mesh_params(cm, ref)
+    p1 = bridge.params_from_numpy(_tree(ref, "params"), "cpu")
+    g1 = _grads(c1.loss_fn, p1, _batch(ref))[2]
+    tr.init = lambda seed: (p, opt.init(p))
+    tr1.init = lambda seed: (p1, opt1.init(p1))
+    p, o, hist = tr.fit(Fixed(), 0)
+    p1, _, hist1 = tr1.fit(Fixed(), 0)
+    wq = o.err["fold_layer0"]["0:wq"]
+    assert isinstance(wq, DTensor) and \
+        wq.placements == p["fold_layer0"]["0:wq"].placements
+    lerr = max(_relerr(a, b) for (_, a), (_, b) in zip(hist, hist1))
+    lerr = max([lerr] + [_relerr(a, b) for (_, a), b in
+                         zip(hist1, ref["jlosses"])])
+    assert lerr < 2e-5, (hist, hist1, ref["jlosses"])
+    flips = n = 0
+    perr = loose = flipped_err = 0.0
+    for t in p1:
+        for k in p1[t]:
+            flip = torch.zeros(p1[t][k].shape, dtype=torch.bool)
+            for s in range(COMPRESS_STEPS):
+                jc = torch.from_numpy(np.array(ref[f"codes{s}|{t}|{k}"]))
+                mc, sc = opt.log[s][t][k], opt1.log[s][t][k]
+                flip |= (mc != sc) | (sc != jc)
+            well = (g1[t][k].abs() > 1e-6) & ~flip
+            for other in (p1[t][k], torch.from_numpy(
+                    np.array(ref[f"jparams|{t}|{k}"]))):
+                d = (full_tensor(p[t][k]) - other).abs()
+                if well.any():
+                    perr = max(perr, float(d[well].max()))
+                if (~flip).any():
+                    loose = max(loose, float(d[~flip].max()))
+                if flip.any():
+                    flipped_err = max(flipped_err, float(d[flip].max()))
+            flips += int(flip.sum())
+            n += flip.numel()
+    assert perr < 1e-5 and loose <= COMPRESS_LR, (perr, loose)
+    assert flipped_err <= 2 * COMPRESS_LR * COMPRESS_STEPS, flipped_err
+    assert flips <= 1e-3 * n, (flips, n)
+    return f"{COMPRESS_STEPS} steps: losses relerr {lerr:.2e} max|dparam| " \
+        f"{perr:.2e} (near-eps {loose:.2e}), {flips} of {n} elements' " \
+        f"int8 codes flipped (max|dparam| {flipped_err:.2e})"
+
+
+def case_train_cli(rank, ref):
+    """``python -m repro_torch.launch.train --compress --mesh
+    data=2,model=2`` (its ``main``) on the group that is up: the plan on
+    the mesh, 3 steps of smoke llama, every loss finite."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train.main(["--smoke", "--device", "cpu", "--steps", "3",
+                    "--batch", "4", "--seq", "16", "--compress",
+                    "--mesh", "data=2,model=2", "--rank", str(rank),
+                    "--init-file",
+                    os.path.join(os.environ["MESH_TEST_DIR"], "store")])
+    text = out.getvalue()
+    assert "sharding: mesh={data:2,model:2}" in text, text
+    losses = [float(ln.split()[-1]) for ln in text.splitlines()
+              if ln.startswith("step ")]
+    assert len(losses) == 3 and np.all(np.isfinite(losses)), text
+    return f"losses {losses}"
 
 
 def case_compile_mesh(rank, ref, arch="llama3.2-1b"):
@@ -456,6 +574,8 @@ CASES = {
     "serve": case_serve,
     "serve_hybrid": case_serve_hybrid,
     "train_step": case_train_step,
+    "compress": case_compress,
+    "train_cli": case_train_cli,
     "compile_mesh": case_compile_mesh,
     "compile_mesh-recurrentgemma-2b": lambda r, ref: case_compile_mesh(
         r, ref, "recurrentgemma-2b"),
@@ -480,9 +600,12 @@ def rank_main(case: str, d: str, rank: int) -> None:
     path = os.path.join(d, "ref.npz")
     ref = np.load(path) if os.path.exists(path) else None
     os.environ["MESH_TEST_DIR"] = d
-    msg = CASES[case](rank, ref)
-    if rank == 0:
-        print(f"{case} OK {msg}", flush=True)
+    import torch.distributed as dist
+    for name in case.split("+"):
+        msg = CASES[name](rank, ref)
+        dist.barrier()                  # every rank passed it
+        if rank == 0:
+            print(f"{name} OK {msg}", flush=True)
 
 
 def launch(case: str, d: str, limit: float = 280.0) -> int:
