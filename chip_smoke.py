@@ -248,7 +248,10 @@ Phases, each raising on failure:
    patches); ``Engine.run`` on workload A (deepseek bf16 and fp32, mixtral
    bf16) with its launches by schedule, the pool's bytes and the real
    prompt picks capacity dropped in the padded prefill batches, fp32
-   tokens identical to the reference backend's ``Engine.run``;
+   tokens identical to the reference backend's ``Engine.run``; deepseek's
+   fp32 workload A run again on the stages' graphs without the hook
+   (launches and tokens equal to the eager run's), and the reference
+   backend's ``Engine.run`` on graphs too, with each model's graph stats;
 18. family kernels — at whisper-small's geometries (12 over 12 heads of
    64, d_model 768, d_ff 3072), bf16 and fp32: ``flash_attention``
    non-causal over the encoder's 8 x 1500 frames (1500 is no multiple of
@@ -342,12 +345,14 @@ Phases, each raising on failure:
    for bit, ``measure("decode")`` in turns (eager, graph, graph, eager)
    and in bf16 the graph's busy share, ``generate_fori`` (tokens equal to
    the eager run's), in bf16 ``generate`` of 32 steps (tokens identical
-   to eager and to ``generate_fori``) and ``decode_segment`` at
-   temperature 1.0 on admitted chains against the host loop (tokens
-   identical); ``Engine.run`` on workloads A and D in fp32 (tokens
-   identical to eager and to the ``reference`` backend's, tokens/s and
-   ms a tick); ResNet-34's opt forward in bf16 and fp32 (logits bit for
-   bit, ms in turns); the graphs captured, the capture seconds and the
+   to eager and to ``generate_fori``; three more calls capture nothing:
+   the prefill's state is copied into the model's decode state) and
+   ``decode_segment`` at temperature 1.0 on admitted chains against the
+   host loop (tokens identical); ``Engine.run`` on workloads A and D in
+   fp32 (tokens identical to eager and to the ``reference`` backend's,
+   tokens/s and ms a tick, the prefill batches on one graph a bucket);
+   ResNet-34's opt forward in bf16 and fp32 (logits bit for bit, ms in
+   turns); the graphs captured, the capture seconds and the
    pool's bytes.
 24. family train — ``measure("prefill", trace_dir=)`` of full-width
    llama3.2-1b's bf16 prefill (8 x 512 tokens, 5 timed calls between two
@@ -371,19 +376,38 @@ Phases, each raising on failure:
    one fp32 step of each at 3 / 2 / 2 + 2 layers, 2 x 256 tokens, on the
    card's kernels and through the ``reference`` backend on the host's CPU
    from the same tree (deepseek's CPU step on the card's routing,
-   replayed): the loss and every gradient within 1e-4.
+   replayed): the loss and every gradient within 1e-4.  The 6 steps run
+   under ``disable_graphs()``: the capacity drops are counted through a
+   routing hook.
+25. graph stages — the LM prefill and the train step on their captured
+   graphs, each beside its eager run under ``disable_graphs()`` in the
+   same call: the prefill (8 x 512 tokens) of llama3.2-1b at full width
+   and depth in bf16 and fp32 (widened), recurrentgemma-2b and rwkv6-7b at
+   8 layers in bf16: logits and every state tensor bit for bit, launches
+   by schedule equal, a second call leaving the first one's state as it
+   was, ms a call by events in turns, each way's busy share, the pool's
+   bytes; the train step, 3 ``AdamW(lr=1e-3, warmup_steps=1)`` steps from
+   one init and batch eagerly, on the graph and eagerly again, of
+   llama3.2-1b at ``TRAIN_DEPTH`` layers (8 x 512), ResNet-34 (batch 8),
+   recurrentgemma-2b at 3 layers, deepseek-moe-16b at 2 and whisper-small
+   whole (8 x 448 with frames): launches equal, the losses and every
+   parameter bit for bit where the two eager runs are (else within twice
+   their gap), ms a step, peak and pool bytes; lru_scan at (8, 512, 2560)
+   fp32 by CUDA graph, allocated per call and into one buffer, beside its
+   device time inside recurrentgemma-2b's prefill graph.
 
-Phases 5-22 run the stages on graphs wherever the port puts them (the
-decode stage, generate_fori, decode segments, a CNN's forward; an LM
-prefill eagerly); phases 20-21, on a mesh, run eagerly, and so do the
-runs that record or force MoE routing through a Python hook (phase 17's
-``_routed``, ``_forced`` and workload A's capacity drops), under
-``disable_graphs()``. A replay adds the launch counts its capture
-recorded, so every launch check reads as on the eager run.
+Phases 5-24 run the stages on graphs wherever the port puts them (the
+prefill, the decode stage, generate_fori, decode segments, the train
+step); phases 20-21, on a mesh, run eagerly, and so do the runs that
+record or force MoE routing through a Python hook (phase 17's
+``_routed``, ``_forced`` and workload A's capacity drops, phase 24's
+train steps), under ``disable_graphs()``; deepseek's fp32 workload A
+then runs again on graphs without the hook. A replay adds the launch counts
+its capture recorded, so every launch check reads as on the eager run.
 
 The kernel phases 3, 4 and 7 run before the path phases 5, 6 and 8; phases
 9, 10 and 11 come next, then 12, 13, 14 and 15, then 16 and 17, then 18
-and 19, then 20, 21 and 22, then 23, then 24. Every path phase on a default flow
+and 19, then 20, 21 and 22, then 23, then 24, then 25. Every path phase on a default flow
 also holds every launch of the three tiled kernels to its default tile (the block
 each took before it took a plan tile: ``retiled`` is 0); the base flow
 and the tuned flows to the blocks their plan's tiles give. Every path phase also reads
@@ -1626,11 +1650,12 @@ def phase_base_kernels():
     return {"matmul_fused_base": cases}
 
 
-def _profile(fn, iters: int = 5):
+def _profile(fn, iters: int = 5, named=None):
     """Device busy share of ``iters`` forwards under torch.profiler: the
     summed device time of the device-side kernel events over the window's
     wall time (one stream, so kernels do not overlap), and the top kernels
-    by device time.
+    by device time; with ``named``, the device ms and launches a forward
+    of the kernels whose name holds it.
     The profiler's own cost makes the window longer than an unprofiled one.
     Returns None for the share when the profiler saw no device time."""
     from torch.autograd import DeviceType
@@ -1652,7 +1677,14 @@ def _profile(fn, iters: int = 5):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     busy = sum(us for us, _ in rows)
-    return {"iters": iters, "wall_ms": wall_us / 1e3,
+    out = {}
+    if named is not None:
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and named in e.key]
+        out["named"] = {
+            "ms_per_call": sum(dev_us(e) for e in hits) / 1e3 / iters,
+            "launches_per_call": sum(e.count for e in hits) / iters}
+    return {**out, "iters": iters, "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us if busy else None,
             "top": [{"kernel": k[:80], "ms_per_forward": us / 1e3 / iters}
@@ -3541,8 +3573,9 @@ def _expert_ms(cm, params):
 def _new_serve(arch, cm, ref, params, prec, want_p, want_d, shapes):
     """Workload A through ``Engine.run`` with the launches by schedule and
     the pool's bytes, the real prompt tokens capacity dropped counted in the
-    op (``_Drops``); in fp32 the greedy tokens identical to the reference
-    backend's ``Engine.run``."""
+    op (``_Drops``); in fp32 the run again on graphs without the hook
+    (its launches and tokens the eager run's) and the greedy tokens
+    identical to the reference backend's ``Engine.run`` on graphs."""
     from repro_torch import flow as tflow
     from repro_torch.core import ops_impl
     cfg = cm.cfg
@@ -3581,15 +3614,38 @@ def _new_serve(arch, cm, ref, params, prec, want_p, want_d, shapes):
     toks = _tokens(rep)
     del eng, rep
     if prec == "fp32":
-        # the kernel engine's pool is freed before the reference's; where
-        # the reference's own routing moves a token, its engine runs again
-        # on the kernels' routing and must give every token
+        # the kernel engine again on graphs, without the hook (a replay
+        # runs no Python): the eager run's launches and tokens.  Then the
+        # reference backend's engine on graphs; where its own routing
+        # moves a token, it runs again (eagerly) on the kernels' routing
+        # and must give every token
         torch.cuda.empty_cache()
-        _, rep_r = _engine_run(ref, params, reqs)
+        reset_counts()
+        t = time.perf_counter()
+        eng, rep_g = _engine_run(cm, params, reqs)
+        graphed = {"wall_s": time.perf_counter() - t,
+                   "graphs": dict(cm.stage_graphs.stats)}
+        if _counted(read_counts(), _serve_want(rep_g, want_p, want_d),
+                    f"{arch} fp32 workload A on graphs") != launches:
+            raise AssertionError(f"{arch} fp32 workload A: launches on "
+                                 "graphs differ from the eager run's")
+        if _tokens(rep_g) != toks:
+            raise AssertionError(f"{arch} fp32 workload A: greedy tokens "
+                                 "on graphs differ from the eager run's")
+        del eng, rep_g
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        eng, rep_r = _engine_run(ref, params, reqs)
+        del eng                                     # its paged pool
+        graphed["reference_wall_s"] = time.perf_counter() - t
+        graphed["reference_graphs"] = dict(ref.stage_graphs.stats)
+        graphed["kernel_graphs_after"] = dict(cm.stage_graphs.stats)
+        r["on_graphs"] = graphed
         diff = [rid for rid, t in toks.items() if t != _tokens(rep_r)[rid]]
         del rep_r
         if diff:
-            torch.cuda.empty_cache()
+            # eager beside 65.5 GB of weights: the graphs' pools go first
+            tflow.clear_graphs()
             _, rep_f = _forced(lambda: _engine_run(ref, params, reqs),
                                drops.calls)
             if toks != _tokens(rep_f):
@@ -3869,7 +3925,9 @@ def _flash_by_causal(fn):
     """``fn()`` with the op layer's flash_attention calls counted by their
     ``causal`` flag (the wrapper's own count does not split them) and, for
     a windowed call, its window: (its result, {"causal": n, "noncausal":
-    n, "causal@<window>": n, ...})."""
+    n, "causal@<window>": n, ...}).  Eagerly: the count is taken in
+    Python, which a graph's replay skips and its capture runs again."""
+    from repro_torch import flow as tflow
     from repro_torch.core import ops_impl
     seen = {"causal": 0, "noncausal": 0}
     resolve = ops_impl.plan_kernel
@@ -3888,7 +3946,8 @@ def _flash_by_causal(fn):
         return flash
     ops_impl.plan_kernel = counted_plan_kernel
     try:
-        out = fn()
+        with tflow.disable_graphs():
+            out = fn()
     finally:
         ops_impl.plan_kernel = resolve
     return out, seen
@@ -6339,13 +6398,13 @@ def _measure_turns(cm, stage, params, iters):
     return {f"{w}_ms": min(v) for w, v in ms.items()}
 
 
-def _busy(fn, ways=("graph", "eager")):
-    """The device busy share of 5 calls of ``fn`` each way, and the
-    seconds each profile took."""
+def _busy(fn, ways=("graph", "eager"), iters=5):
+    """The device busy share of ``iters`` calls of ``fn`` each way, and
+    the seconds each profile took."""
     out = {}
     for way in ways:
         t = time.perf_counter()
-        p = _graphed(lambda: _profile(fn, 5), way == "graph")
+        p = _graphed(lambda: _profile(fn, iters), way == "graph")
         out[f"{way}_busy_share"] = p["device_busy_share"]
         out[f"{way}_wall_ms"] = p["wall_ms"] / p["iters"]
         out[f"{way}_profile_s"] = time.perf_counter() - t
@@ -6441,6 +6500,19 @@ def _graph_lm(cm, params, prec):
             raise AssertionError(f"{prec} generate: tokens on graphs, "
                                  "eagerly and from generate_fori differ")
         rec["generate"] = {**t, "steps": LM_STEPS}
+        # three more: the prefill's state is copied into the model's own
+        # decode state, so no call captures decode again
+        caps = []
+        for _ in range(3):
+            if not torch.equal(cm.generate(params, batch,
+                                           steps=LM_STEPS)[0], tg):
+                raise AssertionError(f"{prec} generate: a repeat call's "
+                                     "tokens differ")
+            caps.append(cm.stage_graphs.stats["captured"])
+        if caps[0] != caps[-1]:
+            raise AssertionError(f"{prec} generate: captures {caps} over "
+                                 "three calls")
+        rec["generate"]["captured_after_each"] = caps
         t, sg, se = _turns({"graph": _segment_way(cm, params, prompt),
                             "eager": _segment_way(cm, params, prompt)},
                            f"{prec} sampled segment")
@@ -6454,8 +6526,9 @@ def _graph_lm(cm, params, prec):
 
 
 def _graph_engine(cm, ref, params, works):
-    """fp32 ``Engine.run`` on workloads A and D on graphs and eagerly, the
-    tokens identical to each other and to the reference backend's."""
+    """fp32 ``Engine.run`` on workloads A and D on graphs (the bucketed
+    prefill batches too: one graph a bucket) and eagerly, the tokens
+    identical to each other and to the reference backend's."""
     out = {}
     for name in ("A", "D"):
         wl, kw = SERVE_KNOBS[name]
@@ -6471,6 +6544,13 @@ def _graph_engine(cm, ref, params, works):
                 "tokens_per_s", "wall_s", "ms_per_tick",
                 "ms_per_segment_tick", "decode_ticks", "fori_segments",
                 "host_syncs")}
+            if way == "graph":
+                buckets = [k[1] for k in cm.stage_graphs._graphs
+                           if k[0] == "prefill"]
+                if not buckets:
+                    raise AssertionError(f"fp32 workload {name}: no "
+                                         "prefill graph")
+                out[f"{name}_graph"]["prefill_graphs"] = len(buckets)
         if runs["graph"] != runs["eager"]:
             raise AssertionError(f"fp32 workload {name}: tokens or launches "
                                  "on graphs differ from the eager run's")
@@ -6813,9 +6893,11 @@ def _family_train(arch, layers, S, kernels, cpu_layers, smi):
     drops = _Drops() if cfg.moe is not None else None
     ops_impl.ROUTING_HOOK = drops
     try:
-        (losses, ms, state, kern, peak), flash = _flash_by_causal(
-            lambda: _train_run(cm, opt, params, batch, FAMILY_TRAIN_STEPS,
-                               f"{arch} train", kernels))
+        with tflow.disable_graphs():    # the hook runs in Python: eager
+            (losses, ms, state, kern, peak), flash = _flash_by_causal(
+                lambda: _train_run(cm, opt, params, batch,
+                                   FAMILY_TRAIN_STEPS, f"{arch} train",
+                                   kernels))
     finally:
         ops_impl.ROUTING_HOOK = None
     if not losses[-1] < losses[0]:
@@ -6875,6 +6957,240 @@ def phase_family_train(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the LM prefill and the train step on captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+# each prefill run (8 x 512 tokens): (arch, layers kept (None: all), the
+# precisions); the depths of the path phases 10 and 19
+GRAPH_PREFILLS = ((LM_ARCH, None, ("bf16", "fp32")),
+                  (RG_ARCH, RG_DEPTH, ("bf16",)),
+                  (RWKV_ARCH, RWKV_DEPTH, ("bf16",)))
+# each train run (8 rows): (arch, layers kept (None: all), sequence length
+# (None: a CNN's images)); phases 14 and 24's cuts
+GRAPH_TRAINS = ((LM_ARCH, TRAIN_DEPTH, TRAIN_S), ("resnet34", None, None),
+                (RG_ARCH, 3, 512), ("deepseek-moe-16b", 2, 512),
+                (WH_ARCH, None, 448))
+GRAPH_TRAIN_STEPS = 3
+GRAPH_ITERS = 5
+LRU_GRAPH_SHAPE = (B, LM_S, 2560)      # recurrentgemma-2b's prefill scan
+
+
+def _same_tree(a, b) -> bool:
+    from repro_torch.optim.adamw import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _tree_gap(a, b) -> float:
+    """Max over leaves of relerr, computed on the card, one read-back."""
+    from repro_torch.optim.adamw import tree_leaves
+    gaps = [((x.float() - y.float()).abs().max() /
+             (y.float().abs().max() + 1e-9))
+            for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.stack(gaps).max().item()
+
+
+def _graph_prefill(arch, layers, precs, smi):
+    """``prefill`` of ``arch`` at full width (cut to ``layers``) on 8 x 512
+    tokens, on its graph beside the eager one in each precision: logits
+    and every state tensor bit for bit, launches by schedule equal (in
+    turns: eager, graph, graph, eager), ms a call by CUDA events
+    (``measure``, in turns), each way's busy share, the pool's bytes; a
+    second graph call leaves the first one's state as it was."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rec = {"arch": arch, "layers": cfg.n_layers, "shape": [B, LM_S],
+           "nvidia_smi": smi}
+    params = None
+    for prec in precs:
+        cm = tflow.compile(cfg, ShapeConfig("serve", "prefill", LM_S, B),
+                           FlowConfig(mode="folded", precision=prec))
+        params = cm.init_params(SEED) if params is None \
+            else _widen(params)
+        batch = cm._measure_inputs(SEED)
+        what = f"{arch} {prec} prefill"
+        t, (yg, sg), (ye, se) = _turns(
+            lambda: cm.prefill(params, batch)[:2], what)
+        launches = {k: v for k, v in read_counts().items() if v}
+        if not (torch.equal(yg, ye) and _same_tree(sg, se)):
+            raise AssertionError(f"{what}: graph logits or state differ "
+                                 "from the eager prefill's")
+        keep = _clone_state(sg)
+        other = {**batch, "tokens": batch["tokens"].flip(0)}
+        _graphed(lambda: cm.prefill(params, other), True)
+        if not _same_tree(sg, keep):
+            raise AssertionError(f"{what}: a second prefill moved the "
+                                 "first one's state")
+        del keep, se, ye
+        r = {**t, **_measure_turns(cm, "prefill", params, GRAPH_ITERS),
+             **_busy(lambda: cm.prefill(params, batch), iters=3),
+             "launches": launches, "bitwise": True,
+             "graphs": dict(cm.stage_graphs.stats)}
+        if arch == RG_ARCH:
+            r["lru_scan_in_graph"] = _profile(
+                lambda: cm.prefill(params, batch), GRAPH_ITERS,
+                named="lru_scan")["named"]
+        rec[prec] = r
+        log(json.dumps({"graph_prefill": arch, "prec": prec, **{
+            k: v for k, v in r.items() if k != "graphs"},
+            "pool_bytes": r["graphs"]["pool_bytes"]}))
+        del cm, yg, sg
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def _graph_train(arch, layers, S, smi):
+    """``GRAPH_TRAIN_STEPS`` AdamW steps of ``arch`` at full width (cut to
+    ``layers``) from one init and one batch, bf16 compute with fp32
+    masters: eagerly, on the step's graph (a warm-up, then replays),
+    eagerly again.  Launches by schedule equal; the losses and every
+    parameter bit for bit where the two eager runs are, else the graph's
+    within twice their gap; ms a step (host clock to the loss's read-back),
+    peak bytes, the pool's bytes."""
+    from repro_torch import flow as tflow
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages
+    from repro_torch.kernels import registry
+    from repro_torch.optim.adamw import AdamW, tree_map
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cut = {"n_layers": layers}
+        if cfg.n_encoder_layers:
+            cut["n_encoder_layers"] = layers
+        cfg = dataclasses.replace(cfg, **cut)
+    cnn = cfg.family == "cnn"
+    cm = tflow.compile(cfg, ShapeConfig("train", "train", 64 if cnn else S,
+                                        B), FlowConfig(mode="folded"))
+    p0 = cm.init_params(SEED)
+    if cnn:
+        batch = _device_batch(SyntheticImages(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=0, global_batch=B),
+            cfg.image_size, cfg.image_channels, cfg.vocab_size).get(0))
+    else:
+        batch = _family_batch(cfg, S, B)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=GRAPH_TRAIN_STEPS)
+    step = cm.train_step(opt)
+    rec = {"arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers,
+           "shape": [B, cfg.image_size if cnn else S], "nvidia_smi": smi}
+    runs, first = {}, None
+    for way in ("eager", "graph", "eager2"):
+        params = tree_map(torch.clone, p0)
+        st = opt.init(params)
+        reset_counts()
+        c0 = registry.snapshot_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, aux = [], [], []
+        for _ in range(GRAPH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, st, m = _graphed(lambda: step(params, st, batch),
+                                     way == "graph")
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if "moe_aux" in m:
+                aux.append(float(m["moe_aux"]))
+        run = {"losses": losses, "ms": ms, "moe_aux": aux,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "counts": registry.count_delta(c0,
+                                              registry.snapshot_counts())}
+        if first is None:
+            first = params
+        else:
+            run["bitwise"] = _same_tree(params, first)
+            run["param_gap"] = 0.0 if run["bitwise"] \
+                else _tree_gap(params, first)
+            del params
+        runs[way] = run
+        del st
+        torch.cuda.empty_cache()
+    rec["pool_bytes"] = cm.stage_graphs.stats["pool_bytes"]
+    rec["graphs"] = dict(cm.stage_graphs.stats)
+    del first, cm, p0, step
+    torch.cuda.empty_cache()
+    e, g, e2 = runs["eager"], runs["graph"], runs["eager2"]
+    for way in ("graph", "eager2"):
+        if runs[way]["counts"] != e["counts"]:
+            raise AssertionError(f"{arch} train: launches {way} "
+                                 f"{runs[way]['counts']}, eagerly "
+                                 f"{e['counts']}")
+    eager_alike = e2["bitwise"] and e2["losses"] == e["losses"] and \
+        e2["moe_aux"] == e["moe_aux"]
+    if eager_alike:
+        rec["rule"] = "bit for bit (two eager runs are)"
+        if not (g["bitwise"] and g["losses"] == e["losses"]
+                and g["moe_aux"] == e["moe_aux"]):
+            raise AssertionError(f"{arch} train: graph losses {g['losses']}"
+                                 f" against eager {e['losses']}, params "
+                                 f"gap {g['param_gap']}")
+    else:
+        rec["rule"] = "within twice the eager-against-eager gap"
+        lgap = max(abs(a - b) for a, b in zip(e2["losses"], e["losses"]))
+        if g["param_gap"] > 2 * e2["param_gap"] or max(
+                abs(a - b) for a, b in zip(g["losses"], e["losses"])) > \
+                2 * lgap:
+            raise AssertionError(f"{arch} train: graph {g}, eager {e}, "
+                                 f"eager again {e2}")
+    if not all(np.isfinite(g["losses"])):
+        raise AssertionError(f"{arch} train: losses {g['losses']}")
+    launches = {k[0]: v for k, v in e["counts"].items()
+                if k[1] == "launches" and v}
+    rec.update({
+        "launches_per_run": launches,
+        "losses": {w: r["losses"] for w, r in runs.items()},
+        "moe_aux": g["moe_aux"] or None,
+        "ms": {w: r["ms"] for w, r in runs.items()},
+        "eager_ms": min(e["ms"] + e2["ms"]),
+        "graph_ms": min(g["ms"][1:]),
+        "graph_first_ms": g["ms"][0],
+        "peak_bytes": {w: r["peak_bytes"] for w, r in runs.items()},
+        "param_gap": {w: runs[w]["param_gap"] for w in ("graph", "eager2")},
+        "seconds": time.perf_counter() - t_start})
+    log(json.dumps({"graph_train": arch, **{
+        k: rec[k] for k in ("layers", "rule", "eager_ms", "graph_ms",
+                            "graph_first_ms", "pool_bytes", "param_gap",
+                            "peak_bytes", "seconds")},
+        "losses": rec["losses"]["graph"]}))
+    return rec
+
+
+def phase_graph_stages(smi):
+    """Phase 25: the LM prefill (``GRAPH_PREFILLS``) and the train step
+    (``GRAPH_TRAINS``) on their captured graphs, each beside its eager run
+    under ``disable_graphs()`` in the same call; then lru_scan at
+    recurrentgemma-2b's prefill shape by CUDA graph, allocated per call
+    and into one buffer, beside its time inside the prefill's graph."""
+    out = {"prefill": {}, "train": {}}
+    for arch, layers, precs in GRAPH_PREFILLS:
+        out["prefill"][arch] = _graph_prefill(arch, layers, precs, smi)
+    for arch, layers, S in GRAPH_TRAINS:
+        out["train"][arch] = _graph_train(arch, layers, S, smi)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    c = _lru_case(LRU_GRAPH_SHAPE, torch.float32, gen)
+    inside = out["prefill"][RG_ARCH]["bf16"]["lru_scan_in_graph"]
+    out["lru_scan"] = {
+        "shape": list(LRU_GRAPH_SHAPE), "allocated_ms": c["ms"],
+        "one_buffer_ms": c["direct_ms"],
+        "in_prefill_graph_ms": inside["ms_per_call"] /
+        max(inside["launches_per_call"], 1),
+        "launches_per_prefill": inside["launches_per_call"],
+        "nvidia_smi": smi}
+    log(json.dumps({"graph_lru_scan": out["lru_scan"]}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -6916,6 +7232,7 @@ def main() -> int:
     tiles = timed(phase_tiles, smi, path)
     graphs = timed(phase_graphs, smi)
     fam_train = timed(phase_family_train, smi)
+    graph_stages = timed(phase_graph_stages, smi)
     entries = kernel_entries(cases, path) + \
         mobilenet_kernel_entries(cases, path) + \
         lenet_kernel_entries(cases, path) + \
@@ -6946,6 +7263,7 @@ def main() -> int:
                    "family_kernels": fam_cases, "family_path": fam,
                    "mesh": mesh, "serve_mesh": serve_mesh, "tiles": tiles,
                    "graphs": graphs, "family_train": fam_train,
+                   "graph_stages": graph_stages,
                    "entries": entries, "phase_seconds": walls,
                    "seconds": time.perf_counter() - t0}, f, indent=1)
     log(f"total: {time.perf_counter() - t0:.1f}s")

@@ -36,11 +36,11 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import Block, Graph, MicroOp, ParamSpec
 from repro_torch.core.ops_impl import (OPS, TP_SPLIT_OPS, Ctx,
                                        decode_positions)
+from repro_torch.core.ops_impl import remat as _remat
 from repro_torch.core.passes.folding import Unit
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.distributed import collectives as col
@@ -908,7 +908,7 @@ def _run_folded(ctx: Ctx, plan: ExecutionPlan, unit: Unit, gparams,
 
 def _checkpointed(fn):
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return _remat(fn, *args)
     return run
 
 
@@ -1069,7 +1069,7 @@ def _chunked_ce_sums(ctx: Ctx, h, table, labels, true_vocab: int,
         correct = (torch.argmax(logits, dim=-1) == lc).float() * valid
         return ((lse - ll) * valid).sum(), valid.sum(), correct.sum()
 
-    parts = [checkpoint(one, h[:, i:i + chunk], labels[:, i:i + chunk],
-                        use_reentrant=False) for i in range(0, S, chunk)]
+    parts = [_remat(one, h[:, i:i + chunk], labels[:, i:i + chunk])
+             for i in range(0, S, chunk)]
     return tuple(sum(p[i] for p in parts) for i in range(3))
 

@@ -38,6 +38,15 @@ from repro_torch.kernels.lru_scan import lru_scan_plain
 from repro_torch.kernels.registry import plan_kernel
 
 
+def remat(fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward pass recomputes it.  No RNG state is saved: no forward draws
+    anything random, and a CUDA-graph capture of the train step cannot
+    read the generator's state."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 # ---------------------------------------------------------------------------
 # Execution context
 # ---------------------------------------------------------------------------
@@ -421,7 +430,7 @@ def _sdpa(ctx: Ctx, q, k, v, qpos, kpos, *, causal, window, softcap,
         chunk -= 1                       # largest divisor of Sq
     if ctx.mode == "train":
         def run(*a):
-            return checkpoint(block, *a, use_reentrant=False)
+            return remat(block, *a)
     else:
         run = block
     return torch.cat([run(qf[:, i:i + chunk], qpos[:, i:i + chunk])
@@ -820,14 +829,14 @@ def _wkv_chunked(r, k, v, w, u, chunk: int, parallel: bool = True,
                 ys.append(yt)
             return St.to(boundary_dt), torch.stack(ys)
 
-        remat = torch.is_grad_enabled() and any(
+        recompute = torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u))
         St = torch.zeros((B, H, dk, dv), dtype=boundary_dt, device=r.device)
         ys = []
         for n in range(nc):
             args = (St, *(t[n] for t in xs))
-            St, yc = (checkpoint(chunk_body, *args, use_reentrant=False)
-                      if remat else chunk_body(*args))
+            St, yc = (remat(chunk_body, *args)
+                      if recompute else chunk_body(*args))
             ys.append(yc)
         y = torch.stack(ys).permute(2, 0, 1, 3, 4).reshape(B, S, H, dv)
         return y, St.float()

@@ -32,14 +32,17 @@ reference path elsewhere).  ``generate_fori`` and ``decode_segment`` (the
 serving engine's host-free decode segments) queue their whole loop on the
 device and read nothing back inside it.
 
-On the card ``decode``, ``generate_fori``'s decode loop, ``decode_segment``
-and a CNN's ``prefill`` replay captured CUDA graphs
+On the card ``prefill``, ``decode``, ``generate_fori``'s decode loop,
+``decode_segment`` and ``train_step`` replay captured CUDA graphs
 (:mod:`repro_torch.flow.graphs`, the counterpart of the JAX package's
 ``jax.jit``): each is captured once a key (the batch's shapes, the
-addresses of the parameters and of the state) and replayed with one host
-launch.  ``with flow.disable_graphs():`` (the counterpart of
-``jax.disable_jit()``) runs the eager code; so does a CPU model, a model
-on a mesh, and an LM's prefill, which makes the state.
+addresses of the parameters, of the state and of the optimizer's state)
+and replayed with one host launch.  A prefill hands back a fresh state at
+every call (a copy of the graph's), a train step writes the parameters
+and the moments in place, as the JAX step donates them.  ``with
+flow.disable_graphs():`` (the counterpart of ``jax.disable_jit()``) runs
+the eager code; so does a CPU model and a model on a mesh.
+``flow.clear_graphs()`` (of ``jax.clear_caches()``) drops every graph.
 
 ``train_step`` runs the forward products on the same kernels as
 ``prefill`` and the backward through the reference ops (the hand kernels
@@ -57,11 +60,12 @@ import contextlib
 import dataclasses
 import os
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map_only, tree_unflatten
 
 from repro_torch.configs import SHAPES, get_config, get_smoke
 from repro_torch.configs.base import FlowConfig, ModelConfig, ShapeConfig
@@ -71,10 +75,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.meshspec import MeshSpec
 from repro_torch.distributed.sharding import full_tensor
 from repro_torch.flow import graphs
-from repro_torch.flow.graphs import disable_graphs
+from repro_torch.flow.graphs import clear_graphs, disable_graphs
 from repro_torch.obs import TRACER
 
-__all__ = ["compile", "CompiledModel", "disable_graphs"]
+__all__ = ["compile", "CompiledModel", "disable_graphs", "clear_graphs"]
 
 MEASURED_STAGES = ("train", "prefill", "decode")
 
@@ -103,7 +107,11 @@ class CompiledModel:
         }
         self._apply: Optional[Callable] = None
         self._loss_fn: Optional[Callable] = None
-        self._train_steps: Dict[Tuple[Any, int], Callable] = {}
+        # the train steps, held by their callers only: a step holds the
+        # model, and a model that held its steps would sit in a cycle
+        # (with its graphs' pool) until the collector found it
+        self._train_steps: "weakref.WeakValueDictionary[Tuple[Any, int], " \
+            "Callable]" = weakref.WeakValueDictionary()
         # the captured stages (made at the first capture)
         self._graphs: Optional[graphs.StageGraphs] = None
 
@@ -174,10 +182,12 @@ class CompiledModel:
     # -- captured stages -----------------------------------------------------
     def _on_graphs(self) -> bool:
         """Whether a stage runs on a captured CUDA graph: on the card,
-        without a mesh, outside :func:`disable_graphs` and outside another
-        capture (whose ops it then joins).  A routing hook runs in Python,
-        which a replay skips: with one set, a stage on the card raises."""
+        without a mesh (or sharding rules), outside :func:`disable_graphs`
+        and outside another capture (whose ops it then joins).  A routing
+        hook runs in Python, which a replay skips: with one set, a stage on
+        the card raises."""
         if self.device.type != "cuda" or self.mesh is not None \
+                or self.rules is not None \
                 or not graphs.graphs_enabled() \
                 or graphs.capturing(self.device):
             return False
@@ -195,9 +205,10 @@ class CompiledModel:
             self._graphs = graphs.StageGraphs(self.device)
         return self._graphs
 
-    def _replay(self, key, inputs, fn, stage: str, generator=None) -> Any:
+    def _replay(self, key, inputs, fn, stage: str, generator=None,
+                pure: bool = False) -> Any:
         return self.stage_graphs.run(
-            (stage,) + key, inputs, fn, generator=generator,
+            (stage,) + key, inputs, fn, generator=generator, pure=pure,
             first=lambda f: self._timed_first(stage, f))
 
     @staticmethod
@@ -219,16 +230,19 @@ class CompiledModel:
 
     def prefill(self, params, batch) -> Any:
         """prefill(params, batch) -> (logits, state, aux).  For an LM the
-        logits are those of the last position, (B, 1, vocab).  A CNN's
-        (which has no state) replays a graph per input shape on the card."""
-        if self.cfg.family != "cnn" or not self._on_graphs():
+        logits are those of the last position, (B, 1, vocab), and the
+        state is fresh at every call.  On the card one graph a (batch
+        shapes and dtypes, parameters) replays the stage; its outputs are
+        copied out, so a second prefill leaves the first one's state as it
+        was."""
+        if not self._on_graphs():
             return self._timed_first(
                 "prefill", lambda: self.apply(params, batch, mode="prefill"))
         return self._replay(
             (self._batch_key(batch), graphs.signature(params)),
             {k: v for k, v in batch.items() if torch.is_tensor(v)},
             lambda st: self.apply(params, {**batch, **st}, mode="prefill"),
-            "prefill")
+            "prefill", pure=True)
 
     def decode(self, params, batch, state, cache_index) -> Any:
         """decode(params, {"tokens": (B, 1)}, state, cache_index) ->
@@ -261,13 +275,14 @@ class CompiledModel:
 
     def train_step(self, opt, microbatches: Optional[int] = None) -> Callable:
         """The train step for ``opt``, made once per (``opt``,
-        microbatches): step(params, opt_state, batch) -> (params,
-        opt_state, metrics), updating ``params`` and ``opt_state`` in place
-        (the JAX step donates them).  ``microbatches`` defaults to the
-        flow's.  The first call's wall-clock is recorded in
-        ``stats["stages"]``.  The cache is keyed on the optimizer's value
-        (a frozen dataclass), not its ``id`` as in JAX: an id can be reused
-        by another optimizer once the first is gone."""
+        microbatches) for as long as a caller holds it: step(params,
+        opt_state, batch) -> (params, opt_state, metrics), updating
+        ``params`` and ``opt_state`` in place (the JAX step donates them).
+        ``microbatches`` defaults to the flow's.  The first call's
+        wall-clock is recorded in ``stats["stages"]``.  The cache is keyed
+        on the optimizer's value (a frozen dataclass), not its ``id`` as in
+        JAX: an id can be reused by another optimizer once the first is
+        gone."""
         mb = microbatches if microbatches is not None \
             else max(self.flow.microbatches, 1)
         key = (opt, mb)
@@ -278,10 +293,29 @@ class CompiledModel:
             name = f"train_step[mb={mb}]"
 
             def fn(params, opt_state, batch):
-                return self._timed_first(
-                    name, lambda: raw(params, opt_state, batch))
+                if not self._on_graphs():
+                    return self._timed_first(
+                        name, lambda: raw(params, opt_state, batch))
+                return params, opt_state, self._replay(
+                    (opt, self._batch_key(batch), graphs.signature(params),
+                     graphs.signature(opt_state)),
+                    {k: v for k, v in batch.items() if torch.is_tensor(v)},
+                    lambda st: self._step_in_place(raw, params, opt_state,
+                                                   {**batch, **st}), name)
             self._train_steps[key] = fn
         return fn
+
+    @staticmethod
+    def _step_in_place(raw: Callable, params, opt_state, batch):
+        """The metrics of ``raw``'s step, which must write every parameter
+        and optimizer tensor in place (a graph replays those writes)."""
+        sig = graphs.signature((params, opt_state))
+        p, o, metrics = raw(params, opt_state, batch)
+        if graphs.signature((p, o)) != sig:
+            raise RuntimeError("a train step replaced a parameter or "
+                               "optimizer tensor instead of writing it in "
+                               "place")
+        return metrics
 
     # -- generation ----------------------------------------------------------
     @staticmethod
@@ -305,14 +339,20 @@ class CompiledModel:
         tied maxima, as ``jnp.argmax``); otherwise sampled with a
         ``torch.Generator`` on this device seeded from ``seed``.  The
         batch's other inputs (a multimodal model's ``patches``, an
-        encoder-decoder's ``frames``) go to the prefill only.  Returns the (B, steps) int32 tokens and the final
-        state."""
+        encoder-decoder's ``frames``) go to the prefill only.  Returns the
+        (B, steps) int32 tokens and the final state.  On the card the
+        decode steps run on a state the model keeps for the prefill's
+        layout (the prefill's copied in, the final state copied out), so
+        every call replays the same decode graph."""
         S = batch["tokens"].shape[1]
         gen = None
         if temperature != 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
         logits, state, _ = self.prefill(params, batch)
+        held = self._on_graphs()
+        if held:
+            state = self.stage_graphs.held(state)
         tok = self._sample(full_tensor(logits)[:, -1], gen, temperature)
         out = [tok]
         for t in range(steps - 1):
@@ -320,6 +360,8 @@ class CompiledModel:
                                        state, S + t)
             tok = self._sample(full_tensor(lg)[:, -1], gen, temperature)
             out.append(tok)
+        if held:
+            state = tree_map_only(torch.Tensor, torch.clone, state)
         return torch.stack(out, dim=1), state
 
     def generate_fori(self, params, batch: Dict[str, Any],
@@ -328,10 +370,10 @@ class CompiledModel:
         device: prefill, then ``steps - 1`` decode steps whose tokens stay
         on the device until the caller reads the (B, steps) int32 result
         (the JAX package's one-program ``fori_loop``).  On the card the
-        prefill runs eagerly and the decode loop is one captured graph a
-        (prompt shape, steps, parameters), which reads each step's token
-        and cache index on the device; the prefill's state is copied into
-        the graph's own."""
+        prefill replays its own graph and the decode loop is one captured
+        graph a (prompt shape, steps, parameters), which reads each step's
+        token and cache index on the device; the prefill's state is copied
+        into the graph's own."""
         S = batch["tokens"].shape[1]
         logits, state, _ = self.prefill(params, batch)
         tok0 = torch.argmax(full_tensor(logits)[:, -1], -1).to(torch.int32)
@@ -488,11 +530,9 @@ class CompiledModel:
         B = self.shape.global_batch
         if stage == "train":
             from repro_torch.optim.adamw import AdamW
-            from repro_torch.train.trainer import make_train_step
             opt = AdamW()
             opt_state = [opt.init(params)]
-            train = make_train_step(self.plan, opt,
-                                    max(self.flow.microbatches, 1))
+            train = self.train_step(opt)
 
             def step(i):
                 _, opt_state[0], m = train(params, opt_state[0], batch)

@@ -12,8 +12,9 @@ compressed all-reduce would introduce, with the error carried forward so the
 sequence of updates stays unbiased.
 
 The update runs under ``torch.no_grad()`` and writes the parameters, the
-moments and the error buffers in place: it consumes its arguments, as the
-jitted JAX step donates them.
+moments, the error buffers and the step count in place: it consumes its
+arguments, as the jitted JAX step donates them (a captured CUDA graph of
+the step replays those writes).
 
 On a mesh the leaves are DTensors: the moments and the error buffers take
 their parameter's placements, each update runs on the rank's local chunks
@@ -134,8 +135,9 @@ class AdamW:
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
         """One step: ``params``, ``state.mu``, ``state.nu`` (and
-        ``state.err``) are written in place and returned, with the new step
-        count and ``{"grad_norm", "lr"}`` (0-d tensors, not read back).
+        ``state.err``) are written in place and returned, ``state.step``
+        advanced in place, with ``{"grad_norm", "lr"}`` (0-d tensors, not
+        read back).
         The clip's norm is taken of the dequantized gradients when
         compressing, as in the JAX package."""
         from repro_torch.distributed.sharding import global_sq_sum
@@ -149,10 +151,10 @@ class AdamW:
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0) \
             if self.grad_clip else 1.0
-        step = state.step + 1
+        lr = self.schedule(state.step.float())
+        step = state.step.add_(1)
         b1c = 1 - self.b1 ** step.float()
         b2c = 1 - self.b2 ** step.float()
-        lr = self.schedule(state.step.float())
 
         def upd(p, g, m, v):
             g = g * scale

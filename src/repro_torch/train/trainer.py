@@ -2,16 +2,17 @@
 checkpoint/restart, failure injection + automatic recovery (the JAX
 package's ``train/trainer.py``).
 
-The step runs eagerly: the loss in train mode (the forward products on the
-kernels the plan selects, the backward through the reference ops, with the
-plan's remat policy), ``torch.autograd.grad`` for every parameter, then the
-in-place AdamW update.  On a mesh (``plan.rules``) the parameters and the
-moments are DTensors: the step differentiates the rank's local chunks
-(the FSDP gathers, tp splits and the loss's dp sum are explicit
-collectives with their backward, :mod:`repro_torch.distributed`), sums
-each gradient over the dp axes its parameter is replicated on, and
-updates the chunks in place, so the loss and the update are the
-single-device ones over the global batch.
+The step is the loss in train mode (the forward products on the kernels the
+plan selects, the backward through the reference ops, with the plan's remat
+policy), ``torch.autograd.grad`` for every parameter, then the in-place AdamW
+update.  :class:`Trainer` runs it through its compiled model's ``train_step``:
+on the card one captured CUDA graph a (batch, parameters, optimizer state)
+replays the whole step.  On a mesh (``plan.rules``) the parameters and the
+moments are DTensors: the step differentiates the rank's local chunks (the FSDP
+gathers, tp splits and the loss's dp sum are explicit collectives with their
+backward, :mod:`repro_torch.distributed`), sums each gradient over the dp axes
+its parameter is replicated on, and updates the chunks in place, so the loss
+and the update are the single-device ones over the global batch.
 """
 from __future__ import annotations
 
@@ -138,7 +139,12 @@ class Trainer:
     an :class:`ExecutionPlan` (on the device of the platform it was
     resolved for).  ``mesh`` / ``rules`` train on a mesh (a compiled
     model's own by default): the parameters and moments are DTensors,
-    checkpoints hold whole arrays and restore onto the rules' placements."""
+    checkpoints hold whole arrays and restore onto the rules' placements.
+
+    The step is the compiled model's ``train_step`` (a model is made for a
+    plan, or for another mesh): on the card it replays a captured graph
+    keyed on the parameters' and the moments' addresses, so a restore,
+    which hands back new tensors, captures a new one."""
 
     def __init__(self, model, opt: AdamW, tcfg: TrainerConfig, mesh=None,
                  rules=None):
@@ -148,12 +154,17 @@ class Trainer:
             mesh = mesh if mesh is not None else model.mesh
         else:
             self.plan, self.device = model, torch.device(model.platform)
+            model = None
         if rules is None and mesh is not None:
             rules = self.plan.rules if self.plan.rules is not None \
                 else _rules_for(mesh, self.plan.flow)
         if rules is not None and self.plan.rules is not rules:
             self.plan = copy.copy(self.plan)
             self.plan.rules = rules
+        if model is None or model.plan is not self.plan \
+                or model.mesh is not mesh:
+            model = CompiledModel(self.plan, self.device, mesh=mesh)
+        self.model = model
         self.mesh, self.rules = mesh, rules
         self.opt, self.tcfg = opt, tcfg
         self.step_fn: Optional[Callable] = None
@@ -166,7 +177,7 @@ class Trainer:
         return params, self.opt.init(params)
 
     def compile_step(self, microbatches: int = 1) -> Callable:
-        self.step_fn = make_train_step(self.plan, self.opt, microbatches)
+        self.step_fn = self.model.train_step(self.opt, microbatches)
         return self.step_fn
 
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -177,8 +188,10 @@ class Trainer:
     def fit(self, data, seed: int = 0):
         """Train ``tcfg.steps`` steps on ``data.get(step)`` from
         ``init(seed)``, or from the latest checkpoint in ``ckpt_dir``.  A
-        ``RuntimeError`` in a step (an injected failure) restores the latest
-        checkpoint and goes on, at most ``max_restarts`` times.  Returns
+        ``RuntimeError`` in a step (an injected failure, or the step's own:
+        a capture that failed, the card out of memory) restores the latest
+        checkpoint and goes on, at most ``max_restarts`` times in all; the
+        next one raises.  Returns
         (params, opt_state, [(step, loss), ...] every ``log_every``)."""
         tcfg = self.tcfg
         params, opt_state = self.init(seed)
@@ -197,7 +210,6 @@ class Trainer:
                 batch = self._batch(data.get(step))
                 if (tcfg.fail_at_step is not None and step == tcfg.fail_at_step
                         and self._restarts == 0):
-                    self._restarts += 1
                     raise RuntimeError("injected node failure")
                 params, opt_state, metrics = self.step_fn(
                     params, opt_state, batch)
@@ -209,7 +221,9 @@ class Trainer:
                                   wait=not tcfg.async_ckpt)
                 step += 1
             except RuntimeError:
-                # node failure: restore from the last checkpoint and continue
+                # a failure: restore from the last checkpoint and continue;
+                # every one counts, so that a step that always fails raises
+                self._restarts += 1
                 if self._restarts > tcfg.max_restarts or not tcfg.ckpt_dir:
                     raise
                 last = ckpt_lib.latest_step(tcfg.ckpt_dir)

@@ -13,6 +13,8 @@ Tolerances (relerr, max |diff| over max |plain|): fp32 < 1e-5, the same sums
 in another order; bf16 < 2e-2, one bf16 rounding of the output may land on
 the other side.
 """
+import math
+
 import pytest
 import torch
 
@@ -1829,7 +1831,7 @@ def test_graph_decode_is_eager_bit_for_bit(card, arch):
                           12 + t)[0] for t in range(6)]
     torch.cuda.synchronize()
     c2 = registry.snapshot_counts()
-    assert cm.stage_graphs.stats["captured"] == 1
+    assert cm.stage_graphs.stats["captured"] == 2     # prefill, decode
     assert cm.stage_graphs.stats["replays"] == 5
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -1898,6 +1900,67 @@ def test_capture_that_reads_the_host_raises(card):
     assert torch.equal(y, x * 2) and torch.equal(y2, (x + 1) * 2)
 
 
+def test_capture_without_room_drops_the_graphs(card, monkeypatch):
+    """With room on the card a new key keeps the other graphs; a new key
+    whose warm-up took more than the card has free drops every graph and
+    held state (their shared pool goes back to the device) and captures
+    into a new pool; a dropped key captures again when it comes back.  A
+    pure stage's first call hands back a replay's copy."""
+    from repro_torch.flow.graphs import StageGraphs
+    sg = StageGraphs(torch.device("cuda", 0))
+    x = torch.ones(1 << 20, device="cuda")
+
+    def twice(st):
+        return st["x"] * 2
+    sg.run(("a",), {"x": x}, twice)
+    sg.held({"s": x})
+    assert sg.stats["pool_bytes"] > 0
+    assert sg.stats["held_bytes"] == x.numel() * x.element_size()
+    y = sg.run(("p",), {"x": x + 3}, twice, pure=True)
+    assert torch.equal(y, (x + 3) * 2)
+    assert y.data_ptr() != sg._graphs[("p",)].outputs.data_ptr()
+    assert len(sg) == 2 and sg.stats["evicted"] == 0
+    assert sg.stats["replays"] == 0
+    free = torch.cuda.mem_get_info
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "mem_get_info",
+                  lambda d=None: (0, free(d)[1]))
+        y = sg.run(("b",), {"x": x + 1}, twice)
+    assert torch.equal(y, (x + 1) * 2)
+    assert sg.stats["evicted"] == 2 and len(sg) == 1
+    assert sg.stats["held_bytes"] == 0
+    y = sg.run(("a",), {"x": x + 2}, twice)
+    assert torch.equal(y, (x + 2) * 2) and sg.stats["captured"] == 4
+    assert torch.equal(sg.run(("b",), {"x": x}, twice), x * 2)
+    assert sg.stats["replays"] == 1 and sg.stats["evicted"] == 2
+
+
+def test_pure_warm_up_out_of_memory_drops_the_graphs(card):
+    """A pure stage whose warm-up runs out of memory drops the card's
+    graphs (another model's too) and runs it once more; a stage that
+    writes state in place raises instead, and keeps nothing."""
+    from repro_torch.flow.graphs import StageGraphs
+    dev = torch.device("cuda", 0)
+    other, sg = StageGraphs(dev), StageGraphs(dev)
+    x = torch.ones(1 << 20, device="cuda")
+    other.run(("a",), {"x": x}, lambda st: st["x"] * 2)
+    tries = []
+
+    def short_once(st):
+        tries.append(1)
+        if len(tries) == 1:
+            raise torch.OutOfMemoryError("short")
+        return st["x"] + 1
+    with pytest.raises(torch.OutOfMemoryError):
+        sg.run(("s",), {"x": x}, short_once)
+    assert len(sg) == 0 and len(other) == 1
+    tries.clear()
+    y = sg.run(("p",), {"x": x}, short_once, pure=True)
+    assert torch.equal(y, x + 1) and len(tries) == 3    # fail, run, capture
+    assert len(other) == 0 and other.stats["evicted"] == 1
+    assert torch.equal(sg.run(("p",), {"x": x + 1}, short_once), x + 2)
+
+
 def test_generate_fori_and_segments_replay_graphs(card):
     """generate_fori equals generate; a sampled decode segment draws the
     host loop's tokens; both replay without a device-to-host read."""
@@ -1950,6 +2013,105 @@ def test_cnn_prefill_replays_a_graph(card):
         ws = [cm.prefill(params, {"images": x * s})[0] for s in (1.0, 2.0)]
     assert cm.stage_graphs.stats["replays"] == 1
     assert all(torch.equal(y, w) for y, w in zip(ys, ws))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b",
+                                  "deepseek-moe-16b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_lm_prefill_replays_a_graph(card, arch):
+    """Two prefills of one shape (a warm-up and capture, then a replay)
+    give the eager prefill's logits and state bit for bit and the same
+    launches; the replay leaves the first call's state as it was."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.kernels import registry
+    cm = flow.compile(arch, ShapeConfig("serve", "prefill", 32, 2),
+                      FlowConfig(mode="folded"), smoke=True)
+    params = cm.init_params(0)
+    b1, b2 = cm._measure_inputs(0), cm._measure_inputs(1)
+    c0 = registry.snapshot_counts()
+    y1, s1, _ = cm.prefill(params, b1)
+    keep = _clone_tree(s1)
+    y2, s2, _ = cm.prefill(params, b2)
+    torch.cuda.synchronize()
+    c1 = registry.snapshot_counts()
+    with flow.disable_graphs():
+        w1, t1, _ = cm.prefill(params, b1)
+        w2, t2, _ = cm.prefill(params, b2)
+    torch.cuda.synchronize()
+    c2 = registry.snapshot_counts()
+    flat = lambda t: [x for v in t.values() for x in (  # noqa: E731
+        flat(v) if isinstance(v, dict) else [v])]
+    assert cm.stage_graphs.stats["captured"] == 1
+    assert cm.stage_graphs.stats["replays"] == 1
+    assert torch.equal(y1, w1) and torch.equal(y2, w2)
+    for a, b in ((s1, t1), (s2, t2), (s1, keep)):
+        assert all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+    assert registry.count_delta(c0, c1) == registry.count_delta(c1, c2)
+
+
+def test_generate_decodes_on_one_graph(card):
+    """Three ``generate`` calls capture the prefill and decode once, and
+    each call's tokens are the eager ones."""
+    from repro_torch import flow
+    cm, params, tok = _smoke_lm()
+    with flow.disable_graphs():
+        want, _ = cm.generate(params, {"tokens": tok}, steps=6)
+    caps = []
+    for _ in range(3):
+        got, _ = cm.generate(params, {"tokens": tok}, steps=6)
+        assert torch.equal(got, want)
+        caps.append(cm.stage_graphs.stats["captured"])
+    assert caps == [2, 2, 2]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "lenet5", "resnet34",
+                                  "recurrentgemma-2b", "deepseek-moe-16b",
+                                  "rwkv6-7b", "whisper-small"])
+def test_train_step_replays_a_graph(card, arch):
+    """Three steps on the step's graph (a warm-up and capture, then two
+    replays) from one init and batch: the parameters and moments written
+    in place, and the losses, parameters and launches of three eager
+    steps (ResNet-34's cuDNN weight gradients are not deterministic: its
+    steps are held to their finite losses and launches)."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    from repro_torch.kernels import registry
+    from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
+    cm = flow.compile(arch, ShapeConfig("train", "train", 32, 2),
+                      FlowConfig(mode="folded"), smoke=True)
+    p0 = cm.init_params(0)
+    batch = cm._measure_inputs(0)
+    opt = AdamW(lr=1e-3, warmup_steps=1)
+    step = cm.train_step(opt)
+    out = {}
+    for graphed in (True, False):
+        params = tree_map(torch.clone, p0)
+        st = opt.init(params)
+        owned = [t.data_ptr() for t in tree_leaves(params) +
+                 tree_leaves(st.mu) + [st.step]]
+        c0 = registry.snapshot_counts()
+        losses = []
+        for _ in range(3):
+            if graphed:
+                params, st, m = step(params, st, batch)
+            else:
+                with flow.disable_graphs():
+                    params, st, m = step(params, st, batch)
+            losses.append(float(m["loss"]))
+        assert [t.data_ptr() for t in tree_leaves(params) +
+                tree_leaves(st.mu) + [st.step]] == owned
+        assert int(st.step) == 3
+        out[graphed] = (losses, params, registry.count_delta(
+            c0, registry.snapshot_counts()))
+    assert cm.stage_graphs.stats["captured"] == 1
+    assert cm.stage_graphs.stats["replays"] == 2
+    (lg, pg, cg), (le, pe, ce) = out[True], out[False]
+    assert cg == ce and all(math.isfinite(x) for x in lg)
+    if arch != "resnet34":
+        assert lg == le
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(pg),
+                                                     tree_leaves(pe)))
 
 
 def test_measure_trace_names_the_wgmma_matmul(card, tmp_path):

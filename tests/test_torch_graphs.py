@@ -14,8 +14,9 @@ tests hold what a graph relies on.
 * the stages' graph functions (static inputs, keys, the in-place state
   check, the generate_fori loop on device indices, the segment) run
   eagerly under a stand-in for ``StageGraphs`` that keeps its contract on
-  the CPU: the first call of a key runs the warm-up, a later one refills
-  the static inputs and runs the function again, as a replay would;
+  the CPU (``torch_cpu_graphs.py``): the first call of a key runs the
+  warm-up, a later one refills the static inputs and runs the function
+  again, as a replay would;
 * decode_attention's ticket buffer outlives its growth.
 
 Tolerances (``conftest.relerr``, max |diff| over max |ref|): against JAX
@@ -29,7 +30,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._pytree import tree_map_only
 
 from conftest import relerr
 from repro import flow as jflow
@@ -45,6 +45,7 @@ from repro_torch.core import ops_impl as tops
 from repro_torch.flow import graphs
 from repro_torch.kernels import decode_attention as kd
 from repro_torch.kernels import registry
+from torch_cpu_graphs import cpu_graphs, stage_keys  # noqa: F401
 
 SHAPE = ("serve", "decode", 32, 2)
 TOL = {"fp32": 1e-5, "bf16": 5e-2}
@@ -271,36 +272,6 @@ def test_cpu_model_builds_no_graph(monkeypatch):
     assert cm._graphs is None and cnn._graphs is None
 
 
-class _CpuGraphs:
-    """``StageGraphs``' contract on the CPU: the first call of a key runs
-    ``first(fn(static))``; a later call refills the static inputs and runs
-    ``fn(static)`` again, its tensors copied out, as a replay hands back.
-    Records each key's calls."""
-
-    def __init__(self, device):
-        self.device = device
-        self.static, self.calls = {}, {}
-
-    def run(self, key, inputs, fn, *, first=lambda f: f(), generator=None):
-        self.calls[key] = self.calls.get(key, 0) + 1
-        if key in self.static:
-            st = self.static[key]
-            for name, x in inputs.items():
-                graphs._fill(st[name], x)
-            return tree_map_only(torch.Tensor, torch.clone, fn(st))
-        st = {name: graphs._static(x, self.device)
-              for name, x in inputs.items()}
-        self.static[key] = st
-        return first(lambda: fn(st))
-
-
-@pytest.fixture
-def cpu_graphs(monkeypatch):
-    monkeypatch.setattr(graphs, "StageGraphs", _CpuGraphs)
-    monkeypatch.setattr(tflow.CompiledModel, "_on_graphs",
-                        lambda self: graphs.graphs_enabled())
-
-
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
 def test_graph_functions_are_the_eager_stages(cpu_graphs, arch):
     """decode (one key for the whole loop, replays on the static tensor
@@ -322,7 +293,7 @@ def test_graph_functions_are_the_eager_stages(cpu_graphs, arch):
         assert torch.equal(yg, ye), i
     assert all(torch.equal(a, b) for a, b in zip(_leaves(st), _leaves(st_e)))
     keys = cm.stage_graphs.calls
-    assert list(keys.values()) == [nxt.shape[1]]
+    assert [keys[k] for k in stage_keys(cm, "decode")] == [nxt.shape[1]]
     fg = cm.generate_fori(params, {"tokens": tok}, 6)
     fg2 = cm.generate_fori(params, {"tokens": tok}, 6)
     with tflow.disable_graphs():
@@ -333,8 +304,11 @@ def test_graph_functions_are_the_eager_stages(cpu_graphs, arch):
     p2 = cm.init_params(1)
     _, s2, _ = cm.prefill(p2, {"tokens": tok})
     cm.decode(p2, {"tokens": _t(nxt[:, :1])}, s2, prompt)
-    # decode on st, on generate's state and on p2's; generate_fori once
-    assert len(keys) == 4
+    # decode on st, on generate's state and on p2's; generate_fori once;
+    # the prefill once a params tree
+    assert [len(stage_keys(cm, k)) for k in (
+        "decode", "generate_fori", "prefill")] == [3, 1, 2]
+    assert len(keys) == 6
     seg = cm.decode_segment(3, temperature=1.0)
     out = {}
     for way in ("graph", "eager"):
