@@ -592,13 +592,15 @@ def _scheduled(want, what, kernel="matmul_fused", default_tiles=True):
     """The kernel's launches by schedule must be ``want`` (a schedule left
     out must be 0); with ``default_tiles`` (every default flow) a tiled
     kernel's launches must all be at the block it took before it took a
-    tile (its default: the card plan's selected tile)."""
+    tile (its default: the card plan's selected tile), and
+    decode_attention's at the auto split (``retiled`` 0)."""
     got = read_schedules(kernel)
     full = {k: want.get(k, 0) for k in got}
     if got != full:
         raise AssertionError(f"{what}: {kernel} schedules {got}, want "
                              f"{full}")
-    if default_tiles and kernel in TILED and counters()[kernel].retiled:
+    if default_tiles and kernel in TILED + ("decode_attention",) and \
+            counters()[kernel].retiled:
         raise AssertionError(f"{what}: {kernel} launched "
                              f"{counters()[kernel].retiled} times off its "
                              f"default tile: {read_tiles(kernel)}")
@@ -1302,12 +1304,13 @@ def _with_simt(c, simt, plain, dt, iters=100):
 
 
 def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
-                 D=LM_D, window=None):
+                 D=LM_D, window=None, tile=None, twin=True, iters=100):
     """decode_attention over a rolling cache of C slots holding positions
     max(0, qpos-C+1) .. qpos (slot c holds the position = c mod C): by
     default llama3.2-1b's 1024-slot cache, half full.  The new schedule
     (mma or ffma) by CUDA graph and by events, beside the SIMT kernel
-    (forced, by graph), SDPA and the plain version."""
+    (forced, by graph; not with ``twin=False``), SDPA and the plain
+    version; at the chunk ``tile`` pins (None: the auto split)."""
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda")
     lo = max(0, qpos - C + 1)
@@ -1332,7 +1335,8 @@ def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
         + (pos.numel() + qp.numel()) * 4
 
     def kern():
-        return kd.decode_attention(q, kc, vc, pos, qp, window=window)
+        return kd.decode_attention(q, kc, vc, pos, qp, window=window,
+                                   tile=tile)
 
     def plain():
         return kd.decode_attention_plain(q, kc, vc, pos, qp, window=window)
@@ -1342,10 +1346,12 @@ def _decode_case(dt, gen, b=B, C=LM_C, qpos=LM_C // 2 - 1, H=LM_H, KV=LM_KV,
             qt, kt, vt, attn_mask=valid[:, None, None, :]).transpose(1, 2)
     prec = "bf16" if dt == torch.bfloat16 else "fp32"
     sched = _new_schedule("decode_attention", kern, prec)
-    c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=100)
+    c = _timed_case(kern, plain, library, dt, flops, nbytes, iters=iters)
     c.update(shape=f"decode_B{b}_C{C}_qpos{qpos}_live{live}_H{H}_KV{KV}"
                    f"_D{D}", rows=b, schedule=sched,
-             **_graph_times(c, kern, library))
+             **_graph_times(c, kern, library, iters))
+    if not twin:
+        return c
     return _with_simt(c, _decode_simt(q, kc, vc, pos, qp, window), plain, dt)
 
 
@@ -6122,6 +6128,140 @@ def _tile_kernel_cases(gen):
     return cases
 
 
+# decode_attention at the auto split and at each pinned chunk: (arch, the
+# _decode_case keywords of its decode shape)
+TILE_DECODE = (("llama3.2-1b", dict(H=LM_H, KV=LM_KV, D=LM_D)),
+               ("qwen1.5-4b", dict(H=20, KV=20, D=128)),
+               ("recurrentgemma-2b", dict(C=RG_C, qpos=RG_S + RG_STEPS - 2,
+                                          H=RG_H, KV=RG_KV, D=RG_D,
+                                          window=RG_WINDOW)))
+TILE_DECODE_CHUNKS = (128, 256, 512, 1024)   # and each shape's least
+PINNED_DECODE = 256          # the chunk the llama3.2-1b flow pins
+
+
+def _decode_tile_cases(gen):
+    """decode_attention at llama3.2-1b's, qwen1.5-4b's and
+    recurrentgemma-2b's decode shapes, bf16 and fp32, at the auto split
+    and at each chunk of ``TILE_DECODE_CHUNKS`` and the least the rules
+    take (``decode_attention.least_tile``): each held to the plain
+    version, timed by CUDA graph beside it, SDPA and the bound, and its
+    launch counted under the chunk it was given (``retiled`` off the auto
+    split only).  A chunk the rules refuse raises before any launch."""
+    from repro_torch.kernels import decode_attention as kd
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        for arch, kw in TILE_DECODE:
+            C = kw.get("C", LM_C)
+            G = kw["H"] // kw["KV"]
+            least = kd.least_tile(C, G, kw["D"], dt)
+            for chunk in [None, least] + [c for c in TILE_DECODE_CHUNKS
+                                          if c > least]:
+                t0 = dict(kd.decode_attention.tiles)
+                r0 = kd.decode_attention.retiled
+                c = _decode_case(dt, gen, tile=chunk, twin=False, iters=20,
+                                 **kw)
+                torch.cuda.synchronize()
+                new = {k: n - t0.get(k, 0)
+                       for k, n in kd.decode_attention.tiles.items()
+                       if n != t0.get(k, 0)}
+                ran = {k[1] for k in new}
+                if len(ran) != 1 or (chunk is not None
+                                     and ran != {chunk}):
+                    raise AssertionError(f"decode tile {chunk} at {arch}: "
+                                         f"launched at {new}")
+                (ran,) = ran
+                auto = ran if chunk is None else auto
+                off = kd.decode_attention.retiled - r0
+                if off != (sum(new.values()) if ran != auto else 0):
+                    raise AssertionError(f"decode tile {chunk} at {arch}: "
+                                         f"{off} retiled launches")
+                c.update(arch=arch, tile="auto" if chunk is None
+                         else str(chunk), chunk=ran)
+                out.append(c)
+                log(json.dumps({"tile_kernel": "decode_attention", **c}))
+            q = torch.zeros(1, 1, kw["H"], kw["D"], dtype=dt, device="cuda")
+            kc = torch.zeros(1, C, kw["KV"], kw["D"], dtype=dt,
+                             device="cuda")
+            pos = torch.zeros(1, C, dtype=torch.int32, device="cuda")
+            n0 = kd.decode_attention.launches
+            try:
+                kd.decode_attention(q, kc, kc, pos, pos[:, :1],
+                                    tile=least - kd.TILE)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{arch}: chunk {least - kd.TILE} "
+                                     "under the least launched")
+            if kd.decode_attention.launches != n0:
+                raise AssertionError("a refused chunk launched")
+    return out
+
+
+def _pinned_decode(cfg, serve, flow, params, ref, batch, prec):
+    """llama3.2-1b under ``flow`` (decode tile ``"auto"``) and pinned to
+    ``PINNED_DECODE`` slots by ``tile_overrides``: every decode launch at
+    the auto split (``retiled`` 0) or at the pinned chunk; bf16: the
+    prefill and four teacher-forced decode steps' logits against the
+    reference backend's; fp32: 8 greedy tokens identical to its.  Returns
+    each flow's decode launches by schedule and tile."""
+    from repro_torch import flow as tflow
+    from repro_torch.kernels import decode_attention as kd
+    sched = DECODE_SCHEDULES[prec]
+    steps = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab_size, (B, TF_STEPS)).astype(np.int64)).cuda()
+    if prec == "bf16":
+        yr, st_r, _ = ref.prefill(params, batch)
+        want = []
+        for t in range(TF_STEPS):
+            y, st_r, _ = ref.decode(params, {"tokens": steps[:, t:t + 1]},
+                                    st_r, LM_S + t)
+            want.append(y)
+    else:
+        want, _ = ref.generate(params, batch, steps=8)
+    out = {}
+    for name, tile in (("auto", "auto"), ("pinned", PINNED_DECODE)):
+        fl = flow if tile == "auto" else dataclasses.replace(
+            flow, tile_overrides=(("decode_attention", tile),))
+        cm = tflow.compile(cfg, serve, fl)
+        if cm.plan.tiles["decode_attention"] != tile:
+            raise AssertionError(f"decode tile {tile}: plan "
+                                 f"{cm.plan.tiles}")
+        what = f"decode tile {tile} {prec}"
+        reset_counts()
+        rec = {}
+        if prec == "bf16":
+            y, st, _ = cm.prefill(params, batch)
+            errs = []
+            for t in range(TF_STEPS):
+                y, st, _ = cm.decode(params, {"tokens": steps[:, t:t + 1]},
+                                     st, LM_S + t)
+                errs.append(_lm_check_logits(f"{what} step {t}", y,
+                                             want[t], PATH_TOL["bf16"]))
+            rec["decode_logits_relerr_vs_reference"] = errs
+            n = TF_STEPS * TUNE_DEPTH
+        else:
+            toks, _ = cm.generate(params, batch, steps=8)
+            if not torch.equal(toks, want):
+                raise AssertionError(f"{what}: greedy tokens differ from "
+                                     "the reference backend's")
+            rec["tokens_identical_to_reference"] = True
+            n = 7 * TUNE_DEPTH
+        torch.cuda.synchronize()
+        got = dict(kd.decode_attention.tiles)
+        chunks = {c for (_, c) in got}
+        if sum(got.values()) != n or {s for (s, _) in got} != {sched} or \
+                (tile == "auto" and kd.decode_attention.retiled) or \
+                (tile != "auto" and chunks != {tile}):
+            raise AssertionError(f"{what}: decode launches {got}, "
+                                 f"{kd.decode_attention.retiled} retiled")
+        rec["launches"] = {"decode_attention": {f"{sched}@{tile}": n}}
+        rec["chunks"] = sorted(chunks)
+        out[name] = rec
+        del cm
+    log(json.dumps({"decode_tile_flow": prec, **out}))
+    return out
+
+
 def _tune_tiles(smi):
     """``tune_kernel_tiles`` on llama3.2-1b at full width and ``TUNE_DEPTH``
     layers with a fresh tune database: every attention candidate compiled
@@ -6205,6 +6345,9 @@ def _tune_tiles(smi):
         if not tiles.get("flash_attention"):
             raise AssertionError(f"pinned tiles {prec}: no flash launch")
         rec["launches"][prec] = tiles
+        rec.setdefault("decode", {})[prec] = _pinned_decode(
+            cfg, serve, dataclasses.replace(flow0, precision=prec), params,
+            ref, batch, prec)
         del cm, ref, params
         torch.cuda.empty_cache()
     log(json.dumps({"tune_tiles": rec}))
@@ -6257,15 +6400,18 @@ def _base_tiles(smi, path):
 
 def phase_tiles(smi, path):
     """Phase 22: the Hopper tiles.  Each tiled kernel at each candidate
-    tile; ResNet-34's base flow (phase 5's row, at the minimal tiles: its
-    convs counted by schedule and tile) beside the same flow pinned to the
+    tile, decode_attention at the auto split and at each pinned chunk;
+    ResNet-34's base flow (phase 5's row, at the minimal tiles: its convs
+    counted by schedule and tile) beside the same flow pinned to the
     selected tiles; ``tune_kernel_tiles`` on llama3.2-1b and its pinned
-    flow against the reference backend."""
+    flow against the reference backend, and llama3.2-1b's decode at the
+    auto split and pinned to ``PINNED_DECODE`` slots."""
     from repro_torch.configs.base import FlowConfig
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
     out = {"cases": _tile_kernel_cases(gen)}
+    out["cases"]["decode_attention"] = _decode_tile_cases(gen)
     out["cases_s"] = time.perf_counter() - t0
     out["resnet34_base"] = _base_tiles(smi, path)
     torch.cuda.empty_cache()
@@ -6278,10 +6424,14 @@ def tile_kernel_entries(tiles):
     """One entry per tiled kernel, schedule, shape, dtype and tile: one
     call.  ``launches`` counts that kernel at that schedule and tile over
     phase 22's runs of the dtype: ResNet-34's base-flow forwards (fp32, at
-    the minimal and the selected tiles) and the pinned llama3.2-1b flow
-    (bf16 prefill, fp32 generate)."""
-    runs = {"bfloat16": [tiles["tune"]["launches"]["bf16"]],
+    the minimal and the selected tiles), the pinned llama3.2-1b flow (bf16
+    prefill, fp32 generate) and its decode at the auto split and pinned to
+    ``PINNED_DECODE`` (bf16 teacher-forced steps, fp32 generate)."""
+    dec = tiles["tune"]["decode"]
+    runs = {"bfloat16": [tiles["tune"]["launches"]["bf16"],
+                         *(r["launches"] for r in dec["bf16"].values())],
             "float32": [tiles["tune"]["launches"]["fp32"],
+                        *(r["launches"] for r in dec["fp32"].values()),
                         {"conv2d_fused": tiles["resnet34_base"][
                             "minimal"]["conv_tiles"]},
                         {"conv2d_fused": tiles["resnet34_base"][
@@ -6291,7 +6441,10 @@ def tile_kernel_entries(tiles):
         for r in rows:
             k = f"{kname}[{r['schedule']}]"
             at = f"{r['schedule']}@{r['tile']}"
-            n = sum(run.get(kname, {}).get(at, 0) for run in runs[r["dtype"]])
+            # the pinned decode flow is llama3.2-1b's
+            n = 0 if kname == "decode_attention" and r["arch"] != LM_ARCH \
+                else sum(run.get(kname, {}).get(at, 0)
+                         for run in runs[r["dtype"]])
             out += summed_entries(
                 {k: [r]}, {r["dtype"]: {k: n}},
                 f"@{r['arch']}:{r['shape']}:tile{r['tile']}",

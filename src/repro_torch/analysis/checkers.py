@@ -64,9 +64,10 @@ def check_tiles(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
     problem dims, so no prologue/epilogue grid steps exist.  On a card plan
     the hand kernels mask their edges and need no even division: there
     X002 holds the matmul, attention and conv2d tiles to those the kernels
-    take (each module's ``TILES``); whether a taken tile's working set fits
-    is K202's.  X008 — the tile table only carries keys some kernel or
-    pass consumes."""
+    take (each module's ``TILES``) and a pinned decode_attention chunk to
+    ``decode_attention.check_tile`` at the plan's batch and cache; whether
+    a taken tile's working set fits is K202's.  X008 — the tile table only
+    carries keys some kernel or pass consumes."""
     cfg, shape, tiles = plan.cfg, plan.shape, plan.tiles
     for key in tiles:
         if key not in _TILE_KEYS:
@@ -84,6 +85,18 @@ def check_tiles(plan: Any, ecfg: Any = None) -> Iterator[Diagnostic]:
             except (TypeError, ValueError) as e:
                 yield Diagnostic("X002", ERROR, f"{key} tile {tile}: {e}",
                                  where="tiling", op=key)
+        from repro_torch.kernels import decode_attention as kd
+        a = cfg.attention
+        chunk = kd.pinned(tiles.get("decode_attention"))
+        if a is not None and chunk is not None:
+            try:
+                kd.check_tile(chunk, shape.global_batch, plan.cache_len,
+                              a.n_kv_heads, a.n_heads // a.n_kv_heads,
+                              a.head_dim, plan.prec.compute_dtype)
+            except ValueError as e:
+                yield Diagnostic("X002", ERROR,
+                                 f"decode_attention tile {chunk}: {e}",
+                                 where="tiling", op="decode_attention")
         return
     if not plan.flow.tile_select:
         return          # base flow: fixed minimal tiles, kernels pad

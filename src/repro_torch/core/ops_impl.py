@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import collectives as col
+from repro_torch.kernels import _fake
 from repro_torch.kernels.conv2d import same_pads
 from repro_torch.kernels.lru_scan import lru_scan_plain
 from repro_torch.kernels.registry import plan_kernel
@@ -794,6 +795,82 @@ def _wkv_step(St, rt, kt, vt, wt, u):
     return St, yt
 
 
+def _wkv_chunk(S0, rc, kc, vc, wc, us, boundary_dt: torch.dtype):
+    """The C steps of one chunk from its entering state ``S0`` (fp32
+    inside), ``us[t]`` the bonus u of step t (one tensor C times, or C
+    leaves whose gradients the backward takes step by step).  Returns the
+    leaving state rounded to ``boundary_dt`` and the C outputs stacked."""
+    St, ys = S0.float(), []
+    for t in range(rc.shape[0]):
+        St, yt = _wkv_step(St, rc[t], kc[t], vc[t], wc[t], us[t])
+        ys.append(yt)
+    return St.to(boundary_dt), torch.stack(ys)
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
+class _WKVTrainScan(torch.autograd.Function):
+    """The train recurrence over nc chunks as one autograd node, a scan:
+    the forward runs the chunks carrying only the boundary state (rounded
+    to ``boundary_dt`` between chunks) and keeps the state entering each;
+    the backward recomputes each chunk from its entering state, in
+    reverse, and takes its vector-Jacobian product (u's gradient summed
+    step by step in reverse, as autograd sums a tensor's uses).  Every
+    chunk does the same work, so on fake tensors (the dry-run) both run
+    one chunk inside ``_fake.scan("wkv", nc)``, which costs it nc times:
+    what JAX's ``lax.scan`` costs its trace, with the shapes of every
+    chunk's outputs and saved states carried.
+
+    Inputs (nc, C, B, H, d) each: r, k, v and the decay exp(w); u (H, dk).
+    Returns y (nc, C, B, H, dv) fp32 and the leaving state (B, H, dk, dv)
+    in ``boundary_dt``."""
+
+    @staticmethod
+    def forward(ctx, u, rs, ks, vs, ws, boundary_dt):
+        nc, C, B, H, dk = rs.shape
+        dv = vs.shape[-1]
+        states = rs.new_zeros((nc + 1, B, H, dk, dv), dtype=boundary_dt)
+        y = rs.new_empty((nc, C, B, H, dv), dtype=torch.float32)
+        fake = _is_fake(rs)
+        with _fake.scan("wkv", nc if fake else 1):
+            for n in range(1 if fake else nc):
+                St, yc = _wkv_chunk(states[n], rs[n], ks[n], vs[n], ws[n],
+                                    [u] * C, boundary_dt)
+                states[n + 1].copy_(St)
+                y[n].copy_(yc)
+        ctx.save_for_backward(u, rs, ks, vs, ws, states)
+        ctx.boundary_dt = boundary_dt
+        return y, states[nc]
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        u, rs, ks, vs, ws, states = ctx.saved_tensors
+        nc, C = rs.shape[:2]
+        gxs = [torch.empty_like(t) for t in (rs, ks, vs, ws)]
+        gu = torch.zeros_like(u)
+        if gS is None:
+            gS = torch.zeros_like(states[nc])
+        fake = _is_fake(rs)
+        with _fake.scan("wkv", nc if fake else 1):
+            for n in (range(1) if fake else reversed(range(nc))):
+                with torch.enable_grad():
+                    ins = [t[n].detach().requires_grad_()
+                           for t in (states, rs, ks, vs, ws)]
+                    us = [u.detach().requires_grad_() for _ in range(C)]
+                    S_out, yc = _wkv_chunk(*ins, us, ctx.boundary_dt)
+                grads = torch.autograd.grad((S_out, yc), ins + us,
+                                            (gS, gy[n]))
+                gS = grads[0]
+                for gx, g in zip(gxs, grads[1:5]):
+                    gx[n].copy_(g)
+                for g in reversed(grads[5:]):
+                    gu = gu + g
+        return (gu, *gxs, None)
+
+
 def _wkv_chunked(r, k, v, w, u, chunk: int, parallel: bool = True,
                  boundary_dt: torch.dtype = torch.float32):
     """The RWKV6 linear recurrence over chunks of C steps (``chunk`` halved
@@ -804,10 +881,10 @@ def _wkv_chunked(r, k, v, w, u, chunk: int, parallel: bool = True,
     chunks (JAX combines them by an associative scan in tree order, so the
     roundings differ), the state entering chunk n the inclusive result of
     chunk n - 1, then one sequential scan over the C steps of every chunk
-    at once.  ``parallel=False`` (train): a loop over the chunks carrying
-    only the boundary state, rounded to ``boundary_dt`` between chunks,
-    each chunk's C steps in fp32 and, under autograd, recomputed in the
-    backward pass (``torch.utils.checkpoint``).
+    at once.  ``parallel=False`` (train): :class:`_WKVTrainScan`, a scan
+    over the chunks carrying only the boundary state, rounded to
+    ``boundary_dt`` between chunks, each chunk's C steps in fp32 and
+    recomputed in the backward pass.
 
     Shapes: r, k, w (B, S, H, dk), w the log-decay; v (B, S, H, dv); u
     (H, dk).  Returns y (B, S, H, dv) and the final state (B, H, dk, dv)
@@ -821,25 +898,8 @@ def _wkv_chunked(r, k, v, w, u, chunk: int, parallel: bool = True,
     if not parallel:
         xs = [t.reshape(B, nc, C, H, -1).permute(1, 2, 0, 3, 4)
               for t in (r, k, v, torch.exp(w))]       # (nc, C, B, H, d)
-
-        def chunk_body(S0, rc, kc, vc, wc):
-            St, ys = S0.float(), []
-            for t in range(C):
-                St, yt = _wkv_step(St, rc[t], kc[t], vc[t], wc[t], u)
-                ys.append(yt)
-            return St.to(boundary_dt), torch.stack(ys)
-
-        recompute = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r, k, v, w, u))
-        St = torch.zeros((B, H, dk, dv), dtype=boundary_dt, device=r.device)
-        ys = []
-        for n in range(nc):
-            args = (St, *(t[n] for t in xs))
-            St, yc = (remat(chunk_body, *args)
-                      if recompute else chunk_body(*args))
-            ys.append(yc)
-        y = torch.stack(ys).permute(2, 0, 1, 3, 4).reshape(B, S, H, dv)
-        return y, St.float()
+        y, St = _WKVTrainScan.apply(u, *xs, boundary_dt)
+        return y.permute(2, 0, 1, 3, 4).reshape(B, S, H, dv), St.float()
     rs, ks, vs, logw = (t.reshape(B, nc, C, H, -1) for t in (r, k, v, w))
     Lc = torch.cumsum(logw, dim=2)                         # (B,nc,C,H,dk)
     chunk_decay = torch.exp(Lc[:, :, -1])                  # (B,nc,H,dk)

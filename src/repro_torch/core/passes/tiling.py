@@ -18,41 +18,49 @@ the bandwidth roof allows".
 
 A plan for the CPU (``platform == "cpu"``) keeps that table exactly (the
 JAX package's, key for key).  A plan for the card (``"cuda"``) takes the
-Hopper target (:func:`hopper_tiles`) for the three keys whose hand kernels
-take a block, the rest as the TPU table writes them:
+Hopper target (:func:`hopper_tiles`, :func:`hopper_decode_tile`) for the
+four keys whose hand kernels take a block, the rest as the TPU table
+writes them:
 
-=========  ===============  ===================  =======================
-key        Hopper tile      selected (default)   base flow (tile_select
-                                                 off: minimal)
-=========  ===============  ===================  =======================
-matmul     (128, 64, bn)    bn 128               bn 64
-attention  (bq, 64)         bf16: bq 128; fp32:  (64, 64)
-                            64 / 128 / 64 at
-                            head width 64 / 128
-                            / 256
-conv2d     (128, bn)        bn 128               bn 64
-=========  ===============  ===================  =======================
+================  ===============  ===================  ====================
+key               Hopper tile      selected (default)   base flow
+                                                        (tile_select off)
+================  ===============  ===================  ====================
+matmul            (128, 64, bn)    bn 128               bn 64 (minimal)
+attention         (bq, 64)         bf16: bq 128; fp32:  (64, 64) (minimal)
+                                   64 / 128 / 64 at
+                                   head width 64 / 128
+                                   / 256
+conv2d            (128, bn)        bn 128               bn 64 (minimal)
+decode_attention  chunk (slots)    "auto": the split    512 (JAX's block_k)
+                                   from the SM count    where the kernel
+                                                        takes it at the
+                                                        plan's cache, else
+                                                        the least it takes
+================  ===============  ===================  ====================
 
 Read by: matmul the ``wgmma`` and ``ffma`` schedules of ``matmul_fused``
 (128 rows x bn columns in 64-deep stages; the GLU form runs bn 64 under
 either tile); attention ``flash_attention``'s ``wgmma`` (bq / 64 consumer
 warpgroups) and ``ffma`` (bq query rows a block) over 64-key K/V tiles;
 conv2d ``conv2d_fused``'s ``wgmma`` and ``ffma`` (128 pixels x bn
-channels; a conv of 64 channels runs bn 64 under either tile).  The
-selected table is the block each kernel took before it took a tile, so a
-default flow launches what it launched then; only the base flow, an
-override or tuning changes a block.  The same three rules hold on the
-card: 1. the blocks are multiples of 64 (a ``wgmma`` row group, a
-128-byte swizzle row of bf16); 2. no even division is needed (the kernels
-mask their edges); 3. a kernel's shared-memory allowance is
-``min(227 KiB, vmem_budget_bytes // 4)`` (the same ``// 4`` as the TPU's)
-and the selector shrinks a tile until its working set (the shared bytes a
-block asks for, :mod:`repro_torch.kernels.workingset`) fits it: at the
-flow's 96 / 48 MiB candidates the allowance never binds.  ``decode_attention``
-is the TPU table's entry: the decode kernels split the cache by the card's
-SM count and take no tile (nor do the paged kernel, ``copy_block`` and
-``lru_scan``); ``wkv_chunk`` and ``ce_chunk`` are read by the op layer
-as on the TPU.
+channels; a conv of 64 channels runs bn 64 under either tile);
+decode_attention ``decode_attention``'s three schedules (the slots a
+split holds: ``decode_attention.check_tile`` states what a chunk must
+be).  The selected table is the block each kernel took before it took a
+tile, so a default flow launches what it launched then; only the base
+flow, an override or tuning changes a block.  The same three rules hold
+on the card: 1. the blocks are multiples of 64 (a ``wgmma`` row group, a
+128-byte swizzle row of bf16; a decode chunk of 16-slot tiles); 2. no
+even division is needed (the kernels mask their edges); 3. a kernel's
+shared-memory allowance is ``min(227 KiB, vmem_budget_bytes // 4)`` (the
+same ``// 4`` as the TPU's) and the selector shrinks a tile until its
+working set (the shared bytes a block asks for,
+:mod:`repro_torch.kernels.workingset`) fits it: at the flow's 96 / 48 MiB
+candidates the allowance never binds.  The paged kernel, ``copy_block``
+and ``lru_scan`` take no tile (the paged kernel's block is the pool
+block, as in JAX); ``wkv_chunk`` and ``ce_chunk`` are read by the op
+layer as on the TPU.
 """
 from __future__ import annotations
 
@@ -196,18 +204,48 @@ def hopper_tiles(cfg, flow) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+#: the JAX package's decode tile without ``tile_select`` (its block_k)
+BASE_DECODE_TILE = 512
+
+
+def hopper_decode_tile(cfg, shape, flow):
+    """The Hopper target's ``decode_attention`` entry: with ``tile_select``
+    ``"auto"`` (the kernel's split from the SM count, as every default
+    flow launched before the kernel took a tile); without, JAX's
+    :data:`BASE_DECODE_TILE` slots where ``decode_attention.check_tile``
+    accepts it at the plan's batch and cache (``plan.cache_len``), else the
+    least chunk it accepts there (``least_tile``), so that the kernel
+    never meets a pinned chunk it refuses; JAX's number where it accepts
+    none (the cache is too long for any split, which the kernel refuses
+    under the auto split too)."""
+    from repro_torch.kernels import decode_attention as kd
+    if flow.tile_select:
+        return "auto"
+    a = cfg.attention
+    C = min(shape.seq_len, a.window) if a.window else shape.seq_len
+    G, dt = a.n_heads // a.n_kv_heads, compute_dtype(flow)
+    try:
+        return kd.check_tile(BASE_DECODE_TILE, shape.global_batch, C,
+                             a.n_kv_heads, G, a.head_dim, dt)
+    except ValueError:
+        return kd.least_tile(C, G, a.head_dim, dt) or BASE_DECODE_TILE
+
+
 def run(cfg, shape, flow, platform: str = "cpu") -> Dict[str, object]:
     """Produce the plan's tile table.  With ``tile_select`` off (the paper's
     base configuration) everything falls back to minimal 128 tiles — the
     analogue of the unparallelized base kernels.  On ``platform`` "cuda"
     the matmul, attention and conv2d entries are the Hopper target's
-    (:func:`hopper_tiles`).  ``flow.tile_overrides`` (tuned per-kernel
-    schedules) are applied on top in both modes."""
+    (:func:`hopper_tiles`), and so is a model's ``decode_attention`` entry
+    (:func:`hopper_decode_tile`).  ``flow.tile_overrides`` (tuned
+    per-kernel schedules) are applied on top in both modes."""
     tiles = _tpu_table(cfg, shape, flow)
     if platform == "cuda":
         for key, tile in hopper_tiles(cfg, flow).items():
             if key in tiles:
                 tiles[key] = tile
+        if "decode_attention" in tiles and cfg.attention is not None:
+            tiles["decode_attention"] = hopper_decode_tile(cfg, shape, flow)
     apply_overrides(tiles, flow)
     return tiles
 

@@ -53,7 +53,8 @@
 //   call's bits repeat.
 // - A masked score contributes p = 0 exactly, so a row with no valid slot
 //   in its whole range gets zeros (the plain versions give the mean of V
-//   there; the wrappers' docstrings say so).
+//   there, the Pallas rolling kernel sum(V[:C]) / rup(C, bk) over its
+//   padded cache; the wrappers' docstrings say so).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -8,17 +8,52 @@ adds the kernel's floating-point operations and the bytes it must move
 kernel.  The registry hands the stand-ins out inside
 :func:`repro_torch.kernels.registry.fake_kernels`, which only the dry-run
 (:mod:`repro_torch.launch.dryrun`) enters: a wrapper launches through
-device pointers and cannot run on fake tensors.
+device pointers and cannot run on fake tensors.  Inside :func:`scan` the
+counts are taken by a scan's trip count (the dry-run's own counters of
+the ops outside the kernels read :func:`trips` too).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 #: kernel -> {"calls", "flops", "bytes"}, summed over the stand-ins' calls
 COST: Dict[str, Dict[str, int]] = {}
+#: the scans being costed, innermost last: (name, trip count)
+_SCANS: List[Tuple[str, int]] = []
+#: scan -> {"flops", "bytes"}: the work counted inside each named scan
+SCAN_COST: Dict[str, Dict[str, int]] = {}
+
+
+@contextlib.contextmanager
+def scan(name: str, trips: int):
+    """Inside, the work the dry-run's counters see is taken ``trips`` times
+    (times the enclosing scans' trips) and tallied under ``name`` in
+    :data:`SCAN_COST`: a loop whose trips all do the same work runs its
+    body once and stands for every trip, as a traced ``lax.scan`` costs
+    its body by its trip count."""
+    _SCANS.append((name, int(trips)))
+    try:
+        yield
+    finally:
+        _SCANS.pop()
+
+
+def trips() -> int:
+    """How many times the work counted now is taken (:func:`scan`)."""
+    return math.prod(n for _, n in _SCANS)
+
+
+def tally(flops: int, moved: int) -> None:
+    """Add work already taken :func:`trips` times to every scan open."""
+    for name in dict.fromkeys(n for n, _ in _SCANS):
+        c = SCAN_COST.setdefault(name, {"flops": 0, "bytes": 0})
+        c["flops"] += int(flops)
+        c["bytes"] += int(moved)
 
 
 def nbytes(*ts: Optional[torch.Tensor]) -> int:
@@ -27,10 +62,12 @@ def nbytes(*ts: Optional[torch.Tensor]) -> int:
 
 
 def count(kernel: str, flops: int, moved: int) -> None:
+    n = trips()
     c = COST.setdefault(kernel, {"calls": 0, "flops": 0, "bytes": 0})
-    c["calls"] += 1
-    c["flops"] += int(flops)
-    c["bytes"] += int(moved)
+    c["calls"] += n
+    c["flops"] += n * int(flops)
+    c["bytes"] += n * int(moved)
+    tally(n * int(flops), n * int(moved))
 
 
 def attended(Sq: int, Skv: int, causal: bool, window: Optional[int],

@@ -37,20 +37,30 @@ fallback: a build or launch failure raises):
   tile, KV head, batch row), K/V staged in shared memory as fp32, scalar
   FMAs, and a second kernel that combines the splits.
 
-The split (:func:`splits`) is the card's choice, made from the SM count
-and the shapes: these kernels take no tile.  The plan's
-``plan.tiles["decode_attention"]`` is the TPU table's entry (the tiling
-pass's Hopper target leaves it so) and is ignored; the paged kernel's
-KV block is the pool block, and ``copy_block`` copies whole blocks:
-neither has a tile either.  One difference from the plain version: a row none of whose
-slots is valid gets zeros from ``mma`` and ``ffma`` (its tiles are never
-read), where the plain version and the Pallas kernel give the mean of V.
-The main path never has such a row: the query's own slot is valid.
+The tile: the split's chunk in slots, the counterpart of the Pallas
+kernel's ``block_k``.  The plan's ``plan.tiles["decode_attention"]``
+reaches the wrapper as ``tile``: ``None`` or ``"auto"`` (the tiling pass's
+Hopper target with ``tile_select``) takes :func:`splits`' choice, made from
+the SM count and the shapes; an int pins the chunk, which
+:func:`check_tile` holds to the rules the auto form keeps and refuses
+(``ValueError``, before any launch) where they fail: a pinned chunk is
+never rounded.  The ``simt`` schedule takes a pinned chunk too, in whole
+64-slot tiles.  The paged kernel's KV block is the pool block, and
+``copy_block`` copies whole blocks: neither takes a tile, as in JAX.  One
+difference from the plain version: a row none of whose slots is valid
+gets zeros from ``mma`` and ``ffma`` (its tiles are never read), the
+plain version the mean of V, and the Pallas kernel ``sum(V[:C]) /
+rup(C, bk)`` with ``bk = min(block_k, rup(C, 128))``: it pads the cache
+with slots at position -1, which score ``NEG`` like the rest, so its
+answer for such a row depends on its own tile.  The main path never has
+such a row: the query's own slot is valid.
 
 On a CPU tensor the wrapper runs :func:`decode_attention_plain`; on a CUDA
 tensor it launches a kernel or raises.  ``decode_attention.launches``
 counts the calls that launch a kernel and ``decode_attention.schedules``
-splits them by schedule.  It uses no ``scaled_dot_product_attention`` and
+splits them by schedule, ``decode_attention.tiles`` by (schedule, chunk)
+and ``decode_attention.retiled`` counts those at a chunk other than the
+auto split's.  It uses no ``scaled_dot_product_attention`` and
 no ``torch.matmul`` on the card.
 
 The module also holds the serving engine's two kernels over the paged KV
@@ -62,6 +72,7 @@ from __future__ import annotations
 
 import functools
 import math
+import numbers
 from typing import Optional
 
 import torch
@@ -151,22 +162,89 @@ def combine_chunk(n: int, rows: int, D: int, elem: int) -> int:
                      TILE)
 
 
+def _least_chunk(C: int, G: int, D: int, dtype: torch.dtype) -> int:
+    """The fewest slots a split of the mma and ffma schedules may hold over
+    a cache of C slots: :func:`min_chunk`, :func:`combine_chunk` and no
+    more than :data:`MAX_SPLITS` splits."""
+    elem, rows = dtype.itemsize, min(G, ROWS)
+    return max(min_chunk(rows, D, elem), combine_chunk(C, rows, D, elem),
+               _round_up(-(-C // MAX_SPLITS), TILE))
+
+
+def check_tile(tile, B: int, C: int, KV: int, G: int, D: int,
+               dtype: torch.dtype) -> int:
+    """``tile``, a pinned chunk of the split over B rows of a rolling cache
+    of C slots and KV heads with G query heads each, as an int; raises
+    ``ValueError`` where a rule :func:`splits` keeps refuses it.  The mma
+    and ffma schedules (:func:`_schedule`): a whole number of
+    :data:`TILE`-slot tiles, at most :data:`MAX_CHUNK` slots, at most
+    :data:`MAX_SPLITS` splits, at least :func:`min_chunk` and
+    :func:`combine_chunk`, and a block's shared memory with the chunk's
+    slot map within an SM (:func:`_fit`).  The simt schedule: a whole
+    number of its :data:`SLOTS`-slot tiles, at most :data:`MAX_CHUNK` slots
+    and :data:`MAX_SPLITS` splits.  B and KV bind no rule: they enter only
+    the auto split's fill of the card."""
+    if isinstance(tile, bool) or not isinstance(tile, numbers.Integral):
+        raise ValueError(f"decode_attention: the tile is a chunk of slots "
+                         f"(an int) or 'auto', not {tile!r}")
+    tile = int(tile)
+    at = f"B {B} C {C} KV {KV} G {G} D {D} {dtype}"
+    sched = _schedule(dtype, D)
+    step = SLOTS if sched == "simt" else TILE
+    if tile <= 0 or tile % step or tile > MAX_CHUNK:
+        raise ValueError(f"decode_attention: a chunk of {tile} slots is not "
+                         f"a multiple of {step} in (0, {MAX_CHUNK}] ({sched}"
+                         f" at {at})")
+    if -(-C // tile) > MAX_SPLITS:
+        raise ValueError(f"decode_attention: a chunk of {tile} slots cuts "
+                         f"{C} into more than {MAX_SPLITS} splits ({at})")
+    if sched == "simt":
+        return tile
+    least = _least_chunk(C, G, D, dtype)
+    if tile < least:
+        raise ValueError(f"decode_attention: a chunk of {tile} slots is "
+                         f"under the least of {least} ({sched} at {at}: "
+                         "its partials would outweigh the K/V it reads)")
+    if _core_smem(dtype, D, tile) + 1024 > SM_SHARED:
+        raise ValueError(f"decode_attention: a chunk of {tile} slots asks "
+                         f"for {_core_smem(dtype, D, tile)} shared bytes a "
+                         f"block ({sched} at {at})")
+    return tile
+
+
+def least_tile(C: int, G: int, D: int, dtype: torch.dtype) -> Optional[int]:
+    """The fewest slots :func:`check_tile` accepts as a chunk over a cache
+    of C slots (G query heads a KV head, head width D), or None where it
+    accepts none (more than :data:`MAX_SPLITS` splits of
+    :data:`MAX_CHUNK`)."""
+    if _schedule(dtype, D) == "simt":
+        least = _round_up(max(1, -(-C // MAX_SPLITS)), SLOTS)
+    else:
+        least = _least_chunk(C, G, D, dtype)
+    try:
+        return check_tile(least, 1, C, 1, G, D, dtype)
+    except ValueError:
+        return None
+
+
 @functools.lru_cache(maxsize=256)
 def splits(B: int, C: int, KV: int, G: int, D: int, dtype: torch.dtype,
-           n_sm: int):
+           n_sm: int, chunk: Optional[int] = None):
     """(number of splits, slots per split) of the rolling cache for the mma
     and ffma schedules, a pure function of the shapes (the host never reads
-    the cache's positions).  The rules: a split is a whole number of
+    the cache's positions).  A ``chunk`` given is pinned
+    (:func:`check_tile`).  Without, the rules: a split is a whole number of
     16-slot tiles, at most :data:`MAX_CHUNK` slots, and there are at most
     :data:`MAX_SPLITS`; a split holds at least :func:`min_chunk` slots (the
     workspace stays under a quarter of the K/V bytes each block reads) and
     at least :func:`combine_chunk` (the last block's combine reads no more
     than a block's K and V); within those, as many splits as fill one wave
     of the card (:func:`_fit` blocks an SM), no more."""
-    elem = dtype.itemsize
-    n_rt, rows = -(-G // ROWS), min(G, ROWS)
-    least = max(min_chunk(rows, D, elem), combine_chunk(C, rows, D, elem),
-                _round_up(-(-C // MAX_SPLITS), TILE))
+    if chunk is not None:
+        chunk = check_tile(chunk, B, C, KV, G, D, dtype)
+        return -(-C // chunk), chunk
+    n_rt = -(-G // ROWS)
+    least = _least_chunk(C, G, D, dtype)
     if least > MAX_CHUNK:
         raise ValueError(f"decode_attention: a cache of {C} slots needs "
                          f"more than {MAX_SPLITS} splits of {MAX_CHUNK}")
@@ -179,15 +257,24 @@ def splits(B: int, C: int, KV: int, G: int, D: int, dtype: torch.dtype,
         fit -= 1
 
 
-def _simt_splits(B: int, C: int, KV: int, n_sm: int):
-    """(number of splits, slots per split) of the simt kernels: enough
-    splits that the blocks fill the card, each a whole number of 64-slot
-    tiles."""
+def _simt_splits(B: int, C: int, KV: int, n_sm: int,
+                 chunk: Optional[int] = None):
+    """(number of splits, slots per split) of the simt kernels: a pinned
+    ``chunk`` (checked by the wrapper), or enough splits that the blocks
+    fill the card, each a whole number of 64-slot tiles."""
+    if chunk is not None:
+        return -(-C // chunk), chunk
     tiles = -(-C // SLOTS)
     want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * KV)))
     per = -(-tiles // min(want, tiles))
     chunk = per * SLOTS
     return -(-C // chunk), chunk
+
+
+def pinned(tile) -> Optional[int]:
+    """The chunk a plan's tile pins, or None for the auto split (``None``
+    or ``"auto"``)."""
+    return None if tile is None or tile == "auto" else tile
 
 
 # per device: the tickets of the one-launch combine (``_tickets``), and
@@ -261,7 +348,8 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                      tile=None) -> torch.Tensor:
     """q: (B, 1, H, D); kc, vc: (B, C, KV, D); pos: (B, C) absolute positions
     (-1 empty); qpos: (B, 1).  Returns (B, 1, H, D) in q's dtype.  ``tile``
-    is the plan's TPU tile, ignored."""
+    is the plan's: a chunk of slots to pin (:func:`check_tile`), or None /
+    ``"auto"`` for the auto split (module docstring)."""
     B, one, H, D = q.shape
     if one != 1 or kc.ndim != 4 or kc.shape != vc.shape \
             or kc.shape[0] != B or kc.shape[3] != D or H % kc.shape[2]:
@@ -289,10 +377,14 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         raise ValueError("decode_attention: a cache of 2**31 elements or more")
     G = H // KV
     sched = _schedule(q.dtype, D)
+    pin = pinned(tile)
+    if pin is not None:
+        pin = check_tile(pin, B, C, KV, G, D, q.dtype)
     pp = pos.to(torch.int32).contiguous()
     qp = qpos.to(torch.int32).contiguous()
     if sched == "simt":
-        nsplit, chunk = _simt_splits(B, C, KV, _n_sm(q.device))
+        auto = _simt_splits(B, C, KV, _n_sm(q.device))[1]
+        nsplit, chunk = _simt_splits(B, C, KV, _n_sm(q.device), pin)
         ws = torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
                          device=q.device)
         qq, kk, vv = q.contiguous(), kc.contiguous(), vc.contiguous()
@@ -303,7 +395,8 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     _build.ptr(ws), B, C, H, KV, D, int(window or 0),
                     float(softcap or 0.0), nsplit, chunk, _build.stream())
     else:
-        nsplit, chunk = splits(B, C, KV, G, D, q.dtype, _n_sm(q.device))
+        auto = splits(B, C, KV, G, D, q.dtype, _n_sm(q.device))[1]
+        nsplit, chunk = splits(B, C, KV, G, D, q.dtype, _n_sm(q.device), pin)
         ws, tk = _workspace(q.device, B * KV * -(-G // ROWS), nsplit,
                             min(G, ROWS), D)
         qq, kk, vv = (_aligned(t) for t in (q, kc, vc))
@@ -315,11 +408,17 @@ def decode_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                     float(softcap or 0.0), nsplit, chunk, _build.stream())
     decode_attention.launches += 1
     decode_attention.schedules[sched] += 1
+    key = (sched, chunk)
+    decode_attention.tiles[key] = decode_attention.tiles.get(key, 0) + 1
+    if chunk != auto:
+        decode_attention.retiled += 1
     return out
 
 
 decode_attention.launches = 0
 decode_attention.schedules = dict.fromkeys(SCHEDULES, 0)
+decode_attention.tiles = {}
+decode_attention.retiled = 0
 
 
 def decode_attention_fake(q: torch.Tensor, kc: torch.Tensor,
@@ -330,9 +429,13 @@ def decode_attention_fake(q: torch.Tensor, kc: torch.Tensor,
                           tile=None) -> torch.Tensor:
     """:func:`decode_attention`'s shape-only stand-in (the dry-run): the
     output, unfilled, and 4 D operations a query head and cache slot (the
-    slots' positions are not known, so every slot counts)."""
+    slots' positions are not known, so every slot counts).  A pinned chunk
+    the rules refuse raises, as in the wrapper."""
     from repro_torch.kernels import _fake
     B, _, H, D = q.shape
+    if pinned(tile) is not None:
+        KV = kc.shape[2]
+        check_tile(pinned(tile), B, kc.shape[1], KV, H // KV, D, q.dtype)
     out = torch.empty_like(q)
     _fake.count("decode_attention", 4 * B * H * D * kc.shape[1],
                 _fake.nbytes(q, kc, vc, pos, qpos, out))

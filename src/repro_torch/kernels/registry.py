@@ -80,7 +80,8 @@ class KernelContract:
       the Hopper tiles the kernel takes at the cell's shapes and the flow's
       precision (bf16 without a flow), which the serving autotune's
       ``tune_kernel_tiles`` benches through ``FlowConfig.tile_overrides``.
-      matmul declares its key without candidates, as in JAX."""
+      matmul and decode_attention declare their keys without candidates,
+      as in JAX."""
     workingset: Optional[Callable[[Any, Any],
                                   List[Tuple[str, str, int]]]] = None
     donation_safe: bool = True
@@ -221,12 +222,13 @@ def fake_kernels():
     resolves for a ``cuda`` platform as on a Hopper card without asking
     the device: the dry-run's program on fake tensors, which no wrapper
     can launch on.  Yields :data:`repro_torch.kernels._fake.COST`, emptied
-    on entry, which the stand-ins fill.  Nothing on the card's launch path
-    changes outside it."""
+    on entry (and ``SCAN_COST`` with it), which the stand-ins fill.
+    Nothing on the card's launch path changes outside it."""
     from repro_torch.kernels import _fake
     prev = _FAKE[0]
     _FAKE[0] = True
     _fake.COST.clear()
+    _fake.SCAN_COST.clear()
     try:
         yield _fake.COST
     finally:
@@ -357,7 +359,8 @@ def _decode_ws(plan, ecfg=None, lib=None) -> List[Tuple[str, str, int]]:
     G = a.n_heads // a.n_kv_heads
     B, C = plan.shape.global_batch, plan.cache_len
     s, b = ws.decode_attention(a.head_dim, G, plan.prec.compute_dtype, B, C,
-                               a.n_kv_heads, lib=lib)
+                               a.n_kv_heads, lib=lib,
+                               tile=_hopper_tile(plan, "decode_attention"))
     return [(f"D={a.head_dim} G={G} B={B} C={C}", s, b)]
 
 
@@ -463,7 +466,8 @@ def _register_builtin():
             tile_candidates=_attention_tile_candidates),
         fake=flash_attention_fake)
     REGISTRY.register("decode_attention", "cuda", decode_attention,
-                      contract=KernelContract(workingset=_decode_ws),
+                      contract=KernelContract(workingset=_decode_ws,
+                                              tile_key="decode_attention"),
                       fake=decode_attention_fake)
     # the serving path: the kernel gathers pool blocks through the block
     # table; the explicit ref entry is its plain version, which the serving

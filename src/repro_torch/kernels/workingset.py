@@ -17,10 +17,10 @@ reads the bytes from the library instead: each source exports one
 ``*_smem`` query built on the expression its launch uses, so
 ``chip_smoke.py`` holds the mirror to the bytes the real launches ask for
 at every card plan's calls.  Every function returns ``(schedule, bytes)``.
-The functions of the three kernels that take a Hopper tile (matmul, conv2d,
-flash_attention) count their bytes at ``tile`` (the plan's; None: the
-kernel's default), as the launch would run it; a tile no kernel takes
-raises ``ValueError``.
+The functions of the four kernels that take a Hopper tile (matmul, conv2d,
+flash_attention, decode_attention) count their bytes at ``tile`` (the
+plan's; None: the kernel's default), as the launch would run it; a tile
+no kernel takes raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -179,17 +179,21 @@ def flash_attention(D: int, dtype: torch.dtype,
 
 
 def decode_attention(D: int, G: int, dtype: torch.dtype, B: int, C: int,
-                     KV: int, n_sm: int = H100_SMS,
-                     lib: Any = None) -> Tuple[str, int]:
+                     KV: int, n_sm: int = H100_SMS, lib: Any = None,
+                     tile=None) -> Tuple[str, int]:
     """decode_attention's schedule and shared bytes at head width D with G
     query heads a KV head, B rows of a rolling cache of C slots over KV
     heads: the mma and ffma schedules keep a split's ``chunk`` slots of
-    slot map (``decode_attention.splits`` on ``n_sm`` SMs)."""
+    slot map (``decode_attention.splits`` on ``n_sm`` SMs, at the chunk
+    ``tile`` pins; None or ``"auto"`` the auto split)."""
     from repro_torch.kernels.decode_attention import (_core_smem, _schedule,
+                                                      check_tile, pinned,
                                                       splits)
     s = _schedule(dtype, D)
+    if pinned(tile) is not None:
+        check_tile(pinned(tile), B, C, KV, G, D, dtype)
     if s in ("mma", "ffma"):
-        chunk = splits(B, C, KV, G, D, dtype, n_sm)[1]
+        chunk = splits(B, C, KV, G, D, dtype, n_sm, pinned(tile))[1]
         return _pick(s, _core_smem(dtype, D, chunk), lib, "decode_core_smem",
                      _CODE[dtype], D, chunk)
     # csrc/decode_attention.cu smem_bytes<D>(G)

@@ -25,7 +25,10 @@ temporaries are the peak ``MemTracker`` sees beyond the step's outputs;
 ``parameter_bytes`` is the parameters' part of the arguments),
 ``cost_analysis`` (``flops``: ``FlopCounterMode``'s count of the ops
 outside the kernels plus the stand-ins'; ``bytes accessed``: every op's
-inputs and outputs plus the stand-ins'; ``flops_by_kernel``), the
+inputs and outputs plus the stand-ins'; ``flops_by_kernel``;
+``flops_by_scan`` / ``bytes_by_scan``: the part of each inside a scan
+costed by its trip count, rwkv6-7b's WKV train recurrence, whose body
+runs once for all its chunks), the
 estimator's ``model_flops`` and ``est_kernel_bytes``, ``compile_s`` (the
 fake step's wall time) and, in place of JAX's HLO parse, ``collectives``:
 the c10d operations the runtime ran on this rank, counted by op, and
@@ -46,6 +49,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import flow as tflow
 from repro_torch.configs import SHAPES, cells, get_config
@@ -53,6 +57,7 @@ from repro_torch.configs.base import FlowConfig, ModelConfig, ShapeConfig
 from repro_torch.core import dse
 from repro_torch.core.lowering import fake_mode
 from repro_torch.distributed.sharding import local_of
+from repro_torch.kernels import _fake
 from repro_torch.kernels.registry import fake_kernels
 from repro_torch.launch.mesh import (MULTI_POD_SPEC, PRODUCTION_SPEC,
                                      make_production_mesh)
@@ -165,9 +170,11 @@ def _nbytes(ts) -> int:
 
 class _Account(TorchDispatchMode):
     """Bytes read and written by every op outside the kernels (inputs and
-    outputs; views move nothing), and the c10d collectives: count and
-    bytes by op (an all-gather's gathered outputs, an all-reduce's
-    tensor)."""
+    outputs; views and the ``prim`` metadata queries a fake tensor
+    answers, such as ``prim.device``, move nothing), and the c10d
+    collectives: count and bytes by op (an all-gather's gathered outputs,
+    an all-reduce's tensor).  Inside a scan (``_fake.scan``) an op counts
+    its trips."""
 
     def __init__(self):
         super().__init__()
@@ -177,15 +184,32 @@ class _Account(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = str(func.overloadpacket)
+        n = _fake.trips()
         if func.namespace == "c10d":
             moved = _nbytes(_leaves(args[0])) if args else 0
             c = self.collectives.setdefault(name.split(".")[-1],
                                             {"count": 0, "bytes": 0})
-            c["count"] += 1
-            c["bytes"] += moved
-        elif not func.is_view:
-            self.bytes += _nbytes(_leaves((args, kwargs))) + \
-                _nbytes(_leaves(out))
+            c["count"] += n
+            c["bytes"] += n * moved
+        elif not func.is_view and func.namespace != "prim":
+            moved = n * (_nbytes(_leaves((args, kwargs)))
+                         + _nbytes(_leaves(out)))
+            self.bytes += moved
+            _fake.tally(0, moved)
+        return out
+
+
+class _Flops(FlopCounterMode):
+    """``FlopCounterMode`` whose count of an op inside a scan
+    (``_fake.scan``) is taken by its trips."""
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if func_packet in self.flop_registry:
+            n = _fake.trips() * self.flop_registry[func_packet](
+                *args, **kwargs, out_val=out)
+            for par in set(self.mod_tracker.parents):
+                self.flop_counts[par][func_packet] += n
+            _fake.tally(n, 0)
         return out
 
 
@@ -201,7 +225,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     with a pod axis); None is the production mesh.  The fake group is
     started (or resized) for it."""
     from torch.distributed._tools.mem_tracker import MemTracker
-    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.core.estimator import hbm_bytes_kernel_path, model_flops
     from repro_torch.distributed.meshspec import MeshSpec
@@ -230,7 +253,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             + _nbytes(batch_local)
         donated = _storages(_leaves([args[i] for i in donate]))
         t1 = time.time()
-        acct, flops = _Account(), FlopCounterMode(display=False)
+        acct, flops = _Account(), _Flops(display=False)
         mt = MemTracker()
         with mt, flops, acct:
             out = step()
@@ -266,7 +289,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             "flops": float(flops.get_total_flops() + kflops),
             "bytes accessed": float(acct.bytes + kbytes),
             "flops_by_kernel": {k: c["flops"] for k, c in kcost.items()},
-            "calls_by_kernel": {k: c["calls"] for k, c in kcost.items()}},
+            "calls_by_kernel": {k: c["calls"] for k, c in kcost.items()},
+            "flops_by_scan": {k: c["flops"]
+                              for k, c in _fake.SCAN_COST.items()},
+            "bytes_by_scan": {k: c["bytes"]
+                              for k, c in _fake.SCAN_COST.items()}},
         "collectives": {
             "collective_bytes": sum(c["bytes"]
                                     for c in acct.collectives.values()),

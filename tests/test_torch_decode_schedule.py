@@ -18,8 +18,8 @@ card:
   interpret mode, on seeded numpy inputs, fp32 within 1e-5 (the same
   arithmetic in another order; the hi + lo split keeps ~16 bits of p);
 * the one difference the kernels keep: a row none of whose slots is valid
-  gets zeros, where the Pallas kernel and the plain versions give the mean
-  of V.
+  gets zeros, where the plain versions give the mean of V and the Pallas
+  kernel sum(V[:C]) / rup(C, bk).
 """
 import math
 
@@ -378,8 +378,9 @@ def test_model_matches_pallas_paged(name, nsplit, split_p):
 
 def test_a_row_with_no_valid_slot_gets_zeros():
     """The kernels never read a dead tile, so a row with no valid slot at
-    all gets zeros; the Pallas kernel (and the plain version) give the mean
-    of V there.  The main path has no such row: the query's own slot is
+    all gets zeros; the plain version gives the mean of V there and the
+    Pallas kernel sum(V[:C]) / rup(C, bk) (its padded slots score like the
+    rest).  The main path has no such row: the query's own slot is
     valid."""
     arrs, kw = _roll_inputs("half_gqa", seed=3)
     q, kc, vc, pos, qpos = arrs

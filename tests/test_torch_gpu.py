@@ -1281,6 +1281,114 @@ def test_llama_smoke_through_the_entry_point(card):
     assert rec["timer"] == "cuda_events" and rec["tokens_per_s"] > 0
 
 
+# decode_attention at pinned chunks: (H, KV, D) of the main path's heads
+# and of the simt widths, over a wrapped 1000-slot cache of 2 rows
+TILE_HEADS = {64: (32, 8), 128: (20, 20), 256: (10, 1), 32: (8, 2)}
+
+
+def _chunks(C, G, D, dt):
+    """A few chunks check_tile accepts, from the least up to MAX_CHUNK, and
+    the auto split's."""
+    least = kd.least_tile(C, G, D, dt)
+    step = kd.SLOTS if kd._schedule(dt, D) == "simt" else kd.TILE
+    return sorted({least, least + step, 256, 512, kd.MAX_CHUNK}
+                  - {c for c in (256, 512) if c < least})
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("D", sorted(TILE_HEADS))
+def test_decode_attention_at_each_tile(card, D, dt):
+    """mma (bf16), ffma (fp32) and simt (D 32) at each chunk the rules
+    accept, against the plain version, each launch counted under its
+    chunk (``retiled`` off the auto split only); a refused chunk raises
+    before any launch."""
+    H, KV = TILE_HEADS[D]
+    dtype = DTYPES[dt]
+    B, C, G = 2, 1000, H // KV
+    q, kc, vc, pos, qp = _rolling(card, B, C, H, KV, D, dtype, 1500,
+                                  wrap=True)
+    kw = dict(window=700, softcap=30.0)
+    p = kd.decode_attention_plain(q, kc, vc, pos, qp, **kw)
+    sched = kd._schedule(dtype, D)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    auto = (kd._simt_splits(B, C, KV, n_sm) if sched == "simt"
+            else kd.splits(B, C, KV, G, D, dtype, n_sm))[1]
+    for chunk in _chunks(C, G, D, dtype):
+        t0 = kd.decode_attention.tiles.get((sched, chunk), 0)
+        r0 = kd.decode_attention.retiled
+        y = kd.decode_attention(q, kc, vc, pos, qp, tile=chunk, **kw)
+        torch.cuda.synchronize()
+        assert _rel(y, p) < TOL[dt], chunk
+        assert kd.decode_attention.tiles[(sched, chunk)] == t0 + 1
+        assert kd.decode_attention.retiled == r0 + (chunk != auto)
+    t0 = kd.decode_attention.tiles.get((sched, auto), 0)
+    r0 = kd.decode_attention.retiled
+    y = kd.decode_attention(q, kc, vc, pos, qp, tile="auto", **kw)
+    assert kd.decode_attention.tiles[(sched, auto)] == t0 + 1
+    assert kd.decode_attention.retiled == r0 and _rel(y, p) < TOL[dt]
+    n0 = kd.decode_attention.launches
+    for bad in (kd.least_tile(C, G, D, dtype) - 16, 520, kd.MAX_CHUNK + 64):
+        with pytest.raises(ValueError, match="decode_attention"):
+            kd.decode_attention(q, kc, vc, pos, qp, tile=bad, **kw)
+    assert kd.decode_attention.launches == n0
+
+
+@pytest.mark.parametrize("prec", ["bf16", "fp32"])
+def test_decode_tile_override_reaches_the_kernel(card, prec):
+    """``FlowConfig(tile_overrides=(("decode_attention", n),))`` pins the
+    chunk of every decode step of smoke llama3.2-1b (head width 16: the
+    simt schedule; chip_smoke.py's phase 22 pins mma and ffma at full
+    width): the counters show n,
+    and the logits are the default flow's (which launches at the auto
+    split, ``retiled`` 0) within the kernels' tolerance; the base flow
+    pins JAX's 512."""
+    from repro_torch import flow
+    from repro_torch.configs.base import FlowConfig, ShapeConfig
+    shape = ShapeConfig("serve", "decode", 256, 2)
+    fl = FlowConfig(mode="folded", precision=prec)
+    cm = flow.compile("llama3.2-1b", shape, fl, smoke=True)
+    assert cm.plan.tiles["decode_attention"] == "auto"
+    a = cm.cfg.attention
+    G, dtype = a.n_heads // a.n_kv_heads, DTYPES[prec]
+    params = cm.init_params(0)
+    tok = torch.randint(0, 256, (2, 40), generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+
+    def steps(m, params=params):
+        kd.decode_attention.tiles.clear()
+        kd.decode_attention.retiled = 0
+        y, st, _ = m.prefill(params, {"tokens": tok[:, :32]})
+        out = []
+        for t in range(4):
+            y, st, _ = m.decode(params, {"tokens": tok[:, 32 + t:33 + t]},
+                                st, 32 + t)
+            out.append(y)
+        torch.cuda.synchronize()
+        return torch.stack(out), dict(kd.decode_attention.tiles), \
+            kd.decode_attention.retiled
+    want, tiles, retiled = steps(cm)
+    sched = kd._schedule(dtype, a.head_dim)      # simt at smoke widths
+    assert retiled == 0 and sum(tiles.values()) == 4 * _attention_layers(cm)
+    for n in (kd.least_tile(256, G, a.head_dim, dtype), 128):
+        pinned = flow.compile("llama3.2-1b", shape, FlowConfig(
+            mode="folded", precision=prec,
+            tile_overrides=(("decode_attention", n),)), smoke=True)
+        assert pinned.plan.tiles["decode_attention"] == n
+        got, tiles, _ = steps(pinned)
+        assert tiles == {(sched, n): 4 * _attention_layers(cm)}
+        assert _rel(got, want) < TOL[prec]
+    base = flow.compile("llama3.2-1b", shape, fl.base(), smoke=True)
+    assert base.plan.tiles["decode_attention"] == 512
+    _, tiles, _ = steps(base, base.init_params(0))
+    assert tiles == {(sched, 512): 4 * _attention_layers(cm)}
+
+
+def _attention_layers(cm):
+    """The model's attention layers (one decode_attention call a step)."""
+    return sum(1 for b in cm.plan.graph.blocks for op in b.ops
+               if op.op == "attention")
+
+
 # paged_decode_attention: block sizes x query widths (1: a decode tick, 5:
 # a speculative verify row, 16: a chunked catch-up cell), with a window and
 # softcap on some; (B, H, KV, D) = (3, 8, 2, 64), nblk = 1024 // bs

@@ -83,8 +83,8 @@ def test_cpu_plan_carries_the_jax_table(name):
 @pytest.mark.parametrize("name", ARCHS + CNNS)
 def test_cuda_plan_selects_the_hard_coded_blocks(name, prec):
     """A card plan's default flow selects exactly the blocks the kernels
-    took before they took a tile; the base flow the minimal tiles; every
-    other key is the TPU table's."""
+    took before they took a tile (decode_attention its ``"auto"`` split);
+    the base flow the minimal tiles; every other key is the TPU table's."""
     cfg, sh = get_config(name), ShapeConfig(*_shape(name, "serve"))
     flow = FlowConfig(mode="folded", precision=prec)
     tiles = tiling.run(cfg, sh, flow, "cuda")
@@ -95,8 +95,11 @@ def test_cuda_plan_selects_the_hard_coded_blocks(name, prec):
         d = cfg.attention.head_dim
         assert tiles["attention"] == (HARD_CODED["attention"][prec][d], 64)
     assert set(tiles) == set(tpu)
-    assert {k: v for k, v in tiles.items() if k not in MINIMAL} == \
-        {k: v for k, v in tpu.items() if k not in MINIMAL}
+    if cfg.attention is not None:
+        assert tiles["decode_attention"] == "auto"
+    own = {*MINIMAL, "decode_attention"}
+    assert {k: v for k, v in tiles.items() if k not in own} == \
+        {k: v for k, v in tpu.items() if k not in own}
     base = tiling.run(cfg, sh, flow.base() if prec == "fp32"
                       else FlowConfig(tile_select=False), "cuda")
     assert {k: base[k] for k in MINIMAL} == MINIMAL
